@@ -9,9 +9,11 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel of the sweep from ``edgellm_tpu_torch/csrc`` with nvcc
    for ``sm_90a`` (one process per source, in parallel);
-3. each kernel against its plain PyTorch version at the sweep's shapes
-   (Qwen2-0.5B, bf16 and fp32) and at the blocked envelope's (Pythia-70M at
-   S=2048, Qwen2-1.5B hd=128), with stated tolerances;
+3. each kernel against its plain PyTorch version: the attention kernels at
+   the sweep's shapes (Qwen2-0.5B, bf16 and fp32) and at the blocked
+   envelope's (Pythia-70M at S=2048, Qwen2-1.5B hd=128), with stated
+   tolerances; the codec kernels K1-K4 (K2 also with a (1, D) scale) bit for
+   bit at N = 4096 x D = 896 and 1536, and N = 1 and 511;
 4. timing with CUDA events: kernel, plain version, one PyTorch library call
    where one computes the same function, and the roofline bound;
 5. the main path at full Qwen2-0.5B width and depth: ``run_token_sweep``,
@@ -19,10 +21,24 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    bf16 random weights from ``--seed``, with every kernel's launch count;
    then chunk 0 and one group again, timed alone and under torch.profiler:
    device time by kernel, the card's idle share, attention FLOP/s;
-6. the same sweep at Qwen2 widths, 2 layers, 2 chunks, fp32, once on the card
+6. the split main path, configs/split1_qwen_int8.json's split (Qwen2-0.5B at
+   full width and depth, cut 11, int8_per_token, window 512, stride 32) through
+   ``run_split_eval`` at window batch 8, ``--chunks`` chunks, time_hops on:
+   s/chunk, tokens/s, peak memory, bytes/token and per-hop ms, every
+   kernel's launches against the count the groups and time_hops imply, and
+   one group under torch.profiler;
+7. the selective split (split2's ``selective_int4:0.25:bf16``, whose
+   importance pass runs K-stats) and the three-stage multi-hop split
+   (configs/split4_qwen15_multihop.json: Qwen2-1.5B, cuts 9 and 18,
+   int8_per_token + int4_per_token), 9 chunks each, launches counted;
+8. split cross-checks at Qwen2-0.5B width, 3 layers, fp32: an fp32-codec
+   split against the unsplit model, and the int8, selective and two-hop
+   splits on the card (kernels) against the CPU (plain versions);
+9. the token sweep at Qwen2 widths, 2 layers, 2 chunks, fp32, once on the card
    through the kernels and once on the CPU through the plain versions, PPL
    tables compared;
-7. a JSON line of every kernel, the ``nvidia-smi`` line, and as the last line
+10. a JSON line of every kernel (launches summed over the counted paths,
+   and by path), the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result where ``torch.cuda.is_available()`` is
@@ -53,6 +69,10 @@ STATS_TOL = (1e-5, 0.0)
 #: less than that moves a token across the quantization boundary
 CROSS_RTOL = 1e-3
 
+#: split-eval PPL: an fp32 cut against the unsplit model (the same math, other
+#: batch composition), and the card (kernels) against the CPU (plain versions)
+SPLIT_RTOL = 1e-5
+
 KERNELS = {
     "causal_attention": {
         "route": "cuda", "source": "edgellm_tpu_torch/csrc/causal_attention.cu",
@@ -62,6 +82,19 @@ KERNELS = {
         "route": "cuda", "source": "edgellm_tpu_torch/csrc/attention_stats.cu",
         "replaces": "edgellm_tpu/models/flash_attention.py:290",
         "also_replaces": "edgellm_tpu/models/flash_attention.py:403"},
+    "int4_encode": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/int4_codec.cu",
+        "replaces": "edgellm_tpu/codecs/pallas_kernels.py:98"},
+    "int4_decode": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/int4_codec.cu",
+        "replaces": "edgellm_tpu/codecs/pallas_kernels.py:122",
+        "also_replaces": "edgellm_tpu/codecs/pallas_kernels.py:309"},
+    "int8_affine_encode": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/int8_affine_codec.cu",
+        "replaces": "edgellm_tpu/codecs/pallas_kernels.py:163"},
+    "int8_affine_decode": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/int8_affine_codec.cu",
+        "replaces": "edgellm_tpu/codecs/pallas_kernels.py:189"},
 }
 
 
@@ -309,6 +342,264 @@ def cross_check(args, detail: dict):
         raise SystemExit(f"CUDA and CPU PPL tables disagree: {row}")
 
 
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port by its KERNELS name."""
+    from edgellm_tpu_torch.codecs.codec_kernels import KERNEL_WRAPPERS
+    from edgellm_tpu_torch.models import flash_attention as fa
+
+    return {"causal_attention": fa.causal_attention,
+            "causal_attention_stats": fa.causal_attention_stats, **KERNEL_WRAPPERS}
+
+
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def codec_checks(detail: dict) -> dict:
+    """Phase 3b: K1-K4 (and K2 with a (1, D) channel scale) against their
+    plain versions on the card, bit for bit, and timed beside the bound ->
+    {kernel name: its row at the split path's shape (N=4096, D=896)}."""
+    import torch
+
+    from edgellm_tpu_torch.codecs import codec_kernels as ck
+    from edgellm_tpu_torch.models import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows, main = [], {}
+    for n, d in ((4096, 896), (4096, 1536), (1, 896), (511, 896)):
+        x = torch.randn((n, d), generator=gen, device="cuda") * 3
+        x[0] = 0.0
+        x[n // 2] = 1.5  # a constant row: scale 0 for the affine codec
+        packed, scale = ck.int4_encode_plain(x)
+        q, sc, mn = ck.int8_affine_encode_plain(x)
+        chan = torch.rand((1, d), generator=gen, device="cuda") + 0.5
+        cases = [  # (kernel, label, kernel call, plain call)
+            ("int4_encode", "", lambda: ck.int4_encode(x), lambda: ck.int4_encode_plain(x)),
+            ("int4_decode", "", lambda: ck.int4_decode(packed, scale),
+             lambda: ck.int4_decode_plain(packed, scale)),
+            ("int4_decode", " (1,D) scale", lambda: ck.int4_decode(packed, chan),
+             lambda: ck.int4_decode_plain(packed, chan)),
+            ("int8_affine_encode", "", lambda: ck.int8_affine_encode(x),
+             lambda: ck.int8_affine_encode_plain(x)),
+            ("int8_affine_decode", "", lambda: ck.int8_affine_decode(q, sc, mn),
+             lambda: ck.int8_affine_decode_plain(q, sc, mn)),
+        ]
+        for name, label, kern, plain in cases:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            exact = all(torch.equal(g, w) for g, w in zip(got, want))
+            nbytes = ck.codec_bytes(name, n, d)
+            if label:  # a (1, D) scale instead of (N, 1)
+                nbytes += 4 * d - 4 * n
+            bound, bound_by = fa.bound_ms(float(nbytes), 0.0, torch.float32)
+            k_ms, p_ms = time_ms(kern, 50), time_ms(plain, 20)
+            row = {"kernel": name + label, "n": n, "d": d, "exact": exact,
+                   "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
+                   "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+                   "bytes": nbytes, "roofline_share": bound / k_ms}
+            rows.append(row)
+            log(json.dumps(row))
+            if not exact:
+                raise SystemExit(f"{name}{label} is not bit-exact against its plain "
+                                 f"version at N={n}, D={d}: {row}")
+            if (n, d) == (4096, 896) and not label:
+                main[name] = row
+    detail["codec_rows"] = rows
+    return main
+
+
+def _split_run(args, detail: dict, cfg, params, chunks: int, label: str, expect_fn, *,
+               wb: int = 8, time_hops: bool = True, **split_kw) -> dict:
+    """One split-eval main path: warm-up, then every count set to 0, the run,
+    the counts read and held against ``expect_fn(n_groups)``."""
+    import torch
+
+    from edgellm_tpu_torch.eval import run_split_eval
+
+    window, stride = 512, 32
+    rng = np.random.default_rng(args.seed)
+    corpus = rng.integers(0, cfg.vocab_size, window + stride * (chunks + 2))
+    kw = dict(max_length=window, stride=stride, window_batch=wb, device="cuda", **split_kw)
+    run_split_eval(cfg, params, corpus, max_chunks=min(chunks, wb), time_hops=False, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.monotonic()
+    result = run_split_eval(cfg, params, corpus, max_chunks=chunks, time_hops=time_hops, **kw)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_counts()
+    n_groups = math.ceil(chunks / wb)  # every window is full length
+    want = expect_fn(n_groups)
+    summary = {
+        "path": label, "chunks": result["chunks"], "groups": n_groups, "window_batch": wb,
+        "wall_s": wall, "eval_wall_s": result["wall_s"],
+        "s_per_chunk": result["wall_s"] / result["chunks"],
+        "tokens_per_s": result["tokens_per_s"],
+        "scored_tokens_per_s": result["scored_tokens_per_s"], "ppl": result["ppl"],
+        "hop_codecs": result["hop_codecs"],
+        "bytes_per_token_per_hop": result["bytes_per_token_per_hop"],
+        "measured_hop_bytes_total": result["measured_hop_bytes_total"],
+        "per_hop_ms": result.get("per_hop_ms"),
+        "per_decode_hop_ms": result.get("per_decode_hop_ms"),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "launches_expected": want}
+    log(json.dumps({"split_path": summary}))
+    detail.setdefault("split_paths", {})[label] = summary
+    if result["chunks"] != chunks or not np.isfinite(result["ppl"]):
+        raise SystemExit(f"{label}: {result['chunks']} chunks, PPL {result['ppl']}")
+    if launches != want:
+        raise SystemExit(f"{label}: kernel launches {launches} != expected {want}")
+    return launches
+
+
+def _expected(n_layers: int, hops: dict, stats_layers: int = 0, hop_iters: int = 0):
+    """Launch counts of a split run of ``n_groups`` groups: one K-attn per
+    layer per group, one K-stats per importance-pass layer per group, one
+    encode and one decode per kernel-backed hop per group, plus
+    ``hop_iters`` of each from time_hops / time_decode_hops."""
+    def expect(n_groups: int) -> dict:
+        want = dict.fromkeys(KERNELS, 0)
+        want["causal_attention"] = n_layers * n_groups
+        want["causal_attention_stats"] = stats_layers * n_groups
+        for kernel, count in hops.items():
+            want[kernel] = count * (n_groups + hop_iters)
+        return want
+    return expect
+
+
+#: time_hops / time_decode_hops: (warm-up 1 + 20 iterations) each
+HOP_ITERS = 2 * (1 + 20)
+
+
+def split_paths(args, detail: dict) -> dict:
+    """Phases 6-8: the split main path (configs/split1_qwen_int8.json at full
+    Qwen2-0.5B width and depth), the selective split (split2's codec, which
+    adds the importance pass) and the three-stage multi-hop split
+    (configs/split4_qwen15_multihop.json, Qwen2-1.5B) -> launches by path."""
+    import torch
+
+    from edgellm_tpu_torch.models import PRESETS, init_params
+
+    out = {}
+    cfg = PRESETS["qwen2-0.5b"]
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(args.seed),
+                         dtype=torch.bfloat16, device="cuda")
+    out["split1"] = _split_run(
+        args, detail, cfg, params, args.chunks, "split1 qwen2-0.5b cut 11 int8_per_token",
+        _expected(cfg.num_layers, {"int8_affine_encode": 1, "int8_affine_decode": 1},
+                  hop_iters=HOP_ITERS),
+        cuts=[11], hop_codecs=["int8_per_token"])
+    detail["split_paths"]["split1 qwen2-0.5b cut 11 int8_per_token"]["profile"] = \
+        profile_split_group(cfg, params)
+    out["split2"] = _split_run(
+        args, detail, cfg, params, 9, "split2 qwen2-0.5b cut 11 selective_int4:0.25:bf16",
+        _expected(cfg.num_layers, {}, stats_layers=cfg.num_layers), time_hops=False,
+        cuts=[11], hop_codecs=["selective_int4:0.25:bf16"],
+        importance_method="regular_importance")
+    del params
+    torch.cuda.empty_cache()
+    cfg = PRESETS["qwen2-1.5b"]
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(args.seed),
+                         dtype=torch.bfloat16, device="cuda")
+    out["split4"] = _split_run(
+        args, detail, cfg, params, 9, "split4 qwen2-1.5b cuts 9,18 int8+int4",
+        _expected(cfg.num_layers, {"int8_affine_encode": 1, "int8_affine_decode": 1,
+                                   "int4_encode": 1, "int4_decode": 1},
+                  hop_iters=HOP_ITERS),
+        cuts=[9, 18], hop_codecs=["int8_per_token", "int4_per_token"])
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_split_group(cfg, params) -> dict:
+    """Where one group (8 windows) of the split main path spends the card's
+    time: device time by kernel (torch.profiler), and the idle share against
+    the same group's unprofiled wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from edgellm_tpu_torch.eval import run_split_eval
+
+    corpus = np.random.default_rng(5).integers(0, cfg.vocab_size, 512 + 32 * 9)
+    kw = dict(cuts=[11], hop_codecs=["int8_per_token"], max_length=512, stride=32,
+              window_batch=8, max_chunks=8, time_hops=False, device="cuda")
+    run_split_eval(cfg, params, corpus, **kw)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    run_split_eval(cfg, params, corpus, **kw)
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        run_split_eval(cfg, params, corpus, **kw)
+        torch.cuda.synchronize()
+    rows = [{"name": ev.key[:120], "device_ms": ev.self_device_time_total / 1e3,
+             "calls": ev.count}
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows)
+    out = {"chunks": 8, "wall_ms": wall_ms, "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall_ms if busy else None, "top": rows[:25]}
+    log(json.dumps({"profile_split_group": {k: v for k, v in out.items() if k != "top"}}))
+    for r in rows[:15]:
+        log(f"  {r['device_ms']:10.3f} ms  {r['calls']:6d}  {r['name'][:90]}")
+    return out
+
+
+def split_cross_checks(args, detail: dict):
+    """Phase 9: at Qwen2-0.5B width and 3 layers (two cuts need three), fp32:
+    an fp32-codec split equals the unsplit model, and the int8, selective and
+    two-hop splits on the card (kernels) equal the same runs on the CPU
+    (plain versions)."""
+    import torch
+
+    from edgellm_tpu_torch.eval import run_split_eval
+    from edgellm_tpu_torch.models import PRESETS, init_params
+
+    cfg = dataclasses.replace(PRESETS["qwen2-0.5b"], num_layers=3)
+    params = init_params(cfg, torch.Generator().manual_seed(args.seed), device="cpu")
+    corpus = np.random.default_rng(args.seed + 2).integers(0, cfg.vocab_size, 512 + 32 * 4)
+    kw = dict(max_length=512, stride=32, window_batch=4, max_chunks=4, time_hops=False)
+    cases = {"fp32": dict(cuts=[0], hop_codecs=["fp32"]),
+             "int8": dict(cuts=[0], hop_codecs=["int8_per_token"]),
+             "selective": dict(cuts=[1], hop_codecs=["selective_int4:0.25:bf16"],
+                               importance_method="last_row"),
+             "two_hop": dict(cuts=[0, 1], hop_codecs=["int8_per_token", "int4_per_token"])}
+    rows = {}
+    unsplit = run_split_eval(cfg, params, corpus, cuts=[], hop_codecs=[], device="cuda", **kw)
+    for name, case in cases.items():
+        card = run_split_eval(cfg, params, corpus, device="cuda", **case, **kw)
+        rows[name] = {"ppl_cuda": card["ppl"], "hop_codecs": card["hop_codecs"],
+                      "bytes_cuda": card["measured_hop_bytes_total"]}
+        if name == "fp32":
+            rel = abs(card["ppl"] - unsplit["ppl"]) / unsplit["ppl"]
+            rows[name].update(ppl_unsplit=unsplit["ppl"], rel=rel, rtol=SPLIT_RTOL)
+            ok = rel <= SPLIT_RTOL
+        else:
+            cpu = run_split_eval(cfg, params, corpus, device="cpu", **case, **kw)
+            rel = abs(card["ppl"] - cpu["ppl"]) / cpu["ppl"]
+            rows[name].update(ppl_cpu=cpu["ppl"], rel=rel, rtol=CROSS_RTOL,
+                              bytes_cpu=cpu["measured_hop_bytes_total"])
+            ok = (rel <= CROSS_RTOL
+                  and cpu["measured_hop_bytes_total"] == card["measured_hop_bytes_total"])
+        log(json.dumps({"split_cross_check": {name: rows[name]}}))
+        if not ok or not np.isfinite(card["ppl"]):
+            raise SystemExit(f"split cross-check {name} failed: {rows[name]}")
+    detail["split_cross_check"] = rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -344,17 +635,27 @@ def main() -> int:
     detail["build"] = {"seconds": built["seconds"], "log": built["log"]}
 
     main_rows = kernel_checks(detail)
-    launches = main_path(args, detail)
+    codec_rows = codec_checks(detail)
+    by_path = {"token_sweep": main_path(args, detail)}
+    by_path.update(split_paths(args, detail))
+    split_cross_checks(args, detail)
     cross_check(args, detail)
 
     kernels = []
     for name, meta in KERNELS.items():
-        r = main_rows[name]
-        kernels.append({"name": name, **meta, "launches": launches[name],
+        counts = {path: got.get(name, 0) for path, got in by_path.items()}
+        if name in main_rows:
+            r = main_rows[name]
+            shape = f"{r['shape']} B={r['b']} S={r['s']} {r['dtype']}"
+        else:
+            r = codec_rows[name]
+            shape = f"qwen2-0.5b split N={r['n']} D={r['d']} float32"
+        kernels.append({"name": name, **meta, "launches": sum(counts.values()),
+                        "launches_by_path": counts,
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "shape": f"{r['shape']} B={r['b']} S={r['s']} {r['dtype']}"})
+                        "shape": shape})
     if args.out:
         import os
 

@@ -6,6 +6,7 @@ from .harness import (
     run_initial_sweep,
     run_channel_sweep,
 )
+from .split_eval import parse_hop_codec, run_split_eval
 
 __all__ = [
     "Chunk",
@@ -14,4 +15,6 @@ __all__ = [
     "run_token_sweep",
     "run_initial_sweep",
     "run_channel_sweep",
+    "parse_hop_codec",
+    "run_split_eval",
 ]

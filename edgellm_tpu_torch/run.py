@@ -9,10 +9,15 @@ Dispatch mirrors the reference:
 - ``experiment: "initial"``   -> Pythia initial sweep (affine-int8 rank / top-rho)
 - ``experiment: "last_row"``  -> token-selective int4 sweep
 - methods containing "channel" -> per-channel codec sweep
+- ``experiment: "split"``     -> the real split eval (``run_split_eval``): the
+  model cut at ``cuts``, each cut crossed as a packed ``hop_codecs`` payload
 - otherwise                   -> the Qwen-style token sweep
 
-The ``split``, ``serve``, ``relevance`` and ``distances`` experiments are not
-ported yet: they exit non-zero, naming the experiment.
+The ``serve``, ``relevance`` and ``distances`` experiments are not ported
+yet: they exit non-zero, naming the experiment. So does a split config that
+carries a key of a split feature not ported yet (``UNPORTED_SPLIT_KEYS``:
+faults, healing, survivability, pipelining, fused hops, the seq / data /
+model mesh axes), naming the key.
 
 Corpus input is a ``.npy``/``.npz`` of token ids, or a raw ``.txt`` plus
 ``--tokenizer`` (a local HF tokenizer path). Weights: ``--weights`` (a
@@ -31,7 +36,11 @@ import numpy as np
 import torch
 
 #: experiments of the reference CLI that this package has not ported yet
-NOT_PORTED = ("relevance", "split", "distances", "serve")
+NOT_PORTED = ("relevance", "distances", "serve")
+#: split keys whose feature is not ported yet (the mesh axes only above 1)
+UNPORTED_SPLIT_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health",
+                       "fused_hops", "pipeline", "deadline", "stage_failure",
+                       "recovery", "n_seq", "n_data", "n_model")
 
 
 def _load_corpus(args, vocab_size: int) -> np.ndarray:
@@ -115,7 +124,8 @@ _PARAM_KEYS = {
 }
 _EXPERIMENTS = ("", "initial", "last_row", "relevance", "split", "distances",
                 "serve")
-_REQUIRED = {"initial": ("layers_of_interest", "ratios")}
+_REQUIRED = {"split": ("cuts", "hop_codecs"),
+             "initial": ("layers_of_interest", "ratios")}
 #: params blocks that belong to one experiment of the reference CLI, with the
 #: reference's message when they appear elsewhere
 _ONLY_FOR = (
@@ -168,11 +178,13 @@ def _validate_params_json(p: dict) -> None:
                 f"got {b['aot_peak_bytes']!r}")
         if "note" in b and not isinstance(b["note"], str):
             die(f"budget.note must be a string, got {b['note']!r}")
-    if ("faults" in p or "link_policy" in p or "fec" in p
+    if exp != "split" and (
+            "faults" in p or "link_policy" in p or "fec" in p
             or "hedge" in p or "link_health" in p):
         die("faults/link_policy/fec/hedge/link_health only apply to "
             "experiments 'split' and 'serve'")
-    if "deadline" in p or "stage_failure" in p or "recovery" in p:
+    if exp != "split" and ("deadline" in p or "stage_failure" in p
+                           or "recovery" in p):
         die("deadline/stage_failure/recovery only apply to experiment 'split'")
     if "serving" in p:
         die("serving only applies to experiment 'serve'")
@@ -181,7 +193,7 @@ def _validate_params_json(p: dict) -> None:
     for k in _REQUIRED.get(exp, ()):
         if k not in p:
             die(f"experiment {exp!r} requires key {k!r}")
-    if exp != "initial":
+    if exp not in ("split", "initial"):
         # token/channel sweeps sweep layers (x ratios for the token sweep)
         methods = p.get("methods", [])
         need = ["layers_of_interest"]
@@ -199,9 +211,43 @@ def _validate_params_json(p: dict) -> None:
     for k in ("methods", "layers_of_interest", "ratios", "cuts", "hop_codecs"):
         if k in p and not isinstance(p[k], list):
             die(f"{k} must be a list, got {type(p[k]).__name__}")
+    if exp == "split":
+        _validate_split(p, die)
     for key, msg in _ONLY_FOR:
         if key in p:
             die(msg)
+
+
+def _validate_split(p: dict, die) -> None:
+    """The split branch: unported features die naming their key, then the
+    reference's checks of ``cuts`` and ``hop_codecs``."""
+    for key in UNPORTED_SPLIT_KEYS:
+        if key in p and not (key in ("n_seq", "n_data", "n_model") and p[key] == 1):
+            die(f"{key} is not ported yet to edgellm_tpu_torch; drop it or run "
+                f"the split with python -m edgellm_tpu.run")
+    if not p["cuts"] or not all(isinstance(c, int) and not isinstance(c, bool)
+                                and c >= 0 for c in p["cuts"]):
+        die(f"cuts must be a non-empty list of layer indices, got {p['cuts']!r}")
+    if len(p["hop_codecs"]) != len(p["cuts"]):
+        die(f"hop_codecs has {len(p['hop_codecs'])} entries for "
+            f"{len(p['cuts'])} cut(s)")
+    from .codecs.packing import get_wire_codec
+    from .eval.split_eval import parse_hop_codec
+    from .importance.metrics import ATTENTION_METHODS
+
+    for spec in p["hop_codecs"]:
+        if not isinstance(spec, str):
+            die(f"hop_codecs entries must be codec spec strings, got {spec!r}")
+        try:
+            resolved = parse_hop_codec(spec)
+            if isinstance(resolved, str):
+                get_wire_codec(resolved)
+        except (ValueError, KeyError) as e:
+            die(f"bad hop codec {spec!r}: {e}")
+    method = p.get("importance_method")
+    if method is not None and method not in ATTENTION_METHODS:
+        die(f"importance_method must be one of {list(ATTENTION_METHODS)}, "
+            f"got {method!r}")
 
 
 def main(argv=None) -> int:
@@ -254,11 +300,26 @@ def main(argv=None) -> int:
     os.makedirs(args.output_dir, exist_ok=True)
     out = lambda name: os.path.join(args.output_dir, name)
 
-    from .eval import run_channel_sweep, run_initial_sweep, run_token_sweep
+    from .eval import run_channel_sweep, run_initial_sweep, run_split_eval, run_token_sweep
 
     experiment = params_json.get("experiment", "")
     methods = params_json.get("methods", [])
     max_length = params_json.get("max_length", cfg.max_position_embeddings)
+    if experiment == "split":
+        result = run_split_eval(
+            cfg, params, corpus, cuts=params_json["cuts"],
+            hop_codecs=params_json["hop_codecs"], max_length=max_length,
+            stride=params_json.get("stride", 32),
+            importance_method=params_json.get("importance_method"),
+            head_weights=head_weights, max_chunks=args.max_chunks,
+            window_batch=max(args.window_batch, 1),
+            checkpoint_path=out("split_checkpoint.json"),
+            checkpoint_every=args.checkpoint_every,
+            metrics_path=out("split_metrics.jsonl"), device=device)
+        with open(out("split_eval_results.json"), "w") as f:
+            json.dump(result, f, indent=1)
+        print(json.dumps(result))
+        return 0
     common = dict(
         max_length=max_length, stride=params_json.get("stride", 32),
         checkpoint_path=out("sweep_checkpoint.json"),

@@ -88,6 +88,17 @@ BAD_PARAMS = [
     {"ratios": [0.5], "layers_of_interest": [1], "serving": {}},
     {"ratios": [0.5], "layers_of_interest": [1], "batching": {}},
     {"ratios": [0.5], "layers_of_interest": [1], "fused_hops": "auto"},
+    {"experiment": "split", "cuts": [1]},
+    {"experiment": "split", "cuts": [], "hop_codecs": []},
+    {"experiment": "split", "cuts": [1, True], "hop_codecs": ["fp32", "fp32"]},
+    {"experiment": "split", "cuts": [1, 2], "hop_codecs": ["fp32"]},
+    {"experiment": "split", "cuts": 1, "hop_codecs": ["fp32"]},
+    {"experiment": "split", "cuts": [1], "hop_codecs": [3]},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int3"]},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["selective_int4:x"]},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["selective_int4_pallas:0.25"]},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["selective_int4:0.25:bf16:local"]},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["fp32"], "n_seq": 0},
 ]
 
 
@@ -106,14 +117,16 @@ def test_every_config_is_accepted_or_named_not_ported(config):
     ported yet; none is silently ignored."""
     p = json.loads((REPO / "configs" / config).read_text())
     exp = p.get("experiment", "")
-    if exp in trun.NOT_PORTED or "observability" in p:
+    unported_split = exp == "split" and any(
+        k in p and p[k] != 1 for k in trun.UNPORTED_SPLIT_KEYS)
+    if exp in trun.NOT_PORTED or "observability" in p or unported_split:
         with pytest.raises(SystemExit, match="not ported yet"):
             trun._validate_params_json(p)
     else:
         trun._validate_params_json(p)
 
 
-@pytest.mark.parametrize("experiment", ["split", "serve", "relevance", "distances"])
+@pytest.mark.parametrize("experiment", ["serve", "relevance", "distances"])
 def test_unported_experiments_exit_nonzero_naming_them(experiment, tmp_path):
     params = json.dumps({"experiment": experiment, "cuts": [1], "hop_codecs": ["fp32"],
                          "serving": {}})
@@ -123,6 +136,71 @@ def test_unported_experiments_exit_nonzero_naming_them(experiment, tmp_path):
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert f"experiment {experiment!r} is not ported yet" in proc.stderr
+
+
+#: the shipped split configs' shapes at tiny-model depth (cuts within 6 layers)
+SPLIT_CLI = {
+    "split1": ("tiny-qwen2", {"experiment": "split", "cuts": [2],
+                              "hop_codecs": ["int8_per_token"]}),
+    "split4": ("tiny-qwen2", {"experiment": "split", "cuts": [1, 3],
+                              "hop_codecs": ["int8_per_token", "int4_per_token"]}),
+    "split2": ("tiny-qwen2", {"experiment": "split", "cuts": [2],
+                              "hop_codecs": ["selective_int4:0.25:bf16"],
+                              "importance_method": "regular_importance"}),
+    "split0": ("tiny-neox", {"experiment": "split", "cuts": [1], "hop_codecs": ["fp32"]}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CLI))
+def test_cli_split_configs(tmp_path, capsys, name):
+    """Split params of the shipped configs' shape on the CPU: the results
+    file with a finite PPL, the checkpoint and the metrics stream."""
+    model, p = SPLIT_CLI[name]
+    p = {**p, "max_length": 64, "stride": 32}
+    rc = trun.main(["--params", json.dumps(p), "--model", model, "--device", "cpu",
+                    "--output-dir", str(tmp_path), "--max-chunks", "5",
+                    "--window-batch", "2"])
+    assert rc == 0
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    saved = json.loads((tmp_path / "split_eval_results.json").read_text())
+    assert saved == printed
+    assert saved["chunks"] == 5 and np.isfinite(saved["ppl"]) and saved["ppl"] > 1
+    assert saved["cuts"] == p["cuts"] and len(saved["per_hop_ms"]) == len(p["cuts"])
+    assert json.loads((tmp_path / "split_checkpoint.json").read_text())["chunks"] == 5
+    lines = (tmp_path / "split_metrics.jsonl").read_text().splitlines()
+    assert json.loads(lines[-1])["final"]
+
+
+def test_split_config_with_faults_exits_naming_the_key(tmp_path):
+    params = json.dumps({"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
+                         "faults": {"drop_rate": 0.05}})
+    proc = subprocess.run(
+        [sys.executable, "-m", "edgellm_tpu_torch.run", "--params", params,
+         "--model", "tiny-qwen2", "--device", "cpu", "--output-dir", str(tmp_path)],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "faults is not ported yet" in proc.stderr
+
+
+@pytest.mark.parametrize("key,value", [
+    ("link_policy", {}), ("fused_hops", "auto"), ("pipeline", {"num_microbatches": 2}),
+    ("deadline", 10.0), ("stage_failure", {"stage": 1, "at_step": 1}), ("recovery", {}),
+    ("n_seq", 4), ("n_data", 2), ("n_model", 2)])
+def test_unported_split_keys_are_named(key, value):
+    p = {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"], key: value}
+    with pytest.raises(SystemExit, match=f"{key} is not ported yet"):
+        trun._validate_params_json(p)
+
+
+def test_split_mesh_axes_of_one_and_unported_twins():
+    base = {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token_pallas"]}
+    trun._validate_params_json({**base, "n_seq": 1, "n_data": 1, "n_model": 1})
+    with pytest.raises(SystemExit, match="K5 is not ported yet"):
+        trun._validate_params_json({**base, "hop_codecs": ["int8_per_channel_pallas"]})
+    with pytest.raises(SystemExit, match="importance_method must be one of"):
+        trun._validate_params_json({**base, "importance_method": "attention"})
+    with pytest.raises(SystemExit, match="prefix_cache only applies to experiment 'serve'"):
+        trun._validate_params_json({**base, "prefix_cache": {}})
 
 
 def test_port_runs_with_jax_and_reference_poisoned():
@@ -144,6 +222,12 @@ res = run_token_sweep(cfg, params, np.arange(100) % 256, methods=["last_row"],
                       layers_of_interest=[1], ratios=[0, 0.5], max_length=32, stride=16,
                       device="cpu")
 assert res.chunks > 0
+from edgellm_tpu_torch.eval import run_split_eval
+split = run_split_eval(cfg, params, np.arange(100) % 256, cuts=[1, 3],
+                       hop_codecs=["int8_per_token_pallas", "selective_int4:0.5"],
+                       importance_method="last_row", max_length=32, stride=16,
+                       device="cpu")
+assert np.isfinite(split["ppl"])
 assert not any(m == "jax" or m.startswith(("jax.", "edgellm_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
@@ -172,13 +256,19 @@ def test_no_file_of_the_port_imports_jax_or_the_reference():
 def test_entry_points_default_to_cuda():
     import inspect
 
-    from edgellm_tpu_torch.eval import harness
+    from edgellm_tpu_torch.eval import harness, split_eval
     from edgellm_tpu_torch.models import hf_loader, safetensors_io, transformer
 
     for fn in (harness.run_token_sweep, harness.run_channel_sweep, harness.run_initial_sweep,
                transformer.init_params, hf_loader.params_from_state_dict,
-               safetensors_io.load_checkpoint):
+               safetensors_io.load_checkpoint, split_eval.run_split_eval):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    from edgellm_tpu_torch.models import PRESETS
+    from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime
+
+    rt = SplitRuntime(PRESETS["tiny-qwen2"], SplitConfig((1,), ("int8_per_token",)))
+    assert rt.devices == [torch.device("cuda")] * 2
+    assert [c.name for c in rt.codecs] == ["int8_per_token_pallas"]
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
     proc = subprocess.run(
         [sys.executable, "-m", "edgellm_tpu_torch.run", "--params", "configs/smoke.json",

@@ -182,3 +182,185 @@ def test_sliding_windows_identical(n, max_length, stride):
             (b.index, b.begin, b.end, b.num_loss_tokens)
         np.testing.assert_array_equal(a.input_ids, b.input_ids)
         np.testing.assert_array_equal(a.target_ids, b.target_ids)
+
+
+# ---------------------------------------------------------------------------
+# Packed wire codecs (codecs/packing.py) and the plain versions of the codec
+# kernels (codecs/codec_kernels.py), against the reference's jitted codecs and
+# its Pallas kernels in interpret mode.
+#
+# Payloads are held BIT-EXACT, dtypes included. Decoded activations are held
+# within 1e-6 of each token's max |x| (1 ulp): under jit XLA turns the int4
+# decode's division by 7 into a multiply by its reciprocal, where the port
+# (and the eager reference) divide.
+# ---------------------------------------------------------------------------
+
+import jax
+
+from edgellm_tpu.codecs import packing as jpk
+from edgellm_tpu.codecs import pallas_kernels as jpl
+from edgellm_tpu_torch.codecs import codec_kernels as tck
+from edgellm_tpu_torch.codecs import packing as tpk
+
+_TDTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_JDTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _wire_hidden(seed, b=2, s=64, d=96, special=True):
+    """(B, S, D) float32; with ``special`` the rows a codec must survive:
+    all zeros, constant, and NaN / +-Inf (saturated by the codecs)."""
+    h = _hidden(seed, b=b, s=s, d=d)
+    if special:
+        h[0, 1] = 0.0
+        h[-1, 2] = 1.5
+        h[0, 3, :3] = [np.nan, np.inf, -np.inf]
+    return h
+
+
+def _as_np(x):
+    """A payload leaf of either package as numpy (bf16 widened, exactly)."""
+    if isinstance(x, torch.Tensor):
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    x = np.asarray(x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x)
+    return x
+
+
+def _same_payload(got: dict, want: dict):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert str(got[k].dtype).replace("torch.", "") == \
+            str(want[k].dtype).replace("torch.", ""), k
+        np.testing.assert_array_equal(_as_np(got[k]), _as_np(want[k]), err_msg=k)
+
+
+def _close_decode(got: torch.Tensor, want, h: np.ndarray):
+    want = np.asarray(want)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    scale = np.abs(np.nan_to_num(h, posinf=1e30, neginf=-1e30)).max(-1, keepdims=True)
+    got = got.numpy()
+    with np.errstate(invalid="ignore"):  # fp16 saturates a bf16 1e30 to Inf
+        assert ((got == want) | (np.abs(got - want) <= 1e-6 * scale)).all()
+
+
+_PORTED = [n for n in tpk.WIRE_CODECS if n[:-len("_pallas")] not in tck.NOT_PORTED_TWINS]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", _PORTED)
+def test_registry_codec_bit_exact(name, dtype):
+    """Every registry codec: payload leaves bit for bit (dtypes too), decode
+    within 1 ulp, payload_bytes equal at (1, S, D) and (B, S, D).
+    ``ternary_mean``'s channel mean is bit-exact at batch 1 (the reference's
+    shape); over several rows XLA sums the two axes in another order."""
+    b = 1 if name == "ternary_mean" else 2
+    h = _wire_hidden(3, b=b)
+    jc, tc = jpk.get_wire_codec(name), tpk.get_wire_codec(name)
+    assert tc.name == jc.name and tc.batch_invariant == jc.batch_invariant
+    want = jax.jit(jc.encode)(jnp.asarray(h).astype(_JDTYPE[dtype]))
+    got = tc.encode(torch.from_numpy(h).to(_TDTYPE[dtype]))
+    _same_payload(got, want)
+    _close_decode(tc.decode(got), jax.jit(jc.decode)(want), h)
+    for shape in ((1, 64, 96), (3, 64, 96)):
+        assert tc.payload_bytes(shape) == jc.payload_bytes(shape)
+
+
+def test_ternary_mean_over_batch_rows_within_summation_order():
+    """Over several batch rows the channel means differ only by summation
+    order: atol 1e-6 bounds 192 float32 adds of |x| ~ 1 (n eps mean|x|)."""
+    h = _wire_hidden(4, b=3, special=False) / 3
+    want = jax.jit(jpk.get_wire_codec("ternary_mean").encode)(jnp.asarray(h))
+    got = tpk.get_wire_codec("ternary_mean").encode(torch.from_numpy(h))
+    np.testing.assert_allclose(got["scale"].numpy(), np.asarray(want["scale"]),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("ratio,high", [(0.25, "bf16"), (0.0, "fp32"), (1.0, "fp16"),
+                                        (0.3, "fp32")])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_selective_int4_bit_exact(ratio, high, per_row):
+    """Shared (S,) and per-row (B, S) importance, k = 0 and k = S, with ties
+    in the importance (a stable sort breaks them by position)."""
+    h = _wire_hidden(5, b=3)
+    imp = (np.stack([_importance(20 + i) for i in range(3)]) if per_row
+           else _importance(20))
+    jc, tc = jpk.selective_int4(ratio, high), tpk.selective_int4(ratio, high)
+    assert tc.name == jc.name and tc.needs_importance
+    want = jax.jit(jc.encode)(jnp.asarray(h), jnp.asarray(imp))
+    got = tc.encode(torch.from_numpy(h), torch.from_numpy(imp))
+    _same_payload(got, want)
+    _close_decode(tc.decode(got), jax.jit(jc.decode)(want), h)
+    for shape in ((1, 64, 96), (3, 64, 96)):
+        assert tc.payload_bytes(shape) == jc.payload_bytes(shape)
+
+
+def test_packing_and_sanitize_match():
+    rng = np.random.default_rng(9)
+    c4 = rng.integers(-8, 8, (3, 16)).astype(np.int8)
+    c3 = rng.integers(-1, 2, (3, 16)).astype(np.int8)
+    p4 = tpk.pack_int4(torch.from_numpy(c4))
+    np.testing.assert_array_equal(p4.numpy(), np.asarray(jpk.pack_int4(jnp.asarray(c4))))
+    np.testing.assert_array_equal(tpk.unpack_int4(p4).numpy(), c4)
+    p3 = tpk.pack_ternary(torch.from_numpy(c3))
+    np.testing.assert_array_equal(p3.numpy(), np.asarray(jpk.pack_ternary(jnp.asarray(c3))))
+    np.testing.assert_array_equal(tpk.unpack_ternary(p3).numpy(), c3)
+    x = np.array([np.nan, np.inf, -np.inf, 3e38, -2.0, 0.0], np.float32)
+    np.testing.assert_array_equal(tpk.sanitize_hidden(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jpk.sanitize_hidden(jnp.asarray(x))))
+
+
+def _kernel_rows(n, d, seed):
+    """(N, D) rows for the kernel functions: random, all zeros, constant, and
+    NaN / +-Inf after sanitize_hidden."""
+    x = _hidden(seed, b=1, s=n, d=d)[0]
+    for i, row in enumerate([np.zeros(d), np.full(d, -0.75),
+                             np.r_[np.nan, np.inf, -np.inf, np.ones(d - 3)]][:n]):
+        x[(i * 31) % n] = row
+    return np.array(jpk.sanitize_hidden(jnp.asarray(x)))  # a writable copy
+
+
+@pytest.mark.parametrize("n", [1, 7, 96, 4096])
+@pytest.mark.parametrize("d", [64, 896])
+def test_codec_kernel_plain_versions_match_pallas(n, d):
+    """K1-K4 plain versions against the Pallas kernels in interpret mode:
+    payloads bit for bit, int8 decode bit for bit, int4 decode (per-row and
+    (1, D) channel scale) within 1 ulp of the scale."""
+    x = _kernel_rows(n, d, seed=n + d)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    want = jpl.int4_encode_pallas(jx, interpret=True)
+    got = tck.int4_encode_plain(tx)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    dec = tck.int4_decode_plain(*got).numpy()
+    np.testing.assert_allclose(dec, np.asarray(jpl.int4_decode_pallas(*want, interpret=True)),
+                               rtol=0, atol=1e-6 * float(got[1].max()))
+    chan = np.linspace(0.5, 2.0, d, dtype=np.float32)[None]
+    np.testing.assert_allclose(
+        tck.int4_decode_plain(got[0], torch.from_numpy(chan)).numpy(),
+        np.asarray(jpl.chan_int4_decode_pallas(want[0], jnp.asarray(chan), interpret=True)),
+        rtol=0, atol=2e-6)
+    want = jpl.int8_affine_encode_pallas(jx, interpret=True)
+    got = tck.int8_affine_encode_plain(tx)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(
+        tck.int8_affine_decode_plain(*got).numpy(),
+        np.asarray(jpl.int8_affine_decode_pallas(*want, interpret=True)))
+
+
+def test_kernel_twins_on_the_cpu_and_unported_twins():
+    """On CPU tensors a twin runs its kernels' plain versions (payloads of
+    the plain codec); the twins of K5-K7 are not ported and say so."""
+    h = torch.from_numpy(_wire_hidden(6))
+    for base in ("int4_per_token", "int8_per_token"):
+        twin = tpk.get_wire_codec(base + "_pallas")
+        assert twin.name == base + "_pallas"
+        _same_payload(twin.encode(h), tpk.get_wire_codec(base).encode(h))
+        assert tck.pallas_variant(tpk.get_wire_codec(base)).name == twin.name
+    for base, label in tck.NOT_PORTED_TWINS.items():
+        with pytest.raises(ValueError, match=f"{label} is not ported yet"):
+            tpk.get_wire_codec(base + "_pallas")
+        assert tck.pallas_variant(tpk.get_wire_codec(base)) is None
+    assert tck.pallas_variant(tpk.selective_int4(0.25)) is None
+    assert tck.pallas_variant(tpk.get_wire_codec("fp32")) is None
+    with pytest.raises(ValueError, match="unknown wire codec"):
+        tpk.get_wire_codec("int3")
