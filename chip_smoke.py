@@ -7,7 +7,7 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
 (``/usr/local/cuda``). Phases, each of which fails the run on a fault:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every kernel of the sweep from ``edgellm_tpu_torch/csrc`` with nvcc
+2. build every kernel from ``edgellm_tpu_torch/csrc`` with nvcc
    for ``sm_90a`` (one process per source, in parallel);
 3. each kernel against its plain PyTorch version: the attention kernels at
    the sweep's shapes (Qwen2-0.5B, bf16 and fp32) and at the blocked
@@ -268,26 +268,23 @@ def main_path(args, detail: dict) -> dict:
     return launches
 
 
-def profile_group(cfg, params, corpus, kw, attn_flops_per_window: float) -> dict:
-    """Where chunk 0 and one steady group of the main path spend the card's
-    time: device time by kernel (torch.profiler, kernels only), the card's
-    idle share against the same work's unprofiled wall time, and the two
-    attention kernels' achieved FLOP/s on the attention work of those chunks."""
+def device_time(run, chunks: int) -> tuple[dict, list]:
+    """Where ``run()`` (``chunks`` chunks, already warm) spends the card's
+    time: its unprofiled wall time, then device time by kernel under
+    torch.profiler (kernels only), and the card's idle share between the two
+    -> (summary with the top 25 kernels, every kernel row)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from edgellm_tpu_torch.eval import run_token_sweep
-
-    n = 1 + kw["window_batch"]
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    run_token_sweep(cfg, params, corpus, max_chunks=n, **kw)
+    run()
     torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
-        run_token_sweep(cfg, params, corpus, max_chunks=n, **kw)
+        run()
         torch.cuda.synchronize()
     rows = [{"name": ev.key[:120], "device_ms": ev.self_device_time_total / 1e3,
              "calls": ev.count}
@@ -295,23 +292,36 @@ def profile_group(cfg, params, corpus, kw, attn_flops_per_window: float) -> dict
             if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
+    return {"chunks": chunks, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms if busy else None, "top": rows[:25]}, rows
+
+
+def log_profile(tag: str, out: dict, n_rows: int):
+    log(json.dumps({tag: {k: v for k, v in out.items() if k != "top"}}))
+    for r in out["top"][:n_rows]:
+        log(f"  {r['device_ms']:10.3f} ms  {r['calls']:6d}  {r['name'][:90]}")
+
+
+def profile_group(cfg, params, corpus, kw, attn_flops_per_window: float) -> dict:
+    """Where chunk 0 and one steady group of the main path spend the card's
+    time (:func:`device_time`), and the two attention kernels' achieved
+    FLOP/s on the attention work of those chunks."""
+    from edgellm_tpu_torch.eval import run_token_sweep
+
+    n = 1 + kw["window_batch"]
+    out, rows = device_time(lambda: run_token_sweep(cfg, params, corpus, max_chunks=n, **kw), n)
     attn = {k: sum(r["device_ms"] for r in rows if k in r["name"])
             for k in ("attn_fwd_kernel", "attn_col_kernel")}
     attn_ms = sum(attn.values())
-    out = {"chunks": n, "wall_ms": wall_ms, "device_busy_ms": busy,
-           "idle_share": 1 - busy / wall_ms if busy else None,
-           "attention_kernel_ms": attn,
-           "attention_tflops_per_s": (attn_flops_per_window * n / (attn_ms * 1e-3) / 1e12
-                                      if attn_ms else None),
-           "top": rows[:25]}
-    log(json.dumps({"profile_one_group": {k: v for k, v in out.items() if k != "top"}}))
-    for r in rows[:12]:
-        log(f"  {r['device_ms']:10.3f} ms  {r['calls']:6d}  {r['name'][:90]}")
+    out["attention_kernel_ms"] = attn
+    out["attention_tflops_per_s"] = (attn_flops_per_window * n / (attn_ms * 1e-3) / 1e12
+                                     if attn_ms else None)
+    log_profile("profile_one_group", out, 12)
     return out
 
 
 def cross_check(args, detail: dict):
-    """Phase 6: CUDA through the kernels vs CPU through the plain versions."""
+    """Phase 9: CUDA through the kernels vs CPU through the plain versions."""
     import torch
 
     from edgellm_tpu_torch.eval import run_token_sweep
@@ -361,9 +371,9 @@ def read_counts() -> dict:
 
 
 def codec_checks(detail: dict) -> dict:
-    """Phase 3b: K1-K4 (and K2 with a (1, D) channel scale) against their
-    plain versions on the card, bit for bit, and timed beside the bound ->
-    {kernel name: its row at the split path's shape (N=4096, D=896)}."""
+    """Phases 3 and 4 for K1-K4 (and K2 with a (1, D) channel scale): each
+    against its plain version on the card, bit for bit, and timed beside the
+    bound -> {kernel name: its row at the split path's shape (N=4096, D=896)}."""
     import torch
 
     from edgellm_tpu_torch.codecs import codec_kernels as ck
@@ -481,7 +491,7 @@ HOP_ITERS = 2 * (1 + 20)
 
 
 def split_paths(args, detail: dict) -> dict:
-    """Phases 6-8: the split main path (configs/split1_qwen_int8.json at full
+    """Phases 6 and 7: the split main path (configs/split1_qwen_int8.json at full
     Qwen2-0.5B width and depth), the selective split (split2's codec, which
     adds the importance pass) and the three-stage multi-hop split
     (configs/split4_qwen15_multihop.json, Qwen2-1.5B) -> launches by path."""
@@ -523,43 +533,20 @@ def split_paths(args, detail: dict) -> dict:
 
 def profile_split_group(cfg, params) -> dict:
     """Where one group (8 windows) of the split main path spends the card's
-    time: device time by kernel (torch.profiler), and the idle share against
-    the same group's unprofiled wall time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    time (:func:`device_time`)."""
     from edgellm_tpu_torch.eval import run_split_eval
 
     corpus = np.random.default_rng(5).integers(0, cfg.vocab_size, 512 + 32 * 9)
     kw = dict(cuts=[11], hop_codecs=["int8_per_token"], max_length=512, stride=32,
               window_batch=8, max_chunks=8, time_hops=False, device="cuda")
-    run_split_eval(cfg, params, corpus, **kw)
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    run_split_eval(cfg, params, corpus, **kw)
-    torch.cuda.synchronize()
-    wall_ms = (time.monotonic() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        run_split_eval(cfg, params, corpus, **kw)
-        torch.cuda.synchronize()
-    rows = [{"name": ev.key[:120], "device_ms": ev.self_device_time_total / 1e3,
-             "calls": ev.count}
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r["device_ms"])
-    busy = sum(r["device_ms"] for r in rows)
-    out = {"chunks": 8, "wall_ms": wall_ms, "device_busy_ms": busy,
-           "idle_share": 1 - busy / wall_ms if busy else None, "top": rows[:25]}
-    log(json.dumps({"profile_split_group": {k: v for k, v in out.items() if k != "top"}}))
-    for r in rows[:15]:
-        log(f"  {r['device_ms']:10.3f} ms  {r['calls']:6d}  {r['name'][:90]}")
+    run_split_eval(cfg, params, corpus, **kw)  # warm-up at this corpus's shapes
+    out, _ = device_time(lambda: run_split_eval(cfg, params, corpus, **kw), 8)
+    log_profile("profile_split_group", out, 15)
     return out
 
 
 def split_cross_checks(args, detail: dict):
-    """Phase 9: at Qwen2-0.5B width and 3 layers (two cuts need three), fp32:
+    """Phase 8: at Qwen2-0.5B width and 3 layers (two cuts need three), fp32:
     an fp32-codec split equals the unsplit model, and the int8, selective and
     two-hop splits on the card (kernels) equal the same runs on the CPU
     (plain versions)."""
