@@ -69,9 +69,13 @@ STATS_TOL = (1e-5, 0.0)
 #: less than that moves a token across the quantization boundary
 CROSS_RTOL = 1e-3
 
-#: split-eval PPL: an fp32 cut against the unsplit model (the same math, other
-#: batch composition), and the card (kernels) against the CPU (plain versions)
+#: split-eval PPL of an fp32 cut against the unsplit model (the same math,
+#: other batch composition)
 SPLIT_RTOL = 1e-5
+#: split-eval PPL on the card (kernels) against the CPU (plain versions): the
+#: payloads are bit-exact, the forwards differ by summation order; readings
+#: on the H100 were 2.7e-7 to 3.2e-5 (the two-hop split the largest)
+SPLIT_CROSS_RTOL = 1e-4
 
 KERNELS = {
     "causal_attention": {
@@ -354,11 +358,14 @@ def cross_check(args, detail: dict):
 
 def _wrappers() -> dict:
     """Every kernel wrapper of the port by its KERNELS name."""
-    from edgellm_tpu_torch.codecs.codec_kernels import KERNEL_WRAPPERS
+    from edgellm_tpu_torch.codecs import codec_kernels as ck
     from edgellm_tpu_torch.models import flash_attention as fa
 
     return {"causal_attention": fa.causal_attention,
-            "causal_attention_stats": fa.causal_attention_stats, **KERNEL_WRAPPERS}
+            "causal_attention_stats": fa.causal_attention_stats,
+            "int4_encode": ck.int4_encode, "int4_decode": ck.int4_decode,
+            "int8_affine_encode": ck.int8_affine_encode,
+            "int8_affine_decode": ck.int8_affine_decode}
 
 
 def reset_counts():
@@ -368,6 +375,16 @@ def reset_counts():
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def codec_bytes(kernel: str, n: int, d: int) -> int:
+    """Bytes a codec kernel must move at (N, D): each input read once, each
+    output written once (the payload and its float32 scales, the float32
+    activation)."""
+    act = 4 * n * d
+    if kernel.startswith("int4"):
+        return act + n * d // 2 + 4 * n
+    return act + n * d + 8 * n
 
 
 def codec_checks(detail: dict) -> dict:
@@ -406,7 +423,7 @@ def codec_checks(detail: dict) -> dict:
             want = want if isinstance(want, tuple) else (want,)
             err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
             exact = all(torch.equal(g, w) for g, w in zip(got, want))
-            nbytes = ck.codec_bytes(name, n, d)
+            nbytes = codec_bytes(name, n, d)
             if label:  # a (1, D) scale instead of (N, 1)
                 nbytes += 4 * d - 4 * n
             bound, bound_by = fa.bound_ms(float(nbytes), 0.0, torch.float32)
@@ -577,9 +594,9 @@ def split_cross_checks(args, detail: dict):
         else:
             cpu = run_split_eval(cfg, params, corpus, device="cpu", **case, **kw)
             rel = abs(card["ppl"] - cpu["ppl"]) / cpu["ppl"]
-            rows[name].update(ppl_cpu=cpu["ppl"], rel=rel, rtol=CROSS_RTOL,
+            rows[name].update(ppl_cpu=cpu["ppl"], rel=rel, rtol=SPLIT_CROSS_RTOL,
                               bytes_cpu=cpu["measured_hop_bytes_total"])
-            ok = (rel <= CROSS_RTOL
+            ok = (rel <= SPLIT_CROSS_RTOL
                   and cpu["measured_hop_bytes_total"] == card["measured_hop_bytes_total"])
         log(json.dumps({"split_cross_check": {name: rows[name]}}))
         if not ok or not np.isfinite(card["ppl"]):

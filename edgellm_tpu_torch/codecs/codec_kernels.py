@@ -21,7 +21,9 @@ kernel, plain version and reference agree bit for bit on payloads.
 
 The registry keeps the reference's ``*_pallas`` names: in this package such a
 name means "the hand-written CUDA twin". The per-channel and ternary twins
-(K5, K6, K7) are not ported yet: their names raise ``ValueError``.
+(K5, K6, K7) are not ported yet: their names raise ``ValueError``, and so
+does :func:`pallas_variant` of their plain codecs, which the split calls on
+the card.
 """
 from __future__ import annotations
 
@@ -83,24 +85,29 @@ def int8_affine_decode_plain(q: torch.Tensor, scale: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+#: each library's C entry points: (argtypes, restype)
+_SIGNATURES = {
+    "int4_codec": {
+        "edgellm_int4_encode": ([_PTR] * 3 + [_I64, _I32, _PTR], _I32),
+        "edgellm_int4_decode": ([_PTR] * 3 + [_I64, _I32, _I32, _PTR], _I32),
+        "edgellm_int4_error": ([_I32], ctypes.c_char_p),
+    },
+    "int8_affine_codec": {
+        "edgellm_int8_affine_encode": ([_PTR] * 4 + [_I64, _I32, _PTR], _I32),
+        "edgellm_int8_affine_decode": ([_PTR] * 4 + [_I64, _I32, _PTR], _I32),
+        "edgellm_int8_affine_error": ([_I32], ctypes.c_char_p),
+    },
+}
+
+
 def _lib(name: str) -> ctypes.CDLL:
     lib = cuda_build.library(name)
     if not getattr(lib, "_edgellm_declared", False):
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if name == "int4_codec":
-            lib.edgellm_int4_encode.argtypes = [ptr] * 3 + [i64, i32, ptr]
-            lib.edgellm_int4_decode.argtypes = [ptr] * 3 + [i64, i32, i32, ptr]
-            fns = (lib.edgellm_int4_encode, lib.edgellm_int4_decode)
-            lib.edgellm_int4_error.argtypes = [i32]
-            lib.edgellm_int4_error.restype = ctypes.c_char_p
-        else:
-            lib.edgellm_int8_affine_encode.argtypes = [ptr] * 4 + [i64, i32, ptr]
-            lib.edgellm_int8_affine_decode.argtypes = [ptr] * 4 + [i64, i32, ptr]
-            fns = (lib.edgellm_int8_affine_encode, lib.edgellm_int8_affine_decode)
-            lib.edgellm_int8_affine_error.argtypes = [i32]
-            lib.edgellm_int8_affine_error.restype = ctypes.c_char_p
-        for fn in fns:
-            fn.restype = i32
+        for fn, (argtypes, restype) in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         lib._edgellm_declared = True
     return lib
 
@@ -226,21 +233,6 @@ int4_decode.launches = 0
 int8_affine_encode.launches = 0
 int8_affine_decode.launches = 0
 
-#: the four kernels' wrappers by the names chip_smoke.py reports
-KERNEL_WRAPPERS = {"int4_encode": int4_encode, "int4_decode": int4_decode,
-                   "int8_affine_encode": int8_affine_encode,
-                   "int8_affine_decode": int8_affine_decode}
-
-
-def codec_bytes(kernel: str, n: int, d: int) -> int:
-    """Bytes a codec kernel must move at (N, D): each input read once, each
-    output written once (the payload and its float32 scales, the float32
-    activation)."""
-    act = 4 * n * d
-    if kernel.startswith("int4"):
-        return act + n * d // 2 + 4 * n
-    return act + n * d + 8 * n
-
 
 # ---------------------------------------------------------------------------
 # WireCodec twins
@@ -312,24 +304,26 @@ def kernel_twin(base: str) -> WireCodec:
     ported yet; it never runs the plain codec in the kernel's place."""
     if base in NOT_PORTED_TWINS:
         raise ValueError(f"{base}_pallas: kernel {NOT_PORTED_TWINS[base]} is not "
-                         f"ported yet to edgellm_tpu_torch; use {base!r}")
+                         f"ported yet to edgellm_tpu_torch; {base!r} runs plain "
+                         f"on the CPU only")
     # the twins share the plain codecs' pathological-input saturation
     return _saturating(_PALLAS_FACTORIES[base]())
 
 
 def pallas_variant(codec: WireCodec):
-    """The kernel-backed twin of a plain wire codec, or None when none is
-    ported (identity casts, ``selective_int4``, and K5-K7's codecs). An
-    explicit ``*_pallas`` codec is returned as it is."""
+    """The kernel-backed twin of a plain wire codec, or None when the codec
+    has no kernel twin (identity casts, ``selective_int4``). An explicit
+    ``*_pallas`` codec is returned as it is. A codec whose twin's kernel is
+    not ported yet (K5-K7) raises ``ValueError``: the card never runs the
+    plain codec in that kernel's place."""
     if codec.name.endswith("_pallas"):
         return codec
-    if codec.name in _PALLAS_FACTORIES:
+    if codec.name in _PALLAS_FACTORIES or codec.name in NOT_PORTED_TWINS:
         return kernel_twin(codec.name)
     return None
 
 
 __all__ = ["int4_encode", "int4_decode", "int8_affine_encode", "int8_affine_decode",
            "int4_encode_plain", "int4_decode_plain", "int8_affine_encode_plain",
-           "int8_affine_decode_plain", "KERNEL_WRAPPERS", "codec_bytes",
-           "pallas_wire_codec", "pallas_int8_per_token", "pallas_variant",
-           "kernel_twin", "SELECTIVE_EXCLUSION", "NOT_PORTED_TWINS"]
+           "int8_affine_decode_plain", "pallas_wire_codec", "pallas_int8_per_token",
+           "pallas_variant", "kernel_twin", "SELECTIVE_EXCLUSION", "NOT_PORTED_TWINS"]

@@ -39,9 +39,10 @@ NOT_PORTED_MSG = "is not ported yet to edgellm_tpu_torch"
 def apply_default_codec_backend(codecs: list, device="cuda") -> list:
     """Resolve hop-codec specs (names or ``WireCodec`` instances) to the
     backend's implementation: on a CUDA device the hand-written kernel twin of
-    every codec that has a ported kernel; on the CPU the plain codecs, as the
-    reference keeps its plain codecs off the TPU. Explicit ``*_pallas`` names
-    are always honoured."""
+    every codec that has one, raising ``ValueError`` where that twin's kernel
+    is not ported yet (K5-K7); on the CPU the plain codecs, as the reference
+    keeps its plain codecs off the TPU. Explicit ``*_pallas`` names are always
+    honoured."""
     codecs = [c if isinstance(c, WireCodec) else get_wire_codec(c) for c in codecs]
     if torch.device(device).type == "cuda":
         return [pallas_variant(c) or c for c in codecs]

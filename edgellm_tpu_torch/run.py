@@ -140,9 +140,11 @@ _ONLY_FOR = (
 )
 
 
-def _validate_params_json(p: dict) -> None:
+def _validate_params_json(p: dict, device="cuda") -> None:
     """Fail fast — naming the offending key — before any device work starts,
-    with the reference CLI's messages for every check a sweep reaches."""
+    with the reference CLI's messages for every check a sweep reaches.
+    ``device`` is the one the run will use: on CUDA a hop codec whose kernel
+    twin is not ported yet dies too."""
     def die(msg):
         raise SystemExit(f"params.json: {msg}")
 
@@ -212,15 +214,16 @@ def _validate_params_json(p: dict) -> None:
         if k in p and not isinstance(p[k], list):
             die(f"{k} must be a list, got {type(p[k]).__name__}")
     if exp == "split":
-        _validate_split(p, die)
+        _validate_split(p, die, device)
     for key, msg in _ONLY_FOR:
         if key in p:
             die(msg)
 
 
-def _validate_split(p: dict, die) -> None:
+def _validate_split(p: dict, die, device) -> None:
     """The split branch: unported features die naming their key, then the
-    reference's checks of ``cuts`` and ``hop_codecs``."""
+    reference's checks of ``cuts`` and ``hop_codecs``, then (on CUDA) the
+    codecs whose kernel twin is not ported yet."""
     for key in UNPORTED_SPLIT_KEYS:
         if key in p and not (key in ("n_seq", "n_data", "n_model") and p[key] == 1):
             die(f"{key} is not ported yet to edgellm_tpu_torch; drop it or run "
@@ -234,20 +237,27 @@ def _validate_split(p: dict, die) -> None:
     from .codecs.packing import get_wire_codec
     from .eval.split_eval import parse_hop_codec
     from .importance.metrics import ATTENTION_METHODS
+    from .parallel.split import apply_default_codec_backend
 
+    resolved_codecs = []
     for spec in p["hop_codecs"]:
         if not isinstance(spec, str):
             die(f"hop_codecs entries must be codec spec strings, got {spec!r}")
         try:
             resolved = parse_hop_codec(spec)
             if isinstance(resolved, str):
-                get_wire_codec(resolved)
+                resolved = get_wire_codec(resolved)
         except (ValueError, KeyError) as e:
             die(f"bad hop codec {spec!r}: {e}")
+        resolved_codecs.append(resolved)
     method = p.get("importance_method")
     if method is not None and method not in ATTENTION_METHODS:
         die(f"importance_method must be one of {list(ATTENTION_METHODS)}, "
             f"got {method!r}")
+    try:
+        apply_default_codec_backend(resolved_codecs, device)
+    except ValueError as e:
+        die(f"hop_codecs on {device}: {e}")
 
 
 def main(argv=None) -> int:
@@ -282,7 +292,7 @@ def main(argv=None) -> int:
     else:
         with open(args.params) as f:
             params_json = json.load(f)
-    _validate_params_json(params_json)
+    _validate_params_json(params_json, args.device)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but torch finds no CUDA device; pass "

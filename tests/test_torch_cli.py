@@ -203,6 +203,20 @@ def test_split_mesh_axes_of_one_and_unported_twins():
         trun._validate_params_json({**base, "prefix_cache": {}})
 
 
+@pytest.mark.parametrize("codec,label", [("int8_per_channel", "K5"), ("int4_per_channel", "K6"),
+                                         ("ternary_mean", "K7"), ("ternary_max", "K7")])
+def test_split_codec_without_its_kernel_dies_on_the_card_only(codec, label):
+    """A plain codec whose kernel twin is not ported yet dies for a run on
+    the card (it would otherwise run plain in the kernel's place); a CPU run
+    takes the plain codec, as the reference does off the TPU."""
+    p = {"experiment": "split", "cuts": [1, 2], "hop_codecs": ["int8_per_token", codec]}
+    with pytest.raises(SystemExit, match=f"{codec}_pallas: kernel {label} is not ported yet"):
+        trun._validate_params_json(p, "cuda")
+    with pytest.raises(SystemExit, match=f"kernel {label} is not ported yet"):
+        trun.main(["--params", json.dumps(p), "--model", "tiny-qwen2"])
+    trun._validate_params_json(p, "cpu")
+
+
 def test_port_runs_with_jax_and_reference_poisoned():
     """A process where importing jax or edgellm_tpu fails still imports the
     whole port and runs a tiny CPU forward and sweep."""
