@@ -12,8 +12,10 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
 3. each kernel against its plain PyTorch version: the attention kernels at
    the sweep's shapes (Qwen2-0.5B, bf16 and fp32) and at the blocked
    envelope's (Pythia-70M at S=2048, Qwen2-1.5B hd=128), with stated
-   tolerances; the codec kernels K1-K4 (K2 also with a (1, D) scale) bit for
-   bit at N = 4096 x D = 896 and 1536, and N = 1 and 511;
+   tolerances; the codec kernels K1-K7 (K2 also with a (1, D) scale, through
+   the int4_per_channel twin) and the fused hop K8 bit for bit at N = 4096 x
+   D = 896 and 1536, and N = 1 and 511, K8's buffer byte for byte against the
+   wire path's, and a flipped byte failing K8's verify;
 4. timing with CUDA events: kernel, plain version, one PyTorch library call
    where one computes the same function, and the roofline bound;
 5. the main path at full Qwen2-0.5B width and depth: ``run_token_sweep``,
@@ -28,12 +30,18 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    kernel's launches against the count the groups and time_hops imply, and
    one group under torch.profiler;
 7. the selective split (split2's ``selective_int4:0.25:bf16``, whose
-   importance pass runs K-stats) and the three-stage multi-hop split
+   importance pass runs K-stats), split1's cut with ``int8_per_channel``,
+   ``int4_per_channel`` and ``ternary_max`` (K5-K7), configs/
+   split10_qwen_fused.json with ``fused_hops`` forced to "wire" (K3 + K4)
+   and "remote" (K8 alone) and as committed ("auto": no fusion on the card),
+   one fused group under torch.profiler, and the three-stage multi-hop split
    (configs/split4_qwen15_multihop.json: Qwen2-1.5B, cuts 9 and 18,
    int8_per_token + int4_per_token), 9 chunks each, launches counted;
 8. split cross-checks at Qwen2-0.5B width, 3 layers, fp32: an fp32-codec
-   split against the unsplit model, and the int8, selective and two-hop
-   splits on the card (kernels) against the CPU (plain versions);
+   split against the unsplit model; the int8, selective, two-hop,
+   per-channel and ternary splits on the card (kernels) against the CPU
+   (plain versions); fused "wire" and "remote" int8 hops against the
+   separate hop on the card (the same bytes decoded: identical PPL);
 9. the token sweep at Qwen2 widths, 2 layers, 2 chunks, fp32, once on the card
    through the kernels and once on the CPU through the plain versions, PPL
    tables compared;
@@ -48,9 +56,11 @@ false or the package is not beside it. ``--out DIR`` also writes the detail
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -99,6 +109,24 @@ KERNELS = {
     "int8_affine_decode": {
         "route": "cuda", "source": "edgellm_tpu_torch/csrc/int8_affine_codec.cu",
         "replaces": "edgellm_tpu/codecs/pallas_kernels.py:189"},
+    "chan_int8_encode": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/channel_codec.cu",
+        "replaces": "edgellm_tpu/codecs/pallas_kernels.py:235"},
+    "chan_int8_decode": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/channel_codec.cu",
+        "replaces": "edgellm_tpu/codecs/pallas_kernels.py:256"},
+    "chan_int4_encode": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/channel_codec.cu",
+        "replaces": "edgellm_tpu/codecs/pallas_kernels.py:288"},
+    "ternary_encode": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/channel_codec.cu",
+        "replaces": "edgellm_tpu/codecs/pallas_kernels.py:348"},
+    "ternary_decode": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/channel_codec.cu",
+        "replaces": "edgellm_tpu/codecs/pallas_kernels.py:369"},
+    "remote_hop": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/remote_hop.cu",
+        "replaces": "edgellm_tpu/codecs/pallas_kernels.py:876"},
 }
 
 
@@ -359,13 +387,17 @@ def cross_check(args, detail: dict):
 def _wrappers() -> dict:
     """Every kernel wrapper of the port by its KERNELS name."""
     from edgellm_tpu_torch.codecs import codec_kernels as ck
+    from edgellm_tpu_torch.codecs import fused_hop as fh
     from edgellm_tpu_torch.models import flash_attention as fa
 
     return {"causal_attention": fa.causal_attention,
             "causal_attention_stats": fa.causal_attention_stats,
             "int4_encode": ck.int4_encode, "int4_decode": ck.int4_decode,
             "int8_affine_encode": ck.int8_affine_encode,
-            "int8_affine_decode": ck.int8_affine_decode}
+            "int8_affine_decode": ck.int8_affine_decode,
+            "chan_int8_encode": ck.chan_int8_encode, "chan_int8_decode": ck.chan_int8_decode,
+            "chan_int4_encode": ck.chan_int4_encode, "ternary_encode": ck.ternary_encode,
+            "ternary_decode": ck.ternary_decode, "remote_hop": fh.remote_hop}
 
 
 def reset_counts():
@@ -379,42 +411,77 @@ def read_counts() -> dict:
 
 def codec_bytes(kernel: str, n: int, d: int) -> int:
     """Bytes a codec kernel must move at (N, D): each input read once, each
-    output written once (the payload and its float32 scales, the float32
-    activation)."""
-    act = 4 * n * d
-    if kernel.startswith("int4"):
-        return act + n * d // 2 + 4 * n
-    return act + n * d + 8 * n
+    output written once (the payload and its float32 scales or the (1, D)
+    channel scale, the float32 activation; K8 reads the activation and
+    writes the sealed buffer, the decoded activation and its flag)."""
+    act, chan = 4 * n * d, 4 * d
+    return {"int4_encode": act + n * d // 2 + 4 * n, "int4_decode": act + n * d // 2 + 4 * n,
+            "int8_affine_encode": act + n * d + 8 * n, "int8_affine_decode": act + n * d + 8 * n,
+            "chan_int8_encode": act + chan + n * d, "chan_int8_decode": act + chan + n * d,
+            "chan_int4_encode": act + chan + n * d // 2,
+            "ternary_encode": act + chan + n * d // 4, "ternary_decode": act + chan + n * d // 4,
+            "remote_hop": 2 * act + (8 + 8 * n + n * d) + 4}[kernel]
 
 
 def codec_checks(detail: dict) -> dict:
-    """Phases 3 and 4 for K1-K4 (and K2 with a (1, D) channel scale): each
-    against its plain version on the card, bit for bit, and timed beside the
-    bound -> {kernel name: its row at the split path's shape (N=4096, D=896)}."""
+    """Phases 3 and 4 for K1-K8 (and K2 with a (1, D) channel scale, alone
+    and as the int4_per_channel twin's decode): each against its plain
+    version on the card, bit for bit (K8's sealed buffer byte for byte
+    against the wire path's), timed beside the bound, and K8's receive over a
+    flipped byte failing its verify -> {kernel name: its row at the split
+    path's shape (N=4096, D=896)}."""
     import torch
 
     from edgellm_tpu_torch.codecs import codec_kernels as ck
+    from edgellm_tpu_torch.codecs import fused_hop as fh
+    from edgellm_tpu_torch.codecs.packing import get_wire_codec, sanitize_hidden
     from edgellm_tpu_torch.models import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows, main = [], {}
+    twin4 = get_wire_codec("int4_per_channel_pallas")
+    rows, main, flips = [], {}, []
     for n, d in ((4096, 896), (4096, 1536), (1, 896), (511, 896)):
         x = torch.randn((n, d), generator=gen, device="cuda") * 3
         x[0] = 0.0
         x[n // 2] = 1.5  # a constant row: scale 0 for the affine codec
+        x[(3 * n) // 4, :3] = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                                           device="cuda")
+        x = sanitize_hidden(x)  # the codecs see saturated rows, never NaN / Inf
         packed, scale = ck.int4_encode_plain(x)
         q, sc, mn = ck.int8_affine_encode_plain(x)
         chan = torch.rand((1, d), generator=gen, device="cuda") + 0.5
+        # the twins' (1, D) scales: the channel abs-max, ternary_mean's mean
+        cmax = x.abs().amax(dim=0, keepdim=True)
+        cscale = torch.where(cmax > 0, cmax, 1.0)
+        mscale = x.mean(dim=0, keepdim=True) + 1e-8
+        q8 = ck.chan_int8_encode_plain(x, cscale)
+        crumbs = ck.ternary_encode_plain(x, cscale)
+        p4 = twin4.encode(x[None])
         cases = [  # (kernel, label, kernel call, plain call)
             ("int4_encode", "", lambda: ck.int4_encode(x), lambda: ck.int4_encode_plain(x)),
             ("int4_decode", "", lambda: ck.int4_decode(packed, scale),
              lambda: ck.int4_decode_plain(packed, scale)),
             ("int4_decode", " (1,D) scale", lambda: ck.int4_decode(packed, chan),
              lambda: ck.int4_decode_plain(packed, chan)),
+            ("int4_decode", " int4_per_channel_pallas", lambda: twin4.decode(p4)[0],
+             lambda: ck.int4_decode_plain(p4["packed"][0], p4["scale"].reshape(1, d))),
             ("int8_affine_encode", "", lambda: ck.int8_affine_encode(x),
              lambda: ck.int8_affine_encode_plain(x)),
             ("int8_affine_decode", "", lambda: ck.int8_affine_decode(q, sc, mn),
              lambda: ck.int8_affine_decode_plain(q, sc, mn)),
+            ("chan_int8_encode", "", lambda: ck.chan_int8_encode(x, cscale),
+             lambda: ck.chan_int8_encode_plain(x, cscale)),
+            ("chan_int8_decode", "", lambda: ck.chan_int8_decode(q8, cscale),
+             lambda: ck.chan_int8_decode_plain(q8, cscale)),
+            ("chan_int4_encode", "", lambda: ck.chan_int4_encode(x, cscale),
+             lambda: ck.chan_int4_encode_plain(x, cscale)),
+            ("ternary_encode", "", lambda: ck.ternary_encode(x, cscale),
+             lambda: ck.ternary_encode_plain(x, cscale)),
+            ("ternary_encode", " mean scale", lambda: ck.ternary_encode(x, mscale),
+             lambda: ck.ternary_encode_plain(x, mscale)),
+            ("ternary_decode", "", lambda: ck.ternary_decode(crumbs, cscale),
+             lambda: ck.ternary_decode_plain(crumbs, cscale)),
+            ("remote_hop", "", lambda: fh.remote_hop(x), lambda: fh.remote_hop_plain(x)),
         ]
         for name, label, kern, plain in cases:
             got, want = kern(), plain()
@@ -423,8 +490,10 @@ def codec_checks(detail: dict) -> dict:
             want = want if isinstance(want, tuple) else (want,)
             err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
             exact = all(torch.equal(g, w) for g, w in zip(got, want))
+            if name == "remote_hop":  # (decoded, ok, buffer): the verify passed too
+                exact = exact and bool(got[1])
             nbytes = codec_bytes(name, n, d)
-            if label:  # a (1, D) scale instead of (N, 1)
+            if name == "int4_decode" and label:  # a (1, D) scale instead of (N, 1)
                 nbytes += 4 * d - 4 * n
             bound, bound_by = fa.bound_ms(float(nbytes), 0.0, torch.float32)
             k_ms, p_ms = time_ms(kern, 50), time_ms(plain, 20)
@@ -439,7 +508,25 @@ def codec_checks(detail: dict) -> dict:
                                  f"version at N={n}, D={d}: {row}")
             if (n, d) == (4096, 896) and not label:
                 main[name] = row
+        # K8's receive over the arrived buffer: intact -> ok and the same
+        # decode; one flipped payload byte -> not ok, and the hop keeps the
+        # hidden (the select of fused_remote_hop)
+        out, ok, buf = fh.remote_hop(x)
+        again, ok_again = fh.remote_hop_receive(buf, n, d)
+        bad = buf.clone()
+        bad[8 + 4 * n + (n * d) // 2] ^= 0x10
+        dec_bad, ok_bad = fh.remote_hop_receive(bad, n, d)
+        kept = torch.where(ok_bad, dec_bad, x)
+        flip = {"n": n, "d": d, "intact_ok": bool(ok_again),
+                "intact_same_decode": torch.equal(again, out), "flipped_ok": bool(ok_bad),
+                "flipped_keeps_hidden": torch.equal(kept, x)}
+        flips.append(flip)
+        log(json.dumps({"remote_hop_verify": flip}))
+        if not (flip["intact_ok"] and flip["intact_same_decode"] and not flip["flipped_ok"]
+                and flip["flipped_keeps_hidden"]):
+            raise SystemExit(f"K8's verify failed its check at N={n}, D={d}: {flip}")
     detail["codec_rows"] = rows
+    detail["remote_hop_verify"] = flips
     return main
 
 
@@ -507,11 +594,31 @@ def _expected(n_layers: int, hops: dict, stats_layers: int = 0, hop_iters: int =
 HOP_ITERS = 2 * (1 + 20)
 
 
+@contextlib.contextmanager
+def fused_hops(mode: str):
+    """A config's ``fused_hops`` value onto the EDGELLM_FUSED_HOP gate, as the
+    CLI maps it ("auto" clears it), for the runtimes built inside."""
+    from edgellm_tpu_torch.run import FUSED_HOP_ENV
+
+    saved = os.environ.pop("EDGELLM_FUSED_HOP", None)
+    if mode != "auto":
+        os.environ["EDGELLM_FUSED_HOP"] = FUSED_HOP_ENV[mode]
+    try:
+        yield
+    finally:
+        os.environ.pop("EDGELLM_FUSED_HOP", None)
+        if saved is not None:
+            os.environ["EDGELLM_FUSED_HOP"] = saved
+
+
 def split_paths(args, detail: dict) -> dict:
     """Phases 6 and 7: the split main path (configs/split1_qwen_int8.json at full
     Qwen2-0.5B width and depth), the selective split (split2's codec, which
-    adds the importance pass) and the three-stage multi-hop split
-    (configs/split4_qwen15_multihop.json, Qwen2-1.5B) -> launches by path."""
+    adds the importance pass), split1's cut with the per-channel and ternary
+    codecs (K5-K7), configs/split10_qwen_fused.json's fused hops (forced
+    "wire", forced "remote", and "auto" as committed) and the three-stage
+    multi-hop split (configs/split4_qwen15_multihop.json, Qwen2-1.5B) ->
+    launches by path."""
     import torch
 
     from edgellm_tpu_torch.models import PRESETS, init_params
@@ -526,12 +633,34 @@ def split_paths(args, detail: dict) -> dict:
                   hop_iters=HOP_ITERS),
         cuts=[11], hop_codecs=["int8_per_token"])
     detail["split_paths"]["split1 qwen2-0.5b cut 11 int8_per_token"]["profile"] = \
-        profile_split_group(cfg, params)
+        profile_split_group(cfg, params, "profile_split_group", cuts=[11],
+                            hop_codecs=["int8_per_token"])
     out["split2"] = _split_run(
         args, detail, cfg, params, 9, "split2 qwen2-0.5b cut 11 selective_int4:0.25:bf16",
         _expected(cfg.num_layers, {}, stats_layers=cfg.num_layers), time_hops=False,
         cuts=[11], hop_codecs=["selective_int4:0.25:bf16"],
         importance_method="regular_importance")
+    for codec, hops in (("int8_per_channel", {"chan_int8_encode": 1, "chan_int8_decode": 1}),
+                        ("int4_per_channel", {"chan_int4_encode": 1, "int4_decode": 1}),
+                        ("ternary_max", {"ternary_encode": 1, "ternary_decode": 1})):
+        out[f"split1 {codec}"] = _split_run(
+            args, detail, cfg, params, 9, f"split1 qwen2-0.5b cut 11 {codec}",
+            _expected(cfg.num_layers, hops, hop_iters=HOP_ITERS),
+            cuts=[11], hop_codecs=[codec])
+    with open("configs/split10_qwen_fused.json") as f:
+        split10 = json.load(f)
+    separate = {"int8_affine_encode": 1, "int8_affine_decode": 1}
+    for mode, hops in (("wire", separate), ("remote", {"remote_hop": 1}),
+                       (split10["fused_hops"], separate)):
+        label = f"split10 qwen2-0.5b cut 11 int8_per_token fused_hops {mode}"
+        with fused_hops(mode):  # time_hops off: it times the separate hop
+            out[f"split10 {mode}"] = _split_run(
+                args, detail, cfg, params, 9, label, _expected(cfg.num_layers, hops),
+                time_hops=False, cuts=split10["cuts"], hop_codecs=split10["hop_codecs"])
+            if mode == "remote":
+                detail["split_paths"][label]["profile"] = profile_split_group(
+                    cfg, params, "profile_split10_remote_group", cuts=split10["cuts"],
+                    hop_codecs=split10["hop_codecs"])
     del params
     torch.cuda.empty_cache()
     cfg = PRESETS["qwen2-1.5b"]
@@ -548,25 +677,27 @@ def split_paths(args, detail: dict) -> dict:
     return out
 
 
-def profile_split_group(cfg, params) -> dict:
-    """Where one group (8 windows) of the split main path spends the card's
-    time (:func:`device_time`)."""
+def profile_split_group(cfg, params, tag: str, **split) -> dict:
+    """Where one group (8 windows) of a split path spends the card's time
+    (:func:`device_time`)."""
     from edgellm_tpu_torch.eval import run_split_eval
 
     corpus = np.random.default_rng(5).integers(0, cfg.vocab_size, 512 + 32 * 9)
-    kw = dict(cuts=[11], hop_codecs=["int8_per_token"], max_length=512, stride=32,
-              window_batch=8, max_chunks=8, time_hops=False, device="cuda")
+    kw = dict(max_length=512, stride=32, window_batch=8, max_chunks=8, time_hops=False,
+              device="cuda", **split)
     run_split_eval(cfg, params, corpus, **kw)  # warm-up at this corpus's shapes
     out, _ = device_time(lambda: run_split_eval(cfg, params, corpus, **kw), 8)
-    log_profile("profile_split_group", out, 15)
+    log_profile(tag, out, 15)
     return out
 
 
 def split_cross_checks(args, detail: dict):
     """Phase 8: at Qwen2-0.5B width and 3 layers (two cuts need three), fp32:
-    an fp32-codec split equals the unsplit model, and the int8, selective and
-    two-hop splits on the card (kernels) equal the same runs on the CPU
-    (plain versions)."""
+    an fp32-codec split equals the unsplit model; the int8, selective,
+    two-hop, per-channel and ternary splits on the card (kernels) equal the
+    same runs on the CPU (plain versions); and the fused "wire" and "remote"
+    int8 hops on the card give the separate hop's PPL exactly (they decode
+    the same bytes)."""
     import torch
 
     from edgellm_tpu_torch.eval import run_split_eval
@@ -580,7 +711,10 @@ def split_cross_checks(args, detail: dict):
              "int8": dict(cuts=[0], hop_codecs=["int8_per_token"]),
              "selective": dict(cuts=[1], hop_codecs=["selective_int4:0.25:bf16"],
                                importance_method="last_row"),
-             "two_hop": dict(cuts=[0, 1], hop_codecs=["int8_per_token", "int4_per_token"])}
+             "two_hop": dict(cuts=[0, 1], hop_codecs=["int8_per_token", "int4_per_token"]),
+             **{codec: dict(cuts=[0], hop_codecs=[codec])
+                for codec in ("int8_per_channel", "int4_per_channel", "ternary_mean",
+                              "ternary_max")}}
     rows = {}
     unsplit = run_split_eval(cfg, params, corpus, cuts=[], hop_codecs=[], device="cuda", **kw)
     for name, case in cases.items():
@@ -600,6 +734,18 @@ def split_cross_checks(args, detail: dict):
                   and cpu["measured_hop_bytes_total"] == card["measured_hop_bytes_total"])
         log(json.dumps({"split_cross_check": {name: rows[name]}}))
         if not ok or not np.isfinite(card["ppl"]):
+            raise SystemExit(f"split cross-check {name} failed: {rows[name]}")
+    separate = rows["int8"]
+    for mode in ("wire", "remote"):
+        with fused_hops(mode):
+            fused = run_split_eval(cfg, params, corpus, device="cuda", **cases["int8"], **kw)
+        name = f"int8 fused {mode}"
+        rows[name] = {"ppl_cuda": fused["ppl"], "ppl_separate": separate["ppl_cuda"],
+                      "diff": fused["ppl"] - separate["ppl_cuda"],
+                      "bytes_cuda": fused["measured_hop_bytes_total"]}
+        log(json.dumps({"split_cross_check": {name: rows[name]}}))
+        if (fused["ppl"] != separate["ppl_cuda"]
+                or fused["measured_hop_bytes_total"] != separate["bytes_cuda"]):
             raise SystemExit(f"split cross-check {name} failed: {rows[name]}")
     detail["split_cross_check"] = rows
 
@@ -638,12 +784,19 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     detail["build"] = {"seconds": built["seconds"], "log": built["log"]}
 
+    t0 = time.monotonic()
     main_rows = kernel_checks(detail)
     codec_rows = codec_checks(detail)
+    t1 = time.monotonic()
     by_path = {"token_sweep": main_path(args, detail)}
+    t2 = time.monotonic()
     by_path.update(split_paths(args, detail))
+    t3 = time.monotonic()
     split_cross_checks(args, detail)
     cross_check(args, detail)
+    detail["phase_s"] = {"kernels": t1 - t0, "token_sweep": t2 - t1, "split_paths": t3 - t2,
+                         "cross_checks": time.monotonic() - t3}
+    log(json.dumps({"phase_s": detail["phase_s"]}))
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -661,8 +814,6 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": shape})
     if args.out:
-        import os
-
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_detail.json"), "w") as f:
             json.dump(detail, f, indent=1, default=str)

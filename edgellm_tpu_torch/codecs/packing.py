@@ -405,8 +405,7 @@ def _kernel_twin(base_name: str) -> Callable[[], WireCodec]:
 def get_wire_codec(name: str) -> WireCodec:
     """Codec registry, the reference's names. A ``*_pallas`` name selects the
     hand-written CUDA twin of the codec explicitly (the spelling stays the
-    reference's, so every config parses the same); the per-channel and
-    ternary twins are not ported yet and raise ``ValueError``."""
+    reference's, so every config parses the same)."""
     factories = {
         "fp32": lambda: _identity_codec("fp32", torch.float32),
         "bf16": lambda: _identity_codec("bf16", torch.bfloat16),

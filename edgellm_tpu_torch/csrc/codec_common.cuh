@@ -1,6 +1,7 @@
-// Shared pieces of the per-token codec kernels (int4_codec.cu,
-// int8_affine_codec.cu): the block size, a block-wide reduction, and the
-// dynamic shared-memory opt-in for wide rows.
+// Shared pieces of the codec kernels (int4_codec.cu, int8_affine_codec.cu,
+// channel_codec.cu, remote_hop.cu): the block size, a block-wide reduction,
+// the dynamic shared-memory opt-in for wide rows, and the affine int8 zero
+// point that K3, K4 and K8 share.
 //
 // Every arithmetic step the codecs share with the reference goes through the
 // _rn intrinsics (__fdiv_rn, __fmul_rn, __fsub_rn, __fadd_rn): they are
@@ -16,6 +17,12 @@
 namespace edgellm {
 
 constexpr int kCodecThreads = 128;
+constexpr float kInv255 = (float)(1.0 / 255.0);
+
+// zp = rint(-128 - min / safe) of the per-row affine int8 codec
+__device__ __forceinline__ float zero_point(float mn, float safe) {
+  return rintf(__fsub_rn(-128.f, __fdiv_rn(mn, safe)));
+}
 
 struct MaxOp {
   __device__ __forceinline__ float operator()(float a, float b) const { return fmaxf(a, b); }

@@ -23,12 +23,6 @@
 
 namespace edgellm {
 
-constexpr float kInv255 = (float)(1.0 / 255.0);
-
-__device__ __forceinline__ float zero_point(float mn, float safe) {
-  return rintf(__fsub_rn(-128.f, __fdiv_rn(mn, safe)));
-}
-
 __global__ void __launch_bounds__(kCodecThreads)
 int8_affine_encode_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
                           float* __restrict__ scale, float* __restrict__ mn_out, int D) {

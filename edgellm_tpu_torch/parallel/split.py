@@ -6,15 +6,18 @@ between two cuts and runs on its own torch device (one card holds every
 stage here: each stage is ``cuda:0``). At each cut the boundary activation is
 ENCODED to a packed payload on the stage's device, every payload leaf is
 COPIED to the next stage's device (a real copy, never an alias), and the copy
-is DECODED there. Bytes per token are measured from those leaves.
+is DECODED there. Bytes per token are measured from those leaves. A fused hop
+(``codecs/fused_hop.py``, planned once per cut at construction) crosses the
+cut as one sealed wire buffer instead, or through kernel K8.
 
 Where the reference runs one SPMD program over a ("stage", "data", "model")
 mesh, padding every stage to equal depth with masked zero layers, each stage
 here owns only its own layer slice and the stages run in order. The dtype
 flow is the reference's: its ``where(idx == s + 1, decode(moved), hidden)``
-promotes a bf16 hidden to float32 at the first cut, so every later stage
+promotes a bf16 hidden to float32 at a separate hop, so every later stage
 computes in float32 (its bf16 weights promoted, which ``place_params`` does
-once by holding those stages' weights in float32).
+once by holding those stages' weights in float32). A fused hop returns the
+hidden's own dtype, so the stages after a chain of fused hops keep it.
 
 Not ported yet: the faulty link, FEC, hedging, the micro-batch pipeline and
 the "data" / "model" mesh axes (each raises naming its argument), and the
@@ -29,6 +32,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..codecs.codec_kernels import pallas_variant
+from ..codecs.fused_hop import fused_hop, fused_hop_plan
 from ..codecs.packing import WireCodec, get_wire_codec
 from ..models.configs import ModelConfig
 from ..models.transformer import embed, run_layers, unembed
@@ -39,8 +43,7 @@ NOT_PORTED_MSG = "is not ported yet to edgellm_tpu_torch"
 def apply_default_codec_backend(codecs: list, device="cuda") -> list:
     """Resolve hop-codec specs (names or ``WireCodec`` instances) to the
     backend's implementation: on a CUDA device the hand-written kernel twin of
-    every codec that has one, raising ``ValueError`` where that twin's kernel
-    is not ported yet (K5-K7); on the CPU the plain codecs, as the reference
+    every codec that has one; on the CPU the plain codecs, as the reference
     keeps its plain codecs off the TPU. Explicit ``*_pallas`` names are always
     honoured."""
     codecs = [c if isinstance(c, WireCodec) else get_wire_codec(c) for c in codecs]
@@ -62,15 +65,21 @@ def _hop(codec: WireCodec, hidden: torch.Tensor, imp, dst) -> torch.Tensor:
 
 
 def run_pipeline_stages(n_stages: int, codecs: list, run_stage, hidden,
-                        hop_imps=None, devices: Optional[Sequence] = None):
+                        hop_imps=None, devices: Optional[Sequence] = None,
+                        fused_plans: Optional[Sequence] = None):
     """Run ``run_stage(s, hidden)`` for every stage in order, crossing each
     cut as encode -> copy to ``devices[s + 1]`` -> decode. After a cut the
     hidden takes the promotion of its dtype and the decoded float32, as the
-    reference's select does."""
+    reference's select does. ``fused_plans`` (one ``FusedHopPlan`` or None
+    per cut) routes a hop through :func:`~..codecs.fused_hop.fused_hop`
+    instead, which keeps the hidden's dtype."""
     devices = devices if devices is not None else [hidden.device] * n_stages
     for s in range(n_stages):
         hidden = run_stage(s, hidden)
         if s < n_stages - 1:
+            if fused_plans is not None and fused_plans[s] is not None:
+                hidden = fused_hop(fused_plans[s], codecs[s], hidden, devices[s + 1])
+                continue
             imp = hop_imps[s] if codecs[s].needs_importance else None
             decoded = _hop(codecs[s], hidden, imp, devices[s + 1])
             hidden = decoded.to(torch.promote_types(decoded.dtype, hidden.dtype))
@@ -213,22 +222,28 @@ class SplitRuntime:
         self.bounds = split.stage_bounds(cfg.num_layers)
         self.codecs: list[WireCodec] = apply_default_codec_backend(
             list(split.hop_codecs), self.devices[0])
+        # per-cut fused-transport decision, resolved once (None = the
+        # separate encode / copy / decode hop); the gate reads
+        # EDGELLM_FUSED_HOP now
+        self.fused_plans: list = [fused_hop_plan(c, device=self.devices[s])
+                                  for s, c in enumerate(self.codecs)]
 
     # ---------- parameter placement ----------
 
     def place_params(self, params: dict) -> dict:
         """Each stage's layer slice on its device, the embedding on the first
-        stage's and the final norm and head on the last stage's. Stages after
-        the first compute in float32 (see the module note), so their floating
-        weights are held in float32; an unchanged slice on its own device is
-        a view, not a copy."""
+        stage's and the final norm and head on the last stage's. A stage
+        behind a separate (unfused) hop computes in float32 (see the module
+        note), so its floating weights are held in float32; an unchanged
+        slice on its own device is a view, not a copy."""
         layers = params["layers"]
         stages = []
         for s, ((start, stop), dev) in enumerate(zip(self.bounds, self.devices)):
+            promoted = any(plan is None for plan in self.fused_plans[:s])
             stage = {}
             for name, t in layers.items():
                 dtype = (torch.promote_types(t.dtype, torch.float32)
-                         if s > 0 and t.is_floating_point() else None)
+                         if promoted and t.is_floating_point() else None)
                 stage[name] = t[start:stop].to(device=dev, dtype=dtype)
             stages.append(stage)
         rest = {k: v for k, v in params.items() if k != "layers"}
@@ -282,7 +297,7 @@ class SplitRuntime:
             return run_layers(self.cfg, {"layers": stage}, h, start=0, stop=n_layers)[0]
 
         out = run_pipeline_stages(self.split.n_stages, self.codecs, run_stage, hidden,
-                                  imps, self.devices)
+                                  imps, self.devices, self.fused_plans)
         return unembed(self.cfg, placed["last"], out)
 
     # ---------- wire accounting and timing ----------

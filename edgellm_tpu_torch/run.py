@@ -16,8 +16,10 @@ Dispatch mirrors the reference:
 The ``serve``, ``relevance`` and ``distances`` experiments are not ported
 yet: they exit non-zero, naming the experiment. So does a split config that
 carries a key of a split feature not ported yet (``UNPORTED_SPLIT_KEYS``:
-faults, healing, survivability, pipelining, fused hops, the seq / data /
-model mesh axes), naming the key.
+faults, healing, survivability, pipelining, the seq / data / model mesh
+axes), naming the key. ``fused_hops`` maps onto the ``EDGELLM_FUSED_HOP``
+gate as in the reference ("auto" fuses nowhere on the card yet: the port has
+no probe cache).
 
 Corpus input is a ``.npy``/``.npz`` of token ids, or a raw ``.txt`` plus
 ``--tokenizer`` (a local HF tokenizer path). Weights: ``--weights`` (a
@@ -39,8 +41,10 @@ import torch
 NOT_PORTED = ("relevance", "distances", "serve")
 #: split keys whose feature is not ported yet (the mesh axes only above 1)
 UNPORTED_SPLIT_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health",
-                       "fused_hops", "pipeline", "deadline", "stage_failure",
-                       "recovery", "n_seq", "n_data", "n_model")
+                       "pipeline", "deadline", "stage_failure", "recovery",
+                       "n_seq", "n_data", "n_model")
+#: the fused_hops key's values onto the EDGELLM_FUSED_HOP gate ("auto" clears it)
+FUSED_HOP_ENV = {"off": "0", "wire": "wire", "remote": "remote"}
 
 
 def _load_corpus(args, vocab_size: int) -> np.ndarray:
@@ -129,7 +133,6 @@ _REQUIRED = {"split": ("cuts", "hop_codecs"),
 #: params blocks that belong to one experiment of the reference CLI, with the
 #: reference's message when they appear elsewhere
 _ONLY_FOR = (
-    ("fused_hops", "fused_hops only applies to experiments 'split' and 'serve'"),
     ("prefix_cache", "prefix_cache only applies to experiment 'serve'"),
     ("kv_at_rest", "kv_at_rest only applies to experiment 'serve'"),
     ("pipeline", "pipeline only applies to experiments 'split' and 'serve'"),
@@ -143,8 +146,8 @@ _ONLY_FOR = (
 def _validate_params_json(p: dict, device="cuda") -> None:
     """Fail fast — naming the offending key — before any device work starts,
     with the reference CLI's messages for every check a sweep reaches.
-    ``device`` is the one the run will use: on CUDA a hop codec whose kernel
-    twin is not ported yet dies too."""
+    ``device`` is the one the run will use: the hop codecs resolve to its
+    implementations (on CUDA the kernel twins)."""
     def die(msg):
         raise SystemExit(f"params.json: {msg}")
 
@@ -213,6 +216,20 @@ def _validate_params_json(p: dict, device="cuda") -> None:
     for k in ("methods", "layers_of_interest", "ratios", "cuts", "hop_codecs"):
         if k in p and not isinstance(p[k], list):
             die(f"{k} must be a list, got {type(p[k]).__name__}")
+    if "fused_hops" in p:
+        if exp not in ("split", "serve"):
+            die("fused_hops only applies to experiments 'split' and 'serve'")
+        if "cuts" not in p:
+            die("fused_hops needs a pipeline to fuse — add 'cuts'/'hop_codecs'")
+        fh = p["fused_hops"]
+        if fh not in ("auto", "off", "wire", "remote"):
+            die(f"fused_hops must be one of ['auto', 'off', 'wire', "
+                f"'remote'], got {fh!r}")
+        if fh != "off" and any(("faults" in p, "fec" in p, "hedge" in p)):
+            # an active faulty link owns the hop: fusion is refused there
+            die("fused_hops: an active faults/fec/hedge link owns the hop "
+                "protocol — fusion is refused at runtime; set fused_hops: "
+                "'off' or drop the link config")
     if exp == "split":
         _validate_split(p, die, device)
     for key, msg in _ONLY_FOR:
@@ -222,8 +239,8 @@ def _validate_params_json(p: dict, device="cuda") -> None:
 
 def _validate_split(p: dict, die, device) -> None:
     """The split branch: unported features die naming their key, then the
-    reference's checks of ``cuts`` and ``hop_codecs``, then (on CUDA) the
-    codecs whose kernel twin is not ported yet."""
+    reference's checks of ``cuts`` and ``hop_codecs``, then the codecs'
+    resolution on ``device``."""
     for key in UNPORTED_SPLIT_KEYS:
         if key in p and not (key in ("n_seq", "n_data", "n_model") and p[key] == 1):
             die(f"{key} is not ported yet to edgellm_tpu_torch; drop it or run "
@@ -316,6 +333,15 @@ def main(argv=None) -> int:
     methods = params_json.get("methods", [])
     max_length = params_json.get("max_length", cfg.max_position_embeddings)
     if experiment == "split":
+        # fused_hops maps onto the EDGELLM_FUSED_HOP gate before the runtime
+        # resolves its fused plans: "auto" leaves the default (no fusion
+        # without probe data), "off" pins the separate hop, "wire" / "remote"
+        # force a mode (remote only on the card)
+        fused_hops = params_json.get("fused_hops")
+        if fused_hops == "auto":
+            os.environ.pop("EDGELLM_FUSED_HOP", None)
+        elif fused_hops is not None:
+            os.environ["EDGELLM_FUSED_HOP"] = FUSED_HOP_ENV[fused_hops]
         result = run_split_eval(
             cfg, params, corpus, cuts=params_json["cuts"],
             hop_codecs=params_json["hop_codecs"], max_length=max_length,

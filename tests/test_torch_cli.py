@@ -88,6 +88,13 @@ BAD_PARAMS = [
     {"ratios": [0.5], "layers_of_interest": [1], "serving": {}},
     {"ratios": [0.5], "layers_of_interest": [1], "batching": {}},
     {"ratios": [0.5], "layers_of_interest": [1], "fused_hops": "auto"},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
+     "fused_hops": "fast"},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
+     "fused_hops": "wire", "faults": {"drop_rate": 0.1}},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
+     "fused_hops": "remote", "hedge": {}},
+    {"experiment": "split", "hop_codecs": ["int8_per_token"], "fused_hops": "auto"},
     {"experiment": "split", "cuts": [1]},
     {"experiment": "split", "cuts": [], "hop_codecs": []},
     {"experiment": "split", "cuts": [1, True], "hop_codecs": ["fp32", "fp32"]},
@@ -183,7 +190,7 @@ def test_split_config_with_faults_exits_naming_the_key(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("link_policy", {}), ("fused_hops", "auto"), ("pipeline", {"num_microbatches": 2}),
+    ("link_policy", {}), ("hedge", {}), ("pipeline", {"num_microbatches": 2}),
     ("deadline", 10.0), ("stage_failure", {"stage": 1, "at_step": 1}), ("recovery", {}),
     ("n_seq", 4), ("n_data", 2), ("n_model", 2)])
 def test_unported_split_keys_are_named(key, value):
@@ -193,28 +200,89 @@ def test_unported_split_keys_are_named(key, value):
 
 
 def test_split_mesh_axes_of_one_and_unported_twins():
+    """Mesh axes of one validate, and so does every kernel twin by its
+    ``*_pallas`` name (K5-K7 included) and every fused_hops mode."""
     base = {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token_pallas"]}
     trun._validate_params_json({**base, "n_seq": 1, "n_data": 1, "n_model": 1})
-    with pytest.raises(SystemExit, match="K5 is not ported yet"):
-        trun._validate_params_json({**base, "hop_codecs": ["int8_per_channel_pallas"]})
+    for twin in ("int8_per_channel_pallas", "int4_per_channel_pallas",
+                 "ternary_mean_pallas", "ternary_max_pallas"):
+        trun._validate_params_json({**base, "hop_codecs": [twin]}, "cuda")
+    for mode in ("auto", "off", "wire", "remote"):
+        trun._validate_params_json({**base, "fused_hops": mode}, "cuda")
     with pytest.raises(SystemExit, match="importance_method must be one of"):
         trun._validate_params_json({**base, "importance_method": "attention"})
     with pytest.raises(SystemExit, match="prefix_cache only applies to experiment 'serve'"):
         trun._validate_params_json({**base, "prefix_cache": {}})
 
 
+@pytest.fixture(scope="module")
+def hf_checkpoint(tmp_path_factory):
+    """A 4-layer Qwen2-architecture checkpoint (config.json + safetensors)
+    that both CLIs' loaders read into the same weights."""
+    from safetensors.torch import save_file
+    from transformers import Qwen2Config, Qwen2ForCausalLM
+
+    torch.manual_seed(0)
+    model = Qwen2ForCausalLM(Qwen2Config(
+        vocab_size=256, hidden_size=64, num_hidden_layers=4, num_attention_heads=4,
+        num_key_value_heads=2, intermediate_size=128, max_position_embeddings=128,
+        rms_norm_eps=1e-6, rope_theta=10000.0, tie_word_embeddings=True)).eval()
+    path = tmp_path_factory.mktemp("qwen2_4l")
+    model.config.to_json_file(str(path / "config.json"))
+    save_file({k: v.contiguous() for k, v in model.state_dict().items()
+               if k != "lm_head.weight"}, str(path / "model.safetensors"))
+    return path
+
+
 @pytest.mark.parametrize("codec,label", [("int8_per_channel", "K5"), ("int4_per_channel", "K6"),
                                          ("ternary_mean", "K7"), ("ternary_max", "K7")])
-def test_split_codec_without_its_kernel_dies_on_the_card_only(codec, label):
-    """A plain codec whose kernel twin is not ported yet dies for a run on
-    the card (it would otherwise run plain in the kernel's place); a CPU run
-    takes the plain codec, as the reference does off the TPU."""
-    p = {"experiment": "split", "cuts": [1, 2], "hop_codecs": ["int8_per_token", codec]}
-    with pytest.raises(SystemExit, match=f"{codec}_pallas: kernel {label} is not ported yet"):
-        trun._validate_params_json(p, "cuda")
-    with pytest.raises(SystemExit, match=f"kernel {label} is not ported yet"):
-        trun.main(["--params", json.dumps(p), "--model", "tiny-qwen2"])
+def test_split_codec_without_its_kernel_dies_on_the_card_only(codec, label, hf_checkpoint,
+                                                              tmp_path, capsys):
+    """The per-channel and ternary hop codecs validate for a run on the card
+    (their kernel twins, ``label``) and on the CPU; the CPU run of the CLI
+    gives the reference's PPL and bytes on the same checkpoint and synthetic
+    corpus (window batch 1: ternary_mean's channel mean is bit-exact on one
+    full window)."""
+    from edgellm_tpu.eval.split_eval import run_split_eval as j_split_eval
+    from edgellm_tpu.models.safetensors_io import load_checkpoint as j_load
+
+    p = {"experiment": "split", "cuts": [1, 2], "hop_codecs": ["int8_per_token", codec],
+         "max_length": 64, "stride": 32}
+    trun._validate_params_json(p, "cuda")
     trun._validate_params_json(p, "cpu")
+    rc = trun.main(["--params", json.dumps(p), "--weights", str(hf_checkpoint),
+                    "--device", "cpu", "--output-dir", str(tmp_path), "--max-chunks", "3",
+                    "--window-batch", "1", "--synthetic-corpus-len", "160"])
+    assert rc == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    jcfg, jparams = j_load(str(hf_checkpoint))
+    corpus = np.random.default_rng(0).integers(0, 256, 160)
+    want = j_split_eval(jcfg, jparams, corpus, cuts=p["cuts"], hop_codecs=p["hop_codecs"],
+                        max_length=64, stride=32, max_chunks=3, window_batch=1)
+    assert got["chunks"] == want["chunks"] == 3
+    np.testing.assert_allclose(got["ppl"], want["ppl"], rtol=1e-5)
+    assert got["hop_codecs"] == want["hop_codecs"] == p["hop_codecs"]
+    assert got["measured_hop_bytes_total"] == want["measured_hop_bytes_total"]
+
+
+@pytest.mark.parametrize("mode", ["auto", "off", "wire", "remote"])
+def test_cli_fused_hops_modes(mode, tmp_path, capsys, monkeypatch):
+    """configs/split10_qwen_fused.json's key on the CPU: every mode runs,
+    maps onto EDGELLM_FUSED_HOP as the reference's CLI does, and gives the
+    unfused PPL (the hops decode the same bytes)."""
+    monkeypatch.setenv("EDGELLM_FUSED_HOP", "")
+    p = {"experiment": "split", "cuts": [2], "hop_codecs": ["int8_per_token"],
+         "max_length": 64, "stride": 32}
+    argv = ["--model", "tiny-qwen2", "--device", "cpu", "--output-dir", str(tmp_path),
+            "--max-chunks", "3", "--window-batch", "2"]
+    assert trun.main(["--params", json.dumps(p)] + argv) == 0
+    unfused = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert trun.main(["--params", json.dumps({**p, "fused_hops": mode})] + argv) == 0
+    fused = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert os.environ.get("EDGELLM_FUSED_HOP") == {"auto": None, "off": "0", "wire": "wire",
+                                                   "remote": "remote"}[mode]
+    assert fused["ppl"] == unfused["ppl"]
+    assert fused["measured_hop_bytes_total"] == unfused["measured_hop_bytes_total"]
 
 
 def test_port_runs_with_jax_and_reference_poisoned():

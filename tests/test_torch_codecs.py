@@ -245,18 +245,15 @@ def _close_decode(got: torch.Tensor, want, h: np.ndarray, exact=False):
         assert ((got == want) | (np.abs(got - want) <= 1e-6 * scale)).all()
 
 
-_PORTED = [n for n in tpk.WIRE_CODECS if n[:-len("_pallas")] not in tck.NOT_PORTED_TWINS]
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", _PORTED)
+@pytest.mark.parametrize("name", tpk.WIRE_CODECS)
 def test_registry_codec_bit_exact(name, dtype):
-    """Every registry codec: payload leaves bit for bit (dtypes too), int4
-    and int8 decodes bit for bit and the others within 1 ulp, payload_bytes
-    equal at (1, S, D) and (B, S, D).
+    """Every registry codec, the kernel twins included: payload leaves bit
+    for bit (dtypes too), int4 and int8 decodes bit for bit and the others
+    within 1 ulp, payload_bytes equal at (1, S, D) and (B, S, D).
     ``ternary_mean``'s channel mean is bit-exact at batch 1 (the reference's
     shape); over several rows XLA sums the two axes in another order."""
-    b = 1 if name == "ternary_mean" else 2
+    b = 1 if name.startswith("ternary_mean") else 2
     h = _wire_hidden(3, b=b)
     jc, tc = jpk.get_wire_codec(name), tpk.get_wire_codec(name)
     assert tc.name == jc.name and tc.batch_invariant == jc.batch_invariant
@@ -277,6 +274,22 @@ def test_ternary_mean_over_batch_rows_within_summation_order():
     got = tpk.get_wire_codec("ternary_mean").encode(torch.from_numpy(h))
     np.testing.assert_allclose(got["scale"].numpy(), np.asarray(want["scale"]),
                                rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("s", [16, 32, 48, 64, 96, 100, 512])
+def test_ternary_mean_channel_mean_by_window_length(s):
+    """At batch 1 the channel mean is bit-exact where the jitted reference
+    sums the window in 32-element blocks (S = 16, 64, 512 here); at other
+    lengths (S = 32, 48, 96, 100) the fused reference reduce associates
+    another way and the means are 1 ulp apart: atol 1e-6 bounds S float32
+    adds of |x| ~ 1."""
+    h = _wire_hidden(10 + s, b=1, s=s, special=False) / 3
+    want = np.asarray(jax.jit(jpk.get_wire_codec("ternary_mean").encode)(
+        jnp.asarray(h))["scale"])
+    got = tpk.get_wire_codec("ternary_mean").encode(torch.from_numpy(h))["scale"].numpy()
+    if s in (16, 64, 512):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("ratio,high", [(0.25, "bf16"), (0.0, "fp32"), (1.0, "fp16"),
@@ -353,20 +366,74 @@ def test_codec_kernel_plain_versions_match_pallas(n, d):
 
 def test_kernel_twins_on_the_cpu_and_unported_twins():
     """On CPU tensors a twin runs its kernels' plain versions (payloads of
-    the plain codec); the twins of K5-K7 are not ported and say so, by name
-    and as the variant of their plain codec."""
-    h = torch.from_numpy(_wire_hidden(6))
-    for base in ("int4_per_token", "int8_per_token"):
+    the plain codec), and every plain codec with a kernel twin in the
+    reference (K1-K7) resolves to it, by name and as its variant; the
+    codecs the reference has no twin of resolve to none."""
+    h = torch.from_numpy(_wire_hidden(6, b=1))
+    for base in ("int4_per_token", "int8_per_token", "int8_per_channel",
+                 "int4_per_channel", "ternary_mean", "ternary_max"):
         twin = tpk.get_wire_codec(base + "_pallas")
         assert twin.name == base + "_pallas"
         _same_payload(twin.encode(h), tpk.get_wire_codec(base).encode(h))
         assert tck.pallas_variant(tpk.get_wire_codec(base)).name == twin.name
-    for base, label in tck.NOT_PORTED_TWINS.items():
-        with pytest.raises(ValueError, match=f"{label} is not ported yet"):
-            tpk.get_wire_codec(base + "_pallas")
-        with pytest.raises(ValueError, match=f"{label} is not ported yet"):
-            tck.pallas_variant(tpk.get_wire_codec(base))
+    for base in ("int4_global", "ternary_per_token", "bf16"):
+        assert tck.pallas_variant(tpk.get_wire_codec(base)) is None
     assert tck.pallas_variant(tpk.selective_int4(0.25)) is None
     assert tck.pallas_variant(tpk.get_wire_codec("fp32")) is None
     with pytest.raises(ValueError, match="unknown wire codec"):
         tpk.get_wire_codec("int3")
+
+
+def _channel_scales(x):
+    """The (1, D) scales the per-channel and ternary twins feed K5-K7: the
+    channel abs-max with its zero guard, and ternary_mean's mean + 1e-8
+    (which may be negative or tiny)."""
+    cmax = np.abs(x).max(0, keepdims=True)
+    return {"max": np.where(cmax > 0, cmax, 1.0).astype(np.float32),
+            "mean": (x.mean(0, keepdims=True) + np.float32(1e-8)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("n", [1, 7, 96, 4096])
+@pytest.mark.parametrize("d", [64, 896])
+def test_channel_kernel_plain_versions_match_pallas(n, d):
+    """K5-K7 plain versions against the (jitted) Pallas kernels in interpret
+    mode, bit for bit: K5 encode and decode and K6 encode against the channel
+    abs-max, K7 encode against both ternary scales and its decode."""
+    x = _kernel_rows(n, d, seed=2 * n + d)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    for kind, s in _channel_scales(x).items():
+        js, ts = jnp.asarray(s), torch.from_numpy(s)
+        want = jpl.ternary_encode_pallas(jx, js, interpret=True)
+        got = tck.ternary_encode_plain(tx, ts)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=kind)
+        np.testing.assert_array_equal(
+            tck.ternary_decode_plain(got, ts).numpy(),
+            np.asarray(jpl.ternary_decode_pallas(want, js, interpret=True)), err_msg=kind)
+        if kind != "max":
+            continue
+        want = jpl.chan_int8_encode_pallas(jx, js, interpret=True)
+        got = tck.chan_int8_encode_plain(tx, ts)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(
+            tck.chan_int8_decode_plain(got, ts).numpy(),
+            np.asarray(jpl.chan_int8_decode_pallas(want, js, interpret=True)))
+        np.testing.assert_array_equal(
+            tck.chan_int4_encode_plain(tx, ts).numpy(),
+            np.asarray(jpl.chan_int4_encode_pallas(jx, js, interpret=True)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("base", ["int8_per_channel", "int4_per_channel", "ternary_mean",
+                                  "ternary_max"])
+def test_channel_twins_match_reference_twins(base, dtype):
+    """The K5-K7 twins against the reference's jitted Pallas twins
+    (interpret mode on the CPU), payloads and decodes bit for bit, bf16
+    hiddens included (the payload scale keeps the hidden's dtype in both)."""
+    h = _wire_hidden(9, b=1, s=64, d=128)
+    jc, tc = jpl.pallas_variant(jpk.get_wire_codec(base)), \
+        tck.pallas_variant(tpk.get_wire_codec(base))
+    assert tc.name == jc.name == base + "_pallas"
+    want = jax.jit(jc.encode)(jnp.asarray(h).astype(_JDTYPE[dtype]))
+    got = tc.encode(torch.from_numpy(h).to(_TDTYPE[dtype]))
+    _same_payload(got, want)
+    _close_decode(tc.decode(got), jax.jit(jc.decode)(want), h, exact=True)

@@ -1,5 +1,5 @@
-"""The port's per-token codec kernels (K1-K4) against their plain PyTorch
-versions, on the card.
+"""The port's codec kernels (K1-K7) and its fused hop kernel (K8) against
+their plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test asks its fixture for a card and skips without one
 (the kernels are CUDA C++ with no CPU mode). On a machine with an H100 and
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from edgellm_tpu_torch.codecs import codec_kernels as ck
+from edgellm_tpu_torch.codecs import fused_hop as fh
 from edgellm_tpu_torch.codecs.packing import get_wire_codec, sanitize_hidden
 
 pytestmark = pytest.mark.cuda
@@ -76,10 +77,92 @@ def test_int8_affine_kernels_bit_exact(card, n, d):
     assert (ck.int8_affine_encode.launches, ck.int8_affine_decode.launches) == (e0 + 1, d0 + 1)
 
 
-@pytest.mark.parametrize("name", ["int4_per_token", "int8_per_token"])
+@pytest.mark.parametrize("n,d", SHAPES[:-1] + [(96, 4)])
+def test_channel_kernels_bit_exact(card, n, d):
+    """K5 encode / decode, K6 encode and K7 encode / decode against a (1, D)
+    channel abs-max scale, and K7 against ternary_mean's mean + 1e-8."""
+    x = _rows(n, d, seed=3).to(card)
+    cmax = x.abs().amax(dim=0, keepdim=True)
+    chan = torch.where(cmax > 0, cmax, 1.0)
+    mean = x.mean(dim=0, keepdim=True) + 1e-8
+    before = {k.__name__: k.launches for k in (ck.chan_int8_encode, ck.chan_int8_decode,
+                                               ck.chan_int4_encode, ck.ternary_encode,
+                                               ck.ternary_decode)}
+    q = ck.chan_int8_encode(x, chan)
+    torch.testing.assert_close(q, ck.chan_int8_encode_plain(x, chan), atol=0, rtol=0)
+    torch.testing.assert_close(ck.chan_int8_decode(q, chan), ck.chan_int8_decode_plain(q, chan),
+                               atol=0, rtol=0)
+    if d % 2 == 0:
+        torch.testing.assert_close(ck.chan_int4_encode(x, chan),
+                                   ck.chan_int4_encode_plain(x, chan), atol=0, rtol=0)
+    for scale in (chan, mean):
+        packed = ck.ternary_encode(x, scale)
+        torch.testing.assert_close(packed, ck.ternary_encode_plain(x, scale), atol=0, rtol=0)
+        torch.testing.assert_close(ck.ternary_decode(packed, scale),
+                                   ck.ternary_decode_plain(packed, scale), atol=0, rtol=0)
+    torch.cuda.synchronize()
+    after = {k.__name__: k.launches for k in (ck.chan_int8_encode, ck.chan_int8_decode,
+                                              ck.chan_int4_encode, ck.ternary_encode,
+                                              ck.ternary_decode)}
+    assert {k: after[k] - before[k] for k in after} == {
+        "chan_int8_encode": 1, "chan_int8_decode": 1, "chan_int4_encode": 1,
+        "ternary_encode": 2, "ternary_decode": 2}
+
+
+@pytest.mark.parametrize("n,d", SHAPES)
+def test_remote_hop_kernel_is_the_wire_path(card, n, d):
+    """K8: the sealed buffer equals the wire path's byte for byte, the
+    decode is bit-exact, ok; the receive half says not ok on a flipped byte
+    or a zeroed canary, and ok with the same decode on the intact buffer."""
+    x = _rows(n, d, seed=4).to(card)
+    k0 = fh.remote_hop.launches
+    out, ok, buf = fh.remote_hop(x)
+    want_out, want_ok, want_buf = fh.remote_hop_plain(x)
+    torch.cuda.synchronize()
+    assert fh.remote_hop.launches == k0 + 1
+    torch.testing.assert_close(buf, want_buf, atol=0, rtol=0)
+    torch.testing.assert_close(out, want_out, atol=0, rtol=0)
+    assert bool(ok) and bool(want_ok)
+    again, ok2 = fh.remote_hop_receive(buf, n, d)
+    assert bool(ok2) and torch.equal(again, out)
+    for pos in (0, 5, 8, buf.numel() // 2, buf.numel() - 1):
+        bad = buf.clone()
+        bad[pos] ^= 0x20
+        assert not bool(fh.remote_hop_receive(bad, n, d)[1]), pos
+    bad = buf.clone()
+    bad[:4] = 0
+    assert not bool(fh.remote_hop_receive(bad, n, d)[1])
+
+
+def test_fused_hops_on_the_card(card):
+    """On the card the forced remote plan runs K8 and no K3/K4; the wire and
+    remote hops and the separate hop decode the same values; two devices
+    raise for the remote hop."""
+    h = torch.from_numpy((np.random.default_rng(5).normal(size=(2, 64, 896)) * 2)
+                         .astype(np.float32)).to(card)
+    codec = get_wire_codec("int8_per_token_pallas")
+    plan = fh.fused_hop_plan(codec, device=card)
+    assert plan is None  # "auto": no probe data on this card
+    e0, k0 = ck.int8_affine_encode.launches, fh.remote_hop.launches
+    remote = fh.fused_hop(fh.FusedHopPlan("remote", "int8_per_token", "test"), codec, h, card)
+    assert (ck.int8_affine_encode.launches, fh.remote_hop.launches) == (e0, k0 + 1)
+    wire = fh.fused_hop(fh.FusedHopPlan("wire", "int8_per_token", "test"), codec, h, card)
+    separate = codec.decode(codec.encode(h))
+    torch.testing.assert_close(remote, separate, atol=0, rtol=0)
+    torch.testing.assert_close(wire, separate, atol=0, rtol=0)
+    assert fh.fused_remote_hop(codec, h.bfloat16(), card).dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="two-card remote hop not ported"):
+        fh.fused_remote_hop(codec, h, "cpu")
+
+
+@pytest.mark.parametrize("name", ["int4_per_token", "int8_per_token", "int8_per_channel",
+                                  "int4_per_channel", "ternary_mean", "ternary_max"])
 def test_kernel_twin_codecs_match_plain_codecs(card, name):
     """The twins' payloads and reconstructions equal the plain codecs' on a
-    float32 hidden, and the registry's ``*_pallas`` names are the twins."""
+    float32 hidden, and the registry's ``*_pallas`` names are the twins.
+    ``int4_per_channel``'s twin decodes with K2's ``codes * (scale / 7)``,
+    the plain codec with ``(codes * scale) / 7``: 1 ulp apart at most, as
+    the reference's twin and plain codec are."""
     h = torch.from_numpy((np.random.default_rng(2).normal(size=(3, 100, 896)) * 2)
                          .astype(np.float32)).to(card)
     plain, twin = get_wire_codec(name), get_wire_codec(name + "_pallas")
@@ -88,7 +171,11 @@ def test_kernel_twin_codecs_match_plain_codecs(card, name):
     assert set(p) == set(q)
     for k in p:
         torch.testing.assert_close(q[k], p[k], atol=0, rtol=0)
-    torch.testing.assert_close(twin.decode(q), plain.decode(p), atol=0, rtol=0)
+    if name == "int4_per_channel":
+        got, want = twin.decode(q), plain.decode(p)
+        assert ((got == want) | ((got - want).abs() <= 1e-6 * want.abs())).all()
+    else:
+        torch.testing.assert_close(twin.decode(q), plain.decode(p), atol=0, rtol=0)
     assert twin.payload_bytes((3, 100, 896)) == plain.payload_bytes((3, 100, 896))
 
 
@@ -106,3 +193,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     packed, s = ck.int4_encode(x)
     with pytest.raises(ValueError, match="shape"):
         ck.int4_decode(packed, s[:2])
+    with pytest.raises(ValueError, match="D % 4 == 0"):
+        ck.ternary_encode(torch.randn(4, 6, device=card), torch.ones(1, 6, device=card))
+    with pytest.raises(ValueError, match="shape"):
+        ck.chan_int8_encode(x, torch.ones(1, 32, device=card))

@@ -30,7 +30,6 @@ from edgellm_tpu.models.configs import tiny_config as jtiny
 from edgellm_tpu.parallel import SplitConfig as JSplitConfig
 from edgellm_tpu.parallel import SplitRuntime as JSplitRuntime
 from edgellm_tpu.parallel import make_stage_mesh
-from edgellm_tpu_torch.codecs.codec_kernels import NOT_PORTED_TWINS
 from edgellm_tpu_torch.codecs.packing import WireCodec, get_wire_codec
 from edgellm_tpu_torch.eval import parse_hop_codec, run_split_eval
 from edgellm_tpu_torch.models import configs as tcfg
@@ -246,18 +245,18 @@ def test_parse_hop_codec_and_split_config():
 
 
 def test_codec_backend_and_real_copies():
-    """On a CUDA device the split runs the kernel twins of ported codecs
-    (resolving names needs no card) and refuses a codec whose twin's kernel
-    is not ported yet; on the CPU the plain codecs. Each hop decodes a copy
-    of the payload, never the encoder's own tensors."""
+    """On a CUDA device the split runs the kernel twin of every codec that
+    has one (resolving names needs no card), the per-channel and ternary
+    codecs included; on the CPU the plain codecs. Each hop decodes a copy of
+    the payload, never the encoder's own tensors."""
     names = ["int8_per_token", "int4_per_token", "fp32"]
     on_card = apply_default_codec_backend(names + [parse_hop_codec("selective_int4:0.25")],
                                           "cuda")
     assert [c.name for c in on_card] == ["int8_per_token_pallas", "int4_per_token_pallas",
                                          "fp32", "selective_int4_r0.25_bf16"]
-    for base, label in NOT_PORTED_TWINS.items():
-        with pytest.raises(ValueError, match=f"{label} is not ported yet"):
-            apply_default_codec_backend(names + [base], "cuda")
+    for base in ("int8_per_channel", "int4_per_channel", "ternary_mean", "ternary_max"):
+        assert [c.name for c in apply_default_codec_backend(names + [base], "cuda")] == \
+            [c.name for c in on_card[:3]] + [base + "_pallas"]
         assert [c.name for c in apply_default_codec_backend(names + [base], "cpu")] == \
             names + [base]
     sent, received = [], []
