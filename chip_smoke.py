@@ -45,7 +45,26 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
 9. the token sweep at Qwen2 widths, 2 layers, 2 chunks, fp32, once on the card
    through the kernels and once on the CPU through the plain versions, PPL
    tables compared;
-10. a JSON line of every kernel (launches summed over the counted paths,
+10. the paged decode kernels K13 (fp32 and bf16) and K14 (int8 and int4)
+   against their plain versions at Qwen2-0.5B and Qwen2-1.5B heads: 32
+   slots of ragged lengths up to a 2048 span (some on the trash page), and
+   each serve path's own geometry (split9, split13, split14 and the large
+   split9 of phase 11: slots, page size, pages per slot, pool pages); timed
+   beside their bound;
+11. the batched serve paths at full Qwen2-0.5B width and depth, fp32 random
+   weights, through the CLI's ``run_serve``: configs/split9_qwen_paged.json,
+   split13_qwen_prefix.json (prefix sharing) and split14_qwen_kvq.json
+   (int4 pages, K14) as committed, and a larger geometry of split9's shape
+   (64 requests of 512 prompt tokens, 64 new, 32 slots, a 0.5 GB pool):
+   outcomes, steps, decode tokens/s, ms per step, peak memory, every
+   kernel's launches against the count the steps imply; one steady group of
+   the large geometry's steps under torch.profiler;
+12. serve cross-checks at Qwen2-0.5B width, 3 layers, fp32: the paged step
+   on the card (K13 / K14) against the CPU (plain versions) under teacher
+   forcing, greedy batched streams identical on the card and the CPU, and
+   on the card batched streams against each stream alone through
+   ``generate`` (tokens) and the contiguous decode step (logits);
+13. a JSON line of every kernel (launches summed over the counted paths,
    and by path), the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -87,6 +106,20 @@ SPLIT_RTOL = 1e-5
 #: on the H100 were 2.7e-7 to 3.2e-5 (the two-hop split the largest)
 SPLIT_CROSS_RTOL = 1e-4
 
+#: K13 / K14 against their plain versions, (atol, rtol): fp32 as OUT_TOL
+#: (online vs two-pass softmax); in bf16 the plain version rounds the
+#: probabilities to bf16 before PV and the two outputs land at most one bf16
+#: step apart (rtol above 2^-7; the H100 read 7.8e-3 at most, one step at
+#: |out| in [1, 2)); K14 dequantizes the same codes the same way as its
+#: plain version, then K13's fp32 math
+PAGED_TOL = {"float32": OUT_TOL["float32"], "bfloat16": (1.2e-2, 1.2e-2),
+             "quant": (1e-5, 1e-5)}
+#: teacher-forced paged-step logits, (atol, rtol): the card (K-attn prefill,
+#: K13) against the CPU (plain versions) or against the contiguous decode
+#: step differ by summation order and the online softmax; on a quantized
+#: tier a row that rounds on a .5 boundary may also move one code by a step
+PAGED_CROSS_TOL = {"fp": (1e-4, 1e-4), "quant": (1e-3, 1e-3)}
+
 KERNELS = {
     "causal_attention": {
         "route": "cuda", "source": "edgellm_tpu_torch/csrc/causal_attention.cu",
@@ -127,6 +160,12 @@ KERNELS = {
     "remote_hop": {
         "route": "cuda", "source": "edgellm_tpu_torch/csrc/remote_hop.cu",
         "replaces": "edgellm_tpu/codecs/pallas_kernels.py:876"},
+    "paged_decode_attention": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/paged_decode.cu",
+        "replaces": "edgellm_tpu/models/flash_attention.py:783"},
+    "paged_decode_attention_quant": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/paged_decode.cu",
+        "replaces": "edgellm_tpu/models/flash_attention.py:937"},
 }
 
 
@@ -397,7 +436,9 @@ def _wrappers() -> dict:
             "int8_affine_decode": ck.int8_affine_decode,
             "chan_int8_encode": ck.chan_int8_encode, "chan_int8_decode": ck.chan_int8_decode,
             "chan_int4_encode": ck.chan_int4_encode, "ternary_encode": ck.ternary_encode,
-            "ternary_decode": ck.ternary_decode, "remote_hop": fh.remote_hop}
+            "ternary_decode": ck.ternary_decode, "remote_hop": fh.remote_hop,
+            "paged_decode_attention": fa.paged_decode_attention,
+            "paged_decode_attention_quant": fa.paged_decode_attention_quant}
 
 
 def reset_counts():
@@ -750,6 +791,331 @@ def split_cross_checks(args, detail: dict):
     detail["split_cross_check"] = rows
 
 
+def _paged_case(b: int, h: int, kv: int, hd: int, ps: int, pps: int, num_pages: int, dtype,
+                kv_codec: str, seed: int):
+    """Paged-attention inputs on the card: a pool of ``num_pages`` random
+    pages, b slots of ragged lengths from 1 to the full span, the last
+    quarter of the slots inactive (an all-zero row on the trash page, length
+    1). Slots take distinct pages where the pool holds them all, else pages
+    drawn with repeats (slots sharing pages, as prefix sharing makes them)
+    -> (args, kwargs) of the kernel wrapper and its plain version."""
+    import torch
+
+    from edgellm_tpu_torch.models import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    k = torch.randn((num_pages, ps, kv, hd), generator=gen, device="cuda")
+    v = torch.randn((num_pages, ps, kv, hd), generator=gen, device="cuda")
+    q = torch.randn((b, 1, h, hd), generator=gen, device="cuda").to(dtype)
+    lengths = rng.integers(1, pps * ps + 1, size=b)
+    lengths[0], lengths[min(1, b - 1)] = 1, pps * ps
+    live = b - b // 4 if b > 3 else b
+    if num_pages > b * pps:
+        pages = rng.permutation(np.arange(1, num_pages))[:b * pps].reshape(b, pps)
+    else:
+        pages = rng.integers(1, num_pages, size=(b, pps))
+    table = np.where(np.arange(pps)[None, :] * ps < lengths[:, None], pages, 0)
+    table[live:], lengths[live:] = 0, 1
+    t = lambda a: torch.from_numpy(a.astype(np.int32)).cuda()
+    if kv_codec == "fp":
+        k, v = k.to(dtype), v.to(dtype)
+        return (q, k, v, t(table), t(lengths)), {"plan": fa.paged_plan(q, k, t(table))}
+    kc, ks = fa.quantize_kv_rows(k, kv_codec)
+    vc, vs = fa.quantize_kv_rows(v, kv_codec)
+    return (q, kc, vc, ks, vs, t(table), t(lengths)), {
+        "kv_codec": kv_codec, "plan": fa.paged_plan(q, kc, t(table), kv_codec)}
+
+
+def paged_checks(detail: dict) -> dict:
+    """Phase 10: K13 and K14 against their plain versions and timed with
+    CUDA events beside their bound (the live K/V rows of every slot read
+    once, q read, the output written, over 3.35 TB/s; or 4 * H * hd FLOPs a
+    live row over the peak of q's type), at the 2048 span and at each serve
+    path's own geometry (slots, page size, pages per slot and pool pages of
+    its ``batching`` block, split14's pool from its byte budget) -> {kernel:
+    its row at the shape of the serve path it runs on: K13 fp32 at the large
+    split9 geometry, K14 int4 at split14's}."""
+    import torch
+
+    from edgellm_tpu_torch.models import PRESETS
+    from edgellm_tpu_torch.models import flash_attention as fa
+    from edgellm_tpu_torch.run import batching_config
+
+    cfg = PRESETS["qwen2-0.5b"]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shapes = [  # (label, b, h, kv, hd, ps, pps, num_pages, main-path (kernel, tier))
+        ("qwen2-0.5b span 2048", 32, 14, 2, 64, 16, 128, 32 * 128 + 1, None),
+        ("qwen2-1.5b span 2048", 32, 12, 2, 128, 16, 128, 32 * 128 + 1, None)]
+    for label, params, main_row in (
+            ("split9 large", LARGE_SERVE, ("paged_decode_attention", "fp")),
+            ("split9", "split9_qwen_paged", None),
+            ("split13", "split13_qwen_prefix", None),
+            ("split14", "split14_qwen_kvq",
+             ("paged_decode_attention_quant", "int4_per_channel"))):
+        if isinstance(params, str):
+            params = json.load(open(f"configs/{params}.json"))
+        bc = batching_config(cfg, params)
+        shapes.append((f"qwen2-0.5b {label} geometry span {bc.pages_per_slot * bc.page_size}",
+                       bc.max_slots, h, kv, hd, bc.page_size, bc.pages_per_slot,
+                       bc.num_pages, main_row))
+    cases = [("paged_decode_attention", torch.float32, "fp"),
+             ("paged_decode_attention", torch.bfloat16, "fp"),
+             ("paged_decode_attention_quant", torch.float32, "int8_per_channel"),
+             ("paged_decode_attention_quant", torch.float32, "int4_per_channel")]
+    rows, main = [], {}
+    for label, b, h, kv, hd, ps, pps, num_pages, main_row in shapes:
+        for name, dtype, kv_codec in cases:
+            dname = str(dtype).split(".")[-1]
+            args, kw = _paged_case(b, h, kv, hd, ps, pps, num_pages, dtype, kv_codec,
+                                   seed=b + hd + ps + pps)
+            kern = getattr(fa, name)
+            plain = getattr(fa, name + "_plain")
+            pkw = {k: v for k, v in kw.items() if k != "plan"}
+            got, want = kern(*args, **kw), plain(*args, **pkw)
+            torch.cuda.synchronize()
+            tol = PAGED_TOL["quant" if kv_codec != "fp" else dname]
+            err, ok = close(got, want, tol)
+            q, pages, lengths = args[0], args[1], args[-1]
+            nbytes = fa.paged_decode_bytes(q, pages, lengths, kv_codec)
+            flops = 4.0 * h * hd * float(lengths.long().sum().item())
+            bound, bound_by = fa.bound_ms(nbytes, flops, dtype)
+            k_ms = time_ms(lambda: kern(*args, **kw), 50)
+            p_ms = time_ms(lambda: plain(*args, **pkw), 10)
+            row = {"kernel": name, "shape": label, "dtype": dname, "kv_codec": kv_codec,
+                   "b": b, "h": h, "kv": kv, "hd": hd, "page_size": ps, "pages_per_slot": pps,
+                   "num_pages": num_pages,
+                   "live_rows": int(lengths.long().sum().item()), "max_abs_err": err,
+                   "tolerance": tol, "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                   "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+                   "roofline_share": bound / k_ms}
+            rows.append(row)
+            log(json.dumps(row))
+            if not ok:
+                raise SystemExit(f"{name} disagrees with its plain version at {label} "
+                                 f"{dname} {kv_codec}: {row}")
+            # the serve paths run fp32 q: K13 over fp pages, K14 over split14's int4
+            if main_row == (name, kv_codec) and dname == "float32":
+                main[name] = row
+    detail["paged_rows"] = rows
+    return main
+
+
+#: the larger geometry of split9's shape the serve phase adds: 64 requests
+#: of 512 prompt tokens and 64 new ones on 32 slots of 40 pages of 16, a
+#: 1281-page fp32 pool (about 0.5 GB at Qwen2-0.5B), best effort (no
+#: deadline: the admission price of 64 queued 512-token requests exceeds
+#: split9's 120 s)
+LARGE_SERVE = {
+    "experiment": "serve",
+    "serving": {"admission": {"max_queue_depth": 64}, "capacity_round": 16,
+                "soak": {"n_requests": 64, "arrival_rate": 2.0, "prompt_len": 512,
+                         "max_new_tokens": 64, "deadline_s": None}},
+    "batching": {"page_size": 16, "num_pages": 1281, "max_slots": 32, "pages_per_slot": 40},
+}
+
+
+def serve_paths(args, detail: dict) -> dict:
+    """Phase 11: the batched serve paths at full Qwen2-0.5B width and depth
+    through ``run_serve`` (what ``python -m edgellm_tpu_torch.run`` calls),
+    every count set to 0 just before each path and read just after ->
+    launches by path. run_serve warms its batcher first (one prefill and one
+    step of the soak's prompt shape), so each count holds one more prefill
+    and one more step than the path's report."""
+    import torch
+
+    from edgellm_tpu_torch.models import PRESETS, init_params
+    from edgellm_tpu_torch.run import run_serve
+
+    cfg = PRESETS["qwen2-0.5b"]
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(args.seed),
+                         device="cuda")
+    out_dir = os.path.join(args.out or ".", "serve")
+    os.makedirs(out_dir, exist_ok=True)
+    cases = [(name, json.load(open(f"configs/{name}_qwen_{suffix}.json")))
+             for name, suffix in (("split9", "paged"), ("split13", "prefix"),
+                                  ("split14", "kvq"))]
+    cases.append(("split9 large", LARGE_SERVE))
+    paths = {}
+    for label, p in cases:
+        kv_codec = p.get("kv_at_rest", {}).get("codec", "fp")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.monotonic()
+        summary = run_serve(cfg, params, p,
+                            lambda f: os.path.join(out_dir, label.replace(" ", "_") + "_" + f))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_counts()
+        rep = summary["_batcher"]
+        hits = rep.get("prefix", {}).get("hits", 0)
+        prefills = rep["admitted"] - rep["evicted"] - hits
+        want = dict.fromkeys(KERNELS, 0)
+        attn = "paged_decode_attention" if kv_codec == "fp" else "paged_decode_attention_quant"
+        want[attn] = cfg.num_layers * (rep["steps"] + 1)
+        want["causal_attention"] = cfg.num_layers * (prefills + 1)
+        n = p["serving"]["soak"]["n_requests"]
+        row = {"path": label, "kv_codec": kv_codec, "requests": summary["requests"],
+               "outcomes": summary["outcomes"], "batched_steps": rep["steps"],
+               "admitted": rep["admitted"], "evicted": rep["evicted"], "prefills": prefills,
+               "decode_tokens_per_s": rep["decode_tokens_per_s"],
+               "ms_per_step": 1e3 * rep["decode_s"] / max(rep["steps"], 1),
+               "prefill_s": rep["prefill_s"], "decode_s": rep["decode_s"], "wall_s": wall,
+               "occupancy_mean": summary["occupancy_mean"],
+               "prefix_hit_rate": summary.get("prefix_hit_rate"),
+               "prefill_tokens_saved": summary.get("prefill_tokens_saved"),
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches, "launches_expected": want}
+        log(json.dumps({"serve_path": row}))
+        detail.setdefault("serve_paths", {})[label] = row
+        if summary["requests"] != n or summary["outcomes"] != {"completed": n}:
+            raise SystemExit(f"{label}: not every request completed: {row}")
+        if launches != want:
+            raise SystemExit(f"{label}: kernel launches {launches} != expected {want}")
+        if label == "split13" and not hits:
+            raise SystemExit(f"split13: the prefix index never hit: {row}")
+        paths[label] = launches
+    detail["serve_paths"]["split9 large"]["profile"] = profile_serve_steps(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return paths
+
+
+def profile_serve_steps(cfg, params, n_steps: int = 10) -> dict:
+    """Where one steady group of ``n_steps`` ragged steps of the large
+    geometry spends the card's time (:func:`device_time`): 32 running
+    slots of 512-token prompts, sampled at temperature 0.7."""
+    from edgellm_tpu_torch.run import batching_config
+    from edgellm_tpu_torch.serve import ContinuousBatcher
+
+    b = ContinuousBatcher(cfg, params, batching_config(cfg, LARGE_SERVE))
+    rng = np.random.default_rng(11)
+    for i in range(32):
+        b.submit(rng.integers(1, cfg.vocab_size, 512), 64, temperature=0.7, rng_seed=i)
+    for _ in range(3):  # admit every slot, then a few steady steps
+        b.step()
+    out, _ = device_time(lambda: [b.step() for _ in range(n_steps)], n_steps)
+    out["steps"] = out.pop("chunks")
+    log_profile("profile_serve_steps", out, 15)
+    return out
+
+
+def _forced_logits_paged(cfg, params, prompts, forced, device, kv_codec: str):
+    """Teacher-forced logits of the ragged paged step: each prompt prefilled
+    and adopted into its own slot, then every step fed ``forced[:, t]``
+    -> (T, B, V) fp32 on the CPU."""
+    import torch
+
+    from edgellm_tpu_torch.models.paged_kv import PagedKVCache, paged_decode_step, \
+        paged_decode_step_quant
+    from edgellm_tpu_torch.serve.decode import _prefill_impl
+
+    b, steps = forced.shape
+    # the committed serve configs' page size, 8
+    pool = PagedKVCache(cfg, num_pages=1 + b * 16, page_size=8, max_slots=b, pages_per_slot=16,
+                        device=device, kv_codec=kv_codec)
+    for p in prompts:
+        slot = pool.alloc_slot()
+        ids = torch.from_numpy(p[None].astype(np.int64)).to(device)
+        _, cache = _prefill_impl(cfg, params, ids, len(p), None)
+        pool.adopt(slot, cache.k[:, 0], cache.v[:, 0], len(p))
+    out = []
+    for t in range(steps):
+        for slot in range(b):
+            pool.ensure_writable(slot, int(pool.lengths[slot]) + 1)
+        table, lengths = pool.device_tables()
+        toks = torch.from_numpy(forced[:, t].astype(np.int64)).to(device)
+        if kv_codec == "fp":
+            logits = paged_decode_step(cfg, params, *pool.pool, table, lengths, toks)[0]
+        else:
+            logits = paged_decode_step_quant(cfg, params, *pool.pool, table, lengths, toks,
+                                             kv_codec=kv_codec)[0]
+        out.append(logits.cpu())
+        pool.lengths += 1
+    return torch.stack(out)
+
+
+def _forced_logits_alone(cfg, params, prompt, forced_row, device):
+    """The same forcing through one stream's contiguous cache (prefill +
+    ``decode_step``, no kernel in the decode attention) -> (T, V)."""
+    import torch
+
+    from edgellm_tpu_torch.models.transformer import decode_step
+    from edgellm_tpu_torch.serve.decode import _prefill_impl
+
+    ids = torch.from_numpy(prompt[None].astype(np.int64)).to(device)
+    _, cache = _prefill_impl(cfg, params, ids, len(prompt) + len(forced_row), None)
+    out = []
+    for tok in forced_row:
+        logits, cache = decode_step(cfg, params, cache,
+                                    torch.tensor([int(tok)], device=device))
+        out.append(logits[0].cpu())
+    return torch.stack(out)
+
+
+def serve_cross_checks(args, detail: dict):
+    """Phase 12 at Qwen2-0.5B width, 3 layers, fp32: the teacher-forced
+    paged step on the card (K13 / K14) against the CPU (plain versions) for
+    every tier; on the card, the paged step (K13) against each stream's
+    contiguous decode step (they are not bit-identical on the card: K13 is
+    the online-softmax recurrence, as the reference's kernel is at
+    flash_attention.py:707-711); greedy batched streams identical on the
+    card and the CPU, and on the card identical to each stream alone
+    through ``generate``."""
+    import torch
+
+    from edgellm_tpu_torch.models import PRESETS, init_params, params_to
+    from edgellm_tpu_torch.serve import BatchingConfig, ContinuousBatcher, generate
+
+    cfg = dataclasses.replace(PRESETS["qwen2-0.5b"], num_layers=3)
+    cpu = init_params(cfg, torch.Generator().manual_seed(args.seed), device="cpu")
+    card = params_to(cpu, device="cuda")
+    rng = np.random.default_rng(args.seed + 3)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (5, 37, 64, 100)]
+    forced = rng.integers(1, cfg.vocab_size, (len(prompts), 6))
+    rows = {}
+
+    def check(name, got, want, tol):
+        diff = (got - want).abs()
+        row = {"max_abs_diff": diff.max().item(),
+               "max_rel_diff": (diff / want.abs().clamp(min=1e-6)).max().item(),
+               "tolerance": tol, "max_abs_logit": want.abs().max().item()}
+        rows[name] = row
+        log(json.dumps({"serve_cross_check": {name: row}}))
+        if not bool((diff <= tol[0] + tol[1] * want.abs()).all()):
+            raise SystemExit(f"serve cross-check {name} failed: {row}")
+
+    on_card = {}
+    for kv_codec in ("fp", "int8_per_channel", "int4_per_channel"):
+        tol = PAGED_CROSS_TOL["fp" if kv_codec == "fp" else "quant"]
+        on_card[kv_codec] = _forced_logits_paged(cfg, card, prompts, forced, "cuda", kv_codec)
+        want = _forced_logits_paged(cfg, cpu, prompts, forced, "cpu", kv_codec)
+        check(f"paged step {kv_codec} card vs cpu", on_card[kv_codec], want, tol)
+    alone = torch.stack([_forced_logits_alone(cfg, card, p, f, "cuda")
+                         for p, f in zip(prompts, forced)], dim=1)
+    check("paged step (K13) vs contiguous decode step, card", on_card["fp"], alone,
+          PAGED_CROSS_TOL["fp"])
+
+    bcfg = BatchingConfig(page_size=8, num_pages=80, max_slots=4, pages_per_slot=16)
+    reqs = [rng.integers(1, cfg.vocab_size, int(n)) for n in rng.integers(3, 100, 6)]
+    streams = {}
+    for dev, params in (("cuda", card), ("cpu", cpu)):
+        b = ContinuousBatcher(cfg, params, bcfg)
+        sids = [b.submit(r, 8) for r in reqs]
+        res = b.run()
+        streams[dev] = [res[s] for s in sids]
+    solo = [generate(cfg, card, r[None], 8)[0].cpu().numpy() for r in reqs]
+    same_cpu = sum(np.array_equal(a, c) for a, c in zip(streams["cuda"], streams["cpu"]))
+    same_solo = sum(np.array_equal(a, c) for a, c in zip(streams["cuda"], solo))
+    rows["greedy streams"] = {"streams": len(reqs), "card_equals_cpu": same_cpu,
+                              "batched_equals_generate_on_card": same_solo}
+    log(json.dumps({"serve_cross_check": {"greedy streams": rows["greedy streams"]}}))
+    detail["serve_cross_check"] = rows
+    if same_cpu != len(reqs) or same_solo != len(reqs):
+        raise SystemExit(f"greedy batched streams differ: {rows['greedy streams']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -787,15 +1153,19 @@ def main() -> int:
     t0 = time.monotonic()
     main_rows = kernel_checks(detail)
     codec_rows = codec_checks(detail)
+    paged_rows = paged_checks(detail)
     t1 = time.monotonic()
     by_path = {"token_sweep": main_path(args, detail)}
     t2 = time.monotonic()
     by_path.update(split_paths(args, detail))
     t3 = time.monotonic()
+    by_path.update(serve_paths(args, detail))
+    t4 = time.monotonic()
     split_cross_checks(args, detail)
     cross_check(args, detail)
+    serve_cross_checks(args, detail)
     detail["phase_s"] = {"kernels": t1 - t0, "token_sweep": t2 - t1, "split_paths": t3 - t2,
-                         "cross_checks": time.monotonic() - t3}
+                         "serve_paths": t4 - t3, "cross_checks": time.monotonic() - t4}
     log(json.dumps({"phase_s": detail["phase_s"]}))
 
     kernels = []
@@ -804,6 +1174,10 @@ def main() -> int:
         if name in main_rows:
             r = main_rows[name]
             shape = f"{r['shape']} B={r['b']} S={r['s']} {r['dtype']}"
+        elif name in paged_rows:
+            r = paged_rows[name]
+            shape = (f"{r['shape']} B={r['b']} ps={r['page_size']} pps={r['pages_per_slot']} "
+                     f"{r['dtype']} {r['kv_codec']}")
         else:
             r = codec_rows[name]
             shape = f"qwen2-0.5b split N={r['n']} D={r['d']} float32"

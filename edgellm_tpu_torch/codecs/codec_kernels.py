@@ -39,7 +39,7 @@ import ctypes
 import torch
 
 from ..utils import cuda_build
-from .packing import _INV_7, _INV_127, _INV_255, WireCodec, _channel_mean, _f32, _saturating
+from .packing import _INV_7, _INV_127, _INV_255, WireCodec, _channel_mean_scale, _f32, _saturating
 
 #: widest row an encode block can keep in shared memory (227 KB a block)
 MAX_ENCODE_D = 56 * 1024
@@ -442,7 +442,7 @@ def pallas_ternary(kind: str) -> WireCodec:
     def encode(h):
         b, s, d = h.shape
         if kind == "mean":
-            scale = _channel_mean(h) + 1e-8
+            scale = _channel_mean_scale(h)
         else:
             cmax = h.abs().amax(dim=(0, 1), keepdim=True)
             scale = torch.where(cmax > 0, cmax, 1.0)

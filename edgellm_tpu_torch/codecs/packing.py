@@ -28,7 +28,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..utils.ordered import ordered_sum
+from ..utils.ordered import xla_row_sum
 
 _INV_255 = np.float32(1.0 / 255.0)
 _INV_7 = np.float32(1.0 / 7.0)
@@ -204,15 +204,22 @@ def _int4_per_token() -> WireCodec:
     return WireCodec("int4_per_token", encode, decode)
 
 
-def _channel_mean(h: torch.Tensor) -> torch.Tensor:
-    """``mean(h, axis=(0, 1), keepdims=True)`` in h's dtype: a sum in
-    ``ordered_sum``'s order times the float32 reciprocal of the count. That
-    is the reference's jitted order at batch 1; over several batch rows XLA
-    associates the two-axis sum another way (up to 1 ulp apart)."""
+def _channel_mean_scale(h: torch.Tensor) -> torch.Tensor:
+    """``ternary_mean``'s scale, ``mean(h, axis=(0, 1), keepdims=True) +
+    1e-8``, as the jitted reference computes it: the (B*S, D) rows summed in
+    :func:`~..utils.ordered.xla_row_sum`'s order, then, on float32 input, one
+    fused multiply-add of the sum, the float32 reciprocal of the count and
+    1e-8 (XLA's CPU backend contracts the two; evaluated in float64, whose
+    single rounding before the float32 cast is the FMA's except on ties
+    2^-29 apart). Bit-exact at batch 1, the reference's shape; over several
+    batch rows XLA associates the two-axis sum another way (up to 1 ulp)."""
     b, s, d = h.shape
-    tot = ordered_sum(h.float().reshape(b * s, d), dim=0)
-    mean = tot * torch.tensor(np.float32(1.0 / (b * s)), device=h.device)
-    return mean.to(h.dtype).reshape(1, 1, d)
+    tot = xla_row_sum(h.float().reshape(b * s, d))
+    inv = np.float32(1.0 / (b * s))
+    if h.dtype == torch.float32:
+        scale = tot.double() * float(inv) + float(np.float32(1e-8))
+        return scale.float().reshape(1, 1, d)
+    return (tot * _f32(inv, tot)).to(h.dtype).reshape(1, 1, d) + 1e-8
 
 
 def _ternary(kind: str) -> WireCodec:
@@ -220,7 +227,7 @@ def _ternary(kind: str) -> WireCodec:
 
     def encode(h):
         if kind == "mean":
-            scale = _channel_mean(h) + 1e-8
+            scale = _channel_mean_scale(h)
         else:
             cmax = h.abs().amax(dim=(0, 1), keepdim=True)
             scale = torch.where(cmax > 0, cmax, 1.0)

@@ -45,3 +45,23 @@ def _check_shapes(cfg: ModelConfig, params: dict) -> None:
         if t.shape[0] != L:
             raise ValueError(f"layers/{name}: expected {L} stacked layers, got "
                              f"{tuple(t.shape)}")
+
+
+def paged_cache_from_state(cfg: ModelConfig, state: dict, *, prefix_cache=None,
+                           device="cuda"):
+    """A :class:`~.paged_kv.PagedKVCache` holding a paged cache's
+    ``state_dict()`` (host numpy arrays: the JAX package's, or the port's
+    own; an fp pool in float32), with the geometry and the KV-at-rest tier
+    read off the state: the pool, page table, lengths, free list, refcounts
+    and prefix index carry across, so both packages can step the same pool
+    and compare."""
+    from .paged_kv import PagedKVCache
+
+    tier = state.get("kv_codec", "fp")
+    k = np.asarray(state["k"] if tier == "fp" else state["k_codes"])
+    max_slots, pages_per_slot = np.asarray(state["page_table"]).shape
+    cache = PagedKVCache(cfg, num_pages=k.shape[1], page_size=k.shape[2], max_slots=max_slots,
+                         pages_per_slot=pages_per_slot, device=device,
+                         prefix_cache=prefix_cache, kv_codec=tier)
+    cache.load_state_dict(state)
+    return cache

@@ -18,17 +18,29 @@ plans:
   ``exp(s - lse)`` down the columns into ``col_sum / S`` and writes the last
   query row. Two passes, no atomics, deterministic.
 
+The decode half: :func:`decode_attention` and :func:`verify_attention`
+against a contiguous cache are plain PyTorch (the TPU package has no kernel
+there either), and the continuous batcher's paged attention runs two more:
+
+- **K13** (``csrc/paged_decode.cu``), behind :func:`paged_decode_attention`:
+  q_len = 1 per slot over that slot's page list, one block per (KV head,
+  slot), online softmax in fp32;
+- **K14** (the same source), behind :func:`paged_decode_attention_quant`:
+  K13 over int8 or packed int4 codes with per-row scales, dequantized in
+  registers.
+
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors. Which shapes reach a kernel is decided by plan
 (:func:`kernel_plan`, the TPU envelope: hd in {64, 128}, head-aligned GQA,
-S <= 2048); ``transformer.attention`` sends a shape without a plan to the
-plain version. A CUDA tensor outside the wrapper's checks raises.
+S <= 2048; :func:`decode_plan` for pages); the model sends a shape without a
+plan to the plain version. A CUDA tensor outside the wrapper's checks raises.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..utils import cuda_build
@@ -302,7 +314,352 @@ def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+# ---------------------------------------------------------------------------
+# Decode attention: q_len = 1 against a length-masked KV cache, contiguous
+# (no kernel, as in the TPU package) or paged (K13 / K14 on the card).
+# ---------------------------------------------------------------------------
+
+#: KV-at-rest storage tiers of the paged pool (models/paged_kv.py): pages hold
+#: packed int codes plus one fp32 scale per (token row, KV head); "fp" stores
+#: the cache dtype itself
+KV_REST_TIERS = ("fp", "int8_per_channel", "int4_per_channel")
+#: the paged plan's K/V byte budget per slot span (the TPU package's number,
+#: kept so the same shapes reach a kernel)
+MAX_PAGED_KV_BYTES = 4 * 1024 * 1024
+#: page rows of a planned page must be a multiple of this. The TPU package
+#: aligns quantized pages at 32 on its own chip (the int8 sublane tile of its
+#: vector registers); that is a rule of the TPU's tiling, not of the
+#: function, and the Hopper kernel reads rows one by one, so quantized pages
+#: align at 8 here like fp pages (split14's page_size 8 reaches K14).
+PAGE_ALIGN = 8
+
+
+def _kv_quant_spec(kv_codec: str) -> float:
+    """Integer span of a quantized KV tier (codes live in [-qmax, qmax])."""
+    if kv_codec == "int8_per_channel":
+        return 127.0
+    if kv_codec == "int4_per_channel":
+        return 7.0
+    raise ValueError(f"unknown KV-at-rest tier {kv_codec!r}; quantized "
+                     f"options: {[t for t in KV_REST_TIERS if t != 'fp']}")
+
+
+def quantize_kv_rows(x: torch.Tensor, kv_codec: str):
+    """Quantize K or V rows per (token, KV head) over the ``hd`` lanes:
+    x (..., KV, hd) -> (codes, scales (..., KV) fp32). The scale is the row's
+    absmax; int8 codes are (..., KV, hd) int8, int4 codes pack lane ``i``
+    with lane ``i + hd/2`` into one uint8 (..., KV, hd // 2). An all-zero row
+    quantizes to zero codes with scale 0 (the trash page stays finite)."""
+    qmax = _kv_quant_spec(kv_codec)
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    safe = torch.where(amax > 0, amax, 1.0)
+    codes = torch.round(xf / safe[..., None] * qmax).to(torch.int8)
+    if kv_codec == "int4_per_channel":
+        half = x.shape[-1] // 2
+        u = (codes.to(torch.int32) + 8).to(torch.uint8)  # [-8, 7] -> [0, 15]
+        codes = u[..., :half] | (u[..., half:] << 4)
+    return codes, amax
+
+
+def _dequant_factor(scales: torch.Tensor, kv_codec: str) -> torch.Tensor:
+    """``scales / qmax`` as the jitted reference compiles it (and as K14
+    computes it): a multiply by the float32 reciprocal of qmax."""
+    inv = torch.tensor(np.float32(1.0 / _kv_quant_spec(kv_codec)), device=scales.device)
+    return scales * inv
+
+
+def dequantize_kv_rows(codes: torch.Tensor, scales: torch.Tensor, kv_codec: str,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Invert :func:`quantize_kv_rows`: codes (..., KV, hdc) + scales
+    (..., KV) -> (..., KV, hd) in ``dtype``, ``code * (scale * (1/qmax))``.
+    Elementwise per row, so gather-then-dequantize equals
+    dequantize-then-gather bit for bit."""
+    factor = _dequant_factor(scales, kv_codec)
+    if kv_codec == "int4_per_channel":
+        lo = (codes & 0xF).to(torch.int8) - 8
+        hi = ((codes >> 4) & 0xF).to(torch.int8) - 8
+        c = torch.cat([lo, hi], dim=-1).float()
+    else:
+        c = codes.float()
+    return (c * factor[..., None]).to(dtype)
+
+
+def decode_plan(capacity: int, h: int, kv: int, hd: int, itemsize: int = 2,
+                pages: Optional[tuple] = None, kv_codec: Optional[str] = None):
+    """Kernel plan for the q_len = 1 decode shape: ``("paged", (pps, ps))``,
+    ``("paged_quant", (pps, ps))`` or None.
+
+    Contiguous caches (``pages=None``) always return None: the TPU package
+    has no contiguous decode kernel and none is owed. Paged caches
+    (``pages=(pages_per_slot, page_size)``) get a plan inside the TPU
+    package's shape gates: validated head dim, head-aligned GQA,
+    ``pps * ps == capacity``, page rows a multiple of :data:`PAGE_ALIGN`,
+    a span of at most ``MAX_BLOCKED_S`` and the :data:`MAX_PAGED_KV_BYTES`
+    budget of the real per-row footprint (packed codes plus one fp32 scale
+    per KV head, per K and per V, for the quantized tiers). On the card the
+    plan dispatches the kernel by itself: there is no override option and
+    no probe cache."""
+    if hd not in VALIDATED_HD or h % kv:
+        return None
+    if pages is None:
+        return None
+    quant = kv_codec is not None and kv_codec != "fp"
+    if quant:
+        _kv_quant_spec(kv_codec)  # fail fast on an unknown tier name
+        if hd % 2:
+            return None
+    pps, ps = pages
+    if pps * ps != capacity or ps % PAGE_ALIGN or capacity > MAX_BLOCKED_S:
+        return None
+    code_bytes = (hd * itemsize if not quant
+                  else (hd if kv_codec == "int8_per_channel" else hd // 2) + 4)
+    if 2 * capacity * kv * code_bytes > MAX_PAGED_KV_BYTES:
+        return None
+    return ("paged_quant", (pps, ps)) if quant else ("paged", (pps, ps))
+
+
+def paged_plan(q: torch.Tensor, k_pages: torch.Tensor, page_table: torch.Tensor,
+               kv_codec: str = "fp"):
+    """:func:`decode_plan` for the paged decode attention's inputs: q
+    (B, 1, H, hd), one layer's pages (num_pages, ps, KV, hdc) and the
+    (B, pages_per_slot) table -> the plan the wrappers take, or None."""
+    pps, ps = page_table.shape[1], k_pages.shape[1]
+    return decode_plan(pps * ps, q.shape[2], k_pages.shape[2], q.shape[3], q.element_size(),
+                       pages=(pps, ps), kv_codec=kv_codec)
+
+
+def _inv_sqrt_hd(hd: int) -> float:
+    """The float32 1 / sqrt(hd) the reference multiplies scores by."""
+    return float(np.float32(1.0 / np.sqrt(hd)))
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     length) -> torch.Tensor:
+    """Single-position attention against a cache: q (B, 1, H, hd) against
+    k/v_cache (B, capacity, KV, hd) of which the first ``length`` positions
+    are valid. ``length`` is an int (one fill level for the batch) or a (B,)
+    tensor (per-row levels: the gather path of the paged attention). Returns
+    (B, 1, H, hd) in q's dtype; scores and softmax in fp32, probabilities in
+    q's dtype before PV, as the reference. GQA: head ``j * rep + g`` attends
+    KV group ``j``, read once per group."""
+    b, s1, h, hd = q.shape
+    kv = k_cache.shape[2]
+    if s1 != 1:
+        raise ValueError(f"decode_attention is q_len=1 only, got q_len={s1}")
+    if h % kv:
+        raise ValueError(f"ragged GQA: H={h}, KV={kv}")
+    rep = h // kv
+    qg = q[:, 0].reshape(b, kv, rep, hd)
+    scores = torch.einsum("bgrd,bcgd->bgrc", qg.float(), k_cache.float()) * _inv_sqrt_hd(hd)
+    pos = torch.arange(k_cache.shape[1], device=q.device)
+    if isinstance(length, torch.Tensor) and length.dim():
+        valid = pos[None, :] < length[:, None]
+        valid = valid[:, None, None, :]
+    else:
+        valid = (pos < int(length))[None, None, None, :]
+    scores = torch.where(valid, scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrc,bcgd->bgrd", probs.to(q.dtype).float(), v_cache.float())
+    return out.to(q.dtype).reshape(b, 1, h, hd)
+
+
+def verify_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     length: int) -> torch.Tensor:
+    """q_len = K attention against a cache whose rows ``length .. length+K-1``
+    hold the K new positions: query row ``j`` sees cache positions
+    ``[0, length + j]``. The suffix prefill of a prefix-sharing admit runs
+    through it. Returns (B, K, H, hd) in q's dtype; softmax in fp32."""
+    b, kq, h, hd = q.shape
+    kv = k_cache.shape[2]
+    if h % kv:
+        raise ValueError(f"ragged GQA: H={h}, KV={kv}")
+    rep = h // kv
+    qg = q.reshape(b, kq, kv, rep, hd)
+    scores = torch.einsum("bqgrd,bcgd->bqgrc", qg.float(), k_cache.float()) * _inv_sqrt_hd(hd)
+    pos = torch.arange(k_cache.shape[1], device=q.device)
+    valid = pos[None, :] < (int(length) + torch.arange(kq, device=q.device)[:, None] + 1)
+    scores = torch.where(valid[None, :, None, None, :], scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bqgrc,bcgd->bqgrd", probs.to(q.dtype).float(), v_cache.float())
+    return out.to(q.dtype).reshape(b, kq, h, hd)
+
+
+def _gather_span(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """Each slot's pages in logical order as one contiguous span:
+    (num_pages, ps, ...) pages and a (B, pps) table -> (B, pps * ps, ...)."""
+    pn, ps = pages.shape[:2]
+    b, pps = page_table.shape
+    idx = (page_table.long()[:, :, None] * ps
+           + torch.arange(ps, device=pages.device)[None, None, :]).reshape(b, pps * ps)
+    return pages.reshape((pn * ps,) + tuple(pages.shape[2:]))[idx]
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths):
+    """Plain version of :func:`paged_decode_attention`, the reference's
+    gather path: each slot's span gathered through the page table, then
+    :func:`decode_attention` with per-slot lengths (trash-page rows land
+    only in masked positions, where the softmax gives exactly 0)."""
+    return decode_attention(q, _gather_span(k_pages, page_table),
+                            _gather_span(v_pages, page_table), lengths)
+
+
+def paged_decode_attention_quant_plain(q, k_pages, v_pages, k_scale, v_scale, page_table,
+                                       lengths, *, kv_codec: str):
+    """Plain version of :func:`paged_decode_attention_quant`: codes and
+    scales gathered through the page table, dequantized to q's dtype, then
+    :func:`decode_attention`."""
+    kg = dequantize_kv_rows(_gather_span(k_pages, page_table),
+                            _gather_span(k_scale, page_table), kv_codec, q.dtype)
+    vg = dequantize_kv_rows(_gather_span(v_pages, page_table),
+                            _gather_span(v_scale, page_table), kv_codec, q.dtype)
+    return decode_attention(q, kg, vg, lengths)
+
+
+_PAGED_MODE = {"fp": 0, "int8_per_channel": 8, "int4_per_channel": 4}
+
+
+def _paged_lib() -> ctypes.CDLL:
+    lib = cuda_build.library("paged_decode")
+    if not getattr(lib, "_edgellm_declared", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.edgellm_paged_decode.argtypes = ([ptr] * 8 + [i32] * 7 + [ctypes.c_float]
+                                             + [i32] * 2 + [ptr])
+        lib.edgellm_paged_decode.restype = i32
+        lib.edgellm_paged_decode_error.argtypes = [i32]
+        lib.edgellm_paged_decode_error.restype = ctypes.c_char_p
+        lib._edgellm_declared = True
+    return lib
+
+
+def _launch_paged(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths, kv_codec: str,
+                  plan):
+    """Checks of the kernel's contract, then one launch -> (B, 1, H, hd)."""
+    b, s1, h, hd = q.shape
+    pn, ps, kv = k_pages.shape[:3]
+    pps = page_table.shape[1]
+    tensors = [q, k_pages, v_pages, page_table, lengths] + (
+        [k_scale, v_scale] if k_scale is not None else [])
+    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
+        raise ValueError("paged decode kernel inputs must share one CUDA device")
+    if s1 != 1 or h % kv:
+        raise ValueError(f"paged decode takes q_len=1 and H % KV == 0, got q {tuple(q.shape)}, "
+                         f"KV={kv}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"paged decode takes float32 or bfloat16 q, got {q.dtype}")
+    if (kv_codec == "fp" and k_pages.dtype != q.dtype) or k_pages.dtype != v_pages.dtype:
+        raise ValueError(f"K13 takes pages in q's dtype, got q {q.dtype}, pages "
+                         f"{k_pages.dtype}/{v_pages.dtype}")
+    if kv_codec != "fp":
+        want = torch.int8 if kv_codec == "int8_per_channel" else torch.uint8
+        if k_pages.dtype != want or k_scale.dtype != torch.float32 \
+                or v_scale.dtype != torch.float32:
+            raise ValueError(f"K14 {kv_codec} takes {want} codes and float32 scales, got "
+                             f"{k_pages.dtype}, {k_scale.dtype}/{v_scale.dtype}")
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("page_table and lengths must be int32")
+    # the kernel indexes every buffer by these extents without bounds checks
+    if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"k/v pages must be one (num_pages, ps, KV, hdc) shape, got "
+                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    if kv_codec == "fp" and k_pages.shape[3] != hd:
+        raise ValueError(f"page head dim {k_pages.shape[3]} does not match q's {hd}")
+    if k_scale is not None and (k_scale.shape != (pn, ps, kv) or v_scale.shape != (pn, ps, kv)):
+        raise ValueError(f"k/v scales must be {(pn, ps, kv)}, got {tuple(k_scale.shape)} / "
+                         f"{tuple(v_scale.shape)}")
+    if page_table.dim() != 2 or page_table.shape[0] != b or lengths.shape != (b,):
+        raise ValueError(f"page_table must be ({b}, pages_per_slot) and lengths ({b},), got "
+                         f"{tuple(page_table.shape)} and {tuple(lengths.shape)}")
+    kind = "paged" if kv_codec == "fp" else "paged_quant"
+    if plan is None or plan != (kind, (pps, ps)):
+        raise ValueError(f"no kernel covers pps={pps}, ps={ps}, H={h}, KV={kv}, hd={hd} "
+                         f"({kv_codec}): decode_plan refuses the shape")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged decode kernel inputs must be contiguous")
+    lib = _paged_lib()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.edgellm_paged_decode(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scale.data_ptr() if k_scale is not None else None,
+            v_scale.data_ptr() if v_scale is not None else None,
+            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            b, h, kv, hd, ps, pps, pn, _inv_sqrt_hd(hd), _DTYPE_CODE[q.dtype],
+            _PAGED_MODE[kv_codec], torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, err, "paged_decode_attention", "edgellm_paged_decode_error")
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           page_table: torch.Tensor, lengths: torch.Tensor, *,
+                           plan) -> torch.Tensor:
+    """Ragged single-position attention against a paged pool: q (B, 1, H, hd)
+    per slot; k/v_pages (num_pages, page_size, KV, hd), one layer's pool;
+    page_table (B, pages_per_slot) int32 names each slot's pages in logical
+    order (0, the trash page, for unallocated tails); lengths (B,) int32
+    counts each slot's valid positions, the one this step wrote included.
+    Returns (B, 1, H, hd) in q's dtype.
+
+    CUDA tensors launch K13 (``paged_decode_attention.launches`` counts the
+    launches); CPU tensors take :func:`paged_decode_attention_plain`.
+    ``plan`` is :func:`paged_plan`'s for these inputs; a CUDA call whose
+    plan is None raises."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths)
+    out = _launch_paged(q, k_pages, v_pages, None, None, page_table, lengths, "fp", plan)
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor, k_scale: torch.Tensor,
+                                 v_scale: torch.Tensor, page_table: torch.Tensor,
+                                 lengths: torch.Tensor, *, kv_codec: str,
+                                 plan) -> torch.Tensor:
+    """:func:`paged_decode_attention` over a quantized pool: k/v_pages hold
+    codes (num_pages, page_size, KV, hdc), hdc = hd for int8 and hd/2 for
+    packed int4, with k/v_scale (num_pages, page_size, KV) fp32 per-row
+    absmax scales, the layout :func:`quantize_kv_rows` writes.
+
+    CUDA tensors launch K14, which dequantizes in registers
+    (``paged_decode_attention_quant.launches`` counts the launches); CPU
+    tensors take :func:`paged_decode_attention_quant_plain`. ``plan`` as
+    for :func:`paged_decode_attention`."""
+    hdc = k_pages.shape[3]
+    hd = hdc * 2 if kv_codec == "int4_per_channel" else hdc
+    if hd != q.shape[3]:
+        raise ValueError(f"code width {hdc} does not match q head_dim {q.shape[3]} for "
+                         f"tier {kv_codec!r}")
+    if q.device.type == "cpu":
+        return paged_decode_attention_quant_plain(q, k_pages, v_pages, k_scale, v_scale,
+                                                  page_table, lengths, kv_codec=kv_codec)
+    out = _launch_paged(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
+                        kv_codec, plan)
+    paged_decode_attention_quant.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+paged_decode_attention_quant.launches = 0
+
+
+def paged_decode_bytes(q: torch.Tensor, k_pages: torch.Tensor, lengths: torch.Tensor,
+                       kv_codec: str = "fp") -> float:
+    """Bytes the paged decode attention must move for these inputs: the live
+    K and V rows of every slot read once (codes plus scales on a quantized
+    tier), q read once and the output written once."""
+    kv, hdc = k_pages.shape[2], k_pages.shape[3]
+    row = kv * (hdc * k_pages.element_size() + (4 if kv_codec != "fp" else 0))
+    live = int(lengths.long().sum().item())
+    return float(2 * live * row + 2 * q.numel() * q.element_size())
+
+
 __all__ = ["MAX_BLOCKED_S", "VALIDATED_HD", "kernel_plan", "causal_attention",
            "causal_attention_stats", "causal_attention_plain",
            "causal_attention_stats_plain", "attention_plain",
-           "causal_attention_bytes_flops", "bound_ms"]
+           "causal_attention_bytes_flops", "bound_ms",
+           "KV_REST_TIERS", "MAX_PAGED_KV_BYTES", "quantize_kv_rows",
+           "dequantize_kv_rows", "decode_plan", "paged_plan", "decode_attention", "verify_attention",
+           "paged_decode_attention", "paged_decode_attention_quant",
+           "paged_decode_attention_plain", "paged_decode_attention_quant_plain",
+           "paged_decode_bytes"]

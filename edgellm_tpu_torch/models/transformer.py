@@ -1,5 +1,8 @@
 """Transformer core shared by the GPT-NeoX (Pythia), Qwen2 and Llama families,
-forward half: PyTorch counterpart of ``edgellm_tpu/models/transformer.py``.
+forward and decode halves: PyTorch counterpart of
+``edgellm_tpu/models/transformer.py``. The decode half (``KVCache``,
+``prefill``, ``decode_step``, ``block_verify``) writes new cache rows in
+place where the reference returns new arrays.
 
 Parameters are a plain dict of tensors with every layer stacked along a
 leading axis (``params["layers"][name]`` is (L, ...)) and weights in the
@@ -19,13 +22,14 @@ from __future__ import annotations
 import math
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .configs import ModelConfig
 from .flash_attention import (attention_plain, causal_attention,
                               causal_attention_plain, causal_attention_stats,
-                              kernel_plan)
+                              decode_attention, kernel_plan, verify_attention)
 
 
 class AttnStats(NamedTuple):
@@ -126,9 +130,35 @@ def _stats_block_size(s: int, requested: Optional[int]) -> int:
     return s
 
 
+def project_qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor):
+    """(B, S, D) -> pre-rotary q (B, S, H, hd), k and v (B, S, KV, hd); head
+    counts come from the weight shapes."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    h, kv = lp["wq"].shape[-1] // hd, lp["wk"].shape[-1] // hd
+    q = (x @ lp["wq"]).reshape(b, s, h, hd)
+    k = (x @ lp["wk"]).reshape(b, s, kv, hd)
+    v = (x @ lp["wv"]).reshape(b, s, kv, hd)
+    if "bq" in lp:
+        q = q + lp["bq"].reshape(h, hd)
+        k = k + lp["bk"].reshape(kv, hd)
+        v = v + lp["bv"].reshape(kv, hd)
+    return q, k, v
+
+
+def project_out(lp: dict, out: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) attention output -> (B, S, D): output projection + bias."""
+    b, s = out.shape[:2]
+    out = out.reshape(b, s, -1) @ lp["wo"]
+    return out + lp["bo"] if "bo" in lp else out
+
+
 def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin,
-              capture_stats: bool, stats_block: Optional[int] = None):
-    """Causal self-attention with optional reduced-stat capture -> (out, stats).
+              capture_stats: bool, stats_block: Optional[int] = None,
+              return_kv: bool = False):
+    """Causal self-attention with optional reduced-stat capture -> (out, stats)
+    or, with ``return_kv``, (out, stats, (k, v)): the post-rotary K/V at
+    ``num_kv_heads`` width that a prefill fills the decode cache from.
 
     Shapes inside :func:`~.flash_attention.kernel_plan`'s envelope go through
     the kernels' wrappers (K-attn without stats, K-stats with them; the CPU
@@ -137,16 +167,8 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin,
     ``stats_block=0`` single block is the oracle in tests. Stats are
     (col_sum / S, last_row), each (B, H, S) fp32."""
     b, s, d = x.shape
-    hd = cfg.head_dim
-    h, kv = lp["wq"].shape[-1] // hd, lp["wk"].shape[-1] // hd
-
-    q = (x @ lp["wq"]).reshape(b, s, h, hd)
-    k = (x @ lp["wk"]).reshape(b, s, kv, hd)
-    v = (x @ lp["wv"]).reshape(b, s, kv, hd)
-    if "bq" in lp:
-        q = q + lp["bq"].reshape(h, hd)
-        k = k + lp["bk"].reshape(kv, hd)
-        v = v + lp["bv"].reshape(kv, hd)
+    q, k, v = project_qkv(cfg, lp, x)
+    h, kv, hd = q.shape[2], k.shape[2], cfg.head_dim
     q = apply_rotary(q, cos, sin, cfg.rotary_dim)
     k = apply_rotary(k, cos, sin, cfg.rotary_dim)
 
@@ -159,10 +181,8 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin,
         out, stats = causal_attention_stats(q, k, v, plan=plan)
     else:
         out, stats = attention_plain(q, k, v, q_blk=_stats_block_size(s, stats_block))
-    out = out.reshape(b, s, h * hd) @ lp["wo"]
-    if "bo" in lp:
-        out = out + lp["bo"]
-    return out, stats
+    out = project_out(lp, out)
+    return (out, stats, (k, v)) if return_kv else (out, stats)
 
 
 def mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
@@ -173,20 +193,31 @@ def mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
 
 
-def block(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, cos, sin,
-          capture_stats: bool, stats_block: Optional[int] = None):
-    """One decoder block -> (hidden, stats). GPT-NeoX: parallel residual;
-    Qwen2/Llama: sequential."""
+def _block_norm(cfg: ModelConfig, lp: dict, x: torch.Tensor, n: int) -> torch.Tensor:
+    """The block's n-th pre-norm (1: attention, 2: MLP)."""
     if cfg.family == "gpt_neox":
-        attn_in = _layernorm(hidden, lp["ln1_scale"], lp["ln1_bias"], cfg.norm_eps)
-        attn_out, stats = attention(cfg, lp, attn_in, cos, sin, capture_stats, stats_block)
-        mlp_in = _layernorm(hidden, lp["ln2_scale"], lp["ln2_bias"], cfg.norm_eps)
-        return hidden + attn_out + mlp(cfg, lp, mlp_in), stats
-    attn_in = _rmsnorm(hidden, lp["ln1_scale"], cfg.norm_eps)
-    attn_out, stats = attention(cfg, lp, attn_in, cos, sin, capture_stats, stats_block)
+        return _layernorm(x, lp[f"ln{n}_scale"], lp[f"ln{n}_bias"], cfg.norm_eps)
+    return _rmsnorm(x, lp[f"ln{n}_scale"], cfg.norm_eps)
+
+
+def block_with(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, attn: Callable):
+    """One decoder block around an attention core: ``attn(normed)`` returns
+    ``(attn_out, *extra)`` -> (hidden, *extra). GPT-NeoX: parallel residual;
+    Qwen2/Llama: sequential. The prefill, decode, verify and paged blocks
+    differ only in their attention core."""
+    attn_out, *extra = attn(_block_norm(cfg, lp, hidden, 1))
+    if cfg.family == "gpt_neox":
+        return (hidden + attn_out + mlp(cfg, lp, _block_norm(cfg, lp, hidden, 2)), *extra)
     hidden = hidden + attn_out
-    mlp_in = _rmsnorm(hidden, lp["ln2_scale"], cfg.norm_eps)
-    return hidden + mlp(cfg, lp, mlp_in), stats
+    return (hidden + mlp(cfg, lp, _block_norm(cfg, lp, hidden, 2)), *extra)
+
+
+def block(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, cos, sin,
+          capture_stats: bool, stats_block: Optional[int] = None,
+          return_kv: bool = False):
+    """One decoder block -> (hidden, stats[, (k, v)])."""
+    return block_with(cfg, lp, hidden, lambda x: attention(
+        cfg, lp, x, cos, sin, capture_stats, stats_block, return_kv))
 
 
 def embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
@@ -211,23 +242,29 @@ def run_layers(cfg: ModelConfig, params: dict, hidden: torch.Tensor, *,
                boundary_fn: Optional[Callable] = None,
                capture_stats: bool = False,
                collect_hidden: bool = False,
+               collect_kv: bool = False,
                stats_block: Optional[int] = None):
     """Run decoder layers [start, stop) over ``hidden`` -> (hidden, aux).
 
     ``boundary_fn`` receives the global layer index and the post-block hidden
     state. aux holds ``"stats"`` (:class:`AttnStats`, (L, B, H, S) each) with
-    ``capture_stats`` and ``"hiddens"`` ((L, B, S, D), post-boundary_fn) with
-    ``collect_hidden``."""
+    ``capture_stats``, ``"hiddens"`` ((L, B, S, D), post-boundary_fn) with
+    ``collect_hidden``, and ``"kv"`` ((k, v), each (L, B, S, KV, hd), the
+    post-rotary K/V a decode cache is prefilled from) with ``collect_kv``."""
     stop = cfg.num_layers if stop is None else stop
     if not (0 <= start <= stop <= cfg.num_layers):
         raise ValueError(
             f"layer segment [{start}, {stop}) out of range for {cfg.num_layers} layers")
     cos, sin = precompute_rope(cfg, hidden.shape[1], device=hidden.device)
     layers = params["layers"]
-    cols, lasts, hiddens = [], [], []
+    cols, lasts, hiddens, ks, vs = [], [], [], [], []
     for idx in range(start, stop):
         lp = {name: t[idx] for name, t in layers.items()}
-        hidden, stats = block(cfg, lp, hidden, cos, sin, capture_stats, stats_block)
+        hidden, stats, *kv = block(cfg, lp, hidden, cos, sin, capture_stats, stats_block,
+                                   collect_kv)
+        if collect_kv:
+            ks.append(kv[0][0])
+            vs.append(kv[0][1])
         if boundary_fn is not None:
             hidden = boundary_fn(idx, hidden)
         if capture_stats:
@@ -240,6 +277,8 @@ def run_layers(cfg: ModelConfig, params: dict, hidden: torch.Tensor, *,
         aux["stats"] = AttnStats(col_mean=torch.stack(cols), last_row=torch.stack(lasts))
     if collect_hidden:
         aux["hiddens"] = torch.stack(hiddens)
+    if collect_kv:
+        aux["kv"] = (torch.stack(ks), torch.stack(vs))
     return hidden, aux
 
 
@@ -288,6 +327,148 @@ def run_layers_from_ids(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
     hidden = embed(params, input_ids)
     return run_layers(cfg, params, hidden, capture_stats=capture_stats,
                       collect_hidden=True, stats_block=stats_block)
+
+
+# ---------------------------------------------------------------------------
+# KV-cached incremental decode: prefill fills the cache for the prompt, then
+# decode_step appends one position per call.
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    """Per-layer key/value cache for incremental decode.
+
+    k, v: (L, B, capacity, KV, hd) post-rotary keys/values at
+        ``num_kv_heads`` width (the decode attention re-broadcasts them per
+        query group).
+    length: number of valid positions, the next write slot (a host int).
+
+    Unlike the reference's immutable arrays, :func:`decode_step` and
+    :func:`block_verify` write the new rows into ``k``/``v`` in place and
+    return a cache over the same tensors."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[2]
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               dtype: torch.dtype = torch.float32, device="cuda") -> KVCache:
+    """An empty cache for ``batch`` sequences of up to ``capacity`` tokens."""
+    shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+def cache_state_dict(cache) -> dict:
+    """A decode cache (a :class:`KVCache` or a ``{"k", "v", "length"}``
+    dict) as host numpy arrays keyed ``k``/``v``/``length``."""
+    if isinstance(cache, dict):
+        k, v, length = cache["k"], cache["v"], cache["length"]
+    else:
+        k, v, length = cache.k, cache.v, cache.length
+    host = lambda t: (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+    return {"k": host(k), "v": host(v), "length": np.asarray(int(length), np.int32)}
+
+
+def cache_from_state_dict(state: dict, device="cuda") -> dict:
+    """:func:`cache_state_dict` output back on ``device`` as the
+    ``{"k", "v", "length"}`` dict (wrap in :class:`KVCache` for
+    :func:`decode_step`)."""
+    return {"k": torch.from_numpy(np.array(state["k"])).to(device),
+            "v": torch.from_numpy(np.array(state["v"])).to(device),
+            "length": int(state["length"])}
+
+
+def prefill(cfg: ModelConfig, params: dict, input_ids: torch.Tensor, capacity: int, *,
+            boundary_fn: Optional[Callable] = None,
+            compute_dtype: Optional[torch.dtype] = None):
+    """Full forward over the prompt that also fills the decode cache ->
+    (logits (B, S, V) fp32, :class:`KVCache` with length S and the given
+    ``capacity``, in the compute dtype)."""
+    s = input_ids.shape[1]
+    if not 0 < s <= capacity:
+        raise ValueError(f"prompt length {s} must be in [1, capacity={capacity}]")
+    params = _cast_params(params, compute_dtype)
+    hidden, aux = run_layers(cfg, params, embed(params, input_ids),
+                             boundary_fn=boundary_fn, collect_kv=True)
+    logits = unembed(cfg, params, hidden)
+    k, v = aux["kv"]  # (L, B, S, KV, hd) each
+    shape = k.shape[:2] + (capacity,) + k.shape[3:]
+    kc = k.new_zeros(shape)
+    vc = v.new_zeros(shape)
+    kc[:, :, :s] = k
+    vc[:, :, :s] = v
+    return logits, KVCache(kc, vc, s)
+
+
+def _attention_decode(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos_t, sin_t,
+                      k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int):
+    """One layer's attention for one decode position: project the (B, 1, D)
+    hidden, rotate at ``pos``, write the new K/V into this layer's
+    (B, capacity, KV, hd) cache in place, attend against the first ``pos + 1``
+    positions -> (out,)."""
+    q, k, v = project_qkv(cfg, lp, x)
+    q = apply_rotary(q, cos_t, sin_t, cfg.rotary_dim)
+    k = apply_rotary(k, cos_t, sin_t, cfg.rotary_dim)
+    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    return (project_out(lp, decode_attention(q, k_cache, v_cache, pos + 1)),)
+
+
+def block_decode(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, cos_t, sin_t,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+    """The cache-writing twin of :func:`block` for one decode position."""
+    return block_with(cfg, lp, hidden, lambda x: _attention_decode(
+        cfg, lp, x, cos_t, sin_t, k_cache, v_cache, pos))[0]
+
+
+def _attention_verify(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos_t, sin_t,
+                      k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int):
+    """The K-position twin of :func:`_attention_decode`: rotate the (B, K, D)
+    block at positions ``pos .. pos+K-1``, write its K rows into the cache
+    in place, attend causally against the filled prefix -> (out,)."""
+    kq = x.shape[1]
+    q, k, v = project_qkv(cfg, lp, x)
+    q = apply_rotary(q, cos_t, sin_t, cfg.rotary_dim)
+    k = apply_rotary(k, cos_t, sin_t, cfg.rotary_dim)
+    k_cache[:, pos:pos + kq] = k.to(k_cache.dtype)
+    v_cache[:, pos:pos + kq] = v.to(v_cache.dtype)
+    return (project_out(lp, verify_attention(q, k_cache, v_cache, pos)),)
+
+
+def block_verify(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, cos_t, sin_t,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+    """The cache-writing twin of :func:`block` for a K-position block (the
+    suffix prefill of a prefix-sharing admit)."""
+    return block_with(cfg, lp, hidden, lambda x: _attention_verify(
+        cfg, lp, x, cos_t, sin_t, k_cache, v_cache, pos))[0]
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: KVCache, token_ids: torch.Tensor, *,
+                boundary_fn: Optional[Callable] = None,
+                compute_dtype: Optional[torch.dtype] = None):
+    """Append one position: (B,) or (B, 1) token ids -> (logits (B, V) fp32,
+    cache with length + 1; the new rows are written in place). The RoPE
+    tables cover the capacity and the row at ``cache.length`` is used."""
+    params = _cast_params(params, compute_dtype)
+    if token_ids.dim() == 1:
+        token_ids = token_ids[:, None]
+    hidden = embed(params, token_ids)  # (B, 1, D)
+    pos = int(cache.length)
+    cos, sin = precompute_rope(cfg, cache.capacity, device=hidden.device)
+    cos_t, sin_t = cos[pos:pos + 1], sin[pos:pos + 1]
+    for idx in range(cfg.num_layers):
+        lp = {name: t[idx] for name, t in params["layers"].items()}
+        hidden = block_decode(cfg, lp, hidden, cos_t, sin_t, cache.k[idx], cache.v[idx], pos)
+        if boundary_fn is not None:
+            hidden = boundary_fn(idx, hidden)
+    logits = unembed(cfg, params, hidden)[:, -1]
+    return logits, KVCache(cache.k, cache.v, pos + 1)
 
 
 def nll_from_logits(logits: torch.Tensor, target_ids: torch.Tensor,

@@ -13,13 +13,19 @@ Dispatch mirrors the reference:
   model cut at ``cuts``, each cut crossed as a packed ``hop_codecs`` payload
 - otherwise                   -> the Qwen-style token sweep
 
-The ``serve``, ``relevance`` and ``distances`` experiments are not ported
-yet: they exit non-zero, naming the experiment. So does a split config that
-carries a key of a split feature not ported yet (``UNPORTED_SPLIT_KEYS``:
-faults, healing, survivability, pipelining, the seq / data / model mesh
-axes), naming the key. ``fused_hops`` maps onto the ``EDGELLM_FUSED_HOP``
-gate as in the reference ("auto" fuses nowhere on the card yet: the port has
-no probe cache).
+- ``experiment: "serve"`` with a ``batching`` block -> the continuous batcher
+  behind the serving front (``prefix_cache`` and ``kv_at_rest`` too): seeded
+  arrivals on a fake clock, ``serve_report.json`` and one JSON line
+
+The ``relevance`` and ``distances`` experiments are not ported yet: they exit
+non-zero, naming the experiment. So does a split config that carries a key
+of a split feature not ported yet (``UNPORTED_SPLIT_KEYS``: faults, healing,
+survivability, pipelining, the seq / data / model mesh axes), a serve config
+without ``batching`` (the per-request route) or with a key of a serve
+feature not ported yet (``UNPORTED_SERVE_KEYS``), and ``--serve-report``,
+each naming what is missing. ``fused_hops`` maps onto the
+``EDGELLM_FUSED_HOP`` gate as in the reference ("auto" fuses nowhere on the
+card yet: the port has no probe cache).
 
 Corpus input is a ``.npy``/``.npz`` of token ids, or a raw ``.txt`` plus
 ``--tokenizer`` (a local HF tokenizer path). Weights: ``--weights`` (a
@@ -38,11 +44,16 @@ import numpy as np
 import torch
 
 #: experiments of the reference CLI that this package has not ported yet
-NOT_PORTED = ("relevance", "distances", "serve")
+NOT_PORTED = ("relevance", "distances")
 #: split keys whose feature is not ported yet (the mesh axes only above 1)
 UNPORTED_SPLIT_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health",
                        "pipeline", "deadline", "stage_failure", "recovery",
                        "n_seq", "n_data", "n_model")
+#: serve keys whose feature is not ported yet (the split boundary, its links
+#: and fused hops, speculative decode, the fleet, µ-batch pipelining)
+UNPORTED_SERVE_KEYS = ("cuts", "hop_codecs", "fused_hops", "faults", "link_policy", "fec",
+                       "hedge", "link_health", "pipeline", "speculative", "cluster", "disagg",
+                       "gray")
 #: the fused_hops key's values onto the EDGELLM_FUSED_HOP gate ("auto" clears it)
 FUSED_HOP_ENV = {"off": "0", "wire": "wire", "remote": "remote"}
 
@@ -129,6 +140,7 @@ _PARAM_KEYS = {
 _EXPERIMENTS = ("", "initial", "last_row", "relevance", "split", "distances",
                 "serve")
 _REQUIRED = {"split": ("cuts", "hop_codecs"),
+             "serve": ("serving",),
              "initial": ("layers_of_interest", "ratios")}
 #: params blocks that belong to one experiment of the reference CLI, with the
 #: reference's message when they appear elsewhere
@@ -183,7 +195,7 @@ def _validate_params_json(p: dict, device="cuda") -> None:
                 f"got {b['aot_peak_bytes']!r}")
         if "note" in b and not isinstance(b["note"], str):
             die(f"budget.note must be a string, got {b['note']!r}")
-    if exp != "split" and (
+    if exp not in ("split", "serve") and (
             "faults" in p or "link_policy" in p or "fec" in p
             or "hedge" in p or "link_health" in p):
         die("faults/link_policy/fec/hedge/link_health only apply to "
@@ -191,14 +203,14 @@ def _validate_params_json(p: dict, device="cuda") -> None:
     if exp != "split" and ("deadline" in p or "stage_failure" in p
                            or "recovery" in p):
         die("deadline/stage_failure/recovery only apply to experiment 'split'")
-    if "serving" in p:
+    if exp != "serve" and "serving" in p:
         die("serving only applies to experiment 'serve'")
-    if "batching" in p:
+    if exp != "serve" and "batching" in p:
         die("batching only applies to experiment 'serve'")
     for k in _REQUIRED.get(exp, ()):
         if k not in p:
             die(f"experiment {exp!r} requires key {k!r}")
-    if exp not in ("split", "initial"):
+    if exp not in ("split", "serve", "initial"):
         # token/channel sweeps sweep layers (x ratios for the token sweep)
         methods = p.get("methods", [])
         need = ["layers_of_interest"]
@@ -216,6 +228,8 @@ def _validate_params_json(p: dict, device="cuda") -> None:
     for k in ("methods", "layers_of_interest", "ratios", "cuts", "hop_codecs"):
         if k in p and not isinstance(p[k], list):
             die(f"{k} must be a list, got {type(p[k]).__name__}")
+    if exp == "serve" and ("cuts" in p) != ("hop_codecs" in p):
+        die("serve: cuts and hop_codecs go together")
     if "fused_hops" in p:
         if exp not in ("split", "serve"):
             die("fused_hops only applies to experiments 'split' and 'serve'")
@@ -232,6 +246,9 @@ def _validate_params_json(p: dict, device="cuda") -> None:
                 "'off' or drop the link config")
     if exp == "split":
         _validate_split(p, die, device)
+    if exp == "serve":
+        _validate_serve(p, die)
+        return
     for key, msg in _ONLY_FOR:
         if key in p:
             die(msg)
@@ -277,6 +294,216 @@ def _validate_split(p: dict, die, device) -> None:
         die(f"hop_codecs on {device}: {e}")
 
 
+def _validate_serve(p: dict, die) -> None:
+    """The serve branch: the per-request route and unported features die
+    naming what is missing, then the reference's checks of the ``serving``,
+    ``batching``, ``prefix_cache`` and ``kv_at_rest`` blocks, with its
+    messages."""
+    import dataclasses
+
+    if "batching" not in p:
+        die("experiment 'serve' is not ported yet without a 'batching' block (the "
+            "per-request generate route); add one or run with python -m edgellm_tpu.run")
+    for key in UNPORTED_SERVE_KEYS:
+        if key in p:
+            die(f"{key} is not ported yet to edgellm_tpu_torch under experiment 'serve'; "
+                f"drop it or run with python -m edgellm_tpu.run")
+    from .serve.batching import BatchingConfig
+    from .serve.frontend import ServeFrontConfig
+    from .serve.overload import (AdmissionConfig, BreakerConfig, BrownoutConfig,
+                                 RetryBudgetConfig)
+    from .serve.soak import SoakConfig
+
+    sv = p["serving"]
+    if not isinstance(sv, dict):
+        die(f"serving must be an object of ServeFrontConfig fields "
+            f"(plus 'soak'), got {sv!r}")
+    top = {f.name for f in dataclasses.fields(ServeFrontConfig)} | {"soak"}
+    bad = sorted(set(sv) - top)
+    if bad:
+        die(f"serving: unknown field(s) {bad}; known: {sorted(top)}")
+    for key, cls in (("admission", AdmissionConfig), ("breaker", BreakerConfig),
+                     ("brownout", BrownoutConfig), ("retry_budget", RetryBudgetConfig),
+                     ("soak", SoakConfig)):
+        if key not in sv:
+            continue
+        if not isinstance(sv[key], dict):
+            die(f"serving.{key} must be an object of {cls.__name__} "
+                f"fields, got {sv[key]!r}")
+        fields = {f.name for f in dataclasses.fields(cls)}
+        bad = sorted(set(sv[key]) - fields)
+        if bad:
+            die(f"serving.{key}: unknown field(s) {bad}; known: {sorted(fields)}")
+        try:
+            cls(**sv[key])
+        except (TypeError, ValueError) as e:
+            die(f"serving.{key}: {e}")
+    try:
+        _serve_front_config(sv)
+    except (TypeError, ValueError) as e:
+        die(f"serving: {e}")
+    b = p["batching"]
+    if not isinstance(b, dict):
+        die(f"batching must be an object of BatchingConfig fields, got {b!r}")
+    # dtype fields are runtime objects, not JSON; prefix_cache and kv_codec
+    # have their own top-level blocks
+    fields = {f.name for f in dataclasses.fields(BatchingConfig)} \
+        - {"compute_dtype", "cache_dtype", "prefix_cache", "kv_codec"}
+    bad = sorted(set(b) - fields)
+    if bad:
+        die(f"batching: unknown field(s) {bad}; known: {sorted(fields)}")
+    try:
+        bcfg = BatchingConfig(**b)
+    except (TypeError, ValueError) as e:
+        die(f"batching: {e}")
+    sk = sv.get("soak") or {}
+    need = sk.get("prompt_len", 8) + sk.get("max_new_tokens", 8) - 1
+    if need > bcfg.span:
+        die(f"batching: soak requests need {need} cache positions > slot "
+            f"span {bcfg.span} (pages_per_slot x page_size)")
+    if "prefix_cache" in p:
+        from .models.paged_kv import PrefixCacheConfig
+
+        pc = p["prefix_cache"]
+        if not isinstance(pc, dict):
+            die(f"prefix_cache must be an object of PrefixCacheConfig "
+                f"fields, got {pc!r}")
+        fields = {f.name for f in dataclasses.fields(PrefixCacheConfig)}
+        bad = sorted(set(pc) - fields)
+        if bad:
+            die(f"prefix_cache: unknown field(s) {bad}; known: {sorted(fields)}")
+        if "enabled" in pc and not isinstance(pc["enabled"], bool):
+            die(f"prefix_cache.enabled must be a boolean, got {pc['enabled']!r}")
+        for k in ("min_shared_block", "max_index_pages"):
+            if k in pc and (not isinstance(pc[k], int) or isinstance(pc[k], bool)
+                            or pc[k] < 0):
+                die(f"prefix_cache.{k} must be a non-negative integer, got {pc[k]!r}")
+        try:
+            PrefixCacheConfig(**pc)
+        except (TypeError, ValueError) as e:
+            die(f"prefix_cache: {e}")
+    if "kv_at_rest" in p:
+        from .models.paged_kv import KV_PAGE_CODECS, resolve_kv_codec
+
+        kq = p["kv_at_rest"]
+        if not isinstance(kq, dict):
+            die(f"kv_at_rest must be an object with a 'codec' tier (and "
+                f"optional 'pool_bytes'), got {kq!r}")
+        bad = sorted(set(kq) - {"codec", "pool_bytes"})
+        if bad:
+            die(f"kv_at_rest: unknown field(s) {bad}; known: ['codec', 'pool_bytes']")
+        if "codec" not in kq:
+            die(f"kv_at_rest needs a 'codec' tier name; options: {sorted(KV_PAGE_CODECS)}")
+        try:
+            resolve_kv_codec(kq["codec"])
+        except (TypeError, ValueError) as e:
+            die(f"kv_at_rest: {e}")
+        if "pool_bytes" in kq and (not isinstance(kq["pool_bytes"], int)
+                                   or isinstance(kq["pool_bytes"], bool)
+                                   or kq["pool_bytes"] < 1):
+            die(f"kv_at_rest.pool_bytes must be a positive integer, got {kq['pool_bytes']!r}")
+
+
+def _serve_front_config(sv: dict):
+    """The :class:`ServeFrontConfig` a ``"serving"`` block describes: nested
+    objects become the matching sub-configs; ``soak`` is the harness's."""
+    from .serve.frontend import ServeFrontConfig
+    from .serve.overload import (AdmissionConfig, BreakerConfig, BrownoutConfig,
+                                 RetryBudgetConfig)
+
+    kwargs = {k: v for k, v in sv.items() if k != "soak"}
+    for key, cls in (("admission", AdmissionConfig), ("breaker", BreakerConfig),
+                     ("brownout", BrownoutConfig), ("retry_budget", RetryBudgetConfig)):
+        if key in kwargs:
+            kwargs[key] = cls(**kwargs[key])
+    return ServeFrontConfig(**kwargs)
+
+
+def batching_config(cfg, params_json: dict):
+    """The :class:`BatchingConfig` of a serve config: its ``batching`` block
+    plus ``prefix_cache`` and the ``kv_at_rest`` tier (with ``pool_bytes``
+    the page count is re-derived from the byte budget at that tier)."""
+    from .models.paged_kv import PrefixCacheConfig, num_pages_for_bytes
+    from .serve.batching import BatchingConfig
+
+    kw = dict(params_json["batching"])
+    if "prefix_cache" in params_json:
+        kw["prefix_cache"] = PrefixCacheConfig(**params_json["prefix_cache"])
+    if "kv_at_rest" in params_json:
+        kq = params_json["kv_at_rest"]
+        kw["kv_codec"] = kq["codec"]
+        if "pool_bytes" in kq:
+            kw["num_pages"] = num_pages_for_bytes(cfg, kq["pool_bytes"],
+                                                  kw.get("page_size", 16),
+                                                  kv_codec=kq["codec"])
+    return BatchingConfig(**kw)
+
+
+def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
+    """The batched serve experiment, as the reference CLI runs it: a warm
+    batcher for the soak's prompt shape, then ``n_requests`` seeded arrivals
+    (exponential gaps on a :class:`FakeClock`, prompts drawn from the soak's
+    seed, a shared system prompt of ``shared_prefix_len`` tokens) submitted
+    to a :class:`ServeFront` over one :class:`ContinuousBatcher` and drained
+    through it. Writes ``out("serve_report.json")`` and returns the printed
+    summary line (the reference's keys) plus the records and the batcher
+    report under ``"_records"`` / ``"_batcher"``. Raises ``SystemExit`` when
+    a shared prefix was promised and the radix index never hit."""
+    from .serve.batching import ContinuousBatcher
+    from .serve.frontend import Request, ServeFront
+    from .serve.soak import SoakConfig
+    from .utils.clock import FakeClock
+
+    sv = params_json["serving"]
+    front_cfg = _serve_front_config(sv)
+    soak = SoakConfig(**sv.get("soak", {}))
+    clock = FakeClock()
+    bcfg = batching_config(cfg, params_json)
+    batcher = ContinuousBatcher(cfg, params, bcfg)
+    front = ServeFront(cfg, params, config=front_cfg, clock=clock, batcher=batcher)
+    # warm the ragged step and the soak's prefill shape (kernel build,
+    # allocator) before the first request
+    warm = ContinuousBatcher(cfg, params, bcfg)
+    warm.submit(np.ones((soak.prompt_len,), np.int32), 2)
+    warm.run()
+    del warm
+    rng = np.random.default_rng(soak.seed)
+    gaps = rng.exponential(1.0 / soak.arrival_rate, size=soak.n_requests)
+    shared_pfx = (rng.integers(1, cfg.vocab_size, size=soak.shared_prefix_len).astype(np.int32)
+                  if soak.shared_prefix_len else None)
+    for i in range(soak.n_requests):
+        clock.advance(float(gaps[i]))
+        pi = rng.integers(1, cfg.vocab_size, size=soak.prompt_len).astype(np.int32)
+        if shared_pfx is not None:
+            pi[:soak.shared_prefix_len] = shared_pfx
+        front.submit(Request(prompt_ids=pi, max_new_tokens=soak.max_new_tokens,
+                             temperature=soak.temperature, deadline_s=soak.deadline_s,
+                             rng_seed=i))
+    records = front.drain_batched()
+    rep = batcher.report()
+    outcomes: dict = {}
+    for rec in records:
+        outcomes[rec.outcome] = outcomes.get(rec.outcome, 0) + 1
+    artifact = {"requests": len(records), "outcomes": outcomes, "mode": "batched",
+                "batcher": rep, "records": [r.as_dict() for r in records]}
+    with open(out("serve_report.json"), "w") as f:
+        json.dump(artifact, f, indent=1, default=float)
+    pf = rep.get("prefix")
+    summary = {
+        "requests": len(records), "outcomes": outcomes, "mode": artifact["mode"],
+        "batched_steps": rep["steps"], "jit_misses": rep["jit_misses"],
+        "occupancy_mean": round(rep["alloc_util_mean"], 4),
+        "decode_tokens_per_s": round(rep["decode_tokens_per_s"], 3),
+        **({"prefix_hit_rate": round(pf["hit_rate"], 4),
+            "prefill_tokens_saved": pf["saved_tokens"]} if pf else {}),
+        "artifact": out("serve_report.json")}
+    if pf and soak.shared_prefix_len and not pf["hits"]:
+        raise SystemExit(
+            f"prefix cache enabled with shared_prefix_len={soak.shared_prefix_len} but the "
+            f"radix index never hit: {pf}")
+    return {**summary, "_records": records, "_batcher": rep}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -302,7 +529,12 @@ def main(argv=None) -> int:
     ap.add_argument("--synthetic-corpus-len", type=int, default=4096)
     ap.add_argument("--device", default="cuda",
                     help="torch device the sweep runs on (default: cuda)")
+    ap.add_argument("--serve-report", action="store_true",
+                    help="the reference's serve-report printer (not ported yet)")
     args = ap.parse_args(argv)
+    if args.serve_report:
+        raise SystemExit("--serve-report is not ported yet to edgellm_tpu_torch; run it "
+                         "with python -m edgellm_tpu.run")
 
     if args.params.lstrip().startswith("{"):
         params_json = json.loads(args.params)
@@ -321,11 +553,15 @@ def main(argv=None) -> int:
             head_weights = np.asarray(json.load(f))
 
     cfg, params = _load_model(args, device)
+    os.makedirs(args.output_dir, exist_ok=True)
+    out = lambda name: os.path.join(args.output_dir, name)
+    if params_json.get("experiment") == "serve":
+        summary = run_serve(cfg, params, params_json, out)
+        print(json.dumps({k: v for k, v in summary.items() if not k.startswith("_")}))
+        return 0
     corpus = _load_corpus(args, cfg.vocab_size)
     if corpus.max() >= cfg.vocab_size or corpus.min() < 0:
         raise SystemExit(f"corpus token ids outside [0, {cfg.vocab_size}) — wrong tokenizer?")
-    os.makedirs(args.output_dir, exist_ok=True)
-    out = lambda name: os.path.join(args.output_dir, name)
 
     from .eval import run_channel_sweep, run_initial_sweep, run_split_eval, run_token_sweep
 

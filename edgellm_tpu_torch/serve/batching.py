@@ -1,0 +1,515 @@
+"""Continuous batching over the paged KV pool: PyTorch counterpart of
+``edgellm_tpu/serve/batching.py``, local pool only.
+
+Many streams share one ragged decode step built on
+:mod:`..models.paged_kv`: a fixed set of ``max_slots`` slots runs through
+:func:`~..models.paged_kv.paged_decode_step` (K13 on the card;
+:func:`~..models.paged_kv.paged_decode_step_quant`, K14, for the quantized
+KV-at-rest tiers) every step, with the page table, lengths, last tokens,
+per-slot keys, step indices and temperatures as small per-step inputs, so
+admitting, evicting, finishing or growing a stream changes no shape.
+
+- prompts prefill through ``decode._prefill_impl`` (the K-attn prompt pass on
+  the card), token 0 is sampled with ``fold_in(key, 0)`` as in ``generate``,
+  then the prompt's K/V is adopted into the stream's pages;
+- the step samples each slot as ``decode._sample`` would alone:
+  ``categorical(fold_in(key_i, t_i), logits_i / T_i)`` from the slot's own
+  key, argmax for greedy slots, so a stream's tokens do not depend on what
+  else is in the batch;
+- when the pool runs out of pages the youngest running stream is evicted:
+  its pages are gathered back to a contiguous host prefix (the packed codes
+  and scales on a quantized tier) and re-adopted on re-admission, and its
+  remaining tokens continue where they stopped;
+- a :class:`~..models.paged_kv.PrefixCacheConfig` turns on prefix sharing:
+  fresh admits map matched index pages with no prefill compute, only the
+  unmatched suffix runs (``decode._prefill_suffix_impl``), and the first
+  write into a shared page copy-on-write-forks it.
+
+Not ported yet: the split-runtime mode (``split_runtime=``), the
+disaggregated-prefill hooks (``prefill_hold``, ``gather_rows``,
+``release_handoff``), per-stream checkpoints (``checkpoint_dir``,
+``checkpoint_stream`` / ``restore_stream``) and observability spans.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..models.configs import ModelConfig
+from ..models.paged_kv import (OutOfPages, OutOfSlots, PagedKVCache, PrefixCacheConfig,
+                               paged_decode_step, paged_decode_step_quant, resolve_kv_codec)
+from ..models.transformer import KVCache
+from ..utils import prng
+from ..utils.concurrency import guarded_by
+from .decode import _prefill_impl, _prefill_suffix_impl, _sample, _fold
+from .recovery import Watchdog
+
+__all__ = ["BatchingConfig", "Stream", "ContinuousBatcher"]
+
+_NOT_PORTED = "is not ported yet to edgellm_tpu_torch"
+
+
+@dataclass(frozen=True)
+class BatchingConfig:
+    """Pool geometry + scheduler knobs (the reference's fields and defaults).
+    ``cache_dtype`` / ``compute_dtype`` are torch dtypes (None keeps the
+    weights' dtype for compute)."""
+
+    page_size: int = 16
+    num_pages: int = 65          # includes the reserved trash page 0
+    max_slots: int = 4
+    pages_per_slot: int = 8
+    compute_dtype: Any = None
+    cache_dtype: Any = torch.float32
+    checkpoint_dir: Optional[str] = None
+    step_deadline_s: Optional[float] = None
+    prefix_cache: Optional[PrefixCacheConfig] = None
+    kv_codec: str = "fp"
+
+    def __post_init__(self):
+        if self.page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.num_pages < 2:
+            raise ValueError(f"num_pages must be >= 2 (page 0 is reserved), got "
+                             f"{self.num_pages}")
+        if self.max_slots < 1:
+            raise ValueError(f"max_slots must be >= 1, got {self.max_slots}")
+        if self.pages_per_slot < 1:
+            raise ValueError(f"pages_per_slot must be >= 1, got {self.pages_per_slot}")
+        if self.step_deadline_s is not None and self.step_deadline_s <= 0:
+            raise ValueError("step_deadline_s must be positive")
+        if self.prefix_cache is not None and not isinstance(
+                self.prefix_cache, PrefixCacheConfig):
+            raise ValueError(f"prefix_cache must be a PrefixCacheConfig or None, got "
+                             f"{type(self.prefix_cache).__name__}")
+        resolve_kv_codec(self.kv_codec)
+        if self.checkpoint_dir is not None:
+            raise ValueError(f"checkpoint_dir (per-stream DecodeCheckpoint snapshots) "
+                             f"{_NOT_PORTED}")
+
+    @property
+    def span(self) -> int:
+        return self.pages_per_slot * self.page_size
+
+
+@dataclass
+class Stream:
+    """One request's host-side state across admit / evict / finish."""
+
+    sid: int
+    prompt: np.ndarray            # (S,) int32
+    max_new_tokens: int
+    temperature: float
+    rng_seed: int
+    status: str = "waiting"       # waiting | running | finished
+    slot: int = -1
+    tokens: list = field(default_factory=list)  # sampled ids, host ints
+    resume: Optional[dict] = None  # gathered payload for re-admit
+    admit_seq: int = -1           # admission order; youngest = largest
+    evictions: int = 0
+
+    @property
+    def t(self) -> int:
+        """Next decode-step index == tokens sampled so far."""
+        return len(self.tokens)
+
+    @property
+    def key(self) -> tuple:
+        return prng.key(self.rng_seed)
+
+
+def _batched_sample(logits: torch.Tensor, keys: np.ndarray, steps: np.ndarray,
+                    temps: np.ndarray) -> torch.Tensor:
+    """Per-slot ``decode._sample``: slot i's token equals
+    ``_sample(logits[i:i+1], fold_in(key_i, step_i), temp_i)``. Greedy slots
+    take the argmax; only the sampled slots draw noise, each from its own
+    folded key. keys (B, 2), steps (B,), temps (B,) are host arrays."""
+    toks = torch.argmax(logits, dim=-1)
+    rows = np.nonzero(temps > 0.0)[0]
+    if rows.size:
+        dev = logits.device
+        folded = prng.fold_in(torch.from_numpy(keys[rows]).to(dev),
+                              torch.from_numpy(steps[rows].astype(np.int64)).to(dev))
+        idx = torch.from_numpy(rows).to(dev)
+        temp = torch.from_numpy(temps[rows].astype(np.float32)).to(dev)
+        toks[idx] = prng.categorical(folded, logits[idx] / temp[:, None])
+    return toks.to(torch.int32)
+
+
+@guarded_by("_stats_lock", fields=["stats"])
+class ContinuousBatcher:
+    """Admit / evict streams mid-flight into one ragged decode step.
+
+    :meth:`submit` queues a stream; :meth:`step` admits waiting streams into
+    free slots (prefill + page adoption), runs ONE ragged step for every
+    running slot, appends each slot's sampled token, retires finished
+    streams, and, when the pool cannot cover a growth, evicts the youngest
+    running stream back to the waiting queue with its gathered K/V prefix.
+    :meth:`run` loops :meth:`step` to completion; ``results[sid]`` holds each
+    finished stream's (max_new_tokens,) int32 tokens. The pool lives on the
+    device of the weights (``params["embed"]``)."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, bcfg: Optional[BatchingConfig] = None,
+                 *, split_runtime: Any = None, placed_params: Any = None):
+        if split_runtime is not None or placed_params is not None:
+            raise ValueError(f"split_runtime (batched serving over a split plan, "
+                             f"SplitRuntime.decode_step_paged) {_NOT_PORTED}")
+        self.cfg = cfg
+        self.params = params
+        self.bcfg = bcfg if bcfg is not None else BatchingConfig()
+        self.rt = None
+        self.device = params["embed"].device
+        self.pool = PagedKVCache(
+            cfg, num_pages=self.bcfg.num_pages, page_size=self.bcfg.page_size,
+            max_slots=self.bcfg.max_slots, pages_per_slot=self.bcfg.pages_per_slot,
+            dtype=self.bcfg.cache_dtype, device=self.device,
+            prefix_cache=self.bcfg.prefix_cache, kv_codec=self.bcfg.kv_codec)
+        self._streams: dict[int, Stream] = {}
+        self._waiting: deque[int] = deque()
+        self._slot_to_sid: dict[int, int] = {}
+        self._next_sid = 0
+        self._admit_seq = 0
+        self.results: dict[int, np.ndarray] = {}
+        self._watchdog = (Watchdog(self.bcfg.step_deadline_s)
+                          if self.bcfg.step_deadline_s is not None else None)
+        self._stats_lock = threading.Lock()
+        self.stats = {"steps": 0, "submitted": 0, "admitted": 0, "evicted": 0,
+                      "finished": 0, "jit_misses": 0, "emitted_tokens": 0,
+                      "prefill_s": 0.0, "decode_s": 0.0,
+                      "occ_sum": 0.0, "occ_max": 0.0, "slot_sum": 0.0,
+                      "alloc_sum": 0.0, "alloc_n": 0}
+
+    # -- submission --------------------------------------------------------
+
+    def submit(self, prompt_ids, max_new_tokens: int, *, temperature: float = 0.0,
+               rng_seed: int = 0) -> int:
+        """Queue a stream; the argument semantics of ``generate`` with
+        ``rng_key = prng.key(rng_seed)``. Returns the stream id."""
+        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if float(temperature) < 0.0:
+            raise ValueError("temperature must be >= 0")
+        need = prompt.size + max_new_tokens - 1  # the final token is not written
+        if need > self.bcfg.span:
+            raise ValueError(
+                f"prompt {prompt.size} + {max_new_tokens} new tokens needs "
+                f"{need} cache positions > slot span {self.bcfg.span} "
+                f"(pages_per_slot={self.bcfg.pages_per_slot} x "
+                f"page_size={self.bcfg.page_size})")
+        prng.key(rng_seed)  # refuse a seed outside the key range now
+        sid = self._next_sid
+        self._next_sid += 1
+        self._streams[sid] = Stream(sid, prompt, int(max_new_tokens), float(temperature),
+                                    int(rng_seed))
+        self._waiting.append(sid)
+        with self._stats_lock:
+            self.stats["submitted"] += 1
+        return sid
+
+    def pop_result(self, sid: int) -> np.ndarray:
+        """Return and forget a finished stream's tokens."""
+        toks = self.results.pop(sid)
+        self._streams.pop(sid, None)
+        return toks
+
+    def probe_prefix(self, prompt_ids) -> int:
+        """Leading tokens of this prompt the pool's radix index already
+        holds (a dry run; 0 with prefix sharing off)."""
+        if self.pool.prefix is None:
+            return 0
+        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        return int(self.pool.probe_prefix(prompt)["tokens"])
+
+    def discard(self, sid: int) -> None:
+        """Drop a stream in any state and forget its result (frees a running
+        stream's slot and pages)."""
+        st = self._streams.pop(sid, None)
+        self.results.pop(sid, None)
+        if st is None:
+            return
+        if st.status == "running":
+            self.pool.free_slot(st.slot)
+            del self._slot_to_sid[st.slot]
+        elif st.status == "waiting":
+            try:
+                self._waiting.remove(sid)
+            except ValueError:
+                pass
+        st.status = "discarded"
+
+    def prefill_hold(self, sid: int):
+        raise NotImplementedError(f"prefill_hold (disaggregated prefill) {_NOT_PORTED}")
+
+    def gather_rows(self, slot: int, start: int, stop: int):
+        raise NotImplementedError(f"gather_rows (disaggregated prefill) {_NOT_PORTED}")
+
+    def release_handoff(self, sid: int):
+        raise NotImplementedError(f"release_handoff (disaggregated prefill) {_NOT_PORTED}")
+
+    # -- admission / eviction ----------------------------------------------
+
+    def _cache_len(self, st: Stream) -> int:
+        """Positions st's cache holds at the top of step t: the prompt plus
+        the t - 1 tokens already fed back."""
+        return st.prompt.size + max(st.t - 1, 0)
+
+    def _try_admit(self, sid: int) -> bool:
+        st = self._streams[sid]
+        need_len = int(st.resume["length"]) if st.resume is not None else st.prompt.size
+        # +1: the admitting step itself must be coverable; indexed pages map
+        # in for free (minus a fork page when the match ends mid-page) and
+        # index-only pages count as available
+        need_pages = self.pool.pages_for(need_len + 1)
+        if st.resume is None and self.pool.prefix is not None:
+            pr = self.pool.probe_prefix(st.prompt, max_tokens=st.prompt.size - 1)
+            need_pages = need_pages - pr["pages"] + pr["forks"]
+        if need_pages > self.pool.num_free_pages + self.pool.reclaimable_index_pages:
+            return False
+        try:
+            slot = self.pool.alloc_slot()
+        except OutOfSlots:
+            return False
+        t0 = time.monotonic()
+        try:
+            tok0 = self._admit_fill(st, slot)
+        except OutOfPages:
+            self.pool.free_slot(slot)
+            return False
+        if tok0 is not None:
+            st.tokens.append(int(tok0[0]))
+        st.status, st.slot = "running", slot
+        st.admit_seq = self._admit_seq
+        self._admit_seq += 1
+        self._slot_to_sid[slot] = sid
+        with self._stats_lock:
+            self.stats["prefill_s"] += time.monotonic() - t0
+            self.stats["admitted"] += 1
+        if st.t >= st.max_new_tokens:  # max_new_tokens == 1: prefill is all
+            self._finish(st)
+        return True
+
+    def _admit_fill(self, st: Stream, slot: int) -> Optional[torch.Tensor]:
+        """Land one stream's K/V into ``slot``'s pages (resume payload, full
+        prefill, or shared pages plus a suffix-only prefill) -> the sampled
+        token 0 for fresh admits, None for resumes."""
+        if st.resume is not None:
+            need_len = int(st.resume["length"])
+            if "k_codes" in st.resume:
+                self.pool.adopt_packed(slot, st.resume["k_codes"], st.resume["v_codes"],
+                                       st.resume["k_scale"], st.resume["v_scale"], need_len)
+            else:
+                self.pool.adopt(slot, st.resume["k"], st.resume["v"], need_len)
+            st.resume = None
+            return None
+        s = st.prompt.size
+        matched = 0
+        if self.pool.prefix is not None:
+            # claim at most s - 1 positions: a suffix token must run so that
+            # token 0 has logits
+            matched = self.pool.share_prefix(slot, st.prompt, max_tokens=s - 1)
+        if matched > 0:
+            tok0 = self._prefill_suffix_local(st, slot, matched)
+        else:
+            prompt = torch.from_numpy(st.prompt[None, :].astype(np.int64)).to(self.device)
+            last_logits, cache = _prefill_impl(self.cfg, self.params, prompt, s,
+                                               self.bcfg.compute_dtype)
+            tok0 = _sample(last_logits, _fold(st.key, 0), st.temperature)
+            self.pool.adopt(slot, cache.k[:, 0, :s], cache.v[:, 0, :s], s)
+        if self.pool.prefix is not None:
+            self.pool.register_prefix(slot, st.prompt)
+        return tok0.cpu().numpy()
+
+    def _prefill_suffix_local(self, st: Stream, slot: int, matched: int) -> torch.Tensor:
+        """Prefix-hit admit: gather the ``matched`` shared rows into a
+        contiguous cache, prefill only the suffix, and write the suffix rows
+        back (COW-forking the shared tail page)."""
+        s = st.prompt.size
+        state = self.pool.gather_slot(slot)  # the matched prefix rows
+        cdtype = (self.bcfg.compute_dtype if self.bcfg.compute_dtype is not None
+                  else torch.float32)
+        nl, _, kv, hd = state["k"].shape
+        kc = torch.zeros((nl, 1, self.bcfg.span, kv, hd), dtype=cdtype, device=self.device)
+        vc = torch.zeros_like(kc)
+        kc[:, 0, :matched] = torch.from_numpy(state["k"]).to(kc)
+        vc[:, 0, :matched] = torch.from_numpy(state["v"]).to(vc)
+        suffix = torch.from_numpy(st.prompt[None, matched:].astype(np.int64)).to(self.device)
+        logits, cache = _prefill_suffix_impl(self.cfg, self.params, suffix,
+                                             KVCache(kc, vc, matched), self.bcfg.compute_dtype)
+        tok0 = _sample(logits[:, -1], _fold(st.key, 0), st.temperature)
+        self.pool.adopt_rows(slot, cache.k[:, 0, matched:s], cache.v[:, 0, matched:s],
+                             matched, s)
+        return tok0
+
+    def _gather_state(self, slot: int) -> dict:
+        """One slot's contiguous K/V prefix as the resume payload (packed
+        codes + scales on a quantized tier, so the round trip is exact)."""
+        if self.bcfg.kv_codec != "fp":
+            return self.pool.gather_slot_packed(slot)
+        return self.pool.gather_slot(slot)  # bf16 rows widen to fp32 exactly
+
+    def evict(self, sid: int) -> None:
+        """Push a running stream back to the waiting queue with its pages
+        gathered to a contiguous prefix (re-admission resumes it)."""
+        st = self._streams[sid]
+        if st.status != "running":
+            raise ValueError(f"stream {sid} is not running")
+        st.resume = self._gather_state(st.slot)
+        self.pool.free_slot(st.slot)
+        del self._slot_to_sid[st.slot]
+        st.status, st.slot = "waiting", -1
+        st.evictions += 1
+        self._waiting.appendleft(sid)  # resumed work goes to the head
+        with self._stats_lock:
+            self.stats["evicted"] += 1
+
+    def _evict_for_pages(self, needed: int, protect: set) -> bool:
+        """Evict youngest-admitted running streams (never ``protect``) until
+        ``needed`` pages are free."""
+        while self.pool.num_free_pages < needed:
+            victims = [st for st in self._streams.values()
+                       if st.status == "running" and st.sid not in protect]
+            if not victims:
+                return False
+            self.evict(max(victims, key=lambda s: s.admit_seq).sid)
+        return True
+
+    def _finish(self, st: Stream) -> None:
+        self.results[st.sid] = np.asarray(st.tokens, np.int32)
+        self.pool.free_slot(st.slot)
+        del self._slot_to_sid[st.slot]
+        st.status, st.slot = "finished", -1
+        with self._stats_lock:
+            self.stats["finished"] += 1
+            self.stats["emitted_tokens"] += len(st.tokens)
+
+    # -- the ragged step ---------------------------------------------------
+
+    def _running(self) -> list[Stream]:
+        return [self._streams[sid] for sid in self._slot_to_sid.values()]
+
+    def step(self) -> int:
+        """Admit what fits, run ONE ragged step over every running slot,
+        commit the sampled tokens. Returns the number of streams that
+        advanced (0 = nothing running and nothing admittable)."""
+        while self._waiting:  # FIFO admits, no overtaking
+            if not self._try_admit(self._waiting[0]):
+                break
+            self._waiting.popleft()
+        running = self._running()
+        if not running:
+            return 0
+        for st in sorted(running, key=lambda s: s.admit_seq):
+            if st.status != "running":
+                continue  # evicted by a predecessor's growth
+            try:
+                self.pool.ensure_writable(st.slot, self._cache_len(st) + 1)
+            except OutOfPages:
+                need = max(1, self.pool.pages_for(self._cache_len(st) + 1)
+                           - len(self.pool._slot_pages[st.slot]))
+                if not self._evict_for_pages(need, {st.sid}):
+                    raise
+                self.pool.ensure_writable(st.slot, self._cache_len(st) + 1)
+        running = self._running()
+        if not running:
+            return 0
+        if self._watchdog is not None:
+            self._watchdog.arm()
+        b = self.bcfg.max_slots
+        token_ids = np.zeros((b,), np.int64)
+        steps = np.zeros((b,), np.int64)
+        temps = np.zeros((b,), np.float32)
+        keys = np.zeros((b, 2), np.int64)
+        for st in running:
+            token_ids[st.slot] = st.tokens[-1]
+            steps[st.slot] = st.t
+            temps[st.slot] = st.temperature
+            keys[st.slot] = st.key
+        # the pool's lengths are the step's write / mask positions: slot i
+        # holds prompt + t - 1 fed tokens; inactive slots write the trash page
+        page_table, lengths = self.pool.device_tables()
+        t0 = time.monotonic()
+        tok_ids = torch.from_numpy(token_ids).to(self.device)
+        pool = self.pool.pool
+        if self.bcfg.kv_codec != "fp":
+            logits = paged_decode_step_quant(
+                self.cfg, self.params, *pool, page_table, lengths, tok_ids,
+                kv_codec=self.bcfg.kv_codec, compute_dtype=self.bcfg.compute_dtype)[0]
+        else:
+            logits = paged_decode_step(self.cfg, self.params, pool.k, pool.v, page_table,
+                                       lengths, tok_ids,
+                                       compute_dtype=self.bcfg.compute_dtype)[0]
+        toks_host = _batched_sample(logits, keys, steps, temps).cpu().numpy()  # one sync
+        step_s = time.monotonic() - t0
+        with self._stats_lock:
+            self.stats["decode_s"] += step_s
+            self.stats["steps"] += 1
+        for st in running:
+            st.tokens.append(int(toks_host[st.slot]))
+            self.pool.lengths[st.slot] = self._cache_len(st)
+            if st.t >= st.max_new_tokens:
+                self._finish(st)
+        occ = self.pool.unique_live_tokens / self.pool.token_capacity
+        slot_util = len(self._slot_to_sid) / b
+        reserved = (self.pool.num_pages - 1 - self.pool.num_free_pages) * self.pool.page_size
+        alloc_util = self.pool.unique_live_tokens / reserved if reserved else None
+        with self._stats_lock:
+            self.stats["occ_sum"] += occ
+            self.stats["occ_max"] = max(self.stats["occ_max"], occ)
+            self.stats["slot_sum"] += slot_util
+            if alloc_util is not None:
+                self.stats["alloc_sum"] += alloc_util
+                self.stats["alloc_n"] += 1
+        if self._watchdog is not None:
+            self._watchdog.check()
+        return len(running)
+
+    def run(self, max_steps: int = 100_000) -> dict[int, np.ndarray]:
+        """Drive :meth:`step` until every submitted stream finished."""
+        for _ in range(max_steps):
+            if not self._waiting and not self._slot_to_sid:
+                break
+            if self.step() == 0 and self._waiting:
+                raise OutOfPages(
+                    "no stream can make progress: the pool cannot hold even "
+                    "one waiting stream — shrink prompts or grow the pool")
+        return self.results
+
+    # -- reporting ---------------------------------------------------------
+
+    def report(self) -> dict:
+        """The reference's report keys. ``jit_misses`` counts compiles of
+        the ragged step, which eager PyTorch does not have: always 0."""
+        with self._stats_lock:
+            stats = dict(self.stats)
+        n = stats["steps"]
+        alloc_n = stats["alloc_n"]
+        dec = stats["decode_s"]
+        emitted = stats["emitted_tokens"]
+        return {
+            "streams": stats["submitted"],
+            "finished": stats["finished"],
+            "steps": n,
+            "admitted": stats["admitted"],
+            "evicted": stats["evicted"],
+            "jit_misses": stats["jit_misses"],
+            "prefill_s": stats["prefill_s"],
+            "decode_s": dec,
+            "decode_tokens_per_s": (emitted / dec) if dec > 0 else 0.0,
+            "occupancy_mean": (stats["occ_sum"] / n) if n else 0.0,
+            "occupancy_max": stats["occ_max"],
+            "slot_util_mean": (stats["slot_sum"] / n) if n else 0.0,
+            "alloc_util_mean": (stats["alloc_sum"] / alloc_n) if alloc_n else 0.0,
+            "span": self.bcfg.span,
+            "token_capacity": self.pool.token_capacity,
+            **({"prefix": self.pool.prefix_report()}
+               if self.pool.prefix is not None else {}),
+        }

@@ -1,0 +1,505 @@
+"""The overload-robust serving front, batched route: PyTorch counterpart of
+``edgellm_tpu/serve/frontend.py``.
+
+    submit(Request) -- admission --> bounded priority queue -- drain_batched()
+      --> ContinuousBatcher (one ragged step for every admitted stream)
+                      --> RequestRecord (typed outcome)
+
+Every refusal happens at submit with a typed reason (``queue_full``,
+``deadline_infeasible``, brownout ``brownout_shed``) and lands in a
+:class:`RequestRecord`; a rejected request costs no device work. Queued
+requests whose deadline expired are ``timed_out``, a closed local breaker
+refuses with ``circuit_open``, and a prompt that does not fit the batcher's
+slot span is ``rejected`` with ``exceeds_slot_span``. Each completed
+stream's tokens are those of its solo ``generate`` run.
+
+Not ported yet: the per-request ``generate`` route (``drain``, ``_execute``,
+requests with a (B > 1, S) prompt), split-runtime installation and failover,
+link health, speculative decode, and the observability hooks (spans, the
+flight recorder, metrics publication, the live endpoint).
+"""
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import heapq
+import math
+import threading
+from typing import Any, Optional
+
+import numpy as np
+
+from ..utils.clock import MONOTONIC, Clock
+from ..utils.concurrency import guarded_by
+from .overload import (COMPLETED, FAILED, FAILED_OVER, REJECTED, SHED, TIMED_OUT,
+                       AdmissionConfig, AdmissionController, AdmissionError, BreakerConfig,
+                       BrownoutConfig, BrownoutController, CircuitBreaker, RetryBudget,
+                       RetryBudgetConfig, ServeFrontConfigError)
+
+__all__ = ["Request", "RequestRecord", "ServeFrontConfig", "ServeFront"]
+
+_NOT_PORTED = "is not ported yet to edgellm_tpu_torch"
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """One unit of admitted work: ``prompt_ids`` (S,) or (B, S) token ids;
+    ``priority`` orders the queue (higher first); ``deadline_s`` is relative
+    to submit time (None = best effort); ``rng_seed`` pins the sampling
+    stream."""
+
+    prompt_ids: Any
+    max_new_tokens: int = 16
+    priority: int = 1
+    deadline_s: Optional[float] = None
+    temperature: float = 0.0
+    rng_seed: int = 0
+
+    def __post_init__(self):
+        if self.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {self.deadline_s}")
+        if self.temperature < 0:
+            raise ValueError("temperature must be >= 0")
+
+
+@dataclasses.dataclass
+class RequestRecord:
+    """The per-request outcome record (the reference's fields)."""
+
+    request_id: int
+    outcome: str
+    reason: str
+    backend: Optional[str]          # "batched" | None (never ran)
+    priority: int
+    submitted_at: float
+    started_at: Optional[float]
+    finished_at: Optional[float]
+    queue_wait_s: Optional[float]
+    ttft_s: Optional[float]
+    service_s: Optional[float]
+    latency_s: Optional[float]
+    deadline_s: Optional[float]
+    deadline_met: Optional[bool]
+    prompt_tokens: int
+    requested_tokens: int
+    granted_tokens: Optional[int]
+    capacity: Optional[int]
+    batch: int
+    plan: Optional[dict]
+    brownout_level: int
+    retries_charged: int
+    jit_misses: Optional[int]
+    tokens: Optional[np.ndarray]    # (B, granted_tokens) or None
+    recovery: Optional[dict]
+
+    def as_dict(self) -> dict:
+        """JSON-safe view (tokens elided to their shape)."""
+        d = dataclasses.asdict(self)
+        d["tokens"] = None if self.tokens is None else list(np.asarray(self.tokens).shape)
+        return d
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeFrontConfig:
+    """Everything the front's controllers need (the reference's fields).
+    ``checkpoint_dir`` / ``checkpoint_every`` / ``step_deadline_s`` arm the
+    per-request route's recovery, which is not ported yet."""
+
+    admission: AdmissionConfig = dataclasses.field(default_factory=AdmissionConfig)
+    breaker: BreakerConfig = dataclasses.field(default_factory=BreakerConfig)
+    brownout: BrownoutConfig = dataclasses.field(default_factory=BrownoutConfig)
+    retry_budget: RetryBudgetConfig = dataclasses.field(default_factory=RetryBudgetConfig)
+    capacity_round: int = 16
+    max_new_tokens_cap: Optional[int] = None
+    step_deadline_s: Optional[float] = None
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0
+    local_fallback: bool = True
+    replan_on_stage_loss: bool = True
+    record_history: bool = True
+
+    def __post_init__(self):
+        if (isinstance(self.capacity_round, bool)
+                or not isinstance(self.capacity_round, int) or self.capacity_round < 1):
+            raise ServeFrontConfigError(
+                f"capacity_round must be an integer >= 1, got {self.capacity_round!r}")
+        if self.max_new_tokens_cap is not None and self.max_new_tokens_cap < 1:
+            raise ServeFrontConfigError(
+                f"max_new_tokens_cap must be >= 1 or None, got {self.max_new_tokens_cap!r}")
+        if self.step_deadline_s is not None and self.step_deadline_s <= 0:
+            raise ServeFrontConfigError(
+                f"step_deadline_s must be > 0 or None, got {self.step_deadline_s!r}")
+        if self.checkpoint_every < 0:
+            raise ServeFrontConfigError(
+                f"checkpoint_every must be >= 0, got {self.checkpoint_every!r}")
+
+
+@dataclasses.dataclass
+class _Pending:
+    """Internal queue entry: the request plus everything priced at submit."""
+
+    rid: int
+    req: Request
+    prompt: np.ndarray              # always (B, S)
+    granted: int
+    est_s: float
+    submitted_at: float
+
+
+class _Histogram:
+    """The reference's log-bucketed latency histogram (``obs.metrics``), as
+    far as ``report()`` reads it: 400 geometric buckets over [lo, hi), an
+    underflow and an overflow bucket, interpolated quantiles."""
+
+    def __init__(self, lo: float = 1e-6, hi: float = 1e4, n_buckets: int = 400):
+        ratio = (hi / lo) ** (1.0 / n_buckets)
+        self.edges = [0.0] + [lo * ratio ** i for i in range(n_buckets)] + [hi]
+        self._counts = [0] * len(self.edges)
+        self._lock = threading.Lock()
+        self.count = 0
+        self._min = math.inf
+        self._max = -math.inf
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        with self._lock:
+            b = bisect.bisect_right(self.edges, v) - 1 if v >= 0 else 0
+            self._counts[min(b, len(self._counts) - 1)] += 1
+            self.count += 1
+            self._min = min(self._min, v)
+            self._max = max(self._max, v)
+
+    def quantile(self, q: float) -> float:
+        with self._lock:
+            if self.count == 0:
+                return math.nan
+            rank = q * (self.count - 1)
+            cum = 0
+            for b, c in enumerate(self._counts):
+                if c == 0:
+                    continue
+                if rank < cum + c:
+                    lob = self.edges[b]
+                    hib = (self.edges[b + 1] if b + 1 < len(self.edges)
+                           else max(self._max, self.edges[-1]))
+                    lob = max(lob, self._min) if b == 0 or lob == 0.0 else lob
+                    hib = min(hib, self._max) if self._max > lob else hib
+                    frac = (rank - cum + 0.5) / c
+                    if lob <= 0.0:
+                        return lob + (hib - lob) * frac
+                    return lob * (hib / lob) ** frac
+                cum += c
+            return self._max
+
+
+@guarded_by("_submit_lock", fields=["_seq", "_queue", "_backlog_s", "_inflight_rids",
+                                    "_agg", "records"])
+class ServeFront:
+    """The serving front over a continuous batcher: ``submit`` admits,
+    :meth:`drain_batched` executes, every terminal state becomes a
+    :class:`RequestRecord` in ``records``."""
+
+    def __init__(self, model_cfg: Any, params: dict, *, split_runtime: Any = None,
+                 split_ladder: Any = None, config: Optional[ServeFrontConfig] = None,
+                 link_health: Any = None, compute_dtype: Any = None, batcher: Any = None,
+                 speculative: Any = None, clock: Clock = MONOTONIC):
+        for name, value in (("split_runtime", split_runtime), ("split_ladder", split_ladder),
+                            ("link_health", link_health), ("speculative", speculative)):
+            if value is not None:
+                raise ServeFrontConfigError(f"ServeFront {name} {_NOT_PORTED}")
+        self.batcher = batcher
+        self.model_cfg = model_cfg
+        self.config = config if config is not None else ServeFrontConfig()
+        self.clock = clock
+        self.compute_dtype = compute_dtype
+        self._params = params
+        self.admission = AdmissionController(self.config.admission)
+        self.budget = RetryBudget(self.config.retry_budget, clock=clock)
+        self.brownout = BrownoutController(self.config.brownout, clock=clock)
+        self._queue: list = []      # heap of (-priority, deadline, rid, _Pending)
+        self._backlog_s = 0.0
+        self._seq = 0
+        self._submit_lock = threading.Lock()
+        self.records: list[RequestRecord] = []
+        self._agg: dict = {"requests": 0, "finished": 0, "tokens_out": 0, "met": 0,
+                           "with_deadline": 0, "outcomes": {}, "reasons": {}}
+        self._ttft_hist = _Histogram()
+        self._latency_hist = _Histogram()
+        self._inflight_rids: set = set()
+        self.failovers = 0
+        self._plans: dict = {}
+        self._breakers = {"local": CircuitBreaker("local", self.config.breaker, clock=clock)}
+
+    @property
+    def params(self) -> dict:
+        return self._params
+
+    @property
+    def breakers(self) -> dict:
+        return dict(self._breakers)
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self._queue)
+
+    def probe_prefix(self, prompt_ids) -> int:
+        """Leading tokens of this prompt the batcher's pool already holds."""
+        return 0 if self.batcher is None else self.batcher.probe_prefix(prompt_ids)
+
+    def load_fraction(self) -> float:
+        """Load pressure in [0, 1]: queue fullness or the brownout level."""
+        depth = len(self._queue) / self.admission.cfg.max_queue_depth
+        level = self.brownout.level / max(1, self.brownout.cfg.max_level)
+        return float(min(1.0, max(depth, level)))
+
+    # -- submit ------------------------------------------------------------
+
+    def submit(self, req: Request) -> int:
+        """Admit (or reject / shed, recorded) one request; returns its id."""
+        rid, _ = self.submit_ex(req)
+        return rid
+
+    def submit_ex(self, req: Request) -> tuple:
+        """:meth:`submit` plus the submit-time refusal: ``(rid, record)``,
+        ``record`` the terminal :class:`RequestRecord` of a rejected or shed
+        request, None for a queued one."""
+        now = self.clock()
+        with self._submit_lock:
+            self._seq += 1
+            rid = self._seq
+        return rid, self._submit_impl(rid, req, now)
+
+    def _submit_impl(self, rid: int, req: Request, now: float) -> Optional[RequestRecord]:
+        depth = len(self._queue)
+        self.brownout.observe(depth / self.admission.cfg.max_queue_depth)
+        prompt = np.asarray(req.prompt_ids)
+        if prompt.ndim == 1:
+            prompt = prompt[None, :]
+        if prompt.ndim != 2:
+            raise ValueError(f"prompt_ids must be (S,) or (B, S), got {prompt.shape}")
+        b, s = prompt.shape
+        requested = req.max_new_tokens
+        if self.config.max_new_tokens_cap is not None:
+            requested = min(requested, self.config.max_new_tokens_cap)
+        granted = self.brownout.token_cap(requested)
+        if self.brownout.should_shed(req.priority):
+            return self._finish(rid, req, b, s, SHED, "brownout_shed", now)
+        try:
+            self.admission.admit(s, granted, depth, req.deadline_s, backlog_s=self._backlog_s)
+        except AdmissionError as e:
+            return self._finish(rid, req, b, s, REJECTED, e.reason, now)
+        est = self.admission.estimate_s(s, granted)
+        pend = _Pending(rid=rid, req=req, prompt=prompt, granted=granted, est_s=est,
+                        submitted_at=now)
+        deadline_key = now + req.deadline_s if req.deadline_s is not None else float("inf")
+        with self._submit_lock:
+            heapq.heappush(self._queue, (-req.priority, deadline_key, rid, pend))
+            self._backlog_s += est
+        return None
+
+    # -- drain -------------------------------------------------------------
+
+    def _pop_pending(self) -> Optional[_Pending]:
+        with self._submit_lock:
+            if not self._queue:
+                return None
+            _, _, _, pend = heapq.heappop(self._queue)
+            self._backlog_s = max(0.0, self._backlog_s - pend.est_s)
+            self._inflight_rids.add(pend.rid)
+            return pend
+
+    def drain_pending(self) -> list:
+        """Pop every queued request as ``[(rid, Request)]`` without recording
+        a terminal outcome."""
+        out: list = []
+        with self._submit_lock:
+            while self._queue:
+                _, _, _, pend = heapq.heappop(self._queue)
+                out.append((pend.rid, pend.req))
+            self._backlog_s = 0.0
+        return out
+
+    def drain(self, max_requests: Optional[int] = None) -> list:
+        raise NotImplementedError(f"the per-request generate route (drain) {_NOT_PORTED}; "
+                                  f"use drain_batched with a ContinuousBatcher")
+
+    def drain_batched(self, max_requests: Optional[int] = None,
+                      max_steps: int = 100_000) -> list:
+        """Execute queued requests through the continuous batcher: one ragged
+        decode step serves every admitted stream. Admission, brownout,
+        deadline expiry and the local breaker apply as in the reference."""
+        if self.batcher is None:
+            raise ServeFrontConfigError(
+                "drain_batched needs a continuous batcher: "
+                "ServeFront(..., batcher=ContinuousBatcher(...))")
+        out: list = []
+        inflight: dict = {}   # sid -> (pend, queue_wait_s, started_at)
+        while max_requests is None or len(out) + len(inflight) < max_requests:
+            pend = self._pop_pending()
+            if pend is None:
+                break
+            self.brownout.observe(len(self._queue) / self.admission.cfg.max_queue_depth)
+            now = self.clock()
+            wait = now - pend.submitted_at
+            b, s = pend.prompt.shape
+            d = pend.req.deadline_s
+            if d is not None and wait >= d:
+                out.append(self._finish(pend.rid, pend.req, b, s, TIMED_OUT,
+                                        "expired_in_queue", pend.submitted_at,
+                                        queue_wait_s=wait))
+                continue
+            if b != 1:
+                raise NotImplementedError(
+                    f"a (B={b}, S) prompt needs the per-request generate route, which "
+                    f"{_NOT_PORTED}")
+            if not self._breakers["local"].allow():
+                out.append(self._finish(pend.rid, pend.req, b, s, REJECTED, "circuit_open",
+                                        pend.submitted_at, queue_wait_s=wait))
+                continue
+            try:
+                sid = self.batcher.submit(pend.prompt[0], pend.granted,
+                                          temperature=pend.req.temperature,
+                                          rng_seed=pend.req.rng_seed)
+            except ValueError:
+                # prompt + granted tokens exceed the batcher's slot span: a
+                # per-request shape problem, rejected, and the drain goes on
+                out.append(self._finish(pend.rid, pend.req, b, s, REJECTED,
+                                        "exceeds_slot_span", pend.submitted_at,
+                                        queue_wait_s=wait))
+                continue
+            inflight[sid] = (pend, wait, now)
+        if not inflight:
+            return out
+        t0 = self.clock()
+        try:
+            results = self.batcher.run(max_steps)
+            failure = None
+        except Exception as e:  # noqa: BLE001 — a wedged pool / watchdog
+            results = self.batcher.results
+            failure = e
+        wall = self.clock() - t0
+        rep = self.batcher.report()
+        plan = {"mode": "batched", "page_size": self.batcher.bcfg.page_size,
+                "num_pages": self.batcher.bcfg.num_pages,
+                "max_slots": self.batcher.bcfg.max_slots}
+        if rep.get("prefix"):
+            plan["prefix"] = {"hit_rate": rep["prefix"]["hit_rate"],
+                              "saved_tokens": rep["prefix"]["saved_tokens"],
+                              "shared_pages": rep["prefix"]["shared_pages"]}
+        for sid in sorted(inflight):
+            pend, wait, started = inflight[sid]
+            b, s = pend.prompt.shape
+            toks = results.get(sid)
+            self.batcher.discard(sid)
+            if toks is None:
+                self._breakers["local"].record_failure()
+                reason = (f"batcher:{type(failure).__name__}" if failure is not None
+                          else "batcher:incomplete")
+                out.append(self._finish(pend.rid, pend.req, b, s, FAILED, reason,
+                                        pend.submitted_at, queue_wait_s=wait,
+                                        backend="batched", started_at=started))
+                continue
+            self._breakers["local"].record_success()
+            # service / latency are whole-batch wall time: streams share the
+            # step loop
+            out.append(self._finish(
+                pend.rid, pend.req, b, s, COMPLETED, "", pend.submitted_at,
+                queue_wait_s=wait, backend="batched", started_at=started,
+                service_s=wall, latency_s=wait + wall, granted_tokens=pend.granted,
+                capacity=self.batcher.bcfg.span, plan=plan,
+                jit_misses=rep.get("jit_misses"), tokens=np.asarray(toks)[None, :]))
+        return out
+
+    # -- records + reporting -----------------------------------------------
+
+    def _finish(self, rid: int, req: Request, batch: int, prompt_tokens: int, outcome: str,
+                reason: str, submitted_at: float, *, queue_wait_s: Optional[float] = None,
+                backend: Optional[str] = None, started_at: Optional[float] = None,
+                ttft_s: Optional[float] = None, service_s: Optional[float] = None,
+                latency_s: Optional[float] = None, granted_tokens: Optional[int] = None,
+                capacity: Optional[int] = None, plan: Optional[dict] = None,
+                retries_charged: int = 0, jit_misses: Optional[int] = None,
+                tokens: Optional[np.ndarray] = None,
+                recovery: Optional[dict] = None) -> RequestRecord:
+        deadline_met = None
+        if req.deadline_s is not None and latency_s is not None:
+            deadline_met = latency_s <= req.deadline_s
+        finished_at = (started_at + service_s
+                       if started_at is not None and service_s is not None else None)
+        rec = RequestRecord(
+            request_id=rid, outcome=outcome, reason=reason, backend=backend,
+            priority=req.priority, submitted_at=submitted_at, started_at=started_at,
+            finished_at=finished_at, queue_wait_s=queue_wait_s, ttft_s=ttft_s,
+            service_s=service_s, latency_s=latency_s, deadline_s=req.deadline_s,
+            deadline_met=deadline_met, prompt_tokens=prompt_tokens,
+            requested_tokens=req.max_new_tokens, granted_tokens=granted_tokens,
+            capacity=capacity, batch=batch, plan=plan, brownout_level=self.brownout.level,
+            retries_charged=retries_charged, jit_misses=jit_misses, tokens=tokens,
+            recovery=recovery)
+        if outcome in (COMPLETED, FAILED_OVER):
+            if ttft_s is not None:
+                self._ttft_hist.observe(ttft_s)
+            if latency_s is not None:
+                self._latency_hist.observe(latency_s)
+        with self._submit_lock:
+            agg = self._agg
+            agg["requests"] += 1
+            agg["outcomes"][outcome] = agg["outcomes"].get(outcome, 0) + 1
+            if reason:
+                agg["reasons"][reason] = agg["reasons"].get(reason, 0) + 1
+            if outcome in (COMPLETED, FAILED_OVER):
+                agg["finished"] += 1
+                if granted_tokens is not None:
+                    agg["tokens_out"] += batch * granted_tokens
+                if deadline_met is not None:
+                    agg["with_deadline"] += 1
+                    agg["met"] += int(deadline_met)
+            if self.config.record_history:
+                self.records.append(rec)
+            self._inflight_rids.discard(rid)
+        return rec
+
+    def report(self) -> dict:
+        """Aggregate view over every terminal record so far (the reference's
+        keys): outcome / reason counts, SLO attainment, TTFT / latency
+        percentiles, controller summaries, breaker states."""
+
+        def pct(hist):
+            if hist.count == 0:
+                return None
+            return {"p50": float(hist.quantile(0.50)), "p95": float(hist.quantile(0.95)),
+                    "p99": float(hist.quantile(0.99))}
+
+        with self._submit_lock:
+            agg = {**self._agg, "outcomes": dict(self._agg["outcomes"]),
+                   "reasons": dict(self._agg["reasons"])}
+            depth = len(self._queue)
+        return {
+            "requests": agg["requests"], "finished": agg["finished"],
+            "tokens_out": agg["tokens_out"], "outcomes": agg["outcomes"],
+            "reasons": agg["reasons"],
+            "slo_attainment": ((agg["met"] / agg["with_deadline"])
+                               if agg["with_deadline"] else None),
+            "ttft_s": pct(self._ttft_hist), "latency_s": pct(self._latency_hist),
+            "queue_depth": depth, "failovers": self.failovers,
+            "admission": self.admission.summary(), "retry_budget": self.budget.summary(),
+            "brownout": self.brownout.summary(),
+            "breakers": {n: b.summary() for n, b in sorted(self._breakers.items())},
+            "plans": {f"{b}x{c}": n for (b, c), n in sorted(self._plans.items())},
+            **({"prefix": self.batcher.pool.prefix_report()}
+               if self.batcher is not None and self.batcher.pool.prefix is not None else {}),
+        }
+
+    def health_summary(self) -> dict:
+        """Degraded whenever a breaker left the closed state or brownout is
+        active; one consistent snapshot under the submit lock."""
+        with self._submit_lock:
+            breakers = {n: b.summary() for n, b in sorted(self._breakers.items())}
+            open_names = [n for n, s in breakers.items() if s.get("state") != "closed"]
+            level = self.brownout.level
+            return {"status": "degraded" if open_names or level else "ok",
+                    "open_breakers": open_names, "brownout_level": level,
+                    "queue_depth": len(self._queue), "inflight": len(self._inflight_rids),
+                    "records": self._agg["requests"], "failovers": self.failovers}

@@ -126,7 +126,9 @@ def test_every_config_is_accepted_or_named_not_ported(config):
     exp = p.get("experiment", "")
     unported_split = exp == "split" and any(
         k in p and p[k] != 1 for k in trun.UNPORTED_SPLIT_KEYS)
-    if exp in trun.NOT_PORTED or "observability" in p or unported_split:
+    unported_serve = exp == "serve" and (
+        "batching" not in p or any(k in p for k in trun.UNPORTED_SERVE_KEYS))
+    if exp in trun.NOT_PORTED or "observability" in p or unported_split or unported_serve:
         with pytest.raises(SystemExit, match="not ported yet"):
             trun._validate_params_json(p)
     else:
@@ -310,6 +312,12 @@ split = run_split_eval(cfg, params, np.arange(100) % 256, cuts=[1, 3],
                        importance_method="last_row", max_length=32, stride=16,
                        device="cpu")
 assert np.isfinite(split["ppl"])
+import edgellm_tpu_torch.serve.frontend, edgellm_tpu_torch.serve.soak
+from edgellm_tpu_torch.serve import BatchingConfig, ContinuousBatcher
+b = ContinuousBatcher(cfg, params, BatchingConfig(page_size=8, num_pages=8, max_slots=2,
+                                                  pages_per_slot=2, kv_codec="int4_per_channel"))
+sid = b.submit(np.arange(1, 6), 4, temperature=0.5, rng_seed=1)
+assert b.run()[sid].shape == (4,)
 assert not any(m == "jax" or m.startswith(("jax.", "edgellm_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
