@@ -1,6 +1,9 @@
-// Shared pieces of the two causal-attention kernels (causal_attention.cu,
-// attention_stats.cu): dtype conversion, tile loads into shared memory, and
-// the 64 x 64 score tile.
+// Shared pieces of the attention kernels: the fp32 bodies of K-attn and
+// K-stats (causal_attention.cu, attention_stats.cu) load tiles into shared
+// memory and multiply the 64 x 64 score tile with fp32 FMA on the CUDA cores;
+// their bf16 bodies run on the tensor cores (hopper_common.cuh) and reduce
+// accumulator rows over a quad; the paged decode kernels (paged_decode.cu)
+// convert fp32 / bf16 through to_float / from_float.
 //
 // Layout contract (checked by the Python wrappers in
 // edgellm_tpu_torch/models/flash_attention.py): q is the packed (B, S, H*hd)
@@ -23,6 +26,8 @@ namespace edgellm {
 constexpr int kTile = 64;     // query rows per tile == keys per tile
 constexpr int kThreads = 256; // 16 x 16 thread grid
 
+// dtype conversion (the paged decode kernels, paged_decode.cu, read fp32 or
+// bf16 q and pages through these)
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -33,25 +38,25 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16_rn(x);
 }
 
-// Rows [row0, row0 + kTile) of one head into dst[r * pitch + d] as fp32;
-// rows at or past S are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_rows(float* dst, int pitch, const T* src,
+// Rows [row0, row0 + kTile) of one head into dst[r * pitch + d]; rows at or
+// past S are zero.
+template <int HD>
+__device__ __forceinline__ void load_rows(float* dst, int pitch, const float* src,
                                           long long row_stride, int row0, int S) {
   for (int e = threadIdx.x; e < kTile * HD; e += kThreads) {
     const int r = e / HD, d = e % HD, row = row0 + r;
-    dst[r * pitch + d] = row < S ? to_float(src[(long long)row * row_stride + d]) : 0.f;
+    dst[r * pitch + d] = row < S ? src[(long long)row * row_stride + d] : 0.f;
   }
 }
 
 // The same rows transposed: dst[d * pitch + r]. Neighbouring threads read
 // neighbouring d (coalesced) and, with pitch kTile + 1, write distinct banks.
-template <typename T, int HD>
-__device__ __forceinline__ void load_rows_t(float* dst, int pitch, const T* src,
+template <int HD>
+__device__ __forceinline__ void load_rows_t(float* dst, int pitch, const float* src,
                                             long long row_stride, int row0, int S) {
   for (int e = threadIdx.x; e < kTile * HD; e += kThreads) {
     const int r = e / HD, d = e % HD, row = row0 + r;
-    dst[d * pitch + r] = row < S ? to_float(src[(long long)row * row_stride + d]) : 0.f;
+    dst[d * pitch + r] = row < S ? src[(long long)row * row_stride + d] : 0.f;
   }
 }
 
@@ -89,6 +94,17 @@ __device__ __forceinline__ float row_sum16(float v) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// Reductions over the 4 lanes (a quad) that share a row of a wgmma
+// accumulator.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 }  // namespace edgellm

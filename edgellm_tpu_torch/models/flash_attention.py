@@ -11,10 +11,15 @@ plans:
 - **K-attn** (``csrc/causal_attention.cu``), behind :func:`causal_attention`:
   flash-style exact causal attention, one block per (query tile, head, batch
   row), online softmax in fp32, q and the output in the packed (B, S, H*hd)
-  layout, K/V read through their strides.
+  layout, K/V read through their strides. In bf16 both products run on the
+  tensor cores (``wgmma``), fed by 16-byte ``cp.async`` copies into a
+  4-stage shared-memory ring that one producer warp fills and the consumer
+  warpgroups drain (``csrc/hopper_common.cuh``); fp32 keeps an FMA body on
+  the CUDA cores (no TF32, as the reference).
 - **K-stats** (``csrc/attention_stats.cu``), behind
   :func:`causal_attention_stats`: K-attn's forward also writes the row
-  log-sum-exp, then a column pass (one block per key tile) sums
+  log-sum-exp, then a column pass (one block per key tile; in bf16 ``K q^T``
+  by ``wgmma``, so column sums are accumulator row sums) sums
   ``exp(s - lse)`` down the columns into ``col_sum / S`` and writes the last
   query row. Two passes, no atomics, deterministic.
 
@@ -33,7 +38,10 @@ A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors. Which shapes reach a kernel is decided by plan
 (:func:`kernel_plan`, the TPU envelope: hd in {64, 128}, head-aligned GQA,
 S <= 2048; :func:`decode_plan` for pages); the model sends a shape without a
-plan to the plain version. A CUDA tensor outside the wrapper's checks raises.
+plan to the plain version. A CUDA tensor outside the wrapper's checks raises:
+the bf16 kernels also need every base pointer and batch, sequence and head
+stride 16-byte aligned (:func:`_check_copy_alignment`); there is no other
+body to fall back to.
 """
 from __future__ import annotations
 
@@ -204,7 +212,22 @@ def _check_inputs(q, k, v, plan):
                          "(B, S, H*hd)")
     if k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("k/v head dim must be contiguous (stride 1)")
+    if q.dtype == torch.bfloat16:
+        _check_copy_alignment(q, k, v)
     _resolve(q, k, plan)
+
+
+def _check_copy_alignment(q, k, v):
+    """The bf16 kernels copy rows in 16-byte chunks (``cp.async``): each
+    tensor's rows must be contiguous in hd and its base pointer and batch,
+    sequence and head strides multiples of 16 bytes. Raises otherwise."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} rows must be contiguous in hd (stride 1)")
+        strides = [t.stride(i) * t.element_size() for i in range(3)]
+        if t.data_ptr() % 16 or any(st % 16 for st in strides):
+            raise ValueError(f"{name} is not 16-byte aligned for the bf16 kernel's copies: "
+                             f"base {t.data_ptr() % 16} bytes off, byte strides {strides}")
 
 
 def _raise_on(lib, err: int, what: str, errfn: str):

@@ -3,11 +3,16 @@
 Same inputs, made with numpy from a seed, go through ``_attn_packed(_stats)``
 and ``_attn_blocked(_stats)`` in interpret mode (as tests/test_flash_attention.py
 runs them on the CPU) and through the port's ``causal_attention(_stats)``,
-which take their plain PyTorch versions for CPU tensors. fp32 throughout.
+which take their plain PyTorch versions for CPU tensors. fp32, and bf16 at the
+bf16 kernels' tile edges (the plain versions are those kernels' oracle on the
+card).
 
 Tolerances: outputs atol/rtol 1e-5 (two fp32 softmax formulations; the
 reference normalizes before PV, the same as the plain version, so only
-summation order differs); stats atol 1e-6 (probabilities in [0, 1]).
+summation order differs); stats atol 1e-6 (probabilities in [0, 1]). bf16
+outputs within one bf16 step (atol 2^-8, rtol 2^-7: fp32 scores summed in
+another order can round p or the output to the neighbouring bf16 value);
+bf16 stats as fp32 (both compute them in fp32 from the same bf16 inputs).
 """
 import numpy as np
 import pytest
@@ -20,6 +25,7 @@ from edgellm_tpu_torch.models import flash_attention as tfa
 
 OUT_TOL = dict(atol=1e-5, rtol=1e-5)
 STATS_TOL = dict(atol=1e-6, rtol=0)
+BF16_OUT_TOL = dict(atol=2.0 ** -8, rtol=2.0 ** -7)
 
 
 def _inputs(seed, b, s, h, kv, hd):
@@ -35,6 +41,15 @@ def _jax_args(q, k, v):
     return (jnp.asarray(q.reshape(b, s, h * hd)),
             jnp.asarray(np.transpose(k, (0, 2, 1, 3))),
             jnp.asarray(np.transpose(v, (0, 2, 1, 3))))
+
+
+def _bf16(seed, b, s, h, kv, hd):
+    """bf16 torch inputs and the same values as bf16 JAX arrays in the
+    reference's (B, S, H*hd) / (B, KV, S, hd) layout."""
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in _inputs(seed, b, s, h, kv, hd))
+    args = tuple(jnp.asarray(a, dtype=jnp.bfloat16)
+                 for a in _jax_args(*(x.float().numpy() for x in (tq, tk, tv))))
+    return (tq, tk, tv), args
 
 
 CASES = [  # (b, s, h, kv, hd)
@@ -89,6 +104,45 @@ def test_attention_and_stats_match_blocked_kernels(b, s, h, kv, hd, qb, hps):
     np.testing.assert_allclose(last.numpy(), np.asarray(want_last), **STATS_TOL)
 
 
+#: the bf16 kernels' tile edges (64-key stages, 64- and 128-row query blocks)
+#: at the Qwen2-0.5B head layout (14 heads over 2 KV groups)
+BF16_S = (1, 63, 65, 100, 129)
+
+
+@pytest.mark.parametrize("s", BF16_S)
+def test_bf16_attention_and_stats_match_packed_kernels(s):
+    b, h, kv, hd = 1, 14, 2, 64
+    (tq, tk, tv), args = _bf16(6, b, s, h, kv, hd)
+    want = np.asarray(jfa._attn_packed(*args, hd=hd, interpret=True).astype(jnp.float32))
+    want_out, want_col, want_last = jfa._attn_packed_stats(*args, hd=hd, interpret=True)
+    got = tfa.causal_attention(tq, tk, tv)
+    out, (col, last) = tfa.causal_attention_stats(tq, tk, tv)
+    assert got.dtype == out.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy().reshape(b, s, h * hd), want, **BF16_OUT_TOL)
+    np.testing.assert_allclose(out.float().numpy().reshape(b, s, h * hd),
+                               np.asarray(want_out.astype(jnp.float32)), **BF16_OUT_TOL)
+    np.testing.assert_allclose(col.numpy(), np.asarray(want_col), **STATS_TOL)
+    np.testing.assert_allclose(last.numpy(), np.asarray(want_last), **STATS_TOL)
+
+
+@pytest.mark.parametrize("s,qb,hps", [(100, 50, 7), (129, 43, 14), (65, 13, 7)])
+def test_bf16_attention_and_stats_match_blocked_kernels(s, qb, hps):
+    b, h, kv, hd = 2, 14, 2, 64
+    (tq, tk, tv), args = _bf16(7, b, s, h, kv, hd)
+    want = np.asarray(jfa._attn_blocked(*args, hd=hd, qb=qb, hps=hps, interpret=True)
+                      .astype(jnp.float32))
+    want_out, want_col, want_last = jfa._attn_blocked_stats(*args, hd=hd, qb=qb, hps=hps,
+                                                           interpret=True)
+    plan = ("blocked", (qb, hps))
+    got = tfa.causal_attention(tq, tk, tv, plan=plan)
+    out, (col, last) = tfa.causal_attention_stats(tq, tk, tv, plan=plan)
+    np.testing.assert_allclose(got.float().numpy().reshape(b, s, h * hd), want, **BF16_OUT_TOL)
+    np.testing.assert_allclose(out.float().numpy().reshape(b, s, h * hd),
+                               np.asarray(want_out.astype(jnp.float32)), **BF16_OUT_TOL)
+    np.testing.assert_allclose(col.numpy(), np.asarray(want_col), **STATS_TOL)
+    np.testing.assert_allclose(last.numpy(), np.asarray(want_last), **STATS_TOL)
+
+
 @pytest.mark.parametrize("s,h,kv,hd,itemsize", [
     (512, 14, 2, 64, 2), (512, 14, 2, 64, 4), (512, 12, 2, 128, 2),
     (2048, 8, 8, 64, 2), (2048, 14, 2, 64, 2), (512, 32, 8, 64, 2),
@@ -130,6 +184,26 @@ def test_wrapper_checks_reject_what_the_kernel_does_not_take():
         tfa._check_inputs(q, k, v, None)
     with pytest.raises(ValueError, match="do not match"):
         tfa._check_inputs(q, k[:, :8], v[:, :8], None)
+
+
+def test_copy_alignment_check_refuses_unaligned_views():
+    """The bf16 kernels' 16-byte copies: the models' layouts pass (packed q,
+    K/V as head slices of a fused projection), a sequence stride or a base
+    off 16 bytes, or a strided head dim, raises."""
+    b, s, h, kv, hd = 1, 16, 4, 2, 64
+    q = torch.zeros((b, s, h, hd), dtype=torch.bfloat16)
+    fused = torch.zeros((b, s, 2 * kv, hd), dtype=torch.bfloat16)
+    tfa._check_copy_alignment(q, fused[:, :, :kv], fused[:, :, kv:])
+    padded = torch.zeros((b, s, kv * hd + 4), dtype=torch.bfloat16)
+    k = padded[:, :, :kv * hd].unflatten(2, (kv, hd))  # sequence stride 264 bytes
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._check_copy_alignment(q, k, k)
+    shifted = torch.zeros(b * s * kv * hd + 1, dtype=torch.bfloat16)[1:].view(b, s, kv, hd)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._check_copy_alignment(q, shifted, shifted)
+    with pytest.raises(ValueError, match="contiguous in hd"):
+        strided = torch.zeros((b, s, kv, 2 * hd), dtype=torch.bfloat16)[..., ::2]
+        tfa._check_copy_alignment(q, strided, fused[:, :, kv:])
 
 
 def test_bound_counts_bytes_and_causal_flops():

@@ -6,9 +6,11 @@ nvcc but no JAX: ``python -m pytest --noconftest tests/test_torch_cuda.py``
 (``tests/conftest.py`` imports jax; this file needs nothing from it).
 
 Tolerances: fp32 outputs atol 2e-5 (online vs two-pass softmax, other
-summation order); bf16 outputs atol 2e-2 (the plain version rounds the
-probabilities to bf16 before PV, the kernel does not); stats atol 1e-5 for
-both dtypes (fp32 in both, from the same rounded inputs).
+summation order); bf16 outputs atol 1.6e-2, just above the 1.5625e-2 the
+H100 read (both round the probabilities to bf16 before PV, the kernel the
+unnormalized ones: an output may land one bf16 step at |out| < 4 from the
+plain version's); stats atol 1e-5 for both dtypes (fp32 in both, from the
+same rounded inputs).
 """
 import numpy as np
 import pytest
@@ -18,7 +20,7 @@ from edgellm_tpu_torch.models import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5), torch.bfloat16: dict(atol=1.6e-2, rtol=0.0)}
 STATS_TOL = dict(atol=1e-5, rtol=0)
 
 
@@ -42,6 +44,11 @@ SHAPES = [  # (b, s, h, kv, hd)
     (2, 512, 12, 2, 128),   # Qwen2-1.5B
     (3, 100, 4, 2, 64),     # ragged S (not a multiple of the 64-row tile)
     (1, 1, 4, 4, 128),      # one token
+    # the bf16 kernels' tile edges: 64-key stages, 64- and 128-row query blocks
+    *[(2, s, 14, 2, 64) for s in (63, 64, 65, 127, 128, 129)],
+    *[(1, s, 12, 2, 128) for s in (63, 65, 129)],
+    (4, 12, 14, 2, 64),     # the serve prefill lengths (split9, split13)
+    (4, 72, 14, 2, 64),
 ]
 
 
@@ -85,3 +92,19 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
         fa.causal_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="CUDA device"):
         fa.causal_attention(q, k.cpu(), v)
+
+
+def test_wrapper_raises_on_misaligned_bf16_copies(card):
+    """The bf16 kernels copy 16-byte chunks: a K/V view whose sequence stride
+    is not a multiple of 16 bytes, or whose base is off by one element,
+    raises instead of launching."""
+    b, s, h, kv, hd = 1, 64, 4, 2, 64
+    q = torch.randn(b, s, h, hd, device=card).to(torch.bfloat16)
+    padded = torch.randn(b, s, kv * hd + 4, device=card).to(torch.bfloat16)
+    k = padded[:, :, :kv * hd].unflatten(2, (kv, hd))  # sequence stride 264 bytes
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.causal_attention(q, k, k)
+    flat = torch.randn(b * s * kv * hd + 1, device=card).to(torch.bfloat16)
+    shifted = flat[1:].view(b, s, kv, hd)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.causal_attention_stats(q, shifted, shifted)
