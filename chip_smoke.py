@@ -19,12 +19,17 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    D = 896 and 1536, and N = 1 and 511, K8's buffer byte for byte against the
    wire path's, and a flipped byte failing K8's verify;
 4. timing with CUDA events: kernel, plain version, one PyTorch library call
-   where one computes the same function, and the roofline bound;
+   where one computes the same function, and the roofline bound; fp32 K-attn
+   also at the serve prefills' shapes (B = 1, S = 12, 72, 512);
 5. the main path at full Qwen2-0.5B width and depth: ``run_token_sweep``,
    4 methods x layer 11 x 5 ratios, window 512, stride 32, window batch 8,
    bf16 random weights from ``--seed``, with every kernel's launch count;
+   the bf16 LM head checked (bf16-operand GEMMs with fp32 output, logits
+   within the fp32 summation bound of the widened product, NLL against the
+   widened product's);
    then chunk 0 and one group again, timed alone and under torch.profiler:
-   device time by kernel, the card's idle share, attention FLOP/s;
+   device time by kernel, the card's idle share, attention FLOP/s and the
+   LM head's device time;
 6. the split main path, configs/split1_qwen_int8.json's split (Qwen2-0.5B at
    full width and depth, cut 11, int8_per_token, window 512, stride 32) through
    ``run_split_eval`` at window batch 8, ``--chunks`` chunks, time_hops on:
@@ -51,8 +56,10 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    against their plain versions at Qwen2-0.5B and Qwen2-1.5B heads: 32
    slots of ragged lengths up to a 2048 span (some on the trash page), and
    each serve path's own geometry (split9, split13, split14 and the large
-   split9 of phase 11: slots, page size, pages per slot, pool pages); timed
-   beside their bound;
+   split9 of phase 11: slots, page size, pages per slot, pool pages), each
+   twice and bit for bit equal; timed (CUDA events and device time) beside
+   their bound, their split count and the SDPA yardstick over the gathered
+   span;
 11. the batched serve paths at full Qwen2-0.5B width and depth, fp32 random
    weights, through the CLI's ``run_serve``: configs/split9_qwen_paged.json,
    split13_qwen_prefix.json (prefix sharing) and split14_qwen_kvq.json
@@ -193,23 +200,36 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, tries: int = 3) -> float:
     """Device time of one ``fn()`` in ms: the kernels it launches, summed
     under torch.profiler over ``iters`` warm calls; the host's launch time
-    between them is left out."""
+    between them is left out. The trace is held to the kernels one profiled
+    call launches: each must be recorded ``iters`` times that often, since a
+    record the profiler dropped would lower the time. A short trace is
+    profiled again, up to ``tries`` times, then the run fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def trace(n: int) -> dict:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return {ev.key: (ev.count, ev.self_device_time_total) for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA}
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA)
-    return total / 1e3 / iters
+    for _ in range(tries):
+        one, many = trace(1), trace(iters)
+        want = {k: c * iters for k, (c, _) in one.items()}
+        got = {k: c for k, (c, _) in many.items()}
+        if one and got == want:
+            return sum(t for _, t in many.values()) / 1e3 / iters
+        log(f"  device_ms: the trace of {iters} calls holds {got}, wanted {want}; "
+            f"profiling again")
+    raise SystemExit(f"device_ms: the profiler dropped kernel records in {tries} tries")
 
 
 def close(got, want, tol) -> tuple[float, bool]:
@@ -292,7 +312,41 @@ def kernel_checks(detail: dict) -> dict:
                         main[name] = row
     detail["kernel_rows"] = rows
     detail["edge_rows"] = edge_checks(gen)
+    detail["serve_prefill_rows"] = serve_prefill_reads(gen)
     return main
+
+
+def serve_prefill_reads(gen) -> list:
+    """fp32 K-attn at the serve paths' prefill shapes (Qwen2-0.5B heads,
+    B = 1, S = 12, 72 and 512: split9's, split13's and the large split9's
+    prompts), checked against its plain version and timed beside its bound
+    and SDPA; read only, the kernel is not changed here."""
+    import torch
+    import torch.nn.functional as F
+
+    from edgellm_tpu_torch.models import flash_attention as fa
+
+    rows = []
+    for s in (12, 72, 512):
+        q, k, v = (torch.randn((1, s, n, 64), generator=gen, device="cuda") for n in (14, 2, 2))
+        err, ok = close(fa.causal_attention(q, k, v), fa.causal_attention_plain(q, k, v),
+                        OUT_TOL["float32"])
+        nbytes, flops = fa.causal_attention_bytes_flops(1, s, 14, 2, 64, 4)
+        bound, bound_by = fa.bound_ms(nbytes, flops, torch.float32)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        run = lambda: fa.causal_attention(q, k, v)  # noqa: E731
+        row = {"kernel": "causal_attention", "dtype": "float32", "b": 1, "s": s,
+               "max_abs_err": err, "kernel_ms": time_ms(run, 50),
+               "kernel_device_ms": device_ms(run, 50), "library_ms": time_ms(sdpa, 50),
+               "library_device_ms": device_ms(sdpa, 50), "bound_ms": bound,
+               "bound_by": bound_by}
+        rows.append(row)
+        log(json.dumps({"serve_prefill_k_attn": row}))
+        if not ok:
+            raise SystemExit(f"fp32 K-attn disagrees with its plain version: {row}")
+    return rows
 
 
 #: the bf16 kernels' tile edges (64-key stages, 64- and 128-row query blocks)
@@ -410,16 +464,72 @@ def main_path(args, detail: dict) -> dict:
     attn_calls = (layer + 1) + suffix_layers + len(methods) * n_nz * suffix_layers
     per_call = fa.causal_attention_bytes_flops(1, window, cfg.num_heads, cfg.num_kv_heads,
                                                cfg.head_dim, 2)[1]
+    detail["main_path"]["head_check"] = head_check(cfg, params, args.seed)
     detail["main_path"]["profile"] = profile_group(cfg, params, corpus, kw,
                                                    attn_calls * per_call)
     return launches
+
+
+def head_check(cfg, params, seed: int) -> dict:
+    """The main path's bf16 LM head on the card: ``unembed`` and the
+    vocab-streamed ``nll_tail`` reach only bf16-operand GEMMs with fp32
+    output (``aten::mm.dtype``, none in fp32); the logits lie within the
+    fp32 summation-order bound 2 * D * 2^-24 * (|post| @ |head|) of the
+    widened fp32 product (the same exact products in another order); the
+    NLL of one suffix batch's scoring tail (32 windows x 33 rows, as the
+    sweep's) within 1e-5 of the widened product's, and timed."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from edgellm_tpu_torch.models import transformer as tr
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    hidden = torch.randn((32, 64, cfg.hidden_size), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    targets = torch.randint(0, cfg.vocab_size, (32, 64), generator=gen, device="cuda")
+    aten = torch.ops.aten
+    gemms = {aten.mm.default, aten.mm.dtype, aten.addmm.default, aten.bmm.default,
+             aten.matmul.default}
+
+    class Seen(TorchDispatchMode):
+        ops: list = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in gemms:
+                Seen.ops.append((str(func), [str(a.dtype) for a in args
+                                             if isinstance(a, torch.Tensor)]))
+            return func(*args, **(kwargs or {}))
+
+    with Seen():
+        logits = tr.unembed(cfg, params, hidden[:2])
+        nll = tr.nll_tail(cfg, params, hidden, targets, 33, per_example=True)
+    post = tr._final_norm(cfg, params, hidden[:2]).reshape(-1, cfg.hidden_size).float()
+    head = (params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]).float()
+    bound = 2 * cfg.hidden_size * 2.0 ** -24 * (post.abs() @ head.abs())
+    diff = (logits.reshape(-1, cfg.vocab_size) - post @ head).abs()
+    tail = tr._final_norm(cfg, params, hidden[:, -34:-1]).reshape(-1, cfg.hidden_size)
+    nll_wide = tr._masked_ce((tail.float() @ head).reshape(32, 33, -1), targets[:, -33:], True)
+    bf16_ms = time_ms(lambda: tr.nll_tail(cfg, params, hidden, targets, 33), 5)
+    row = {"gemms": sorted(set(f for f, _ in Seen.ops)),
+           "operand_dtypes": sorted(set(tuple(d) for _, d in Seen.ops)),
+           "max_abs_diff": diff.max().item(), "max_diff_over_bound": (diff / bound).max().item(),
+           "nll_max_rel_diff": ((nll - nll_wide).abs() / nll_wide.abs()).max().item(),
+           "nll_tail_ms": bf16_ms}
+    log(json.dumps({"head_check": row}))
+    if (any(f != "aten.mm.dtype" or d != ["torch.bfloat16"] * 2 for f, d in Seen.ops)
+            or not Seen.ops or not bool((diff <= bound).all())
+            or row["nll_max_rel_diff"] > 1e-5):
+        raise SystemExit(f"the bf16 LM head is not a bf16-operand GEMM with fp32 output "
+                         f"within the summation bound: {row}")
+    return row
 
 
 def device_time(run, chunks: int) -> tuple[dict, list]:
     """Where ``run()`` (``chunks`` chunks, already warm) spends the card's
     time: its unprofiled wall time, then device time by kernel under
     torch.profiler (kernels only), and the card's idle share between the two
-    -> (summary with the top 25 kernels, every kernel row)."""
+    -> (summary with the top 25 kernels and the device time of the kernels
+    launched inside each ``record_function`` range, every kernel row)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -433,14 +543,19 @@ def device_time(run, chunks: int) -> tuple[dict, list]:
                  acc_events=True) as prof:
         run()
         torch.cuda.synchronize()
+    range_names = ("lm_head",)  # record_function ranges: on the device timeline, not kernels
     rows = [{"name": ev.key[:120], "device_ms": ev.self_device_time_total / 1e3,
              "calls": ev.count}
             for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+            and ev.key not in range_names]
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
+    ranges = {ev.key: ev.device_time_total / 1e3 for ev in prof.key_averages()
+              if ev.key in range_names}
     return {"chunks": chunks, "wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": 1 - busy / wall_ms if busy else None, "top": rows[:25]}, rows
+            "idle_share": 1 - busy / wall_ms if busy else None, "range_device_ms": ranges,
+            "top": rows[:25]}, rows
 
 
 def log_profile(tag: str, out: dict, n_rows: int):
@@ -449,14 +564,38 @@ def log_profile(tag: str, out: dict, n_rows: int):
         log(f"  {r['device_ms']:10.3f} ms  {r['calls']:6d}  {r['name'][:90]}")
 
 
+@contextlib.contextmanager
+def lm_head_range():
+    """Wrap the model's LM-head product in a ``record_function("lm_head")``
+    range, so a profile reads its device time."""
+    import torch
+
+    from edgellm_tpu_torch.models import transformer as tr
+
+    orig = tr.head_matmul
+
+    def head(a, b):
+        with torch.profiler.record_function("lm_head"):
+            return orig(a, b)
+
+    tr.head_matmul = head
+    try:
+        yield
+    finally:
+        tr.head_matmul = orig
+
+
 def profile_group(cfg, params, corpus, kw, attn_flops_per_window: float) -> dict:
     """Where chunk 0 and one steady group of the main path spend the card's
-    time (:func:`device_time`), and the two attention kernels' achieved
-    FLOP/s on the attention work of those chunks."""
+    time (:func:`device_time`), the two attention kernels' achieved FLOP/s
+    on the attention work of those chunks, and the LM head's device time
+    (bf16 operands into fp32)."""
     from edgellm_tpu_torch.eval import run_token_sweep
 
     n = 1 + kw["window_batch"]
-    out, rows = device_time(lambda: run_token_sweep(cfg, params, corpus, max_chunks=n, **kw), n)
+    group = lambda: run_token_sweep(cfg, params, corpus, max_chunks=n, **kw)  # noqa: E731
+    with lm_head_range():
+        out, rows = device_time(group, n)
     attn = {k: sum(r["device_ms"] for r in rows if k in r["name"])
             for k in ("attn_fwd_wgmma", "attn_col_wgmma")}  # the bf16 kernels
     if not all(attn.values()):
@@ -906,14 +1045,42 @@ def _paged_case(b: int, h: int, kv: int, hd: int, ps: int, pps: int, num_pages: 
         "kv_codec": kv_codec, "plan": fa.paged_plan(q, kc, t(table), kv_codec)}
 
 
+def paged_sdpa(args, kv_codec: str):
+    """The library yardstick of K13 / K14 (timed only, never the port's
+    path): ``scaled_dot_product_attention`` with ``enable_gqa`` over each
+    slot's span already gathered (and dequantized) in q's dtype, with a
+    per-slot length mask -> a call that computes the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    from edgellm_tpu_torch.models import flash_attention as fa
+
+    if kv_codec == "fp":
+        q, kp, vp, table, lengths = args
+        k, v = fa._gather_span(kp, table), fa._gather_span(vp, table)
+    else:
+        q, kc, vc, ks, vs, table, lengths = args
+        k = fa.dequantize_kv_rows(fa._gather_span(kc, table), fa._gather_span(ks, table),
+                                  kv_codec, q.dtype)
+        v = fa.dequantize_kv_rows(fa._gather_span(vc, table), fa._gather_span(vs, table),
+                                  kv_codec, q.dtype)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+
 def paged_checks(detail: dict) -> dict:
-    """Phase 10: K13 and K14 against their plain versions and timed with
-    CUDA events beside their bound (the live K/V rows of every slot read
-    once, q read, the output written, over 3.35 TB/s; or 4 * H * hd FLOPs a
-    live row over the peak of q's type), at the 2048 span and at each serve
-    path's own geometry (slots, page size, pages per slot and pool pages of
-    its ``batching`` block, split14's pool from its byte budget) -> {kernel:
-    its row at the shape of the serve path it runs on: K13 fp32 at the large
+    """Phase 10: K13 and K14 against their plain versions, twice and bit for
+    bit equal, and timed with CUDA events and on the device (torch.profiler:
+    the split kernel and the merge) beside their bound (the live K/V rows of every slot read once, q read,
+    the output written, over 3.35 TB/s; or 4 * H * hd FLOPs a live row over
+    the peak of q's type), the split count and the SDPA yardstick
+    (:func:`paged_sdpa`), at the 2048 span and at each serve path's own
+    geometry (slots, page size, pages per slot and pool pages of its
+    ``batching`` block, split14's pool from its byte budget) -> {kernel: its
+    row at the shape of the serve path it runs on: K13 fp32 at the large
     split9 geometry, K14 int4 at split14's}."""
     import torch
 
@@ -951,7 +1118,7 @@ def paged_checks(detail: dict) -> dict:
             kern = getattr(fa, name)
             plain = getattr(fa, name + "_plain")
             pkw = {k: v for k, v in kw.items() if k != "plan"}
-            got, want = kern(*args, **kw), plain(*args, **pkw)
+            got, again, want = kern(*args, **kw), kern(*args, **kw), plain(*args, **pkw)
             torch.cuda.synchronize()
             tol = PAGED_TOL["quant" if kv_codec != "fp" else dname]
             err, ok = close(got, want, tol)
@@ -960,19 +1127,29 @@ def paged_checks(detail: dict) -> dict:
             flops = 4.0 * h * hd * float(lengths.long().sum().item())
             bound, bound_by = fa.bound_ms(nbytes, flops, dtype)
             k_ms = time_ms(lambda: kern(*args, **kw), 50)
+            k_dev = device_ms(lambda: kern(*args, **kw), 50)
             p_ms = time_ms(lambda: plain(*args, **pkw), 10)
+            sdpa = paged_sdpa(args, kv_codec)
+            lib_ms, lib_dev = time_ms(sdpa, 50), device_ms(sdpa, 50)
             row = {"kernel": name, "shape": label, "dtype": dname, "kv_codec": kv_codec,
                    "b": b, "h": h, "kv": kv, "hd": hd, "page_size": ps, "pages_per_slot": pps,
                    "num_pages": num_pages,
+                   "splits": fa.paged_split_plan(b, h, kv, ps, pps, fa._sm_count(q.device))[0],
                    "live_rows": int(lengths.long().sum().item()), "max_abs_err": err,
-                   "tolerance": tol, "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                   "tolerance": tol, "repeatable": torch.equal(got, again),
+                   "kernel_ms": k_ms, "kernel_device_ms": k_dev, "plain_ms": p_ms,
+                   "library_ms": lib_ms, "library_device_ms": lib_dev,
+                   "library": "SDPA (enable_gqa) over the gathered span, length mask",
                    "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
-                   "roofline_share": bound / k_ms}
+                   "roofline_share": bound / k_ms, "device_roofline_share": bound / k_dev}
             rows.append(row)
             log(json.dumps(row))
-            if not ok:
-                raise SystemExit(f"{name} disagrees with its plain version at {label} "
-                                 f"{dname} {kv_codec}: {row}")
+            log(f"  {name} {label} {dname} {kv_codec}: {k_ms:.4f} ms ({k_dev:.4f} on the "
+                f"device), {row['splits']} splits, bound {bound:.5f} ms, SDPA {lib_ms:.4f} "
+                f"({lib_dev:.4f} on the device)")
+            if not ok or not row["repeatable"]:
+                raise SystemExit(f"{name} disagrees with its plain version or with itself at "
+                                 f"{label} {dname} {kv_codec}: {row}")
             # the serve paths run fp32 q: K13 over fp pages, K14 over split14's int4
             if main_row == (name, kv_codec) and dname == "float32":
                 main[name] = row
@@ -1074,8 +1251,11 @@ def profile_serve_steps(cfg, params, n_steps: int = 10) -> dict:
         b.submit(rng.integers(1, cfg.vocab_size, 512), 64, temperature=0.7, rng_seed=i)
     for _ in range(3):  # admit every slot, then a few steady steps
         b.step()
-    out, _ = device_time(lambda: [b.step() for _ in range(n_steps)], n_steps)
+    out, rows = device_time(lambda: [b.step() for _ in range(n_steps)], n_steps)
     out["steps"] = out.pop("chunks")
+    paged = sum(r["device_ms"] for r in rows if "paged_" in r["name"])
+    out["paged_decode_device_ms"] = paged
+    out["paged_decode_share"] = paged / out["device_busy_ms"]
     log_profile("profile_serve_steps", out, 15)
     return out
 

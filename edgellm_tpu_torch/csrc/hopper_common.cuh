@@ -1,5 +1,6 @@
 // Hopper building blocks of the bf16 attention kernels (causal_attention.cu,
-// attention_stats.cu): mbarriers, the 16-byte cp.async ring copies, the
+// attention_stats.cu) and the paged decode kernels (paged_decode.cu):
+// mbarriers, the 16-byte cp.async ring copies, bulk (TMA) copies, the
 // 128-byte-swizzled shared-memory tiles that wgmma reads, wgmma descriptors
 // and the wgmma instructions themselves. sm_90a only.
 //
@@ -52,6 +53,11 @@ __device__ __forceinline__ void mbar_init_fence() {
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
+// Arrive once and add `bytes` to the transaction count the phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
 // Spin until the phase of parity `parity` has completed. A wait that never
 // ends (a broken ring) traps after ~2^24 polls, seconds, instead of hanging
 // the card.
@@ -99,6 +105,25 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 // Wait for every cp.async this thread has issued.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// Close this thread's current group of cp.async copies (an empty group is
+// allowed), and wait until at most N of its groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Bulk copy (the TMA unit) of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) global -> shared; completion counts down `bar`'s
+// transaction count.
+__device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src, uint32_t bytes,
+                                              uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 // cp.async writes shared memory through the generic proxy and wgmma reads it
 // through the async proxy: a consumer fences after it has seen the stage's

@@ -28,8 +28,12 @@ against a contiguous cache are plain PyTorch (the TPU package has no kernel
 there either), and the continuous batcher's paged attention runs two more:
 
 - **K13** (``csrc/paged_decode.cu``), behind :func:`paged_decode_attention`:
-  q_len = 1 per slot over that slot's page list, one block per (KV head,
-  slot), online softmax in fp32;
+  q_len = 1 per slot over that slot's page list, online softmax in fp32,
+  the span cut into splits (:func:`paged_split_plan`, from static shapes:
+  one block per (split, KV head, slot), each streaming its page rows
+  through a 2-stage shared-memory ring filled by bulk (TMA) copies), the
+  splits' partials merged in split order by a second kernel of the same
+  call;
 - **K14** (the same source), behind :func:`paged_decode_attention_quant`:
   K13 over int8 or packed int4 codes with per-row scales, dequantized in
   registers.
@@ -539,14 +543,130 @@ def paged_decode_attention_quant_plain(q, k_pages, v_pages, k_scale, v_scale, pa
     return decode_attention(q, kg, vg, lengths)
 
 
+# ---------------------------------------------------------------------------
+# The split schedule of K13 / K14 (flash-decoding): each slot's span is cut
+# into runs of whole pages, one block per (split, KV head, slot), so that the
+# blocks fill the card; the splits' partial softmax states are merged in
+# split order.
+# ---------------------------------------------------------------------------
+
+#: query heads one block of K13 / K14 holds; a larger GQA group is cut into
+#: chunks of this many, each its own block. The C entry point takes it and
+#: refuses a value its kernel was not built for.
+PAGED_HEADS_PER_BLOCK = 8
+#: a split covers at least this many rows: shorter splits cost a merge for
+#: little parallelism (the kernel takes any whole number of pages a split)
+PAGED_MIN_SPLIT_ROWS = 64
+#: blocks per SM the schedule aims for (8 read fastest on the H100 at the
+#: serve geometries, beside 2, 4 and 16: PERF.md)
+PAGED_WAVES = 8
+#: streaming multiprocessors of an H100 SXM
+H100_SMS = 132
+
+
+def paged_split_plan(b: int, h: int, kv: int, ps: int, pps: int,
+                     sms: int = H100_SMS) -> tuple[int, int]:
+    """The split schedule of K13 / K14 from static shapes only (no length is
+    read, so the step never syncs the host) -> (splits, pages per split).
+    Split ``s`` covers logical pages ``s * per`` up to ``(s + 1) * per`` (the
+    last up to ``pps``), rows past a slot's length masked; a split that
+    starts at or past the length is not live.
+
+    The grid holds ``b * kv * ceil(rep / 8) * splits`` blocks; the split
+    count aims at :data:`PAGED_WAVES` blocks per SM, each split at least
+    :data:`PAGED_MIN_SPLIT_ROWS` rows and whole pages, and at most ``pps``
+    splits. One split means one launch and no merge."""
+    chunks = -(-(h // kv) // PAGED_HEADS_PER_BLOCK)
+    want = max(1, -(-PAGED_WAVES * sms // (b * kv * chunks)))
+    per = min(pps, max(-(-PAGED_MIN_SPLIT_ROWS // ps), -(-pps // want)))
+    return -(-pps // per), per
+
+
+def _span_rows(q, k_pages, v_pages, k_scale, v_scale, page_table, kv_codec: str):
+    """Each slot's K and V span gathered through the page table as fp32
+    (dequantized for a quantized tier): what the kernel reads, widened."""
+    k, v = _gather_span(k_pages, page_table), _gather_span(v_pages, page_table)
+    if kv_codec == "fp":
+        return k.float(), v.float()
+    return (dequantize_kv_rows(k, _gather_span(k_scale, page_table), kv_codec),
+            dequantize_kv_rows(v, _gather_span(v_scale, page_table), kv_codec))
+
+
+def paged_split_partials(q: torch.Tensor, k_span: torch.Tensor, v_span: torch.Tensor,
+                         lengths: torch.Tensor, split_rows: int):
+    """Plain model of one launch's first kernel: the softmax state of every
+    split of ``split_rows`` span rows, in fp32. q (B, 1, H, hd); k/v_span
+    (B, span, KV, hd) -> (m (B, splits, H), l (B, splits, H), acc (B, splits,
+    H, hd) unnormalized, live (B, splits)). A split past the slot's length
+    is not live and holds m = -inf, l = 0, acc = 0."""
+    b, _, h, hd = q.shape
+    span, kv = k_span.shape[1], k_span.shape[2]
+    splits = -(-span // split_rows)
+    pad = splits * split_rows - span
+    qg = q[:, 0].float().reshape(b, kv, h // kv, hd)
+    s = torch.einsum("bgrd,bcgd->bgrc", qg, k_span.float()) * _inv_sqrt_hd(hd)
+    pos = torch.arange(span, device=q.device)
+    s = torch.where((pos[None, :] < lengths[:, None].long())[:, None, None, :], s, -torch.inf)
+    s = torch.nn.functional.pad(s, (0, pad), value=-torch.inf)
+    s = s.reshape(b, kv, h // kv, splits, split_rows)
+    v = torch.nn.functional.pad(v_span.float(), (0, 0, 0, 0, 0, pad))
+    v = v.reshape(b, splits, split_rows, kv, hd)
+    m = s.amax(dim=-1)
+    p = torch.where(torch.isfinite(m)[..., None], torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bgrsc,bscgd->bsgrd", p, v).reshape(b, splits, h, hd)
+    m = m.permute(0, 3, 1, 2).reshape(b, splits, h)
+    l = p.sum(dim=-1).permute(0, 3, 1, 2).reshape(b, splits, h)
+    live = (torch.arange(splits, device=q.device)[None, :] * split_rows
+            < lengths[:, None].long())
+    return m, l, acc, live
+
+
+def merge_split_partials(m, l, acc, live, dtype: torch.dtype) -> torch.Tensor:
+    """Plain model of the merge kernel: the live splits' states of each slot
+    combined in split order -> (B, H, hd) in ``dtype``; a split that is not
+    live contributes nothing, whatever its state holds."""
+    b, splits, h = m.shape
+    big = torch.where(live[:, :, None], m, -torch.inf).amax(dim=1)
+    out_l = torch.zeros((b, h), dtype=torch.float32, device=m.device)
+    out = torch.zeros(acc.shape[:1] + acc.shape[2:], dtype=torch.float32, device=m.device)
+    for s in range(splits):
+        w = torch.where(live[:, s, None], torch.exp(m[:, s] - big), 0.0)
+        out_l = out_l + torch.where(live[:, s, None], l[:, s] * w, 0.0)
+        out = out + torch.where(live[:, s, None, None], acc[:, s] * w[..., None], 0.0)
+    return (out / out_l[..., None]).to(dtype)
+
+
+def paged_decode_split_plain(q, k_pages, v_pages, page_table, lengths, *, kv_codec: str = "fp",
+                             k_scale=None, v_scale=None, sms: int = H100_SMS) -> torch.Tensor:
+    """Plain model of K13 / K14's split schedule, a test aid (not on the
+    card's path): :func:`paged_split_plan`'s splits, each split's partial
+    state (:func:`paged_split_partials`), then :func:`merge_split_partials`
+    -> (B, 1, H, hd) in q's dtype. Like the kernel it keeps the
+    probabilities in fp32 and dequantizes codes to fp32."""
+    b, _, h, hd = q.shape
+    ps, kv = k_pages.shape[1], k_pages.shape[2]
+    _, per = paged_split_plan(b, h, kv, ps, page_table.shape[1], sms)
+    k_span, v_span = _span_rows(q, k_pages, v_pages, k_scale, v_scale, page_table, kv_codec)
+    parts = paged_split_partials(q, k_span, v_span, lengths, per * ps)
+    return merge_split_partials(*parts, q.dtype).reshape(b, 1, h, hd)
+
+
 _PAGED_MODE = {"fp": 0, "int8_per_channel": 8, "int4_per_channel": 4}
+_SM_COUNT: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def _paged_lib() -> ctypes.CDLL:
     lib = cuda_build.library("paged_decode")
     if not getattr(lib, "_edgellm_declared", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.edgellm_paged_decode.argtypes = ([ptr] * 8 + [i32] * 7 + [ctypes.c_float]
+        lib.edgellm_paged_decode.argtypes = ([ptr] * 9 + [i32] * 10 + [ctypes.c_float]
                                              + [i32] * 2 + [ptr])
         lib.edgellm_paged_decode.restype = i32
         lib.edgellm_paged_decode_error.argtypes = [i32]
@@ -557,7 +677,9 @@ def _paged_lib() -> ctypes.CDLL:
 
 def _launch_paged(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths, kv_codec: str,
                   plan):
-    """Checks of the kernel's contract, then one launch -> (B, 1, H, hd)."""
+    """Checks of the kernel's contract, then one call of the C entry point
+    (the split kernel and, with more than one split, the merge) -> (B, 1, H,
+    hd)."""
     b, s1, h, hd = q.shape
     pn, ps, kv = k_pages.shape[:3]
     pps = page_table.shape[1]
@@ -599,6 +721,12 @@ def _launch_paged(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths, kv
                          f"({kv_codec}): decode_plan refuses the shape")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged decode kernel inputs must be contiguous")
+    # the kernel's bulk copies move whole page rows from 16-byte aligned addresses
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("k/v pages must start 16-byte aligned for the kernel's copies")
+    splits, per = paged_split_plan(b, h, kv, ps, pps, _sm_count(q.device))
+    ws = (torch.empty(b * splits * h * (hd + 2), dtype=torch.float32, device=q.device)
+          if splits > 1 else None)
     lib = _paged_lib()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -607,7 +735,9 @@ def _launch_paged(q, k_pages, v_pages, k_scale, v_scale, page_table, lengths, kv
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, h, kv, hd, ps, pps, pn, _inv_sqrt_hd(hd), _DTYPE_CODE[q.dtype],
+            ws.data_ptr() if ws is not None else None,
+            b, h, kv, hd, ps, pps, pn, splits, per, PAGED_HEADS_PER_BLOCK, _inv_sqrt_hd(hd),
+            _DTYPE_CODE[q.dtype],
             _PAGED_MODE[kv_codec], torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, err, "paged_decode_attention", "edgellm_paged_decode_error")
     return out
@@ -685,4 +815,4 @@ __all__ = ["MAX_BLOCKED_S", "VALIDATED_HD", "kernel_plan", "causal_attention",
            "dequantize_kv_rows", "decode_plan", "paged_plan", "decode_attention", "verify_attention",
            "paged_decode_attention", "paged_decode_attention_quant",
            "paged_decode_attention_plain", "paged_decode_attention_quant_plain",
-           "paged_decode_bytes"]
+           "paged_decode_bytes", "paged_split_plan", "paged_split_partials", "merge_split_partials", "paged_decode_split_plain"]

@@ -229,12 +229,26 @@ def _final_norm(cfg: ModelConfig, params: dict, hidden: torch.Tensor):
                  params.get("final_norm_bias", 0.0))
 
 
+def head_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(N, D) @ (D, V) -> fp32 (N, V), the reference's dot with
+    ``preferred_element_type=float32``. On the card, bf16 operands go to a
+    bf16 tensor-core GEMM with fp32 accumulation and fp32 output
+    (``aten::mm.dtype``): a bf16 x bf16 product is exact in fp32, so it sums
+    the same terms as the widened product in another order, and the logits
+    are never rounded to bf16. Other operands (fp32, or a fp32 hidden
+    against a bf16 head, which the reference promotes) and every CPU tensor
+    take the widened fp32 product."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def unembed(cfg: ModelConfig, params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head -> fp32 logits (operands widened to fp32, so a
-    bf16 model's logits accumulate like the reference's fp32-preferred dot)."""
+    """Final norm + LM head -> fp32 logits (:func:`head_matmul`)."""
     post = _final_norm(cfg, params, hidden)
     head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
-    return post.float() @ head.float()
+    return head_matmul(post.reshape(-1, post.shape[-1]), head).reshape(
+        *post.shape[:-1], head.shape[-1])
 
 
 def run_layers(cfg: ModelConfig, params: dict, hidden: torch.Tensor, *,
@@ -529,11 +543,12 @@ def nll_tail(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
 
 def _blocked_ce(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
                 targets: torch.Tensor, per_example: bool, vb: int) -> torch.Tensor:
-    """Streaming cross-entropy: final norm -> per-block fp32 logits -> online
-    (max, sum of exp, target logit). Head blocks are views of the head in
-    its own layout (no transpose copy of a tied embedding)."""
+    """Streaming cross-entropy: final norm -> per-block fp32 logits
+    (:func:`head_matmul`) -> online (max, sum of exp, target logit). Head
+    blocks are views of the head in its own layout (no transpose copy of a
+    tied embedding, no fp32 copy of a bf16 block on the card)."""
     b, t, d = hidden.shape
-    post = _final_norm(cfg, params, hidden).reshape(b * t, d).float()
+    post = _final_norm(cfg, params, hidden).reshape(b * t, d)
     n = b * t
     tgt = targets.reshape(n)
     valid = tgt != -100
@@ -543,9 +558,9 @@ def _blocked_ce(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
     t_logit = torch.zeros((n,), dtype=torch.float32, device=hidden.device)
     for i in range(cfg.vocab_size // vb):
         if cfg.tie_word_embeddings:
-            piece = post @ params["embed"][i * vb:(i + 1) * vb].float().T
+            piece = head_matmul(post, params["embed"][i * vb:(i + 1) * vb].T)
         else:
-            piece = post @ params["lm_head"][:, i * vb:(i + 1) * vb].float()
+            piece = head_matmul(post, params["lm_head"][:, i * vb:(i + 1) * vb])
         m_new = torch.maximum(m, piece.amax(dim=-1))
         s_acc = s_acc * torch.exp(m - m_new) + torch.exp(piece - m_new[:, None]).sum(dim=-1)
         local = safe_tgt - i * vb

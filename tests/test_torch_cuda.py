@@ -108,3 +108,52 @@ def test_wrapper_raises_on_misaligned_bf16_copies(card):
     shifted = flat[1:].view(b, s, kv, hd)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.causal_attention_stats(q, shifted, shifted)
+
+
+def test_bf16_lm_head_runs_bf16_operands_with_fp32_output(card):
+    """A bf16 model's LM head on the card (``unembed`` and the vocab-streamed
+    ``nll_tail``) multiplies bf16 operands into fp32 (``aten::mm.dtype``) and
+    reaches no fp32 GEMM; its logits stay within the fp32 summation-order
+    bound, 2 * D * 2^-24 * (|post| @ |head|), of the widened fp32 product
+    (the same exact products summed in another order)."""
+    import dataclasses
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from edgellm_tpu_torch.models import PRESETS, init_params
+    from edgellm_tpu_torch.models import transformer as tr
+
+    cfg = dataclasses.replace(PRESETS["qwen2-0.5b"], num_layers=1)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = init_params(cfg, gen, dtype=torch.bfloat16, device=card)
+    hidden = torch.randn(2, 40, cfg.hidden_size, generator=gen, device=card).to(torch.bfloat16)
+    targets = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen, device=card)
+    aten = torch.ops.aten
+    gemm_ops = {aten.mm.default, aten.mm.dtype, aten.addmm.default, aten.bmm.default,
+                aten.bmm.dtype, aten.baddbmm.default}
+
+    class Gemms(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in gemm_ops:
+                self.seen.append((func, [a.dtype for a in args if isinstance(a, torch.Tensor)]))
+            return func(*args, **(kwargs or {}))
+
+    with Gemms() as rec:
+        logits = tr.unembed(cfg, params, hidden)
+        nll = tr.nll_tail(cfg, params, hidden, targets, 32, per_example=True)
+    torch.cuda.synchronize()
+    assert logits.dtype == torch.float32 and nll.dtype == torch.float32
+    assert len(rec.seen) == 1 + cfg.vocab_size // tr._vocab_block_size(cfg.vocab_size)
+    assert all(f is aten.mm.dtype and d == [torch.bfloat16] * 2 for f, d in rec.seen), rec.seen
+    post = tr._final_norm(cfg, params, hidden).reshape(-1, cfg.hidden_size).float()
+    head = params["embed"].T.float()
+    bound = 2 * cfg.hidden_size * 2.0 ** -24 * (post.abs() @ head.abs())
+    diff = (logits.reshape(-1, cfg.vocab_size) - post @ head).abs()
+    assert bool((diff <= bound).all()), (diff.max().item(), bound.min().item())
+    head_only = {k: params[k].cpu() for k in ("embed", "final_norm_scale")}
+    want = tr.nll_tail(cfg, head_only, hidden.cpu(), targets.cpu(), 32, per_example=True)
+    torch.testing.assert_close(nll.cpu(), want, atol=0.0, rtol=1e-5)

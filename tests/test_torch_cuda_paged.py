@@ -6,9 +6,10 @@ Marked ``cuda``: each test asks its fixture for a card and skips without one
 nvcc but no JAX: ``python -m pytest --noconftest tests/test_torch_cuda_paged.py``.
 
 Tolerances: K13 fp32 atol/rtol 2e-5 (online vs two-pass softmax, other
-summation order); bf16 1.2e-2 (the plain version rounds the probabilities to
-bf16 before PV, the kernel does not); K14 fp32 1e-5 (both dequantize the
-same codes the same way, then the same fp32 math as K13).
+summation order, the splits' merge); bf16 1.2e-2 (the plain version rounds
+the probabilities to bf16 before PV, the kernel does not); K14 fp32 1e-5
+(both dequantize the same codes the same way, then the same fp32 math as
+K13). Repeated launches are bit for bit equal.
 """
 import numpy as np
 import pytest
@@ -60,7 +61,10 @@ SHAPES = [  # (b, h, kv, hd, ps, pps)
     (6, 14, 2, 64, 8, 3),      # split9's geometry, Qwen2-0.5B heads
     (8, 14, 2, 64, 16, 16),    # Qwen2-0.5B, span 256
     (4, 12, 2, 128, 16, 128),  # Qwen2-1.5B, span 2048
-    (3, 4, 4, 64, 40, 2),      # ps not a multiple of the 32-row chunk
+    (3, 4, 4, 64, 40, 2),      # ps not a multiple of the 32-row stage
+    (32, 14, 2, 64, 16, 40),   # the large split9 geometry, span 640: 5 splits
+    (32, 14, 2, 64, 16, 128),  # Qwen2-0.5B, span 2048 at 32 slots: 5 splits
+    (2, 32, 2, 64, 40, 6),     # a group of 16 heads: two head chunks, 3 splits
 ]
 
 
@@ -94,6 +98,31 @@ def test_k14_matches_plain(card, kv_codec, b, h, kv, hd, ps, pps):
     torch.testing.assert_close(out, want, **QUANT_TOL)
 
 
+@pytest.mark.parametrize("kv_codec", ["fp", "int8_per_channel", "int4_per_channel"])
+@pytest.mark.parametrize("b,h,kv,hd,ps,pps", [(32, 14, 2, 64, 16, 40), (32, 12, 2, 128, 16, 128)])
+def test_split_launches_are_bit_identical(card, kv_codec, b, h, kv, hd, ps, pps):
+    """With several splits (the merge in split order, no atomics) two
+    launches on the same inputs give the same bits, and agree with the plain
+    model of the split schedule."""
+    assert fa.paged_split_plan(b, h, kv, ps, pps, fa._sm_count(card))[0] > 1
+    q, kp, vp, table, lengths, sc = paged_inputs(card, b, h, kv, hd, ps, pps, torch.float32,
+                                                 seed=3, kv_codec=kv_codec)
+    if kv_codec == "fp":
+        run = lambda: fa.paged_decode_attention(q, kp, vp, table, lengths,  # noqa: E731
+                                                plan=fa.paged_plan(q, kp, table))
+    else:
+        run = lambda: fa.paged_decode_attention_quant(  # noqa: E731
+            q, kp, vp, sc["k_scale"], sc["v_scale"], table, lengths, kv_codec=kv_codec,
+            plan=fa.paged_plan(q, kp, table, kv_codec))
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    want = fa.paged_decode_split_plain(q, kp, vp, table, lengths, kv_codec=kv_codec,
+                                       sms=fa._sm_count(card), **sc)
+    torch.testing.assert_close(first, want, **(TOL[torch.float32] if kv_codec == "fp"
+                                                else QUANT_TOL))
+
+
 def test_wrappers_refuse_what_the_kernel_does_not_take(card):
     q, kp, vp, table, lengths, _ = paged_inputs(card, 2, 4, 2, 64, 8, 2, torch.float32)
     plan = fa.paged_plan(q, kp, table)
@@ -109,6 +138,9 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(card):
         fa.paged_decode_attention(q, kp, vp, table, lengths[:1].contiguous(), plan=plan)
     with pytest.raises(ValueError, match="page_table"):
         fa.paged_decode_attention(q, kp, vp, table[:1].contiguous(), lengths, plan=plan)
+    shifted = torch.randn(kp.numel() + 1, device=card)[1:].view(kp.shape)  # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.paged_decode_attention(q, shifted, vp, table, lengths, plan=plan)
     _, kc, vc, _, _, sc = paged_inputs(card, 2, 4, 2, 64, 8, 2, torch.float32,
                                        kv_codec="int8_per_channel")
     with pytest.raises(ValueError, match="scales"):
@@ -116,6 +148,17 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(card):
                                         sc["v_scale"], table, lengths,
                                         kv_codec="int8_per_channel",
                                         plan=fa.paged_plan(q, kc, table, "int8_per_channel"))
+
+
+def test_entry_point_refuses_other_heads_a_block(card, monkeypatch):
+    """The C entry point takes the wrapper's heads a block and refuses a
+    value its kernel was not built for, so the split plan and the kernel
+    cannot drift apart."""
+    q, kp, vp, table, lengths, _ = paged_inputs(card, 2, 4, 2, 64, 8, 2, torch.float32)
+    plan = fa.paged_plan(q, kp, table)
+    monkeypatch.setattr(fa, "PAGED_HEADS_PER_BLOCK", 4)
+    with pytest.raises(RuntimeError, match="heads a block"):
+        fa.paged_decode_attention(q, kp, vp, table, lengths, plan=plan)
 
 
 @pytest.mark.parametrize("kv_codec", ["fp", "int8_per_channel", "int4_per_channel"])

@@ -102,6 +102,60 @@ def test_nll_tail_matches(family, vocab_block):
     np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=1e-5)
 
 
+def _head_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound on two fp32 sums of the same D exact products taken
+    in different orders: 2 * D * 2^-24 * (|a| @ |b|)."""
+    return 2 * a.shape[-1] * 2.0 ** -24 * (a.float().abs() @ b.float().abs())
+
+
+@pytest.mark.parametrize("family,vocab_block", [
+    ("qwen2", 0), ("qwen2", 64), ("gpt_neox", 0), ("gpt_neox", 32),
+])
+def test_bf16_head_matches_reference(family, vocab_block):
+    """A bf16 model's LM head (``unembed``, ``nll_tail`` and the vocab-streamed
+    ``_blocked_ce``) against the reference's bf16 dot with fp32 accumulation:
+    the same exact bf16 x bf16 products summed in another order, so logits
+    within the fp32 summation-order bound and NLL within rtol 1e-5. On the
+    CPU the port widens both operands (``head_matmul``'s plain form)."""
+    jcfg, tc, jp, tp, ids = _setup(family, dict(num_layers=2), seed=11)
+    jp = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), jp)
+    tp = {k: ({n: t.to(torch.bfloat16) for n, t in v.items()} if isinstance(v, dict)
+              else v.to(torch.bfloat16)) for k, v in tp.items()}
+    hid = np.random.default_rng(12).normal(size=ids.shape + (jcfg.hidden_size,))
+    jh = jnp.asarray(hid, dtype=jnp.bfloat16)
+    th = torch.from_numpy(hid.astype(np.float32)).to(torch.bfloat16)
+    assert np.array_equal(np.asarray(jh.astype(jnp.float32)), th.float().numpy())
+
+    want = np.asarray(jtr.unembed(jcfg, jp, jh))
+    got = ttr.unembed(tc, tp, th)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    post = ttr._final_norm(tc, tp, th)
+    head = tp["embed"].T if tc.tie_word_embeddings else tp["lm_head"]
+    bound = _head_bound(post, head)
+    assert bool(((got - torch.from_numpy(want.copy())).abs() <= bound).all())
+
+    targets = ids.copy()
+    targets[:, :20] = -100
+    jnll = jtr.nll_tail(jcfg, jp, jh, jnp.asarray(targets), 13, per_example=True,
+                        vocab_block=vocab_block)
+    tnll = ttr.nll_tail(tc, tp, th, torch.from_numpy(targets), 13, per_example=True,
+                        vocab_block=vocab_block)
+    assert tnll.dtype == torch.float32
+    np.testing.assert_allclose(tnll.numpy(), np.asarray(jnll), rtol=1e-5)
+
+
+def test_head_matmul_keeps_fp32_for_cpu_and_mixed_operands():
+    """``head_matmul`` on the CPU and for a fp32 hidden against a bf16 head
+    is the widened fp32 product, bit for bit."""
+    rng = np.random.default_rng(13)
+    a = torch.from_numpy(rng.normal(size=(6, 32)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(32, 40)).astype(np.float32)).to(torch.bfloat16)
+    for x in (a, a.to(torch.bfloat16)):
+        got = ttr.head_matmul(x, b)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, x.float() @ b.float())
+
+
 def test_rope_tables_match_including_llama3_scaling():
     for cfg_name in ("llama-3.2-1b", "pythia-70m", "qwen2-0.5b"):
         jc = jtr.precompute_rope(__import__("edgellm_tpu.models.configs",

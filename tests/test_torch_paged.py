@@ -132,6 +132,123 @@ def test_decode_plan_gates():
         tfa.decode_plan(24, 14, 2, 64, 4, pages=(3, 8), kv_codec="int2")
 
 
+# ---------------------------------------------------------------------------
+# The split schedule of K13 / K14 (plain model of the kernel's two passes)
+# ---------------------------------------------------------------------------
+
+#: (b, h, kv, hd, ps, pps): page sizes 8 / 16 / 40 and head dims 64 / 128,
+#: each cut into several splits
+SPLIT_SHAPES = [(3, 14, 2, 64, 8, 16), (3, 4, 2, 64, 16, 8), (2, 4, 4, 64, 40, 6),
+                (3, 12, 2, 128, 16, 12)]
+
+
+def _shared_paged(seed, b, h, kv, hd, ps, pps):
+    """As :func:`_paged`, but with a pool of half the pages: slots draw
+    pages with repeats, sharing them as prefix sharing makes them; slot 0
+    has length 1, slot 1 the full span."""
+    rng = np.random.default_rng(seed)
+    num_pages = max(2, b * pps // 2)
+    k = rng.normal(size=(num_pages, ps, kv, hd)).astype(np.float32)
+    v = rng.normal(size=(num_pages, ps, kv, hd)).astype(np.float32)
+    q = rng.normal(size=(b, 1, h, hd)).astype(np.float32)
+    lengths = rng.integers(1, pps * ps + 1, size=b)
+    lengths[0], lengths[1] = 1, pps * ps
+    pages = rng.integers(1, num_pages, size=(b, pps))
+    table = np.where(np.arange(pps)[None, :] * ps < lengths[:, None], pages, 0)
+    return q, k, v, table.astype(np.int32), lengths.astype(np.int32)
+
+
+@pytest.mark.parametrize("b,h,kv,hd,ps,pps", [
+    (32, 14, 2, 64, 16, 40),     # the large split9 geometry (span 640)
+    (32, 14, 2, 64, 16, 128),    # span 2048, Qwen2-0.5B
+    (32, 12, 2, 128, 16, 128),   # span 2048, Qwen2-1.5B
+    (6, 14, 2, 64, 8, 3),        # split9
+    (8, 14, 2, 64, 8, 10),       # split14
+    (2, 4, 4, 64, 40, 6), (3, 32, 2, 64, 8, 16)])
+def test_split_plan_covers_each_live_page_once(b, h, kv, hd, ps, pps):
+    """Every live page of every length lies in exactly one split, in logical
+    order, and the splits that hold one are exactly the live ones of the
+    plain model's partials; a split past the length covers nothing; splits
+    hold whole pages of at least 64 rows (or the whole span); at 32 slots
+    the grid has at least as many blocks as the H100's 132 SMs."""
+    splits, per = tfa.paged_split_plan(b, h, kv, ps, pps)
+    assert 1 <= splits <= pps and (splits - 1) * per < pps <= splits * per
+    assert per * ps >= min(tfa.PAGED_MIN_SPLIT_ROWS, pps * ps)
+    chunks = -(-(h // kv) // tfa.PAGED_HEADS_PER_BLOCK)
+    if b == 32:
+        assert b * kv * chunks * splits >= tfa.H100_SMS
+    lengths = sorted(n for n in {1, ps - 1, ps, ps + 1, per * ps, per * ps + 1,
+                                 pps * ps - 1, pps * ps} if 1 <= n <= pps * ps)
+    span = torch.zeros((len(lengths), pps * ps, 1, 8))
+    q = torch.zeros((len(lengths), 1, 1, 8))
+    *_, live = tfa.paged_split_partials(q, span, span, torch.tensor(lengths, dtype=torch.int32),
+                                        per * ps)
+    assert live.shape == (len(lengths), splits)
+    for length, live_row in zip(lengths, live.tolist()):
+        live_pages = -(-length // ps)
+        ranges = [(s * per, min((s + 1) * per, pps, live_pages)) for s in range(splits)]
+        covered = [p for p0, p1 in ranges for p in range(p0, p1)]
+        assert covered == list(range(live_pages))
+        assert [p1 > p0 for p0, p1 in ranges] == live_row
+
+
+@pytest.mark.parametrize("flag", ["xla", "pallas"])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("b,h,kv,hd,ps,pps", SPLIT_SHAPES)
+def test_split_plain_k13_matches_reference(monkeypatch, flag, shared, b, h, kv, hd, ps, pps):
+    """Split, then merge the partials: the plain model of K13's schedule
+    against the reference's paged decode attention (gather fallback and
+    Pallas kernel), lengths 1 and the full span among them, distinct or
+    shared pages."""
+    assert tfa.paged_split_plan(b, h, kv, ps, pps)[0] > 1
+    make = _shared_paged if shared else _paged
+    q, k, v, table, lengths = make(b + hd + ps, b, h, kv, hd, ps, pps)
+    want = _reference_paged(monkeypatch, flag, jfa.paged_decode_attention, jnp.asarray(q),
+                            jnp.asarray(k), jnp.asarray(v), jnp.asarray(table),
+                            jnp.asarray(lengths))
+    t = lambda a: torch.from_numpy(np.array(a))
+    got = tfa.paged_decode_split_plain(t(q), t(k), t(v), t(table), t(lengths))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kv_codec", TIERS)
+@pytest.mark.parametrize("b,h,kv,hd,ps,pps", SPLIT_SHAPES)
+def test_split_plain_k14_matches_reference(monkeypatch, kv_codec, b, h, kv, hd, ps, pps):
+    q, k, v, table, lengths = _shared_paged(b + hd + ps + 1, b, h, kv, hd, ps, pps)
+    kc, ks = (_np(a) for a in jfa.quantize_kv_rows(jnp.asarray(k), kv_codec))
+    vc, vs = (_np(a) for a in jfa.quantize_kv_rows(jnp.asarray(v), kv_codec))
+    want = _reference_paged(
+        monkeypatch, "xla", jfa.paged_decode_attention_quant, jnp.asarray(q),
+        jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(ks), jnp.asarray(vs),
+        jnp.asarray(table), jnp.asarray(lengths), kv_codec=kv_codec)
+    t = lambda a: torch.from_numpy(np.array(a))
+    got = tfa.paged_decode_split_plain(t(q), t(kc), t(vc), t(table), t(lengths),
+                                       kv_codec=kv_codec, k_scale=t(ks), v_scale=t(vs))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_split_past_the_length_contributes_nothing():
+    """A split that starts at or past a slot's length is not live, holds no
+    mass (l = 0, acc = 0), and the merge ignores whatever its state holds."""
+    b, h, kv, hd, ps, pps = 3, 14, 2, 64, 8, 16
+    q, k, v, table, lengths = (torch.from_numpy(a) for a in _paged(5, b, h, kv, hd, ps, pps))
+    lengths[2] = 70  # splits of 64 rows: the second split holds 6 live rows
+    _, per = tfa.paged_split_plan(b, h, kv, ps, pps)
+    assert per * ps == 64
+    k_span, v_span = tfa._span_rows(q, k, v, None, None, table, "fp")
+    m, l, acc, live = tfa.paged_split_partials(q, k_span, v_span, lengths, per * ps)
+    assert live.tolist() == [[True, False], [True, True], [True, True]]
+    assert torch.isneginf(m[0, 1]).all() and (l[0, 1] == 0).all() and (acc[0, 1] == 0).all()
+    assert torch.isfinite(m[2, 1]).all() and (l[2, 1] > 0).all()
+    out = tfa.merge_split_partials(m, l, acc, live, torch.float32)
+    junk = torch.randn(acc[0, 1].shape)
+    m[0, 1], l[0, 1], acc[0, 1] = 50.0, 3.0, junk
+    assert torch.equal(tfa.merge_split_partials(m, l, acc, live, torch.float32), out)
+    want = tfa.paged_decode_attention_plain(q, k, v, table, lengths)
+    np.testing.assert_allclose(out.reshape(want.shape).numpy(), want.numpy(),
+                               atol=1e-5, rtol=1e-5)
+
+
 def test_decode_and_verify_attention_match_reference():
     rng = np.random.default_rng(3)
     q = rng.normal(size=(2, 1, 4, 16)).astype(np.float32)
