@@ -20,7 +20,8 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    wire path's, and a flipped byte failing K8's verify;
 4. timing with CUDA events: kernel, plain version, one PyTorch library call
    where one computes the same function, and the roofline bound; fp32 K-attn
-   also at the serve prefills' shapes (B = 1, S = 12, 72, 512);
+   also at the serve prefills' shapes (B = 1, S = 12, 72, 512), and at every
+   fp32 shape two launches bit for bit equal;
 5. the main path at full Qwen2-0.5B width and depth: ``run_token_sweep``,
    4 methods x layer 11 x 5 ratios, window 512, stride 32, window batch 8,
    bf16 random weights from ``--seed``, with every kernel's launch count;
@@ -34,8 +35,9 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    full width and depth, cut 11, int8_per_token, window 512, stride 32) through
    ``run_split_eval`` at window batch 8, ``--chunks`` chunks, time_hops on:
    s/chunk, tokens/s, peak memory, bytes/token and per-hop ms, every
-   kernel's launches against the count the groups and time_hops imply, and
-   one group under torch.profiler;
+   kernel's launches against the count the groups and time_hops imply
+   (K-attn's fp32 launches apart: the stage behind the unfused hop computes
+   in fp32), and one group under torch.profiler;
 7. the selective split (split2's ``selective_int4:0.25:bf16``, whose
    importance pass runs K-stats), split1's cut with ``int8_per_channel``,
    ``int4_per_channel`` and ``ternary_max`` (K5-K7), configs/
@@ -43,7 +45,8 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    and "remote" (K8 alone) and as committed ("auto": no fusion on the card),
    one fused group under torch.profiler, and the three-stage multi-hop split
    (configs/split4_qwen15_multihop.json: Qwen2-1.5B, cuts 9 and 18,
-   int8_per_token + int4_per_token), 9 chunks each, launches counted;
+   int8_per_token + int4_per_token), 9 chunks each, launches counted (fp32
+   K-attn: the layers behind an unfused hop x groups);
 8. split cross-checks at Qwen2-0.5B width, 3 layers, fp32: an fp32-codec
    split against the unsplit model; the int8, selective, two-hop,
    per-channel and ternary splits on the card (kernels) against the CPU
@@ -66,7 +69,8 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    (int4 pages, K14) as committed, and a larger geometry of split9's shape
    (64 requests of 512 prompt tokens, 64 new, 32 slots, a 0.5 GB pool):
    outcomes, steps, decode tokens/s, ms per step, peak memory, every
-   kernel's launches against the count the steps imply; one steady group of
+   kernel's launches against the count the steps imply (K-attn: 24 fp32
+   launches a prefill); one steady group of
    the large geometry's steps under torch.profiler;
 12. serve cross-checks at Qwen2-0.5B width, 3 layers, fp32: the paged step
    on the card (K13 / K14) against the CPU (plain versions) under teacher
@@ -74,7 +78,7 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    on the card batched streams against each stream alone through
    ``generate`` (tokens) and the contiguous decode step (logits);
 13. a JSON line of every kernel (launches summed over the counted paths,
-   and by path), the ``nvidia-smi`` line, and as the last line
+   and by path; K-attn's also by dtype and path), the ``nvidia-smi`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result where ``torch.cuda.is_available()`` is
@@ -266,6 +270,9 @@ def kernel_checks(detail: dict) -> dict:
                 kern = fa.causal_attention_stats if stats else fa.causal_attention
                 plain = fa.causal_attention_stats_plain if stats else fa.causal_attention_plain
                 got, want = kern(q, k, v), plain(q, k, v)
+                # fp32 K-attn: key splits merged in split order, no atomics
+                repeat = (dname != "float32" or stats
+                          or torch.equal(got, kern(q, k, v)))
                 torch.cuda.synchronize()
                 if stats:
                     out_err, ok = close(got[0], want[0], OUT_TOL[dname])
@@ -290,7 +297,7 @@ def kernel_checks(detail: dict) -> dict:
                 row = {"kernel": name, "shape": label, "dtype": dname,
                        "b": b, "s": s, "h": h, "kv": kv, "hd": hd,
                        "max_abs_err": out_err, "stats_max_abs_err": st_err,
-                       "tolerance": OUT_TOL[dname],
+                       "repeatable": repeat, "tolerance": OUT_TOL[dname],
                        "stats_tolerance": STATS_TOL if stats else None,
                        "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
                        "kernel_device_ms": k_dev, "library_device_ms": lib_dev,
@@ -303,9 +310,9 @@ def kernel_checks(detail: dict) -> dict:
                     log(f"  {name} {label} bf16 B={b} S={s}: {k_ms:.4f} ms ({k_dev:.4f} on "
                         f"the device), bound {bound:.5f} ms, share of bound "
                         f"{bound / k_ms:.3f}, SDPA {lib_ms} ({lib_dev} on the device)")
-                if not ok:
-                    raise SystemExit(f"{name} disagrees with its plain version at "
-                                     f"{label} {dname}: {row}")
+                if not ok or not repeat:
+                    raise SystemExit(f"{name} disagrees with its plain version (or two "
+                                     f"launches differ) at {label} {dname}: {row}")
                 if on_main and dname == "bfloat16" and name not in main:
                     # the suffix's B=32 launches dominate K-attn on the main path
                     if name == "causal_attention_stats" or b == 32:
@@ -319,8 +326,9 @@ def kernel_checks(detail: dict) -> dict:
 def serve_prefill_reads(gen) -> list:
     """fp32 K-attn at the serve paths' prefill shapes (Qwen2-0.5B heads,
     B = 1, S = 12, 72 and 512: split9's, split13's and the large split9's
-    prompts), checked against its plain version and timed beside its bound
-    and SDPA; read only, the kernel is not changed here."""
+    prompts; the last cut into key splits), checked against its plain
+    version, two launches bit for bit equal, and timed beside its bound and
+    SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -329,8 +337,9 @@ def serve_prefill_reads(gen) -> list:
     rows = []
     for s in (12, 72, 512):
         q, k, v = (torch.randn((1, s, n, 64), generator=gen, device="cuda") for n in (14, 2, 2))
-        err, ok = close(fa.causal_attention(q, k, v), fa.causal_attention_plain(q, k, v),
-                        OUT_TOL["float32"])
+        got, again = fa.causal_attention(q, k, v), fa.causal_attention(q, k, v)
+        err, ok = close(got, fa.causal_attention_plain(q, k, v), OUT_TOL["float32"])
+        ok = ok and torch.equal(got, again)
         nbytes, flops = fa.causal_attention_bytes_flops(1, s, 14, 2, 64, 4)
         bound, bound_by = fa.bound_ms(nbytes, flops, torch.float32)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -338,14 +347,18 @@ def serve_prefill_reads(gen) -> list:
             qt, kt, vt, is_causal=True, enable_gqa=True)
         run = lambda: fa.causal_attention(q, k, v)  # noqa: E731
         row = {"kernel": "causal_attention", "dtype": "float32", "b": 1, "s": s,
-               "max_abs_err": err, "kernel_ms": time_ms(run, 50),
+               "splits": fa.attn_split_plan(1, s, 14, 2, fa._sm_count(q.device),
+                                            fa._f32_tile(fa._lib("causal_attention"), 64))[0],
+               "max_abs_err": err, "repeatable": bool(torch.equal(got, again)),
+               "kernel_ms": time_ms(run, 50),
                "kernel_device_ms": device_ms(run, 50), "library_ms": time_ms(sdpa, 50),
                "library_device_ms": device_ms(sdpa, 50), "bound_ms": bound,
                "bound_by": bound_by}
         rows.append(row)
         log(json.dumps({"serve_prefill_k_attn": row}))
         if not ok:
-            raise SystemExit(f"fp32 K-attn disagrees with its plain version: {row}")
+            raise SystemExit(f"fp32 K-attn disagrees with its plain version or with "
+                             f"itself: {row}")
     return rows
 
 
@@ -423,20 +436,21 @@ def main_path(args, detail: dict) -> dict:
     run_token_sweep(cfg, params, corpus, max_chunks=1 + wb, **kw)  # warm-up
 
     torch.cuda.reset_peak_memory_stats()
-    fa.causal_attention.launches = 0
-    fa.causal_attention_stats.launches = 0
+    reset_counts()
     t0 = time.monotonic()
     result = run_token_sweep(cfg, params, corpus, max_chunks=args.chunks, **kw)
     wall = time.monotonic() - t0
-    launches = {"causal_attention": fa.causal_attention.launches,
-                "causal_attention_stats": fa.causal_attention_stats.launches}
+    launches = {k: n for k, n in read_counts().items()
+                if k.startswith("causal_attention")}
     peak = torch.cuda.max_memory_allocated()
     log(result.table())
     ppl = result.ppl()
     n_groups = 1 + math.ceil((result.chunks - 1) / wb)  # chunk 0 runs alone
     suffix_layers = cfg.num_layers - layer - 1
-    want = {"causal_attention_stats": (layer + 1) * n_groups,
-            "causal_attention": (suffix_layers + len(methods) * suffix_layers) * n_groups}
+    want = {k: n for k, n in want_counts(
+        0, causal_attention_stats=(layer + 1) * n_groups,
+        causal_attention=(suffix_layers + len(methods) * suffix_layers) * n_groups).items()
+        if k.startswith("causal_attention")}  # a bf16 model: no fp32 launch
     s_chunk = wall / result.chunks
     # int4_token_select is a DEDUP_ZERO_CODECS codec: ratio 0 is one shared baseline
     n_zero = sum(1 for r in ratios if r == 0.0)
@@ -456,7 +470,8 @@ def main_path(args, detail: dict) -> dict:
         raise SystemExit(f"main path PPL table is not finite {ppl.shape}: {ppl}")
     if result.chunks != args.chunks:
         raise SystemExit(f"main path ran {result.chunks} chunks, wanted {args.chunks}")
-    if not all(launches.values()) or launches != want:
+    if not (launches["causal_attention"] and launches["causal_attention_stats"]) \
+            or launches != want:
         raise SystemExit(f"kernel launches {launches} != expected {want}")
     # attention calls per window: the stats prefix, its full-depth
     # continuation, one suffix per (method, nonzero ratio)
@@ -659,13 +674,39 @@ def _wrappers() -> dict:
             "paged_decode_attention_quant": fa.paged_decode_attention_quant}
 
 
+#: K-attn's launches by dtype, beside its total (fp32: the split stages
+#: behind an unfused hop and the serve prefills; bf16: the rest)
+ATTN_BY_DTYPE = ("causal_attention float32", "causal_attention bfloat16")
+
+
 def reset_counts():
+    from edgellm_tpu_torch.models import flash_attention as fa
+
     for fn in _wrappers().values():
         fn.launches = 0
+    for dtype in fa.causal_attention.launches_by_dtype:
+        fa.causal_attention.launches_by_dtype[dtype] = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Every wrapper's launches by its KERNELS name, and K-attn's by dtype
+    (:data:`ATTN_BY_DTYPE`)."""
+    from edgellm_tpu_torch.models import flash_attention as fa
+
+    counts = {name: fn.launches for name, fn in _wrappers().items()}
+    counts.update({f"causal_attention {d}": n
+                   for d, n in fa.causal_attention.launches_by_dtype.items()})
+    return counts
+
+
+def want_counts(fp32_attn: int = 0, **launches) -> dict:
+    """Expected counts: every kernel 0 unless given, K-attn's fp32 share
+    ``fp32_attn`` of its total and the rest bf16."""
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(launches)
+    want["causal_attention float32"] = fp32_attn
+    want["causal_attention bfloat16"] = want["causal_attention"] - fp32_attn
+    return want
 
 
 def codec_bytes(kernel: str, n: int, d: int) -> int:
@@ -834,19 +875,27 @@ def _split_run(args, detail: dict, cfg, params, chunks: int, label: str, expect_
     return launches
 
 
-def _expected(n_layers: int, hops: dict, stats_layers: int = 0, hop_iters: int = 0):
+def _expected(n_layers: int, hops: dict, stats_layers: int = 0, hop_iters: int = 0,
+              fp32_layers: int = 0):
     """Launch counts of a split run of ``n_groups`` groups: one K-attn per
-    layer per group, one K-stats per importance-pass layer per group, one
-    encode and one decode per kernel-backed hop per group, plus
-    ``hop_iters`` of each from time_hops / time_decode_hops."""
+    layer per group, ``fp32_layers`` of them in fp32 (the stages behind an
+    unfused hop compute in fp32: :func:`_fp32_layers`), one K-stats per
+    importance-pass layer per group, one encode and one decode per
+    kernel-backed hop per group, plus ``hop_iters`` of each from time_hops /
+    time_decode_hops."""
     def expect(n_groups: int) -> dict:
-        want = dict.fromkeys(KERNELS, 0)
-        want["causal_attention"] = n_layers * n_groups
-        want["causal_attention_stats"] = stats_layers * n_groups
-        for kernel, count in hops.items():
-            want[kernel] = count * (n_groups + hop_iters)
-        return want
+        return want_counts(fp32_layers * n_groups, causal_attention=n_layers * n_groups,
+                           causal_attention_stats=stats_layers * n_groups,
+                           **{kernel: count * (n_groups + hop_iters)
+                              for kernel, count in hops.items()})
     return expect
+
+
+def _fp32_layers(cfg, cuts, fused: bool = False) -> int:
+    """Layers after the first cut: a bf16 model's stages behind a separate
+    (unfused) hop compute in fp32, as the reference promotes the hidden
+    (parallel/split.py); behind fused hops they stay bf16."""
+    return 0 if fused else cfg.num_layers - (cuts[0] + 1)
 
 
 #: time_hops / time_decode_hops: (warm-up 1 + 20 iterations) each
@@ -889,14 +938,15 @@ def split_paths(args, detail: dict) -> dict:
     out["split1"] = _split_run(
         args, detail, cfg, params, args.chunks, "split1 qwen2-0.5b cut 11 int8_per_token",
         _expected(cfg.num_layers, {"int8_affine_encode": 1, "int8_affine_decode": 1},
-                  hop_iters=HOP_ITERS),
+                  hop_iters=HOP_ITERS, fp32_layers=_fp32_layers(cfg, [11])),
         cuts=[11], hop_codecs=["int8_per_token"])
     detail["split_paths"]["split1 qwen2-0.5b cut 11 int8_per_token"]["profile"] = \
         profile_split_group(cfg, params, "profile_split_group", cuts=[11],
                             hop_codecs=["int8_per_token"])
     out["split2"] = _split_run(
         args, detail, cfg, params, 9, "split2 qwen2-0.5b cut 11 selective_int4:0.25:bf16",
-        _expected(cfg.num_layers, {}, stats_layers=cfg.num_layers), time_hops=False,
+        _expected(cfg.num_layers, {}, stats_layers=cfg.num_layers,
+                  fp32_layers=_fp32_layers(cfg, [11])), time_hops=False,
         cuts=[11], hop_codecs=["selective_int4:0.25:bf16"],
         importance_method="regular_importance")
     for codec, hops in (("int8_per_channel", {"chan_int8_encode": 1, "chan_int8_decode": 1}),
@@ -904,7 +954,8 @@ def split_paths(args, detail: dict) -> dict:
                         ("ternary_max", {"ternary_encode": 1, "ternary_decode": 1})):
         out[f"split1 {codec}"] = _split_run(
             args, detail, cfg, params, 9, f"split1 qwen2-0.5b cut 11 {codec}",
-            _expected(cfg.num_layers, hops, hop_iters=HOP_ITERS),
+            _expected(cfg.num_layers, hops, hop_iters=HOP_ITERS,
+                      fp32_layers=_fp32_layers(cfg, [11])),
             cuts=[11], hop_codecs=[codec])
     with open("configs/split10_qwen_fused.json") as f:
         split10 = json.load(f)
@@ -914,7 +965,9 @@ def split_paths(args, detail: dict) -> dict:
         label = f"split10 qwen2-0.5b cut 11 int8_per_token fused_hops {mode}"
         with fused_hops(mode):  # time_hops off: it times the separate hop
             out[f"split10 {mode}"] = _split_run(
-                args, detail, cfg, params, 9, label, _expected(cfg.num_layers, hops),
+                args, detail, cfg, params, 9, label,
+                _expected(cfg.num_layers, hops, fp32_layers=_fp32_layers(
+                    cfg, split10["cuts"], fused=mode in ("wire", "remote"))),
                 time_hops=False, cuts=split10["cuts"], hop_codecs=split10["hop_codecs"])
             if mode == "remote":
                 detail["split_paths"][label]["profile"] = profile_split_group(
@@ -929,7 +982,7 @@ def split_paths(args, detail: dict) -> dict:
         args, detail, cfg, params, 9, "split4 qwen2-1.5b cuts 9,18 int8+int4",
         _expected(cfg.num_layers, {"int8_affine_encode": 1, "int8_affine_decode": 1,
                                    "int4_encode": 1, "int4_decode": 1},
-                  hop_iters=HOP_ITERS),
+                  hop_iters=HOP_ITERS, fp32_layers=_fp32_layers(cfg, [9, 18])),
         cuts=[9, 18], hop_codecs=["int8_per_token", "int4_per_token"])
     del params
     torch.cuda.empty_cache()
@@ -1207,10 +1260,11 @@ def serve_paths(args, detail: dict) -> dict:
         rep = summary["_batcher"]
         hits = rep.get("prefix", {}).get("hits", 0)
         prefills = rep["admitted"] - rep["evicted"] - hits
-        want = dict.fromkeys(KERNELS, 0)
         attn = "paged_decode_attention" if kv_codec == "fp" else "paged_decode_attention_quant"
-        want[attn] = cfg.num_layers * (rep["steps"] + 1)
-        want["causal_attention"] = cfg.num_layers * (prefills + 1)
+        # fp32 weights: every prefill layer launches fp32 K-attn
+        want = want_counts(cfg.num_layers * (prefills + 1),
+                           causal_attention=cfg.num_layers * (prefills + 1),
+                           **{attn: cfg.num_layers * (rep["steps"] + 1)})
         n = p["serving"]["soak"]["n_requests"]
         row = {"path": label, "kv_codec": kv_codec, "requests": summary["requests"],
                "outcomes": summary["outcomes"], "batched_steps": rep["steps"],
@@ -1440,8 +1494,13 @@ def main() -> int:
         else:
             r = codec_rows[name]
             shape = f"qwen2-0.5b split N={r['n']} D={r['d']} float32"
+        extra = {}
+        if name == "causal_attention":  # fp32 beside bf16 launches, by path
+            extra["launches_by_dtype_by_path"] = {
+                path: {d.split()[-1]: got.get(d, 0) for d in ATTN_BY_DTYPE}
+                for path, got in by_path.items()}
         kernels.append({"name": name, **meta, "launches": sum(counts.values()),
-                        "launches_by_path": counts,
+                        "launches_by_path": counts, **extra,
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -1,7 +1,7 @@
-// Shared pieces of the attention kernels: the fp32 bodies of K-attn and
-// K-stats (causal_attention.cu, attention_stats.cu) load tiles into shared
-// memory and multiply the 64 x 64 score tile with fp32 FMA on the CUDA cores;
-// their bf16 bodies run on the tensor cores (hopper_common.cuh) and reduce
+// Shared pieces of the attention kernels: fp32 K-stats' column pass
+// (attention_stats.cu) loads tiles into shared memory and multiplies the
+// 64 x 64 score tile with fp32 FMA on the CUDA cores; the tensor-core bodies
+// (causal_attention.cu, attention_stats.cu, on hopper_common.cuh) reduce
 // accumulator rows over a quad; the paged decode kernels (paged_decode.cu)
 // convert fp32 / bf16 through to_float / from_float.
 //
@@ -12,10 +12,9 @@
 // and head strides with the head dim contiguous, so no transpose copy exists.
 // Query head h reads KV group h / (H / KV).
 //
-// Thread layout: 256 threads as a 16 x 16 grid (ty, tx). A thread owns score
-// rows ty + 16*i and key columns tx + 16*j (i, j < 4) of a tile, so the 16
-// threads that share a row sit in one half-warp and row reductions are four
-// xor-shuffles.
+// Thread layout of the FMA tiles: 256 threads as a 16 x 16 grid (ty, tx). A
+// thread owns score rows ty + 16*i and key columns tx + 16*j (i, j < 4) of a
+// tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -82,18 +81,6 @@ __device__ __forceinline__ void score_tile(float acc[4][4], const float* Qs,
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
-}
-
-// Reductions over the 16 lanes that share a score row (one half-warp).
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // Reductions over the 4 lanes (a quad) that share a row of a wgmma

@@ -9,13 +9,17 @@ only because of the TPU's VMEM; on Hopper one kernel per function covers both
 plans:
 
 - **K-attn** (``csrc/causal_attention.cu``), behind :func:`causal_attention`:
-  flash-style exact causal attention, one block per (query tile, head, batch
-  row), online softmax in fp32, q and the output in the packed (B, S, H*hd)
-  layout, K/V read through their strides. In bf16 both products run on the
+  flash-style exact causal attention, online softmax in fp32, q and the
+  output in the packed (B, S, H*hd) layout, K/V read through their strides.
+  In bf16 (one block per query tile of a head) both products run on the
   tensor cores (``wgmma``), fed by 16-byte ``cp.async`` copies into a
   4-stage shared-memory ring that one producer warp fills and the consumer
-  warpgroups drain (``csrc/hopper_common.cuh``); fp32 keeps an FMA body on
-  the CUDA cores (no TF32, as the reference).
+  warpgroups drain (``csrc/hopper_common.cuh``). In fp32 a block takes a
+  query tile of a whole GQA group (each K/V tile read once for the group)
+  and both products run on the tensor cores as fp32-accurate 3xTF32 splits
+  (no plain TF32: the reference has none); a B=1 prefill's long rows are
+  cut into key splits (:func:`attn_split_plan`) that a second kernel of the
+  same call merges in split order.
 - **K-stats** (``csrc/attention_stats.cu``), behind
   :func:`causal_attention_stats`: K-attn's forward also writes the row
   log-sum-exp, then a column pass (one block per key tile; in bf16 ``K q^T``
@@ -43,9 +47,9 @@ only for CPU tensors. Which shapes reach a kernel is decided by plan
 (:func:`kernel_plan`, the TPU envelope: hd in {64, 128}, head-aligned GQA,
 S <= 2048; :func:`decode_plan` for pages); the model sends a shape without a
 plan to the plain version. A CUDA tensor outside the wrapper's checks raises:
-the bf16 kernels also need every base pointer and batch, sequence and head
-stride 16-byte aligned (:func:`_check_copy_alignment`); there is no other
-body to fall back to.
+the kernels also need every base pointer and batch, sequence and head stride
+16-byte aligned (:func:`_check_copy_alignment`); there is no other body to
+fall back to.
 """
 from __future__ import annotations
 
@@ -103,6 +107,36 @@ def kernel_plan(s: int, h: int, kv: int, hd: int, itemsize: int = 2):
     if hd not in VALIDATED_HD or h % kv:
         return None
     return _shape_plan(s, h, kv, hd, itemsize)
+
+
+#: fp32 K-attn's tile by head dim as the committed source builds it: (query
+#: rows a block, keys a tile, blocks an SM); the wrapper reads the built
+#: library's own (``edgellm_attn_fwd_f32_tile``)
+ATTN_F32_TILES = {64: (128, 64, 1), 128: (64, 32, 1)}
+#: a split covers at least this many keys: a shorter one costs the merge
+#: kernel (~0.003 ms) for little parallelism, and the serve prefills at
+#: S = 12 and 72 stay one launch of one kernel
+ATTN_F32_MIN_SPLIT_KEYS = 128
+
+
+def attn_split_plan(b: int, s: int, h: int, kv: int, sms: Optional[int] = None,
+                    tile: tuple = ATTN_F32_TILES[64]) -> tuple[int, int]:
+    """The key-split schedule of fp32 K-attn from static shapes only (no
+    host sync) -> (splits, key tiles a split).
+
+    A block takes ``tile[0]`` rows of one (batch row, KV head)'s query rows,
+    its heads packed position-major (``s * h / kv`` rows), and walks key
+    tiles of ``tile[1]`` up to its last row's position; row tile ``t``'s key
+    tiles are cut into runs of ``per``, one block each. ``per`` aims at
+    ``tile[2]`` blocks an SM (as many as fit) over the row tiles, each run
+    at least :data:`ATTN_F32_MIN_SPLIT_KEYS` keys; one split means no merge."""
+    rows, keys, waves = tile
+    sms = sms or H100_SMS
+    row_tiles = -(-s * (h // kv) // rows)
+    max_kt = -(-s // keys)
+    want = max(1, -(-waves * sms // (b * kv * row_tiles)))
+    per = min(max_kt, max(-(-ATTN_F32_MIN_SPLIT_KEYS // keys), -(-max_kt // want)))
+    return -(-max_kt // per), per
 
 
 def _resolve(q: torch.Tensor, k: torch.Tensor, plan):
@@ -180,8 +214,10 @@ def _lib(name: str) -> ctypes.CDLL:
     if not getattr(lib, "_edgellm_declared", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "causal_attention":
-            lib.edgellm_attn_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [i64] * 10 + [ptr]
+            lib.edgellm_attn_fwd.argtypes = [ptr] * 6 + [i32] * 8 + [i64] * 10 + [ptr]
             lib.edgellm_attn_fwd.restype = i32
+            lib.edgellm_attn_fwd_f32_tile.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+            lib.edgellm_attn_fwd_f32_tile.restype = i32
             lib.edgellm_attn_fwd_error.argtypes = [i32]
             lib.edgellm_attn_fwd_error.restype = ctypes.c_char_p
         else:
@@ -216,21 +252,23 @@ def _check_inputs(q, k, v, plan):
                          "(B, S, H*hd)")
     if k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("k/v head dim must be contiguous (stride 1)")
-    if q.dtype == torch.bfloat16:
-        _check_copy_alignment(q, k, v)
+    _check_copy_alignment(q, k, v)
     _resolve(q, k, plan)
 
 
 def _check_copy_alignment(q, k, v):
-    """The bf16 kernels copy rows in 16-byte chunks (``cp.async``): each
-    tensor's rows must be contiguous in hd and its base pointer and batch,
-    sequence and head strides multiples of 16 bytes. Raises otherwise."""
+    """The kernels copy rows in 16-byte chunks (``cp.async``; the fp32 body
+    also reads q in 16-byte loads): each tensor's rows must be contiguous in
+    hd and its base pointer and batch, sequence and head strides multiples of
+    16 bytes. Raises otherwise. The model's q, K and V (``transformer.
+    attention``: projections and rotary outputs, K/V as head slices of a
+    fused projection) always are."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} rows must be contiguous in hd (stride 1)")
         strides = [t.stride(i) * t.element_size() for i in range(3)]
         if t.data_ptr() % 16 or any(st % 16 for st in strides):
-            raise ValueError(f"{name} is not 16-byte aligned for the bf16 kernel's copies: "
+            raise ValueError(f"{name} is not 16-byte aligned for the kernel's copies: "
                              f"base {t.data_ptr() % 16} bytes off, byte strides {strides}")
 
 
@@ -240,17 +278,45 @@ def _raise_on(lib, err: int, what: str, errfn: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
 
 
+#: shared memory an H100 SM gives its blocks (228 KB less 1 KB a block)
+_SM_SHARED_BYTES = 233472
+
+
+def _f32_tile(lib, hd: int) -> tuple[int, int, int]:
+    """(query rows a block, keys a tile, blocks an SM) of the fp32 body built
+    into ``lib`` at head dim ``hd``."""
+    cache = lib.__dict__.setdefault("_edgellm_f32_tiles", {})
+    if hd not in cache:
+        rows, keys, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        if lib.edgellm_attn_fwd_f32_tile(hd, ctypes.byref(rows), ctypes.byref(keys),
+                                         ctypes.byref(smem)):
+            raise ValueError(f"the fp32 kernel has no tile for hd={hd}")
+        cache[hd] = (rows.value, keys.value,
+                     max(1, _SM_SHARED_BYTES // (smem.value + 1024)))
+    return cache[hd]
+
+
 def _launch_fwd(q, k, v, with_lse: bool):
     b, s, h, hd = q.shape
+    kv = k.shape[2]
     lib = _lib("causal_attention")
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    splits, per, ws = 1, 1, None
+    if q.dtype == torch.float32:
+        tile = _f32_tile(lib, hd)
+        splits, per = attn_split_plan(b, s, h, kv, _sm_count(q.device), tile)
+        if splits > 1:
+            nrt = -(-s * (h // kv) // tile[0])
+            ws = torch.empty(b * kv * nrt * splits * tile[0] * (hd + 2), dtype=torch.float32,
+                             device=q.device)
     with torch.cuda.device(q.device):
         err = lib.edgellm_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
-            b, s, h, k.shape[2], hd, _DTYPE_CODE[q.dtype],
+            ws.data_ptr() if ws is not None else None, splits, per,
+            b, s, h, kv, hd, _DTYPE_CODE[q.dtype],
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -279,7 +345,9 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fewer (grouped-query) heads. Returns (B, S, H, hd) in q's dtype.
 
     CUDA tensors launch K-attn (``causal_attention.launches`` counts the
-    launches); CPU tensors take :func:`causal_attention_plain`. ``plan``
+    launches, ``causal_attention.launches_by_dtype`` the fp32 and bf16 ones
+    apart; an fp32 launch with key splits, kernel and merge, counts once);
+    CPU tensors take :func:`causal_attention_plain`. ``plan``
     (from :func:`kernel_plan`) is resolved from the shape when omitted; a
     shape without one raises."""
     if q.device.type == "cpu":
@@ -287,6 +355,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return causal_attention_plain(q, k, v)
     _check_inputs(q, k, v, plan)
     causal_attention.launches += 1
+    causal_attention.launches_by_dtype[str(q.dtype).split(".")[-1]] += 1
     return _launch_fwd(q, k, v, with_lse=False)[0]
 
 
@@ -309,6 +378,7 @@ def causal_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 causal_attention.launches = 0
+causal_attention.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 causal_attention_stats.launches = 0
 
 
@@ -326,9 +396,12 @@ def causal_attention_bytes_flops(b: int, s: int, h: int, kv: int, hd: int,
     return float(nbytes), float(flops)
 
 
-#: H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside the
-#: tensor cores (the fp32 path allows no TF32), HBM3 bytes/s
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: H100 SXM published peaks (dense): bf16 tensor cores; for fp32 the fastest
+#: fp32-accurate products the card offers: 67 TFLOP/s on the CUDA cores, or
+#: the tensor cores' 494.7 TFLOP/s of TF32 over the 3 TF32 products of a
+#: 3xTF32 split (plain TF32 is not fp32-accurate and the fp32 path allows
+#: none), whichever is larger; HBM3 bytes/s
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: max(67e12, 494.7e12 / 3)}
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -807,7 +880,7 @@ def paged_decode_bytes(q: torch.Tensor, k_pages: torch.Tensor, lengths: torch.Te
     return float(2 * live * row + 2 * q.numel() * q.element_size())
 
 
-__all__ = ["MAX_BLOCKED_S", "VALIDATED_HD", "kernel_plan", "causal_attention",
+__all__ = ["MAX_BLOCKED_S", "VALIDATED_HD", "kernel_plan", "attn_split_plan", "causal_attention",
            "causal_attention_stats", "causal_attention_plain",
            "causal_attention_stats_plain", "attention_plain",
            "causal_attention_bytes_flops", "bound_ms",

@@ -214,3 +214,17 @@ def test_bound_counts_bytes_and_causal_flops():
     ms, by = tfa.bound_ms(nbytes, flops, torch.bfloat16)
     assert by == "bytes" and abs(ms - 5.01e-3) < 0.01e-3
     assert abs(flops / 989e12 * 1e6 - 3.8) < 0.05
+
+
+def test_fp32_bound_counts_3xtf32_operations():
+    """fp32 Qwen2-0.5B at B=32, S=512: ~134 MB (~0.040 ms at 3.35 TB/s)
+    against 15.06 GFLOPs of causal products at the fastest fp32-accurate
+    rate, 494.7 TFLOP/s of TF32 over the 3 products of a 3xTF32 split
+    (164.9 TFLOP/s, above the CUDA cores' 67) -> bound by operations at
+    ~0.0913 ms."""
+    nbytes, flops = tfa.causal_attention_bytes_flops(32, 512, 14, 2, 64, itemsize=4)
+    assert abs(flops - 15.06e9) < 0.01e9
+    assert tfa.PEAK_FLOPS[torch.float32] == pytest.approx(164.9e12, rel=1e-3)
+    ms, by = tfa.bound_ms(nbytes, flops, torch.float32)
+    assert by == "operations" and abs(ms - 0.0913) < 0.0001
+    assert nbytes / tfa.PEAK_BYTES_PER_S * 1e3 == pytest.approx(0.0401, abs=1e-4)

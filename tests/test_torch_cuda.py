@@ -6,11 +6,11 @@ nvcc but no JAX: ``python -m pytest --noconftest tests/test_torch_cuda.py``
 (``tests/conftest.py`` imports jax; this file needs nothing from it).
 
 Tolerances: fp32 outputs atol 2e-5 (online vs two-pass softmax, other
-summation order); bf16 outputs atol 1.6e-2, just above the 1.5625e-2 the
-H100 read (both round the probabilities to bf16 before PV, the kernel the
-unnormalized ones: an output may land one bf16 step at |out| < 4 from the
-plain version's); stats atol 1e-5 for both dtypes (fp32 in both, from the
-same rounded inputs).
+summation order, the kernel's 3xTF32 products within ~2^-22 of fp32's); bf16
+outputs atol 1.6e-2, just above the 1.5625e-2 the H100 read (both round the
+probabilities to bf16 before PV, the kernel the unnormalized ones: an output
+may land one bf16 step at |out| < 4 from the plain version's); stats atol
+1e-5 for both dtypes (fp32 in both, from the same rounded inputs).
 """
 import numpy as np
 import pytest
@@ -72,6 +72,33 @@ def test_kernels_match_plain(card, dtype, b, s, h, kv, hd):
     assert torch.equal(fa.causal_attention_stats(q, k, v)[1][0], col)
 
 
+#: fp32 shapes whose rows the key split cuts (the merge kernel runs): B=1
+#: prefills at Qwen2-0.5B heads and a Pythia-70M window; and split4's stage
+#: shape at Qwen2-1.5B heads (hd 128, one split)
+F32_SPLIT_SHAPES = [(1, 512, 14, 2, 64), (1, 2048, 8, 8, 64), (8, 512, 12, 2, 128)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd", F32_SPLIT_SHAPES)
+def test_fp32_split_kernels_match_plain_and_repeat(card, b, s, h, kv, hd):
+    """fp32 K-attn (3xTF32 products, key splits merged in split order) and
+    K-stats against their plain versions; two launches bit for bit equal;
+    each call counted once, as an fp32 launch."""
+    q, k, v = _inputs(card, b, s, h, kv, hd, torch.float32, seed=s + hd)
+    n0, f0 = fa.causal_attention.launches, fa.causal_attention.launches_by_dtype["float32"]
+    out, again = fa.causal_attention(q, k, v), fa.causal_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.causal_attention.launches == n0 + 2
+    assert fa.causal_attention.launches_by_dtype["float32"] == f0 + 2
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, fa.causal_attention_plain(q, k, v), **TOL[torch.float32])
+    out_s, (col, last) = fa.causal_attention_stats(q, k, v)
+    want_out, (want_col, want_last) = fa.causal_attention_stats_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out_s, out)
+    torch.testing.assert_close(col, want_col, **STATS_TOL)
+    torch.testing.assert_close(last, want_last, **STATS_TOL)
+
+
 def test_strided_kv_read_without_copy(card):
     """K/V as non-contiguous views (heads interleaved in a fused projection)."""
     b, s, h, kv, hd = 2, 256, 4, 2, 64
@@ -108,6 +135,17 @@ def test_wrapper_raises_on_misaligned_bf16_copies(card):
     shifted = flat[1:].view(b, s, kv, hd)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.causal_attention_stats(q, shifted, shifted)
+
+
+def test_wrapper_raises_on_misaligned_fp32_copies(card):
+    """The fp32 body copies 16-byte chunks too: a K/V view whose sequence
+    stride is not a multiple of 16 bytes raises instead of launching."""
+    b, s, h, kv, hd = 1, 64, 4, 2, 64
+    q = torch.randn(b, s, h, hd, device=card)
+    padded = torch.randn(b, s, kv * hd + 2, device=card)
+    k = padded[:, :, :kv * hd].unflatten(2, (kv, hd))  # sequence stride 520 bytes
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.causal_attention(q, k, k)
 
 
 def test_bf16_lm_head_runs_bf16_operands_with_fp32_output(card):
