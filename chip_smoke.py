@@ -15,13 +15,18 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    tolerances, and at the bf16 kernels' tile edges (S = 1, 63, 64, 65, 100,
    127, 128, 129) and the serve prefill lengths (12, 72), both head dims and
    dtypes, the stats deterministic; the codec kernels K1-K7 (K2 also with a
-   (1, D) scale, through the int4_per_channel twin) and the fused hop K8 bit for bit at N = 4096 x
-   D = 896 and 1536, and N = 1 and 511, K8's buffer byte for byte against the
-   wire path's, and a flipped byte failing K8's verify;
-4. timing with CUDA events: kernel, plain version, one PyTorch library call
-   where one computes the same function, and the roofline bound; fp32 K-attn
-   also at the serve prefills' shapes (B = 1, S = 12, 72, 512), and at every
-   fp32 shape two launches bit for bit equal;
+   (1, D) scale, through the int4_per_channel twin; K3 also saturating
+   float32, bf16 and fp16 hiddens with NaN, +-Inf and 1e30 in the kernel)
+   and the fused hop K8 bit for bit at N = 4096 x D = 896 and 1536, and
+   N = 1 and 511, K8's buffer byte for byte against the wire path's, and a
+   flipped byte failing K8's verify;
+4. timing: each kernel's device time (torch.profiler) beside the call's
+   CUDA-event time (the codecs' host-bound where the events read over twice
+   the device), the plain version, one PyTorch library call where one
+   computes the same function, and the roofline bound; K3 / K4 at N = 4096
+   also from a cold L2; fp32 K-attn also at the serve prefills' shapes
+   (B = 1, S = 12, 72, 512), and at every fp32 shape two launches bit for
+   bit equal;
 5. the main path at full Qwen2-0.5B width and depth: ``run_token_sweep``,
    4 methods x layer 11 x 5 ratios, window 512, stride 32, window batch 8,
    bf16 random weights from ``--seed``, with every kernel's launch count;
@@ -78,8 +83,9 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    on the card batched streams against each stream alone through
    ``generate`` (tokens) and the contiguous decode step (logits);
 13. a JSON line of every kernel (launches summed over the counted paths,
-   and by path; K-attn's also by dtype and path), the ``nvidia-smi`` line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   and by path; K-attn's also by dtype and path; ``ms`` its device time,
+   ``event_ms`` the call's CUDA-event time), the ``nvidia-smi`` line, and
+   as the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result where ``torch.cuda.is_available()`` is
 false or the package is not beside it. ``--out DIR`` also writes the detail
@@ -204,33 +210,42 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, tries: int = 3) -> float:
+def device_ms(fn, iters: int, tries: int = 5, flush=None) -> float:
     """Device time of one ``fn()`` in ms: the kernels it launches, summed
     under torch.profiler over ``iters`` warm calls; the host's launch time
     between them is left out. The trace is held to the kernels one profiled
     call launches: each must be recorded ``iters`` times that often, since a
     record the profiler dropped would lower the time. A short trace is
-    profiled again, up to ``tries`` times, then the run fails."""
+    profiled again, up to ``tries`` times, then the run fails. With
+    ``flush`` (a tensor larger than the 50 MB L2) every call follows a write
+    of it, so ``fn`` finds its inputs in device memory, not in L2 (a cold
+    reading); the write's own kernel is left out of the sum."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def trace(n: int) -> dict:
+    def trace(n: int, call) -> dict:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
-                fn()
+                call()
             torch.cuda.synchronize()
         return {ev.key: (ev.count, ev.self_device_time_total) for ev in prof.key_averages()
                 if ev.device_type == DeviceType.CUDA}
 
     fn()
     torch.cuda.synchronize()
+    call = fn if flush is None else lambda: (flush.zero_(), fn())  # noqa: E731
     for _ in range(tries):
-        one, many = trace(1), trace(iters)
+        one, many = trace(1, fn), trace(iters, call)
+        skip = set() if flush is None else set(trace(1, flush.zero_))
+        if skip & set(one):
+            raise SystemExit(f"device_ms: the flush's kernel {skip} is also fn's")
+        if flush is not None and not skip:  # the flush's record was dropped
+            continue
         want = {k: c * iters for k, (c, _) in one.items()}
-        got = {k: c for k, (c, _) in many.items()}
+        got = {k: c for k, (c, _) in many.items() if k not in skip}
         if one and got == want:
-            return sum(t for _, t in many.values()) / 1e3 / iters
+            return sum(t for k, (_, t) in many.items() if k not in skip) / 1e3 / iters
         log(f"  device_ms: the trace of {iters} calls holds {got}, wanted {want}; "
             f"profiling again")
     raise SystemExit(f"device_ms: the profiler dropped kernel records in {tries} tries")
@@ -709,36 +724,59 @@ def want_counts(fp32_attn: int = 0, **launches) -> dict:
     return want
 
 
-def codec_bytes(kernel: str, n: int, d: int) -> int:
+def codec_bytes(kernel: str, n: int, d: int, itemsize: int = 4) -> int:
     """Bytes a codec kernel must move at (N, D): each input read once, each
     output written once (the payload and its float32 scales or the (1, D)
     channel scale, the float32 activation; K8 reads the activation and
-    writes the sealed buffer, the decoded activation and its flag)."""
+    writes the sealed buffer, the decoded activation and its flag).
+    ``itemsize``: bytes an element of K3's input hidden takes (2 for a bf16
+    or fp16 hidden, which K3 reads as it is)."""
     act, chan = 4 * n * d, 4 * d
     return {"int4_encode": act + n * d // 2 + 4 * n, "int4_decode": act + n * d // 2 + 4 * n,
-            "int8_affine_encode": act + n * d + 8 * n, "int8_affine_decode": act + n * d + 8 * n,
+            "int8_affine_encode": itemsize * n * d + n * d + 8 * n,
+            "int8_affine_decode": act + n * d + 8 * n,
             "chan_int8_encode": act + chan + n * d, "chan_int8_decode": act + chan + n * d,
             "chan_int4_encode": act + chan + n * d // 2,
             "ternary_encode": act + chan + n * d // 4, "ternary_decode": act + chan + n * d // 4,
             "remote_hop": 2 * act + (8 + 8 * n + n * d) + 4}[kernel]
 
 
+#: the codec rows the kernels line takes where not the plain float32 call:
+#: the split paths run K3 on the model's bf16 hidden, saturated in the kernel
+MAIN_CODEC_LABEL = {"int8_affine_encode": " bfloat16 saturating"}
+
+#: a call whose CUDA-event time exceeds its device time by more than this
+#: is host-bound: the events time the wrapper's launches, not the kernel
+HOST_BOUND = 2.0
+
+
+def _same(got, want) -> bool:
+    """Bit for bit equal (a NaN equal to a NaN), dtype and shape too."""
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and bool(((got == want) | ((got != got) & (want != want))).all()))
+
+
 def codec_checks(detail: dict) -> dict:
     """Phases 3 and 4 for K1-K8 (and K2 with a (1, D) channel scale, alone
-    and as the int4_per_channel twin's decode): each against its plain
-    version on the card, bit for bit (K8's sealed buffer byte for byte
-    against the wire path's), timed beside the bound, and K8's receive over a
-    flipped byte failing its verify -> {kernel name: its row at the split
-    path's shape (N=4096, D=896)}."""
+    and as the int4_per_channel twin's decode; K3 also saturating a float32,
+    bf16 and fp16 hidden in the kernel): each against its plain version on
+    the card, bit for bit (K8's sealed buffer byte for byte against the wire
+    path's), timed on the device (torch.profiler, :func:`device_ms`) beside
+    the call's CUDA-event time (host-bound where it is over
+    :data:`HOST_BOUND` times the device's) and the bound, K3 and K4 at
+    N = 4096 also from a cold L2; and K8's receive over a flipped byte
+    failing its verify -> {kernel name: its row at the split path's shape
+    (N=4096, D=896; K3's on a bf16 hidden, :data:`MAIN_CODEC_LABEL`)}."""
     import torch
 
     from edgellm_tpu_torch.codecs import codec_kernels as ck
     from edgellm_tpu_torch.codecs import fused_hop as fh
-    from edgellm_tpu_torch.codecs.packing import get_wire_codec, sanitize_hidden
+    from edgellm_tpu_torch.codecs.packing import SATURATE_MAG, get_wire_codec, sanitize_hidden
     from edgellm_tpu_torch.models import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     twin4 = get_wire_codec("int4_per_channel_pallas")
+    flush = torch.empty((64 << 20,), dtype=torch.float32, device="cuda")  # 256 MB > L2
     rows, main, flips = [], {}, []
     for n, d in ((4096, 896), (4096, 1536), (1, 896), (511, 896)):
         x = torch.randn((n, d), generator=gen, device="cuda") * 3
@@ -746,6 +784,11 @@ def codec_checks(detail: dict) -> dict:
         x[n // 2] = 1.5  # a constant row: scale 0 for the affine codec
         x[(3 * n) // 4, :3] = torch.tensor([float("nan"), float("inf"), float("-inf")],
                                            device="cuda")
+        # K3's saturating entry: the hidden unsaturated, in each dtype, with a
+        # value above max_mag besides NaN and +-Inf (fp16 rounds both to Inf)
+        raw = x.clone()
+        raw[n // 4, 1] = 1.0001e30
+        raw = {dt: raw.to(dt) for dt in (torch.float32, torch.bfloat16, torch.float16)}
         x = sanitize_hidden(x)  # the codecs see saturated rows, never NaN / Inf
         packed, scale = ck.int4_encode_plain(x)
         q, sc, mn = ck.int8_affine_encode_plain(x)
@@ -767,6 +810,10 @@ def codec_checks(detail: dict) -> dict:
              lambda: ck.int4_decode_plain(p4["packed"][0], p4["scale"].reshape(1, d))),
             ("int8_affine_encode", "", lambda: ck.int8_affine_encode(x),
              lambda: ck.int8_affine_encode_plain(x)),
+            *[("int8_affine_encode", f" {str(dt)[6:]} saturating",
+               lambda h=h: ck.int8_affine_encode(h, max_mag=SATURATE_MAG),
+               lambda h=h: ck.int8_affine_encode_plain(sanitize_hidden(h).float()))
+              for dt, h in raw.items()],
             ("int8_affine_decode", "", lambda: ck.int8_affine_decode(q, sc, mn),
              lambda: ck.int8_affine_decode_plain(q, sc, mn)),
             ("chan_int8_encode", "", lambda: ck.chan_int8_encode(x, cscale),
@@ -788,25 +835,33 @@ def codec_checks(detail: dict) -> dict:
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
-            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-            exact = all(torch.equal(g, w) for g, w in zip(got, want))
+            err = max((g.float() - w.float()).abs().nan_to_num().max().item()
+                      for g, w in zip(got, want))
+            exact = all(_same(g, w) for g, w in zip(got, want))
             if name == "remote_hop":  # (decoded, ok, buffer): the verify passed too
                 exact = exact and bool(got[1])
-            nbytes = codec_bytes(name, n, d)
+            itemsize = 2 if label.startswith((" bfloat16", " float16")) else 4
+            nbytes = codec_bytes(name, n, d, itemsize)
             if name == "int4_decode" and label:  # a (1, D) scale instead of (N, 1)
                 nbytes += 4 * d - 4 * n
             bound, bound_by = fa.bound_ms(float(nbytes), 0.0, torch.float32)
-            k_ms, p_ms = time_ms(kern, 50), time_ms(plain, 20)
+            ev_ms, p_ms = time_ms(kern, 50), time_ms(plain, 20)
+            k_dev = device_ms(kern, 50)
+            cold = (device_ms(kern, 20, flush=flush)
+                    if name.startswith("int8_affine") and n == 4096 else None)
             row = {"kernel": name + label, "n": n, "d": d, "exact": exact,
-                   "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
-                   "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
-                   "bytes": nbytes, "roofline_share": bound / k_ms}
+                   "dtype": label.split()[0] if itemsize == 2 else "float32",
+                   "max_abs_err": err, "kernel_ms": k_dev, "kernel_cold_ms": cold,
+                   "event_ms": ev_ms, "host_bound": ev_ms > HOST_BOUND * k_dev,
+                   "plain_ms": p_ms, "library_ms": None, "bound_ms": bound,
+                   "bound_by": bound_by, "bytes": nbytes, "roofline_share": bound / k_dev,
+                   "cold_roofline_share": bound / cold if cold else None}
             rows.append(row)
             log(json.dumps(row))
             if not exact:
                 raise SystemExit(f"{name}{label} is not bit-exact against its plain "
                                  f"version at N={n}, D={d}: {row}")
-            if (n, d) == (4096, 896) and not label:
+            if (n, d) == (4096, 896) and label == MAIN_CODEC_LABEL.get(name, ""):
                 main[name] = row
         # K8's receive over the arrived buffer: intact -> ok and the same
         # decode; one flipped payload byte -> not ok, and the hop keeps the
@@ -1493,17 +1548,22 @@ def main() -> int:
                      f"{r['dtype']} {r['kv_codec']}")
         else:
             r = codec_rows[name]
-            shape = f"qwen2-0.5b split N={r['n']} D={r['d']} float32"
+            shape = f"qwen2-0.5b split N={r['n']} D={r['d']} {r['dtype']}"
         extra = {}
         if name == "causal_attention":  # fp32 beside bf16 launches, by path
             extra["launches_by_dtype_by_path"] = {
                 path: {d.split()[-1]: got.get(d, 0) for d in ATTN_BY_DTYPE}
                 for path, got in by_path.items()}
+        # ms, library_ms: device times (torch.profiler); event_ms: the call's
+        # CUDA-event time (a codec row's kernel_ms is its device time already)
         kernels.append({"name": name, **meta, "launches": sum(counts.values()),
                         "launches_by_path": counts, **extra,
-                        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                        "max_abs_err": r["max_abs_err"],
+                        "ms": r.get("kernel_device_ms", r["kernel_ms"]),
+                        "event_ms": r.get("event_ms", r["kernel_ms"]),
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r.get("library_device_ms", r["library_ms"]),
                         "shape": shape})
     if args.out:
         os.makedirs(args.out, exist_ok=True)

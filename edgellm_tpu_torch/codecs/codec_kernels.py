@@ -7,7 +7,10 @@ the first half of ``edgellm_tpu/codecs/pallas_kernels.py``).
   dequantize with a per-row (N, 1) or per-channel (1, D) scale (the TPU's
   ``chan_int4_decode_pallas`` shares K2's body).
 - **K3** ``int8_affine_encode`` / **K4** ``int8_affine_decode``
-  (``csrc/int8_affine_codec.cu``): per-row affine int8.
+  (``csrc/int8_affine_codec.cu``): per-row affine int8, one warp a row. K3
+  reads a float32, bf16 or fp16 hidden as it is and, given ``max_mag``,
+  saturates it in registers as :func:`~.packing.sanitize_hidden` does, so
+  the ``int8_per_token`` twin's encode is one launch.
 - **K5** ``chan_int8_encode`` / ``chan_int8_decode``, **K6**
   ``chan_int4_encode`` and **K7** ``ternary_encode`` / ``ternary_decode``
   (``csrc/channel_codec.cu``): quantize(+pack) and unpack(+dequantize)
@@ -39,10 +42,15 @@ import ctypes
 import torch
 
 from ..utils import cuda_build
-from .packing import _INV_7, _INV_127, _INV_255, WireCodec, _channel_mean_scale, _f32, _saturating
+from .packing import (_INV_7, _INV_127, _INV_255, SATURATE_MAG, WireCodec, _channel_mean_scale,
+                      _f32, _saturating, sanitize_hidden, saturation_bound)
 
-#: widest row an encode block can keep in shared memory (227 KB a block)
+#: widest row a K1 / K8 encode block can keep in shared memory (227 KB a
+#: block); K3 keeps its row in registers or reads it twice, and takes any D
 MAX_ENCODE_D = 56 * 1024
+
+#: the hidden dtypes K3 reads, by the code its C entry point takes
+ENCODE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +144,8 @@ _SIGNATURES = {
         "edgellm_int4_error": ([_I32], ctypes.c_char_p),
     },
     "int8_affine_codec": {
-        "edgellm_int8_affine_encode": ([_PTR] * 4 + [_I64, _I32, _PTR], _I32),
+        "edgellm_int8_affine_encode": ([_PTR, _I32] + [_PTR] * 3
+                                       + [_I64, _I32, ctypes.c_float, _I32, _PTR], _I32),
         "edgellm_int8_affine_decode": ([_PTR] * 4 + [_I64, _I32, _PTR], _I32),
         "edgellm_int8_affine_error": ([_I32], ctypes.c_char_p),
     },
@@ -238,24 +247,34 @@ def int4_decode(packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def int8_affine_encode(x: torch.Tensor):
-    """K3: (N, D) float32 -> (q (N, D) int8, scale (N, 1), mn (N, 1)
-    float32). CUDA tensors launch the kernel (``int8_affine_encode.launches``);
-    other tensors take :func:`int8_affine_encode_plain`."""
+def int8_affine_encode(x: torch.Tensor, max_mag: float | None = None):
+    """K3: (N, D) float32, bf16 or fp16 -> (q (N, D) int8, scale (N, 1), mn
+    (N, 1) float32), computed on the hidden widened to float32 (exactly).
+    With ``max_mag`` the rows are saturated first, as
+    :func:`~.packing.sanitize_hidden` does in the hidden's dtype: on the card
+    inside the kernel (clamp to :func:`~.packing.saturation_bound`, then
+    NaN -> 0). CUDA tensors launch the kernel
+    (``int8_affine_encode.launches``); other tensors take
+    ``int8_affine_encode_plain(sanitize_hidden(x, max_mag).float())``."""
     if x.device.type != "cuda":
-        return int8_affine_encode_plain(x)
+        if max_mag is not None:
+            x = sanitize_hidden(x, max_mag)
+        return int8_affine_encode_plain(x.float())
     n, d = x.shape
-    _check_rows(n, d, encode=True)
-    _check("x", x, torch.float32, (n, d), x.device)
+    _check_rows(n, d, encode=False)
+    if x.dtype not in ENCODE_DTYPES:
+        raise ValueError(f"x: K3 reads float32, bfloat16 or float16, got {x.dtype}")
+    _check("x", x, x.dtype, (n, d), x.device)
     q = torch.empty((n, d), dtype=torch.int8, device=x.device)
     scale = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     mn = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    bound = 0.0 if max_mag is None else saturation_bound(max_mag, x.dtype)
     lib = _lib("int8_affine_codec")
     int8_affine_encode.launches += 1
     with torch.cuda.device(x.device):
         _launch(lib, "edgellm_int8_affine_encode", "edgellm_int8_affine_error",
-                x.data_ptr(), q.data_ptr(), scale.data_ptr(), mn.data_ptr(), n, d,
-                _stream(x.device))
+                x.data_ptr(), ENCODE_DTYPES[x.dtype], q.data_ptr(), scale.data_ptr(),
+                mn.data_ptr(), n, d, bound, int(max_mag is not None), _stream(x.device))
     return q, scale, mn
 
 
@@ -383,11 +402,17 @@ def pallas_wire_codec() -> WireCodec:
 
 
 def pallas_int8_per_token() -> WireCodec:
-    """``int8_per_token`` backed by K3 / K4."""
+    """``int8_per_token`` backed by K3 / K4. The encode saturates the hidden
+    inside K3 (``max_mag=SATURATE_MAG``) and reads it in its own dtype: on the
+    card one launch, with no sanitize ops and no float32 copy. K3 reads the
+    rows in place, so a CUDA hidden must be contiguous."""
 
     def encode(h):
         b, s, d = h.shape
-        q, scale, mn = int8_affine_encode(h.reshape(b * s, d).float().contiguous())
+        if h.device.type == "cuda" and not h.is_contiguous():
+            raise ValueError("int8_per_token_pallas: K3 reads the hidden's rows in place, "
+                             "so a CUDA hidden must be contiguous")
+        q, scale, mn = int8_affine_encode(h.reshape(b * s, d), max_mag=SATURATE_MAG)
         return {"q": q.reshape(b, s, d), "scale": scale.reshape(b, s, 1),
                 "mn": mn.reshape(b, s, 1)}
 
@@ -480,10 +505,18 @@ SELECTIVE_EXCLUSION = (
     "gather needs a B*S-step grid. The jnp codec IS the TPU-native path.")
 
 
+#: twins whose encode kernel saturates the hidden itself
+_SATURATE_IN_KERNEL = frozenset({"int8_per_token"})
+
+
 def kernel_twin(base: str) -> WireCodec:
     """The kernel-backed twin of base codec ``base`` (the ``<base>_pallas``
-    registry entry), with the plain codecs' pathological-input saturation."""
-    return _saturating(_PALLAS_FACTORIES[base]())
+    registry entry), with the plain codecs' pathological-input saturation:
+    ``int8_per_token``'s inside K3 (:func:`pallas_int8_per_token`), every
+    other twin's through :func:`~.packing.sanitize_hidden` before its
+    encode."""
+    twin = _PALLAS_FACTORIES[base]()
+    return twin if base in _SATURATE_IN_KERNEL else _saturating(twin)
 
 
 def pallas_variant(codec: WireCodec):

@@ -23,6 +23,7 @@ written out.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
@@ -81,12 +82,23 @@ def _nbytes(payload: dict) -> int:
 SATURATE_MAG = 1e30
 
 
+@functools.lru_cache(maxsize=None)
+def saturation_bound(max_mag: float, dtype: torch.dtype) -> float:
+    """``max_mag`` rounded to ``dtype``, the bound :func:`sanitize_hidden`
+    clamps a ``dtype`` hidden to (as the reference's ``jnp.clip`` takes a
+    Python bound): bf16(1e30) = 1.0002555517e30 lies above float32(1e30),
+    and float16 rounds 1e30 to Inf (no clamp)."""
+    return torch.tensor(max_mag, dtype=dtype).item()
+
+
 def sanitize_hidden(h: torch.Tensor, max_mag: float = SATURATE_MAG) -> torch.Tensor:
     """Deterministic saturation before encoding: NaN -> 0, +-Inf and
-    magnitudes beyond ``max_mag`` clamp to ``+-max_mag``. The identity for
-    ordinary finite inputs, so no wire codec turns a poisoned activation into
-    garbage bytes: every payload decodes to something finite."""
-    h = torch.clamp(h, -max_mag, max_mag)  # NaN propagates through clamp...
+    magnitudes beyond ``max_mag`` (in ``h``'s dtype: :func:`saturation_bound`)
+    clamp to ``+-max_mag``. The identity for ordinary finite inputs, so no
+    wire codec turns a poisoned activation into garbage bytes: every payload
+    decodes to something finite."""
+    bound = saturation_bound(max_mag, h.dtype)
+    h = torch.clamp(h, -bound, bound)  # NaN propagates through clamp...
     return torch.where(torch.isnan(h), torch.zeros_like(h), h)  # ...and lands here
 
 

@@ -1,7 +1,7 @@
 // Shared pieces of the codec kernels (int4_codec.cu, int8_affine_codec.cu,
-// channel_codec.cu, remote_hop.cu): the block size, a block-wide reduction,
-// the dynamic shared-memory opt-in for wide rows, and the affine int8 zero
-// point that K3, K4 and K8 share.
+// channel_codec.cu, remote_hop.cu): the block size, warp- and block-wide
+// reductions, the dynamic shared-memory opt-in for wide rows, and the affine
+// int8 zero point that K3, K4 and K8 share.
 //
 // Every arithmetic step the codecs share with the reference goes through the
 // _rn intrinsics (__fdiv_rn, __fmul_rn, __fsub_rn, __fadd_rn): they are
@@ -31,22 +31,27 @@ struct MinOp {
   __device__ __forceinline__ float operator()(float a, float b) const { return fminf(a, b); }
 };
 
+// Reduce one value per lane over the warp; every lane gets the result.
+template <typename Op>
+__device__ __forceinline__ float warp_reduce(float v, Op op) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // Reduce one value per thread over the block; every thread gets the result.
 // `red` holds kCodecThreads / 32 floats of shared memory. The leading
 // __syncthreads() also orders the callers' shared-memory writes before any
 // thread reads them back.
 template <typename Op>
 __device__ __forceinline__ float block_reduce(float v, float* red, float identity, Op op) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  v = warp_reduce(v, op);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   __syncthreads();  // red may still be read by a previous reduction
   if (lane == 0) red[warp] = v;
   __syncthreads();
   v = lane < kCodecThreads / 32 ? red[lane] : identity;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  return warp_reduce(v, op);
 }
 
 // One block per row keeps the row in dynamic shared memory between the

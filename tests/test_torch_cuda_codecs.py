@@ -1,5 +1,7 @@
 """The port's codec kernels (K1-K7) and its fused hop kernel (K8) against
-their plain PyTorch versions, on the card.
+their plain PyTorch versions, on the card; K3 also on bf16 and fp16 hiddens
+through its saturating entry, against ``int8_affine_encode_plain(
+sanitize_hidden(x).float())``, and the int8 twin's encode as one launch.
 
 Marked ``cuda``: each test asks its fixture for a card and skips without one
 (the kernels are CUDA C++ with no CPU mode). On a machine with an H100 and
@@ -7,15 +9,18 @@ nvcc but no JAX: ``python -m pytest --noconftest tests/test_torch_cuda_codecs.py
 
 Tolerance: none. Kernel and plain version run the same float32 operations
 in the same order (IEEE division, round half to even), so payloads and
-decoded activations are held equal bit for bit.
+decoded activations are held equal bit for bit (a NaN equal to a NaN).
 """
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from edgellm_tpu_torch.codecs import codec_kernels as ck
 from edgellm_tpu_torch.codecs import fused_hop as fh
-from edgellm_tpu_torch.codecs.packing import get_wire_codec, sanitize_hidden
+from edgellm_tpu_torch.codecs.packing import SATURATE_MAG, get_wire_codec, sanitize_hidden
+from test_torch_codec_division import tie_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -39,6 +44,26 @@ def _rows(n, d, seed=0):
 
 
 SHAPES = [(1, 64), (7, 64), (511, 896), (4096, 896), (4096, 1536), (96, 2)]
+#: K3 / K4 also at D % 4 != 0 and D % 16 != 0 (the scalar bodies), the
+#: presets' widths and beyond a lane's 32 vectors, and a partly filled block
+AFFINE_SHAPES = SHAPES + [(5, 2), (9, 6), (33, 100), (64, 512), (16, 3584), (8, 8192),
+                          (4097, 896)]
+
+
+def _raw_rows(n, d, dtype, seed=0):
+    """(N, D) in ``dtype``, unsaturated: random rows, all zeros, constant,
+    NaN, +-Inf, and values about max_mag (1e30; Inf in float16)."""
+    x = (np.random.default_rng(seed).normal(size=(n, d)) * 3).astype(np.float32)
+    special = [np.zeros(d), np.full(d, 1.5), np.r_[np.nan, np.ones(d - 1)],
+               np.r_[np.inf, -np.inf, np.zeros(d - 2)], np.r_[1e30, -2e30, np.ones(d - 2)],
+               np.r_[1.0001e30, np.full(d - 1, -1.0)], np.r_[-np.inf, np.nan, np.ones(d - 2)]]
+    for i, row in enumerate(special[:n]):
+        x[(i * 7919) % n] = row
+    return torch.from_numpy(x).to(dtype)
+
+
+def _equal(got, want):
+    torch.testing.assert_close(got, want, atol=0, rtol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("n,d", SHAPES)
@@ -63,7 +88,7 @@ def test_int4_decode_per_channel_scale(card, n, d):
                                ck.int4_decode_plain(packed, scale), atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("n,d", SHAPES)
+@pytest.mark.parametrize("n,d", AFFINE_SHAPES)
 def test_int8_affine_kernels_bit_exact(card, n, d):
     x = _rows(n, d, seed=1).to(card)
     e0, d0 = ck.int8_affine_encode.launches, ck.int8_affine_decode.launches
@@ -75,6 +100,77 @@ def test_int8_affine_kernels_bit_exact(card, n, d):
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ck.int8_affine_decode_plain(*want), atol=0, rtol=0)
     assert (ck.int8_affine_encode.launches, ck.int8_affine_decode.launches) == (e0 + 1, d0 + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n,d", AFFINE_SHAPES)
+def test_int8_affine_encode_saturating_bit_exact(card, n, d, dtype):
+    """K3 reads the hidden in its dtype and saturates in registers: its
+    payload equals int8_affine_encode_plain(sanitize_hidden(x).float()), and
+    K4 decodes it as the plain version does."""
+    x = _raw_rows(n, d, dtype, seed=n + d).to(card)
+    e0 = ck.int8_affine_encode.launches
+    got = ck.int8_affine_encode(x, max_mag=SATURATE_MAG)
+    want = ck.int8_affine_encode_plain(sanitize_hidden(x, SATURATE_MAG).float())
+    for g, w in zip(got, want):
+        _equal(g, w)
+    _equal(ck.int8_affine_decode(*got), ck.int8_affine_decode_plain(*want))
+    torch.cuda.synchronize()
+    assert ck.int8_affine_encode.launches == e0 + 1
+    if dtype == torch.float32:  # unsaturated: NaN rows as the plain version
+        for g, w in zip(ck.int8_affine_encode(x), ck.int8_affine_encode_plain(x)):
+            _equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_affine_kernels_off_16_bytes(card, dtype):
+    """Rows that start off a 16-byte boundary (a view one element into its
+    buffer) take the scalar bodies, bit for bit as the vector ones."""
+    n, d = 64, 896
+    x = torch.empty(n * d + 1, dtype=dtype, device=card)[1:].view(n, d)
+    x.copy_(_raw_rows(n, d, dtype, seed=5))
+    got = ck.int8_affine_encode(x, max_mag=SATURATE_MAG)
+    want = ck.int8_affine_encode_plain(sanitize_hidden(x).float())
+    for g, w in zip(got, want):
+        _equal(g, w)
+    q = torch.empty(n * d + 1, dtype=torch.int8, device=card)[1:].view(n, d)
+    q.copy_(got[0])
+    _equal(ck.int8_affine_decode(q, *got[1:]), ck.int8_affine_decode_plain(*want))
+
+
+@pytest.mark.parametrize("n,d", [(4096, 896), (257, 100)])
+def test_int8_affine_encode_at_rounding_ties(card, n, d):
+    """K3 divides through each row's reciprocal with two corrections and
+    rounds by adds where the row's range allows (IEEE division in the rows
+    past it): the same codes as the plain version's IEEE division and round
+    half to even, on rows of quotient ties (``tie_rows``)."""
+    x = torch.from_numpy(tie_rows(n, d, seed=d)).to(card)
+    got, want = ck.int8_affine_encode(x), ck.int8_affine_encode_plain(x)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    _equal(ck.int8_affine_decode(*got), ck.int8_affine_decode_plain(*want))
+
+
+def test_int8_twin_encode_is_one_kernel(card):
+    """The int8_per_token twin encodes a bf16 hidden in one launch: K3, with
+    no sanitize ops and no float32 copy; its payload is the plain path's."""
+    h = _raw_rows(2 * 64, 896, torch.bfloat16, seed=8).reshape(2, 64, 896).to(card)
+    twin = get_wire_codec("int8_per_token_pallas")
+    twin.encode(h)
+    torch.cuda.synchronize()
+    e0 = ck.int8_affine_encode.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = twin.encode(h)
+        torch.cuda.synchronize()
+    kernels = {ev.key: ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA}
+    assert sum(kernels.values()) == 1 and "int8_affine_encode" in next(iter(kernels)), kernels
+    assert ck.int8_affine_encode.launches == e0 + 1
+    want = ck.int8_affine_encode_plain(sanitize_hidden(h).float().reshape(-1, 896))
+    for k, w in zip(("q", "scale", "mn"), want):
+        _equal(got[k].reshape(w.shape), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        twin.encode(h.transpose(0, 1))
 
 
 @pytest.mark.parametrize("n,d", SHAPES[:-1] + [(96, 4)])
@@ -185,6 +281,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
         ck.int4_encode(x.half())
     with pytest.raises(ValueError, match="contiguous"):
         ck.int8_affine_encode(torch.randn(64, 4, device=card).T)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        ck.int8_affine_encode(x.double())
     with pytest.raises(ValueError, match="even width"):
         ck.int4_encode(torch.randn(4, 63, device=card))
     q, scale, mn = ck.int8_affine_encode(x)
