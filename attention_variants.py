@@ -44,6 +44,26 @@ twice (the variants in order, then reversed):
 - ``parent`` (with ``--parent DIR``, a checkout of the tree before the fp32
   redesign): its SIMT body, built from ``DIR/edgellm_tpu_torch/csrc`` and
   called through its own C interface.
+
+fp32 K-stats' column pass (``--dtype float32``; ``--part stats`` alone), at
+the sweep's stats shapes, the column pass alone over the LSE of this tree's
+forward (the forward with the LSE timed beside it), each read twice (the
+variants in order, then reversed), each held to the plain version's stats:
+
+- ``committed``: ``csrc/attention_stats.cu`` as it is (3xTF32 on ``wgmma``,
+  128 keys of one head a block);
+- ``expf``: ``expf`` in place of ``ex2.approx``;
+- timed, not checked: ``no_exp``, p = s * scale - lse, no exponential;
+  ``no_split``, q's split stores left out (the products read stale tiles);
+  ``no_products``, no ``wgmma``; ``no_epilogue``, no exponentials, sums or
+  stores after the products; ``no_mask``, every tile through the unmasked
+  loop; ``no_last``, the last row not written; ``no_lse``, one LSE value a
+  tile for every query; ``sum_only``, p = s; ``half_tile``, the unmasked
+  loop over half the tile's queries;
+- ``keys64``: 64 keys a block (one consumer warpgroup of 128 threads), two
+  blocks an SM;
+- ``parent`` (with ``--parent DIR``): the older tree's column pass, through
+  the same C interface.
 """
 from __future__ import annotations
 
@@ -191,6 +211,33 @@ F32_VARIANTS = {  # name: (source edits, function replacements, one split)
                                                 "kRows = 64, kKeys = 32"))], {}, False),
     "copies": ([], {"qk_tile": NO_QK, "pv_tile": NO_PV}, False),
 }
+EXP = "return fast_exp2(fmaf(sv, scale, -lq) * kLog2e);"
+SPLIT_STORE = "      store_split4(hi, hi + L::kQTile, sw128_offset(e / CH, e % CH, kRows), xq[v]);"
+COL_VARIANTS = {  # name: source edits of attention_stats.cu
+    "committed": [],
+    "expf": [(EXP, "return expf(fmaf(sv, scale, -lq));")],
+    "no_exp": [(EXP, "return fmaf(sv, scale, -lq);")],
+    "no_split": [(SPLIT_STORE, "")],
+    "no_products": [("wgmma_tf32_ss(sc,", "if (false) wgmma_tf32_ss(sc,")],
+    "no_epilogue": [("    sum_p(sc, i);\n", "")],
+    "no_mask": [("    if (q0 >= wkey0 + 63 && q0 + kRows < S) {", "    if (true) {")],
+    "no_last": [("        if (has_last && cq == S - 1 - q0 && key < S) last[bh * S + key] = p;\n", "")],
+    "no_lse": [("        const float2 lq = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t4);",
+                "        const float2 lq = make_float2(ls[0], ls[1]);")],
+    "sum_only": [("return fast_exp2(fmaf(sv, scale, -lq) * kLog2e);", "return sv;")],
+    "half_tile": [("      for (int j = 0; j < kRows / 8; ++j) {\n        const float2 lq",
+                   "      for (int j = 0; j < kRows / 16; ++j) {\n        const float2 lq")],
+    "keys64": [("  static constexpr int kKeys = 128;", "  static constexpr int kKeys = 64;"),
+               ("  static constexpr int kThreads = 256;", "  static constexpr int kThreads = 128;"),
+               ("__launch_bounds__(ColF32<HD>::kThreads, 1)",
+                "__launch_bounds__(ColF32<HD>::kThreads, 2)")],
+}
+#: variants that leave out part of the work: timed, not checked
+COL_UNCHECKED = ("no_exp", "no_split", "no_products", "no_epilogue", "no_mask", "no_last",
+                 "no_lse", "sum_only", "half_tile")
+COL_SHAPES = [  # (label, b, s, h, kv, hd): the sweeps' fp32 stats prefixes
+    ("qwen2-0.5b", 8, 512, 14, 2, 64), ("qwen2-1.5b", 8, 512, 12, 2, 128),
+    ("pythia-70m", 4, 2048, 8, 8, 64)]
 F32_SHAPES = [  # (label, b, s, h, kv, hd): every fp32 caller's shape
     ("split9 prefill", 1, 12, 14, 2, 64), ("split13 prefill", 1, 72, 14, 2, 64),
     ("split9 large prefill", 1, 512, 14, 2, 64), ("split1 stage 1", 8, 512, 14, 2, 64),
@@ -211,14 +258,105 @@ def replace_function(text: str, name: str, new: str) -> str:
         i += 1
 
 
-def _compile(cuda_build, name: str, text: str, include: str):
+def _compile(cuda_build, name: str, text: str, include: str,
+             source: str = "causal_attention.cu"):
     out = cuda_build.BUILD_ROOT.parent / "variants" / name
     out.mkdir(parents=True, exist_ok=True)
-    (out / "causal_attention.cu").write_text(text)
+    (out / source).write_text(text)
     return subprocess.Popen(
         [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(include),
-         "-o", str(out / "lib.so"), str(out / "causal_attention.cu")],
+         "-o", str(out / "lib.so"), str(out / source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(cuda_build, procs: dict) -> dict:
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for variant {name}:\n{log}")
+        regs = [line.split("Used")[1].split(",")[0].strip() for line in log.splitlines()
+                if "registers" in line and "Used" in line]
+        print(json.dumps({"variant": name, "registers": regs}), flush=True)
+        libs[name] = ctypes.CDLL(str(cuda_build.BUILD_ROOT.parent / "variants" / name / "lib.so"))
+    return libs
+
+
+def build_col(cuda_build, parent=None) -> dict:
+    """The column pass's variant libraries (attention_stats.cu edited, and
+    the parent's), compiled in parallel -> {name: CDLL}."""
+    src = (cuda_build.CSRC / "attention_stats.cu").read_text()
+    procs = {}
+    for name, edits in COL_VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit(f"variant {name}: {old!r} is not in the source")
+            text = text.replace(old, new)
+        procs["col_" + name] = _compile(cuda_build, "col_" + name, text, cuda_build.CSRC,
+                                        "attention_stats.cu")
+    if parent:
+        csrc = os.path.join(parent, "edgellm_tpu_torch", "csrc")
+        text = open(os.path.join(csrc, "attention_stats.cu")).read()
+        procs["col_parent"] = _compile(cuda_build, "col_parent", text, csrc, "attention_stats.cu")
+    return {name[4:]: lib for name, lib in _wait(cuda_build, procs).items()}
+
+
+def _col_call(lib, q, k, lse):
+    """A library's column pass through its C interface -> a call returning
+    (col, last)."""
+    import torch
+
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.edgellm_attn_col.argtypes = [ptr] * 5 + [i32] * 6 + [i64] * 5 + [ptr]
+    lib.edgellm_attn_col.restype = i32
+    b, s, h, hd = q.shape
+
+    def run():
+        col = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        last = torch.empty_like(col)
+        err = lib.edgellm_attn_col(q.data_ptr(), k.data_ptr(), lse.data_ptr(), col.data_ptr(),
+                                   last.data_ptr(), b, s, h, k.shape[2], hd, 0, q.stride(0), q.stride(1), k.stride(0),
+                                   k.stride(1), k.stride(2),
+                                   torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"column pass launch failed: {err}")
+        return col, last
+    return run
+
+
+def col_rows(cuda_build, fa, device_ms, gen, parent=None) -> list:
+    """The column pass's variants at :data:`COL_SHAPES`, in turns."""
+    import torch
+
+    libs = build_col(cuda_build, parent)
+    rows = []
+    for label, b, s, h, kv, hd in COL_SHAPES:
+        q, k, v = (torch.randn((b, s, n, hd), generator=gen, device="cuda") for n in (h, kv, kv))
+        lse = fa._launch_fwd(q, k, v, with_lse=True)[1]
+        want = fa.causal_attention_stats_plain(q, k, v)[1]
+        nbytes, flops = fa.column_pass_bytes_flops(b, s, h, kv, hd, 4)
+        bound, bound_by = fa.bound_ms(nbytes, flops, torch.float32)
+        calls = {name: _col_call(lib, q, k, lse) for name, lib in libs.items()}
+        row = {"shape": label, "b": b, "s": s, "h": h, "kv": kv, "hd": hd,
+               "bound_ms": bound, "bound_by": bound_by,
+               "forward_lse_device_ms": device_ms(lambda: fa._launch_fwd(q, k, v, True), 20)}
+        order = list(calls)
+        for names in (order, order[::-1]):
+            for name in names:
+                got = calls[name]()
+                err = max((g - w).abs().max().item() for g, w in zip(got, want))
+                entry = row.setdefault(name, {"device_ms": [], "max_abs_err": None})
+                entry["device_ms"].append(device_ms(calls[name], 20))
+                if name not in COL_UNCHECKED:
+                    entry["max_abs_err"] = err
+        for name in order:
+            entry = row[name]
+            entry["device_ms_mean"] = sum(entry["device_ms"]) / len(entry["device_ms"])
+            entry["share"] = bound / entry["device_ms_mean"]
+        rows.append(row)
+        print(json.dumps({"column_pass": row}), flush=True)
+    return rows
 
 
 def build(cuda_build, dtype: str, parent=None) -> dict:
@@ -240,16 +378,7 @@ def build(cuda_build, dtype: str, parent=None) -> dict:
         csrc = os.path.join(parent, "edgellm_tpu_torch", "csrc")
         text = open(os.path.join(csrc, "causal_attention.cu")).read()
         procs["parent"] = _compile(cuda_build, "parent", text, csrc)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for variant {name}:\n{log}")
-        regs = [line.split("Used")[1].split(",")[0].strip() for line in log.splitlines()
-                if "registers" in line and "Used" in line]
-        print(json.dumps({"variant": name, "registers": regs}), flush=True)
-        libs[name] = ctypes.CDLL(str(cuda_build.BUILD_ROOT.parent / "variants" / name / "lib.so"))
-    return libs
+    return _wait(cuda_build, procs)
 
 
 def _parent_call(lib, q, k, v):
@@ -282,6 +411,8 @@ def main() -> int:
     ap.add_argument("--parent", help="a checkout of the tree before the fp32 redesign: its "
                     "K-attn is timed beside the variants")
     ap.add_argument("--out", help="directory for attention_variants[_float32].json")
+    ap.add_argument("--part", choices=("all", "forward", "stats"), default="all",
+                    help="float32: K-attn's variants, the column pass's, or both")
     args = ap.parse_args()
 
     import torch
@@ -300,14 +431,21 @@ def main() -> int:
                          timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
     dtype = getattr(torch, args.dtype)
-    libs = build(cuda_build, args.dtype, args.parent)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    col = []
+    if args.dtype == "float32" and args.part != "forward":
+        col = col_rows(cuda_build, fa, device_ms, gen, args.parent)
+    if args.part == "stats":
+        libs, todo = {}, []
+    else:
+        libs = build(cuda_build, args.dtype, args.parent)
+        todo = SHAPES if args.dtype == "bfloat16" else F32_SHAPES
     committed_library, committed_plan = cuda_build.library, fa.attn_split_plan
     one_split = lambda b, s, h, kv, sms=None, tile=fa.ATTN_F32_TILES[64]: (  # noqa: E731
         1, -(-s // tile[1]))
-    gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     try:
-        for label, b, s, h, kv, hd in (SHAPES if args.dtype == "bfloat16" else F32_SHAPES):
+        for label, b, s, h, kv, hd in todo:
             q, k, v = (torch.randn((b, s, n, hd), generator=gen, device="cuda")
                        .to(dtype) for n in (h, kv, kv))
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -346,7 +484,7 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         suffix = "" if args.dtype == "bfloat16" else "_float32"
         with open(os.path.join(args.out, f"attention_variants{suffix}.json"), "w") as f:
-            json.dump({"card": smi, "rows": rows}, f, indent=1)
+            json.dump({"card": smi, "rows": rows, "column_pass": col}, f, indent=1)
     return 0
 
 

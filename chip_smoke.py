@@ -18,15 +18,19 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    (1, D) scale, through the int4_per_channel twin; K3 also saturating
    float32, bf16 and fp16 hiddens with NaN, +-Inf and 1e30 in the kernel)
    and the fused hop K8 bit for bit at N = 4096 x D = 896 and 1536, and
-   N = 1 and 511, K8's buffer byte for byte against the wire path's, and a
-   flipped byte failing K8's verify;
+   N = 1 and 511 (K8 also saturating float32, bf16 and fp16 hiddens in the
+   kernel), K8's buffer byte for byte against the wire path's, a flipped
+   byte failing K8's verify, and one ``fused_remote_hop`` call of a bf16
+   (8, 512, 896) hidden two kernels on the card (K8 and the select); fp32
+   K-stats also at inputs scaled until |q.k| / sqrt(hd) reaches 30, each
+   last row summing to 1 within 1e-4;
 4. timing: each kernel's device time (torch.profiler) beside the call's
    CUDA-event time (the codecs' host-bound where the events read over twice
    the device), the plain version, one PyTorch library call where one
    computes the same function, and the roofline bound; K3 / K4 at N = 4096
    also from a cold L2; fp32 K-attn also at the serve prefills' shapes
    (B = 1, S = 12, 72, 512), and at every fp32 shape two launches bit for
-   bit equal;
+   bit equal; fp32 K-stats' column pass also alone beside its forward;
 5. the main path at full Qwen2-0.5B width and depth: ``run_token_sweep``,
    4 methods x layer 11 x 5 ratios, window 512, stride 32, window batch 8,
    bf16 random weights from ``--seed``, with every kernel's launch count;
@@ -77,14 +81,23 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    kernel's launches against the count the steps imply (K-attn: 24 fp32
    launches a prefill); one steady group of
    the large geometry's steps under torch.profiler;
-12. serve cross-checks at Qwen2-0.5B width, 3 layers, fp32: the paged step
+12. the sweep as the CLI runs it: ``edgellm_tpu_torch.run.main`` on
+   configs/qwen_baseline_table.json (Qwen2-0.5B, full width and depth) and
+   configs/pythia_last_row.json (Pythia-70M, S = 2048), fp32 random weights
+   from ``--seed`` (the CLI's default), a synthetic corpus, 9 chunks each:
+   s/chunk, tokens/s, peak memory, a finite PPL table, every kernel's
+   launches against the count the groups imply (fp32 K-stats 24 and 6 a
+   group, fp32 K-attn the suffix passes), one group under torch.profiler
+   with the column pass, the forward and the LM head named;
+13. serve cross-checks at Qwen2-0.5B width, 3 layers, fp32: the paged step
    on the card (K13 / K14) against the CPU (plain versions) under teacher
    forcing, greedy batched streams identical on the card and the CPU, and
    on the card batched streams against each stream alone through
    ``generate`` (tokens) and the contiguous decode step (logits);
-13. a JSON line of every kernel (launches summed over the counted paths,
-   and by path; K-attn's also by dtype and path; ``ms`` its device time,
-   ``event_ms`` the call's CUDA-event time), the ``nvidia-smi`` line, and
+14. a JSON line of every kernel (launches summed over the counted paths,
+   and by path; K-attn's also by dtype and path; K-stats' fp32 column pass
+   apart; ``ms`` its device time, ``event_ms`` the call's CUDA-event time),
+   the ``nvidia-smi`` line, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result where ``torch.cuda.is_available()`` is
@@ -303,6 +316,7 @@ def kernel_checks(detail: dict) -> dict:
                 k_ms = time_ms(lambda: kern(q, k, v), iters)
                 p_ms = time_ms(lambda: plain(q, k, v), max(2, iters // 5), warmup=1)
                 k_dev = device_ms(lambda: kern(q, k, v), iters)
+                col = col_pass_reads(q, k, v, iters) if stats and dname == "float32" else {}
                 lib_ms = lib_dev = None
                 if not stats:
                     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -318,7 +332,7 @@ def kernel_checks(detail: dict) -> dict:
                        "kernel_device_ms": k_dev, "library_device_ms": lib_dev,
                        "bound_ms": bound, "bound_by": bound_by,
                        "roofline_share": bound / k_ms,
-                       "tflops": flops / (k_ms * 1e-3) / 1e12}
+                       "tflops": flops / (k_ms * 1e-3) / 1e12, **col}
                 rows.append(row)
                 log(json.dumps(row))
                 if dname == "bfloat16":
@@ -332,10 +346,75 @@ def kernel_checks(detail: dict) -> dict:
                     # the suffix's B=32 launches dominate K-attn on the main path
                     if name == "causal_attention_stats" or b == 32:
                         main[name] = row
+                if on_main and dname == "float32" and stats:
+                    main["causal_attention_stats float32"] = row  # the CLI's fp32 sweep
     detail["kernel_rows"] = rows
+    detail["scaled_stats_rows"] = scaled_stats_checks(gen)
     detail["edge_rows"] = edge_checks(gen)
     detail["serve_prefill_rows"] = serve_prefill_reads(gen)
     return main
+
+
+def col_pass_reads(q, k, v, iters: int) -> dict:
+    """fp32 K-stats' column pass apart from its forward: the forward with the
+    LSE and the column pass each timed on the device (torch.profiler, their
+    own kernels), the column pass's bound (the QK^T products over the
+    visible pairs at the 3xTF32 rate; q, K, the LSE and the two outputs)."""
+    import torch
+
+    from edgellm_tpu_torch.models import flash_attention as fa
+
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    lse = fa._launch_fwd(q, k, v, with_lse=True)[1]
+    nbytes, flops = fa.column_pass_bytes_flops(b, s, h, kv, hd, 4)
+    bound, bound_by = fa.bound_ms(nbytes, flops, torch.float32)
+    ms = device_ms(lambda: fa._launch_col(q, k, lse), iters)
+    out = {"col_device_ms": ms, "forward_lse_device_ms":
+           device_ms(lambda: fa._launch_fwd(q, k, v, with_lse=True), iters),
+           "col_bound_ms": bound, "col_bound_by": bound_by, "col_roofline_share": bound / ms}
+    log(json.dumps({"fp32_column_pass": {"b": b, "s": s, "h": h, "kv": kv, "hd": hd, **out}}))
+    return out
+
+
+#: |q.k| / sqrt(hd) the scaled stats check reaches: rows whose top key
+#: takes p near 1, as real checkpoints' attention sinks (N(0, 0.02) random
+#: weights never give them)
+SCALED_TOP = 30.0
+
+
+def scaled_stats_checks(gen) -> list:
+    """fp32 K-stats against its plain version at the kernel phase's stats
+    shapes with q and K scaled until the largest visible |q.k| / sqrt(hd) is
+    :data:`SCALED_TOP`; each last row sums to 1 within 1e-4, and two launches
+    are bit for bit equal."""
+    import torch
+
+    from edgellm_tpu_torch.models import flash_attention as fa
+
+    rows = []
+    for b, s, h, kv, hd in ((8, 512, 14, 2, 64), (4, 2048, 8, 8, 64), (8, 512, 12, 2, 128),
+                            (2, 129, 14, 2, 64), (2, 72, 12, 2, 128)):
+        q, k, v = (torch.randn((b, s, n, hd), generator=gen, device="cuda") for n in (h, kv, kv))
+        sc = torch.einsum("bqhd,bthd->bhqt", q, k.repeat_interleave(h // kv, dim=2)) / hd ** 0.5
+        peak = torch.where(torch.ones(s, s, dtype=torch.bool, device="cuda").tril(), sc,
+                           0).abs().max()
+        f = (SCALED_TOP / peak).sqrt()
+        q, k = q * f, k * f
+        del sc
+        got, again = fa.causal_attention_stats(q, k, v)[1], fa.causal_attention_stats(q, k, v)[1]
+        want = fa.causal_attention_stats_plain(q, k, v)[1]
+        checks = [close(g, w, STATS_TOL) for g, w in zip(got, want)]
+        ones = (got[1].sum(dim=-1) - 1).abs().max().item()
+        row = {"b": b, "s": s, "h": h, "kv": kv, "hd": hd, "top": SCALED_TOP,
+               "last_row_max": got[1].max().item(),
+               "stats_max_abs_err": max(e for e, _ in checks), "last_row_sum_err": ones,
+               "deterministic": all(torch.equal(a, g) for a, g in zip(again, got))}
+        rows.append(row)
+        log(json.dumps({"scaled_stats": row}))
+        if not (all(c for _, c in checks) and ones <= 1e-4 and row["deterministic"]):
+            raise SystemExit(f"fp32 K-stats fails at scaled inputs: {row}")
+    return rows
 
 
 def serve_prefill_reads(gen) -> list:
@@ -699,8 +778,9 @@ def reset_counts():
 
     for fn in _wrappers().values():
         fn.launches = 0
-    for dtype in fa.causal_attention.launches_by_dtype:
-        fa.causal_attention.launches_by_dtype[dtype] = 0
+    for fn in (fa.causal_attention, fa.causal_attention_stats):
+        for dtype in fn.launches_by_dtype:
+            fn.launches_by_dtype[dtype] = 0
 
 
 def read_counts() -> dict:
@@ -728,9 +808,10 @@ def codec_bytes(kernel: str, n: int, d: int, itemsize: int = 4) -> int:
     """Bytes a codec kernel must move at (N, D): each input read once, each
     output written once (the payload and its float32 scales or the (1, D)
     channel scale, the float32 activation; K8 reads the activation and
-    writes the sealed buffer, the decoded activation and its flag).
-    ``itemsize``: bytes an element of K3's input hidden takes (2 for a bf16
-    or fp16 hidden, which K3 reads as it is)."""
+    writes the sealed buffer, the decoded activation and its flag byte).
+    ``itemsize``: bytes an element of K3's and K8's input hidden takes (2 for
+    a bf16 or fp16 hidden, which they read as it is; K8's decode is written
+    in the hidden's dtype)."""
     act, chan = 4 * n * d, 4 * d
     return {"int4_encode": act + n * d // 2 + 4 * n, "int4_decode": act + n * d // 2 + 4 * n,
             "int8_affine_encode": itemsize * n * d + n * d + 8 * n,
@@ -738,12 +819,14 @@ def codec_bytes(kernel: str, n: int, d: int, itemsize: int = 4) -> int:
             "chan_int8_encode": act + chan + n * d, "chan_int8_decode": act + chan + n * d,
             "chan_int4_encode": act + chan + n * d // 2,
             "ternary_encode": act + chan + n * d // 4, "ternary_decode": act + chan + n * d // 4,
-            "remote_hop": 2 * act + (8 + 8 * n + n * d) + 4}[kernel]
+            "remote_hop": 2 * itemsize * n * d + (8 + 8 * n + n * d) + 1}[kernel]
 
 
 #: the codec rows the kernels line takes where not the plain float32 call:
-#: the split paths run K3 on the model's bf16 hidden, saturated in the kernel
-MAIN_CODEC_LABEL = {"int8_affine_encode": " bfloat16 saturating"}
+#: the split paths run K3 and K8 on the model's bf16 hidden, saturated in
+#: the kernel
+MAIN_CODEC_LABEL = {"int8_affine_encode": " bfloat16 saturating",
+                    "remote_hop": " bfloat16 saturating"}
 
 #: a call whose CUDA-event time exceeds its device time by more than this
 #: is host-bound: the events time the wrapper's launches, not the kernel
@@ -829,6 +912,10 @@ def codec_checks(detail: dict) -> dict:
             ("ternary_decode", "", lambda: ck.ternary_decode(crumbs, cscale),
              lambda: ck.ternary_decode_plain(crumbs, cscale)),
             ("remote_hop", "", lambda: fh.remote_hop(x), lambda: fh.remote_hop_plain(x)),
+            *[("remote_hop", f" {str(dt)[6:]} saturating",
+               lambda h=h: fh.remote_hop(h, max_mag=SATURATE_MAG),
+               lambda h=h: fh.remote_hop_plain(h, max_mag=SATURATE_MAG))
+              for dt, h in raw.items()],
         ]
         for name, label, kern, plain in cases:
             got, want = kern(), plain()
@@ -882,7 +969,50 @@ def codec_checks(detail: dict) -> dict:
             raise SystemExit(f"K8's verify failed its check at N={n}, D={d}: {flip}")
     detail["codec_rows"] = rows
     detail["remote_hop_verify"] = flips
+    detail["fused_remote_hop"] = fused_remote_hop_reads()
     return main
+
+
+def fused_remote_hop_reads() -> dict:
+    """One ``fused_remote_hop`` call on a split10 group's hidden, (8, 512,
+    896) in bf16 (the split paths' dtype) with NaN, +-Inf and 1e30 in it: the
+    kernels it puts on the card (at most 2: K8 and the select), its device
+    time beside its bound (the hidden read, the result and the wire buffer
+    written), and its result bit for bit the fused "wire" hop's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from edgellm_tpu_torch.codecs import fused_hop as fh
+    from edgellm_tpu_torch.codecs.packing import get_wire_codec
+    from edgellm_tpu_torch.models import flash_attention as fa
+
+    b, s, d = 8, 512, 896
+    h = torch.randn((b, s, d), generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda") * 3
+    h[0, 1, :3] = torch.tensor([float("nan"), float("inf"), float("-inf")], device="cuda")
+    h[1, 2, 5] = 1.0001e30
+    h = h.to(torch.bfloat16)
+    codec = get_wire_codec("int8_per_token_pallas")
+    call = lambda: fh.fused_remote_hop(codec, h, h.device)  # noqa: E731
+    got = call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = {ev.key[:80]: ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA}
+    nbytes = 2 * 2 * b * s * d + fh.remote_hop_nbytes(b * s, d)
+    bound, bound_by = fa.bound_ms(float(nbytes), 0.0, torch.float32)
+    row = {"shape": [b, s, d], "dtype": "bfloat16", "kernels": kernels,
+           "n_kernels": sum(kernels.values()), "device_ms": device_ms(call, 50),
+           "event_ms": time_ms(call, 50), "bound_ms": bound, "bound_by": bound_by,
+           "same_as_wire": _same(got, fh.fused_wire_hop(codec, h, h.device))}
+    log(json.dumps({"fused_remote_hop": row}))
+    if row["n_kernels"] > 2 or not row["same_as_wire"]:
+        raise SystemExit(f"a fused remote hop is not K8 and the select, or differs from the "
+                         f"wire hop: {row}")
+    return row
 
 
 def _split_run(args, detail: dict, cfg, params, chunks: int, label: str, expect_fn, *,
@@ -1041,6 +1171,119 @@ def split_paths(args, detail: dict) -> dict:
         cuts=[9, 18], hop_codecs=["int8_per_token", "int4_per_token"])
     del params
     torch.cuda.empty_cache()
+    return out
+
+
+#: the CLI sweeps of the fp32 phase: (params file, --model); the CLI's
+#: defaults otherwise (fp32 random weights from --seed, a synthetic corpus,
+#: window batch 8)
+CLI_SWEEPS = (("configs/qwen_baseline_table.json", "qwen2-0.5b"),
+              ("configs/pythia_last_row.json", "pythia-70m"))
+#: chunk 0 alone, then one group of 8
+CLI_CHUNKS = 9
+
+
+def _cli_expected(cfg, params_json: dict, n_groups: int) -> dict:
+    """The launches a token-sweep config implies (eval/harness.py): each
+    group's stats prefix runs K-stats on every layer up to the deepest layer
+    of interest; each (method, layer of interest) runs one suffix pass over
+    the layers after it (every nonzero ratio batched into it; ratio 0 is the
+    prefix's own tail, and its continuation past the deepest layer) -> K-attn.
+    The CLI's weights are fp32: every attention launch is fp32."""
+    layers = params_json["layers_of_interest"]
+    deepest = max(layers)
+    n_methods = len(params_json["methods"])
+    zero = any(float(r) == 0.0 for r in params_json["ratios"])
+    suffix = sum(cfg.num_layers - 1 - layer for layer in layers) * n_methods
+    tail = cfg.num_layers - 1 - deepest if zero else 0  # the ratio-0 continuation
+    attn = (suffix + tail) * n_groups
+    return want_counts(attn, causal_attention=attn,
+                       causal_attention_stats=(deepest + 1) * n_groups)
+
+
+def cli_sweeps(args, detail: dict) -> dict:
+    """The fp32 phase: ``edgellm_tpu_torch.run.main`` as a user runs it, on
+    configs/qwen_baseline_table.json (Qwen2-0.5B at full width and depth: 24
+    K-stats a group) and configs/pythia_last_row.json (Pythia-70M, S = 2048:
+    the blocked envelope, 6 a group), fp32 random weights from ``--seed``,
+    a synthetic corpus, :data:`CLI_CHUNKS` chunks: s/chunk, scored tokens/s,
+    peak memory, a finite PPL table of the config's shape, every kernel's
+    launches against the count the groups imply (all fp32), and one group
+    under torch.profiler with the column pass, the forward and the LM head
+    named -> launches by path."""
+    import argparse as ap
+    import tempfile
+
+    import torch
+
+    from edgellm_tpu_torch import run
+    from edgellm_tpu_torch.eval import run_token_sweep
+    from edgellm_tpu_torch.models import flash_attention as fa
+
+    out = {}
+    for path, model in CLI_SWEEPS:
+        with open(path) as f:
+            params_json = json.load(f)
+        label = f"cli {os.path.basename(path)[:-5]} {model} fp32"
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.monotonic()
+            rc = run.main(["--params", path, "--model", model, "--max-chunks",
+                           str(CLI_CHUNKS), "--seed", str(args.seed), "--output-dir", tmp])
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = read_counts()
+            stats_by_dtype = dict(fa.causal_attention_stats.launches_by_dtype)
+            with open(os.path.join(tmp, "avg_ppl_results.json")) as f:
+                result = json.load(f)
+        cfg, params = run._load_model(ap.Namespace(weights=None, model=model, seed=args.seed),
+                                      torch.device("cuda"))
+        n_groups = 1 + math.ceil((result["chunks"] - 1) / 8)  # chunk 0 runs alone
+        want = _cli_expected(cfg, params_json, n_groups)
+        ppl = np.asarray(result["ppl"])
+        shape = (len(params_json["methods"]), len(params_json["layers_of_interest"]),
+                 len(params_json["ratios"]))
+        summary = {"path": label, "rc": rc, "chunks": result["chunks"], "groups": n_groups,
+                   "wall_s": wall, "eval_wall_s": result["wall_s"],
+                   "s_per_chunk": result["wall_s"] / result["chunks"],
+                   "scored_tokens_per_s": result["n_tokens"] / result["wall_s"],
+                   "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                   "params_dtype": str(params["embed"].dtype), "ppl": ppl.tolist(),
+                   "launches": launches, "launches_expected": want,
+                   "stats_launches_by_dtype": stats_by_dtype}
+        log(json.dumps({"cli_sweep": summary}))
+        detail.setdefault("cli_sweeps", {})[label] = summary
+        if rc != 0 or result["chunks"] != CLI_CHUNKS or ppl.shape != shape \
+                or not np.isfinite(ppl).all():
+            raise SystemExit(f"{label}: rc {rc}, {result['chunks']} chunks, PPL {ppl}")
+        if launches != want or stats_by_dtype["float32"] != want["causal_attention_stats"] \
+                or summary["params_dtype"] != "torch.float32":
+            raise SystemExit(f"{label}: kernel launches {launches} (stats by dtype "
+                             f"{stats_by_dtype}) != expected {want}")
+        out[label] = launches
+        # one group (chunk 0 and 8 windows) again, timed alone and profiled
+        corpus = np.random.default_rng(args.seed).integers(0, cfg.vocab_size, 4096)
+        kw = dict(methods=params_json["methods"],
+                  layers_of_interest=params_json["layers_of_interest"],
+                  ratios=params_json["ratios"], max_length=params_json["max_length"],
+                  stride=params_json["stride"], window_batch=8, max_chunks=CLI_CHUNKS,
+                  device="cuda")
+        group = lambda: run_token_sweep(cfg, params, corpus, **kw)  # noqa: E731
+        with lm_head_range():
+            prof, rows = device_time(group, CLI_CHUNKS)
+        named = {k: sum(r["device_ms"] for r in rows if k in r["name"])
+                 for k in ("attn_col_tf32", "attn_fwd_tf32", "attn_fwd_merge")}
+        prof["named_device_ms"] = {**named, "lm_head": prof["range_device_ms"].get("lm_head")}
+        prof["launches_in_profile"] = {r["name"][:60]: r["calls"] for r in rows
+                                       if "attn_" in r["name"]}
+        log_profile(f"profile_{label.replace(' ', '_')}", prof, 12)
+        summary["profile"] = prof
+        if not (named["attn_col_tf32"] and named["attn_fwd_tf32"]):
+            raise SystemExit(f"{label}: the profile shows no fp32 attention kernel: {named}")
+        del params
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1528,6 +1771,7 @@ def main() -> int:
     by_path.update(split_paths(args, detail))
     t3 = time.monotonic()
     by_path.update(serve_paths(args, detail))
+    by_path.update(cli_sweeps(args, detail))
     t4 = time.monotonic()
     split_cross_checks(args, detail)
     cross_check(args, detail)
@@ -1554,6 +1798,17 @@ def main() -> int:
             extra["launches_by_dtype_by_path"] = {
                 path: {d.split()[-1]: got.get(d, 0) for d in ATTN_BY_DTYPE}
                 for path, got in by_path.items()}
+        if name == "causal_attention_stats":  # the CLI's fp32 sweep: its column pass apart
+            f = main_rows["causal_attention_stats float32"]
+            extra["float32"] = {
+                "shape": f"{f['shape']} B={f['b']} S={f['s']} float32",
+                "launches": sum(n for path, n in counts.items() if path.startswith("cli ")),
+                "ms": f["kernel_device_ms"], "plain_ms": f["plain_ms"],
+                "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+                "max_abs_err": f["stats_max_abs_err"], "column_pass_ms": f["col_device_ms"],
+                "column_pass_bound_ms": f["col_bound_ms"],
+                "column_pass_bound_by": f["col_bound_by"],
+                "forward_lse_ms": f["forward_lse_device_ms"], "library_ms": None}
         # ms, library_ms: device times (torch.profiler); event_ms: the call's
         # CUDA-event time (a codec row's kernel_ms is its device time already)
         kernels.append({"name": name, **meta, "launches": sum(counts.values()),

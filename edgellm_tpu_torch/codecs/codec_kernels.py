@@ -157,8 +157,9 @@ _SIGNATURES = {
         "edgellm_channel_codec_error": ([_I32], ctypes.c_char_p),
     },
     "remote_hop": {
-        "edgellm_remote_hop": ([_PTR] * 5 + [_I64, _I32, _PTR], _I32),
-        "edgellm_remote_hop_receive": ([_PTR] * 4 + [_I64, _I32, _PTR], _I32),
+        "edgellm_remote_hop": ([_PTR, _I32] + [_PTR] * 4
+                               + [_I64, _I32, ctypes.c_float, _I32, _PTR], _I32),
+        "edgellm_remote_hop_receive": ([_PTR, _I32] + [_PTR] * 3 + [_I64, _I32, _PTR], _I32),
         "edgellm_remote_hop_error": ([_I32], ctypes.c_char_p),
     },
 }

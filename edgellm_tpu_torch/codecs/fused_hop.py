@@ -7,10 +7,11 @@ counterpart of the fused-hop half of ``edgellm_tpu/codecs/pallas_kernels.py``).
   decode it there. One copy per hop instead of one per payload leaf; on the
   card the codec is the kernel twin, so K3 + K4 (or K1 + K2, K5-K7) run.
 - ``"remote"`` mode (:func:`fused_remote_hop`): kernel K8
-  (``csrc/remote_hop.cu``, :func:`remote_hop`) quantizes each token row
-  with K3's math, writes the sealed ``int8_per_token`` wire buffer with its
-  checksum, and receives, verifies and dequantizes it with K4's math, in
-  one launch. Its buffer equals the wire mode's byte for byte. The TPU
+  (``csrc/remote_hop.cu``, :func:`remote_hop`) saturates each token row of
+  the hidden in its own dtype and quantizes it with K3's math, writes the
+  sealed ``int8_per_token`` wire buffer with its checksum, and receives,
+  verifies and dequantizes it with K4's math back into the hidden's dtype,
+  in one launch. Its buffer equals the wire mode's byte for byte. The TPU
   kernel remote-DMAs the tiles to the neighbour chip; here both stages
   share one card, and two cards raise (the NVLink peer form is not ported).
 
@@ -34,7 +35,7 @@ from typing import Optional
 import torch
 
 from . import codec_kernels as ck
-from .packing import get_wire_codec, sanitize_hidden
+from .packing import SATURATE_MAG, get_wire_codec, sanitize_hidden, saturation_bound
 from .wire_format import WireFormat, flatten_bytes, seal_payload, verify_payload
 
 #: base codecs a fused hop can carry: everything with a kernel twin
@@ -138,69 +139,89 @@ def remote_hop_nbytes(n: int, d: int) -> int:
     return _int8_wire(n, d).wire_nbytes
 
 
-def _receive_plain(buf: torch.Tensor, n: int, d: int):
+def _receive_plain(buf: torch.Tensor, n: int, d: int, dtype=torch.float32):
     arrived = _int8_wire(n, d).from_wire(buf)
     p = arrived["p"]
     out = ck.int8_affine_decode_plain(p["q"].reshape(n, d), p["scale"].reshape(n, 1),
                                       p["mn"].reshape(n, 1))
-    return out, verify_payload(arrived)
+    return out.to(dtype), verify_payload(arrived)
 
 
-def remote_hop_plain(x: torch.Tensor):
-    """K8's plain version, the wire path: K3 plain, seal, flatten, then
-    unflatten, verify and K4 plain -> (decoded (N, D) float32, ok 0-dim
-    bool, buffer (8 + 8 N + N D,) uint8)."""
-    q, scale, mn = ck.int8_affine_encode_plain(x)
+def remote_hop_plain(x: torch.Tensor, max_mag: Optional[float] = None):
+    """K8's plain version, the wire path: (with ``max_mag``) sanitize_hidden,
+    widen to float32, K3 plain, seal, flatten, then unflatten, verify, K4
+    plain and the cast back to ``x``'s dtype -> (decoded (N, D) in x's
+    dtype, ok 0-dim bool, buffer (8 + 8 N + N D,) uint8)."""
+    if max_mag is not None:
+        x = sanitize_hidden(x, max_mag)
+    q, scale, mn = ck.int8_affine_encode_plain(x.float())
     buf = flatten_bytes(seal_payload({"q": q, "scale": scale, "mn": mn}))
-    out, ok = _receive_plain(buf, *x.shape)
+    out, ok = _receive_plain(buf, *x.shape, dtype=x.dtype)
     return out, ok, buf
 
 
-def _remote_buffers(n: int, d: int, device):
-    out = torch.empty((n, d), dtype=torch.float32, device=device)
-    ok = torch.empty((1,), dtype=torch.int32, device=device)
-    acc = torch.empty((4,), dtype=torch.int32, device=device)  # 3 uint32 accumulators
-    return out, ok, acc
+#: K8's checksum accumulators by (device, stream): zero before a launch and
+#: left zero by it, so no launch needs a memset and two streams never share
+_ACCUMULATORS: dict = {}
 
 
-def remote_hop(x: torch.Tensor):
-    """K8: (N, D) float32 (sanitized) -> (decoded (N, D) float32, ok 0-dim
-    bool, the sealed wire buffer (8 + 8 N + N D,) uint8). CUDA tensors
-    launch the kernel once per hop (``remote_hop.launches``); other tensors
-    take :func:`remote_hop_plain`."""
+def _accumulators(device: torch.device) -> torch.Tensor:
+    key = (device.index, ck._stream(device))
+    if key not in _ACCUMULATORS:
+        _ACCUMULATORS[key] = torch.zeros((3,), dtype=torch.int32, device=device)
+    return _ACCUMULATORS[key]
+
+
+def remote_hop(x: torch.Tensor, max_mag: Optional[float] = None):
+    """K8: (N, D) float32, bf16 or fp16 -> (decoded (N, D) in x's dtype, ok
+    0-dim bool, the sealed wire buffer (8 + 8 N + N D,) uint8). With
+    ``max_mag`` the rows are saturated first, as
+    :func:`~.packing.sanitize_hidden` does in x's dtype: on the card inside
+    the kernel, as K3 does. CUDA tensors launch the kernel once per hop
+    (``remote_hop.launches``), and nothing else; other tensors take
+    :func:`remote_hop_plain`."""
     if x.device.type != "cuda":
-        return remote_hop_plain(x)
+        return remote_hop_plain(x, max_mag)
     n, d = x.shape
-    ck._check_rows(n, d, encode=True)
-    ck._check("x", x, torch.float32, (n, d), x.device)
+    ck._check_rows(n, d, encode=False)
+    if x.dtype not in ck.ENCODE_DTYPES:
+        raise ValueError(f"x: K8 reads float32, bfloat16 or float16, got {x.dtype}")
+    ck._check("x", x, x.dtype, (n, d), x.device)
     buf = torch.empty((remote_hop_nbytes(n, d),), dtype=torch.uint8, device=x.device)
-    out, ok, acc = _remote_buffers(n, d, x.device)
+    out = torch.empty((n, d), dtype=x.dtype, device=x.device)
+    ok = torch.empty((), dtype=torch.bool, device=x.device)
+    bound = 0.0 if max_mag is None else saturation_bound(max_mag, x.dtype)
     lib = ck._lib("remote_hop")
     remote_hop.launches += 1
     with torch.cuda.device(x.device):
         ck._launch(lib, "edgellm_remote_hop", "edgellm_remote_hop_error", x.data_ptr(),
-                   buf.data_ptr(), out.data_ptr(), ok.data_ptr(), acc.data_ptr(), n, d,
+                   ck.ENCODE_DTYPES[x.dtype], buf.data_ptr(), out.data_ptr(), ok.data_ptr(),
+                   _accumulators(x.device).data_ptr(), n, d, bound, int(max_mag is not None),
                    ck._stream(x.device))
-    return out, ok[0] != 0, buf
+    return out, ok, buf
 
 
-def remote_hop_receive(buf: torch.Tensor, n: int, d: int):
+def remote_hop_receive(buf: torch.Tensor, n: int, d: int, dtype=torch.float32):
     """K8's receive half alone, over a buffer that has already arrived ->
-    (decoded (N, D) float32, ok 0-dim bool): the checksum of the arrived
-    bytes against the head, and K4's dequantize. CUDA tensors launch the
-    kernel (``remote_hop_receive.launches``); others take the wire path."""
+    (decoded (N, D) in ``dtype``, ok 0-dim bool): the checksum of the arrived
+    bytes against the head, and K4's dequantize rounded to ``dtype``. CUDA
+    tensors launch the kernel (``remote_hop_receive.launches``); others take
+    the wire path."""
     if buf.device.type != "cuda":
-        return _receive_plain(buf, n, d)
+        return _receive_plain(buf, n, d, dtype)
     ck._check_rows(n, d, encode=False)
     ck._check("buf", buf, torch.uint8, (remote_hop_nbytes(n, d),), buf.device)
-    out, ok, acc = _remote_buffers(n, d, buf.device)
+    if dtype not in ck.ENCODE_DTYPES:
+        raise ValueError(f"K8 decodes to float32, bfloat16 or float16, got {dtype}")
+    out = torch.empty((n, d), dtype=dtype, device=buf.device)
+    ok = torch.empty((), dtype=torch.bool, device=buf.device)
     lib = ck._lib("remote_hop")
     remote_hop_receive.launches += 1
     with torch.cuda.device(buf.device):
         ck._launch(lib, "edgellm_remote_hop_receive", "edgellm_remote_hop_error",
-                   buf.data_ptr(), out.data_ptr(), ok.data_ptr(), acc.data_ptr(), n, d,
-                   ck._stream(buf.device))
-    return out, ok[0] != 0
+                   buf.data_ptr(), ck.ENCODE_DTYPES[dtype], out.data_ptr(), ok.data_ptr(),
+                   _accumulators(buf.device).data_ptr(), n, d, ck._stream(buf.device))
+    return out, ok
 
 
 remote_hop.launches = 0
@@ -218,17 +239,17 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 
 def fused_remote_hop(codec, hidden: torch.Tensor, dst) -> torch.Tensor:
-    """Fused "remote" hop of an ``int8_per_token`` codec: K8 over the
-    sanitized float32 activation, the result cast back to ``hidden``'s
-    dtype; a failed verify keeps ``hidden``. Source and destination must be
-    one device: the two-card form (peer memory over NVLink) is not ported."""
+    """Fused "remote" hop of an ``int8_per_token`` codec: K8 over the hidden
+    as it is (saturated, widened and cast back in the kernel); a failed
+    verify keeps ``hidden``. On the card that is two kernels, K8 and the
+    select. Source and destination must be one device: the two-card form
+    (peer memory over NVLink) is not ported."""
     dst = torch.device(dst)
     if not _same_device(hidden.device, dst):
         raise ValueError(f"two-card remote hop not ported: {hidden.device} -> {dst}")
     b, s, d = hidden.shape
-    x = sanitize_hidden(hidden).float().reshape(b * s, d).contiguous()
-    out, ok, _ = remote_hop(x)
-    return torch.where(ok, out.reshape(b, s, d).to(hidden.dtype), hidden)
+    out, ok, _ = remote_hop(hidden.reshape(b * s, d), max_mag=SATURATE_MAG)
+    return torch.where(ok, out.reshape(b, s, d), hidden)
 
 
 def fused_hop(plan: FusedHopPlan, codec, hidden: torch.Tensor, dst) -> torch.Tensor:

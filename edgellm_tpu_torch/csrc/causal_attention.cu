@@ -71,7 +71,7 @@ namespace edgellm {
 // warpgroups share each 64-key tile's copy and split (193 KB of shared
 // memory, one block an SM); on an H100 this read 0.38 ms at Qwen2-0.5B B=32
 // S=512 against 0.46 for 64 x 32 tiles at two blocks an SM
-// (attention_variants.py). 64-key steps are also the SIMT body's and the
+// (attention_variants.py). 64-key steps are also the earlier SIMT body's and the
 // bf16 body's: with 32-key steps every product form tried moved one int4
 // code of chip_smoke.py's serve cross-check across its rounding boundary
 // (PERF.md). hd 128: 64 x 32 (a 128 x 64 tile does not fit).
@@ -97,26 +97,6 @@ struct F32Shape {
   static constexpr int kBytes = 2 * kQTile + 4 * kKTile + 2 * kF32Stages * kRaw * 4 + 1024;
 };
 
-// x rounded to TF32 as cvt.rna does: to nearest, ties away from zero, on the
-// 13 dropped mantissa bits.
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-// x = hi + lo + O(2^-22 |x|), hi and lo both TF32
-__device__ __forceinline__ float2 split_tf32(float x) {
-  const float hi = tf32_rna(x);
-  return make_float2(hi, tf32_rna(x - hi));
-}
-// 16 bytes of a row (4 values) into the hi and lo tiles at byte offset off
-__device__ __forceinline__ void store_split4(unsigned char* hi, unsigned char* lo, uint32_t off,
-                                             float4 x) {
-  const float2 a = split_tf32(x.x), b = split_tf32(x.y), c = split_tf32(x.z),
-               d = split_tf32(x.w);
-  *reinterpret_cast<float4*>(hi + off) = make_float4(a.x, b.x, c.x, d.x);
-  *reinterpret_cast<float4*>(lo + off) = make_float4(a.y, b.y, c.y, d.y);
-}
 // Byte offset of key `key` of row d in the V^T tile. P enters PV from the
 // score accumulator's registers, where a thread holds keys 2t and 2t + 1 of
 // each 8; wgmma's A fragment holds columns t and t + 4. So column t of each

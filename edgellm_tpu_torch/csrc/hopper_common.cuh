@@ -2,8 +2,8 @@
 // attention_stats.cu) and the paged decode kernels (paged_decode.cu):
 // mbarriers, the 16-byte cp.async ring copies, bulk (TMA) copies, the
 // 128-byte-swizzled shared-memory tiles that wgmma reads, wgmma descriptors
-// and the wgmma instructions themselves (bf16, and TF32 for fp32 K-attn's
-// 3xTF32 products). sm_90a only.
+// and the wgmma instructions themselves (bf16, and TF32 with the hi / lo
+// split for the fp32 bodies' 3xTF32 products). sm_90a only.
 //
 // Tile layout. A tile of `rows` rows of 128-byte lines (64 bf16 or 32 fp32
 // values; a row of hd values is hd * size / 128 lines) is stored as one
@@ -240,7 +240,29 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t 
       : "memory");
 }
 
-// --- TF32 wgmma (fp32 K-attn's 3xTF32 products) ----------------------------
+// --- TF32 wgmma (the fp32 attention kernels' 3xTF32 products) ----------------------------
+
+// x rounded to TF32 as cvt.rna does: to nearest, ties away from zero, on the
+// 13 dropped mantissa bits.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+// x = hi + lo + O(2^-22 |x|), hi and lo both TF32
+__device__ __forceinline__ float2 split_tf32(float x) {
+  const float hi = tf32_rna(x);
+  return make_float2(hi, tf32_rna(x - hi));
+}
+// 16 bytes of a row (4 values) into the hi and lo tiles at byte offset off
+__device__ __forceinline__ void store_split4(unsigned char* hi, unsigned char* lo, uint32_t off,
+                                             float4 x) {
+  const float2 a = split_tf32(x.x), b = split_tf32(x.y), c = split_tf32(x.z),
+               d = split_tf32(x.w);
+  *reinterpret_cast<float4*>(hi + off) = make_float4(a.x, b.x, c.x, d.x);
+  *reinterpret_cast<float4*>(lo + off) = make_float4(a.y, b.y, c.y, d.y);
+}
+
 // Overloaded by the accumulator's size: m64n32 / m64n64 (SS), m64n64 /
 // m64n128 (RS).
 

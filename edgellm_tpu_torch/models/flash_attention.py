@@ -22,8 +22,9 @@ plans:
   same call merges in split order.
 - **K-stats** (``csrc/attention_stats.cu``), behind
   :func:`causal_attention_stats`: K-attn's forward also writes the row
-  log-sum-exp, then a column pass (one block per key tile; in bf16 ``K q^T``
-  by ``wgmma``, so column sums are accumulator row sums) sums
+  log-sum-exp, then a column pass (one block per 128-key block; ``K q^T`` by
+  ``wgmma``, so column sums are accumulator row sums; in fp32 as 3xTF32
+  products in the forward's term order) sums
   ``exp(s - lse)`` down the columns into ``col_sum / S`` and writes the last
   query row. Two passes, no atomics, deterministic.
 
@@ -367,12 +368,14 @@ def causal_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CUDA tensors launch K-stats, K-attn's forward with the row log-sum-exp
     and then the column pass (``causal_attention_stats.launches`` counts each
-    such pair once); CPU tensors take :func:`causal_attention_stats_plain`."""
+    such pair once, ``launches_by_dtype`` the fp32 and bf16 ones apart); CPU
+    tensors take :func:`causal_attention_stats_plain`."""
     if q.device.type == "cpu":
         _resolve(q, k, plan)
         return causal_attention_stats_plain(q, k, v)
     _check_inputs(q, k, v, plan)
     causal_attention_stats.launches += 1
+    causal_attention_stats.launches_by_dtype[str(q.dtype).split(".")[-1]] += 1
     out, lse = _launch_fwd(q, k, v, with_lse=True)
     return out, _launch_col(q, k, lse)
 
@@ -380,6 +383,7 @@ def causal_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 causal_attention.launches = 0
 causal_attention.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 causal_attention_stats.launches = 0
+causal_attention_stats.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 def causal_attention_bytes_flops(b: int, s: int, h: int, kv: int, hd: int,
@@ -393,6 +397,15 @@ def causal_attention_bytes_flops(b: int, s: int, h: int, kv: int, hd: int,
     nbytes = itemsize * (2 * b * s * h * hd + 2 * b * s * kv * hd)
     if stats:
         nbytes += 2 * 4 * b * h * s
+    return float(nbytes), float(flops)
+
+
+def column_pass_bytes_flops(b: int, s: int, h: int, kv: int, hd: int, itemsize: int):
+    """(bytes, FLOPs) of K-stats' column pass alone: q and K read once, the
+    (B, H, S) fp32 LSE read once and col / last written once; the QK^T
+    products over the S(S+1)/2 visible (query, key) pairs per head."""
+    flops = 2 * b * h * (s * (s + 1) / 2) * hd
+    nbytes = itemsize * (b * s * h * hd + b * s * kv * hd) + 3 * 4 * b * h * s
     return float(nbytes), float(flops)
 
 

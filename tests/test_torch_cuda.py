@@ -99,6 +99,50 @@ def test_fp32_split_kernels_match_plain_and_repeat(card, b, s, h, kv, hd):
     torch.testing.assert_close(last, want_last, **STATS_TOL)
 
 
+#: fp32 K-stats' column pass at the shapes of chip_smoke.py's kernel phase
+#: (the sweep's Qwen2-0.5B and Qwen2-1.5B stats prefixes at B=8, the Pythia-70M
+#: window) and at its tile edges: 128-key blocks, 64-row (hd 64) and 32-row
+#: (hd 128) query tiles, a last key block whose second warpgroup is empty
+COL_SHAPES = [(8, 512, 14, 2, 64), (8, 512, 12, 2, 128), (4, 2048, 8, 8, 64),
+              *[(2, s, 14, 2, 64) for s in (1, 63, 65, 127, 128, 129, 193, 12, 72)],
+              *[(2, s, 12, 2, 128) for s in (1, 31, 33, 63, 65, 129, 72)]]
+
+
+def _scaled(card, b, s, h, kv, hd, top, seed):
+    """fp32 q, k, v with q and k scaled so that the largest |q.k| / sqrt(hd)
+    over the visible pairs is about ``top``: rows whose top key takes p near
+    1, as real checkpoints' attention sinks do."""
+    q, k, v = _inputs(card, b, s, h, kv, hd, torch.float32, seed=seed)
+    sc = torch.einsum("bqhd,bthd->bhqt", q, k.repeat_interleave(h // kv, dim=2)) / hd ** 0.5
+    peak = torch.where(torch.ones(s, s, dtype=torch.bool, device=card).tril(), sc, 0).abs().max()
+    f = (top / peak).sqrt()
+    return q * f, k * f, v
+
+
+@pytest.mark.parametrize("top", [None, 30.0])
+@pytest.mark.parametrize("b,s,h,kv,hd", COL_SHAPES)
+def test_fp32_column_pass_matches_plain_and_repeats(card, b, s, h, kv, hd, top):
+    """The fp32 column pass (3xTF32 on wgmma) against the plain version within
+    STATS_TOL, at unit-variance inputs and at scores up to |s / sqrt(hd)| =
+    30; each last row sums to 1 within 1e-4 (the scores are the forward's);
+    two launches bit for bit equal."""
+    if top is None:
+        q, k, v = _inputs(card, b, s, h, kv, hd, torch.float32, seed=s + hd)
+    else:
+        q, k, v = _scaled(card, b, s, h, kv, hd, top, seed=s + hd + 1)
+    n0 = fa.causal_attention_stats.launches
+    out, (col, last) = fa.causal_attention_stats(q, k, v)
+    want_out, (want_col, want_last) = fa.causal_attention_stats_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.causal_attention_stats.launches == n0 + 1
+    torch.testing.assert_close(col, want_col, **STATS_TOL)
+    torch.testing.assert_close(last, want_last, **STATS_TOL)
+    torch.testing.assert_close(last.sum(dim=-1), torch.ones_like(last[..., 0]), atol=1e-4,
+                               rtol=0)
+    again = fa.causal_attention_stats(q, k, v)[1]
+    assert torch.equal(again[0], col) and torch.equal(again[1], last)
+
+
 def test_strided_kv_read_without_copy(card):
     """K/V as non-contiguous views (heads interleaved in a fused projection)."""
     b, s, h, kv, hd = 2, 256, 4, 2, 64

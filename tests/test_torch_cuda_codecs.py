@@ -230,6 +230,58 @@ def test_remote_hop_kernel_is_the_wire_path(card, n, d):
     assert not bool(fh.remote_hop_receive(bad, n, d)[1])
 
 
+#: K8 at chip_smoke.py's codec shapes, an odd N (the q leaf 4-byte aligned
+#: only: a 16-bit row's codes leave in 4-byte stores) and the scalar body
+REMOTE_SHAPES = [(4096, 896), (4096, 1536), (511, 896), (1, 896), (7, 64), (5, 6)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n,d", REMOTE_SHAPES)
+def test_remote_hop_saturating_is_the_wire_path(card, n, d, dtype):
+    """K8 on an unsaturated float32, bf16 or fp16 hidden (NaN, +-Inf, values
+    about 1e30), saturating in the kernel: the sealed buffer byte for byte
+    the wire path's, the decode in the hidden's dtype bit for bit, ok; two
+    launches equal and the checksum accumulators left zero; the receive half
+    in the same dtype gives the same decode, and not ok on a flipped byte."""
+    x = _raw_rows(n, d, dtype, seed=9).to(card)
+    out, ok, buf = fh.remote_hop(x, max_mag=SATURATE_MAG)
+    want_out, want_ok, want_buf = fh.remote_hop_plain(x, max_mag=SATURATE_MAG)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and bool(ok) and bool(want_ok)
+    torch.testing.assert_close(buf, want_buf, atol=0, rtol=0)
+    _equal(out, want_out)
+    out2, ok2, buf2 = fh.remote_hop(x, max_mag=SATURATE_MAG)
+    assert bool(ok2) and torch.equal(buf2, buf)
+    _equal(out2, out)
+    assert not fh._accumulators(card).any()
+    again, ok3 = fh.remote_hop_receive(buf, n, d, dtype)
+    assert bool(ok3)
+    _equal(again, out)
+    for pos in (4, 8 + 4 * n + (n * d) // 2, buf.numel() - 1):
+        bad = buf.clone()
+        bad[pos] ^= 0x10
+        assert not bool(fh.remote_hop_receive(bad, n, d, dtype)[1]), pos
+    assert not fh._accumulators(card).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_fused_remote_hop_is_two_kernels(card, dtype):
+    """A fused "remote" hop of a (8, 512, 896) hidden puts two kernels on the
+    card, K8 and the select (no sanitize ops, casts or memset), and equals
+    the fused "wire" hop bit for bit, special values and all."""
+    h = _raw_rows(8 * 512, 896, dtype, seed=10).reshape(8, 512, 896).to(card)
+    codec = get_wire_codec("int8_per_token_pallas")
+    fh.fused_remote_hop(codec, h, card)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = fh.fused_remote_hop(codec, h, card)
+        torch.cuda.synchronize()
+    kernels = {ev.key: ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA}
+    assert sum(kernels.values()) <= 2 and any("remote_hop" in k for k in kernels), kernels
+    _equal(got, fh.fused_wire_hop(codec, h, card))
+
+
 def test_fused_hops_on_the_card(card):
     """On the card the forced remote plan runs K8 and no K3/K4; the wire and
     remote hops and the separate hop decode the same values; two devices

@@ -222,14 +222,24 @@ def test_remote_hop_plain_is_the_reference_wire_buffer(n, d):
 
 def test_fused_remote_hop_on_the_cpu_and_two_devices():
     """remote never plans off the card; called directly on CPU tensors the
-    hop runs its plain version (the same bits as the wire hop), and two
-    devices raise: the NVLink peer form is not ported."""
-    h = torch.from_numpy(_hidden(8, b=1))
+    hop runs its plain version: float32, bf16 and fp16 hiddens holding NaN,
+    +-Inf and 1e30 (beside a constant row and a zero row) come back in their
+    dtype with the wire hop's bits, NaN for NaN, and two devices raise: the
+    NVLink peer form is not ported."""
     codec = tpk.get_wire_codec("int8_per_token")
-    torch.testing.assert_close(tfh.fused_remote_hop(codec, h, "cpu"),
-                               tfh.fused_wire_hop(codec, h, "cpu"), atol=0, rtol=0)
+    h32 = _hidden(8, b=1)
+    h32[0, 5, 7] = 1e30
+    h32[0, 6, :2] = [-1.0001e30, np.inf]
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        h = torch.from_numpy(h32).to(dtype)
+        got, want = tfh.fused_remote_hop(codec, h, "cpu"), tfh.fused_wire_hop(codec, h, "cpu")
+        assert got.dtype == want.dtype == dtype and got.shape == want.shape
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan), dtype
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        assert torch.equal(got.view(bits)[~nan], want.view(bits)[~nan]), dtype
     with pytest.raises(ValueError, match="two-card remote hop not ported"):
-        tfh.fused_remote_hop(codec, h, "meta")
+        tfh.fused_remote_hop(codec, torch.from_numpy(h32), "meta")
 
 
 # ---------- the split runtime ----------
