@@ -94,7 +94,20 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    forcing, greedy batched streams identical on the card and the CPU, and
    on the card batched streams against each stream alone through
    ``generate`` (tokens) and the contiguous decode step (logits);
-14. a JSON line of every kernel (launches summed over the counted paths,
+14. the paper's remaining experiments through ``run.main`` at full
+   Qwen2-0.5B width and depth, fp32 random weights from ``--seed``:
+   ``relevance`` (configs/relevance.json, 9 chunks, window batch 8) writes
+   (24, 14) head weights, each row summing to 1 (it/s, wall, peak memory,
+   no kernel launched: plain torch ops, as in the reference);
+   configs/split3_qwen_lxt_sweep.json reads them (``--head-weights``, as
+   phase 12: a finite (4, 5, 5) PPL table, 24 fp32 K-stats and 152 fp32
+   K-attn a group); ``distances`` on an ``.npz`` of one sample at each of
+   the lengths 2, 12, 63, 65, 127, 129, 300, 512 and 1024 (a (24, 24)
+   matrix, 24 fp32 K-stats a sample, the heatmap's state as the CLI printed
+   it); then the card against the CPU at 3 layers: ``chunk_relevance`` for 2
+   windows of 512 (the argmax tokens identical, then rtol 1e-3, atol 1e-6 *
+   max |R|) and the distance matrix (1e-5 absolute);
+15. a JSON line of every kernel (launches summed over the counted paths,
    and by path; K-attn's also by dtype and path; K-stats' fp32 column pass
    apart; ``ms`` its device time, ``event_ms`` the call's CUDA-event time),
    the ``nvidia-smi`` line, and
@@ -1174,11 +1187,11 @@ def split_paths(args, detail: dict) -> dict:
     return out
 
 
-#: the CLI sweeps of the fp32 phase: (params file, --model); the CLI's
-#: defaults otherwise (fp32 random weights from --seed, a synthetic corpus,
-#: window batch 8)
-CLI_SWEEPS = (("configs/qwen_baseline_table.json", "qwen2-0.5b"),
-              ("configs/pythia_last_row.json", "pythia-70m"))
+#: the CLI sweeps of the fp32 phase: (params file, --model, --head-weights
+#: file or None); the CLI's defaults otherwise (fp32 random weights from
+#: --seed, a synthetic corpus, window batch 8)
+CLI_SWEEPS = (("configs/qwen_baseline_table.json", "qwen2-0.5b", None),
+              ("configs/pythia_last_row.json", "pythia-70m", None))
 #: chunk 0 alone, then one group of 8
 CLI_CHUNKS = 9
 
@@ -1201,16 +1214,17 @@ def _cli_expected(cfg, params_json: dict, n_groups: int) -> dict:
                        causal_attention_stats=(deepest + 1) * n_groups)
 
 
-def cli_sweeps(args, detail: dict) -> dict:
+def cli_sweeps(args, detail: dict, sweeps=CLI_SWEEPS) -> dict:
     """The fp32 phase: ``edgellm_tpu_torch.run.main`` as a user runs it, on
-    configs/qwen_baseline_table.json (Qwen2-0.5B at full width and depth: 24
-    K-stats a group) and configs/pythia_last_row.json (Pythia-70M, S = 2048:
-    the blocked envelope, 6 a group), fp32 random weights from ``--seed``,
-    a synthetic corpus, :data:`CLI_CHUNKS` chunks: s/chunk, scored tokens/s,
-    peak memory, a finite PPL table of the config's shape, every kernel's
-    launches against the count the groups imply (all fp32), and one group
-    under torch.profiler with the column pass, the forward and the LM head
-    named -> launches by path."""
+    each of ``sweeps`` (by default configs/qwen_baseline_table.json,
+    Qwen2-0.5B at full width and depth: 24 K-stats a group, and
+    configs/pythia_last_row.json, Pythia-70M at S = 2048: the blocked
+    envelope, 6 a group), with its ``--head-weights`` where given, fp32
+    random weights from ``--seed``, a synthetic corpus, :data:`CLI_CHUNKS`
+    chunks: s/chunk, scored tokens/s, peak memory, a finite PPL table of the
+    config's shape, every kernel's launches against the count the groups
+    imply (all fp32), and one group under torch.profiler with the column
+    pass, the forward and the LM head named -> launches by path."""
     import argparse as ap
     import tempfile
 
@@ -1221,9 +1235,10 @@ def cli_sweeps(args, detail: dict) -> dict:
     from edgellm_tpu_torch.models import flash_attention as fa
 
     out = {}
-    for path, model in CLI_SWEEPS:
+    for path, model, head_weights in sweeps:
         with open(path) as f:
             params_json = json.load(f)
+        hw_args = ["--head-weights", head_weights] if head_weights else []
         label = f"cli {os.path.basename(path)[:-5]} {model} fp32"
         with tempfile.TemporaryDirectory() as tmp:
             torch.cuda.synchronize()
@@ -1231,7 +1246,8 @@ def cli_sweeps(args, detail: dict) -> dict:
             reset_counts()
             t0 = time.monotonic()
             rc = run.main(["--params", path, "--model", model, "--max-chunks",
-                           str(CLI_CHUNKS), "--seed", str(args.seed), "--output-dir", tmp])
+                           str(CLI_CHUNKS), "--seed", str(args.seed), "--output-dir", tmp]
+                          + hw_args)
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
             launches = read_counts()
@@ -1251,6 +1267,7 @@ def cli_sweeps(args, detail: dict) -> dict:
                    "scored_tokens_per_s": result["n_tokens"] / result["wall_s"],
                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                    "params_dtype": str(params["embed"].dtype), "ppl": ppl.tolist(),
+                   "head_weights": head_weights,
                    "launches": launches, "launches_expected": want,
                    "stats_launches_by_dtype": stats_by_dtype}
         log(json.dumps({"cli_sweep": summary}))
@@ -1270,6 +1287,9 @@ def cli_sweeps(args, detail: dict) -> dict:
                   ratios=params_json["ratios"], max_length=params_json["max_length"],
                   stride=params_json["stride"], window_batch=8, max_chunks=CLI_CHUNKS,
                   device="cuda")
+        if head_weights:
+            with open(head_weights) as f:
+                kw["head_weights"] = np.asarray(json.load(f))
         group = lambda: run_token_sweep(cfg, params, corpus, **kw)  # noqa: E731
         with lm_head_range():
             prof, rows = device_time(group, CLI_CHUNKS)
@@ -1727,6 +1747,178 @@ def serve_cross_checks(args, detail: dict):
         raise SystemExit(f"greedy batched streams differ: {rows['greedy streams']}")
 
 
+#: the paper's remaining experiments as the CLI runs them: LRP relevance
+#: writes the head weights the weighted sweep reads
+RELEVANCE_CONFIG = "configs/relevance.json"
+WEIGHTED_SWEEP = "configs/split3_qwen_lxt_sweep.json"
+#: the distance analysis's native sample lengths: fp32 K-stats' tile edges
+#: (64 / 128 rows), the whole plan's S <= 512 and the blocked plan's 1024
+#: (fp32 Qwen2-0.5B, dh 896, takes the blocked plan at every length)
+DIST_LENGTHS = (2, 12, 63, 65, 127, 129, 300, 512, 1024)
+#: relevance card vs CPU, (rtol, atol as a share of max |R|): the same fp32
+#: products in another summation order through a backward pass, compared
+#: only once both picked the same argmax tokens (the seed is discontinuous)
+REL_CROSS_TOL = (1e-3, 1e-6)
+#: the distance matrix card (K-stats) vs CPU (plain version), absolute
+DIST_CROSS_ATOL = 1e-5
+
+
+def _cli_json_line(argv) -> tuple[int, dict]:
+    """``edgellm_tpu_torch.run.main(argv)`` with its standard output caught
+    -> (exit code, its last line as JSON), the line logged."""
+    import io
+
+    from edgellm_tpu_torch import run
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run.main(argv)
+    line = buf.getvalue().strip().splitlines()[-1]
+    log(f"  cli printed: {line}")
+    return rc, json.loads(line)
+
+
+def experiment_paths(args, detail: dict) -> dict:
+    """Phase 14: the paper's remaining experiments through the CLI at full
+    Qwen2-0.5B width and depth, fp32 random weights from ``--seed``:
+    ``relevance`` (configs/relevance.json, :data:`CLI_CHUNKS` chunks, window
+    batch 8; plain torch ops, no kernel launched) writes the (24, 14) head
+    weights; configs/split3_qwen_lxt_sweep.json reads them (``cli_sweeps``:
+    24 fp32 K-stats and 152 fp32 K-attn a group); ``distances`` on an
+    ``.npz`` of one sample per :data:`DIST_LENGTHS` length (24 fp32 K-stats a
+    sample); then the card against the CPU at 3 layers: ``chunk_relevance``
+    for 2 windows of 512 (argmax tokens, then relevance) and the distance
+    matrix -> launches by path."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from edgellm_tpu_torch import run
+    from edgellm_tpu_torch.analysis import (layer_importance_distributions,
+                                            pairwise_layer_distances)
+    from edgellm_tpu_torch.importance.relevance import (chunk_relevance,
+                                                        run_relevance_extraction)
+    from edgellm_tpu_torch.models import PRESETS, init_params, params_to
+    from edgellm_tpu_torch.models import flash_attention as fa
+
+    out, rows = {}, {}
+    base = ["--model", "qwen2-0.5b", "--seed", str(args.seed)]
+    with tempfile.TemporaryDirectory() as tmp:
+        label = "cli relevance qwen2-0.5b fp32"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.monotonic()
+        rc, printed = _cli_json_line(["--params", RELEVANCE_CONFIG, "--max-chunks",
+                                      str(CLI_CHUNKS), "--output-dir", tmp] + base)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_counts()
+        hw_path = os.path.join(tmp, "attention_head_weights.json")
+        with open(hw_path) as f:
+            weights = np.asarray(json.load(f))
+        row_sums = weights.sum(axis=1)
+        rows[label] = {"rc": rc, "printed": printed, "wall_s": wall,
+                       "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                       "shape": list(weights.shape),
+                       "row_sum_max_dev": float(np.abs(row_sums - 1).max()),
+                       "launches": launches}
+        log(json.dumps({"relevance": rows[label]}))
+        if rc != 0 or weights.shape != (24, 14) or not np.isfinite(weights).all() \
+                or printed["chunks"] != CLI_CHUNKS or np.abs(row_sums - 1).max() > 1e-6:
+            raise SystemExit(f"{label}: rc {rc}, {printed}, weights {weights.shape}, "
+                             f"row sums {row_sums}")
+        if launches != want_counts():
+            raise SystemExit(f"{label}: the plain-torch path launched kernels: {launches}")
+        out[label] = launches
+        # one group (8 windows) again, timed alone and profiled: device time
+        # by kind (fp32 GEMMs, softmax and the rest)
+        cfg, params = run._load_model(argparse.Namespace(weights=None, model="qwen2-0.5b",
+                                                         seed=args.seed), torch.device("cuda"))
+        corpus = np.random.default_rng(args.seed).integers(0, cfg.vocab_size, 4096)
+        prof, prof_rows = device_time(lambda: run_relevance_extraction(
+            cfg, params, corpus, max_length=512, stride=32, max_chunks=8, window_batch=8,
+            device="cuda"), 8)
+        prof["device_ms_by_kind"] = {
+            kind: sum(r["device_ms"] for r in prof_rows if match(r["name"].lower()))
+            for kind, match in (("gemm", lambda n: "gemm" in n),
+                                ("softmax", lambda n: "softmax" in n),
+                                ("other", lambda n: "gemm" not in n and "softmax" not in n))}
+        log_profile("profile_relevance_group", prof, 12)
+        rows[label]["profile"] = prof
+        del params
+        torch.cuda.empty_cache()
+        out.update(cli_sweeps(args, detail, ((WEIGHTED_SWEEP, "qwen2-0.5b", hw_path),)))
+
+    rng = np.random.default_rng(args.seed)
+    samples = [rng.integers(0, PRESETS["qwen2-0.5b"].vocab_size, n) for n in DIST_LENGTHS]
+    with tempfile.TemporaryDirectory() as tmp:
+        label = "cli distances qwen2-0.5b fp32"
+        npz = os.path.join(tmp, "samples.npz")
+        np.savez(npz, **{f"s{n}": s for n, s in zip(DIST_LENGTHS, samples)})
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.monotonic()
+        rc, printed = _cli_json_line(
+            ["--params", json.dumps({"experiment": "distances", "max_length": 512}),
+             "--corpus", npz, "--output-dir", tmp] + base)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_counts()
+        stats_by_dtype = dict(fa.causal_attention_stats.launches_by_dtype)
+        with open(os.path.join(tmp, "layer_distances.json")) as f:
+            matrix = np.array([[np.nan if v is None else v for v in row]
+                               for row in json.load(f)["matrix"]])
+        heatmap_written = os.path.exists(os.path.join(tmp, "layer_distances.png"))
+    want = want_counts(causal_attention_stats=24 * len(samples))
+    upper = np.triu(np.ones((24, 24), dtype=bool), 1)
+    rows[label] = {"rc": rc, "printed": printed, "wall_s": wall, "launches": launches,
+                   "launches_expected": want, "stats_launches_by_dtype": stats_by_dtype,
+                   "heatmap_written": heatmap_written, "lengths": list(DIST_LENGTHS)}
+    log(json.dumps({"distances": rows[label]}))
+    if rc != 0 or matrix.shape != (24, 24) or not np.isfinite(matrix[upper]).all() \
+            or not np.isnan(matrix[~upper]).all() or printed["n_samples"] != len(samples) \
+            or heatmap_written != (printed["heatmap"] is not None):
+        raise SystemExit(f"{label}: rc {rc}, {printed}, matrix {matrix.shape}, "
+                         f"heatmap written {heatmap_written}")
+    if launches != want or stats_by_dtype["float32"] != want["causal_attention_stats"]:
+        raise SystemExit(f"{label}: kernel launches {launches} (stats by dtype "
+                         f"{stats_by_dtype}) != expected {want}")
+    out[label] = launches
+
+    # the card against the CPU at Qwen2-0.5B width, 3 layers
+    cfg = dataclasses.replace(PRESETS["qwen2-0.5b"], num_layers=3)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(args.seed),
+                         device="cuda")
+    params_cpu = params_to(params, device="cpu")
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 512)))
+    rel, tokens = chunk_relevance(cfg, params, ids.cuda(), with_tokens=True)
+    rel_cpu, tokens_cpu = chunk_relevance(cfg, params_cpu, ids, with_tokens=True)
+    rel = rel.cpu()
+    rtol, atol = REL_CROSS_TOL[0], REL_CROSS_TOL[1] * rel_cpu.abs().max().item()
+    rel_err = (rel - rel_cpu).abs()
+    cross = {"relevance tokens": [tokens.tolist(), tokens_cpu.tolist()],
+             "relevance max_abs_err": rel_err.max().item(),
+             "relevance max_rel_err": (rel_err / rel_cpu.abs().clamp_min(atol)).max().item()}
+    if not torch.equal(tokens.cpu(), tokens_cpu):
+        raise SystemExit(f"relevance: the seeds' argmax tokens differ: {cross}")
+    if not bool((rel_err <= atol + rtol * rel_cpu.abs()).all()):
+        raise SystemExit(f"relevance card vs CPU beyond rtol {rtol}, atol {atol}: {cross}")
+    dist = pairwise_layer_distances(layer_importance_distributions(cfg, params, samples))
+    dist_cpu = pairwise_layer_distances(layer_importance_distributions(
+        cfg, params_cpu, samples, device="cpu"))
+    cross["distances max_abs_err"] = float(np.nanmax(np.abs(dist - dist_cpu)))
+    log(json.dumps({"experiment_cross_check": cross}))
+    if not (np.isnan(dist) == np.isnan(dist_cpu)).all() \
+            or cross["distances max_abs_err"] > DIST_CROSS_ATOL:
+        raise SystemExit(f"distances card vs CPU beyond {DIST_CROSS_ATOL}: {cross}")
+    detail["experiments"] = {**rows, "cross_check": cross}
+    del params, params_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1776,8 +1968,11 @@ def main() -> int:
     split_cross_checks(args, detail)
     cross_check(args, detail)
     serve_cross_checks(args, detail)
+    t5 = time.monotonic()
+    by_path.update(experiment_paths(args, detail))
     detail["phase_s"] = {"kernels": t1 - t0, "token_sweep": t2 - t1, "split_paths": t3 - t2,
-                         "serve_paths": t4 - t3, "cross_checks": time.monotonic() - t4}
+                         "serve_paths": t4 - t3, "cross_checks": t5 - t4,
+                         "experiments": time.monotonic() - t5}
     log(json.dumps({"phase_s": detail["phase_s"]}))
 
     kernels = []

@@ -1,4 +1,11 @@
-"""Token-importance scoring from the forward pass's attention statistics."""
+"""Token- and head-importance scoring.
+
+``metrics`` — attention-statistic metrics (column mean, last row, aggregates)
+that consume the reduced :class:`~edgellm_tpu_torch.models.transformer.AttnStats`
+captured by the model forward. ``relevance`` — LRP attention-head relevance
+(the reference's ``lxt`` path) as autograd rules; imported on its own
+(``from edgellm_tpu_torch.importance.relevance import ...``), as the CLI does.
+"""
 from .metrics import (
     ATTENTION_METHODS,
     regular_importance,

@@ -11,16 +11,20 @@ Dispatch mirrors the reference:
 - methods containing "channel" -> per-channel codec sweep
 - ``experiment: "split"``     -> the real split eval (``run_split_eval``): the
   model cut at ``cuts``, each cut crossed as a packed ``hop_codecs`` payload
+- ``experiment: "relevance"`` -> LRP head-relevance extraction
+  (``attention_head_weights.json``, the ``--head-weights`` input of
+  ``weighted_importance``)
+- ``experiment: "distances"`` -> the layer-pair JS-divergence matrix
+  (``layer_distances.json``) and its heatmap where matplotlib imports
 - otherwise                   -> the Qwen-style token sweep
 
 - ``experiment: "serve"`` with a ``batching`` block -> the continuous batcher
   behind the serving front (``prefix_cache`` and ``kv_at_rest`` too): seeded
   arrivals on a fake clock, ``serve_report.json`` and one JSON line
 
-The ``relevance`` and ``distances`` experiments are not ported yet: they exit
-non-zero, naming the experiment. So does a split config that carries a key
-of a split feature not ported yet (``UNPORTED_SPLIT_KEYS``: faults, healing,
-survivability, pipelining, the seq / data / model mesh axes), a serve config
+A split config that carries a key of a split feature not ported yet
+(``UNPORTED_SPLIT_KEYS``: faults, healing, survivability, pipelining, the
+seq / data / model mesh axes) exits non-zero, and so do a serve config
 without ``batching`` (the per-request route) or with a key of a serve
 feature not ported yet (``UNPORTED_SERVE_KEYS``), and ``--serve-report``,
 each naming what is missing. ``fused_hops`` maps onto the
@@ -44,7 +48,7 @@ import numpy as np
 import torch
 
 #: experiments of the reference CLI that this package has not ported yet
-NOT_PORTED = ("relevance", "distances")
+NOT_PORTED = ()
 #: split keys whose feature is not ported yet (the mesh axes only above 1)
 UNPORTED_SPLIT_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health",
                        "pipeline", "deadline", "stage_failure", "recovery",
@@ -210,7 +214,7 @@ def _validate_params_json(p: dict, device="cuda") -> None:
     for k in _REQUIRED.get(exp, ()):
         if k not in p:
             die(f"experiment {exp!r} requires key {k!r}")
-    if exp not in ("split", "serve", "initial"):
+    if exp not in ("split", "serve", "initial", "relevance", "distances"):
         # token/channel sweeps sweep layers (x ratios for the token sweep)
         methods = p.get("methods", [])
         need = ["layers_of_interest"]
@@ -504,6 +508,56 @@ def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
     return {**summary, "_records": records, "_batcher": rep}
 
 
+def run_distances(cfg, params: dict, corpus: np.ndarray, params_json: dict, args, out,
+                  device) -> dict:
+    """The layer-distance analysis, as the reference CLI runs it: one sample
+    per array of a multi-array ``.npz`` corpus (each range-checked), else
+    non-overlapping ``max_length`` windows of the flat corpus; samples
+    shorter than 2 dropped, at most ``--max-chunks`` kept. Writes
+    ``layer_distances.json`` and, where matplotlib imports, the heatmap
+    ``layer_distances.png``; where it does not, says so on stderr and reports
+    ``"heatmap": None``. Returns the printed summary line."""
+    from .analysis import (layer_importance_distributions, pairwise_layer_distances,
+                           save_heatmap)
+
+    max_length = params_json.get("max_length", cfg.max_position_embeddings)
+    if args.corpus and args.corpus.endswith(".npz"):
+        data = np.load(args.corpus)
+        samples = [np.asarray(data[f]).reshape(-1) for f in data.files]
+        for i, s in enumerate(samples):  # _load_corpus only checked files[0]
+            if s.size and (s.max() >= cfg.vocab_size or s.min() < 0):
+                raise SystemExit(f"npz sample {i} has token ids outside "
+                                 f"[0, {cfg.vocab_size}) — wrong tokenizer?")
+    else:
+        samples = [corpus[i:i + max_length] for i in range(0, len(corpus), max_length)]
+    samples = [s for s in samples if len(s) >= 2]
+    if args.max_chunks:
+        samples = samples[: args.max_chunks]
+    # clipping to bucketed lengths is opt-in: the notebook analyzes every
+    # sample at native length
+    max_compiles = params_json.get("max_compiles")
+    dists = layer_importance_distributions(cfg, params, samples, max_compiles=max_compiles,
+                                           device=device)
+    matrix = pairwise_layer_distances(dists)
+    artifact = {"matrix": [[None if not np.isfinite(v) else float(v) for v in row]
+                           for row in matrix],
+                "n_samples": len(samples), "model": args.model,
+                "max_compiles": max_compiles,
+                "clipped": max_compiles is not None and
+                len({int(s.shape[0]) for s in samples}) > max_compiles}
+    with open(out("layer_distances.json"), "w") as f:
+        json.dump(artifact, f, indent=1)
+    heatmap_path = out("layer_distances.png")
+    try:
+        save_heatmap(matrix, heatmap_path)
+    except ImportError as e:
+        print(f"distances: no heatmap written, matplotlib does not import ({e}); "
+              f"the matrix is in {out('layer_distances.json')}", file=sys.stderr)
+        heatmap_path = None
+    return {"artifact": out("layer_distances.json"), "heatmap": heatmap_path,
+            "n_samples": len(samples), "layers": matrix.shape[0]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -568,6 +622,25 @@ def main(argv=None) -> int:
     experiment = params_json.get("experiment", "")
     methods = params_json.get("methods", [])
     max_length = params_json.get("max_length", cfg.max_position_embeddings)
+    if experiment == "relevance":
+        from .importance.relevance import run_relevance_extraction
+
+        stats: dict = {}
+        weights = run_relevance_extraction(
+            cfg, params, corpus, max_length=max_length,
+            stride=params_json.get("stride", 32), max_chunks=args.max_chunks,
+            window_batch=max(args.window_batch, 1),
+            checkpoint_path=out("relevance_checkpoint.json"),
+            checkpoint_every=args.checkpoint_every,
+            metrics_path=out("relevance_metrics.jsonl"), stats=stats, device=device)
+        with open(out("attention_head_weights.json"), "w") as f:
+            json.dump(np.asarray(weights).tolist(), f)
+        print(json.dumps({"artifact": out("attention_head_weights.json"),
+                          "shape": list(np.asarray(weights).shape), **stats}))
+        return 0
+    if experiment == "distances":
+        print(json.dumps(run_distances(cfg, params, corpus, params_json, args, out, device)))
+        return 0
     if experiment == "split":
         # fused_hops maps onto the EDGELLM_FUSED_HOP gate before the runtime
         # resolves its fused plans: "auto" leaves the default (no fusion

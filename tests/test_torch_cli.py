@@ -106,6 +106,9 @@ BAD_PARAMS = [
     {"experiment": "split", "cuts": [1], "hop_codecs": ["selective_int4_pallas:0.25"]},
     {"experiment": "split", "cuts": [1], "hop_codecs": ["selective_int4:0.25:bf16:local"]},
     {"experiment": "split", "cuts": [1], "hop_codecs": ["fp32"], "n_seq": 0},
+    {"experiment": "distances", "max_compiles": 0},
+    {"experiment": "relevance", "stride": 0},
+    {"experiment": "relevance", "batching": {}},
 ]
 
 
@@ -135,7 +138,7 @@ def test_every_config_is_accepted_or_named_not_ported(config):
         trun._validate_params_json(p)
 
 
-@pytest.mark.parametrize("experiment", ["serve", "relevance", "distances"])
+@pytest.mark.parametrize("experiment", ["serve"])
 def test_unported_experiments_exit_nonzero_naming_them(experiment, tmp_path):
     params = json.dumps({"experiment": experiment, "cuts": [1], "hop_codecs": ["fp32"],
                          "serving": {}})
@@ -318,6 +321,14 @@ b = ContinuousBatcher(cfg, params, BatchingConfig(page_size=8, num_pages=8, max_
                                                   pages_per_slot=2, kv_codec="int4_per_channel"))
 sid = b.submit(np.arange(1, 6), 4, temperature=0.5, rng_seed=1)
 assert b.run()[sid].shape == (4,)
+from edgellm_tpu_torch.importance.relevance import run_relevance_extraction
+w = run_relevance_extraction(cfg, params, np.arange(100) % 256, max_length=32, stride=16,
+                             max_chunks=2, device="cpu")
+assert w.shape == (6, 4) and np.isfinite(w).all()
+from edgellm_tpu_torch.analysis import layer_importance_distributions, pairwise_layer_distances
+m = pairwise_layer_distances(layer_importance_distributions(
+    cfg, params, [np.arange(20), np.arange(9)], device="cpu"))
+assert m.shape == (6, 6) and np.isfinite(m[0, 1:]).all()
 assert not any(m == "jax" or m.startswith(("jax.", "edgellm_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
@@ -347,12 +358,15 @@ def test_no_file_of_the_port_imports_jax_or_the_reference():
 def test_entry_points_default_to_cuda():
     import inspect
 
+    from edgellm_tpu_torch.analysis import distances
     from edgellm_tpu_torch.eval import harness, split_eval
+    from edgellm_tpu_torch.importance import relevance
     from edgellm_tpu_torch.models import hf_loader, safetensors_io, transformer
 
     for fn in (harness.run_token_sweep, harness.run_channel_sweep, harness.run_initial_sweep,
                transformer.init_params, hf_loader.params_from_state_dict,
-               safetensors_io.load_checkpoint, split_eval.run_split_eval):
+               safetensors_io.load_checkpoint, split_eval.run_split_eval,
+               relevance.run_relevance_extraction, distances.layer_importance_distributions):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     from edgellm_tpu_torch.models import PRESETS
     from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime
@@ -366,3 +380,119 @@ def test_entry_points_default_to_cuda():
          "--model", "tiny-qwen2"], cwd=REPO, capture_output=True, text=True, timeout=120,
         env=env)
     assert proc.returncode != 0 and "--device cpu" in proc.stderr
+
+
+#: the relevance run both CLI tests below read: hf_checkpoint's weights, the
+#: synthetic corpus of --seed 0, 160 tokens, window 64, stride 32
+REL_ARGS = ["--device", "cpu", "--max-chunks", "3", "--window-batch", "2",
+            "--synthetic-corpus-len", "160"]
+REL_PARAMS = {"experiment": "relevance", "max_length": 64, "stride": 32}
+
+
+@pytest.fixture(scope="module")
+def relevance_run(hf_checkpoint, tmp_path_factory):
+    """``relevance`` through the port's CLI on the CPU -> (output dir, the
+    printed summary line)."""
+    import contextlib
+    import io
+
+    out = tmp_path_factory.mktemp("relevance")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = trun.main(["--params", json.dumps(REL_PARAMS), "--weights", str(hf_checkpoint),
+                        "--output-dir", str(out)] + REL_ARGS)
+    assert rc == 0
+    return out, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def test_cli_relevance_writes_the_references_artifact(relevance_run, hf_checkpoint):
+    """The head weights (L, H) with each row summing to 1, the reference's
+    summary keys, checkpoint and metrics files, and the reference's weights
+    on the same checkpoint and corpus."""
+    from edgellm_tpu.importance.relevance import run_relevance_extraction as j_relevance
+    from edgellm_tpu.models.safetensors_io import load_checkpoint as j_load
+
+    out, summary = relevance_run
+    weights = np.asarray(json.loads((out / "attention_head_weights.json").read_text()))
+    assert summary["artifact"] == str(out / "attention_head_weights.json")
+    assert set(summary) == {"artifact", "shape", "chunks", "wall_s", "it_per_s"}
+    assert summary["shape"] == [4, 4] and weights.shape == (4, 4) and summary["chunks"] == 3
+    np.testing.assert_allclose(weights.sum(axis=1), 1.0, atol=1e-6)
+    assert json.loads((out / "relevance_checkpoint.json").read_text())["chunks"] == 3
+    assert json.loads((out / "relevance_metrics.jsonl").read_text().splitlines()[-1])["final"]
+    jcfg, jparams = j_load(str(hf_checkpoint))
+    corpus = np.random.default_rng(0).integers(0, 256, 160)
+    want = j_relevance(jcfg, jparams, corpus, max_length=64, stride=32, max_chunks=3,
+                       window_batch=2)
+    assert want.shape == weights.shape
+    np.testing.assert_allclose(weights, want, rtol=1e-4, atol=1e-6 * np.abs(want).max())
+
+
+def test_cli_weighted_sweep_on_the_ports_head_weights(relevance_run, hf_checkpoint, tmp_path,
+                                                      capsys):
+    """The relevance artifact feeds a token sweep with weighted_importance
+    through --head-weights: the reference's run_token_sweep with the same
+    head weights gives the same PPL table."""
+    from edgellm_tpu.eval.harness import run_token_sweep as j_token_sweep
+    from edgellm_tpu.models.safetensors_io import load_checkpoint as j_load
+
+    out, _ = relevance_run
+    p = {"methods": ["weighted_importance", "regular_importance"], "layers_of_interest": [1, 2],
+         "ratios": [0, 0.5, 1], "max_length": 64, "stride": 32}
+    rc = trun.main(["--params", json.dumps(p), "--weights", str(hf_checkpoint),
+                    "--head-weights", str(out / "attention_head_weights.json"),
+                    "--output-dir", str(tmp_path)] + REL_ARGS)
+    assert rc == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    jcfg, jparams = j_load(str(hf_checkpoint))
+    corpus = np.random.default_rng(0).integers(0, 256, 160)
+    hw = np.asarray(json.loads((out / "attention_head_weights.json").read_text()))
+    want = j_token_sweep(jcfg, jparams, corpus, methods=p["methods"],
+                         layers_of_interest=p["layers_of_interest"], ratios=p["ratios"],
+                         max_length=64, stride=32, head_weights=hw, max_chunks=3,
+                         window_batch=2)
+    assert got["chunks"] == want.chunks == 3
+    ppl = np.asarray(got["ppl"])
+    assert ppl.shape == (2, 2, 3)
+    np.testing.assert_allclose(ppl, want.ppl(), rtol=1e-5)
+    # the head weights changed the importance ordering the quantizer reads
+    assert not np.array_equal(ppl[0], ppl[1])
+
+
+@pytest.mark.parametrize("max_compiles", [None, 2])
+def test_cli_distances_on_a_multi_array_npz_matches_reference(max_compiles, hf_checkpoint,
+                                                              tmp_path, capsys):
+    """One sample per array (a 1-token array dropped), the reference CLI's
+    artifact keys and summary keys, and its matrix within 1e-6."""
+    rng = np.random.default_rng(4)
+    npz = tmp_path / "samples.npz"
+    np.savez(npz, **{f"s{i}": rng.integers(0, 256, n) for i, n in enumerate((2, 12, 1, 30, 45))})
+    p = {"experiment": "distances", "max_length": 64}
+    if max_compiles is not None:
+        p["max_compiles"] = max_compiles
+    runs = {}
+    for name, cli in (("torch", trun), ("jax", jrun)):
+        argv = ["--params", json.dumps(p), "--weights", str(hf_checkpoint), "--corpus", str(npz),
+                "--output-dir", str(tmp_path / name)] + (["--device", "cpu"] if name == "torch"
+                                                         else [])
+        assert cli.main(argv) == 0
+        summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        runs[name] = summary, json.loads((tmp_path / name / "layer_distances.json").read_text())
+    (got_line, got), (want_line, want) = runs["torch"], runs["jax"]
+    assert set(got_line) == set(want_line) == {"artifact", "heatmap", "n_samples", "layers"}
+    assert got_line["n_samples"] == want_line["n_samples"] == 4 and got_line["layers"] == 4
+    assert set(got) == set(want)
+    assert {k: got[k] for k in got if k != "matrix"} == {k: want[k] for k in want if k != "matrix"}
+    assert got["clipped"] == (max_compiles is not None)
+    g = np.array([[np.nan if v is None else v for v in row] for row in got["matrix"]])
+    w = np.array([[np.nan if v is None else v for v in row] for row in want["matrix"]])
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_allclose(g, w, atol=1e-6, rtol=0)
+
+
+def test_cli_distances_refuses_an_npz_sample_out_of_range(tmp_path):
+    npz = tmp_path / "samples.npz"
+    np.savez(npz, a=np.arange(10), b=np.array([3, 300, 4]))
+    with pytest.raises(SystemExit, match=r"npz sample 1 has token ids outside \[0, 256\)"):
+        trun.main(["--params", json.dumps({"experiment": "distances"}), "--model", "tiny-qwen2",
+                   "--device", "cpu", "--corpus", str(npz), "--output-dir", str(tmp_path)])

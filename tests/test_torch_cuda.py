@@ -239,3 +239,61 @@ def test_bf16_lm_head_runs_bf16_operands_with_fp32_output(card):
     head_only = {k: params[k].cpu() for k in ("embed", "final_norm_scale")}
     want = tr.nll_tail(cfg, head_only, hidden.cpu(), targets.cpu(), 32, per_example=True)
     torch.testing.assert_close(nll.cpu(), want, atol=0.0, rtol=1e-5)
+
+
+#: the native sample lengths of chip_smoke.py's distances run: fp32 K-stats'
+#: tile edges, and for fp32 Qwen2-0.5B every one in the blocked plan
+NATIVE_LENGTHS = (2, 12, 63, 65, 127, 129, 300, 512, 1024)
+
+
+def _qwen_width_3_layers(card):
+    """Qwen2-0.5B at full width, 3 layers, fp32 random weights -> (cfg,
+    params on the card, params on the CPU)."""
+    import dataclasses
+
+    from edgellm_tpu_torch.models import PRESETS, init_params, params_to
+
+    cfg = dataclasses.replace(PRESETS["qwen2-0.5b"], num_layers=3)
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(0), device=card)
+    return cfg, params, params_to(params, device="cpu")
+
+
+def test_layer_distributions_on_card_match_plain(card):
+    """``layer_importance_distributions`` at native lengths: fp32 K-stats on
+    the card (one launch a layer a sample) against the plain version on the
+    CPU, the distributions and the pairwise matrix within 1e-5."""
+    from edgellm_tpu_torch.analysis import (layer_importance_distributions,
+                                            pairwise_layer_distances)
+
+    cfg, params, params_cpu = _qwen_width_3_layers(card)
+    rng = np.random.default_rng(0)
+    samples = [rng.integers(0, cfg.vocab_size, n) for n in NATIVE_LENGTHS]
+    assert all(fa.kernel_plan(n, 14, 2, 64, itemsize=4) is not None for n in NATIVE_LENGTHS)
+    n0 = fa.causal_attention_stats.launches
+    got = layer_importance_distributions(cfg, params, samples, device=card)
+    assert fa.causal_attention_stats.launches - n0 == cfg.num_layers * len(samples)
+    want = layer_importance_distributions(cfg, params_cpu, samples, device="cpu")
+    for g_layer, w_layer in zip(got, want):
+        for g, w in zip(g_layer, w_layer):
+            np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(pairwise_layer_distances(got), pairwise_layer_distances(want),
+                               atol=1e-5, rtol=0)
+
+
+def test_chunk_relevance_on_card_matches_cpu(card):
+    """The relevance backward pass (plain torch ops, no kernel launched) on
+    the card against the CPU for 2 windows of 512: the argmax tokens the
+    seeds picked first, then the (L, H) relevance within rtol 1e-3, atol
+    1e-6 * max|R|. Runs at torch's default (no TF32) matmul precision."""
+    from edgellm_tpu_torch.importance.relevance import chunk_relevance
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, params, params_cpu = _qwen_width_3_layers(card)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 512)))
+    n0 = fa.causal_attention.launches + fa.causal_attention_stats.launches
+    got, tokens = chunk_relevance(cfg, params, ids.to(card), with_tokens=True)
+    assert fa.causal_attention.launches + fa.causal_attention_stats.launches == n0
+    want, want_tokens = chunk_relevance(cfg, params_cpu, ids, with_tokens=True)
+    assert torch.equal(tokens.cpu(), want_tokens)
+    assert got.shape == (3, 14)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-6 * want.abs().max().item())
