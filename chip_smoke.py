@@ -107,7 +107,23 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    it); then the card against the CPU at 3 layers: ``chunk_relevance`` for 2
    windows of 512 (the argmax tokens identical, then rtol 1e-3, atol 1e-6 *
    max |R|) and the distance matrix (1e-5 absolute);
-15. a JSON line of every kernel (launches summed over the counted paths,
+15. split decode and the per-request serve route at full Qwen2-0.5B width
+   and depth, fp32 random weights from ``--seed``: ``run.main`` on
+   configs/split11_qwen_spec.json (cut 11, int8_per_token, speculative k =
+   4, 24 requests at T = 0.7) and on the same params without
+   ``speculative`` (the vanilla per-request split route), each with every
+   request completed, the identity replay green, each call's speculative
+   stats consistent, per-request service ms, and K3 / K4 and fp32 K-attn
+   launched exactly as the counted calls imply (cuts x (prefills + decode
+   steps + verify bursts); 24 a split prefill, 12 a draft prefill, 24 a
+   local prefill); ``generate_split`` under ``fused_hops`` "remote" (K8,
+   1 + steps a call) and "wire" against the separate hop (tokens equal,
+   teacher-forced logits within 1e-5); K3 / K4 device ms at the path's N =
+   1, 4, 8; one decode hop's events against its device time; one decode
+   step and one verify burst profiled (device ms by kind, idle share); and
+   the card against the CPU at 3 layers (teacher-forced decode and verify
+   logits within 1e-4 fp32 / 1e-3 int8 hop, greedy tokens identical);
+16. a JSON line of every kernel (launches summed over the counted paths,
    and by path; K-attn's also by dtype and path; K-stats' fp32 column pass
    apart; ``ms`` its device time, ``event_ms`` the call's CUDA-event time),
    the ``nvidia-smi`` line, and
@@ -1919,6 +1935,403 @@ def experiment_paths(args, detail: dict) -> dict:
     return out
 
 
+#: the per-request split route's config: Qwen2-0.5B, cut 11, int8_per_token,
+#: speculative k = 4 with a stage-0 draft, 24 seeded requests at T = 0.7
+SPLIT11_CONFIG = "configs/split11_qwen_spec.json"
+#: teacher-forced split-decode and verify logits, card vs CPU (absolute, as
+#: phase 13 holds serve): an fp32 hop, and an int8 hop, where a row that
+#: rounds on a .5 boundary may move one code by a step
+SPLIT_DECODE_TOL = {"fp32": 1e-4, "int8_per_token": 1e-3}
+#: fused vs separate hop's teacher-forced logits on the card: both decode the
+#: same bytes
+FUSED_DECODE_ATOL = 1e-5
+
+
+@contextlib.contextmanager
+def split_call_log():
+    """Count the split decode calls made inside: ``prefill_decode``,
+    ``decode_step`` and ``verify_step`` of every ``SplitRuntime``, the local
+    ``generate`` prefills (``decode._prefill_impl``), and the ``speculative``
+    stats of every burst-loop call (a stats dict is handed to calls made
+    without one) -> the log dict."""
+    from edgellm_tpu_torch.parallel.split import SplitRuntime
+    from edgellm_tpu_torch.serve import decode, speculative
+
+    log_ = {"prefill_decode": 0, "decode_step": 0, "verify_step": 0, "local_prefill": 0,
+            "spec_calls": []}
+    saved = {name: getattr(SplitRuntime, name)
+             for name in ("prefill_decode", "decode_step", "verify_step")}
+    real_prefill, real_loop = decode._prefill_impl, speculative._spec_loop
+
+    def counted(name):
+        def call(self, *a, **kw):
+            log_[name] += 1
+            return saved[name](self, *a, **kw)
+        return call
+
+    def local_prefill(*a, **kw):
+        log_["local_prefill"] += 1
+        return real_prefill(*a, **kw)
+
+    def spec_loop(*a):
+        a = list(a)
+        stats = a[-1] if a[-1] is not None else {}
+        a[-1] = stats
+        out = real_loop(*a)
+        log_["spec_calls"].append(stats["speculative"])
+        return out
+
+    for name in saved:
+        setattr(SplitRuntime, name, counted(name))
+    decode._prefill_impl, speculative._spec_loop = local_prefill, spec_loop
+    try:
+        yield log_
+    finally:
+        for name, fn in saved.items():
+            setattr(SplitRuntime, name, fn)
+        decode._prefill_impl, speculative._spec_loop = real_prefill, real_loop
+
+
+@contextlib.contextmanager
+def attention_range():
+    """Wrap the decode and verify attention (plain torch) in a
+    ``record_function("attention")`` range, so a profile reads their
+    device time apart."""
+    import torch
+
+    from edgellm_tpu_torch.models import transformer as tr
+
+    saved = tr.decode_attention, tr.verify_attention
+
+    def ranged(fn):
+        def call(*a, **kw):
+            with torch.profiler.record_function("attention"):
+                return fn(*a, **kw)
+        return call
+
+    tr.decode_attention, tr.verify_attention = map(ranged, saved)
+    try:
+        yield
+    finally:
+        tr.decode_attention, tr.verify_attention = saved
+
+
+def profile_kinds(run, n_calls: int) -> dict:
+    """Where ``n_calls`` warm calls of ``run()`` spend the card's time: the
+    unprofiled wall, then under torch.profiler the kernels' device time, the
+    idle share, and device ms by kind: attention (every kernel inside the
+    decode / verify attention's range), GEMMs (cuBLAS kernels outside it, the
+    LM head included), codecs (K3 / K4 / K8) and the rest; and each codec
+    kernel's device ms a launch (its recorded time over its recorded
+    launches, so a record the profiler drops does not bias it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n_calls):
+        run()
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    with attention_range(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                    acc_events=True) as prof:
+        for _ in range(n_calls):
+            run()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    is_gemm = lambda n: any(t in n.lower() for t in ("gemm", "gemv", "xmma", "cutlass"))  # noqa: E731
+    is_codec = lambda n: "int8_affine" in n or "remote_hop" in n  # noqa: E731
+    in_attention: dict = {}
+    for ev in prof.events():
+        if ev.name != "attention":
+            continue
+        stack = [ev]
+        while stack:
+            e = stack.pop()
+            for k in e.kernels:
+                in_attention[k.name] = in_attention.get(k.name, 0.0) + k.duration / 1e3
+            stack.extend(e.cpu_children)
+    kinds = {"attention": 0.0, "gemms": 0.0, "codecs": 0.0, "rest": 0.0}
+    rows, busy, n_kernels, codec_ms = [], 0.0, 0, {}
+    for ev in prof.key_averages():
+        if (ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0
+                or ev.key == "attention"):
+            continue
+        ms = ev.self_device_time_total / 1e3
+        rows.append({"name": ev.key[:120], "device_ms": ms, "calls": ev.count})
+        busy += ms
+        n_kernels += ev.count
+        att = min(in_attention.get(ev.key, 0.0), ms)
+        kinds["attention"] += att
+        kind = ("gemms" if is_gemm(ev.key) else "codecs" if is_codec(ev.key) else "rest")
+        kinds[kind] += ms - att
+        if kind == "codecs":
+            codec_ms[ev.key] = {"ms_per_launch": ms / ev.count, "launches": ev.count}
+    rows.sort(key=lambda r: -r["device_ms"])
+    return {"calls": n_calls, "wall_ms_per_call": wall_ms / n_calls,
+            "device_busy_ms_per_call": busy / n_calls,
+            "kernels_per_call": n_kernels / n_calls,
+            "idle_share": 1 - busy / wall_ms if busy else None,
+            "device_ms_by_kind_per_call": {k: v / n_calls for k, v in kinds.items()},
+            "codec_kernels": codec_ms, "top": rows[:15]}
+
+
+def _split11_cli(base_argv, p: dict, label: str, rows: dict) -> tuple[dict, dict, dict]:
+    """One run of ``run.main`` on a split11 params dict (written to a file,
+    as a user passes it) inside :func:`split_call_log` -> (printed line,
+    serve_report.json, call log); the counts are set to 0 just before."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "params.json")
+        with open(path, "w") as f:
+            json.dump(p, f)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with split_call_log() as calls:
+            reset_counts()
+            t0 = time.monotonic()
+            rc, printed = _cli_json_line(["--params", path, "--output-dir", tmp] + base_argv)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = read_counts()
+        with open(os.path.join(tmp, "serve_report.json")) as f:
+            report = json.load(f)
+    recs = [r for r in report["records"] if r["outcome"] == "completed"]
+    decode_s = [r["service_s"] - (r["ttft_s"] - r["queue_wait_s"]) for r in recs]
+    service_ms = sorted(1e3 * r["service_s"] for r in recs)
+    rows[label] = {
+        "rc": rc, "printed": printed, "wall_s": wall, "launches": launches,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "calls": {k: v for k, v in calls.items() if k != "spec_calls"},
+        "service_ms_median": service_ms[len(service_ms) // 2] if service_ms else None,
+        "service_ms_min_max": [service_ms[0], service_ms[-1]] if service_ms else None,
+        "decode_tokens_per_s_median": float(np.median(
+            [(r["granted_tokens"] - 1) / d for r, d in zip(recs, decode_s) if d > 0]))
+        if recs else None}
+    return printed, report, calls
+
+
+def split_decode_paths(args, detail: dict) -> dict:
+    """Phase 15: split decode and the per-request serve route at full
+    Qwen2-0.5B width and depth, fp32 weights from ``--seed``: (a)
+    configs/split11_qwen_spec.json through ``run.main``, (b) the same
+    without ``speculative`` (the vanilla per-request split route), each with
+    every request terminal, the identity audit green, every kernel's
+    launches against the count the calls imply, and per-request service ms;
+    (c) ``generate_split`` under ``fused_hops`` "remote" (K8) and "wire"
+    against the separate hop, tokens and teacher-forced logits; then (e) the
+    card against the CPU at 3 layers and (f) readings: K3 / K4 at the
+    path's N = 1, 4, 8, one decode hop's events against its device time, and
+    one decode step and one verify burst profiled -> launches by path."""
+    import torch
+
+    from edgellm_tpu_torch.codecs import codec_kernels as ck
+    from edgellm_tpu_torch.codecs.packing import SATURATE_MAG, sanitize_hidden
+    from edgellm_tpu_torch.models import PRESETS, init_params, params_to
+    from edgellm_tpu_torch.models import flash_attention as fa
+    from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime
+    from edgellm_tpu_torch.parallel import split as split_mod
+    from edgellm_tpu_torch.serve.decode import generate_split
+    from edgellm_tpu_torch.serve.speculative import SpecConfig
+
+    cfg = PRESETS["qwen2-0.5b"]
+    p11 = json.load(open(SPLIT11_CONFIG))
+    n_cuts, k = len(p11["cuts"]), p11["speculative"]["k"]
+    draft_layers = p11["cuts"][0] + 1
+    base = ["--model", "qwen2-0.5b", "--seed", str(args.seed)]
+    out, rows = {}, {}
+
+    # (a), (b): the CLI, speculative and vanilla
+    vanilla = {key: v for key, v in p11.items() if key != "speculative"}
+    for label, p in (("split11 speculative", p11), ("split11 vanilla", vanilla)):
+        printed, report, calls = _split11_cli(base, p, label, rows)
+        n = p["serving"]["soak"]["n_requests"]
+        row = rows[label]
+        spec = calls["spec_calls"]
+        bursts = sum(c["bursts"] for c in spec)
+        hops = calls["prefill_decode"] + calls["decode_step"] + calls["verify_step"]
+        want = want_counts(
+            24 * calls["prefill_decode"] + draft_layers * len(spec) + 24 * calls["local_prefill"],
+            causal_attention=(24 * calls["prefill_decode"] + draft_layers * len(spec)
+                              + 24 * calls["local_prefill"]),
+            int8_affine_encode=n_cuts * hops, int8_affine_decode=n_cuts * hops)
+        row["launches_expected"] = want
+        row["spec"] = {"calls": len(spec), "bursts": bursts,
+                       "drafted": sum(c["drafted"] for c in spec),
+                       "accepted": sum(c["accepted"] for c in spec),
+                       "hops_per_token": [c["hops_per_token"] for c in spec]}
+        log(json.dumps({"split_decode_path": {key: v for key, v in row.items()
+                                              if key != "printed"}}))
+        if row["rc"] != 0 or printed["requests"] != n or printed["outcomes"] != {"completed": n}:
+            raise SystemExit(f"{label}: not every request completed: {printed}")
+        if printed["token_identity_ok"] is not True:
+            raise SystemExit(f"{label}: the identity replay mismatched request(s) "
+                             f"{report['token_identity']['mismatched_ids']}: {printed}")
+        if report["token_identity"]["checked"] != n:
+            raise SystemExit(f"{label}: the audit checked {report['token_identity']}")
+        if label == "split11 speculative":
+            bad = [c for c in spec if c["drafted"] != (k - 1) * c["bursts"]
+                   or not 0 < c["hops_per_token"] <= 1.0]
+            # warm call + n requests + n replays, each one burst loop
+            if len(spec) != 2 * n + 1 or bad or calls["verify_step"] != bursts \
+                    or calls["decode_step"] != 0 or calls["prefill_decode"] != len(spec):
+                raise SystemExit(f"{label}: inconsistent speculative stats {bad} or "
+                                 f"calls {row['calls']} for {len(spec)} spec calls")
+        elif spec or calls["verify_step"] or calls["decode_step"] != calls["prefill_decode"] * (
+                p["serving"]["soak"]["max_new_tokens"] - 1):
+            raise SystemExit(f"{label}: calls {row['calls']} do not match the vanilla loop")
+        if row["launches"] != want:
+            raise SystemExit(f"{label}: kernel launches {row['launches']} != expected {want}")
+        out[label] = row["launches"]
+
+    # (c): fused "remote" (K8) and "wire" against the separate hop
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(args.seed),
+                         device="cuda")
+    rng = np.random.default_rng(args.seed + 15)
+    prompts = rng.integers(0, cfg.vocab_size, (3, 1, 8))
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 4))).cuda()
+    new = p11["serving"]["soak"]["max_new_tokens"]
+    cut = SplitConfig(tuple(p11["cuts"]), tuple(p11["hop_codecs"]))
+    fused_rows, tokens, forced_logits = {}, {}, {}
+    for mode in ("off", "remote", "wire"):
+        with fused_hops(mode):
+            rt = SplitRuntime(cfg, cut)
+        placed = rt.place_params(params)
+        reset_counts()
+        toks = [generate_split(rt, placed, pr, new, capacity=32).cpu() for pr in prompts]
+        logits, cache = rt.prefill_decode(placed, torch.from_numpy(prompts[0]).cuda(), 32)
+        steps = [logits[:, -1]]
+        for t in range(forced.shape[1]):
+            step, cache = rt.decode_step(placed, cache, forced[:, t])
+            steps.append(step)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        tokens[mode] = torch.cat(toks)
+        forced_logits[mode] = torch.stack(steps).cpu()
+        hops = len(prompts) * new + 1 + forced.shape[1]
+        want = want_counts(24 * (len(prompts) + 1), causal_attention=24 * (len(prompts) + 1),
+                           **({"remote_hop": n_cuts * hops} if mode == "remote" else
+                              {"int8_affine_encode": n_cuts * hops,
+                               "int8_affine_decode": n_cuts * hops}))
+        fused_rows[mode] = {"plans": [None if pl is None else pl.mode for pl in rt.fused_plans],
+                            "launches": launches, "launches_expected": want}
+        if mode != "off":
+            fused_rows[mode]["tokens_equal_separate"] = torch.equal(tokens[mode], tokens["off"])
+            fused_rows[mode]["forced_logits_max_abs_diff"] = (
+                forced_logits[mode] - forced_logits["off"]).abs().max().item()
+        log(json.dumps({"split_decode_fused": {mode: fused_rows[mode]}}))
+        if fused_rows[mode]["plans"] != [None if mode == "off" else mode] * n_cuts:
+            raise SystemExit(f"fused_hops {mode}: plan {fused_rows[mode]['plans']}")
+        if launches != want:
+            raise SystemExit(f"fused_hops {mode}: kernel launches {launches} != {want}")
+        if mode != "off" and (not fused_rows[mode]["tokens_equal_separate"]
+                              or fused_rows[mode]["forced_logits_max_abs_diff"]
+                              > FUSED_DECODE_ATOL):
+            raise SystemExit(f"fused_hops {mode} differs from the separate hop: "
+                             f"{fused_rows[mode]}")
+        out[f"generate_split fused {mode}"] = launches
+    rows["fused"] = fused_rows
+
+    # (f): K3 / K4 at the path's N, one decode hop, a decode step and a burst
+    d = cfg.hidden_size
+    rt = SplitRuntime(cfg, cut)
+    placed = rt.place_params(params)
+    ids = torch.from_numpy(prompts[0]).cuda()
+    _, cache = rt.prefill_decode(placed, ids, 32)
+    tok, burst = forced[:, 0], forced[:, :k]
+    reads = {"profile prefill S=8": profile_kinds(
+                 lambda: rt.prefill_decode(placed, ids, 32), 20),
+             "profile decode step": profile_kinds(
+                 lambda: rt.decode_step(placed, cache, tok), 20),
+             "profile verify burst k=4": profile_kinds(
+                 lambda: rt.verify_step(placed, cache, burst), 20)}
+    hidden = torch.randn((1, 1, d), device="cuda")
+    hop = lambda: split_mod._hop(rt.codecs[0], hidden, None, rt.devices[1])  # noqa: E731
+    hop_profile = profile_kinds(hop, 200)
+    hop_events = rt.time_decode_hops(iters=200)[0]
+    reads["decode hop (1, 1, 896)"] = {
+        "device_ms": hop_profile["device_busy_ms_per_call"],
+        "kernels_per_hop": hop_profile["kernels_per_call"], "event_ms": hop_events,
+        "events_over_device": hop_events / hop_profile["device_busy_ms_per_call"]}
+    # each codec kernel bit for bit against its plain version at the path's
+    # N, its device ms a launch read from the path's own profile above
+    for n, source in ((1, "profile decode step"), (4, "profile verify burst k=4"),
+                      (8, "profile prefill S=8")):
+        x = torch.randn((n, d), device="cuda") * 3
+        q, sc, mn = ck.int8_affine_encode(x, max_mag=SATURATE_MAG)
+        for name, kern, plain in (
+                ("int8_affine_encode", lambda x=x: ck.int8_affine_encode(x, max_mag=SATURATE_MAG),
+                 lambda x=x: ck.int8_affine_encode_plain(sanitize_hidden(x).float())),
+                ("int8_affine_decode", lambda q=q, sc=sc, mn=mn: ck.int8_affine_decode(q, sc, mn),
+                 lambda q=q, sc=sc, mn=mn: ck.int8_affine_decode_plain(q, sc, mn))):
+            got, want_ = kern(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want_ = want_ if isinstance(want_, tuple) else (want_,)
+            if not all(_same(g, w) for g, w in zip(got, want_)):
+                raise SystemExit(f"{name} at N={n} differs from its plain version")
+            rows_ = [r for key, r in reads[source]["codec_kernels"].items()
+                     if key.split("(")[0].split("::")[-1].startswith(name)]
+            if len(rows_) != 1:
+                raise SystemExit(f"{source}: no single {name} kernel in "
+                                 f"{reads[source]['codec_kernels']}")
+            k_dev = rows_[0]["ms_per_launch"]
+            bound, bound_by = fa.bound_ms(float(codec_bytes(name, n, d)), 0.0, torch.float32)
+            reads[f"{name} N={n}"] = {"kernel_ms": k_dev, "event_ms": time_ms(kern, 200),
+                                      "plain_ms": time_ms(plain, 50), "bound_ms": bound,
+                                      "bound_by": bound_by, "roofline_share": bound / k_dev,
+                                      "read_from": source}
+    for key, r in reads.items():
+        log(json.dumps({"split_decode_read": {key: {kk: v for kk, v in r.items()
+                                                    if kk != "top"}}}))
+        for t in r.get("top", [])[:8]:
+            log(f"  {t['device_ms']:10.4f} ms  {t['calls']:6d}  {t['name'][:90]}")
+    rows["reads"] = reads
+    del params, placed, cache
+    torch.cuda.empty_cache()
+
+    # (e): the card against the CPU at Qwen2-0.5B width, 3 layers, cut 1
+    small = dataclasses.replace(cfg, num_layers=3)
+    cpu = init_params(small, torch.Generator().manual_seed(args.seed), device="cpu")
+    card = params_to(cpu, device="cuda")
+    ids = rng.integers(0, small.vocab_size, (2, 14))
+    cross = {}
+    for codec, tol in SPLIT_DECODE_TOL.items():
+        got = {}
+        for dev, params_ in (("cuda", card), ("cpu", cpu)):
+            rt = SplitRuntime(small, SplitConfig((1,), (codec,)), [dev, dev])
+            placed = rt.place_params(params_)
+            tids = torch.from_numpy(ids).to(dev)
+            pre, cache = rt.prefill_decode(placed, tids[:, :8], 24)
+            steps = []
+            for t in range(8, 11):
+                step, cache = rt.decode_step(placed, cache, tids[:, t])
+                steps.append(step)
+            burst, _ = rt.verify_step(placed, cache, tids[:, 11:14])
+            toks = generate_split(rt, placed, ids[:1, :8], 12, capacity=24)
+            spec_toks = generate_split(rt, placed, ids[:1, :8], 12, capacity=24,
+                                       speculative=SpecConfig(k=4), raw_params=params_)
+            got[dev] = (torch.cat([pre[:, -1:], torch.stack(steps, 1), burst], 1).cpu(),
+                        toks.cpu(), spec_toks.cpu())
+        diff = (got["cuda"][0] - got["cpu"][0]).abs().max().item()
+        cross[codec] = {"max_abs_diff": diff, "tolerance": tol,
+                        "greedy_tokens_equal": torch.equal(got["cuda"][1], got["cpu"][1]),
+                        "spec_tokens_equal": torch.equal(got["cuda"][2], got["cpu"][2]),
+                        "spec_equals_vanilla": torch.equal(got["cuda"][2], got["cuda"][1])}
+        log(json.dumps({"split_decode_cross_check": {codec: cross[codec]}}))
+        if diff > tol or not all(v for kk, v in cross[codec].items() if kk.endswith("equal")
+                                 or kk == "spec_equals_vanilla"):
+            raise SystemExit(f"split decode card vs CPU ({codec}) failed: {cross[codec]}")
+    rows["cross_check"] = cross
+    detail["split_decode"] = rows
+    del card
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1970,9 +2383,11 @@ def main() -> int:
     serve_cross_checks(args, detail)
     t5 = time.monotonic()
     by_path.update(experiment_paths(args, detail))
+    t6 = time.monotonic()
+    by_path.update(split_decode_paths(args, detail))
     detail["phase_s"] = {"kernels": t1 - t0, "token_sweep": t2 - t1, "split_paths": t3 - t2,
                          "serve_paths": t4 - t3, "cross_checks": t5 - t4,
-                         "experiments": time.monotonic() - t5}
+                         "experiments": t6 - t5, "split_decode": time.monotonic() - t6}
     log(json.dumps({"phase_s": detail["phase_s"]}))
 
     kernels = []

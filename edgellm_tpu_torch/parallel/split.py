@@ -19,9 +19,18 @@ computes in float32 (its bf16 weights promoted, which ``place_params`` does
 once by holding those stages' weights in float32). A fused hop returns the
 hidden's own dtype, so the stages after a chain of fused hops keep it.
 
+Incremental decode (``prefill_decode``, ``decode_step``, ``verify_step``):
+each stage keeps its own layers' KV cache on its own device, one
+(layers_of_stage, B, capacity, KV, hd) K and V tensor, and only the (B, 1, D)
+hidden of a decode step (the (B, k, D) block of a verify burst) crosses a
+cut, through the same hops as the forward. Every stage's cache holds the
+dtype of the embedding output, as the reference's one stacked cache does: a
+float32 stage behind a separate hop rounds its K/V rows as it writes them.
+
 Not ported yet: the faulty link, FEC, hedging, the micro-batch pipeline and
-the "data" / "model" mesh axes (each raises naming its argument), and the
-decode, verify and paged methods.
+the "data" / "model" mesh axes (each raises naming its argument), the
+micro-batched decode accounting (``pipelined_decode_hop_bytes``), stage loss
+(``mark_stage_lost``) and the paged methods.
 """
 from __future__ import annotations
 
@@ -35,7 +44,8 @@ from ..codecs.codec_kernels import pallas_variant
 from ..codecs.fused_hop import fused_hop, fused_hop_plan
 from ..codecs.packing import WireCodec, get_wire_codec
 from ..models.configs import ModelConfig
-from ..models.transformer import embed, run_layers, unembed
+from ..models.transformer import (block_decode, block_verify, embed, precompute_rope,
+                                  run_layers, unembed)
 
 NOT_PORTED_MSG = "is not ported yet to edgellm_tpu_torch"
 
@@ -320,3 +330,104 @@ class SplitRuntime:
         """:meth:`time_hops` at the decode shape, one (batch, 1, D) token."""
         return measure_hop_times(self.codecs, self.cfg, batch, 1, self.devices,
                                  iters=iters, warmup=warmup)
+
+    # ---------- incremental decode ----------
+    #
+    # At decode time each cut moves ONE token's hidden per step; the
+    # per-stage caches never cross a cut.
+
+    def _check_decode_supported(self):
+        bad = [c.name for c in self.codecs if c.needs_importance]
+        if bad:
+            raise ValueError(
+                f"token-selective hop codecs {bad} have no importance source "
+                f"for a single decode position; use per-token/channel codecs")
+
+    def _run_cached(self, placed: dict, cache: dict, token_ids: torch.Tensor, block_fn):
+        """Embed the (B, K) ids at positions ``length ..``, run every stage's
+        layers through ``block_fn`` (:func:`block_decode` or
+        :func:`block_verify`: each writes its rows into the stage's cache in
+        place), crossing each cut as the forward does -> the last stage's
+        (B, K, D) hidden."""
+        pos, kq, capacity = int(cache["length"]), token_ids.shape[1], cache["capacity"]
+        if pos + kq > capacity:
+            raise ValueError(f"cache capacity overflow: {pos} filled + {kq} new > "
+                             f"capacity {capacity}")
+        hidden = embed(placed["first"], token_ids.to(self.devices[0]))
+
+        def run_stage(s, h):
+            cos, sin = precompute_rope(self.cfg, capacity, device=h.device)
+            kc, vc = cache["k"][s], cache["v"][s]
+            for i in range(kc.shape[0]):
+                lp = {name: t[i] for name, t in placed["stages"][s].items()}
+                h = block_fn(self.cfg, lp, h, cos[pos:pos + kq], sin[pos:pos + kq],
+                             kc[i], vc[i], pos)
+            return h
+
+        return run_pipeline_stages(self.split.n_stages, self.codecs, run_stage, hidden,
+                                   None, self.devices, self.fused_plans)
+
+    def prefill_decode(self, placed: dict, input_ids: torch.Tensor, capacity: int) -> tuple:
+        """Pipeline-split prefill that also fills the per-stage KV caches ->
+        (logits (B, S, V) float32, cache). The cache dict holds ``k`` and
+        ``v`` (one (layers_of_stage, B, capacity, KV, hd) tensor per stage, on
+        the stage's device, in the embedding's dtype), ``length`` (S) and
+        ``capacity``; feed it to :meth:`decode_step` or :meth:`verify_step`."""
+        self._check_decode_supported()
+        b, s = input_ids.shape
+        capacity = int(capacity)
+        if not 0 < s <= capacity:
+            raise ValueError(f"prompt length {s} must be in [1, capacity={capacity}]")
+        hidden = embed(placed["first"], input_ids.to(self.devices[0]))
+        cache_dtype = hidden.dtype
+        ks, vs = [], []
+
+        def run_stage(st, h):
+            n_layers = self.bounds[st][1] - self.bounds[st][0]
+            out, aux = run_layers(self.cfg, {"layers": placed["stages"][st]}, h,
+                                  stop=n_layers, collect_kv=True)
+            k, v = aux["kv"]  # (layers, B, S, KV, hd)
+            shape = k.shape[:2] + (capacity,) + k.shape[3:]
+            kc = torch.zeros(shape, dtype=cache_dtype, device=k.device)
+            vc = torch.zeros(shape, dtype=cache_dtype, device=v.device)
+            kc[:, :, :s] = k
+            vc[:, :, :s] = v
+            ks.append(kc)
+            vs.append(vc)
+            return out
+
+        out = run_pipeline_stages(self.split.n_stages, self.codecs, run_stage, hidden,
+                                  None, self.devices, self.fused_plans)
+        logits = unembed(self.cfg, placed["last"], out)
+        return logits, {"k": ks, "v": vs, "length": s, "capacity": capacity}
+
+    def decode_step(self, placed: dict, cache: dict, token_ids: torch.Tensor) -> tuple:
+        """One decode position across the pipeline: (B,) token ids -> (logits
+        (B, V) float32, the cache with ``length + 1``; its rows written in
+        place). Each cut moves the (B, 1, D) hidden through its hop."""
+        self._check_decode_supported()
+        out = self._run_cached(placed, cache, token_ids.reshape(-1, 1), block_decode)
+        logits = unembed(self.cfg, placed["last"], out)[:, -1]
+        return logits, {**cache, "length": int(cache["length"]) + 1}
+
+    def decode_hop_bytes(self, batch: int) -> list:
+        """Payload bytes per hop of one decode step's (batch, 1, D) hidden."""
+        return hop_payload_bytes(self.codecs, self.cfg, batch, 1)
+
+    # ---------- speculative verify ----------
+
+    def verify_step(self, placed: dict, cache: dict, token_ids: torch.Tensor) -> tuple:
+        """Verify k drafted positions in one split pass: ``token_ids`` (B, k)
+        is the last committed token and the k - 1 drafts; each cut moves ONE
+        (B, k, D) block. All k K/V rows are written at ``length`` and the
+        returned cache claims them (``length + k``); the caller commits the
+        accepted prefix by rewriting ``length`` (rows past it are masked).
+        Returns (logits (B, k, V) float32, cache)."""
+        self._check_decode_supported()
+        out = self._run_cached(placed, cache, token_ids, block_verify)
+        logits = unembed(self.cfg, placed["last"], out)
+        return logits, {**cache, "length": int(cache["length"]) + token_ids.shape[1]}
+
+    def verify_hop_bytes(self, batch: int, k: int) -> list:
+        """Payload bytes per hop of one verify burst's (batch, k, D) block."""
+        return hop_payload_bytes(self.codecs, self.cfg, batch, k)

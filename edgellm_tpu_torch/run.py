@@ -21,15 +21,22 @@ Dispatch mirrors the reference:
 - ``experiment: "serve"`` with a ``batching`` block -> the continuous batcher
   behind the serving front (``prefix_cache`` and ``kv_at_rest`` too): seeded
   arrivals on a fake clock, ``serve_report.json`` and one JSON line
+- ``experiment: "serve"`` without ``batching`` -> the front's per-request
+  route through ``run_soak``: with ``cuts`` / ``hop_codecs`` every request
+  on a ``SplitRuntime`` (``generate_split``; ``speculative``: the draft /
+  verify burst loop), else on the single-device ``generate``; the identity
+  audit, ``serve_report.json`` and one JSON line
 
 A split config that carries a key of a split feature not ported yet
 (``UNPORTED_SPLIT_KEYS``: faults, healing, survivability, pipelining, the
-seq / data / model mesh axes) exits non-zero, and so do a serve config
-without ``batching`` (the per-request route) or with a key of a serve
-feature not ported yet (``UNPORTED_SERVE_KEYS``), and ``--serve-report``,
-each naming what is missing. ``fused_hops`` maps onto the
-``EDGELLM_FUSED_HOP`` gate as in the reference ("auto" fuses nowhere on the
-card yet: the port has no probe cache).
+seq / data / model mesh axes) exits non-zero, and so do a serve config with
+a key of a serve feature not ported yet (``UNPORTED_SERVE_KEYS``), ``cuts``
+beside ``batching`` (the split-paged batcher), the per-request route's
+recovery and chaos fields (``serving.checkpoint_dir``,
+``serving.step_deadline_s``, ``serving.soak.kill_stage``), and
+``--serve-report``, each naming what is missing. ``fused_hops`` maps onto
+the ``EDGELLM_FUSED_HOP`` gate as in the reference ("auto" fuses nowhere on
+the card yet: the port has no probe cache).
 
 Corpus input is a ``.npy``/``.npz`` of token ids, or a raw ``.txt`` plus
 ``--tokenizer`` (a local HF tokenizer path). Weights: ``--weights`` (a
@@ -40,6 +47,7 @@ card unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -53,11 +61,10 @@ NOT_PORTED = ()
 UNPORTED_SPLIT_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health",
                        "pipeline", "deadline", "stage_failure", "recovery",
                        "n_seq", "n_data", "n_model")
-#: serve keys whose feature is not ported yet (the split boundary, its links
-#: and fused hops, speculative decode, the fleet, µ-batch pipelining)
-UNPORTED_SERVE_KEYS = ("cuts", "hop_codecs", "fused_hops", "faults", "link_policy", "fec",
-                       "hedge", "link_health", "pipeline", "speculative", "cluster", "disagg",
-                       "gray")
+#: serve keys whose feature is not ported yet (the boundary's faulty links,
+#: µ-batch pipelining, the fleet); ``cuts`` is refused beside ``batching``
+UNPORTED_SERVE_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health", "pipeline",
+                       "cluster", "disagg", "gray")
 #: the fused_hops key's values onto the EDGELLM_FUSED_HOP gate ("auto" clears it)
 FUSED_HOP_ENV = {"off": "0", "wire": "wire", "remote": "remote"}
 
@@ -251,7 +258,7 @@ def _validate_params_json(p: dict, device="cuda") -> None:
     if exp == "split":
         _validate_split(p, die, device)
     if exp == "serve":
-        _validate_serve(p, die)
+        _validate_serve(p, die, device)
         return
     for key, msg in _ONLY_FOR:
         if key in p:
@@ -260,12 +267,18 @@ def _validate_params_json(p: dict, device="cuda") -> None:
 
 def _validate_split(p: dict, die, device) -> None:
     """The split branch: unported features die naming their key, then the
-    reference's checks of ``cuts`` and ``hop_codecs``, then the codecs'
-    resolution on ``device``."""
+    reference's checks of ``cuts``, ``hop_codecs`` and ``importance_method``,
+    then the codecs' resolution on ``device``."""
     for key in UNPORTED_SPLIT_KEYS:
         if key in p and not (key in ("n_seq", "n_data", "n_model") and p[key] == 1):
             die(f"{key} is not ported yet to edgellm_tpu_torch; drop it or run "
                 f"the split with python -m edgellm_tpu.run")
+    _validate_cuts(p, die, device)
+
+
+def _validate_cuts(p: dict, die, device) -> None:
+    """The reference's checks of ``cuts`` and ``hop_codecs`` (split and
+    serve), then the codecs' resolution on ``device``."""
     if not p["cuts"] or not all(isinstance(c, int) and not isinstance(c, bool)
                                 and c >= 0 for c in p["cuts"]):
         die(f"cuts must be a non-empty list of layer indices, got {p['cuts']!r}")
@@ -298,20 +311,17 @@ def _validate_split(p: dict, die, device) -> None:
         die(f"hop_codecs on {device}: {e}")
 
 
-def _validate_serve(p: dict, die) -> None:
-    """The serve branch: the per-request route and unported features die
-    naming what is missing, then the reference's checks of the ``serving``,
-    ``batching``, ``prefix_cache`` and ``kv_at_rest`` blocks, with its
+def _validate_serve(p: dict, die, device) -> None:
+    """The serve branch: unported features die naming what is missing, then
+    the reference's checks of ``cuts``, the ``serving``, ``batching``,
+    ``prefix_cache``, ``kv_at_rest`` and ``speculative`` blocks, with its
     messages."""
-    import dataclasses
-
-    if "batching" not in p:
-        die("experiment 'serve' is not ported yet without a 'batching' block (the "
-            "per-request generate route); add one or run with python -m edgellm_tpu.run")
     for key in UNPORTED_SERVE_KEYS:
         if key in p:
             die(f"{key} is not ported yet to edgellm_tpu_torch under experiment 'serve'; "
                 f"drop it or run with python -m edgellm_tpu.run")
+    if "cuts" in p:
+        _validate_cuts(p, die, device)
     from .serve.batching import BatchingConfig
     from .serve.frontend import ServeFrontConfig
     from .serve.overload import (AdmissionConfig, BreakerConfig, BrownoutConfig,
@@ -346,6 +356,27 @@ def _validate_serve(p: dict, die) -> None:
         _serve_front_config(sv)
     except (TypeError, ValueError) as e:
         die(f"serving: {e}")
+    ks = (sv.get("soak") or {}).get("kill_stage")
+    if ks is not None and "cuts" in p and ks > len(p["cuts"]):
+        die(f"serving.soak.kill_stage {ks} out of range for "
+            f"{len(p['cuts']) + 1} pipeline stage(s)")
+    if "batching" not in p:
+        for name in ("checkpoint_dir", "step_deadline_s"):
+            if sv.get(name) is not None:
+                die(f"serving.{name} (the per-request route's recovery) is not ported yet "
+                    f"to edgellm_tpu_torch; drop it or run with python -m edgellm_tpu.run")
+        if ks is not None:
+            die("serving.soak.kill_stage (stage loss) is not ported yet to "
+                "edgellm_tpu_torch; drop it or run with python -m edgellm_tpu.run")
+        for key, msg in (
+                ("prefix_cache", "prefix_cache rides the continuous batcher's paged pool — "
+                                 "add a 'batching' block"),
+                ("kv_at_rest", "kv_at_rest compresses the continuous batcher's paged pool "
+                               "— add a 'batching' block")):
+            if key in p:
+                die(msg)
+        _validate_speculative(p, die)
+        return
     b = p["batching"]
     if not isinstance(b, dict):
         die(f"batching must be an object of BatchingConfig fields, got {b!r}")
@@ -406,6 +437,38 @@ def _validate_serve(p: dict, die) -> None:
                                    or isinstance(kq["pool_bytes"], bool)
                                    or kq["pool_bytes"] < 1):
             die(f"kv_at_rest.pool_bytes must be a positive integer, got {kq['pool_bytes']!r}")
+    _validate_speculative(p, die)
+    if "cuts" in p:
+        die("cuts is not ported yet to edgellm_tpu_torch under experiment 'serve' with a "
+            "'batching' block (the split-paged batcher); drop one of the two or run with "
+            "python -m edgellm_tpu.run")
+
+
+def _validate_speculative(p: dict, die) -> None:
+    """The reference's checks of the ``speculative`` block."""
+    if "speculative" not in p:
+        return
+    from .serve.speculative import SpecConfig
+
+    if "cuts" not in p:
+        die("speculative decode verifies across the boundary — add 'cuts'/'hop_codecs'")
+    sp = p["speculative"]
+    if not isinstance(sp, dict):
+        die(f"speculative must be an object of SpecConfig fields, got {sp!r}")
+    fields = {f.name for f in dataclasses.fields(SpecConfig)}
+    bad = sorted(set(sp) - fields)
+    if bad:
+        die(f"speculative: unknown field(s) {bad}; known: {sorted(fields)}")
+    try:
+        sc = SpecConfig(**sp)
+    except (TypeError, ValueError) as e:
+        die(f"speculative: {e}")
+    if sc.enabled and p.get("fused_hops") == "remote":
+        die("speculative + fused_hops 'remote': forced remote fusion is unprobed at the "
+            "k-token verify shape — use 'auto' or 'off'")
+    if sc.enabled and "batching" in p:
+        die("speculative runs the one-stream spec loop; the batcher's ragged step verifies "
+            "one token per slot — drop 'speculative' or 'batching'")
 
 
 def _serve_front_config(sv: dict):
@@ -444,7 +507,8 @@ def batching_config(cfg, params_json: dict):
 
 
 def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
-    """The batched serve experiment, as the reference CLI runs it: a warm
+    """The batched serve experiment (a ``batching`` block), as the reference
+    CLI runs it: a warm
     batcher for the soak's prompt shape, then ``n_requests`` seeded arrivals
     (exponential gaps on a :class:`FakeClock`, prompts drawn from the soak's
     seed, a shared system prompt of ``shared_prefix_len`` tokens) submitted
@@ -506,6 +570,78 @@ def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
             f"prefix cache enabled with shared_prefix_len={soak.shared_prefix_len} but the "
             f"radix index never hit: {pf}")
     return {**summary, "_records": records, "_batcher": rep}
+
+
+def apply_fused_hops(params_json: dict) -> None:
+    """``fused_hops`` onto the ``EDGELLM_FUSED_HOP`` gate, before a runtime
+    resolves its fused plans: "auto" leaves the default (no fusion without
+    probe data), "off" pins the separate hop, "wire" / "remote" force a mode
+    (remote only on the card)."""
+    fused_hops = params_json.get("fused_hops")
+    if fused_hops == "auto":
+        os.environ.pop("EDGELLM_FUSED_HOP", None)
+    elif fused_hops is not None:
+        os.environ["EDGELLM_FUSED_HOP"] = FUSED_HOP_ENV[fused_hops]
+
+
+def run_serve_requests(cfg, params: dict, params_json: dict, out) -> dict:
+    """The serve experiment without ``batching``, as the reference CLI runs
+    it: a :class:`ServeFront` on a :class:`FakeClock`, with ``cuts`` over a
+    :class:`SplitRuntime` whose stages all sit on the weights' device (and
+    ``speculative`` its burst loop), else local; one warm ``generate`` (and
+    ``generate_split``) call at the soak's plan, then :func:`run_soak`.
+    Writes ``out("serve_report.json")`` (the soak's artifact, plus every
+    record, as the batched route writes them, and every served request's
+    ``tokens`` by request id) and returns the printed
+    summary line (the reference's keys) plus the artifact and the records
+    under ``"_artifact"`` / ``"_records"``."""
+    from .parallel.split import SplitConfig, SplitRuntime
+    from .serve.decode import generate, generate_split
+    from .serve.frontend import ServeFront
+    from .serve.soak import SoakConfig, run_soak
+    from .serve.speculative import SpecConfig
+    from .utils import prng
+    from .utils.clock import FakeClock
+
+    sv = params_json["serving"]
+    front_cfg = _serve_front_config(sv)
+    soak = SoakConfig(**sv.get("soak", {}))
+    clock = FakeClock()
+    rt = None
+    if "cuts" in params_json:
+        apply_fused_hops(params_json)
+        cuts = tuple(params_json["cuts"])
+        rt = SplitRuntime(cfg, SplitConfig(cuts=cuts, hop_codecs=tuple(params_json["hop_codecs"])),
+                          [params["embed"].device] * (len(cuts) + 1))
+    spec = SpecConfig(**params_json["speculative"]) if "speculative" in params_json else None
+    front = ServeFront(cfg, params, split_runtime=rt, config=front_cfg, clock=clock,
+                       speculative=spec)
+    # warm the soak's one (batch, capacity) plan: the virtual clock advances
+    # by measured service time, which a first call's kernel builds would skew
+    cr = front_cfg.capacity_round
+    capacity = -(-(soak.prompt_len + soak.max_new_tokens) // cr) * cr
+    warm_ids = np.zeros((1, soak.prompt_len), np.int32)
+    warm_kw = dict(capacity=capacity, temperature=soak.temperature, rng_key=prng.key(0))
+    generate(cfg, params, warm_ids, soak.max_new_tokens, **warm_kw)
+    if rt is not None:
+        if spec is not None and spec.enabled:
+            warm_kw["capacity"] = max(capacity,
+                                      soak.prompt_len + soak.max_new_tokens + spec.k - 2)
+        generate_split(rt, rt.place_params(params), warm_ids, soak.max_new_tokens,
+                       speculative=spec, raw_params=params, **warm_kw)
+    artifact = run_soak(front, soak, clock=clock)
+    artifact["records"] = [r.as_dict() for r in front.records]
+    artifact["tokens"] = {str(r.request_id): np.asarray(r.tokens).tolist()
+                          for r in front.records if r.tokens is not None}
+    with open(out("serve_report.json"), "w") as f:
+        json.dump(artifact, f, indent=1, default=float)
+    summary = {"requests": artifact["requests"], "outcomes": artifact["outcomes"],
+               "goodput_tokens_per_s": round(artifact["goodput_tokens_per_s"], 3),
+               "slo_attainment": artifact["slo_attainment"],
+               "p99_ttft_s": artifact["p99_ttft_s"],
+               "token_identity_ok": (artifact["token_identity"] or {}).get("ok"),
+               "artifact": out("serve_report.json")}
+    return {**summary, "_artifact": artifact, "_records": list(front.records)}
 
 
 def run_distances(cfg, params: dict, corpus: np.ndarray, params_json: dict, args, out,
@@ -610,8 +746,10 @@ def main(argv=None) -> int:
     os.makedirs(args.output_dir, exist_ok=True)
     out = lambda name: os.path.join(args.output_dir, name)
     if params_json.get("experiment") == "serve":
-        summary = run_serve(cfg, params, params_json, out)
-        print(json.dumps({k: v for k, v in summary.items() if not k.startswith("_")}))
+        run = run_serve if "batching" in params_json else run_serve_requests
+        summary = run(cfg, params, params_json, out)
+        print(json.dumps({k: v for k, v in summary.items() if not k.startswith("_")},
+                         default=float))
         return 0
     corpus = _load_corpus(args, cfg.vocab_size)
     if corpus.max() >= cfg.vocab_size or corpus.min() < 0:
@@ -642,15 +780,7 @@ def main(argv=None) -> int:
         print(json.dumps(run_distances(cfg, params, corpus, params_json, args, out, device)))
         return 0
     if experiment == "split":
-        # fused_hops maps onto the EDGELLM_FUSED_HOP gate before the runtime
-        # resolves its fused plans: "auto" leaves the default (no fusion
-        # without probe data), "off" pins the separate hop, "wire" / "remote"
-        # force a mode (remote only on the card)
-        fused_hops = params_json.get("fused_hops")
-        if fused_hops == "auto":
-            os.environ.pop("EDGELLM_FUSED_HOP", None)
-        elif fused_hops is not None:
-            os.environ["EDGELLM_FUSED_HOP"] = FUSED_HOP_ENV[fused_hops]
+        apply_fused_hops(params_json)
         result = run_split_eval(
             cfg, params, corpus, cuts=params_json["cuts"],
             hop_codecs=params_json["hop_codecs"], max_length=max_length,

@@ -1,9 +1,10 @@
-"""Serving, local batched route: the continuous batcher over the paged KV
-pool (``batching``), the single-stream ``generate`` (``decode``), the serving
-front and its overload controllers (``frontend``, ``overload``), and the
-soak definition (``soak``)."""
+"""Serving: the continuous batcher over the paged KV pool (``batching``), the
+single-stream ``generate`` and the split ``generate_split`` (``decode``),
+speculative decode across the split (``speculative``), the serving front and
+its overload controllers (``frontend``, ``overload``), and the deterministic
+soak (``soak``)."""
 from .batching import BatchingConfig, ContinuousBatcher, Stream
-from .decode import generate
+from .decode import generate, generate_split
 from .frontend import Request, RequestRecord, ServeFront, ServeFrontConfig
 from .overload import (AdmissionConfig, AdmissionController, AdmissionError, BreakerConfig,
                        BrownoutConfig, BrownoutController, CircuitBreaker, CircuitOpen,
@@ -11,15 +12,16 @@ from .overload import (AdmissionConfig, AdmissionController, AdmissionError, Bre
                        RetryBudgetExhausted, ServeFrontConfigError)
 from .recovery import (CheckpointError, CheckpointTierMismatchError, DecodeTimeout,
                        StageLostError, Watchdog)
-from .soak import SoakConfig
+from .soak import SoakConfig, run_soak
+from .speculative import SpecConfig, generate_speculative
 
 __all__ = [
-    "BatchingConfig", "ContinuousBatcher", "Stream", "generate",
+    "BatchingConfig", "ContinuousBatcher", "Stream", "generate", "generate_split",
     "Request", "RequestRecord", "ServeFront", "ServeFrontConfig",
     "AdmissionConfig", "AdmissionController", "AdmissionError", "BreakerConfig",
     "BrownoutConfig", "BrownoutController", "CircuitBreaker", "CircuitOpen",
     "DeadlineInfeasible", "QueueFull", "RetryBudget", "RetryBudgetConfig",
     "RetryBudgetExhausted", "ServeFrontConfigError",
     "CheckpointError", "CheckpointTierMismatchError", "DecodeTimeout", "StageLostError",
-    "Watchdog", "SoakConfig",
+    "Watchdog", "SoakConfig", "run_soak", "SpecConfig", "generate_speculative",
 ]

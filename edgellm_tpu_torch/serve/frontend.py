@@ -1,8 +1,10 @@
-"""The overload-robust serving front, batched route: PyTorch counterpart of
+"""The overload-robust serving front: PyTorch counterpart of
 ``edgellm_tpu/serve/frontend.py``.
 
-    submit(Request) -- admission --> bounded priority queue -- drain_batched()
-      --> ContinuousBatcher (one ragged step for every admitted stream)
+    submit(Request) -- admission --> bounded priority queue
+        -- drain()          --> one generate_split / generate call a request
+        -- drain_batched()  --> ContinuousBatcher (one ragged step for every
+                                admitted stream)
                       --> RequestRecord (typed outcome)
 
 Every refusal happens at submit with a typed reason (``queue_full``,
@@ -13,10 +15,14 @@ refuses with ``circuit_open``, and a prompt that does not fit the batcher's
 slot span is ``rejected`` with ``exceeds_slot_span``. Each completed
 stream's tokens are those of its solo ``generate`` run.
 
-Not ported yet: the per-request ``generate`` route (``drain``, ``_execute``,
-requests with a (B > 1, S) prompt), split-runtime installation and failover,
-link health, speculative decode, and the observability hooks (spans, the
-flight recorder, metrics publication, the live endpoint).
+The per-request route (``drain``) serves each request with one call: on the
+installed :class:`~..parallel.split.SplitRuntime` (``generate_split``, with
+``speculative`` the draft / verify burst loop) while the split's breakers
+allow it, else on the single-device ``generate`` (``local_fallback``).
+
+Not ported yet: the ``split_ladder``, link health, the per-request route's
+recovery (``checkpoint_dir``, ``step_deadline_s``) and the observability
+hooks (spans, the flight recorder, metrics publication, the live endpoint).
 """
 from __future__ import annotations
 
@@ -31,10 +37,13 @@ import numpy as np
 
 from ..utils.clock import MONOTONIC, Clock
 from ..utils.concurrency import guarded_by
+from ..utils import prng
+from .decode import generate, generate_split
 from .overload import (COMPLETED, FAILED, FAILED_OVER, REJECTED, SHED, TIMED_OUT,
                        AdmissionConfig, AdmissionController, AdmissionError, BreakerConfig,
                        BrownoutConfig, BrownoutController, CircuitBreaker, RetryBudget,
                        RetryBudgetConfig, ServeFrontConfigError)
+from .recovery import DecodeTimeout, StageLostError
 
 __all__ = ["Request", "RequestRecord", "ServeFrontConfig", "ServeFront"]
 
@@ -71,7 +80,7 @@ class RequestRecord:
     request_id: int
     outcome: str
     reason: str
-    backend: Optional[str]          # "batched" | None (never ran)
+    backend: Optional[str]          # "split" | "local" | "batched" | None (never ran)
     priority: int
     submitted_at: float
     started_at: Optional[float]
@@ -104,8 +113,12 @@ class RequestRecord:
 @dataclasses.dataclass(frozen=True)
 class ServeFrontConfig:
     """Everything the front's controllers need (the reference's fields).
-    ``checkpoint_dir`` / ``checkpoint_every`` / ``step_deadline_s`` arm the
-    per-request route's recovery, which is not ported yet."""
+    ``capacity_round`` buckets each per-request cache capacity;
+    ``local_fallback`` lets the per-request route serve on the single-device
+    ``generate`` when the split's breakers refuse; ``replan_on_stage_loss``
+    re-plans the split onto the surviving stages. ``checkpoint_dir`` /
+    ``checkpoint_every`` / ``step_deadline_s`` arm the per-request route's
+    recovery, which is not ported yet: ``drain`` refuses them."""
 
     admission: AdmissionConfig = dataclasses.field(default_factory=AdmissionConfig)
     breaker: BreakerConfig = dataclasses.field(default_factory=BreakerConfig)
@@ -146,6 +159,10 @@ class _Pending:
     granted: int
     est_s: float
     submitted_at: float
+
+
+def _round_up(n: int, quantum: int) -> int:
+    return ((n + quantum - 1) // quantum) * quantum
 
 
 class _Histogram:
@@ -197,19 +214,22 @@ class _Histogram:
 @guarded_by("_submit_lock", fields=["_seq", "_queue", "_backlog_s", "_inflight_rids",
                                     "_agg", "records"])
 class ServeFront:
-    """The serving front over a continuous batcher: ``submit`` admits,
-    :meth:`drain_batched` executes, every terminal state becomes a
-    :class:`RequestRecord` in ``records``."""
+    """The serving front: ``submit`` admits, :meth:`drain` (one generate
+    call a request, on ``split_runtime`` when given) or
+    :meth:`drain_batched` (the continuous batcher) executes, every terminal
+    state becomes a :class:`RequestRecord` in ``records``. ``speculative``
+    (a :class:`~.speculative.SpecConfig`) runs every split-served request
+    through the draft / verify burst loop."""
 
     def __init__(self, model_cfg: Any, params: dict, *, split_runtime: Any = None,
                  split_ladder: Any = None, config: Optional[ServeFrontConfig] = None,
                  link_health: Any = None, compute_dtype: Any = None, batcher: Any = None,
                  speculative: Any = None, clock: Clock = MONOTONIC):
-        for name, value in (("split_runtime", split_runtime), ("split_ladder", split_ladder),
-                            ("link_health", link_health), ("speculative", speculative)):
+        for name, value in (("split_ladder", split_ladder), ("link_health", link_health)):
             if value is not None:
                 raise ServeFrontConfigError(f"ServeFront {name} {_NOT_PORTED}")
         self.batcher = batcher
+        self.speculative = speculative
         self.model_cfg = model_cfg
         self.config = config if config is not None else ServeFrontConfig()
         self.clock = clock
@@ -230,10 +250,39 @@ class ServeFront:
         self._inflight_rids: set = set()
         self.failovers = 0
         self._plans: dict = {}
+        self._rt = None
+        self._placed = None
+        self._split_names: tuple = ()
         self._breakers = {"local": CircuitBreaker("local", self.config.breaker, clock=clock)}
+        if split_runtime is not None:
+            self._install_runtime(split_runtime)
+
+    # -- runtime management ------------------------------------------------
+
+    def _install_runtime(self, rt: Any) -> None:
+        """Serve on ``rt``: its placed weights, and fresh closed breakers for
+        the split, each stage and each link."""
+        self._rt = rt
+        self._placed = rt.place_params(self._params)
+        names = (["split"] + [f"stage{i}" for i in range(rt.split.n_stages)]
+                 + [f"link{i}" for i in range(len(rt.split.cuts))])
+        for n in self._split_names:
+            self._breakers.pop(n, None)
+        self._split_names = tuple(names)
+        for n in names:
+            self._breakers[n] = CircuitBreaker(n, self.config.breaker, clock=self.clock)
+
+    def _walk_ladder(self) -> None:
+        """Serve from the ladder entry the tier signals point at: without a
+        ladder (the port has none yet), nothing to walk."""
+
+    @property
+    def split_runtime(self) -> Any:
+        return self._rt
 
     @property
     def params(self) -> dict:
+        """The raw (unplaced) weights the front serves with."""
         return self._params
 
     @property
@@ -322,8 +371,141 @@ class ServeFront:
         return out
 
     def drain(self, max_requests: Optional[int] = None) -> list:
-        raise NotImplementedError(f"the per-request generate route (drain) {_NOT_PORTED}; "
-                                  f"use drain_batched with a ContinuousBatcher")
+        """Execute queued requests in (priority, deadline) order, one
+        generate call each; returns the records produced by this call."""
+        for name in ("checkpoint_dir", "step_deadline_s"):
+            if getattr(self.config, name) is not None:
+                raise ServeFrontConfigError(
+                    f"ServeFrontConfig {name} (the per-request route's recovery) {_NOT_PORTED}")
+        out: list = []
+        while max_requests is None or len(out) < max_requests:
+            pend = self._pop_pending()
+            if pend is None:
+                break
+            self.brownout.observe(len(self._queue) / self.admission.cfg.max_queue_depth)
+            out.append(self._execute(pend))
+        return out
+
+    def _execute(self, p: _Pending) -> RequestRecord:
+        """One request's terminal execution: the reference's ``_execute_impl``
+        (its ``_execute`` only binds the trace context; the port has no
+        tracing yet)."""
+        now = self.clock()
+        wait = now - p.submitted_at
+        b, s = p.prompt.shape
+        d = p.req.deadline_s
+        if d is not None and wait >= d:
+            return self._finish(p.rid, p.req, b, s, TIMED_OUT, "expired_in_queue",
+                                p.submitted_at, queue_wait_s=wait)
+        if d is not None and not self.admission.feasible(s, p.granted, d - wait):
+            return self._finish(p.rid, p.req, b, s, SHED, "deadline_infeasible_in_queue",
+                                p.submitted_at, queue_wait_s=wait)
+        self._walk_ladder()
+        backend, route_note = self._choose_route()
+        if backend is None:
+            return self._finish(p.rid, p.req, b, s, REJECTED, route_note or "circuit_open",
+                                p.submitted_at, queue_wait_s=wait)
+        capacity = _round_up(s + p.granted, self.config.capacity_round)
+        try:
+            toks, stats = self._run(p, backend, capacity)
+            attempt2 = False
+        except StageLostError as e:
+            self._on_stage_loss(e.stage)
+            backend, _ = self._choose_route()
+            if backend is None:
+                return self._finish(p.rid, p.req, b, s, FAILED, f"stage_lost:{e.stage}",
+                                    p.submitted_at, queue_wait_s=wait, backend=None,
+                                    started_at=now)
+            try:
+                toks, stats = self._run(p, backend, capacity)
+                attempt2 = True
+                route_note = f"stage_lost:{e.stage}"
+            except (StageLostError, DecodeTimeout) as e2:
+                reason = (f"stage_lost:{e2.stage}" if isinstance(e2, StageLostError)
+                          else "watchdog")
+                return self._finish(p.rid, p.req, b, s, FAILED, reason, p.submitted_at,
+                                    queue_wait_s=wait, backend=backend, started_at=now)
+        service = stats.get("prefill_s", 0.0) + stats.get("decode_s", 0.0)
+        self.admission.record(s, stats.get("prefill_s", 0.0), stats.get("decode_steps", 0),
+                              stats.get("decode_s", 0.0))
+        if backend == "split":
+            self._breakers["split"].record_success()
+            for i in range(self._rt.split.n_stages):
+                self._breakers[f"stage{i}"].record_success()
+        else:
+            self._breakers["local"].record_success()
+        if attempt2:
+            outcome, reason = FAILED_OVER, route_note
+        else:
+            outcome, reason = COMPLETED, (route_note or "")
+        plan = ({"mode": "split", "cuts": list(self._rt.split.cuts),
+                 "hop_codecs": list(self._rt.split.hop_codecs)}
+                if backend == "split" else {"mode": "local"})
+        key = (b, capacity)
+        self._plans[key] = self._plans.get(key, 0) + 1
+        return self._finish(
+            p.rid, p.req, b, s, outcome, reason, p.submitted_at, queue_wait_s=wait,
+            backend=backend, started_at=now, ttft_s=wait + stats.get("prefill_s", 0.0),
+            service_s=service, latency_s=wait + service, granted_tokens=p.granted,
+            capacity=capacity, plan=plan, jit_misses=stats.get("decode_step_cache_misses"),
+            tokens=np.asarray(toks.cpu()))
+
+    # -- routing + backends ------------------------------------------------
+
+    def _choose_route(self):
+        """Pick a backend the breakers allow -> (backend, note): the note
+        names why the split was skipped. (The retry-budget gate of the
+        reference belongs to the faulty link, which the port has not yet.)"""
+        note = None
+        if self._rt is not None:
+            if all(self._breakers[n].allow() for n in self._split_names):
+                return "split", None
+            note = "circuit_open"
+            if self.config.local_fallback and self._breakers["local"].allow():
+                return "local", note
+            return None, note
+        if self._breakers["local"].allow():
+            return "local", None
+        return None, "circuit_open"
+
+    def _run(self, p: _Pending, backend: str, capacity: int):
+        """One generation attempt -> (tokens, stats)."""
+        stats: dict = {}
+        key = prng.key(p.req.rng_seed)
+        if backend == "split":
+            if self.speculative is not None and self.speculative.enabled:
+                # a verify burst may write k - 1 draft rows past the vanilla
+                # high-water mark
+                capacity = max(capacity, p.prompt.shape[1] + p.granted + self.speculative.k - 2)
+            toks = generate_split(self._rt, self._placed, p.prompt, p.granted,
+                                  capacity=capacity, temperature=p.req.temperature,
+                                  rng_key=key, stats=stats, raw_params=self._params,
+                                  speculative=self.speculative)
+        else:
+            toks = generate(self.model_cfg, self._params, p.prompt, p.granted,
+                            capacity=capacity, temperature=p.req.temperature, rng_key=key,
+                            compute_dtype=self.compute_dtype, stats=stats)
+        return toks, stats
+
+    def _on_stage_loss(self, stage: int) -> None:
+        """Trip the breakers, then route around: re-plan the split onto the
+        surviving stages' devices (>= 2 left) or leave the open breakers to
+        force the local fallback."""
+        self.failovers += 1
+        if f"stage{stage}" in self._breakers:
+            self._breakers[f"stage{stage}"].trip()
+        self._breakers["split"].record_failure()
+        if not self.config.replan_on_stage_loss or self._rt is None:
+            return
+        devices = list(self._rt.devices)
+        if not (0 <= stage < len(devices)) or len(devices) - 1 < 2:
+            return
+        from ..parallel.split import SplitRuntime
+
+        survivors = devices[:stage] + devices[stage + 1:]
+        cfg = self._rt.cfg
+        new_split = self._rt.split.replan(cfg.num_layers, len(survivors))
+        self._install_runtime(SplitRuntime(cfg, new_split, survivors))
 
     def drain_batched(self, max_requests: Optional[int] = None,
                       max_steps: int = 100_000) -> list:
@@ -350,10 +532,9 @@ class ServeFront:
                                         "expired_in_queue", pend.submitted_at,
                                         queue_wait_s=wait))
                 continue
-            if b != 1:
-                raise NotImplementedError(
-                    f"a (B={b}, S) prompt needs the per-request generate route, which "
-                    f"{_NOT_PORTED}")
+            if b != 1:  # the batcher serves single streams: one-shot route
+                out.append(self._execute(pend))
+                continue
             if not self._breakers["local"].allow():
                 out.append(self._finish(pend.rid, pend.req, b, s, REJECTED, "circuit_open",
                                         pend.submitted_at, queue_wait_s=wait))

@@ -1,14 +1,39 @@
-"""The soak definition of ``edgellm_tpu/serve/soak.py``: :class:`SoakConfig`,
-which the serve CLI reads from ``serving.soak`` (seeded open-loop arrivals,
-prompt shape, shared system prompt, deadline, temperature). ``run_soak`` and
-its identity verifier drive the per-request route and are not ported yet.
+"""The deterministic soak of the serving front: PyTorch counterpart of
+``edgellm_tpu/serve/soak.py``'s :class:`SoakConfig` and :func:`run_soak`.
+
+An open-loop workload (seeded Poisson arrivals on a virtual clock) pushed
+through a :class:`~.frontend.ServeFront`'s per-request route, and an
+artifact out the other side: goodput, SLO attainment, reject and shed
+rates, p99 TTFT, the retry-budget account, and an identity audit of every
+``completed`` request against a replay on a clean runtime of the same plan.
+
+- Time is a :class:`~..utils.clock.FakeClock`: arrivals, deadlines and
+  breaker timeouts live on the virtual timeline, and after each served
+  request the clock advances by its *measured* service time.
+- The workload is ``numpy.default_rng(seed)``: interarrival gaps, prompts
+  and priorities replay bit for bit from ``SoakConfig.seed``, the
+  reference's draws in the reference's order.
+
+Not ported yet: the scheduled chaos (``kill_stage`` needs stage loss, the
+corruption burst ``burst_runtime=`` needs faulty links) and the flight
+recorder (the artifact's ``flight_dumps`` is None).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
-__all__ = ["SoakConfig"]
+import numpy as np
+
+from ..utils import prng
+from ..utils.clock import FakeClock
+from .decode import generate, generate_split
+from .frontend import Request, ServeFront
+from .overload import COMPLETED, REJECTED, SHED
+
+__all__ = ["SoakConfig", "run_soak"]
+
+_NOT_PORTED = "is not ported yet to edgellm_tpu_torch"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,3 +76,152 @@ class SoakConfig:
             raise ValueError(
                 f"shared_prefix_len must be in [0, prompt_len="
                 f"{self.prompt_len}], got {self.shared_prefix_len}")
+
+
+def _plan_key(plan: Optional[dict]) -> tuple:
+    if plan is None or plan.get("mode") != "split":
+        return ("local",)
+    return ("split", tuple(plan["cuts"]), tuple(plan["hop_codecs"]))
+
+
+class _IdentityVerifier:
+    """Streaming identity audit: each completed record is replayed on a
+    clean same-plan runtime as it drains, and only counters survive.
+    ``plan_devices`` maps split plan keys to the (SplitConfig, stage
+    devices) that served them (captured when each plan first serves)."""
+
+    #: keep at most this many mismatching request ids for the artifact
+    MAX_MISMATCH_IDS = 32
+
+    def __init__(self, front: ServeFront, plan_devices: dict):
+        self.front = front
+        self.plan_devices = plan_devices
+        self._ref_runners: dict = {}
+        self.checked = 0
+        self.matched = 0
+        self.mismatched_ids: list = []
+
+    def check(self, r: Any, prompt: np.ndarray, temperature: float) -> None:
+        from ..parallel.split import SplitConfig, SplitRuntime
+
+        if r.outcome != COMPLETED or r.tokens is None:
+            return
+        key = _plan_key(r.plan)
+        if key not in self._ref_runners:
+            if key[0] == "local":
+                self._ref_runners[key] = None
+            else:
+                split, devices = self.plan_devices[key]
+                clean = SplitRuntime(self.front.model_cfg,
+                                     SplitConfig(cuts=split.cuts, hop_codecs=split.hop_codecs),
+                                     devices)
+                self._ref_runners[key] = (clean, clean.place_params(self.front.params))
+        runner = self._ref_runners[key]
+        rng = prng.key(0)  # the soak submits every request with seed 0
+        if runner is None:
+            ref = generate(self.front.model_cfg, self.front.params, prompt, r.granted_tokens,
+                           capacity=r.capacity, temperature=temperature, rng_key=rng,
+                           compute_dtype=self.front.compute_dtype)
+        else:
+            clean, placed = runner
+            # the replay runs the decode algorithm the front ran (a
+            # speculative front samples through residual resampling), with
+            # the front's capacity bump: the record keeps the bucketed value
+            spec = self.front.speculative
+            spec_kw: dict = {}
+            cap = r.capacity
+            if spec is not None and spec.enabled:
+                spec_kw = {"speculative": spec, "raw_params": self.front.params}
+                cap = max(cap, prompt.shape[1] + r.granted_tokens + spec.k - 2)
+            ref = generate_split(clean, placed, prompt, r.granted_tokens, capacity=cap,
+                                 temperature=temperature, rng_key=rng, **spec_kw)
+        self.checked += 1
+        if np.array_equal(np.asarray(ref.cpu()), r.tokens):
+            self.matched += 1
+        elif len(self.mismatched_ids) < self.MAX_MISMATCH_IDS:
+            self.mismatched_ids.append(r.request_id)
+
+    def summary(self) -> dict:
+        return {"checked": self.checked, "matched": self.matched,
+                "ok": self.checked == self.matched,
+                "mismatched_ids": list(self.mismatched_ids)}
+
+
+def run_soak(front: ServeFront, soak: SoakConfig, *, clock: FakeClock,
+             burst_runtime: Any = None) -> dict:
+    """Run one deterministic soak through ``front.drain`` -> the artifact
+    dict (the reference's keys). ``front`` must be freshly built on
+    ``clock``: the soak owns the virtual timeline, and the artifact's rates
+    assume the front's records are this soak's."""
+    if not isinstance(clock, FakeClock):
+        raise TypeError("run_soak needs the front's FakeClock — the soak owns the "
+                        "virtual timeline")
+    if soak.kill_stage is not None:
+        raise ValueError(f"SoakConfig kill_stage (stage loss) {_NOT_PORTED}")
+    if burst_runtime is not None:
+        raise ValueError(f"run_soak burst_runtime= (faulty links) {_NOT_PORTED}")
+    rng = np.random.default_rng(soak.seed)
+    n = soak.n_requests
+    arrive_t = clock.now + np.cumsum(rng.exponential(1.0 / soak.arrival_rate, n))
+    vocab = front.model_cfg.vocab_size
+    prompts = rng.integers(0, vocab, (n, soak.prompt_len), dtype=np.int32)
+    if soak.shared_prefix_len:
+        # drawn AFTER the matrix, as in the reference
+        prompts[:, :soak.shared_prefix_len] = rng.integers(
+            0, vocab, soak.shared_prefix_len, dtype=np.int32)
+    priorities = rng.integers(0, soak.priority_levels, n)
+
+    submitted: dict = {}       # in-flight request id -> (prompt, temperature)
+    plan_devices: dict = {}    # split plan key -> (SplitConfig, stage devices)
+    verifier = _IdentityVerifier(front, plan_devices) if soak.verify_identity else None
+    max_call = 0               # largest retries_charged on any one record
+    start_s = clock.now
+    i = 0
+    while i < n or front.queue_depth:
+        if front.queue_depth == 0 and i < n and clock.now < arrive_t[i]:
+            clock.set_time(float(arrive_t[i]))
+        while i < n and arrive_t[i] <= clock.now:
+            rid, refusal = front.submit_ex(Request(
+                prompt_ids=prompts[i], max_new_tokens=soak.max_new_tokens,
+                priority=int(priorities[i]), deadline_s=soak.deadline_s,
+                temperature=soak.temperature, rng_seed=0))
+            if refusal is None:
+                submitted[rid] = (prompts[i][None, :], soak.temperature)
+            i += 1
+        for rec in front.drain(max_requests=1):
+            if rec.service_s is not None:
+                clock.advance(rec.service_s)
+            if rec.plan is not None and rec.plan.get("mode") == "split":
+                key = _plan_key(rec.plan)
+                if key not in plan_devices:
+                    rt = front.split_runtime
+                    plan_devices[key] = (rt.split, rt.devices)
+            max_call = max(max_call, rec.retries_charged)
+            meta = submitted.pop(rec.request_id, None)
+            if verifier is not None and meta is not None:
+                verifier.check(rec, meta[0], meta[1])
+    span_s = max(clock.now - start_s, 1e-9)
+
+    report = front.report()
+    outcomes = report["outcomes"]
+    budget = report["retry_budget"]
+    budget_bound = budget["capacity"] + budget["refill_per_s"] * span_s + max_call
+    return {
+        "soak": dataclasses.asdict(soak),
+        "virtual_span_s": span_s,
+        "requests": n,
+        "outcomes": outcomes,
+        "goodput_tokens_per_s": report["tokens_out"] / span_s,
+        "slo_attainment": report["slo_attainment"],
+        "reject_rate": outcomes.get(REJECTED, 0) / n,
+        "shed_rate": outcomes.get(SHED, 0) / n,
+        "p99_ttft_s": (report["ttft_s"] or {}).get("p99"),
+        "p99_latency_s": (report["latency_s"] or {}).get("p99"),
+        "kill": None,
+        "burst": None,
+        "retry_budget": {**budget, "max_single_call": max_call,
+                         "within_budget": budget["spent"] <= budget_bound},
+        "token_identity": verifier.summary() if verifier is not None else None,
+        "flight_dumps": None,
+        "report": report,
+    }

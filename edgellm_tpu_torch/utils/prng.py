@@ -83,14 +83,20 @@ _ONE_BITS = int(np.array(1.0, np.float32).view(np.uint32))
 _TINY = float(np.finfo(np.float32).tiny)
 
 
+def uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,))`` for each key -> (N, n) float32 in
+    [0, 1): the top 23 random bits as the mantissa of a float in [1, 2),
+    minus 1. Element 0 is the draw of a shape-() ``uniform(key)``."""
+    bits = (random_bits(keys, n) >> 9) | _ONE_BITS
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
 def uniform_tiny(keys: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.uniform(key, (n,), minval=tiny, maxval=1.0)`` for each
     key -> (N, n) float32, the draw ``jax.random.gumbel`` makes."""
-    bits = (random_bits(keys, n) >> 9) | _ONE_BITS
-    floats = bits.to(torch.int32).view(torch.float32) - 1.0
     tiny = torch.tensor(_TINY, dtype=torch.float32, device=keys.device)
     # floats * (maxval - minval) + minval, with maxval - minval == 1.0 in fp32
-    return torch.maximum(tiny, floats + tiny)
+    return torch.maximum(tiny, uniform(keys, n) + tiny)
 
 
 def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
@@ -98,7 +104,11 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     token ids, the argmax of the logits plus Gumbel noise. With (N, 2) keys
     row i draws from key i (the batcher's per-slot keys); with one (1, 2)
     key the noise is one draw over the flat (N, V) shape, as
-    ``categorical(key, logits)`` with (N, V) logits draws it."""
+    ``categorical(key, logits)`` with (N, V) logits draws it. (V,) logits
+    with one key give a 0-dim id, the draw of (1, V); ``-inf`` logits are
+    never drawn."""
+    if logits.dim() == 1:
+        return categorical(keys, logits[None])[0]
     n, v = logits.shape
     if keys.shape[0] == n:
         u = uniform_tiny(keys, v)
@@ -110,4 +120,5 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(gumbel + logits, dim=-1)
 
 
-__all__ = ["key", "threefry2x32", "fold_in", "random_bits", "uniform_tiny", "categorical"]
+__all__ = ["key", "threefry2x32", "fold_in", "random_bits", "uniform", "uniform_tiny",
+           "categorical"]

@@ -129,8 +129,11 @@ def test_every_config_is_accepted_or_named_not_ported(config):
     exp = p.get("experiment", "")
     unported_split = exp == "split" and any(
         k in p and p[k] != 1 for k in trun.UNPORTED_SPLIT_KEYS)
+    soak = p.get("serving", {}).get("soak", {})
     unported_serve = exp == "serve" and (
-        "batching" not in p or any(k in p for k in trun.UNPORTED_SERVE_KEYS))
+        any(k in p for k in trun.UNPORTED_SERVE_KEYS)
+        or ("cuts" in p and "batching" in p)
+        or ("batching" not in p and soak.get("kill_stage") is not None))
     if exp in trun.NOT_PORTED or "observability" in p or unported_split or unported_serve:
         with pytest.raises(SystemExit, match="not ported yet"):
             trun._validate_params_json(p)
@@ -140,14 +143,17 @@ def test_every_config_is_accepted_or_named_not_ported(config):
 
 @pytest.mark.parametrize("experiment", ["serve"])
 def test_unported_experiments_exit_nonzero_naming_them(experiment, tmp_path):
+    """A serve config with a feature still to port (the faulty link under
+    the per-request split route) exits non-zero naming it."""
     params = json.dumps({"experiment": experiment, "cuts": [1], "hop_codecs": ["fp32"],
-                         "serving": {}})
+                         "faults": {"drop_rate": 0.05}, "serving": {}})
     proc = subprocess.run(
         [sys.executable, "-m", "edgellm_tpu_torch.run", "--params", params,
          "--model", "tiny-qwen2", "--device", "cpu", "--output-dir", str(tmp_path)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
-    assert f"experiment {experiment!r} is not ported yet" in proc.stderr
+    assert (f"faults is not ported yet to edgellm_tpu_torch under experiment {experiment!r}"
+            in proc.stderr)
 
 
 #: the shipped split configs' shapes at tiny-model depth (cuts within 6 layers)
@@ -316,6 +322,15 @@ split = run_split_eval(cfg, params, np.arange(100) % 256, cuts=[1, 3],
                        device="cpu")
 assert np.isfinite(split["ppl"])
 import edgellm_tpu_torch.serve.frontend, edgellm_tpu_torch.serve.soak
+import edgellm_tpu_torch.serve.speculative
+from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime
+from edgellm_tpu_torch.serve import ServeFront, SoakConfig, SpecConfig, run_soak
+from edgellm_tpu_torch.utils.clock import FakeClock
+rt = SplitRuntime(cfg, SplitConfig((2,), ("int8_per_token",)), ["cpu", "cpu"])
+clock = FakeClock()
+art = run_soak(ServeFront(cfg, params, split_runtime=rt, clock=clock, speculative=SpecConfig(k=3)),
+               SoakConfig(n_requests=2, max_new_tokens=5), clock=clock)
+assert art["outcomes"] == {"completed": 2} and art["token_identity"]["ok"]
 from edgellm_tpu_torch.serve import BatchingConfig, ContinuousBatcher
 b = ContinuousBatcher(cfg, params, BatchingConfig(page_size=8, num_pages=8, max_slots=2,
                                                   pages_per_slot=2, kv_codec="int4_per_channel"))
@@ -368,6 +383,15 @@ def test_entry_points_default_to_cuda():
                safetensors_io.load_checkpoint, split_eval.run_split_eval,
                relevance.run_relevance_extraction, distances.layer_importance_distributions):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    # the per-request route takes its device from the runtime and the
+    # weights it is given: no entry point of it defaults to the CPU
+    from edgellm_tpu_torch.serve import decode, soak, speculative
+
+    for mod in (decode, soak, speculative):
+        for name, fn in inspect.getmembers(mod, inspect.isfunction):
+            if fn.__module__ == mod.__name__:
+                dev = inspect.signature(fn).parameters.get("device")
+                assert dev is None or dev.default in ("cuda", inspect.Parameter.empty), name
     from edgellm_tpu_torch.models import PRESETS
     from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime
 
@@ -380,6 +404,54 @@ def test_entry_points_default_to_cuda():
          "--model", "tiny-qwen2"], cwd=REPO, capture_output=True, text=True, timeout=120,
         env=env)
     assert proc.returncode != 0 and "--device cpu" in proc.stderr
+
+
+#: configs/split11_qwen_spec.json's keys at hf_checkpoint's depth (4 layers:
+#: cut 2, as SPLIT_CLI cuts the split configs), fewer requests for time, and
+#: arrivals 20 virtual seconds apart: the virtual clock advances by measured
+#: service time, so denser arrivals would queue (and shed) by the host's load
+SPLIT11_CLI = {"cuts": [2], "serving": {"soak": {"n_requests": 8, "arrival_rate": 0.05}}}
+
+
+@pytest.mark.parametrize("speculative", [True, False])
+def test_cli_split11_per_request_route_matches_reference(speculative, hf_checkpoint, tmp_path,
+                                                         capsys, monkeypatch):
+    """split11 through both CLIs on one checkpoint (and without its
+    ``speculative`` block, the vanilla per-request split route): the same
+    ``requests``, ``outcomes`` and ``token_identity_ok``, and every
+    request's tokens in the port's ``serve_report.json`` equal to the
+    reference front's records. Timings are not compared."""
+    from edgellm_tpu.serve import soak as jsoak
+
+    p = json.loads((REPO / "configs/split11_qwen_spec.json").read_text())
+    p["cuts"] = SPLIT11_CLI["cuts"]
+    p["serving"]["soak"].update(SPLIT11_CLI["serving"]["soak"])
+    if not speculative:
+        del p["speculative"]
+    trun._validate_params_json(p, "cuda")
+    fronts = []
+    real = jsoak.run_soak
+
+    def keep_front(front, soak, **kw):
+        fronts.append(front)
+        return real(front, soak, **kw)
+
+    monkeypatch.setattr(jsoak, "run_soak", keep_front)
+    argv = ["--params", json.dumps(p), "--weights", str(hf_checkpoint)]
+    assert trun.main(argv + ["--device", "cpu", "--output-dir", str(tmp_path / "t")]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert jrun.main(argv + ["--output-dir", str(tmp_path / "j")]) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(got) == set(want)
+    for key in ("requests", "outcomes", "token_identity_ok"):
+        assert got[key] == want[key], key
+    assert got["outcomes"] == {"completed": 8} and got["token_identity_ok"] is True
+    saved = json.loads((tmp_path / "t" / "serve_report.json").read_text())
+    want_toks = {str(r.request_id): np.asarray(r.tokens).tolist() for r in fronts[0].records}
+    assert saved["tokens"] == want_toks and len(want_toks) == 8
+    assert saved["token_identity"]["checked"] == 8
+    if speculative:
+        assert saved["soak"]["temperature"] == 0.7  # the residual-resampling branch
 
 
 #: the relevance run both CLI tests below read: hf_checkpoint's weights, the

@@ -297,3 +297,74 @@ def test_chunk_relevance_on_card_matches_cpu(card):
     assert torch.equal(tokens.cpu(), want_tokens)
     assert got.shape == (3, 14)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-6 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("codec,atol", [("fp32", 1e-4), ("int8_per_token", 1e-3)])
+def test_generate_split_on_card_matches_cpu(card, codec, atol):
+    """Split decode at Qwen2-0.5B width, 3 layers, cut 1: the teacher-forced
+    prefill, decode-step and verify-burst logits on the card (fp32 K-attn,
+    K3 / K4 on the int8 hop) against the CPU (plain versions), and greedy
+    ``generate_split`` tokens, vanilla and speculative, identical."""
+    from edgellm_tpu_torch.codecs import codec_kernels as ck
+    from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime
+    from edgellm_tpu_torch.serve.decode import generate_split
+    from edgellm_tpu_torch.serve.speculative import SpecConfig
+
+    cfg, params, params_cpu = _qwen_width_3_layers(card)
+    ids = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 14))
+    got = {}
+    for dev, p in ((card, params), ("cpu", params_cpu)):
+        rt = SplitRuntime(cfg, SplitConfig((1,), (codec,)), [dev, dev])
+        placed = rt.place_params(p)
+        tids = torch.from_numpy(ids).to(dev)
+        n3 = ck.int8_affine_encode.launches
+        pre, cache = rt.prefill_decode(placed, tids[:, :8], 24)
+        logits = [pre[:, -1]]
+        for t in range(8, 11):
+            step, cache = rt.decode_step(placed, cache, tids[:, t])
+            logits.append(step)
+        burst, cache = rt.verify_step(placed, cache, tids[:, 11:14])
+        hops = ck.int8_affine_encode.launches - n3
+        assert hops == (5 if dev == card and codec == "int8_per_token" else 0)
+        assert cache["length"] == 14 and all(k.device.type == torch.device(dev).type
+                                             for k in cache["k"])
+        got[dev] = (torch.cat([torch.stack(logits, 1), burst], 1).cpu(),
+                    generate_split(rt, placed, ids[:1, :8], 10, capacity=24).cpu(),
+                    generate_split(rt, placed, ids[:1, :8], 10, capacity=24,
+                                   speculative=SpecConfig(k=4), raw_params=p).cpu())
+    torch.testing.assert_close(got[card][0], got["cpu"][0], atol=atol, rtol=0)
+    assert torch.equal(got[card][1], got["cpu"][1])
+    assert torch.equal(got[card][2], got["cpu"][2]) and torch.equal(got[card][2], got[card][1])
+
+
+def test_decode_and_verify_hops_reach_k3_contiguous(card, monkeypatch):
+    """K3 reads a CUDA hidden's rows in place: the split prefill's (1, 8, D),
+    a decode step's (1, 1, D) and a verify burst's (1, 4, D) stage outputs
+    reach it contiguous, and a strided hidden is refused, not copied."""
+    from edgellm_tpu_torch.codecs import codec_kernels as ck
+    from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime
+    from edgellm_tpu_torch.parallel import split as split_mod
+
+    cfg, params, _ = _qwen_width_3_layers(card)
+    rt = SplitRuntime(cfg, SplitConfig((1,), ("int8_per_token",)), [card, card])
+    placed = rt.place_params(params)
+    seen = []
+    real = split_mod._hop
+
+    def spy(codec, hidden, imp, dst):
+        seen.append((tuple(hidden.shape), hidden.is_contiguous()))
+        return real(codec, hidden, imp, dst)
+
+    monkeypatch.setattr(split_mod, "_hop", spy)
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 12))).to(card)
+    n3 = ck.int8_affine_encode.launches
+    _, cache = rt.prefill_decode(placed, ids[:, :8], 16)
+    _, cache = rt.decode_step(placed, cache, ids[:, 8])
+    rt.verify_step(placed, cache, ids[:, 8:12])
+    d = cfg.hidden_size
+    assert seen == [((1, 8, d), True), ((1, 1, d), True), ((1, 4, d), True)]
+    assert ck.int8_affine_encode.launches - n3 == 3
+    strided = torch.randn((2, 2, cfg.hidden_size), device=card)[:, ::2]
+    assert strided.shape == (2, 1, cfg.hidden_size) and not strided.is_contiguous()
+    with pytest.raises(ValueError, match="must be contiguous"):
+        rt.codecs[0].encode(strided)

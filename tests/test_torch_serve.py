@@ -280,15 +280,135 @@ def test_serve_front_drain_batched_outcomes_match_reference(weights):
 
 
 def test_serve_front_refusals():
-    with pytest.raises(tf.ServeFrontConfigError, match="split_runtime .* not ported yet"):
-        tf.ServeFront(TCFG, {}, split_runtime=object())
+    """What the port's front still refuses names itself: the split ladder,
+    link health and the per-request route's recovery fields; the batched
+    route needs its batcher; the per-request route drains an empty queue."""
+    for name in ("split_ladder", "link_health"):
+        with pytest.raises(tf.ServeFrontConfigError, match=f"{name} .* not ported yet"):
+            tf.ServeFront(TCFG, {}, **{name: object()})
     front = tf.ServeFront(TCFG, {}, clock=FakeClock())
     with pytest.raises(tf.ServeFrontConfigError, match="needs a continuous batcher"):
         front.drain_batched()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        front.drain()
+    assert front.drain() == []
+    for field, value in (("checkpoint_dir", "/nonexistent"), ("step_deadline_s", 5.0)):
+        cfg = tf.ServeFrontConfig(**{field: value})
+        with pytest.raises(tf.ServeFrontConfigError, match=f"{field} .* not ported yet"):
+            tf.ServeFront(TCFG, {}, config=cfg, clock=FakeClock()).drain()
     with pytest.raises(ValueError, match="capacity_round"):
         tf.ServeFrontConfig(capacity_round=0)
+
+
+# ---------------------------------------------------------------------------
+# The per-request route: the split front, speculative decode and the soak
+# ---------------------------------------------------------------------------
+
+
+def _split_pair(cuts=(1,), codecs=("int8_per_token",)):
+    from edgellm_tpu.parallel import SplitConfig as JSplitConfig
+    from edgellm_tpu.parallel import SplitRuntime as JSplitRuntime
+    from edgellm_tpu.parallel import make_stage_mesh
+    from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime
+
+    n = len(cuts) + 1
+    return (JSplitRuntime(JCFG, JSplitConfig(cuts=cuts, hop_codecs=codecs), make_stage_mesh(n)),
+            SplitRuntime(TCFG, SplitConfig(cuts=cuts, hop_codecs=codecs), ["cpu"] * n))
+
+
+@pytest.mark.parametrize("codec", ["fp32", "int8_per_token"])
+def test_front_split_tokens_identical_to_direct_generate_split(weights, codec, monkeypatch):
+    """One request through ``ServeFront(split_runtime=...).drain()``: the
+    split plan, its bucketed capacity, and the tokens of a direct
+    ``generate_split`` and of the reference front's drain."""
+    from edgellm_tpu_torch.serve.decode import generate_split
+
+    monkeypatch.setenv("EDGELLM_FUSED_HOP", "0")
+    jparams, tparams = weights
+    jrt, trt = _split_pair(codecs=(codec,))
+    p = np.random.default_rng(12).integers(1, 128, 7).astype(np.int32)
+    recs = {}
+    for mod, cfg, params, rt, clock in ((tf, TCFG, tparams, trt, FakeClock),
+                                        (jf, JCFG, jparams, jrt, JClock)):
+        front = mod.ServeFront(cfg, params, split_runtime=rt, clock=clock())
+        front.submit(mod.Request(prompt_ids=p, max_new_tokens=6, temperature=0.7, rng_seed=9))
+        recs[mod] = front.drain()[0]
+    rec, want = recs[tf], recs[jf]
+    assert rec.outcome == "completed" and rec.backend == "split"
+    assert rec.plan == {"mode": "split", "cuts": [1], "hop_codecs": [codec]} == want.plan
+    assert rec.capacity == want.capacity == 16
+    direct = generate_split(trt, trt.place_params(tparams), p[None], 6, capacity=rec.capacity,
+                            temperature=0.7, rng_key=prng.key(9))
+    np.testing.assert_array_equal(rec.tokens, direct.numpy())
+    np.testing.assert_array_equal(rec.tokens, np.asarray(want.tokens))
+
+
+def _soak_front(mod, clock_cls, cfg, params, rt, spec, soak_mod):
+    clock = clock_cls()
+    front = mod.ServeFront(cfg, params, split_runtime=rt, clock=clock, speculative=spec)
+    # arrivals 10 virtual seconds apart: the clock advances by measured
+    # service time, so the outcomes do not hang on the host's load
+    soak = soak_mod.SoakConfig(n_requests=6, arrival_rate=0.1, prompt_len=8,
+                               max_new_tokens=6, deadline_s=120.0, temperature=0.7)
+    art = soak_mod.run_soak(front, soak, clock=clock)
+    return art, {r.request_id: (r.outcome, None if r.tokens is None else np.asarray(r.tokens))
+                 for r in front.records}
+
+
+@pytest.mark.parametrize("speculative", [False, True])
+def test_run_soak_on_a_split_front_matches_reference(weights, speculative, monkeypatch):
+    """``run_soak`` over a split front (vanilla, and speculative with k = 4)
+    at temperature 0.7: the artifact's keys, outcomes and identity audit, and
+    every request's tokens by request id, equal the reference's. Timings and
+    goodput follow the measured service time and are not compared."""
+    from edgellm_tpu.serve import soak as jsoak
+    from edgellm_tpu.serve import speculative as jspec
+    from edgellm_tpu_torch.serve import soak as tsoak
+    from edgellm_tpu_torch.serve import speculative as tspec
+
+    monkeypatch.setenv("EDGELLM_FUSED_HOP", "0")
+    jparams, tparams = weights
+    jrt, trt = _split_pair()
+    got, got_toks = _soak_front(tf, FakeClock, TCFG, tparams, trt,
+                                tspec.SpecConfig(k=4) if speculative else None, tsoak)
+    want, want_toks = _soak_front(jf, JClock, JCFG, jparams, jrt,
+                                  jspec.SpecConfig(k=4) if speculative else None, jsoak)
+    assert set(got) == set(want)
+    assert got["requests"] == want["requests"] == 6
+    assert got["outcomes"] == want["outcomes"] == {"completed": 6}
+    assert got["token_identity"] == want["token_identity"]
+    assert got["token_identity"]["ok"] and got["token_identity"]["checked"] == 6
+    assert got["soak"] == want["soak"] and got["kill"] is None and got["burst"] is None
+    assert got["flight_dumps"] is None
+    assert sorted(got_toks) == sorted(want_toks)
+    for rid, (outcome, toks) in got_toks.items():
+        assert outcome == want_toks[rid][0]
+        np.testing.assert_array_equal(toks, want_toks[rid][1])
+    with pytest.raises(ValueError, match="kill_stage .* not ported yet"):
+        tsoak.run_soak(tf.ServeFront(TCFG, tparams, clock=FakeClock()),
+                       tsoak.SoakConfig(kill_stage=1), clock=FakeClock())
+    with pytest.raises(TypeError, match="FakeClock"):
+        tsoak.run_soak(tf.ServeFront(TCFG, tparams), tsoak.SoakConfig(), clock=lambda: 0.0)
+
+
+def test_front_stage_loss_fails_over_to_local(weights, monkeypatch):
+    """A stage lost mid-request (the runtime raises ``StageLostError``): the
+    stage's breaker trips, two stages leave nothing to re-plan onto, and the
+    request fails over to the local ``generate`` with its tokens."""
+    from edgellm_tpu_torch.serve.recovery import StageLostError
+
+    _, tparams = weights
+    _, trt = _split_pair()
+
+    def lost(*args, **kwargs):
+        raise StageLostError(1)
+
+    monkeypatch.setattr(trt, "prefill_decode", lost)
+    front = tf.ServeFront(TCFG, tparams, split_runtime=trt, clock=FakeClock())
+    p = np.arange(1, 6, dtype=np.int32)
+    front.submit(tf.Request(prompt_ids=p, max_new_tokens=4))
+    rec = front.drain()[0]
+    assert (rec.outcome, rec.reason, rec.backend) == ("failed_over", "stage_lost:1", "local")
+    assert front.failovers == 1 and front.breakers["stage1"].state == "open"
+    np.testing.assert_array_equal(rec.tokens, generate(TCFG, tparams, p[None], 4).numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -398,7 +518,7 @@ def test_serve_cli_greedy_tokens_equal_reference(name, hf_checkpoint, tmp_path):
 
 @pytest.mark.parametrize("key,value,message", [
     ("cuts", [1], "cuts is not ported yet"),
-    ("speculative", {}, "speculative is not ported yet"),
+    ("gray", {}, "gray is not ported yet"),
     ("cluster", {}, "cluster is not ported yet"),
     ("disagg", {}, "disagg is not ported yet"),
     ("pipeline", {}, "pipeline is not ported yet"),
@@ -430,12 +550,55 @@ def test_serve_validation_messages_match_reference():
 
 
 def test_serve_without_batching_and_serve_report_die_not_ported(tmp_path):
+    """Serve without ``batching`` is the per-request route, ported: it
+    validates, and dies naming what it still lacks (the route's recovery and
+    stage-kill fields, the faulty link); ``--serve-report`` is not ported."""
     p = {k: v for k, v in _config("split9_qwen_paged.json").items() if k != "batching"}
-    with pytest.raises(SystemExit, match="experiment 'serve' is not ported yet without"):
-        trun._validate_params_json(p)
+    trun._validate_params_json(p)
+    for bad, message in (
+            ({**p, "serving": {**p["serving"], "checkpoint_dir": "ckpt"}},
+             "serving.checkpoint_dir .* is not ported yet"),
+            ({**p, "serving": {**p["serving"], "step_deadline_s": 2.0}},
+             "serving.step_deadline_s .* is not ported yet"),
+            ({**p, "serving": {**p["serving"], "soak": {"kill_stage": 1}}},
+             "serving.soak.kill_stage .* is not ported yet"),
+            ({**p, "faults": {"drop_rate": 0.1}}, "faults is not ported yet")):
+        with pytest.raises(SystemExit, match=message):
+            trun._validate_params_json(bad)
     proc = subprocess.run(
         [sys.executable, "-m", "edgellm_tpu_torch.run", "--params",
          "configs/split9_qwen_paged.json", "--model", "tiny-qwen2", "--device", "cpu",
          "--serve-report", "--output-dir", str(tmp_path)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "--serve-report is not ported yet" in proc.stderr
+
+
+#: the reference's checks of the per-request route's blocks: both CLIs refuse
+#: each with the same message
+PER_REQUEST_BAD = [
+    {"speculative": {"k": 4}},
+    {"cuts": [1], "hop_codecs": ["int8_per_token"], "speculative": []},
+    {"cuts": [1], "hop_codecs": ["int8_per_token"], "speculative": {"window": 4}},
+    {"cuts": [1], "hop_codecs": ["int8_per_token"], "speculative": {"k": 0}},
+    {"cuts": [1], "hop_codecs": ["int8_per_token"], "speculative": {},
+     "fused_hops": "remote"},
+    {"cuts": [1], "hop_codecs": ["int8_per_token"], "speculative": {},
+     "batching": {"page_size": 8, "num_pages": 64, "max_slots": 4, "pages_per_slot": 4}},
+    {"cuts": [1]},
+    {"cuts": [1, 2], "hop_codecs": ["int8_per_token"]},
+    {"cuts": [1], "hop_codecs": ["int3"]},
+    {"prefix_cache": {}},
+    {"kv_at_rest": {"codec": "int8_per_channel"}},
+]
+
+
+@pytest.mark.parametrize("extra", PER_REQUEST_BAD, ids=range(len(PER_REQUEST_BAD)))
+def test_per_request_serve_validation_messages_match_reference(extra):
+    base = {k: v for k, v in _config("split11_qwen_spec.json").items()
+            if k not in ("cuts", "hop_codecs", "fused_hops", "speculative")}
+    bad = {**base, **extra}
+    with pytest.raises(SystemExit) as want:
+        jrun._validate_params_json(bad)
+    with pytest.raises(SystemExit) as got:
+        trun._validate_params_json(bad)
+    assert str(got.value) == str(want.value)
