@@ -123,7 +123,29 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    step and one verify burst profiled (device ms by kind, idle share); and
    the card against the CPU at 3 layers (teacher-forced decode and verify
    logits within 1e-4 fp32 / 1e-3 int8 hop, greedy tokens identical);
-16. a JSON line of every kernel (launches summed over the counted paths,
+16. the split-paged batcher and the KV-at-rest PPL harness at full
+   Qwen2-0.5B width and depth, fp32 random weights from ``--seed``:
+   ``run.main`` on split9, split9 under ``fused_hops`` "remote" (K8),
+   split13 (prefix hits through ``verify_step``) and split14 (int4 stage
+   pools, K14), each with cut 11 (int8_per_token) added inline, and the
+   large split9 geometry with it (K3 / K4 at N = 32): every request
+   completed, mode "paged_split", decode tokens/s, ms a step, peak memory
+   and every kernel's launches against the count the run implies (24 K13 /
+   K14 a ragged step, 24 fp32 K-attn a split prefill, each cut one hop a
+   step, prefill and prefix-hit suffix; the warm batcher's share apart);
+   ten steady ragged steps of the large geometry profiled beside the local
+   step's (device ms by kind, idle share); a three-stage run (cuts 7 and
+   15, fp32 hops) whose greedy streams equal ``generate``'s; the card
+   against the CPU at 3 layers (teacher-forced logits within 1e-4 over an
+   fp32 hop and fp pages, 2e-2 with an int8 hop or quantized pages, where
+   a code on a rounding boundary may sit a step from the CPU's; greedy
+   batched streams identical, and
+   on the card equal to ``generate_split`` alone); ``run_kv_tier_sweep``
+   over the fp, int8 and int4 tiers (window 128, stride 64, window batch 4,
+   8 chunks; K13 / K14 24 a position a tier), then at 3 layers card against
+   CPU (PPL within rtol 1e-3); K13 / K14 at that geometry and K3 / K4 / K8
+   at N = 32 timed on the device;
+17. a JSON line of every kernel (launches summed over the counted paths,
    and by path; K-attn's also by dtype and path; K-stats' fp32 column pass
    apart; ``ms`` its device time, ``event_ms`` the call's CUDA-event time),
    the ``nvidia-smi`` line, and
@@ -2332,6 +2354,406 @@ def split_decode_paths(args, detail: dict) -> dict:
     return out
 
 
+#: the cut phase 16 adds to the committed batched serve configs (none ships
+#: cuts beside batching): split1's boundary
+SPLIT_PAGED_CUT = {"cuts": [11], "hop_codecs": ["int8_per_token"]}
+#: teacher-forced split paged logits, card against CPU, (atol = rtol): an
+#: fp32 hop over fp pages differs only by summation order and K13's online
+#: softmax (1e-4); an int8 hop or quantized pages put a code a step from the
+#: CPU's wherever the value sits on a rounding boundary, and the 4 streams'
+#: 230 hop tokens (206 of them prefill) hold several such codes. On the H100
+#: an int8 hop over fp pages read 2.3e-3, over int4 pages 1.4e-3, and over
+#: int8 pages 9.6e-3 (a hop code moves a K row, which moves its page codes),
+#: so these cases are held within 2e-2, the share within 1e-3 recorded
+SPLIT_PAGED_CROSS_TOL = {"fp": 1e-4, "quant": 2e-2}
+#: item 30 (the KV-at-rest PPL harness) at full Qwen2-0.5B: kept short, it
+#: runs one ragged step a position
+KV_TIER_FULL = dict(max_length=128, stride=64, window_batch=4, max_chunks=8, page_size=16)
+KV_TIER_SMALL = dict(max_length=64, stride=32, window_batch=2, max_chunks=3, page_size=16)
+KV_TIER_RTOL = 1e-3
+KV_TIERS = ("fp", "int8_per_channel", "int4_per_channel")
+
+
+def _split_serve_cli(base_argv, p: dict, label: str) -> tuple[dict, dict, dict, float]:
+    """One ``run.main`` of a serve params dict (inline JSON, as README shows)
+    with the fused-hop gate restored after -> (printed line, the batcher's
+    report, launches, wall s); the counts are set to 0 just before."""
+    import tempfile
+
+    import torch
+
+    saved = os.environ.pop("EDGELLM_FUSED_HOP", None)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.monotonic()
+            rc, printed = _cli_json_line(["--params", json.dumps(p), "--output-dir", tmp]
+                                         + base_argv)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = read_counts()
+            with open(os.path.join(tmp, "serve_report.json")) as f:
+                report = json.load(f)
+    finally:
+        os.environ.pop("EDGELLM_FUSED_HOP", None)
+        if saved is not None:
+            os.environ["EDGELLM_FUSED_HOP"] = saved
+    if rc != 0:
+        raise SystemExit(f"{label}: run.main exited {rc}")
+    return printed, report["batcher"], launches, wall
+
+
+def _split_serve_expected(cfg, rep: dict, n_cuts: int, kv_codec: str, remote: bool) -> tuple:
+    """The launches a split-paged serve run implies, and the warm batcher's
+    share (one prefill and one step) apart: 24 K13 / K14 a ragged step and
+    24 fp32 K-attn a split prefill (a prefix hit's suffix runs verify_step's
+    plain attention, a resume adopts rows); each cut one hop (K3 + K4, or K8
+    under "remote") a step, a prefill and a prefix hit's suffix."""
+    hits = rep.get("prefix", {}).get("hits", 0)
+    prefills = rep["admitted"] - rep["evicted"] - hits
+    attn = "paged_decode_attention" if kv_codec == "fp" else "paged_decode_attention_quant"
+
+    def counts(steps, prefills, hits):
+        hops = n_cuts * (steps + prefills + hits)
+        codec = ({"remote_hop": hops} if remote else
+                 {"int8_affine_encode": hops, "int8_affine_decode": hops})
+        return want_counts(cfg.num_layers * prefills, causal_attention=cfg.num_layers * prefills,
+                           **{attn: cfg.num_layers * steps}, **codec)
+
+    warm = counts(1, 1, 0)
+    want = counts(rep["steps"] + 1, prefills + 1, hits)
+    return want, {k: v for k, v in warm.items() if v}, prefills, hits
+
+
+def _step_kinds(b, n_steps: int) -> dict:
+    """A steady group of ``n_steps`` ragged steps of batcher ``b`` under
+    :func:`device_time`: wall and device busy a step, the idle share, and
+    device ms a step by kind (GEMMs, K13 / K14, the codecs, the rest)."""
+    is_gemm = lambda n: any(t in n.lower() for t in ("gemm", "gemv", "xmma", "cutlass"))  # noqa: E731
+    out, rows = device_time(lambda: [b.step() for _ in range(n_steps)], n_steps)
+    kinds = dict.fromkeys(("gemms", "paged_attention", "codecs", "rest"), 0.0)
+    for r in rows:
+        n = r["name"]
+        kind = ("paged_attention" if "paged_" in n else "gemms" if is_gemm(n)
+                else "codecs" if "int8_affine" in n or "remote_hop" in n else "rest")
+        kinds[kind] += r["device_ms"] / n_steps
+    out["steps"] = out.pop("chunks")
+    out["wall_ms_per_step"] = out["wall_ms"] / n_steps
+    out["device_busy_ms_per_step"] = out["device_busy_ms"] / n_steps
+    out["device_ms_by_kind_per_step"] = kinds
+    out["kernels_per_step"] = sum(r["calls"] for r in rows) / n_steps
+    return out
+
+
+def _large_batcher(cfg, params, split: bool):
+    """The large split9 geometry with 32 running slots of 512-token prompts
+    at T = 0.7, admitted and three steps in: over a cut-11 int8 split
+    runtime (the separate hop) or the local pool."""
+    from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime
+    from edgellm_tpu_torch.run import batching_config
+    from edgellm_tpu_torch.serve import ContinuousBatcher
+
+    kw = {}
+    if split:
+        with fused_hops("off"):
+            rt = SplitRuntime(cfg, SplitConfig(tuple(SPLIT_PAGED_CUT["cuts"]),
+                                               tuple(SPLIT_PAGED_CUT["hop_codecs"])))
+        kw = dict(split_runtime=rt, placed_params=rt.place_params(params))
+    b = ContinuousBatcher(cfg, params, batching_config(cfg, LARGE_SERVE), **kw)
+    rng = np.random.default_rng(11)
+    for i in range(32):
+        b.submit(rng.integers(1, cfg.vocab_size, 512), 64, temperature=0.7, rng_seed=i)
+    for _ in range(3):
+        b.step()
+    return b
+
+
+def _device_ms_per_call(fn, iters: int) -> tuple[float, dict]:
+    """Device ms of one ``fn()`` from ``iters`` warm calls under
+    torch.profiler (events accumulated): each kernel's recorded time over
+    its recorded launches, summed over the kernels one call launches (each
+    once), so a record the profiler drops does not bias it -> (ms, the
+    launches recorded by kernel)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(ev.key, ev.count, ev.self_device_time_total) for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.count]
+    if not rows:
+        raise SystemExit("device time: the profiler recorded no kernel")
+    return sum(t / c for _, c, t in rows) / 1e3, {k[:60]: c for k, c, _ in rows}
+
+
+def _split_paged_forced(cfg, params, dev, codec: str, kv_codec: str, prompts, forced):
+    """Teacher-forced logits of the split ragged step at cut 1 (page size 8,
+    the committed serve configs'): each prompt prefilled with
+    ``prefill_decode`` and adopted into its own slot, then every step fed
+    ``forced[:, t]`` -> (T, B, V) fp32 on the CPU."""
+    import torch
+
+    from edgellm_tpu_torch.models.paged_kv import PagedKVCache
+    from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime
+
+    with fused_hops("off"):
+        rt = SplitRuntime(cfg, SplitConfig((1,), (codec,)), [dev, dev])
+    placed = rt.place_params(params)
+    b, steps = forced.shape
+    host = PagedKVCache(cfg, num_pages=1 + b * 16, page_size=8, max_slots=b, pages_per_slot=16,
+                        device=dev, materialize=False, kv_codec=kv_codec)
+    pool = rt.init_paged_pool(1 + b * 16, 8, kv_codec=kv_codec)
+    for p in prompts:
+        slot = host.alloc_slot()
+        _, cache = rt.prefill_decode(placed, torch.from_numpy(p[None].astype(np.int64)).to(dev),
+                                     128)
+        host.ensure(slot, len(p))
+        pool = rt.adopt_paged(pool, cache, 0, host._flat_indices(slot, len(p)), len(p))
+        host.lengths[slot] = len(p)
+    out = []
+    for t in range(steps):
+        for slot in range(b):
+            host.ensure_writable(slot, int(host.lengths[slot]) + 1)
+        table, lengths = host.device_tables()
+        logits, pool = rt.decode_step_paged(
+            placed, pool, table, lengths, torch.from_numpy(forced[:, t].astype(np.int64)).to(dev))
+        out.append(logits.cpu())
+        host.lengths += 1
+    return torch.stack(out)
+
+
+def split_paged_paths(args, detail: dict) -> dict:
+    """Phase 16: the split-paged batcher and the KV-at-rest PPL harness at
+    full Qwen2-0.5B width and depth, fp32 weights from ``--seed``: (a)
+    ``run.main`` on split9, split9 under fused "remote", split13 and split14,
+    each with cut 11 (int8_per_token) added inline, and the large split9
+    geometry with it; (b) ten steady ragged steps of the large geometry
+    profiled, split and local; (c) a three-stage run (cuts 7 and 15, fp32
+    hops) against ``generate``; (d) the card against the CPU at 3 layers;
+    (e) ``run_kv_tier_sweep`` over the three tiers, then at 3 layers card
+    against CPU; (f) K13 / K14 at item 30's geometry and K3 / K4 / K8 at N
+    = 32 -> launches by path."""
+    import torch
+
+    from edgellm_tpu_torch.codecs import codec_kernels as ck
+    from edgellm_tpu_torch.codecs import fused_hop as fh
+    from edgellm_tpu_torch.codecs.packing import SATURATE_MAG
+    from edgellm_tpu_torch.eval import run_kv_tier_sweep
+    from edgellm_tpu_torch.eval.harness import _iter_window_groups
+    from edgellm_tpu_torch.models import PRESETS, init_params, params_to
+    from edgellm_tpu_torch.models import flash_attention as fa
+    from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime
+    from edgellm_tpu_torch.serve import BatchingConfig, ContinuousBatcher, generate
+    from edgellm_tpu_torch.serve.decode import generate_split
+
+    cfg = PRESETS["qwen2-0.5b"]
+    base = ["--model", "qwen2-0.5b", "--seed", str(args.seed)]
+    out, rows = {}, {}
+
+    # (a): run.main on the committed batched configs with a cut
+    cases = []
+    for name, suffix in (("split9", "paged"), ("split13", "prefix"), ("split14", "kvq")):
+        p = {**json.load(open(f"configs/{name}_qwen_{suffix}.json")), **SPLIT_PAGED_CUT}
+        cases.append((f"{name} cut", p))
+        if name == "split9":
+            cases.append(("split9 cut remote", {**p, "fused_hops": "remote"}))
+    cases.append(("split9 large cut", {**LARGE_SERVE, **SPLIT_PAGED_CUT}))
+    for label, p in cases:
+        printed, rep, launches, wall = _split_serve_cli(base, p, label)
+        kv_codec = p.get("kv_at_rest", {}).get("codec", "fp")
+        remote = p.get("fused_hops") == "remote"
+        want, warm, prefills, hits = _split_serve_expected(cfg, rep, len(p["cuts"]), kv_codec,
+                                                           remote)
+        n = p["serving"]["soak"]["n_requests"]
+        row = {"path": label, "kv_codec": kv_codec, "fused_hops": p.get("fused_hops"),
+               "printed": printed, "mode": rep["mode"], "batched_steps": rep["steps"],
+               "admitted": rep["admitted"], "evicted": rep["evicted"], "prefills": prefills,
+               "prefix_hits": hits, "decode_tokens_per_s": rep["decode_tokens_per_s"],
+               "ms_per_step": 1e3 * rep["decode_s"] / max(rep["steps"], 1),
+               "prefill_s": rep["prefill_s"], "decode_s": rep["decode_s"], "wall_s": wall,
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches, "launches_expected": want,
+               "warm_batcher_launches": warm}
+        log(json.dumps({"split_paged_path": {k: v for k, v in row.items() if k != "printed"}}))
+        rows[label] = row
+        if printed["requests"] != n or printed["outcomes"] != {"completed": n}:
+            raise SystemExit(f"{label}: not every request completed: {printed}")
+        if printed["mode"] != "batched_split" or rep["mode"] != "paged_split" \
+                or rep["cuts"] != p["cuts"]:
+            raise SystemExit(f"{label}: not the split-paged batcher: {printed}, {rep['mode']}")
+        if label.startswith("split13") and hits < 1:
+            raise SystemExit(f"{label}: the prefix index never hit: {rep.get('prefix')}")
+        if launches != want:
+            raise SystemExit(f"{label}: kernel launches {launches} != expected {want}")
+        out[label] = launches
+
+    # (b): ten steady steps of the large geometry, split and local
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(args.seed),
+                         device="cuda")
+    profiles = {}
+    for label, split in (("split cut 11", True), ("local", False)):
+        b = _large_batcher(cfg, params, split)
+        profiles[label] = _step_kinds(b, 10)
+        log_profile(f"profile_split_paged_steps {label}", profiles[label], 12)
+        del b
+        torch.cuda.empty_cache()
+    rows["profile large geometry"] = profiles
+
+    # (c): three stages (cuts 7 and 15, lossless fp32 hops) against generate
+    with fused_hops("off"):
+        rt3 = SplitRuntime(cfg, SplitConfig((7, 15), ("fp32", "fp32")))
+    rng = np.random.default_rng(args.seed + 17)
+    reqs = [rng.integers(1, cfg.vocab_size, n) for n in (5, 17, 40, 64)]
+    b = ContinuousBatcher(cfg, params, BatchingConfig(page_size=16, num_pages=40, max_slots=4,
+                                                      pages_per_slot=8),
+                          split_runtime=rt3, placed_params=rt3.place_params(params))
+    sids = [b.submit(r, 8) for r in reqs]
+    res = b.run()
+    same = sum(np.array_equal(res[sid], generate(cfg, params, r[None], 8)[0].cpu().numpy())
+               for sid, r in zip(sids, reqs))
+    rows["three stages"] = {"cuts": [7, 15], "streams": len(reqs), "equal_generate": same,
+                            "steps": b.report()["steps"]}
+    log(json.dumps({"split_paged_three_stages": rows["three stages"]}))
+    if same != len(reqs):
+        raise SystemExit(f"three-stage split-paged streams differ from generate: "
+                         f"{rows['three stages']}")
+    del b, rt3
+
+    # (f): K13 / K14 at item 30's geometry, K3 / K4 / K8 at N = 32
+    d = cfg.hidden_size
+    reads = {}
+    pps = -(-KV_TIER_FULL["max_length"] // KV_TIER_FULL["page_size"])
+    w = KV_TIER_FULL["window_batch"]
+    for name, kv_codec in (("paged_decode_attention", "fp"),
+                           ("paged_decode_attention_quant", "int8_per_channel"),
+                           ("paged_decode_attention_quant", "int4_per_channel")):
+        a, kw = _paged_case(w, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                            KV_TIER_FULL["page_size"], pps, 1 + w * pps, torch.float32,
+                            kv_codec, seed=30)
+        kern = getattr(fa, name)
+        nbytes = fa.paged_decode_bytes(a[0], a[1], a[-1], kv_codec)
+        flops = 4.0 * cfg.num_heads * cfg.head_dim * float(a[-1].long().sum().item())
+        bound, bound_by = fa.bound_ms(nbytes, flops, torch.float32)
+        k_dev, recorded = _device_ms_per_call(lambda: kern(*a, **kw), 50)
+        reads[f"{name} {kv_codec} item 30"] = {
+            "slots": w, "page_size": KV_TIER_FULL["page_size"], "pages_per_slot": pps,
+            "kernel_device_ms": k_dev, "recorded": recorded, "bound_ms": bound,
+            "bound_by": bound_by, "roofline_share": bound / k_dev}
+    x = torch.randn((32, d), device="cuda") * 3
+    q, sc, mn = ck.int8_affine_encode(x, max_mag=SATURATE_MAG)
+    for name, call in (
+            ("int8_affine_encode", lambda: ck.int8_affine_encode(x, max_mag=SATURATE_MAG)),
+            ("int8_affine_decode", lambda: ck.int8_affine_decode(q, sc, mn)),
+            ("remote_hop", lambda: fh.remote_hop(x, max_mag=SATURATE_MAG))):
+        k_dev, recorded = _device_ms_per_call(call, 100)
+        bound, bound_by = fa.bound_ms(float(codec_bytes(name, 32, d)), 0.0, torch.float32)
+        reads[f"{name} N=32"] = {"kernel_device_ms": k_dev, "recorded": recorded,
+                                 "event_ms": time_ms(call, 100), "bound_ms": bound,
+                                 "bound_by": bound_by, "roofline_share": bound / k_dev}
+    for key, r in reads.items():
+        log(json.dumps({"split_paged_read": {key: r}}))
+    rows["reads"] = reads
+
+    # (e): item 30 at full Qwen2-0.5B width and depth
+    corpus = np.random.default_rng(args.seed + 30).integers(0, cfg.vocab_size, 1024)
+    groups = list(_iter_window_groups(corpus, KV_TIER_FULL["max_length"],
+                                      KV_TIER_FULL["stride"],
+                                      window_batch=KV_TIER_FULL["window_batch"],
+                                      max_count=KV_TIER_FULL["max_chunks"]))
+    positions = sum(g[0].input_ids.shape[1] - 1 for g in groups)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    sweep = run_kv_tier_sweep(cfg, params, corpus, tiers=KV_TIERS, device="cuda",
+                              **KV_TIER_FULL)
+    wall = time.monotonic() - t0
+    launches = read_counts()
+    want = want_counts(paged_decode_attention=cfg.num_layers * positions,
+                       paged_decode_attention_quant=2 * cfg.num_layers * positions)
+    kv_rows = [{**r, "ms_per_position": 1e3 * r["wall_s"] / positions} for r in sweep]
+    rows["kv tier sweep"] = {"groups": len(groups), "positions_per_tier": positions,
+                             "wall_s": wall, "rows": kv_rows, "launches": launches,
+                             "launches_expected": want,
+                             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    log(json.dumps({"kv_tier_sweep": rows["kv tier sweep"]}))
+    bad = [r for r in sweep if not (np.isfinite(r["ppl"]) and np.isfinite(r["ppl_delta_vs_fp"])
+                                    and r["kv_page_bytes"] > 0)]
+    if bad or launches != want:
+        raise SystemExit(f"kv tier sweep: rows {bad} or launches {launches} != {want}")
+    out["kv tier sweep"] = launches
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) and (e) at 3 layers: the card against the CPU
+    small = dataclasses.replace(cfg, num_layers=3)
+    cpu = init_params(small, torch.Generator().manual_seed(args.seed), device="cpu")
+    card = params_to(cpu, device="cuda")
+    rng = np.random.default_rng(args.seed + 31)
+    prompts = [rng.integers(1, small.vocab_size, n) for n in (5, 37, 64, 100)]
+    forced = rng.integers(1, small.vocab_size, (len(prompts), 6))
+    cross = {}
+    for codec, kv_codec in (("fp32", "fp"), ("int8_per_token", "fp"),
+                            ("fp32", "int8_per_channel"),
+                            ("int8_per_token", "int8_per_channel"),
+                            ("int8_per_token", "int4_per_channel")):
+        tol = SPLIT_PAGED_CROSS_TOL["fp" if (codec, kv_codec) == ("fp32", "fp") else "quant"]
+        got = _split_paged_forced(small, card, "cuda", codec, kv_codec, prompts, forced)
+        want_ = _split_paged_forced(small, cpu, "cpu", codec, kv_codec, prompts, forced)
+        err = (got - want_).abs()
+        diff = err.max().item()
+        cross[f"{codec} {kv_codec}"] = {
+            "max_abs_diff": diff, "tolerance": tol,
+            "share_within_1e-3": (err <= 1e-3 + 1e-3 * want_.abs()).float().mean().item()}
+        log(json.dumps({"split_paged_cross_check": {f"{codec} {kv_codec}":
+                                                    cross[f"{codec} {kv_codec}"]}}))
+        if not bool(((got - want_).abs() <= tol + tol * want_.abs()).all()):
+            raise SystemExit(f"split paged step card vs CPU ({codec}, {kv_codec}) failed: "
+                             f"{diff}")
+    bcfg = BatchingConfig(page_size=8, num_pages=80, max_slots=4, pages_per_slot=16)
+    reqs = [rng.integers(1, small.vocab_size, int(n)) for n in rng.integers(3, 100, 6)]
+    streams = {}
+    for dev, p in (("cuda", card), ("cpu", cpu)):
+        with fused_hops("off"):
+            rt = SplitRuntime(small, SplitConfig((1,), ("int8_per_token",)), [dev, dev])
+        placed = rt.place_params(p)
+        b = ContinuousBatcher(small, p, bcfg, split_runtime=rt, placed_params=placed)
+        sids = [b.submit(r, 8) for r in reqs]
+        res = b.run()
+        streams[dev] = [res[sid] for sid in sids]
+        if dev == "cuda":
+            solo = [generate_split(rt, placed, r[None], 8, capacity=128)[0].cpu().numpy()
+                    for r in reqs]
+    same_cpu = sum(np.array_equal(a, c) for a, c in zip(streams["cuda"], streams["cpu"]))
+    same_solo = sum(np.array_equal(a, c) for a, c in zip(streams["cuda"], solo))
+    cross["greedy streams"] = {"streams": len(reqs), "card_equals_cpu": same_cpu,
+                               "batched_equals_generate_split_on_card": same_solo}
+    log(json.dumps({"split_paged_cross_check": {"greedy streams": cross["greedy streams"]}}))
+    if same_cpu != len(reqs) or same_solo != len(reqs):
+        raise SystemExit(f"greedy split batched streams differ: {cross['greedy streams']}")
+    corpus = np.random.default_rng(args.seed + 32).integers(0, small.vocab_size, 256)
+    ppl = {dev: run_kv_tier_sweep(small, p, corpus, tiers=KV_TIERS, device=dev, **KV_TIER_SMALL)
+           for dev, p in (("cuda", card), ("cpu", cpu))}
+    for g, w_ in zip(ppl["cuda"], ppl["cpu"]):
+        rel = abs(g["ppl"] - w_["ppl"]) / w_["ppl"]
+        cross[f"kv tier {g['kv_codec']} ppl"] = {"card": g["ppl"], "cpu": w_["ppl"],
+                                                 "rel_diff": rel, "rtol": KV_TIER_RTOL}
+        log(json.dumps({"kv_tier_cross_check": cross[f"kv tier {g['kv_codec']} ppl"]}))
+        if rel > KV_TIER_RTOL or g["n_tokens"] != w_["n_tokens"]:
+            raise SystemExit(f"kv tier {g['kv_codec']} card vs CPU: {g} vs {w_}")
+    rows["cross_check"] = cross
+    detail["split_paged"] = rows
+    del card
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2385,9 +2807,12 @@ def main() -> int:
     by_path.update(experiment_paths(args, detail))
     t6 = time.monotonic()
     by_path.update(split_decode_paths(args, detail))
+    t7 = time.monotonic()
+    by_path.update(split_paged_paths(args, detail))
     detail["phase_s"] = {"kernels": t1 - t0, "token_sweep": t2 - t1, "split_paths": t3 - t2,
                          "serve_paths": t4 - t3, "cross_checks": t5 - t4,
-                         "experiments": t6 - t5, "split_decode": time.monotonic() - t6}
+                         "experiments": t6 - t5, "split_decode": t7 - t6,
+                         "split_paged": time.monotonic() - t7}
     log(json.dumps({"phase_s": detail["phase_s"]}))
 
     kernels = []

@@ -6,7 +6,7 @@ from .harness import (
     run_initial_sweep,
     run_channel_sweep,
 )
-from .split_eval import parse_hop_codec, run_split_eval
+from .split_eval import parse_hop_codec, run_kv_tier_eval, run_kv_tier_sweep, run_split_eval
 
 __all__ = [
     "Chunk",
@@ -17,4 +17,6 @@ __all__ = [
     "run_channel_sweep",
     "parse_hop_codec",
     "run_split_eval",
+    "run_kv_tier_eval",
+    "run_kv_tier_sweep",
 ]

@@ -9,6 +9,12 @@ totals), with an append-only metrics stream, as in the sweep drivers. The
 checkpoint axes are the reference's, so a checkpoint written by either
 package resumes in the other.
 
+:func:`run_kv_tier_eval` / :func:`run_kv_tier_sweep` measure the other
+compression of a served stream, its KV pages at rest: every window is
+teacher-forced through a paged pool one position at a time at one tier
+("fp", "int8_per_channel", "int4_per_channel"), the ragged step that serving
+runs (K13 / K14 on the card), and the PPL comes beside the page bytes.
+
 Not ported yet (each raises naming its argument): the faulty link and its
 healing (``faults``, ``link_policy``, ``fec``, ``hedge``, ``link_health``),
 survivability (``deadline_s``, ``stage_failure``, ``recovery``), the
@@ -16,6 +22,7 @@ micro-batch ``pipeline`` and the stage x seq runtime (``n_seq > 1``).
 """
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -25,9 +32,12 @@ from ..codecs.codec_kernels import SELECTIVE_EXCLUSION
 from ..codecs.packing import selective_int4
 from ..importance.metrics import importance_per_layer
 from ..models.configs import ModelConfig
+from ..models.paged_kv import (init_pool, init_quant_pool, kv_page_bytes, paged_decode_step,
+                               paged_decode_step_quant, resolve_kv_codec)
 from ..models.transformer import nll_from_logits, params_to, run_layers_from_ids
 from ..parallel.split import NOT_PORTED_MSG, SplitConfig, SplitRuntime
-from .harness import ResumableDriver, _emit, _iter_window_groups, _run_pipelined
+from .harness import (ResumableDriver, _emit, _group_arrays, _iter_window_groups,
+                      _run_pipelined)
 
 
 def parse_hop_codec(spec: str, n_seq: int = 1) -> object:
@@ -240,3 +250,110 @@ def run_split_eval(
                          "hop_bytes_total": hop_bytes_total,
                          "pad_fraction": result["pad_fraction"]})
     return result
+
+
+def run_kv_tier_eval(
+    cfg: ModelConfig,
+    params: dict,
+    token_ids: np.ndarray,
+    *,
+    kv_codec: str = "fp",
+    max_length: int,
+    stride: int,
+    page_size: int = 16,
+    window_batch: int = 4,
+    max_chunks: Optional[int] = None,
+    compute_dtype=None,
+    metrics_path: Optional[str] = None,
+    progress=None,
+    device="cuda",
+) -> dict:
+    """Token-weighted sliding-window PPL with the KV cache held at rest in
+    one ``kv_codec`` tier (``models.paged_kv.KV_PAGE_CODECS``), on
+    ``device``.
+
+    The windows, their grouping (``window_batch``, the short corpus tail
+    alone) and the token weighting are the sweeps'. Each group of W windows
+    of T tokens gets a fresh pool of ``1 + W * ceil(T / page_size)`` pages
+    (page 0 the trash page; float32 pages on the fp tier) and is
+    teacher-forced one position at a time through the ragged paged step
+    (quantize on append, dequantize in the attention): the step at
+    position s scores target s + 1, the shift ``nll_from_logits`` applies
+    to whole-window logits. Returns the reference's keys: ``ppl``,
+    ``total_nll``, ``n_tokens``, ``chunks``, ``wall_s``, ``page_size``,
+    ``window_batch``, ``kv_page_bytes`` (one page across every layer, K +
+    V, codes + scales) and ``kv_page_bytes_fp``."""
+    codec = resolve_kv_codec(kv_codec)
+    device = torch.device(device)
+    params = params_to(params, device=device)
+    total_nll, n_tokens, chunks = 0.0, 0.0, 0
+    t0 = time.perf_counter()
+    for group in _iter_window_groups(token_ids, max_length, stride, window_batch=window_batch,
+                                     max_count=max_chunks):
+        ids, targets, counts, _ = _group_arrays(group, device)
+        w, t = ids.shape
+        pps = -(-t // page_size)
+        num_pages = 1 + w * pps  # page 0 stays the trash page
+        pools = (init_quant_pool(cfg, num_pages, page_size, codec.name, device)
+                 if codec.quantized else init_pool(cfg, num_pages, page_size, device=device))
+        table = torch.arange(1, num_pages, dtype=torch.int32, device=device).reshape(w, pps)
+        nll_sum = torch.zeros((w,), dtype=torch.float32, device=device)
+        n_valid = torch.zeros((w,), dtype=torch.float32, device=device)
+        with torch.inference_mode():
+            for step in range(t - 1):
+                lengths = torch.full((w,), step, dtype=torch.int32, device=device)
+                if codec.quantized:
+                    logits = paged_decode_step_quant(
+                        cfg, params, *pools, table, lengths, ids[:, step],
+                        kv_codec=codec.name, compute_dtype=compute_dtype)[0]
+                else:
+                    logits = paged_decode_step(cfg, params, *pools, table, lengths,
+                                               ids[:, step], compute_dtype=compute_dtype)[0]
+                logp = torch.log_softmax(logits.float(), dim=-1)
+                tgt = targets[:, step + 1]
+                valid = tgt != -100
+                nll = -logp.gather(1, torch.where(valid, tgt, 0)[:, None])[:, 0]
+                nll_sum += torch.where(valid, nll, 0.0)
+                n_valid += valid.float()
+        per_window = (nll_sum.double().cpu().numpy()
+                      / np.maximum(n_valid.double().cpu().numpy(), 1.0))
+        total_nll += float(per_window @ counts)
+        n_tokens += float(counts.sum())
+        chunks += len(group)
+        if progress:
+            progress(group[-1].index)
+    wall = time.perf_counter() - t0
+    result = {
+        "kv_codec": codec.name,
+        "ppl": float(np.exp(total_nll / max(n_tokens, 1e-9))),
+        "total_nll": total_nll,
+        "n_tokens": n_tokens,
+        "chunks": chunks,
+        "wall_s": wall,
+        "page_size": page_size,
+        "window_batch": window_batch,
+        "kv_page_bytes": kv_page_bytes(cfg, page_size, kv_codec=codec.name),
+        "kv_page_bytes_fp": kv_page_bytes(cfg, page_size),
+    }
+    _emit(metrics_path, {"final": True, **{k: result[k] for k in
+                         ("kv_codec", "ppl", "n_tokens", "chunks", "wall_s", "kv_page_bytes")}})
+    return result
+
+
+def run_kv_tier_sweep(
+    cfg: ModelConfig,
+    params: dict,
+    token_ids: np.ndarray,
+    *,
+    tiers: Sequence[str] = ("fp", "int8_per_channel", "int4_per_channel"),
+    **eval_kwargs,
+) -> list:
+    """:func:`run_kv_tier_eval` once per entry of ``tiers``: the PPL /
+    page-bytes curve over the KV-at-rest tiers. With "fp" among them every
+    result gains ``ppl_delta_vs_fp``, its PPL relative to the fp tier's."""
+    out = [run_kv_tier_eval(cfg, params, token_ids, kv_codec=t, **eval_kwargs) for t in tiers]
+    base = next((r["ppl"] for r in out if r["kv_codec"] == "fp"), None)
+    if base is not None:
+        for r in out:
+            r["ppl_delta_vs_fp"] = (r["ppl"] - base) / base
+    return out

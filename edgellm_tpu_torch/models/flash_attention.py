@@ -842,9 +842,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     CUDA tensors launch K13 (``paged_decode_attention.launches`` counts the
     launches); CPU tensors take :func:`paged_decode_attention_plain`.
     ``plan`` is :func:`paged_plan`'s for these inputs; a CUDA call whose
-    plan is None raises."""
+    plan is None raises. K13 reads q in the pages' dtype: a bf16 q over
+    float32 pages (bf16 weights over the batcher's default float32 cache)
+    is widened exactly and the output rounded back to bf16, as the
+    reference's kernel takes its scores and sums in float32."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths)
+    if q.dtype == torch.bfloat16 and k_pages.dtype == torch.float32:
+        out = _launch_paged(q.float(), k_pages, v_pages, None, None, page_table, lengths,
+                            "fp", plan).to(q.dtype)
+        paged_decode_attention.launches += 1
+        return out
     out = _launch_paged(q, k_pages, v_pages, None, None, page_table, lengths, "fp", plan)
     paged_decode_attention.launches += 1
     return out

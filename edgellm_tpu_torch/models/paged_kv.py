@@ -25,14 +25,21 @@ Conventions (the reference's):
 - KV at rest: "fp" pages in the cache dtype, or "int8_per_channel" /
   "int4_per_channel" codes with one fp32 scale per (row, KV head); every
   page move (defrag, COW) is a byte move, and a cross-tier payload is refused.
+- ``materialize=False``: the allocator alone (page table, free list,
+  refcounts, prefix index) with no device pool, for the split batcher whose
+  pages live per stage (``SplitRuntime.init_paged_pool``); every method that
+  needs the pool raises, and :meth:`PagedKVCache.ensure_writable` hands its
+  COW pairs back for the caller to copy.
 
 Where the reference donates its pool buffers to jitted surgery, the port
 updates the pool tensors in place: page writes are ``index_copy_`` / indexed
 assignment into the flat (L, num_pages * page_size, ...) row view.
 
 The ragged decode step (:func:`paged_decode_step`, and
-:func:`paged_decode_step_quant` for the quantized tiers) runs K13 / K14 on
-the card where :func:`~.flash_attention.decode_plan` admits the shape.
+:func:`paged_decode_step_quant` for the quantized tiers) runs one layer body,
+:func:`block_decode_paged` / :func:`block_decode_paged_quant`, per layer, the
+body the split runtime's stages run too; its attention is K13 / K14 on the
+card where :func:`~.flash_attention.decode_plan` admits the shape.
 """
 from __future__ import annotations
 
@@ -427,6 +434,7 @@ class PagedKVCache:
     def __init__(self, cfg: ModelConfig, *, num_pages: int, page_size: int,
                  max_slots: int, pages_per_slot: int,
                  dtype: torch.dtype = torch.float32, device="cuda",
+                 materialize: bool = True,
                  prefix_cache: Optional[PrefixCacheConfig] = None,
                  kv_codec: str = "fp"):
         if max_slots < 1:
@@ -436,7 +444,10 @@ class PagedKVCache:
         self.cfg = cfg
         self.kv_codec = resolve_kv_codec(kv_codec).name
         self.device = torch.device(device)
-        if self.kv_codec == "fp":
+        if not materialize:  # bookkeeping only: the pages live elsewhere
+            _check_geometry(num_pages, page_size)
+            self.pool = None
+        elif self.kv_codec == "fp":
             self.pool = init_pool(cfg, num_pages, page_size, dtype, self.device)
         else:
             self.pool = init_quant_pool(cfg, num_pages, page_size, self.kv_codec, self.device)
@@ -777,11 +788,13 @@ class PagedKVCache:
 
     def ensure_writable(self, slot: int, new_length: int) -> list:
         """:meth:`ensure` + COW: every page covering ``[lengths[slot],
-        new_length)`` becomes exclusively ``slot``'s; the page copies (codes
-        and scales alike, byte moves) run here."""
+        new_length)`` becomes exclusively ``slot``'s; on a materialized pool
+        the page copies (codes and scales alike, byte moves) run here, a
+        bookkeeping-only caller applies the returned (old, new) pairs to its
+        own pools."""
         self.ensure(slot, new_length)
         pairs = self.prepare_write(slot, new_length)
-        if pairs:
+        if pairs and self.pool is not None:
             src = torch.tensor([o for o, _ in pairs], dtype=torch.long, device=self.device)
             dst = torch.tensor([n for _, n in pairs], dtype=torch.long, device=self.device)
             for arr in self.pool:
@@ -795,6 +808,11 @@ class PagedKVCache:
                 torch.from_numpy(self.lengths.astype(np.int32)).to(self.device))
 
     # -- data movement -----------------------------------------------------
+
+    def _require_pool(self, what: str) -> None:
+        if self.pool is None:
+            raise ValueError(f"{what} needs a materialized pool; this cache was built "
+                             f"with materialize=False (bookkeeping-only)")
 
     def _flat_indices(self, slot: int, n: int) -> np.ndarray:
         pos = np.arange(n)
@@ -824,6 +842,7 @@ class PagedKVCache:
         ``slot``'s pages and set its length (shared pages in the range are
         COW-forked first, with no device copy: every exposed row is
         overwritten here)."""
+        self._require_pool("adopt")
         self.ensure(slot, length)
         self.prepare_write(slot, length, start=0)
         self._write_rows(self._dest(slot, length), k_seq, v_seq)
@@ -833,6 +852,7 @@ class PagedKVCache:
         """Write (L, stop - start, KV, hd) rows into rows ``[start, stop)`` of
         ``slot`` (the prefix-sharing admit's suffix); ``start`` must equal
         the slot's length."""
+        self._require_pool("adopt_rows")
         if start != int(self.lengths[slot]):
             raise ValueError(f"adopt_rows start {start} != slot {slot} length "
                              f"{int(self.lengths[slot])}")
@@ -845,6 +865,7 @@ class PagedKVCache:
         """Write already-packed (L, length, KV, hdc) codes and (L, length, KV)
         scales into ``slot``: no requantize, so the pool bytes equal the
         gathered bytes exactly."""
+        self._require_pool("adopt_packed")
         if self.kv_codec == "fp":
             raise KVTierMismatchError(
                 offered="quantized", pool=self.kv_codec, where="adopt_packed",
@@ -861,6 +882,7 @@ class PagedKVCache:
         """``slot``'s K/V as the contiguous host dict {"k": (L, length, KV,
         hd), "v", "length"}: byte-identical to the contiguous cache prefix on
         the fp tier, dequantized to fp32 on the quantized tiers."""
+        self._require_pool("gather_slot")
         n = int(self.lengths[slot])
         k, v = self._gather_fp(self._dest(slot, max(n, 1)))
         return {"k": _host(k)[:, :n], "v": _host(v)[:, :n],
@@ -876,6 +898,7 @@ class PagedKVCache:
     def gather_slot_packed(self, slot: int) -> dict:
         """Quantized-tier eviction form: {"k_codes", "v_codes", "k_scale",
         "v_scale", "length"} host arrays, the raw pool bytes."""
+        self._require_pool("gather_slot_packed")
         if self.kv_codec == "fp":
             raise ValueError("gather_slot_packed is for quantized tiers; "
                              "fp pools use gather_slot()")
@@ -889,6 +912,7 @@ class PagedKVCache:
         """Compact referenced pages to the low end of the pool (slot order,
         then index nodes; a shared page moves once) and rebuild the free list
         above them. Returns the number of pages that moved."""
+        self._require_pool("defrag")
         src = np.zeros((self.num_pages,), np.int32)  # new -> old; src[0] = 0
         new_of: dict = {}
         moved = 0
@@ -929,6 +953,7 @@ class PagedKVCache:
 
     def state_dict(self) -> dict:
         """Whole-cache snapshot as host numpy arrays, the reference's keys."""
+        self._require_pool("state_dict")
         if self.kv_codec == "fp":
             state = {"k": _host(self.pool.k), "v": _host(self.pool.v)}
         else:
@@ -949,6 +974,7 @@ class PagedKVCache:
         """Restore :meth:`state_dict` output (same geometry; a state without
         refcounts derives exclusive ones from the slot tables; a
         sharing-era state restored without an index drops the index holds)."""
+        self._require_pool("load_state_dict")
         ck = state.get("kv_codec", "fp")
         if ck != self.kv_codec:
             raise KVTierMismatchError(offered=ck, pool=self.kv_codec, where="load_state_dict")
@@ -1144,6 +1170,50 @@ def _attention_decode_paged_quant(cfg: ModelConfig, lp: dict, x: torch.Tensor, c
     return (project_out(lp, out.to(x.dtype)),)
 
 
+def block_decode_paged(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, cos_b, sin_b,
+                       k_pages: torch.Tensor, v_pages: torch.Tensor, page_table: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """The paged twin of ``transformer.block_decode`` for one layer: the same
+    norms, residuals and MLP around the paged attention core; ``k_pages`` /
+    ``v_pages`` are the layer's (num_pages, ps, KV, hd) pages, written in
+    place -> the (B, 1, D) hidden."""
+    return block_with(cfg, lp, hidden, lambda x: _attention_decode_paged(
+        cfg, lp, x, cos_b, sin_b, k_pages, v_pages, page_table, lengths))[0]
+
+
+def block_decode_paged_quant(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, cos_b, sin_b,
+                             k_pages, v_pages, k_scale, v_scale, page_table: torch.Tensor,
+                             lengths: torch.Tensor, kv_codec: str) -> torch.Tensor:
+    """:func:`block_decode_paged` over one layer of a quantized pool (codes
+    and per-row scales, written in place)."""
+    return block_with(cfg, lp, hidden, lambda x: _attention_decode_paged_quant(
+        cfg, lp, x, cos_b, sin_b, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
+        kv_codec))[0]
+
+
+def run_layers_paged(cfg: ModelConfig, layers: dict, hidden: torch.Tensor, pools: tuple,
+                     page_table: torch.Tensor, lengths: torch.Tensor, kv_codec: str):
+    """Every layer of a stacked ``layers`` dict over its pool slice
+    (``pools``: the (L, num_pages, ps, ...) k, v[, k_scale, v_scale] arrays
+    of those layers) for one ragged position -> the (B, 1, D) hidden. Each
+    slot's RoPE row is taken at its own position, clamped into the span as
+    the reference's gather clamps it."""
+    span = page_table.shape[1] * pools[0].shape[2]
+    cos, sin = precompute_rope(cfg, span, device=hidden.device)
+    pos = torch.clamp(lengths.long(), max=span - 1)
+    cos_b, sin_b = cos[pos], sin[pos]
+    for idx in range(pools[0].shape[0]):
+        lp = {name: t[idx] for name, t in layers.items()}
+        layer = tuple(p[idx] for p in pools)
+        if kv_codec == "fp":
+            hidden = block_decode_paged(cfg, lp, hidden, cos_b, sin_b, *layer, page_table,
+                                        lengths)
+        else:
+            hidden = block_decode_paged_quant(cfg, lp, hidden, cos_b, sin_b, *layer,
+                                              page_table, lengths, kv_codec)
+    return hidden
+
+
 def _paged_step(cfg: ModelConfig, params: dict, pools: tuple, page_table: torch.Tensor,
                 lengths: torch.Tensor, token_ids: torch.Tensor, compute_dtype,
                 kv_codec: str) -> torch.Tensor:
@@ -1151,20 +1221,8 @@ def _paged_step(cfg: ModelConfig, params: dict, pools: tuple, page_table: torch.
     if token_ids.dim() == 1:
         token_ids = token_ids[:, None]
     hidden = embed(params, token_ids)  # (B, 1, D)
-    span = page_table.shape[1] * pools[0].shape[2]
-    cos, sin = precompute_rope(cfg, span, device=hidden.device)
-    pos = torch.clamp(lengths.long(), max=span - 1)
-    cos_b, sin_b = cos[pos], sin[pos]
-    for idx in range(cfg.num_layers):
-        lp = {name: t[idx] for name, t in params["layers"].items()}
-        layer = tuple(p[idx] for p in pools)
-        if kv_codec == "fp":
-            attn = lambda x: _attention_decode_paged(cfg, lp, x, cos_b, sin_b, *layer,
-                                                     page_table, lengths)
-        else:
-            attn = lambda x: _attention_decode_paged_quant(cfg, lp, x, cos_b, sin_b, *layer,
-                                                           page_table, lengths, kv_codec)
-        hidden = block_with(cfg, lp, hidden, attn)[0]
+    hidden = run_layers_paged(cfg, params["layers"], hidden, pools, page_table, lengths,
+                              kv_codec)
     return unembed(cfg, params, hidden)[:, -1]
 
 
@@ -1199,5 +1257,6 @@ def paged_decode_step_quant(cfg: ModelConfig, params: dict, pool_k, pool_v,
 __all__ = ["FREE", "SHARED", "PrefixCacheConfig", "PrefixIndex", "OutOfPages", "OutOfSlots",
            "KVTierMismatchError", "PagePool", "init_pool", "KVPageCodec", "KV_PAGE_CODECS",
            "resolve_kv_codec", "QuantPagePool", "init_quant_pool", "kv_page_bytes",
-           "num_pages_for_bytes", "PagedKVCache", "paged_decode_step",
+           "num_pages_for_bytes", "PagedKVCache", "block_decode_paged",
+           "block_decode_paged_quant", "run_layers_paged", "paged_decode_step",
            "paged_decode_step_quant"]

@@ -27,10 +27,24 @@ cut, through the same hops as the forward. Every stage's cache holds the
 dtype of the embedding output, as the reference's one stacked cache does: a
 float32 stage behind a separate hop rounds its K/V rows as it writes them.
 
+Paged decode (``init_paged_pool``, ``adopt_paged*``, ``copy_paged_pages``,
+``gather_paged*``, ``decode_step_paged``): the continuous batcher's pages,
+per stage. Each stage keeps one contiguous pool of its own layers,
+(layers_of_stage, num_pages, page_size, KV, hd) K and V in the pool dtype
+(codes plus fp32 per-row scales on a quantized tier), so every layer's page
+view starts 16-byte aligned for K13 / K14; page 0 is the trash page and
+pages never cross a cut. The host's ``PagedKVCache(materialize=False)``
+keeps the page table. A ragged step runs every stage's layers through
+``models.paged_kv.run_layers_paged`` and moves one (max_slots, 1, D) hidden
+across each cut through ``run_pipeline_stages``, as ``decode_step`` does.
+The payloads that leave the runtime (``gather_paged*``, and those
+``adopt_paged_rows*`` take) keep the reference's (n_stages, stage_size, n,
+KV, hd) layout, with zero rows for the layers that pad a shorter stage.
+
 Not ported yet: the faulty link, FEC, hedging, the micro-batch pipeline and
 the "data" / "model" mesh axes (each raises naming its argument), the
-micro-batched decode accounting (``pipelined_decode_hop_bytes``), stage loss
-(``mark_stage_lost``) and the paged methods.
+micro-batched decode accounting (``pipelined_decode_hop_bytes``) and stage
+loss (``mark_stage_lost``).
 """
 from __future__ import annotations
 
@@ -38,12 +52,16 @@ import dataclasses
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..codecs.codec_kernels import pallas_variant
 from ..codecs.fused_hop import fused_hop, fused_hop_plan
 from ..codecs.packing import WireCodec, get_wire_codec
 from ..models.configs import ModelConfig
+from ..models.flash_attention import dequantize_kv_rows, quantize_kv_rows
+from ..models.paged_kv import (KVTierMismatchError, _host, _rows_get, _rows_set,
+                               resolve_kv_codec, run_layers_paged)
 from ..models.transformer import (block_decode, block_verify, embed, precompute_rope,
                                   run_layers, unembed)
 
@@ -237,6 +255,9 @@ class SplitRuntime:
         # EDGELLM_FUSED_HOP now
         self.fused_plans: list = [fused_hop_plan(c, device=self.devices[s])
                                   for s, c in enumerate(self.codecs)]
+        #: the deepest stage's layer count: the depth every stage of a
+        #: paged payload is padded to, as the reference pads its stages
+        self.stage_size = max(stop - start for start, stop in self.bounds)
 
     # ---------- parameter placement ----------
 
@@ -431,3 +452,201 @@ class SplitRuntime:
     def verify_hop_bytes(self, batch: int, k: int) -> list:
         """Payload bytes per hop of one verify burst's (batch, k, D) block."""
         return hop_payload_bytes(self.codecs, self.cfg, batch, k)
+
+    # ---------- paged incremental decode ----------
+    #
+    # The continuous-batching twin of the block above: each stage's layers
+    # page like the local pool (fixed-size pages, one page table, trash page
+    # 0), so streams of any fill level share one ragged step while every cut
+    # still moves its (max_slots, 1, D) hidden through its hop.
+
+    def init_paged_pool(self, num_pages: int, page_size: int,
+                        dtype: torch.dtype = torch.float32, kv_codec: str = "fp") -> dict:
+        """Zeroed per-stage paged KV pools: ``{"k": [...], "v": [...]}``, one
+        (layers_of_stage, num_pages, page_size, KV, hd) tensor per stage on
+        its device in ``dtype``. Page 0 is the trash page: the host's page
+        tables never hand it out. A quantized ``kv_codec`` tier holds codes
+        (hd or hd / 2 lanes) under "k" / "v", fp32 per-row scales under
+        "k_scale" / "v_scale", and the tier's name under "kv_codec"."""
+        self._check_decode_supported()
+        if num_pages < 2:
+            raise ValueError("need num_pages >= 2 (page 0 is the trash page)")
+        cfg, codec = self.cfg, resolve_kv_codec(kv_codec)
+        lanes = codec.code_lanes(cfg.head_dim) if codec.quantized else cfg.head_dim
+        names = ("k", "v", "k_scale", "v_scale") if codec.quantized else ("k", "v")
+        pool = {name: [] for name in names}
+        for (start, stop), dev in zip(self.bounds, self.devices):
+            shape = (stop - start, num_pages, page_size, cfg.num_kv_heads, lanes)
+            for name in names:
+                if name.endswith("scale"):
+                    pool[name].append(torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
+                else:
+                    pool[name].append(torch.zeros(
+                        shape, dtype=codec.code_dtype if codec.quantized else dtype,
+                        device=dev))
+        if codec.quantized:
+            pool["kv_codec"] = codec.name
+        return pool
+
+    @staticmethod
+    def _pool_codec(pool: dict) -> str:
+        return pool.get("kv_codec", "fp") if "k_scale" in pool else "fp"
+
+    @staticmethod
+    def _pool_arrays(pool: dict) -> tuple:
+        """The pool's per-stage lists: (k, v) or (k, v, k_scale, v_scale)."""
+        names = ("k", "v", "k_scale", "v_scale") if "k_scale" in pool else ("k", "v")
+        return tuple(pool[name] for name in names)
+
+    def _stage_pool(self, pool: dict, s: int) -> tuple:
+        return tuple(arrs[s] for arrs in self._pool_arrays(pool))
+
+    def _index(self, idx, s: int) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(idx, np.int64)).to(self.devices[s])
+
+    def _layers(self, s: int) -> int:
+        return self.bounds[s][1] - self.bounds[s][0]
+
+    def _write_rows(self, pool: dict, s: int, dest: torch.Tensor, k_rows, v_rows) -> None:
+        """Stage ``s``'s (layers_of_stage, n, KV, hd) fp rows into its pool at
+        flat token positions ``dest``, quantized on append on a quantized
+        tier."""
+        codec = self._pool_codec(pool)
+        arrays = self._stage_pool(pool, s)
+        if codec == "fp":
+            _rows_set(arrays[0], dest, k_rows)
+            _rows_set(arrays[1], dest, v_rows)
+            return
+        dev = self.devices[s]
+        qk, sk = quantize_kv_rows(torch.as_tensor(k_rows).to(dev), codec)
+        qv, sv = quantize_kv_rows(torch.as_tensor(v_rows).to(dev), codec)
+        for arr, rows in zip(arrays, (qk, qv, sk, sv)):
+            _rows_set(arr, dest, rows)
+
+    def adopt_paged(self, pool: dict, cache: dict, row: int, dest, length: int, *,
+                    start: int = 0) -> dict:
+        """Move one stream's prefilled rows (``prefill_decode`` or
+        ``verify_step`` cache row ``row``, positions ``start .. length``)
+        into the pool pages at flat token indices ``dest`` ((length - start,)
+        ints, from ``PagedKVCache._flat_indices``). In place; a quantized
+        pool quantizes on append. Returns the pool."""
+        self._check_decode_supported()
+        for s in range(self.split.n_stages):
+            self._write_rows(pool, s, self._index(dest, s),
+                             cache["k"][s][:, row, start:length],
+                             cache["v"][s][:, row, start:length])
+        return pool
+
+    def adopt_paged_rows(self, pool: dict, k_seq, v_seq, dest) -> dict:
+        """Scatter a contiguous (n_stages, stage_size, n, KV, hd) K/V payload
+        (a :meth:`gather_paged` payload, the re-admission half of an
+        eviction) into the pool pages at flat token indices ``dest``; the
+        padding layers' rows are dropped. A quantized pool requantizes the
+        fp rows; the bit-exact resume is :meth:`adopt_paged_rows_packed`."""
+        self._check_decode_supported()
+        for s in range(self.split.n_stages):
+            n = self._layers(s)
+            self._write_rows(pool, s, self._index(dest, s), k_seq[s, :n], v_seq[s, :n])
+        return pool
+
+    def adopt_paged_rows_packed(self, pool: dict, k_codes, v_codes, k_scale, v_scale,
+                                dest) -> dict:
+        """Scatter a :meth:`gather_paged_packed` payload back: the raw codes
+        and scales, no requantize, so evict -> re-admit is bit-exact."""
+        self._check_decode_supported()
+        codec = self._pool_codec(pool)
+        if codec == "fp":
+            raise KVTierMismatchError(
+                offered="quantized", pool=codec, where="adopt_paged_rows_packed",
+                detail="packed payloads need a quantized pool; fp pools adopt fp rows via "
+                       "adopt_paged_rows")
+        for s in range(self.split.n_stages):
+            n, dest_s = self._layers(s), self._index(dest, s)
+            for arr, rows in zip(self._stage_pool(pool, s),
+                                 (k_codes, v_codes, k_scale, v_scale)):
+                _rows_set(arr, dest_s, rows[s, :n])
+        return pool
+
+    def copy_paged_pages(self, pool: dict, src, dst) -> dict:
+        """Apply prefix-cache COW forks to every stage's pool: pages ``src``
+        copied to pages ``dst`` (parallel index lists of
+        ``PagedKVCache.ensure_writable``'s (old, new) pairs). Codes and
+        scales move as bytes on a quantized tier."""
+        self._check_decode_supported()
+        for s in range(self.split.n_stages):
+            src_s, dst_s = self._index(src, s), self._index(dst, s)
+            for arr in self._stage_pool(pool, s):
+                arr[:, dst_s] = arr[:, src_s]
+        return pool
+
+    def _gather_rows(self, pool: dict, idx) -> list:
+        """Every stage's (layers_of_stage, n, KV, hd) rows at flat token
+        indices ``idx``, on its device: the pool dtype, dequantized to fp32
+        on a quantized tier."""
+        codec, out = self._pool_codec(pool), []
+        for s in range(self.split.n_stages):
+            rows = [_rows_get(arr, self._index(idx, s)) for arr in self._stage_pool(pool, s)]
+            if codec != "fp":
+                rows = [dequantize_kv_rows(rows[0], rows[2], codec),
+                        dequantize_kv_rows(rows[1], rows[3], codec)]
+            out.append(rows[:2])
+        return out
+
+    def _padded(self, per_stage: list) -> np.ndarray:
+        """Per-stage (layers_of_stage, ...) host arrays -> one (n_stages,
+        stage_size, ...) array, zero rows for the padding layers."""
+        first = per_stage[0]
+        out = np.zeros((self.split.n_stages, self.stage_size) + first.shape[1:], first.dtype)
+        for s, rows in enumerate(per_stage):
+            out[s, :rows.shape[0]] = rows
+        return out
+
+    def gather_paged(self, pool: dict, idx) -> tuple:
+        """One stream's K/V rows at flat token indices ``idx`` as host
+        (k_seq, v_seq), each (n_stages, stage_size, n, KV, hd) (bf16 widened
+        to fp32 exactly; a quantized tier dequantized to fp32): byte for byte
+        the rows :meth:`adopt_paged` scattered. The pool is not consumed."""
+        self._check_decode_supported()
+        rows = self._gather_rows(pool, idx)
+        return tuple(self._padded([_host(r[i]) for r in rows]) for i in (0, 1))
+
+    def gather_paged_packed(self, pool: dict, idx) -> tuple:
+        """A quantized pool's eviction form: host (k_codes, v_codes, k_scale,
+        v_scale) at flat token indices ``idx``, the raw pool bytes, in the
+        (n_stages, stage_size, n, ...) layout."""
+        self._check_decode_supported()
+        if self._pool_codec(pool) == "fp":
+            raise KVTierMismatchError(
+                offered="quantized", pool="fp", where="gather_paged_packed",
+                detail="the packed gather form needs a quantized pool; fp pools use "
+                       "gather_paged")
+        per_stage = [[_rows_get(arr, self._index(idx, s)).cpu().numpy()
+                      for arr in self._stage_pool(pool, s)]
+                     for s in range(self.split.n_stages)]
+        return tuple(self._padded([rows[i] for rows in per_stage]) for i in range(4))
+
+    def decode_step_paged(self, placed: dict, pool: dict, page_table, lengths,
+                          token_ids) -> tuple:
+        """One ragged decode position across the pipeline: every slot
+        advances at its own fill level (``page_table`` (max_slots,
+        pages_per_slot) and ``lengths`` (max_slots,) from the host's
+        ``PagedKVCache``), each stage's layers run over its own pool (K13,
+        or K14 on a quantized tier, on the card) and each cut moves the
+        (max_slots, 1, D) hidden through its hop. Returns (logits
+        (max_slots, V) float32, the pool, written in place)."""
+        self._check_decode_supported()
+        codec = self._pool_codec(pool)
+        page_table = torch.as_tensor(page_table)
+        lengths = torch.as_tensor(lengths)
+        ids = torch.as_tensor(token_ids).reshape(-1, 1).to(self.devices[0], torch.long)
+        hidden = embed(placed["first"], ids)  # (B, 1, D)
+
+        def run_stage(s, h):
+            dev = self.devices[s]
+            return run_layers_paged(self.cfg, placed["stages"][s], h, self._stage_pool(pool, s),
+                                    page_table.to(dev, torch.int32),
+                                    lengths.to(dev, torch.int32), codec)
+
+        out = run_pipeline_stages(self.split.n_stages, self.codecs, run_stage, hidden,
+                                  None, self.devices, self.fused_plans)
+        return unembed(self.cfg, placed["last"], out)[:, -1], pool

@@ -20,7 +20,9 @@ Dispatch mirrors the reference:
 
 - ``experiment: "serve"`` with a ``batching`` block -> the continuous batcher
   behind the serving front (``prefix_cache`` and ``kv_at_rest`` too): seeded
-  arrivals on a fake clock, ``serve_report.json`` and one JSON line
+  arrivals on a fake clock, ``serve_report.json`` and one JSON line; with
+  ``cuts`` / ``hop_codecs`` beside it the batcher's ragged step runs through
+  a ``SplitRuntime`` (the split-paged batcher, mode "batched_split")
 - ``experiment: "serve"`` without ``batching`` -> the front's per-request
   route through ``run_soak``: with ``cuts`` / ``hop_codecs`` every request
   on a ``SplitRuntime`` (``generate_split``; ``speculative``: the draft /
@@ -30,9 +32,8 @@ Dispatch mirrors the reference:
 A split config that carries a key of a split feature not ported yet
 (``UNPORTED_SPLIT_KEYS``: faults, healing, survivability, pipelining, the
 seq / data / model mesh axes) exits non-zero, and so do a serve config with
-a key of a serve feature not ported yet (``UNPORTED_SERVE_KEYS``), ``cuts``
-beside ``batching`` (the split-paged batcher), the per-request route's
-recovery and chaos fields (``serving.checkpoint_dir``,
+a key of a serve feature not ported yet (``UNPORTED_SERVE_KEYS``), the
+per-request route's recovery and chaos fields (``serving.checkpoint_dir``,
 ``serving.step_deadline_s``, ``serving.soak.kill_stage``), and
 ``--serve-report``, each naming what is missing. ``fused_hops`` maps onto
 the ``EDGELLM_FUSED_HOP`` gate as in the reference ("auto" fuses nowhere on
@@ -62,7 +63,7 @@ UNPORTED_SPLIT_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health",
                        "pipeline", "deadline", "stage_failure", "recovery",
                        "n_seq", "n_data", "n_model")
 #: serve keys whose feature is not ported yet (the boundary's faulty links,
-#: µ-batch pipelining, the fleet); ``cuts`` is refused beside ``batching``
+#: µ-batch pipelining, the fleet)
 UNPORTED_SERVE_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health", "pipeline",
                        "cluster", "disagg", "gray")
 #: the fused_hops key's values onto the EDGELLM_FUSED_HOP gate ("auto" clears it)
@@ -438,10 +439,6 @@ def _validate_serve(p: dict, die, device) -> None:
                                    or kq["pool_bytes"] < 1):
             die(f"kv_at_rest.pool_bytes must be a positive integer, got {kq['pool_bytes']!r}")
     _validate_speculative(p, die)
-    if "cuts" in p:
-        die("cuts is not ported yet to edgellm_tpu_torch under experiment 'serve' with a "
-            "'batching' block (the split-paged batcher); drop one of the two or run with "
-            "python -m edgellm_tpu.run")
 
 
 def _validate_speculative(p: dict, die) -> None:
@@ -506,6 +503,18 @@ def batching_config(cfg, params_json: dict):
     return BatchingConfig(**kw)
 
 
+def _split_runtime(cfg, params: dict, params_json: dict):
+    """The :class:`SplitRuntime` of a serve config's ``cuts`` /
+    ``hop_codecs``, every stage on the weights' device, after ``fused_hops``
+    is applied to the gate."""
+    from .parallel.split import SplitConfig, SplitRuntime
+
+    apply_fused_hops(params_json)
+    cuts = tuple(params_json["cuts"])
+    return SplitRuntime(cfg, SplitConfig(cuts=cuts, hop_codecs=tuple(params_json["hop_codecs"])),
+                        [params["embed"].device] * (len(cuts) + 1))
+
+
 def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
     """The batched serve experiment (a ``batching`` block), as the reference
     CLI runs it: a warm
@@ -513,7 +522,9 @@ def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
     (exponential gaps on a :class:`FakeClock`, prompts drawn from the soak's
     seed, a shared system prompt of ``shared_prefix_len`` tokens) submitted
     to a :class:`ServeFront` over one :class:`ContinuousBatcher` and drained
-    through it. Writes ``out("serve_report.json")`` and returns the printed
+    through it. With ``cuts`` both batchers take a :class:`SplitRuntime`
+    and its placed weights (mode "batched_split"). Writes
+    ``out("serve_report.json")`` and returns the printed
     summary line (the reference's keys) plus the records and the batcher
     report under ``"_records"`` / ``"_batcher"``. Raises ``SystemExit`` when
     a shared prefix was promised and the radix index never hit."""
@@ -527,11 +538,15 @@ def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
     soak = SoakConfig(**sv.get("soak", {}))
     clock = FakeClock()
     bcfg = batching_config(cfg, params_json)
-    batcher = ContinuousBatcher(cfg, params, bcfg)
+    split_kw = {}
+    if "cuts" in params_json:
+        rt = _split_runtime(cfg, params, params_json)
+        split_kw = dict(split_runtime=rt, placed_params=rt.place_params(params))
+    batcher = ContinuousBatcher(cfg, params, bcfg, **split_kw)
     front = ServeFront(cfg, params, config=front_cfg, clock=clock, batcher=batcher)
     # warm the ragged step and the soak's prefill shape (kernel build,
     # allocator) before the first request
-    warm = ContinuousBatcher(cfg, params, bcfg)
+    warm = ContinuousBatcher(cfg, params, bcfg, **split_kw)
     warm.submit(np.ones((soak.prompt_len,), np.int32), 2)
     warm.run()
     del warm
@@ -552,7 +567,8 @@ def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
     outcomes: dict = {}
     for rec in records:
         outcomes[rec.outcome] = outcomes.get(rec.outcome, 0) + 1
-    artifact = {"requests": len(records), "outcomes": outcomes, "mode": "batched",
+    artifact = {"requests": len(records), "outcomes": outcomes,
+                "mode": "batched_split" if split_kw else "batched",
                 "batcher": rep, "records": [r.as_dict() for r in records]}
     with open(out("serve_report.json"), "w") as f:
         json.dump(artifact, f, indent=1, default=float)
@@ -595,7 +611,6 @@ def run_serve_requests(cfg, params: dict, params_json: dict, out) -> dict:
     ``tokens`` by request id) and returns the printed
     summary line (the reference's keys) plus the artifact and the records
     under ``"_artifact"`` / ``"_records"``."""
-    from .parallel.split import SplitConfig, SplitRuntime
     from .serve.decode import generate, generate_split
     from .serve.frontend import ServeFront
     from .serve.soak import SoakConfig, run_soak
@@ -607,12 +622,7 @@ def run_serve_requests(cfg, params: dict, params_json: dict, out) -> dict:
     front_cfg = _serve_front_config(sv)
     soak = SoakConfig(**sv.get("soak", {}))
     clock = FakeClock()
-    rt = None
-    if "cuts" in params_json:
-        apply_fused_hops(params_json)
-        cuts = tuple(params_json["cuts"])
-        rt = SplitRuntime(cfg, SplitConfig(cuts=cuts, hop_codecs=tuple(params_json["hop_codecs"])),
-                          [params["embed"].device] * (len(cuts) + 1))
+    rt = _split_runtime(cfg, params, params_json) if "cuts" in params_json else None
     spec = SpecConfig(**params_json["speculative"]) if "speculative" in params_json else None
     front = ServeFront(cfg, params, split_runtime=rt, config=front_cfg, clock=clock,
                        speculative=spec)

@@ -1,5 +1,5 @@
 """Continuous batching over the paged KV pool: PyTorch counterpart of
-``edgellm_tpu/serve/batching.py``, local pool only.
+``edgellm_tpu/serve/batching.py``.
 
 Many streams share one ragged decode step built on
 :mod:`..models.paged_kv`: a fixed set of ``max_slots`` slots runs through
@@ -25,7 +25,18 @@ admitting, evicting, finishing or growing a stream changes no shape.
   unmatched suffix runs (``decode._prefill_suffix_impl``), and the first
   write into a shared page copy-on-write-forks it.
 
-Not ported yet: the split-runtime mode (``split_runtime=``), the
+With ``split_runtime=`` (a :class:`~..parallel.split.SplitRuntime`) and
+``placed_params=`` (its ``place_params`` tree) the ragged step runs through
+the split pipeline instead: the host ``PagedKVCache`` is the allocator alone
+(``materialize=False``), the pages live per stage
+(``SplitRuntime.init_paged_pool``), prompts prefill through
+``prefill_decode`` and are adopted with ``adopt_paged``, a prefix hit's
+suffix runs through ``verify_step`` over the gathered rows, COW forks go to
+``copy_paged_pages``, evictions gather with ``gather_paged(_packed)``, and
+each step is one ``decode_step_paged`` (every cut moves the (max_slots, 1,
+D) hidden through its hop) followed by the same per-slot sampler.
+
+Not ported yet: the split runtime's µ-batch pipeline, the
 disaggregated-prefill hooks (``prefill_hold``, ``gather_rows``,
 ``release_handoff``), per-stream checkpoints (``checkpoint_dir``,
 ``checkpoint_stream`` / ``restore_stream``) and observability spans.
@@ -153,23 +164,38 @@ class ContinuousBatcher:
     running stream back to the waiting queue with its gathered K/V prefix.
     :meth:`run` loops :meth:`step` to completion; ``results[sid]`` holds each
     finished stream's (max_new_tokens,) int32 tokens. The pool lives on the
-    device of the weights (``params["embed"]``)."""
+    device of the weights (``params["embed"]``), or per stage on the split
+    runtime's devices with ``split_runtime=``."""
 
     def __init__(self, cfg: ModelConfig, params: dict, bcfg: Optional[BatchingConfig] = None,
                  *, split_runtime: Any = None, placed_params: Any = None):
-        if split_runtime is not None or placed_params is not None:
-            raise ValueError(f"split_runtime (batched serving over a split plan, "
-                             f"SplitRuntime.decode_step_paged) {_NOT_PORTED}")
         self.cfg = cfg
         self.params = params
         self.bcfg = bcfg if bcfg is not None else BatchingConfig()
-        self.rt = None
-        self.device = params["embed"].device
+        self.rt = split_runtime
+        if split_runtime is not None:
+            if placed_params is None:
+                raise ValueError("split_runtime needs placed_params (the SplitRuntime's "
+                                 "placed parameter tree)")
+            if self.bcfg.compute_dtype is not None:
+                raise ValueError("compute_dtype is a local-pool knob; the split runtime "
+                                 "owns its own dtypes — leave it None")
+        self.placed = placed_params
+        self.device = (split_runtime.devices[0] if split_runtime is not None
+                       else params["embed"].device)
+        # split mode: the host cache is the allocator only; the pages live
+        # per stage and move through the runtime's paged scatter / gather
         self.pool = PagedKVCache(
             cfg, num_pages=self.bcfg.num_pages, page_size=self.bcfg.page_size,
             max_slots=self.bcfg.max_slots, pages_per_slot=self.bcfg.pages_per_slot,
             dtype=self.bcfg.cache_dtype, device=self.device,
+            materialize=split_runtime is None,
             prefix_cache=self.bcfg.prefix_cache, kv_codec=self.bcfg.kv_codec)
+        self._split_pool = (
+            split_runtime.init_paged_pool(self.bcfg.num_pages, self.bcfg.page_size,
+                                          dtype=self.bcfg.cache_dtype,
+                                          kv_codec=self.bcfg.kv_codec)
+            if split_runtime is not None else None)
         self._streams: dict[int, Stream] = {}
         self._waiting: deque[int] = deque()
         self._slot_to_sid: dict[int, int] = {}
@@ -303,7 +329,19 @@ class ContinuousBatcher:
         token 0 for fresh admits, None for resumes."""
         if st.resume is not None:
             need_len = int(st.resume["length"])
-            if "k_codes" in st.resume:
+            packed = "k_codes" in st.resume
+            if self.rt is not None:
+                self.pool.ensure(slot, need_len)
+                dest = self.pool._flat_indices(slot, need_len)
+                if packed:
+                    self._split_pool = self.rt.adopt_paged_rows_packed(
+                        self._split_pool, st.resume["k_codes"], st.resume["v_codes"],
+                        st.resume["k_scale"], st.resume["v_scale"], dest)
+                else:
+                    self._split_pool = self.rt.adopt_paged_rows(
+                        self._split_pool, st.resume["k"], st.resume["v"], dest)
+                self.pool.lengths[slot] = need_len
+            elif packed:
                 self.pool.adopt_packed(slot, st.resume["k_codes"], st.resume["v_codes"],
                                        st.resume["k_scale"], st.resume["v_scale"], need_len)
             else:
@@ -317,7 +355,18 @@ class ContinuousBatcher:
             # token 0 has logits
             matched = self.pool.share_prefix(slot, st.prompt, max_tokens=s - 1)
         if matched > 0:
-            tok0 = self._prefill_suffix_local(st, slot, matched)
+            tok0 = (self._prefill_suffix_split(st, slot, matched) if self.rt is not None
+                    else self._prefill_suffix_local(st, slot, matched))
+        elif self.rt is not None:
+            # generate_split's prefill and token-0 key, then the per-stage
+            # cache rows scatter into this slot's pages
+            prompt = torch.from_numpy(st.prompt[None, :].astype(np.int64)).to(self.device)
+            logits, cache = self.rt.prefill_decode(self.placed, prompt, self.bcfg.span)
+            tok0 = _sample(logits[:, -1], _fold(st.key, 0), st.temperature)
+            self.pool.ensure(slot, s)
+            self._split_pool = self.rt.adopt_paged(
+                self._split_pool, cache, 0, self.pool._flat_indices(slot, s), s)
+            self.pool.lengths[slot] = s
         else:
             prompt = torch.from_numpy(st.prompt[None, :].astype(np.int64)).to(self.device)
             last_logits, cache = _prefill_impl(self.cfg, self.params, prompt, s,
@@ -349,12 +398,52 @@ class ContinuousBatcher:
                              matched, s)
         return tok0
 
+    def _prefill_suffix_split(self, st: Stream, slot: int, matched: int) -> torch.Tensor:
+        """The split twin of :meth:`_prefill_suffix_local`: the ``matched``
+        rows gathered from the per-stage pools into per-stage contiguous
+        caches (the pool dtype, fp32 on a quantized tier), ``verify_step``
+        over the suffix tokens, the COW forks applied to the stage pools,
+        and the suffix rows scattered into this slot's pages."""
+        s = st.prompt.size
+        rows = self.rt._gather_rows(self._split_pool, self.pool._flat_indices(slot, matched))
+        ks, vs = [], []
+        for k_rows, v_rows in rows:  # (layers_of_stage, matched, KV, hd)
+            shape = (k_rows.shape[0], 1, self.bcfg.span) + tuple(k_rows.shape[2:])
+            kc = torch.zeros(shape, dtype=k_rows.dtype, device=k_rows.device)
+            vc = torch.zeros_like(kc)
+            kc[:, 0, :matched] = k_rows
+            vc[:, 0, :matched] = v_rows
+            ks.append(kc)
+            vs.append(vc)
+        cache = {"k": ks, "v": vs, "length": matched, "capacity": self.bcfg.span}
+        suffix = torch.from_numpy(st.prompt[None, matched:].astype(np.int64)).to(self.device)
+        logits, cache = self.rt.verify_step(self.placed, cache, suffix)
+        tok0 = _sample(logits[:, -1], _fold(st.key, 0), st.temperature)
+        self._grow_writable(slot, s)
+        self._split_pool = self.rt.adopt_paged(
+            self._split_pool, cache, 0, self.pool._flat_indices(slot, s)[matched:], s,
+            start=matched)
+        self.pool.lengths[slot] = s
+        return tok0
+
     def _gather_state(self, slot: int) -> dict:
         """One slot's contiguous K/V prefix as the resume payload (packed
-        codes + scales on a quantized tier, so the round trip is exact)."""
-        if self.bcfg.kv_codec != "fp":
-            return self.pool.gather_slot_packed(slot)
-        return self.pool.gather_slot(slot)  # bf16 rows widen to fp32 exactly
+        codes + scales on a quantized tier, so the round trip is exact);
+        split: the (n_stages, stage_size, n, KV, hd) twin from the stage
+        pools."""
+        quant = self.bcfg.kv_codec != "fp"
+        if self.rt is None:
+            # bf16 rows widen to fp32 exactly
+            return self.pool.gather_slot_packed(slot) if quant else self.pool.gather_slot(slot)
+        n = int(self.pool.lengths[slot])
+        idx = self.pool._flat_indices(slot, max(n, 1))
+        if quant:
+            kc, vc, ks, vs = self.rt.gather_paged_packed(self._split_pool, idx)
+            return {"k_codes": kc[:, :, :n], "v_codes": vc[:, :, :n],
+                    "k_scale": ks[:, :, :n], "v_scale": vs[:, :, :n],
+                    "length": np.asarray(n, np.int32)}
+        k_seq, v_seq = self.rt.gather_paged(self._split_pool, idx)
+        return {"k": k_seq[:, :, :n], "v": v_seq[:, :, :n], "length": np.asarray(n, np.int32)}
 
     def evict(self, sid: int) -> None:
         """Push a running stream back to the waiting queue with its pages
@@ -396,6 +485,15 @@ class ContinuousBatcher:
     def _running(self) -> list[Stream]:
         return [self._streams[sid] for sid in self._slot_to_sid.values()]
 
+    def _grow_writable(self, slot: int, new_length: int) -> None:
+        """Cover ``slot``'s positions up to ``new_length``: growth pages, and
+        a COW fork of every shared page the writes land in (copied in the
+        local pool, or routed to the stage pools in split mode)."""
+        pairs = self.pool.ensure_writable(slot, new_length)
+        if pairs and self.rt is not None:
+            self._split_pool = self.rt.copy_paged_pages(
+                self._split_pool, [o for o, _ in pairs], [n for _, n in pairs])
+
     def step(self) -> int:
         """Admit what fits, run ONE ragged step over every running slot,
         commit the sampled tokens. Returns the number of streams that
@@ -411,13 +509,13 @@ class ContinuousBatcher:
             if st.status != "running":
                 continue  # evicted by a predecessor's growth
             try:
-                self.pool.ensure_writable(st.slot, self._cache_len(st) + 1)
+                self._grow_writable(st.slot, self._cache_len(st) + 1)
             except OutOfPages:
                 need = max(1, self.pool.pages_for(self._cache_len(st) + 1)
                            - len(self.pool._slot_pages[st.slot]))
                 if not self._evict_for_pages(need, {st.sid}):
                     raise
-                self.pool.ensure_writable(st.slot, self._cache_len(st) + 1)
+                self._grow_writable(st.slot, self._cache_len(st) + 1)
         running = self._running()
         if not running:
             return 0
@@ -438,13 +536,17 @@ class ContinuousBatcher:
         page_table, lengths = self.pool.device_tables()
         t0 = time.monotonic()
         tok_ids = torch.from_numpy(token_ids).to(self.device)
-        pool = self.pool.pool
-        if self.bcfg.kv_codec != "fp":
+        if self.rt is not None:
+            # one ragged split step: every cut moves ONE (max_slots, 1, D)
+            # hidden through its hop, then the same per-slot sampler
+            logits, self._split_pool = self.rt.decode_step_paged(
+                self.placed, self._split_pool, page_table, lengths, tok_ids)
+        elif self.bcfg.kv_codec != "fp":
             logits = paged_decode_step_quant(
-                self.cfg, self.params, *pool, page_table, lengths, tok_ids,
+                self.cfg, self.params, *self.pool.pool, page_table, lengths, tok_ids,
                 kv_codec=self.bcfg.kv_codec, compute_dtype=self.bcfg.compute_dtype)[0]
         else:
-            logits = paged_decode_step(self.cfg, self.params, pool.k, pool.v, page_table,
+            logits = paged_decode_step(self.cfg, self.params, *self.pool.pool, page_table,
                                        lengths, tok_ids,
                                        compute_dtype=self.bcfg.compute_dtype)[0]
         toks_host = _batched_sample(logits, keys, steps, temps).cpu().numpy()  # one sync
@@ -487,7 +589,11 @@ class ContinuousBatcher:
 
     def report(self) -> dict:
         """The reference's report keys. ``jit_misses`` counts compiles of
-        the ragged step, which eager PyTorch does not have: always 0."""
+        the ragged step, which eager PyTorch does not have: always 0.
+        ``mode`` is the name the reference's stream checkpoints give the
+        pool ("paged", or "paged_split" over a split runtime, which adds the
+        plan's ``cuts`` and ``hop_codecs`` as those checkpoints record
+        them)."""
         with self._stats_lock:
             stats = dict(self.stats)
         n = stats["steps"]
@@ -512,4 +618,7 @@ class ContinuousBatcher:
             "token_capacity": self.pool.token_capacity,
             **({"prefix": self.pool.prefix_report()}
                if self.pool.prefix is not None else {}),
+            "mode": "paged" if self.rt is None else "paged_split",
+            **({"cuts": [int(c) for c in self.rt.split.cuts],
+                "hop_codecs": [c.name for c in self.rt.codecs]} if self.rt is not None else {}),
         }

@@ -132,7 +132,6 @@ def test_every_config_is_accepted_or_named_not_ported(config):
     soak = p.get("serving", {}).get("soak", {})
     unported_serve = exp == "serve" and (
         any(k in p for k in trun.UNPORTED_SERVE_KEYS)
-        or ("cuts" in p and "batching" in p)
         or ("batching" not in p and soak.get("kill_stage") is not None))
     if exp in trun.NOT_PORTED or "observability" in p or unported_split or unported_serve:
         with pytest.raises(SystemExit, match="not ported yet"):
@@ -224,6 +223,65 @@ def test_split_mesh_axes_of_one_and_unported_twins():
         trun._validate_params_json({**base, "importance_method": "attention"})
     with pytest.raises(SystemExit, match="prefix_cache only applies to experiment 'serve'"):
         trun._validate_params_json({**base, "prefix_cache": {}})
+
+
+#: the committed batched serve configs, each with a cut inside tiny-qwen2's
+#: 6 layers (no shipped config carries cuts beside batching)
+SPLIT_SERVE = ["split9_qwen_paged.json", "split13_qwen_prefix.json", "split14_qwen_kvq.json"]
+
+
+def _split_serve(name: str, **extra) -> dict:
+    p = json.loads((REPO / "configs" / name).read_text())
+    p.update(cuts=[2], hop_codecs=["int8_per_token"], fused_hops="off", **extra)
+    p["serving"]["soak"]["n_requests"] = 10
+    return p
+
+
+@pytest.mark.parametrize("name", SPLIT_SERVE)
+def test_cli_serve_cuts_beside_batching_matches_reference_cli(name, tmp_path, capsys,
+                                                              monkeypatch):
+    """``cuts`` beside ``batching`` on the CPU: the split-paged batcher
+    serves every request, the printed line has the reference CLI's keys and
+    counts (mode "batched_split"), and serve_report.json holds the
+    batcher's "paged_split" report (split13: prefix hits)."""
+    monkeypatch.setenv("EDGELLM_FUSED_HOP", "0")  # the CLIs set it; restored after
+    argv = ["--params", json.dumps(_split_serve(name)), "--model", "tiny-qwen2"]
+    assert trun.main(argv + ["--device", "cpu", "--output-dir", str(tmp_path / "t")]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert jrun.main(argv + ["--output-dir", str(tmp_path / "j")]) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(got) == set(want)
+    for key in got:
+        if key not in ("decode_tokens_per_s", "artifact"):
+            assert got[key] == want[key], key
+    assert got["mode"] == "batched_split" and got["outcomes"] == {"completed": 10}
+    rep = json.loads((tmp_path / "t" / "serve_report.json").read_text())["batcher"]
+    assert rep["mode"] == "paged_split" and rep["cuts"] == [2]
+    assert rep["hop_codecs"] == ["int8_per_token"] and rep["jit_misses"] == 0
+    if name == "split13_qwen_prefix.json":
+        assert rep["prefix"]["hits"] >= 1
+
+
+def test_cli_serve_cuts_beside_batching_still_refuses_unported():
+    """Beside ``cuts`` and ``batching`` the µ-batch pipeline, the faulty
+    link and the batcher's checkpoints still die "not ported yet";
+    speculative decoding stays refused as the reference refuses it."""
+    base = _split_serve("split9_qwen_paged.json")
+    trun._validate_params_json(base)
+    for bad, message in (
+            ({**base, "pipeline": {"num_microbatches": 2}}, "pipeline is not ported yet"),
+            ({**base, "faults": {"drop_rate": 0.1}}, "faults is not ported yet"),
+            ({**base, "batching": {**base["batching"], "checkpoint_dir": "ckpt"}},
+             "checkpoint_dir .* not ported yet")):
+        with pytest.raises(SystemExit, match=message):
+            trun._validate_params_json(bad)
+    spec = {**base, "speculative": {"k": 4}}
+    with pytest.raises(SystemExit) as want:
+        jrun._validate_params_json(spec)
+    with pytest.raises(SystemExit) as got:
+        trun._validate_params_json(spec)
+    assert str(got.value) == str(want.value) and "drop 'speculative' or 'batching'" in str(
+        got.value)
 
 
 @pytest.fixture(scope="module")
@@ -336,6 +394,15 @@ b = ContinuousBatcher(cfg, params, BatchingConfig(page_size=8, num_pages=8, max_
                                                   pages_per_slot=2, kv_codec="int4_per_channel"))
 sid = b.submit(np.arange(1, 6), 4, temperature=0.5, rng_seed=1)
 assert b.run()[sid].shape == (4,)
+b = ContinuousBatcher(cfg, params, BatchingConfig(page_size=8, num_pages=8, max_slots=2,
+                                                  pages_per_slot=2, kv_codec="int4_per_channel"),
+                      split_runtime=rt, placed_params=rt.place_params(params))
+sid = b.submit(np.arange(1, 6), 4, temperature=0.5, rng_seed=1)
+assert b.run()[sid].shape == (4,) and b.report()["mode"] == "paged_split"
+from edgellm_tpu_torch.eval import run_kv_tier_sweep
+rows = run_kv_tier_sweep(cfg, params, np.arange(60) % 256, max_length=16, stride=8,
+                         page_size=8, max_chunks=2, device="cpu")
+assert all(np.isfinite(r["ppl"]) for r in rows)
 from edgellm_tpu_torch.importance.relevance import run_relevance_extraction
 w = run_relevance_extraction(cfg, params, np.arange(100) % 256, max_length=32, stride=16,
                              max_chunks=2, device="cpu")
@@ -381,6 +448,7 @@ def test_entry_points_default_to_cuda():
     for fn in (harness.run_token_sweep, harness.run_channel_sweep, harness.run_initial_sweep,
                transformer.init_params, hf_loader.params_from_state_dict,
                safetensors_io.load_checkpoint, split_eval.run_split_eval,
+               split_eval.run_kv_tier_eval,
                relevance.run_relevance_extraction, distances.layer_importance_distributions):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     # the per-request route takes its device from the runtime and the

@@ -368,3 +368,115 @@ def test_decode_and_verify_hops_reach_k3_contiguous(card, monkeypatch):
     assert strided.shape == (2, 1, cfg.hidden_size) and not strided.is_contiguous()
     with pytest.raises(ValueError, match="must be contiguous"):
         rt.codecs[0].encode(strided)
+
+
+def _split_paged_forced(cfg, params, dev, codec, kv_codec, prompts, forced):
+    """Teacher-forced logits of the split ragged step at cut 1: every prompt
+    prefilled (``prefill_decode``) and adopted into its own slot of a page
+    size 16 pool, then every step fed ``forced[:, t]`` -> (T, B, V) on the
+    CPU."""
+    from edgellm_tpu_torch.models.paged_kv import PagedKVCache
+    from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime
+
+    rt = SplitRuntime(cfg, SplitConfig((1,), (codec,)), [dev, dev])
+    placed = rt.place_params(params)
+    b, steps = forced.shape
+    host = PagedKVCache(cfg, num_pages=1 + 8 * b, page_size=16, max_slots=b, pages_per_slot=8,
+                        device=dev, materialize=False, kv_codec=kv_codec)
+    pool = rt.init_paged_pool(1 + 8 * b, 16, kv_codec=kv_codec)
+    for p in prompts:
+        slot = host.alloc_slot()
+        _, cache = rt.prefill_decode(placed, torch.from_numpy(p[None]).to(dev), 128)
+        host.ensure(slot, len(p))
+        pool = rt.adopt_paged(pool, cache, 0, host._flat_indices(slot, len(p)), len(p))
+        host.lengths[slot] = len(p)
+    out = []
+    for t in range(steps):
+        for slot in range(b):
+            host.ensure_writable(slot, int(host.lengths[slot]) + 1)
+        table, lengths = host.device_tables()
+        logits, pool = rt.decode_step_paged(placed, pool, table, lengths,
+                                            torch.from_numpy(forced[:, t]).to(dev))
+        out.append(logits.cpu())
+        host.lengths += 1
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("codec,kv_codec,atol", [("fp32", "fp", 1e-4),
+                                                 ("int8_per_token", "fp", 1e-2),
+                                                 ("int8_per_token", "int4_per_channel", 1e-2)])
+def test_split_paged_step_on_card_matches_cpu(card, codec, kv_codec, atol):
+    """The split ragged step at Qwen2-0.5B width, 3 layers, cut 1, four
+    streams of ragged prompts teacher-forced over 5 steps: on the card (K13
+    or K14 a layer a step, K3 / K4 at N = 4 on the int8 hop) against the
+    CPU (plain versions). Tolerance: summation order alone over an fp32 hop
+    and fp pages (1e-4); with an int8 hop or int4 pages a value on a
+    rounding boundary puts its code a step from the CPU's, and the prompts'
+    206 hop tokens hold several such values: one moved a logit 2.3e-3 on the
+    H100, so 1e-2."""
+    from edgellm_tpu_torch.codecs import codec_kernels as ck
+
+    cfg, params, params_cpu = _qwen_width_3_layers(card)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (5, 37, 64, 100)]
+    forced = rng.integers(1, cfg.vocab_size, (4, 5))
+    attn = fa.paged_decode_attention if kv_codec == "fp" else fa.paged_decode_attention_quant
+    n_attn, n3 = attn.launches, ck.int8_affine_encode.launches
+    got = _split_paged_forced(cfg, params, card, codec, kv_codec, prompts, forced)
+    assert attn.launches - n_attn == cfg.num_layers * 5
+    assert ck.int8_affine_encode.launches - n3 == (9 if codec == "int8_per_token" else 0)
+    want = _split_paged_forced(cfg, params_cpu, "cpu", codec, kv_codec, prompts, forced)
+    torch.testing.assert_close(got, want, atol=atol, rtol=atol)
+
+
+def test_kv_tier_eval_on_card_matches_cpu(card):
+    """``run_kv_tier_eval`` at the int4 tier, Qwen2-0.5B width, 3 layers:
+    K14 once a layer a position on the card, and the PPL of the CPU's plain
+    version within rtol 1e-3."""
+    from edgellm_tpu_torch.eval import run_kv_tier_eval
+
+    cfg, params, params_cpu = _qwen_width_3_layers(card)
+    corpus = np.random.default_rng(6).integers(0, cfg.vocab_size, 96)
+    kw = dict(kv_codec="int4_per_channel", max_length=32, stride=16, page_size=16,
+              window_batch=2, max_chunks=3)
+    n0 = fa.paged_decode_attention_quant.launches
+    got = run_kv_tier_eval(cfg, params, corpus, device=card, **kw)
+    # chunk 0 alone, then one group of two full windows: 2 groups of T = 32
+    assert fa.paged_decode_attention_quant.launches - n0 == cfg.num_layers * 31 * 2
+    want = run_kv_tier_eval(cfg, params_cpu, corpus, device="cpu", **kw)
+    assert got["chunks"] == want["chunks"] == 3 and got["n_tokens"] == want["n_tokens"]
+    np.testing.assert_allclose(got["ppl"], want["ppl"], rtol=1e-3)
+
+
+def test_bf16_weights_over_fp32_pages_on_card(card):
+    """bf16 weights over the batcher's default float32 pages: K13 takes a
+    bf16 q over float32 pages widened (its output the widened call's,
+    rounded to bf16); the split step's bf16 stage 0 hands it such a q (one
+    launch a layer a step in all), and the teacher-forced logits stay within 5e-2 of the
+    CPU's plain version: bf16 GEMMs round on the two devices in other places
+    (one bf16 step is 0.4 % of a value; an int8 hop over bf16 stages read
+    3.7e-2 on the H100), and the plain version rounds the probabilities to
+    bf16 as the reference's gather path does."""
+    from edgellm_tpu_torch.models.transformer import params_to
+
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.normal(size=(3, 1, 14, 64)).astype(np.float32)).to(card)
+    kp, vp = (torch.from_numpy(rng.normal(size=(7, 16, 2, 64)).astype(np.float32)).to(card)
+              for _ in range(2))
+    table = torch.tensor([[1, 2], [3, 4], [5, 6]], dtype=torch.int32, device=card)
+    lengths = torch.tensor([5, 32, 17], dtype=torch.int32, device=card)
+    plan = fa.paged_plan(q, kp, table)
+    got = fa.paged_decode_attention(q.bfloat16(), kp, vp, table, lengths, plan=plan)
+    widened = fa.paged_decode_attention(q.bfloat16().float(), kp, vp, table, lengths, plan=plan)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, widened.bfloat16())
+    cfg, params, _ = _qwen_width_3_layers(card)
+    bf_card = params_to(params, dtype=torch.bfloat16)
+    bf_cpu = params_to(bf_card, device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (6, 33)]
+    forced = rng.integers(1, cfg.vocab_size, (2, 3))
+    n0 = fa.paged_decode_attention.launches
+    got = _split_paged_forced(cfg, bf_card, card, "fp32", "fp", prompts, forced)
+    assert fa.paged_decode_attention.launches - n0 == cfg.num_layers * 3
+    want = _split_paged_forced(cfg, bf_cpu, "cpu", "fp32", "fp", prompts, forced)
+    torch.testing.assert_close(got, want, atol=5e-2, rtol=5e-2)

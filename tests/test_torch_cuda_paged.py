@@ -133,7 +133,7 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="int32"):
         fa.paged_decode_attention(q, kp, vp, table.long(), lengths, plan=plan)
     with pytest.raises(ValueError, match="q's dtype"):
-        fa.paged_decode_attention(q.bfloat16(), kp, vp, table, lengths, plan=plan)
+        fa.paged_decode_attention(q, kp.bfloat16(), vp.bfloat16(), table, lengths, plan=plan)
     with pytest.raises(ValueError, match="lengths"):
         fa.paged_decode_attention(q, kp, vp, table, lengths[:1].contiguous(), plan=plan)
     with pytest.raises(ValueError, match="page_table"):

@@ -220,7 +220,7 @@ def test_batcher_refusals():
         b.submit(np.ones(8, np.int32), 2)
     with pytest.raises(ValueError, match="empty prompt"):
         b.submit([], 2)
-    with pytest.raises(ValueError, match="split_runtime .* not ported yet"):
+    with pytest.raises(ValueError, match="split_runtime needs placed_params"):
         tb.ContinuousBatcher(TCFG, tparams, split_runtime=object())
     with pytest.raises(ValueError, match="checkpoint_dir .* not ported yet"):
         tb.BatchingConfig(checkpoint_dir="/nowhere")
@@ -517,7 +517,7 @@ def test_serve_cli_greedy_tokens_equal_reference(name, hf_checkpoint, tmp_path):
 
 
 @pytest.mark.parametrize("key,value,message", [
-    ("cuts", [1], "cuts is not ported yet"),
+    ("link_health", {}, "link_health is not ported yet"),
     ("gray", {}, "gray is not ported yet"),
     ("cluster", {}, "cluster is not ported yet"),
     ("disagg", {}, "disagg is not ported yet"),
@@ -526,8 +526,6 @@ def test_serve_cli_greedy_tokens_equal_reference(name, hf_checkpoint, tmp_path):
 ])
 def test_unported_serve_keys_are_named(key, value, message):
     p = {**_config("split9_qwen_paged.json"), key: value}
-    if key == "cuts":
-        p["hop_codecs"] = ["int8_per_token"]
     with pytest.raises(SystemExit, match=message):
         trun._validate_params_json(p)
 
