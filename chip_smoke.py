@@ -145,7 +145,26 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    8 chunks; K13 / K14 24 a position a tier), then at 3 layers card against
    CPU (PPL within rtol 1e-3); K13 / K14 at that geometry and K3 / K4 / K8
    at N = 32 timed on the device;
-17. a JSON line of every kernel (launches summed over the counted paths,
+17. the boundary link at full Qwen2-0.5B width and depth, fp32 random
+   weights from ``--seed``: the codec and fused-hop probes
+   (``edgellm_tpu_torch.tools.pallas_probe``) into the phase's own probe
+   cache (every row's ratio, parity and decision; a parity miss or another
+   fingerprint in the cache fails; a twin that reads slower than its plain
+   codec is reported, and runs all the same);
+   configs/split10_qwen_fused.json through ``run.main`` under "auto" (its
+   hop runs the cache's verdict for ``fused_hop:int8_per_token``) beside
+   "off", "wire" and "remote", in three rounds, with the s/chunk the
+   probe's per-hop difference predicts; configs/split7_qwen_lossy.json and
+   split6_qwen_chaos.json through ``run.main --fault-report`` (24 chunks,
+   window batch 4), beside a clean split1 and a zero-rate faults run (the
+   same PPL bit for bit): K3 / K4 (K1 / K2 at the int4 tier) launched once
+   a hop encoded / a copy sent, split6's trail stepping, counters and tier
+   trail equal at 13 layers on the card and the CPU (PPL within 1e-4),
+   one group of each profiled; ``run_fault_sweep`` over drop rates 0,
+   0.05 and 0.2 on split1's cut (24 chunks, one window a forward, no
+   retry), its rate-0 point the clean split's. Every
+   earlier phase reads an empty probe cache this run wrote;
+18. a JSON line of every kernel (launches summed over the counted paths,
    and by path; K-attn's also by dtype and path; K-stats' fp32 column pass
    apart; ``ms`` its device time, ``event_ms`` the call's CUDA-event time),
    the ``nvidia-smi`` line, and
@@ -163,8 +182,10 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1801,9 +1822,9 @@ REL_CROSS_TOL = (1e-3, 1e-6)
 DIST_CROSS_ATOL = 1e-5
 
 
-def _cli_json_line(argv) -> tuple[int, dict]:
-    """``edgellm_tpu_torch.run.main(argv)`` with its standard output caught
-    -> (exit code, its last line as JSON), the line logged."""
+def _cli_run(argv) -> tuple[int, list]:
+    """``edgellm_tpu_torch.run.main(argv)`` with its standard output caught ->
+    (exit code, its lines)."""
     import io
 
     from edgellm_tpu_torch import run
@@ -1811,9 +1832,15 @@ def _cli_json_line(argv) -> tuple[int, dict]:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = run.main(argv)
-    line = buf.getvalue().strip().splitlines()[-1]
-    log(f"  cli printed: {line}")
-    return rc, json.loads(line)
+    return rc, buf.getvalue().strip().splitlines()
+
+
+def _cli_json_line(argv) -> tuple[int, dict]:
+    """``edgellm_tpu_torch.run.main(argv)`` with its standard output caught
+    -> (exit code, its last line as JSON), the line logged."""
+    rc, lines = _cli_run(argv)
+    log(f"  cli printed: {lines[-1]}")
+    return rc, json.loads(lines[-1])
 
 
 def experiment_paths(args, detail: dict) -> dict:
@@ -2754,6 +2781,372 @@ def split_paged_paths(args, detail: dict) -> dict:
     return out
 
 
+#: phase 17's faulty-link runs: chunks and window batch (6 groups, so
+#: split6's streak controller steps down twice and every tier runs), and
+#: the depth at which the card is held against the CPU (cut 11 needs 13)
+LINK_CHUNKS, LINK_WB, LINK_CROSS_LAYERS = 24, 4, 13
+#: the fault sweep on split1's cut: drop rates and chunks, one window a
+#: forward and no retry, so each chunk's hop is one draw of the drop rate
+SWEEP_RATES, SWEEP_CHUNKS = (0.0, 0.05, 0.2), 24
+LINK_CONFIGS = ("configs/split7_qwen_lossy.json", "configs/split6_qwen_chaos.json")
+#: split10 under each ``fused_hops``: chunks a run (5 window groups of 8)
+#: and rounds, the modes' order reversed every other round
+SPLIT10_CHUNKS, SPLIT10_ROUNDS = 33, 3
+#: the CLI's synthetic corpus (``--synthetic-corpus-len``'s default), which
+#: the phase's direct runs draw again from ``--seed``
+CLI_CORPUS_LEN = 4096
+
+
+@contextlib.contextmanager
+def probe_cache_file(path: str):
+    """``EDGELLM_PROBE_CACHE`` pointed at ``path`` (a file this script wrote
+    or none yet) for the runtimes built inside."""
+    saved = os.environ.get("EDGELLM_PROBE_CACHE")
+    os.environ["EDGELLM_PROBE_CACHE"] = path
+    try:
+        yield
+    finally:
+        os.environ.pop("EDGELLM_PROBE_CACHE", None)
+        if saved is not None:
+            os.environ["EDGELLM_PROBE_CACHE"] = saved
+
+
+def _copies_sent(counters: dict, routes: int) -> int:
+    """Copies a faulty link sent (and decoded): every route of every attempt
+    made, an attempt after the first being a retry."""
+    return routes * (sum(counters["hops"]) + sum(counters["retried"]))
+
+
+def _link_expected(by_tier: list, n_groups: int, n_layers: int, routes: int) -> dict:
+    """The launches of a faulty-link split run through the CLI (fp32): each
+    tier's encode kernel once a hop it carried, its decode kernel once a copy
+    sent (the int8 tier K3 / K4, the int4 tier K1 / K2, ternary_per_token
+    none: it has no twin), time_hops' and time_decode_hops' hops on tier 0,
+    and every K-attn fp32."""
+    kernels = [("int8_affine_encode", "int8_affine_decode"), ("int4_encode", "int4_decode"),
+               (None, None)]
+    want = dict(causal_attention=n_layers * n_groups)
+    for tier, (enc, dec) in zip(by_tier, kernels):
+        if tier is None or enc is None:
+            continue
+        want[enc] = want.get(enc, 0) + sum(tier["counters"]["hops"])
+        want[dec] = want.get(dec, 0) + _copies_sent(tier["counters"], routes)
+    want["int8_affine_encode"] = want.get("int8_affine_encode", 0) + HOP_ITERS
+    want["int8_affine_decode"] = want.get("int8_affine_decode", 0) + HOP_ITERS
+    return want_counts(want["causal_attention"], **want)
+
+
+def _int8_hop_counts(mode, n_groups: int) -> dict:
+    """The int8_per_token hop's launches over ``n_groups`` groups through
+    the CLI: K8 once a group under a "remote" plan, else the twin's K3 and
+    K4 (the separate and the "wire" hop alike), and time_hops' separate
+    hops (K3 + K4) whatever the plan."""
+    hop = {"int8_affine_encode": HOP_ITERS, "int8_affine_decode": HOP_ITERS}
+    if mode == "remote":
+        hop["remote_hop"] = n_groups
+    else:
+        hop = {k: v + n_groups for k, v in hop.items()}
+    return hop
+
+
+def _plan_mode(params_json: dict):
+    """The mode the gate plans for a config's first hop on the card (None:
+    the separate hop), with ``fused_hops`` applied as the CLI applies it."""
+    from edgellm_tpu_torch import run
+    from edgellm_tpu_torch.codecs.fused_hop import fused_hop_plan
+    from edgellm_tpu_torch.parallel.split import apply_default_codec_backend
+
+    run.apply_fused_hops(params_json)
+    try:
+        codec = apply_default_codec_backend(params_json["hop_codecs"][:1], "cuda")[0]
+        return fused_hop_plan(codec, device="cuda")
+    finally:
+        os.environ.pop("EDGELLM_FUSED_HOP", None)
+
+
+def boundary_link_paths(args, detail: dict, cache_path: str) -> dict:
+    """Phase 17: the boundary link on the card, fp32 random weights from
+    ``--seed`` at full Qwen2-0.5B width and depth. (1) The codec and
+    fused-hop probes (``tools/pallas_probe.py``) into the phase's own probe
+    cache ``cache_path``: every row's ratio, parity and decision; a parity
+    miss or an entry of another fingerprint fails, a twin slower than its
+    plain codec is reported (it runs all the same). (2)
+    configs/split10_qwen_fused.json through ``run.main`` under "auto",
+    whose hop must run the cache's verdict for ``fused_hop:int8_per_token``
+    (K8 on a win, K3 / K4 otherwise), beside forced "off", "wire" and
+    "remote", :data:`SPLIT10_ROUNDS` rounds of each, against the s/chunk
+    the probe's per-hop difference predicts. (3) configs/split7_qwen_lossy.json
+    and split6_qwen_chaos.json through ``run.main`` with
+    ``--fault-report`` (:data:`LINK_CHUNKS` chunks, window batch
+    :data:`LINK_WB`), a clean split1 run and a faults config of zero rates
+    beside them: counters and tier trail equal a CPU run of the same code
+    (at :data:`LINK_CROSS_LAYERS` layers, on the card and the CPU: the
+    counters do not depend on depth, the PPL within rtol 1e-4), split6's
+    trail steps, K3 / K4 (and K1 / K2) launched once a hop encoded / a copy
+    sent at their tier, the zero-rate run's PPL the clean one's bit for
+    bit; s/chunk, wire bytes per token with the FEC overhead and one
+    profiled group's idle share. (4) ``run_fault_sweep`` over drop rates
+    :data:`SWEEP_RATES` on split1's cut, its rate-0 point the clean split's
+    -> launches by path."""
+    import argparse as ap
+    import dataclasses as dc
+
+    import torch
+
+    from edgellm_tpu_torch import run
+    from edgellm_tpu_torch.codecs import probe_cache
+    from edgellm_tpu_torch.codecs.fec import FECConfig
+    from edgellm_tpu_torch.eval import run_fault_sweep, run_split_eval
+    from edgellm_tpu_torch.models import PRESETS, params_to
+    from edgellm_tpu_torch.tools import pallas_probe
+
+    out, rows = {}, {}
+    cfg = PRESETS["qwen2-0.5b"]
+    base = ["--model", "qwen2-0.5b", "--seed", str(args.seed)]
+    fp = probe_cache.fingerprint("cuda")
+
+    # (1) the probes, into this phase's cache
+    if os.path.exists(cache_path):
+        os.remove(cache_path)
+    with probe_cache_file(cache_path):
+        t0 = time.monotonic()
+        codecs = pallas_probe.probe_all(device="cuda", reps=15, iters=40)
+        hops = pallas_probe.probe_fused_hops(device="cuda", reps=15, iters=40)
+        probe_s = time.monotonic() - t0
+        for row in codecs["codecs"] + hops["hops"]:
+            log(json.dumps({"probe_row": row}))
+        with open(cache_path) as f:
+            cache = json.load(f)
+        auto_win = probe_cache.measured_win("fused_hop:int8_per_token", fp)
+    losses = [r["codec"] for r in codecs["codecs"] if r.get("measured_win") is False]
+    parity = [h["codec"] for h in hops["hops"] if not h["fused_equals_fallback"]]
+    rows["probe"] = {"seconds": probe_s, "fingerprint": fp, "cache": cache,
+                     "codecs": codecs["codecs"], "hops": hops["hops"], "twin_losses": losses}
+    log(json.dumps({"probe_cache": cache}))
+    if losses:  # a finding: the twins run on the card whatever they read
+        log(f"  kernel twin(s) {losses} read under WIN_MARGIN against their plain codecs; "
+            f"they run all the same")
+    if list(cache) != [fp] or any(not k.startswith("fused_hop:") for k in cache[fp]["speedups"]):
+        raise SystemExit(f"probe cache holds other entries than {fp}'s fused hops: {cache}")
+    if parity:
+        raise SystemExit(f"fused hop(s) {parity} differ from the separate hop")
+
+    # (2) split10 under "auto" follows the cache, beside the forced modes, in
+    # rounds: the s/chunk each plan gives against the probe's prediction
+    with open("configs/split10_qwen_fused.json") as f:
+        split10 = json.load(f)
+    n_groups = math.ceil(SPLIT10_CHUNKS / 8)
+    split10_argv = ["--max-chunks", str(SPLIT10_CHUNKS)] + base
+    auto_mode = "remote" if auto_win else None
+    hop8 = next(h for h in hops["hops"] if h["codec"] == "int8_per_token")
+    # a plan changes one hop a group: the probe's per-hop wall difference
+    # spread over the run's chunks
+    predicted = (hop8["fallback_us"] - hop8["fused_us"]) * 1e-6 * n_groups / SPLIT10_CHUNKS
+    modes = ("auto", "off", "wire", "remote")
+    walls = {m: [] for m in modes}
+    with probe_cache_file(cache_path):
+        with tempfile.TemporaryDirectory() as tmp:  # warm the process at this shape, uncounted
+            _cli_run(["--params", json.dumps({**split10, "fused_hops": "off"}),
+                      "--output-dir", tmp] + split10_argv)
+            os.environ.pop("EDGELLM_FUSED_HOP", None)
+        for rnd in range(SPLIT10_ROUNDS):
+            for mode in (modes if rnd % 2 == 0 else modes[::-1]):
+                p = {**split10, "fused_hops": mode}
+                label = f"link split10 fused_hops {mode}"
+                plan = _plan_mode(p)
+                with tempfile.TemporaryDirectory() as tmp:
+                    reset_counts()
+                    rc, lines = _cli_run(["--params", json.dumps(p), "--output-dir", tmp]
+                                         + split10_argv)
+                    launches = read_counts()
+                    os.environ.pop("EDGELLM_FUSED_HOP", None)
+                res = json.loads(lines[-1])
+                ran = None if plan is None else plan.mode
+                want = want_counts(cfg.num_layers * n_groups,
+                                   causal_attention=cfg.num_layers * n_groups,
+                                   **_int8_hop_counts(ran, n_groups))
+                walls[mode].append(res["wall_s"] / res["chunks"])
+                log(f"  split10 fused_hops {mode} round {rnd}: plan {ran or 'separate'}, "
+                    f"{walls[mode][-1]:.5f} s/chunk")
+                if mode == "auto" and ran != auto_mode:
+                    raise SystemExit(f"auto ran {ran}, the cache's verdict is {auto_mode} "
+                                     f"(fused_hop:int8_per_token win {auto_win})")
+                if rc != 0 or res["chunks"] != SPLIT10_CHUNKS or not np.isfinite(res["ppl"]) \
+                        or launches != want:
+                    raise SystemExit(f"{label}: rc {rc}, {res['chunks']} chunks, launches "
+                                     f"{launches} != expected {want}")
+                if rnd == 0:
+                    rows[label] = {"rc": rc, "plan": None if plan is None else dc.asdict(plan),
+                                   "ppl": res["ppl"], "launches": launches,
+                                   "launches_expected": want}
+                    out[label] = launches
+                rows[label]["s_per_chunk"] = walls[mode]
+    med = {m: statistics.median(v) for m, v in walls.items()}
+    rows["split10 plans"] = {
+        "median_s_per_chunk": med, "measured_off_minus_remote": med["off"] - med["remote"],
+        "predicted_off_minus_remote": predicted,
+        "spread_s_per_chunk": {m: max(v) - min(v) for m, v in walls.items()}}
+    log(json.dumps({"split10_plans": rows["split10 plans"]}))
+    log(f"  'auto' on this card: fused_hop:int8_per_token ratio "
+        f"{cache[fp]['speedups'].get('fused_hop:int8_per_token')}, win {auto_win}, "
+        f"plan {auto_mode or 'separate'}")
+
+    # (3) the faulty link through the CLI, at full depth
+    corpus = np.random.default_rng(args.seed).integers(0, cfg.vocab_size, CLI_CORPUS_LEN)
+    link_argv = ["--max-chunks", str(LINK_CHUNKS), "--window-batch", str(LINK_WB)] + base
+    groups = math.ceil(LINK_CHUNKS / LINK_WB)
+    results = {}
+    with probe_cache_file(cache_path):
+        with open("configs/split1_qwen_int8.json") as f:
+            split1 = json.load(f)
+        runs = [("split1 clean", split1, False),
+                ("split1 zero-rate faults", {**split1, "faults": {"drop_rate": 0.0,
+                                                                  "bitflip_rate": 0.0}}, False)]
+        for path in LINK_CONFIGS:
+            with open(path) as f:
+                runs.append((os.path.basename(path)[:-5], json.load(f), True))
+        for name, p, report in runs:
+            label = f"link {name}"
+            with tempfile.TemporaryDirectory() as tmp:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                rc, lines = _cli_run(["--params", json.dumps(p), "--output-dir", tmp]
+                                     + link_argv + (["--fault-report"] if report else []))
+                torch.cuda.synchronize()
+                launches = read_counts()
+            res = json.loads(lines[0])
+            results[name] = res
+            row = {"rc": rc, "chunks": res["chunks"], "groups": groups,
+                   "s_per_chunk": res["wall_s"] / res["chunks"], "ppl": res["ppl"],
+                   "bytes_per_token_per_hop": res["bytes_per_token_per_hop"],
+                   "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                   "launches": launches}
+            if report:
+                for line in lines[1:]:
+                    log(f"  {name}: {line}")
+                by_tier = res["link_by_tier"]
+                routes = p["hedge"].get("routes", 2) if "hedge" in p else 1
+                want = _link_expected(by_tier, groups, cfg.num_layers, routes)
+                seq = 512
+                payload = res["bytes_per_token_per_hop"][0] * seq  # (1, 512, D) int8 payload
+                sealed = payload + 8
+                fec = FECConfig(**p["fec"]) if "fec" in p else None
+                wire = fec.wire_nbytes(sealed) if fec else sealed
+                sent = sum(_copies_sent(t["counters"], routes) for t in by_tier if t)
+                row.update({
+                    "link_counters": res["link_counters"], "tier_switches": res["tier_switches"],
+                    "final_tier": res["final_tier"], "degraded_chunks": res["degraded_chunks"],
+                    "link_health": res.get("link_health"), "link_by_tier": by_tier,
+                    "wire_bytes_per_token_per_copy": wire / seq,
+                    "fec_overhead": fec.overhead(sealed) if fec else 0.0,
+                    "copies_sent": sent, "launches_expected": want})
+                if launches != want:
+                    raise SystemExit(f"{label}: kernel launches {launches} != expected {want}")
+            else:  # no link: the gate plans the hop ("auto": the cache's verdict)
+                plan = _plan_mode(p)
+                row["plan"] = None if plan is None else plan.mode
+                want = want_counts(cfg.num_layers * groups,
+                                   causal_attention=cfg.num_layers * groups,
+                                   **_int8_hop_counts(row["plan"], groups))
+                row["launches_expected"] = want
+                if launches != want:
+                    raise SystemExit(f"{label}: kernel launches {launches} != expected {want}")
+            rows[label] = row
+            log(json.dumps({"link_path": {k: v for k, v in row.items()
+                                          if k not in ("link_by_tier", "launches_expected")}}))
+            if rc != 0 or res["chunks"] != LINK_CHUNKS or not np.isfinite(res["ppl"]):
+                raise SystemExit(f"{label}: rc {rc}, {res['chunks']} chunks, PPL {res['ppl']}")
+            out[label] = launches
+    if results["split1 zero-rate faults"]["total_nll"] != results["split1 clean"]["total_nll"]:
+        raise SystemExit("a faults config of zero rates does not give the clean split's PPL: "
+                         f"{results['split1 zero-rate faults']['ppl']} vs "
+                         f"{results['split1 clean']['ppl']}")
+    if not results["split6_qwen_chaos"]["tier_switches"]:
+        raise SystemExit("split6's tier trail never stepped: K1 / K2 did not run")
+
+    # the same configs at LINK_CROSS_LAYERS layers, on the card and the CPU
+    full_cfg, full_params = run._load_model(
+        ap.Namespace(weights=None, model="qwen2-0.5b", seed=args.seed), torch.device("cuda"))
+    cut_cfg = dc.replace(full_cfg, num_layers=LINK_CROSS_LAYERS)
+    cut_params = {**{k: v for k, v in full_params.items() if k != "layers"},
+                  "layers": {k: v[:LINK_CROSS_LAYERS] for k, v in full_params["layers"].items()}}
+    del full_params
+    cross = {}
+    with probe_cache_file(cache_path):
+        for path in LINK_CONFIGS:
+            name = os.path.basename(path)[:-5]
+            with open(path) as f:
+                p = json.load(f)
+            kw = dict(cuts=p["cuts"], hop_codecs=p["hop_codecs"], max_length=p["max_length"],
+                      stride=p["stride"], window_batch=LINK_WB, max_chunks=LINK_CHUNKS,
+                      time_hops=False, **{k: p.get(k) for k in run.LINK_KEYS})
+            t0 = time.monotonic()
+            on_card = run_split_eval(cut_cfg, cut_params, corpus, device="cuda", **kw)
+            t1 = time.monotonic()
+            on_cpu = run_split_eval(cut_cfg, params_to(cut_params, device="cpu"), corpus,
+                                    device="cpu", **kw)
+            t2 = time.monotonic()
+            rel = abs(on_card["ppl"] - on_cpu["ppl"]) / on_cpu["ppl"]
+            full = results[name]
+            cross[name] = {"layers": LINK_CROSS_LAYERS, "card_s": t1 - t0, "cpu_s": t2 - t1,
+                           "card_ppl": on_card["ppl"], "cpu_ppl": on_cpu["ppl"], "rel": rel,
+                           "link_counters": on_cpu["link_counters"],
+                           "tier_switches": on_cpu["tier_switches"]}
+            log(json.dumps({"link_cross_check": {name: cross[name]}}))
+            for key in ("link_counters", "tier_switches", "final_tier", "degraded_chunks",
+                        "link_health"):
+                if not on_card.get(key) == on_cpu.get(key) == full.get(key):
+                    raise SystemExit(f"{name}: {key} differ: card {on_card.get(key)}, CPU "
+                                     f"{on_cpu.get(key)}, full depth {full.get(key)}")
+            if rel > SPLIT_CROSS_RTOL:
+                raise SystemExit(f"{name}: card PPL {on_card['ppl']} vs CPU {on_cpu['ppl']} "
+                                 f"(rel {rel:.3g} > {SPLIT_CROSS_RTOL})")
+    rows["cross_checks"] = cross
+    del cut_params
+    torch.cuda.empty_cache()
+
+    # one group of each link config at full depth profiled: the idle share
+    full_cfg, full_params = run._load_model(
+        ap.Namespace(weights=None, model="qwen2-0.5b", seed=args.seed), torch.device("cuda"))
+    with probe_cache_file(cache_path):
+        for path in LINK_CONFIGS:
+            name = os.path.basename(path)[:-5]
+            with open(path) as f:
+                p = json.load(f)
+            kw = dict(cuts=p["cuts"], hop_codecs=p["hop_codecs"], max_length=p["max_length"],
+                      stride=p["stride"], window_batch=LINK_WB, max_chunks=LINK_WB,
+                      time_hops=False, device="cuda", **{k: p.get(k) for k in run.LINK_KEYS})
+            run_split_eval(full_cfg, full_params, corpus, **kw)  # warm
+            prof, _ = device_time(lambda: run_split_eval(full_cfg, full_params, corpus, **kw),
+                                  LINK_WB)
+            log_profile(f"profile_link_{name}_group", prof, 12)
+            rows[f"link {name}"]["profile"] = prof
+
+    # (4) the fault sweep on split1's cut, full depth
+    kw = dict(cuts=[11], hop_codecs=["int8_per_token"], max_length=512, stride=32,
+              window_batch=1, max_chunks=SWEEP_CHUNKS, time_hops=False, device="cuda")
+    with probe_cache_file(cache_path):
+        reset_counts()
+        sweep = run_fault_sweep(full_cfg, full_params, corpus, rates=SWEEP_RATES,
+                                knob="drop_rate", seed=0, link_policy={"max_retries": 0}, **kw)
+        launches = read_counts()
+        clean = run_split_eval(full_cfg, full_params, corpus, **kw)
+    curve = [{"drop_rate": r["fault_rate"], "ppl": r["ppl"],
+              "s_per_chunk": r["wall_s"] / r["chunks"],
+              "link_counters": r.get("link_counters")} for r in sweep]
+    log(json.dumps({"fault_sweep": curve}))
+    rows["fault_sweep"] = {"curve": curve, "clean_ppl": clean["ppl"], "launches": launches}
+    if sweep[0]["total_nll"] != clean["total_nll"]:
+        raise SystemExit(f"fault sweep: the rate-0 point {sweep[0]['ppl']} is not the clean "
+                         f"split's {clean['ppl']}")
+    out["link fault sweep split1 drop"] = launches
+    del full_params
+    torch.cuda.empty_cache()
+    detail["boundary_link"] = rows
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2779,6 +3172,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     detail: dict = {"card": smi, "torch": torch.__version__}
+    # every phase reads a probe cache this run wrote, never a stale one: an
+    # empty cache before phase 17 (no data: no fusion under "auto"), phase
+    # 17's own probe after it; no override of the gate
+    probe_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(probe_dir, exist_ok=True)
+    empty_cache = os.path.join(probe_dir, "probe_cache_empty.json")
+    if os.path.exists(empty_cache):
+        os.remove(empty_cache)
+    os.environ["EDGELLM_PROBE_CACHE"] = empty_cache
+    if os.environ.pop("EDGELLM_FUSED_HOP", None) is not None:
+        log("EDGELLM_FUSED_HOP was set: cleared, so the gate decides from this run's probe "
+            "cache")
 
     built = cuda_build.build_all()
     log(f"build: {len(built['libs'])} kernel libraries in {built['seconds']:.1f} s")
@@ -2809,10 +3214,13 @@ def main() -> int:
     by_path.update(split_decode_paths(args, detail))
     t7 = time.monotonic()
     by_path.update(split_paged_paths(args, detail))
+    t8 = time.monotonic()
+    by_path.update(boundary_link_paths(args, detail,
+                                       os.path.join(probe_dir, "probe_cache_phase17.json")))
     detail["phase_s"] = {"kernels": t1 - t0, "token_sweep": t2 - t1, "split_paths": t3 - t2,
                          "serve_paths": t4 - t3, "cross_checks": t5 - t4,
                          "experiments": t6 - t5, "split_decode": t7 - t6,
-                         "split_paged": time.monotonic() - t7}
+                         "split_paged": t8 - t7, "boundary_link": time.monotonic() - t8}
     log(json.dumps({"phase_s": detail["phase_s"]}))
 
     kernels = []

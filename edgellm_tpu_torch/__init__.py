@@ -14,7 +14,9 @@ Ported so far: the importance-guided boundary-quantization perplexity sweep
 (``parallel.SplitRuntime``, ``eval.run_split_eval``: the model cut across
 stages, each cut crossed as a packed wire payload), and batched serving on
 one card (``serve.ContinuousBatcher`` over ``models.paged_kv``'s paged KV
-pool, behind ``serve.ServeFront``).
+pool, behind ``serve.ServeFront``), and the split's faulty boundary link
+(``codecs.faults``, ``codecs.fec``), with the fused-hop gate fed by the
+card's own probe cache (``codecs.probe_cache``, ``tools.pallas_probe``).
 """
 
 __version__ = "0.1.0"

@@ -21,9 +21,11 @@ returns ``hidden``'s dtype where the separate hop's select promotes a bf16
 hidden to float32 (the reference's ``where`` in both).
 
 :func:`fused_hop_plan` is the reference's gate, with the card in the TPU's
-place. The port has no probe cache yet, so the default ("auto") never fuses,
-as the reference decides off a probed chip; ``EDGELLM_FUSED_HOP`` forces a
-mode.
+place: by default ("auto") a hop fuses only where this card's probe cache
+(``codecs/probe_cache.py``, written by ``tools/pallas_probe.py``'s
+``probe_fused_hops``) measured the fused hop at least ``WIN_MARGIN`` faster
+than the separate hop, as ``fused_hop:<base>``; a card never probed keeps
+the separate hop. ``EDGELLM_FUSED_HOP`` forces a mode.
 """
 from __future__ import annotations
 
@@ -74,9 +76,9 @@ def fused_hop_plan(codec, *, link_active: bool = False, device=None) -> Optional
     4. ``EDGELLM_FUSED_HOP=wire|remote`` forces a mode (remote only for a
        REMOTE_CAPABLE base on a CUDA ``device``, the hop's source);
        ``=1`` forces the best available mode.
-    5. Default: no fusion. The reference fuses by default only where its
-       probe cache measured a win on the chip; the port has no probe cache
-       yet, which is the reference's answer for a chip never probed."""
+    5. Default: the win must be earned: a CUDA source ``device`` AND this
+       card's probe cache says ``fused_hop:<base>`` beat the separate hop
+       (``measured_win is True``; None, never probed, refuses)."""
     env = os.environ.get("EDGELLM_FUSED_HOP", "").strip().lower()
     if env == "0" or codec is None or link_active:
         return None
@@ -92,7 +94,14 @@ def fused_hop_plan(codec, *, link_active: bool = False, device=None) -> Optional
     if env == "1":
         return FusedHopPlan("remote" if remote_ok else "wire", base,
                             "forced: EDGELLM_FUSED_HOP=1")
-    return None
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    from . import probe_cache
+
+    if probe_cache.measured_win(f"fused_hop:{base}") is not True:
+        return None
+    return FusedHopPlan("remote" if remote_ok else "wire", base,
+                        "probe-cache measured win on this chip")
 
 
 _WIRE_FORMATS: dict = {}

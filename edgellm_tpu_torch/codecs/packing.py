@@ -37,8 +37,9 @@ _INV_127 = np.float32(1.0 / 127.0)
 
 
 def _f32(value, like: torch.Tensor) -> torch.Tensor:
-    """A float32 constant as a 0-dim tensor on ``like``'s device."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    """A float32 constant as a 0-dim tensor on ``like``'s device, filled on
+    the device: a copy from host memory would synchronize the stream."""
+    return torch.full((), float(value), dtype=torch.float32, device=like.device)
 
 
 def pack_int4(codes: torch.Tensor) -> torch.Tensor:

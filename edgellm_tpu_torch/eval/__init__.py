@@ -6,7 +6,8 @@ from .harness import (
     run_initial_sweep,
     run_channel_sweep,
 )
-from .split_eval import parse_hop_codec, run_kv_tier_eval, run_kv_tier_sweep, run_split_eval
+from .split_eval import (parse_hop_codec, run_fault_sweep, run_kv_tier_eval, run_kv_tier_sweep,
+                         run_split_eval)
 
 __all__ = [
     "Chunk",
@@ -17,6 +18,7 @@ __all__ = [
     "run_channel_sweep",
     "parse_hop_codec",
     "run_split_eval",
+    "run_fault_sweep",
     "run_kv_tier_eval",
     "run_kv_tier_sweep",
 ]

@@ -15,13 +15,21 @@ teacher-forced through a paged pool one position at a time at one tier
 ("fp", "int8_per_channel", "int4_per_channel"), the ragged step that serving
 runs (K13 / K14 on the card), and the PPL comes beside the page bytes.
 
-Not ported yet (each raises naming its argument): the faulty link and its
-healing (``faults``, ``link_policy``, ``fec``, ``hedge``, ``link_health``),
-survivability (``deadline_s``, ``stage_failure``, ``recovery``), the
-micro-batch ``pipeline`` and the stage x seq runtime (``n_seq > 1``).
+The faulty link (``faults``, ``link_policy``, ``fec``, ``hedge``,
+``link_health``) runs as the reference's: every hop sealed, corrupted per
+the seeded rates (the chunk index is the fault step) and handled per the
+policy, a codec ladder walked by a :class:`~..codecs.faults.TierController`
+or a :class:`~..codecs.fec.LinkHealth` with one runtime per tier, built on
+first demand; :func:`run_fault_sweep` draws the PPL / counter curve over a
+fault rate.
+
+Not ported yet (each raises naming its argument): survivability
+(``deadline_s``, ``stage_failure``, ``recovery``), the micro-batch
+``pipeline`` and the stage x seq runtime (``n_seq > 1``).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional, Sequence
 
@@ -29,13 +37,16 @@ import numpy as np
 import torch
 
 from ..codecs.codec_kernels import SELECTIVE_EXCLUSION
-from ..codecs.packing import selective_int4
+from ..codecs.faults import FaultConfig, LinkPolicy, TierController
+from ..codecs.fec import FECConfig, HedgeConfig, LinkHealth, LinkHealthConfig
+from ..codecs.packing import get_wire_codec, selective_int4
 from ..importance.metrics import importance_per_layer
 from ..models.configs import ModelConfig
 from ..models.paged_kv import (init_pool, init_quant_pool, kv_page_bytes, paged_decode_step,
                                paged_decode_step_quant, resolve_kv_codec)
 from ..models.transformer import nll_from_logits, params_to, run_layers_from_ids
 from ..parallel.split import NOT_PORTED_MSG, SplitConfig, SplitRuntime
+from ..utils.clock import MONOTONIC
 from .harness import (ResumableDriver, _emit, _group_arrays, _iter_window_groups,
                       _run_pipelined)
 
@@ -71,8 +82,33 @@ def _importance(cfg: ModelConfig, params: dict, ids: torch.Tensor, method: str,
     return importance_per_layer(aux["stats"], method, head_weights)
 
 
-_UNPORTED_ARGS = ("faults", "link_policy", "fec", "hedge", "link_health",
-                  "deadline_s", "stage_failure", "recovery", "pipeline")
+_UNPORTED_ARGS = ("deadline_s", "stage_failure", "recovery", "pipeline")
+
+
+def _link_configs(faults, link_policy, fec, hedge, link_health) -> tuple:
+    """The link's settings as the reference resolves them (dicts become
+    their configs; ``link_policy.tiers`` a tuple), with its refusal of
+    healing without an enabled ``faults`` config."""
+    if isinstance(faults, dict):
+        faults = FaultConfig(**faults)
+    if isinstance(link_policy, dict):
+        link_policy = dataclasses.replace(LinkPolicy(**link_policy),
+                                          tiers=tuple(link_policy.get("tiers", ())))
+    if isinstance(fec, dict):
+        fec = FECConfig(**fec)
+    if isinstance(hedge, dict):
+        hedge = HedgeConfig(**hedge)
+    if isinstance(link_health, dict):
+        link_health = LinkHealthConfig(**link_health)
+    fault_on = faults is not None and faults.enabled
+    healing_requested = ((fec is not None and fec.enabled)
+                         or (hedge is not None and hedge.enabled)
+                         or link_health is not None)
+    if healing_requested and not fault_on:
+        raise ValueError(
+            "fec/hedge/link_health require an enabled faults config — the "
+            "link machinery only exists in the graph when a fault can fire")
+    return faults, link_policy, fec, hedge, link_health, fault_on
 
 
 def run_split_eval(
@@ -103,6 +139,7 @@ def run_split_eval(
     recovery=None,
     pipeline=None,
     device="cuda",
+    _clock=MONOTONIC,
 ) -> dict:
     """Token-weighted sliding-window PPL with the model split at ``cuts``,
     every stage on ``device``.
@@ -118,20 +155,57 @@ def run_split_eval(
     ``n_tokens``, ``chunks``, ``wall_s``, the token rates, ``cuts``,
     ``hop_codecs`` (as they ran: ``*_pallas`` for the kernel twins),
     ``bytes_per_token_per_hop``, the measured byte totals, the pad
-    accounting, ``mesh`` and, with ``time_hops``, the per-hop times."""
-    given = dict(faults=faults, link_policy=link_policy, fec=fec, hedge=hedge,
-                 link_health=link_health, deadline_s=deadline_s,
-                 stage_failure=stage_failure, recovery=recovery, pipeline=pipeline)
+    accounting, ``mesh`` and, with ``time_hops``, the per-hop times.
+
+    ``faults`` (a :class:`~..codecs.faults.FaultConfig` or kwargs dict)
+    turns the wire faulty, handled per ``link_policy`` (:class:`LinkPolicy`
+    or dict); ``fec`` / ``hedge`` arm in-band XOR repair and hedged routes;
+    ``link_health`` replaces the streak controller with the SLO tracker
+    (``_clock`` its clock). All three need an enabled ``faults``. When
+    ``link_policy.tiers`` names a ladder, the controller observes each group
+    at drain time (under the two-deep submit pipeline a switch takes effect
+    one group late). The result then also holds ``faults``,
+    ``link_policy``, ``link_counters`` (summed over the tiers' runtimes),
+    ``tier_ladder``, ``tier_switches``, ``final_tier``,
+    ``degraded_chunks``, ``fec`` / ``hedge`` / ``link_health`` as given,
+    and, beyond the reference's keys, ``link_by_tier``: each tier's codecs
+    and counters (None for a tier never built), which say how often each
+    tier's kernels ran."""
+    given = dict(deadline_s=deadline_s, stage_failure=stage_failure, recovery=recovery,
+                 pipeline=pipeline)
     for name in _UNPORTED_ARGS:
         if given[name] is not None:
             raise ValueError(f"run_split_eval {name} {NOT_PORTED_MSG}")
     if n_seq > 1:
         raise ValueError(f"n_seq > 1 (the stage x seq ring runtime) {NOT_PORTED_MSG}")
+    faults, link_policy, fec, hedge, link_health, fault_on = _link_configs(
+        faults, link_policy, fec, hedge, link_health)
+    policy = link_policy if link_policy is not None else LinkPolicy()
     codecs = [parse_hop_codec(c) if isinstance(c, str) else c for c in hop_codecs]
     split = SplitConfig(cuts=tuple(cuts), hop_codecs=tuple(codecs))
     devices = [torch.device(device)] * split.n_stages
     params = params_to(params, device=devices[0])
-    rt = SplitRuntime(cfg, split, devices)
+
+    def _make_runtime(tier_codecs):
+        return SplitRuntime(cfg, SplitConfig(cuts=split.cuts, hop_codecs=tuple(tier_codecs)),
+                            devices, faults=faults, policy=link_policy, fec=fec, hedge=hedge)
+
+    # tier 0 is the configured codec set; lower tiers swap EVERY hop to one
+    # fallback codec (payload shapes change, hence separate runtimes; the
+    # placement does not depend on the codec, so ``placed`` is shared)
+    ladder = [list(codecs)]
+    controller = None
+    health = None
+    if fault_on and policy.tiers:
+        for name in policy.tiers:
+            get_wire_codec(name)  # fail fast on a bad ladder entry
+            ladder.append([name] * len(codecs))
+    if link_health is not None:
+        health = LinkHealth(len(ladder), link_health, clock=_clock)
+    elif fault_on and policy.tiers:
+        controller = TierController(len(ladder), policy.degrade_after, policy.recover_after)
+    runtimes = {0: _make_runtime(ladder[0])}
+    rt = runtimes[0]
     placed = rt.place_params(params)
     needs_imp = [c.needs_importance for c in rt.codecs]
     if any(needs_imp) and importance_method is None:
@@ -153,6 +227,17 @@ def run_split_eval(
         "window_batch": int(window_batch), "n_seq": int(n_seq),
         "mesh": mesh,
     }
+    if fault_on:
+        # a checkpoint written under one fault regime must not resume under
+        # another (JSON round-trips lists, so tuples are listified here)
+        axes["faults"] = dataclasses.asdict(faults)
+        axes["link_policy"] = {**dataclasses.asdict(policy), "tiers": list(policy.tiers)}
+        if fec is not None:
+            axes["fec"] = dataclasses.asdict(fec)
+        if hedge is not None:
+            axes["hedge"] = dataclasses.asdict(hedge)
+        if link_health is not None:
+            axes["link_health"] = dataclasses.asdict(link_health)
     rd = ResumableDriver(checkpoint_path, axes, checkpoint_every)
     total_nll, n_tokens = 0.0, 0.0
     fwd_tokens = 0  # every token pushed through the pipeline
@@ -170,6 +255,8 @@ def run_split_eval(
                  "hop_bytes_total": hop_bytes_total})
 
     bytes_cache: dict = {}
+    degraded_chunks = 0  # chunks that ran below tier 0
+    tier_log: list = []  # (chunk_index, tier) at every controller switch
 
     def submit_group(group):
         n_real = len(group)
@@ -178,34 +265,63 @@ def run_split_eval(
         ids = torch.from_numpy(np.concatenate([c.input_ids for c in group]).astype(np.int64))
         targets = torch.from_numpy(np.concatenate([c.target_ids for c in group]))
         ids = ids.to(devices[0])
+        tier = health.tier if health is not None else (
+            controller.tier if controller is not None else 0)
+        if tier not in runtimes:  # built on first demand, kept thereafter
+            runtimes[tier] = _make_runtime(ladder[tier])
+        art = runtimes[tier]
+        needs_t = [c.needs_importance for c in art.codecs]
         with torch.inference_mode():
             hop_imp = None
-            if any(needs_imp):
+            if any(needs_t):
                 imp = _importance(cfg, params, ids, importance_method, hw)  # (L, W, S)
                 hop_imp = [(imp[cut] if len(group) > 1 else imp[cut, 0]) if need else None
-                           for cut, need in zip(split.cuts, needs_imp)]
-            logits = rt.forward(placed, ids, hop_importance=hop_imp)
+                           for cut, need in zip(split.cuts, needs_t)]
+            # the chunk index drives the fault stream: same seed => same
+            # chunks corrupted, run after run (ignored without a link)
+            logits = art.forward(placed, ids, hop_importance=hop_imp,
+                                 fault_step=group[0].index)
             nlls = nll_from_logits(logits, targets.to(logits.device), per_example=True)
-        return group, n_real, s_unpadded, counts, tuple(ids.shape), nlls
+        chunk_counters = art._counter_accum[-1] if fault_on else None
+        return (group, n_real, s_unpadded, counts, tuple(ids.shape), nlls, tier,
+                chunk_counters, art)
 
     def drain_group(rec):
-        nonlocal total_nll, n_tokens, fwd_tokens, real_fwd_tokens
-        group, n_real, s_unpadded, counts, (w, s_chunk), nlls = rec
+        nonlocal total_nll, n_tokens, fwd_tokens, real_fwd_tokens, degraded_chunks
+        (group, n_real, s_unpadded, counts, (w, s_chunk), nlls, tier, chunk_counters,
+         art) = rec
         total_nll += float(nlls.double().cpu().numpy() @ np.asarray(counts, np.float64))
         n_tokens += sum(counts)
         fwd_tokens += w * s_chunk
         real_fwd_tokens += n_real * s_unpadded
-        key = (w, s_chunk)
+        key = (tier, w, s_chunk)
         if key not in bytes_cache:  # payloads are shape-determined
-            bytes_cache[key] = rt.hop_bytes(w, s_chunk)
+            bytes_cache[key] = art.hop_bytes(w, s_chunk)
         for i, b in enumerate(bytes_cache[key]):
             hop_bytes_total[i] += b
+        if tier:
+            degraded_chunks += 1
+        if health is not None:
+            prev = health.tier
+            if health.observe(chunk_counters) != prev:
+                tier_log.append((group[-1].index, health.tier))
+        elif controller is not None:
+            corrupted = any(int(np.asarray(chunk_counters[k]).sum())
+                            for k in ("detected", "budget_dropped"))
+            prev = controller.tier
+            if controller.observe(corrupted) != prev:
+                tier_log.append((group[-1].index, controller.tier))
         if rd.advance(group, count=n_real):
             save_checkpoint()
-            _emit(metrics_path, {
+            rec_out = {
                 "chunk": group[-1].index, "chunks": rd.chunks, "n_tokens": n_tokens,
                 "ppl": float(np.exp(total_nll / max(n_tokens, 1e-9))),
-                "hop_bytes_total": hop_bytes_total})
+                "hop_bytes_total": hop_bytes_total}
+            if fault_on:
+                rec_out["tier"] = tier
+            if health is not None:
+                rec_out["burn_rate"] = health.burn_rate
+            _emit(metrics_path, rec_out)
 
     _run_pipelined(
         _iter_window_groups(token_ids, max_length, stride, window_batch=window_batch,
@@ -237,6 +353,36 @@ def run_split_eval(
         "real_tokens_per_s": real_fwd_tokens / max(wall, 1e-9),
         "mesh": mesh,
     }
+    if fault_on:
+        agg = None  # per-hop counters summed over every tier's runtime
+        for r in runtimes.values():
+            c = r.link_counters()
+            if agg is None:
+                agg = {k: v.copy() for k, v in c.items()}
+            else:
+                for k in agg:
+                    agg[k] += c[k]
+        result["faults"] = dataclasses.asdict(faults)
+        result["link_policy"] = {**dataclasses.asdict(policy), "tiers": list(policy.tiers)}
+        result["link_counters"] = {k: [int(x) for x in v] for k, v in agg.items()}
+        result["tier_ladder"] = [[c if isinstance(c, str) else c.name for c in t]
+                                 for t in ladder]
+        result["tier_switches"] = [list(t) for t in tier_log]
+        result["final_tier"] = (health.tier if health is not None
+                                else controller.tier if controller is not None else 0)
+        result["degraded_chunks"] = degraded_chunks
+        if fec is not None:
+            result["fec"] = dataclasses.asdict(fec)
+        if hedge is not None:
+            result["hedge"] = dataclasses.asdict(hedge)
+        if health is not None:
+            result["link_health"] = health.summary()
+        result["link_by_tier"] = [
+            None if t not in runtimes else
+            {"hop_codecs": [c.name for c in runtimes[t].codecs],
+             "counters": {k: [int(x) for x in v]
+                          for k, v in runtimes[t].link_counters().items()}}
+            for t in range(len(ladder))]
     if time_hops and rd.chunks:
         result["per_hop_ms"] = rt.time_hops(1, seq)
         result["per_decode_hop_ms"] = rt.time_decode_hops(1)
@@ -245,11 +391,54 @@ def run_split_eval(
              "forward_ms": result["per_hop_ms"][s],
              "decode_ms": result["per_decode_hop_ms"][s]}
             for s in range(len(split.cuts))]
-    _emit(metrics_path, {"final": True, "chunks": rd.chunks, "n_tokens": n_tokens,
-                         "ppl": result["ppl"], "wall_s": wall,
-                         "hop_bytes_total": hop_bytes_total,
-                         "pad_fraction": result["pad_fraction"]})
+    final_rec = {"final": True, "chunks": rd.chunks, "n_tokens": n_tokens,
+                 "ppl": result["ppl"], "wall_s": wall,
+                 "hop_bytes_total": hop_bytes_total,
+                 "pad_fraction": result["pad_fraction"]}
+    if fault_on:
+        final_rec["link_counters"] = result["link_counters"]
+        final_rec["degraded_chunks"] = degraded_chunks
+        if health is not None:
+            final_rec["burn_rate"] = health.burn_rate
+    _emit(metrics_path, final_rec)
     return result
+
+
+def run_fault_sweep(
+    cfg: ModelConfig,
+    params: dict,
+    token_ids: np.ndarray,
+    *,
+    rates: Sequence[float],
+    knob: str = "drop_rate",
+    seed: int = 0,
+    byte_budget: Optional[int] = None,
+    link_policy=None,
+    **eval_kwargs,
+) -> list:
+    """PPL / throughput / counter curve as a function of fault rate:
+    :func:`run_split_eval` once per entry of ``rates``, with ``knob``
+    (``"drop_rate"``, ``"bitflip_rate"`` or ``"scale_corrupt_rate"``) set on
+    a fresh :class:`FaultConfig`. Rate 0 with no ``byte_budget`` runs the
+    fault-free split, the sweep's exact baseline. Each result gains
+    ``fault_knob`` / ``fault_rate``; the other kwargs pass through. The
+    healing kwargs (``fec`` / ``hedge`` / ``link_health``) are withheld from
+    fault-free points."""
+    if knob not in ("drop_rate", "bitflip_rate", "scale_corrupt_rate"):
+        raise ValueError(f"unknown fault knob {knob!r}")
+    out = []
+    for r in rates:
+        fc = FaultConfig(**{knob: float(r)}, byte_budget=byte_budget, seed=seed)
+        kw = eval_kwargs
+        if not fc.enabled:
+            kw = {k: v for k, v in eval_kwargs.items()
+                  if k not in ("fec", "hedge", "link_health")}
+        res = run_split_eval(cfg, params, token_ids, faults=fc if fc.enabled else None,
+                             link_policy=link_policy, **kw)
+        res["fault_knob"] = knob
+        res["fault_rate"] = float(r)
+        out.append(res)
+    return out
 
 
 def run_kv_tier_eval(

@@ -41,10 +41,19 @@ The payloads that leave the runtime (``gather_paged*``, and those
 ``adopt_paged_rows*`` take) keep the reference's (n_stages, stage_size, n,
 KV, hd) layout, with zero rows for the layers that pad a shorter stage.
 
-Not ported yet: the faulty link, FEC, hedging, the micro-batch pipeline and
-the "data" / "model" mesh axes (each raises naming its argument), the
-micro-batched decode accounting (``pipelined_decode_hop_bytes``) and stage
-loss (``mark_stage_lost``).
+The faulty link (``faults``, ``policy``, ``fec``, ``hedge``): with an
+enabled :class:`~..codecs.faults.FaultConfig` the runtime builds a
+:class:`~..codecs.faults.FaultyLink`, and every hop of :meth:`forward`
+goes through its seal / inject / verify / retry protocol (FEC and hedged
+routes with ``fec`` / ``hedge``), keyed by ``fold_in(key(faults.seed),
+fault_step)``; the per-hop counters accumulate on the runtime
+(:meth:`link_counters`). An active link owns the hop, so no hop fuses.
+
+Not ported yet: the link on the decode, verify and paged paths (they raise
+under an active link), the micro-batch pipeline and the "data" / "model"
+mesh axes (each raises naming its argument), the micro-batched decode
+accounting (``pipelined_decode_hop_bytes``) and stage loss
+(``mark_stage_lost``).
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ import numpy as np
 import torch
 
 from ..codecs.codec_kernels import pallas_variant
+from ..codecs.faults import FaultyLink, LinkPolicy, fault_key, sum_counters
 from ..codecs.fused_hop import fused_hop, fused_hop_plan
 from ..codecs.packing import WireCodec, get_wire_codec
 from ..models.configs import ModelConfig
@@ -94,24 +104,36 @@ def _hop(codec: WireCodec, hidden: torch.Tensor, imp, dst) -> torch.Tensor:
 
 def run_pipeline_stages(n_stages: int, codecs: list, run_stage, hidden,
                         hop_imps=None, devices: Optional[Sequence] = None,
-                        fused_plans: Optional[Sequence] = None):
+                        fused_plans: Optional[Sequence] = None, link=None, fault_key=None):
     """Run ``run_stage(s, hidden)`` for every stage in order, crossing each
     cut as encode -> copy to ``devices[s + 1]`` -> decode. After a cut the
     hidden takes the promotion of its dtype and the decoded float32, as the
     reference's select does. ``fused_plans`` (one ``FusedHopPlan`` or None
     per cut) routes a hop through :func:`~..codecs.fused_hop.fused_hop`
-    instead, which keeps the hidden's dtype."""
+    instead, which keeps the hidden's dtype.
+
+    ``link`` (a :class:`~..codecs.faults.FaultyLink`) reroutes every hop
+    through the faulty-wire protocol keyed by ``fault_key``; the return
+    value then becomes ``(out, counters)``, this call's per-hop counters."""
     devices = devices if devices is not None else [hidden.device] * n_stages
+    counters = link.init_counters(n_stages - 1) if link is not None else None
     for s in range(n_stages):
         hidden = run_stage(s, hidden)
         if s < n_stages - 1:
+            if link is not None:
+                imp = hop_imps[s] if codecs[s].needs_importance else None
+                hidden = link.hop(codecs[s], hidden, s, devices[s + 1], fault_key, counters,
+                                  hop_imp=imp)
+                continue
             if fused_plans is not None and fused_plans[s] is not None:
                 hidden = fused_hop(fused_plans[s], codecs[s], hidden, devices[s + 1])
                 continue
             imp = hop_imps[s] if codecs[s].needs_importance else None
             decoded = _hop(codecs[s], hidden, imp, devices[s + 1])
             hidden = decoded.to(torch.promote_types(decoded.dtype, hidden.dtype))
-    return hidden
+    if link is None:
+        return hidden
+    return hidden, counters
 
 
 def hop_payload_bytes(codecs, cfg: ModelConfig, batch: int, seq: int) -> list:
@@ -232,16 +254,19 @@ class SplitRuntime:
                  devices: Optional[Sequence] = None, *,
                  faults=None, policy=None, fec=None, hedge=None, pipeline=None,
                  n_data: int = 1, n_model: int = 1):
-        for name, value in (("faults", faults), ("policy", policy), ("fec", fec),
-                            ("hedge", hedge), ("pipeline", pipeline)):
-            if value is not None:
-                raise ValueError(f"SplitRuntime {name} {NOT_PORTED_MSG}")
+        if pipeline is not None:
+            raise ValueError(f"SplitRuntime pipeline {NOT_PORTED_MSG}")
         for name, value in (("n_data", n_data), ("n_model", n_model)):
             if value != 1:
                 raise ValueError(f"SplitRuntime {name} > 1 (the {name[2:]!r} mesh axis) "
                                  f"{NOT_PORTED_MSG}")
         self.cfg = cfg
         self.split = split
+        # an all-zero-rate config builds no link: the hop is the fault-free one
+        self._link = (FaultyLink(faults, policy if policy is not None else LinkPolicy(),
+                                 fec=fec, hedge=hedge)
+                      if faults is not None and faults.enabled else None)
+        self._counter_accum: list = []
         n_stages = split.n_stages
         devices = ["cuda"] * n_stages if devices is None else list(devices)
         if len(devices) != n_stages:
@@ -252,9 +277,11 @@ class SplitRuntime:
             list(split.hop_codecs), self.devices[0])
         # per-cut fused-transport decision, resolved once (None = the
         # separate encode / copy / decode hop); the gate reads
-        # EDGELLM_FUSED_HOP now
-        self.fused_plans: list = [fused_hop_plan(c, device=self.devices[s])
-                                  for s, c in enumerate(self.codecs)]
+        # EDGELLM_FUSED_HOP and the probe cache now, and refuses under an
+        # active link, which owns the hop
+        self.fused_plans: list = [
+            fused_hop_plan(c, link_active=self._link is not None, device=self.devices[s])
+            for s, c in enumerate(self.codecs)]
         #: the deepest stage's layer count: the depth every stage of a
         #: paged payload is padded to, as the reference pads its stages
         self.stage_size = max(stop - start for start, stop in self.bounds)
@@ -311,13 +338,18 @@ class SplitRuntime:
                 for i, dev in zip(imps, self.devices)]
 
     def forward(self, placed: dict, input_ids: torch.Tensor,
-                hop_importance: Optional[Sequence] = None) -> torch.Tensor:
+                hop_importance: Optional[Sequence] = None,
+                fault_step: int = 0) -> torch.Tensor:
         """ids (B, S) -> float32 logits (B, S, V) on the last stage's device,
         every cut crossed as a packed payload.
 
         ``hop_importance``: one entry per hop, required for token-selective
         hops (None elsewhere); each (S,), or (B, S) when batching evaluation
-        windows so every window keeps its own ordering and codec scale."""
+        windows so every window keeps its own ordering and codec scale.
+
+        ``fault_step``: the fault layer's per-call fold (pass the chunk index,
+        so each chunk draws its own faults); ignored without a link. The
+        per-hop counters accumulate on the runtime (:meth:`link_counters`)."""
         batch, seq = input_ids.shape
         imps = self._stacked_importance(hop_importance, batch, seq)
         hidden = embed(placed["first"], input_ids.to(self.devices[0]))
@@ -327,9 +359,34 @@ class SplitRuntime:
             n_layers = self.bounds[s][1] - self.bounds[s][0]
             return run_layers(self.cfg, {"layers": stage}, h, start=0, stop=n_layers)[0]
 
-        out = run_pipeline_stages(self.split.n_stages, self.codecs, run_stage, hidden,
-                                  imps, self.devices, self.fused_plans)
+        if self._link is None:
+            out = run_pipeline_stages(self.split.n_stages, self.codecs, run_stage, hidden,
+                                      imps, self.devices, self.fused_plans)
+            return unembed(self.cfg, placed["last"], out)
+        out, counters = run_pipeline_stages(
+            self.split.n_stages, self.codecs, run_stage, hidden, imps, self.devices,
+            link=self._link, fault_key=fault_key(self._link.faults.seed, fault_step))
+        self._counter_accum.append(counters)
         return unembed(self.cfg, placed["last"], out)
+
+    # ---------- the faulty link's accounting ----------
+
+    @property
+    def link(self) -> Optional[FaultyLink]:
+        """The faulty link, or None when faults are off."""
+        return self._link
+
+    def link_counters(self, reset: bool = False) -> Optional[dict]:
+        """Per-hop fault counters accumulated over every forward so far:
+        {name: (n_hops,) int64}. None when faults are off."""
+        if self._link is None:
+            return None
+        tot = sum_counters(self._counter_accum)
+        if tot is None:
+            tot = self._link.init_counters(len(self.codecs))
+        if reset:
+            self._counter_accum = []
+        return tot
 
     # ---------- wire accounting and timing ----------
 
@@ -358,6 +415,9 @@ class SplitRuntime:
     # per-stage caches never cross a cut.
 
     def _check_decode_supported(self):
+        if self._link is not None:
+            raise ValueError("SplitRuntime decode, verify and paged steps under an active "
+                             f"faulty link: the link there {NOT_PORTED_MSG}")
         bad = [c.name for c in self.codecs if c.needs_importance]
         if bad:
             raise ValueError(

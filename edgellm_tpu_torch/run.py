@@ -10,7 +10,10 @@ Dispatch mirrors the reference:
 - ``experiment: "last_row"``  -> token-selective int4 sweep
 - methods containing "channel" -> per-channel codec sweep
 - ``experiment: "split"``     -> the real split eval (``run_split_eval``): the
-  model cut at ``cuts``, each cut crossed as a packed ``hop_codecs`` payload
+  model cut at ``cuts``, each cut crossed as a packed ``hop_codecs`` payload;
+  with ``faults`` (and ``link_policy``, ``fec``, ``hedge``, ``link_health``)
+  over the faulty link, whose counters and tier trail ``--fault-report``
+  prints
 - ``experiment: "relevance"`` -> LRP head-relevance extraction
   (``attention_head_weights.json``, the ``--head-weights`` input of
   ``weighted_importance``)
@@ -30,14 +33,15 @@ Dispatch mirrors the reference:
   audit, ``serve_report.json`` and one JSON line
 
 A split config that carries a key of a split feature not ported yet
-(``UNPORTED_SPLIT_KEYS``: faults, healing, survivability, pipelining, the
-seq / data / model mesh axes) exits non-zero, and so do a serve config with
-a key of a serve feature not ported yet (``UNPORTED_SERVE_KEYS``), the
-per-request route's recovery and chaos fields (``serving.checkpoint_dir``,
-``serving.step_deadline_s``, ``serving.soak.kill_stage``), and
-``--serve-report``, each naming what is missing. ``fused_hops`` maps onto
-the ``EDGELLM_FUSED_HOP`` gate as in the reference ("auto" fuses nowhere on
-the card yet: the port has no probe cache).
+(``UNPORTED_SPLIT_KEYS``: survivability, pipelining, the seq / data / model
+mesh axes) exits non-zero, and so do a serve config with a key of a serve
+feature not ported yet (``UNPORTED_SERVE_KEYS``: the link keys among them,
+since the decode paths take no link yet), the per-request route's recovery
+and chaos fields (``serving.checkpoint_dir``, ``serving.step_deadline_s``,
+``serving.soak.kill_stage``), and ``--serve-report``, each naming what is
+missing. ``fused_hops`` maps onto the ``EDGELLM_FUSED_HOP`` gate as in the
+reference ("auto" fuses a hop only where this card's probe cache recorded
+a win, ``codecs/probe_cache.py``).
 
 Corpus input is a ``.npy``/``.npz`` of token ids, or a raw ``.txt`` plus
 ``--tokenizer`` (a local HF tokenizer path). Weights: ``--weights`` (a
@@ -59,11 +63,12 @@ import torch
 #: experiments of the reference CLI that this package has not ported yet
 NOT_PORTED = ()
 #: split keys whose feature is not ported yet (the mesh axes only above 1)
-UNPORTED_SPLIT_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health",
-                       "pipeline", "deadline", "stage_failure", "recovery",
+UNPORTED_SPLIT_KEYS = ("pipeline", "deadline", "stage_failure", "recovery",
                        "n_seq", "n_data", "n_model")
-#: serve keys whose feature is not ported yet (the boundary's faulty links,
-#: µ-batch pipelining, the fleet)
+#: the faulty link's keys (ported under experiment "split")
+LINK_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health")
+#: serve keys whose feature is not ported yet (the boundary's faulty links on
+#: the decode paths, µ-batch pipelining, the fleet)
 UNPORTED_SERVE_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health", "pipeline",
                        "cluster", "disagg", "gray")
 #: the fused_hops key's values onto the EDGELLM_FUSED_HOP gate ("auto" clears it)
@@ -269,12 +274,50 @@ def _validate_params_json(p: dict, device="cuda") -> None:
 def _validate_split(p: dict, die, device) -> None:
     """The split branch: unported features die naming their key, then the
     reference's checks of ``cuts``, ``hop_codecs`` and ``importance_method``,
-    then the codecs' resolution on ``device``."""
+    the codecs' resolution on ``device``, then the link keys."""
     for key in UNPORTED_SPLIT_KEYS:
         if key in p and not (key in ("n_seq", "n_data", "n_model") and p[key] == 1):
             die(f"{key} is not ported yet to edgellm_tpu_torch; drop it or run "
                 f"the split with python -m edgellm_tpu.run")
     _validate_cuts(p, die, device)
+    _validate_link(p, die)
+
+
+def _validate_link(p: dict, die) -> None:
+    """The reference's checks of the link keys, with its messages: each an
+    object of its config's fields that constructs, the ladder's tiers
+    registry codecs, and ``fec`` / ``hedge`` / ``link_health`` only beside
+    an enabled ``faults``."""
+    from .codecs.faults import FaultConfig, LinkPolicy
+    from .codecs.fec import FECConfig, HedgeConfig, LinkHealthConfig
+    from .codecs.packing import get_wire_codec
+
+    for key, cls in (("faults", FaultConfig), ("link_policy", LinkPolicy), ("fec", FECConfig),
+                     ("hedge", HedgeConfig), ("link_health", LinkHealthConfig)):
+        if key not in p:
+            continue
+        if not isinstance(p[key], dict):
+            die(f"{key} must be an object of {cls.__name__} fields, got {p[key]!r}")
+        fields = {f.name for f in dataclasses.fields(cls)}
+        bad = sorted(set(p[key]) - fields)
+        if bad:
+            die(f"{key}: unknown field(s) {bad}; known: {sorted(fields)}")
+        try:
+            obj = cls(**{**p[key], "tiers": tuple(p[key].get("tiers", ()))}
+                      if key == "link_policy" else p[key])
+        except (TypeError, ValueError) as e:
+            die(f"{key}: {e}")
+        if key == "link_policy":
+            for t in obj.tiers:
+                try:
+                    get_wire_codec(t)
+                except ValueError as e:
+                    die(f"link_policy.tiers: {e}")
+        if key in ("fec", "hedge", "link_health") and (
+                "faults" not in p or not FaultConfig(**p["faults"]).enabled):
+            die(f"{key} requires an enabled 'faults' config (the link "
+                f"machinery only exists in the graph when a fault can "
+                f"fire)")
 
 
 def _validate_cuts(p: dict, die, device) -> None:
@@ -654,6 +697,31 @@ def run_serve_requests(cfg, params: dict, params_json: dict, out) -> dict:
     return {**summary, "_artifact": artifact, "_records": list(front.records)}
 
 
+def _print_fault_report(result: dict) -> None:
+    """``--fault-report``'s tail, as the reference prints it: the summed
+    per-hop link counters and the link-health gauges in one metrics
+    registry, printed as one table, then the tier trail. The recovery block
+    (item 21) is not ported: the table carries no recovery counters."""
+    from .codecs.faults import flatten_counters
+    from .obs.metrics import (MetricsRegistry, format_table, record_link_counters,
+                              record_link_health)
+
+    counters = result.get("link_counters")
+    if not counters:
+        print("fault report: no link counters recorded (faults were off)")
+        return
+    reg = MetricsRegistry(enabled=True)
+    record_link_counters(counters, registry=reg)
+    for k, total in flatten_counters(counters).items():
+        reg.counter(f"edgellm_link_{k}_total").inc(total, hop="total")
+    record_link_health(result.get("link_health"), registry=reg)
+    print(format_table(reg, title="fault report (obs metrics registry)"))
+    if result.get("tier_switches"):
+        print(f"  tier switches: {result['tier_switches']} "
+              f"(final tier {result.get('final_tier', 0)}, "
+              f"{result.get('degraded_chunks', 0)} degraded chunk(s))")
+
+
 def run_distances(cfg, params: dict, corpus: np.ndarray, params_json: dict, args, out,
                   device) -> dict:
     """The layer-distance analysis, as the reference CLI runs it: one sample
@@ -731,6 +799,10 @@ def main(argv=None) -> int:
                     help="torch device the sweep runs on (default: cuda)")
     ap.add_argument("--serve-report", action="store_true",
                     help="the reference's serve-report printer (not ported yet)")
+    ap.add_argument("--fault-report", action="store_true",
+                    help="split experiment: after the sweep, print the summed per-hop "
+                         "link counters (detected / repaired / retried / hedge wins / "
+                         "substituted), the tier trail and the link-health budget burn")
     args = ap.parse_args(argv)
     if args.serve_report:
         raise SystemExit("--serve-report is not ported yet to edgellm_tpu_torch; run it "
@@ -800,10 +872,13 @@ def main(argv=None) -> int:
             window_batch=max(args.window_batch, 1),
             checkpoint_path=out("split_checkpoint.json"),
             checkpoint_every=args.checkpoint_every,
-            metrics_path=out("split_metrics.jsonl"), device=device)
+            metrics_path=out("split_metrics.jsonl"),
+            **{k: params_json.get(k) for k in LINK_KEYS}, device=device)
         with open(out("split_eval_results.json"), "w") as f:
             json.dump(result, f, indent=1)
         print(json.dumps(result))
+        if args.fault_report:
+            _print_fault_report(result)
         return 0
     common = dict(
         max_length=max_length, stride=params_json.get("stride", 32),

@@ -79,6 +79,15 @@ def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     return o1 ^ o2
 
 
+def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` for each of the (N, 2) keys -> (N,
+    num, 2): in the partitionable layout key j is threefry-2x32 of the
+    count pair ``(0, j)``, i.e. ``fold_in(key, j)``."""
+    j = torch.arange(num, dtype=torch.int64, device=keys.device)[None, :]
+    o1, o2 = threefry2x32(keys[:, :1], keys[:, 1:], j >> 32, j & _M32)
+    return torch.stack([o1, o2], dim=-1)
+
+
 _ONE_BITS = int(np.array(1.0, np.float32).view(np.uint32))
 _TINY = float(np.finfo(np.float32).tiny)
 
@@ -89,6 +98,33 @@ def uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
     minus 1. Element 0 is the draw of a shape-() ``uniform(key)``."""
     bits = (random_bits(keys, n) >> 9) | _ONE_BITS
     return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def bernoulli(keys: torch.Tensor, p: float, n: int) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, (n,))`` for each key -> (N, n) bool:
+    a float32 uniform draw below ``p`` (rounded to float32, as the
+    reference's weakly typed ``p`` is); a multi-dimensional shape is its
+    flat (row-major) draw."""
+    return uniform(keys, n) < torch.tensor(p, dtype=torch.float32, device=keys.device)
+
+
+def randint(keys: torch.Tensor, n: int, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, (n,), minval, maxval)`` (int32) for each key
+    -> (N, n) int64 values in [minval, maxval): JAX's ``_randint``, which
+    splits the key, draws a high and a low 32-bit word per element and
+    reduces ``(hi % span) * (2**32 % span) + lo % span`` modulo the span in
+    uint32 arithmetic (for a power-of-two span the high word drops out)."""
+    if not (-2 ** 31 <= minval < 2 ** 31 and -2 ** 31 <= maxval < 2 ** 31):
+        raise ValueError(f"randint range [{minval}, {maxval}) is outside int32")
+    span = maxval - minval if maxval > minval else 1  # an empty range gives minval
+    k = split(keys)
+    lo = random_bits(k[:, 1], n) % span
+    mult = ((((1 << 16) % span) ** 2) & _M32) % span  # the uint32 product wraps
+    if mult:
+        hi = random_bits(k[:, 0], n) % span
+        lo = ((hi * mult) & _M32) + lo
+    off = (lo & _M32) % span
+    return ((minval + off + 2 ** 31) & _M32) - 2 ** 31
 
 
 def uniform_tiny(keys: torch.Tensor, n: int) -> torch.Tensor:
@@ -120,5 +156,5 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(gumbel + logits, dim=-1)
 
 
-__all__ = ["key", "threefry2x32", "fold_in", "random_bits", "uniform", "uniform_tiny",
-           "categorical"]
+__all__ = ["key", "threefry2x32", "fold_in", "split", "random_bits", "uniform", "bernoulli",
+           "randint", "uniform_tiny", "categorical"]

@@ -109,6 +109,27 @@ BAD_PARAMS = [
     {"experiment": "distances", "max_compiles": 0},
     {"experiment": "relevance", "stride": 0},
     {"experiment": "relevance", "batching": {}},
+    # the faulty link's keys under experiment "split"
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"], "faults": 0.1},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
+     "faults": {"drop": 0.1}},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
+     "faults": {"drop_rate": 2.0}},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
+     "link_policy": {"on_fail": "retry"}},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
+     "link_policy": {"tiers": ["int3_per_token"]}},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
+     "faults": {"drop_rate": 0.1}, "fec": {"group_size": 0}},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
+     "faults": {"drop_rate": 0.1}, "fec": {"parity": 2}},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
+     "faults": {"drop_rate": 0.0}, "link_health": {}},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"], "fec": {}},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
+     "faults": {"drop_rate": 0.1}, "link_health": {"promote_burn": 2.0}},
+    {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
+     "faults": {"drop_rate": 0.1}, "hedge": []},
 ]
 
 
@@ -189,14 +210,37 @@ def test_cli_split_configs(tmp_path, capsys, name):
 
 
 def test_split_config_with_faults_exits_naming_the_key(tmp_path):
+    """A split config with ``faults`` runs (the faulty link is ported): exit
+    0, the result's link counters, and ``--fault-report``'s table naming
+    every counter key; ``hedge`` without an enabled ``faults`` exits
+    non-zero with the reference's message."""
     params = json.dumps({"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
-                         "faults": {"drop_rate": 0.05}})
+                         "max_length": 64, "stride": 32, "faults": {"drop_rate": 0.5}})
+    proc = subprocess.run(
+        [sys.executable, "-m", "edgellm_tpu_torch.run", "--params", params,
+         "--model", "tiny-qwen2", "--device", "cpu", "--output-dir", str(tmp_path),
+         "--max-chunks", "4", "--window-batch", "2", "--fault-report"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.splitlines()[0])
+    assert result["link_counters"]["hops"] == [2]
+    assert "fault report (obs metrics registry):" in proc.stdout
+    for key in result["link_counters"]:
+        assert f"edgellm_link_{key}_total" in proc.stdout
+    params = json.dumps({"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
+                         "hedge": {"routes": 2}})
     proc = subprocess.run(
         [sys.executable, "-m", "edgellm_tpu_torch.run", "--params", params,
          "--model", "tiny-qwen2", "--device", "cpu", "--output-dir", str(tmp_path)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
-    assert "faults is not ported yet" in proc.stderr
+    assert "hedge requires an enabled 'faults' config" in proc.stderr
+
+
+#: split keys the faulty link retired from the unported list, with what the
+#: reference's validation now says of each alone (None: it validates)
+LINK_KEY_ALONE = {"link_policy": None,
+                  "hedge": "hedge requires an enabled 'faults' config"}
 
 
 @pytest.mark.parametrize("key,value", [
@@ -204,7 +248,19 @@ def test_split_config_with_faults_exits_naming_the_key(tmp_path):
     ("deadline", 10.0), ("stage_failure", {"stage": 1, "at_step": 1}), ("recovery", {}),
     ("n_seq", 4), ("n_data", 2), ("n_model", 2)])
 def test_unported_split_keys_are_named(key, value):
+    """Unported split keys die naming themselves; the link keys (ported)
+    validate as the reference validates them alone."""
     p = {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"], key: value}
+    if key in LINK_KEY_ALONE:
+        assert key not in trun.UNPORTED_SPLIT_KEYS
+        if LINK_KEY_ALONE[key] is None:
+            trun._validate_params_json(p)
+            jrun._validate_params_json(p)
+            return
+        for validate in (trun._validate_params_json, jrun._validate_params_json):
+            with pytest.raises(SystemExit, match=LINK_KEY_ALONE[key]):
+                validate(p)
+        return
     with pytest.raises(SystemExit, match=f"{key} is not ported yet"):
         trun._validate_params_json(p)
 
@@ -379,6 +435,13 @@ split = run_split_eval(cfg, params, np.arange(100) % 256, cuts=[1, 3],
                        importance_method="last_row", max_length=32, stride=16,
                        device="cpu")
 assert np.isfinite(split["ppl"])
+split = run_split_eval(cfg, params, np.arange(100) % 256, cuts=[1], hop_codecs=["int8_per_token"],
+                       faults={"drop_rate": 0.5, "bitflip_rate": 1e-3}, fec={}, hedge={},
+                       link_health={"window": 2}, link_policy={"tiers": ["int4_per_token"]},
+                       max_length=32, stride=16, device="cpu")
+assert split["link_counters"]["hops"][0] > 0 and "link_health" in split
+import edgellm_tpu_torch.tools.pallas_probe, edgellm_tpu_torch.tools.attn_probe
+import edgellm_tpu_torch.codecs.probe_cache, edgellm_tpu_torch.obs.metrics
 import edgellm_tpu_torch.serve.frontend, edgellm_tpu_torch.serve.soak
 import edgellm_tpu_torch.serve.speculative
 from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime

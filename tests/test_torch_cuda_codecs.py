@@ -282,10 +282,13 @@ def test_fused_remote_hop_is_two_kernels(card, dtype):
     _equal(got, fh.fused_wire_hop(codec, h, card))
 
 
-def test_fused_hops_on_the_card(card):
+def test_fused_hops_on_the_card(card, tmp_path, monkeypatch):
     """On the card the forced remote plan runs K8 and no K3/K4; the wire and
     remote hops and the separate hop decode the same values; two devices
-    raise for the remote hop."""
+    raise for the remote hop. "auto" reads an empty probe cache here: no
+    data, no fusion."""
+    monkeypatch.setenv("EDGELLM_PROBE_CACHE", str(tmp_path / "empty.json"))
+    monkeypatch.delenv("EDGELLM_FUSED_HOP", raising=False)
     h = torch.from_numpy((np.random.default_rng(5).normal(size=(2, 64, 896)) * 2)
                          .astype(np.float32)).to(card)
     codec = get_wire_codec("int8_per_token_pallas")
@@ -347,3 +350,55 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
         ck.ternary_encode(torch.randn(4, 6, device=card), torch.ones(1, 6, device=card))
     with pytest.raises(ValueError, match="shape"):
         ck.chan_int8_encode(x, torch.ones(1, 32, device=card))
+
+
+@pytest.mark.parametrize("healing", [False, True])
+def test_faulty_link_on_the_card_matches_the_cpu(card, healing):
+    """The faulty link on the card: an int8_per_token hop through the twin
+    (K3 encode, K4 decode) over several fault steps gives the CPU's counters
+    exactly and its delivered hidden bit for bit; K3 launches once a hop,
+    K4 once a copy sent (every copy is decoded): routes x (1 + retried)."""
+    from edgellm_tpu_torch.codecs.faults import FaultConfig, FaultyLink, LinkPolicy, fault_key
+    from edgellm_tpu_torch.codecs.fec import FECConfig, HedgeConfig
+
+    kw = dict(fec=FECConfig(), hedge=HedgeConfig()) if healing else {}
+    link = FaultyLink(FaultConfig(bitflip_rate=2e-6, drop_rate=0.3, seed=4),
+                      LinkPolicy(max_retries=2), **kw)
+    h = (np.random.default_rng(6).normal(size=(2, 256, 896)) * 2).astype(np.float32)
+    twin = get_wire_codec("int8_per_token_pallas")
+    e0, d0 = ck.int8_affine_encode.launches, ck.int8_affine_decode.launches
+    sent_total = 0
+    for step in range(6):
+        on_card, on_cpu = link.init_counters(1), link.init_counters(1)
+        got = link.hop(twin, torch.from_numpy(h).to(card), 0, card, fault_key(4, step), on_card)
+        want = link.hop(get_wire_codec("int8_per_token"), torch.from_numpy(h), 0, "cpu",
+                        fault_key(4, step), on_cpu)
+        assert {k: v.tolist() for k, v in on_card.items()} == \
+            {k: v.tolist() for k, v in on_cpu.items()}
+        torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)
+        sent_total += (2 if healing else 1) * (1 + int(on_card["retried"][0]))
+    assert ck.int8_affine_encode.launches - e0 == 6
+    assert ck.int8_affine_decode.launches - d0 == sent_total
+
+
+@pytest.mark.parametrize("name", ["int4_per_token", "int8_per_token", "int8_per_channel",
+                                  "int4_per_channel", "ternary_mean", "ternary_max",
+                                  "int4_global"])
+def test_plain_codecs_do_not_synchronize(card, name):
+    """A plain codec's roundtrip and its kernel twin's enqueue their work
+    without a host synchronization (a constant copied from host memory once
+    synchronized the stream in every plain decode), so the probe can keep
+    the host ahead of the card."""
+    h = torch.randn(2, 64, 896, device=card)
+    codecs = [get_wire_codec(name)]
+    twin = ck.pallas_variant(codecs[0])
+    if twin is not None:
+        codecs.append(twin)
+    for codec in codecs:
+        codec.decode(codec.encode(h))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            codec.decode(codec.encode(h))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)

@@ -210,20 +210,60 @@ UNPORTED_EVAL = {"faults": {"drop_rate": 0.1}, "link_policy": {}, "fec": {},
                  "pipeline": object(), "n_seq": 2}
 
 
+#: the link's arguments, ported: what each does alone
+LINK_EVAL_ARGS = ("faults", "link_policy", "fec", "hedge", "link_health")
+
+
 @pytest.mark.parametrize("arg", sorted(UNPORTED_EVAL))
 def test_unported_split_eval_args_raise(qwen, corpus, arg):
+    """Unported arguments raise naming themselves. The faulty link's are
+    ported: ``faults`` runs the link (its counters in the result),
+    ``link_policy`` alone runs the clean split, and ``fec`` / ``hedge`` /
+    ``link_health`` without an enabled ``faults`` raise the reference's
+    message."""
     _, tc, _, tp = qwen
-    with pytest.raises(ValueError, match=f"{arg}.*not ported yet"):
-        run_split_eval(tc, tp, corpus, cuts=[2], hop_codecs=["int8_per_token"],
-                       max_length=64, stride=32, device="cpu", **{arg: UNPORTED_EVAL[arg]})
+    kw = dict(cuts=[2], hop_codecs=["int8_per_token"], max_length=64, stride=32,
+              device="cpu", max_chunks=2, time_hops=False)
+    if arg not in LINK_EVAL_ARGS:
+        with pytest.raises(ValueError, match=f"{arg}.*not ported yet"):
+            run_split_eval(tc, tp, corpus, **{**kw, arg: UNPORTED_EVAL[arg]})
+        return
+    if arg in ("fec", "hedge", "link_health"):
+        with pytest.raises(ValueError, match="require an enabled faults config"):
+            run_split_eval(tc, tp, corpus, **{**kw, arg: UNPORTED_EVAL[arg]})
+        return
+    res = run_split_eval(tc, tp, corpus, **{**kw, arg: UNPORTED_EVAL[arg]})
+    assert np.isfinite(res["ppl"]) and res["chunks"] == 2
+    if arg == "faults":
+        assert res["link_counters"]["hops"] == [2] and res["faults"]["drop_rate"] == 0.1
+    else:
+        assert "link_counters" not in res
 
 
 @pytest.mark.parametrize("arg", ["faults", "policy", "fec", "hedge", "pipeline",
                                  "n_data", "n_model"])
 def test_unported_runtime_args_raise(arg):
+    """``pipeline`` and the mesh axes raise naming themselves; the link's
+    arguments are ported: ``faults`` (enabled) builds a ``FaultyLink`` with
+    the policy, FEC and hedge given beside it, each alone builds none."""
+    from edgellm_tpu_torch.codecs.faults import FaultConfig, LinkPolicy
+    from edgellm_tpu_torch.codecs.fec import FECConfig, HedgeConfig
+
     split = SplitConfig((1,), ("int8_per_token",))
-    with pytest.raises(ValueError, match=f"{arg}.*not ported yet"):
-        SplitRuntime(tcfg.PRESETS["tiny-qwen2"], split, ["cpu"] * 2, **{arg: 2})
+    cfg = tcfg.PRESETS["tiny-qwen2"]
+    link_args = {"faults": FaultConfig(drop_rate=0.1), "policy": LinkPolicy(max_retries=1),
+                 "fec": FECConfig(), "hedge": HedgeConfig()}
+    if arg not in link_args:
+        with pytest.raises(ValueError, match=f"{arg}.*not ported yet"):
+            SplitRuntime(cfg, split, ["cpu"] * 2, **{arg: 2})
+        return
+    alone = SplitRuntime(cfg, split, ["cpu"] * 2, **{arg: link_args[arg]})
+    assert (alone.link is not None) == (arg == "faults")
+    if arg != "faults":
+        rt = SplitRuntime(cfg, split, ["cpu"] * 2, faults=link_args["faults"],
+                          **{arg: link_args[arg]})
+        assert getattr(rt.link, arg) == link_args[arg]
+        assert rt.link_counters()["hops"].tolist() == [0]
 
 
 def test_parse_hop_codec_and_split_config():
