@@ -164,7 +164,25 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    0.05 and 0.2 on split1's cut (24 chunks, one window a forward, no
    retry), its rate-0 point the clean split's. Every
    earlier phase reads an empty probe cache this run wrote;
-18. a JSON line of every kernel (launches summed over the counted paths,
+18. survivable serving at full Qwen2-0.5B width and depth, fp32 random
+   weights from ``--seed``: configs/split8_qwen_serve.json through
+   ``run.main --serve-report`` (every request accounted for, the kill of
+   stage 1 and the failover onto cut 11 printed, K-attn / K3 / K4 launched
+   exactly as the logged calls and the link's counters imply), the same
+   soak at 6 layers on the card and the CPU (outcomes, reasons, link
+   counters, identity counts and tokens equal);
+   configs/split6_qwen_failover.json through ``run.main --fault-report``
+   (24 chunks, window batch 4: one failover and re-plan onto cut 11, K3 /
+   K4 two a group before the loss and one after), card against CPU at 17
+   layers (PPL within rtol 1e-4); ``generate_split``'s recovery drills on
+   split8's cuts with fp32 hops over its link (periodic checkpoints, halt
+   and ``resume_split``, a ``StageFailure`` at step 3, the speculative
+   resume: the uninterrupted tokens); split9 with cut 11 and split8's link
+   inline (its counters the CPU's) and an int4 stream of split14's tier
+   checkpointed and restored (pages bit for bit, K14 launched, the
+   uninterrupted tokens); ms a decode step with and without the link, in
+   turns, its idle share and kernels a step;
+19. a JSON line of every kernel (launches summed over the counted paths,
    and by path; K-attn's also by dtype and path; K-stats' fp32 column pass
    apart; ``ms`` its device time, ``event_ms`` the call's CUDA-event time),
    the ``nvidia-smi`` line, and
@@ -1998,36 +2016,55 @@ FUSED_DECODE_ATOL = 1e-5
 
 @contextlib.contextmanager
 def split_call_log():
-    """Count the split decode calls made inside: ``prefill_decode``,
-    ``decode_step`` and ``verify_step`` of every ``SplitRuntime``, the local
-    ``generate`` prefills (``decode._prefill_impl``), and the ``speculative``
-    stats of every burst-loop call (a stats dict is handed to calls made
-    without one) -> the log dict."""
+    """Count the split decode calls made inside that returned:
+    ``prefill_decode``, ``decode_step``, ``verify_step`` and
+    ``decode_step_paged`` of every ``SplitRuntime`` (a call that raised,
+    such as one into a dark stage, launched nothing and is not counted), with
+    the int8 per-token hops they encoded and the copies they decoded (under
+    a faulty link from the runtime's counters: a hop encodes once and
+    decodes ``1 + retried`` copies; else one of each a cut), the local ``generate``
+    prefills (``decode._prefill_impl``), and the ``speculative`` stats of
+    every burst-loop call (a stats dict is handed to calls made without
+    one) -> the log dict."""
+    import inspect
+
     from edgellm_tpu_torch.parallel.split import SplitRuntime
     from edgellm_tpu_torch.serve import decode, speculative
 
-    log_ = {"prefill_decode": 0, "decode_step": 0, "verify_step": 0, "local_prefill": 0,
-            "spec_calls": []}
+    log_ = {"prefill_decode": 0, "decode_step": 0, "verify_step": 0, "decode_step_paged": 0,
+            "local_prefill": 0, "encodes": 0, "decodes": 0, "spec_calls": []}
     saved = {name: getattr(SplitRuntime, name)
-             for name in ("prefill_decode", "decode_step", "verify_step")}
+             for name in ("prefill_decode", "decode_step", "verify_step", "decode_step_paged")}
     real_prefill, real_loop = decode._prefill_impl, speculative._spec_loop
+    loop_sig = inspect.signature(real_loop)
 
     def counted(name):
         def call(self, *a, **kw):
+            before = self.link_counters()
+            out = saved[name](self, *a, **kw)
             log_[name] += 1
-            return saved[name](self, *a, **kw)
+            after = self.link_counters()
+            for i, codec in enumerate(self.codecs):
+                if not codec.name.startswith("int8_per_token"):
+                    continue  # K3 / K4 run only under the int8 per-token hops
+                hops = 1 if before is None else int(after["hops"][i] - before["hops"][i])
+                retried = 0 if before is None else int(after["retried"][i]
+                                                       - before["retried"][i])
+                log_["encodes"] += hops
+                log_["decodes"] += hops + retried
+            return out
         return call
 
     def local_prefill(*a, **kw):
         log_["local_prefill"] += 1
         return real_prefill(*a, **kw)
 
-    def spec_loop(*a):
-        a = list(a)
-        stats = a[-1] if a[-1] is not None else {}
-        a[-1] = stats
-        out = real_loop(*a)
-        log_["spec_calls"].append(stats["speculative"])
+    def spec_loop(*a, **kw):
+        bound = loop_sig.bind(*a, **kw)
+        if bound.arguments.get("stats") is None:
+            bound.arguments["stats"] = {}
+        out = real_loop(*bound.args, **bound.kwargs)
+        log_["spec_calls"].append(bound.arguments["stats"]["speculative"])
         return out
 
     for name in saved:
@@ -3147,6 +3184,424 @@ def boundary_link_paths(args, detail: dict, cache_path: str) -> dict:
     return out
 
 
+#: phase 18's shipped configs, and the split eval's chunks and window batch
+#: (the loss at chunk 4 lands on the second of six groups)
+SPLIT8_CONFIG, SPLIT6F_CONFIG = "configs/split8_qwen_serve.json", "configs/split6_qwen_failover.json"
+SURV_CHUNKS, SURV_WB = 24, 4
+#: split8 replayed card against CPU at Qwen2-0.5B width and this depth, its
+#: cuts moved inside (a soak's virtual clock follows the measured service
+#: time: at equal depth both devices serve in tens of ms, so the same
+#: requests meet the kill and the breakers on both)
+SURV_SMALL_LAYERS, SURV_SMALL_CUTS = 6, [1, 3]
+#: split6's failover card against CPU: 17 layers hold cut 15, 5 chunks two
+#: groups (four windows before the loss, one after)
+SURV_CROSS_LAYERS, SURV_CROSS_CHUNKS = 17, 5
+#: split9 with the link: the CPU's counters at this depth, its one cut moved
+#: inside (the counters depend on the keys, the schedule and the payload
+#: width, not on the depth or where the one cut sits)
+SURV_SPLIT9_CPU_LAYERS, SURV_SPLIT9_CPU_CUTS = 4, [1]
+#: split8's plan for the recovery drills (fp32 hops, so a re-planned split
+#: decodes the same tokens as the lost one) and split8's link
+SURV_DRILL_PLAN = ((11, 17), ("fp32", "fp32"))
+#: decode steps a wall reading of phase 18 times (four readings, in turns)
+STEP_READS = 20
+
+
+def _surv_counts(calls: dict, n_layers: int, draft_layers: int = 0) -> dict:
+    """The launches a logged run of split calls implies (fp32): K-attn at
+    every layer of each split and local prefill (``draft_layers`` of each
+    burst loop's draft prefill), K3 once a hop encoded, K4 once a copy
+    decoded, K13 at every layer of each ragged step."""
+    attn = (n_layers * (calls["prefill_decode"] + calls["local_prefill"])
+            + draft_layers * len(calls["spec_calls"]))
+    return want_counts(attn, causal_attention=attn, int8_affine_encode=calls["encodes"],
+                       int8_affine_decode=calls["decodes"],
+                       paged_decode_attention=n_layers * calls["decode_step_paged"])
+
+
+def _small_model(cfg, params, n_layers: int):
+    """The first ``n_layers`` of a model (views of the same weights)."""
+    small = dataclasses.replace(cfg, num_layers=n_layers)
+    return small, {**{k: v for k, v in params.items() if k != "layers"},
+                   "layers": {k: v[:n_layers] for k, v in params["layers"].items()}}
+
+
+def survivable_paths(args, detail: dict, device: str = "cuda",
+                     model: str = "qwen2-0.5b") -> dict:
+    """Phase 18: survivable serving, fp32 weights from ``--seed`` (the CLI's
+    default), full Qwen2-0.5B width and depth. (1) configs/split8_qwen_serve.json
+    as shipped through ``run.main --serve-report``: every request accounted
+    for, the kill of stage 1 at request 12 and the failover onto cut 11
+    printed, K-attn / K3 / K4 launched exactly as the logged calls and the
+    link's counters imply; the same soak at :data:`SURV_SMALL_LAYERS` layers
+    on the card and the CPU with the same weights: outcomes, reasons, link
+    counters, identity counts and every request's tokens equal. (2)
+    configs/split6_qwen_failover.json as shipped through ``run.main
+    --fault-report`` (:data:`SURV_CHUNKS` chunks, window batch
+    :data:`SURV_WB`): the recovery block (one failover and re-plan onto cut
+    11), K3 / K4 two a group before the loss and one after; card against CPU
+    at :data:`SURV_CROSS_LAYERS` layers (recovery block equal, PPL within
+    :data:`SPLIT_CROSS_RTOL`). (3) ``generate_split`` with a
+    ``RecoveryConfig`` over split8's cuts and link (fp32 hops): periodic
+    checkpoints, ``halt_at_step`` then ``resume_split``, a ``StageFailure``
+    at step 3, the speculative halt and resume, each with the uninterrupted
+    run's tokens. (4) split9 with cut 11 and split8's link inline through
+    ``run.main`` (mode "batched_split"), its counters equal a CPU run at
+    :data:`SURV_SPLIT9_CPU_LAYERS` layers; a stream checkpointed at split14's int4 tier and
+    restored into a fresh batcher: pages bit for bit, K14 launched, the
+    uninterrupted tokens. (5) readings: ms a decode step with and without
+    the link, idle share, copies a hop -> launches by path."""
+    import argparse as ap
+    import tempfile
+
+    import torch
+
+    from edgellm_tpu_torch import run
+    from edgellm_tpu_torch.codecs.faults import FaultConfig, LinkPolicy
+    from edgellm_tpu_torch.eval import run_split_eval
+    from edgellm_tpu_torch.models import PRESETS, params_to
+    from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime
+    from edgellm_tpu_torch.serve import batching as sb
+    from edgellm_tpu_torch.serve import recovery as rc_mod
+    from edgellm_tpu_torch.serve.decode import generate_split, resume_split
+    from edgellm_tpu_torch.serve.speculative import SpecConfig
+    from edgellm_tpu_torch.utils import prng
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out, rows, part_s = {}, {}, {}
+    t_part = [time.monotonic()]
+
+    def lap(name):
+        now = time.monotonic()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+    cfg = PRESETS[model]
+    layers = cfg.num_layers
+    base = ["--model", model, "--seed", str(args.seed), "--device", device]
+    with open(SPLIT8_CONFIG) as f:
+        p8 = json.load(f)
+    if model != "qwen2-0.5b":  # a CPU rehearsal at tiny depth
+        p8["cuts"] = SURV_SMALL_CUTS
+    link = dict(faults=FaultConfig(**p8["faults"]), policy=LinkPolicy(**p8["link_policy"]))
+    _, params = run._load_model(ap.Namespace(weights=None, model=model, seed=args.seed),
+                                torch.device(device))
+
+    # (1) split8 as shipped, through the CLI
+    with tempfile.TemporaryDirectory() as tmp, split_call_log() as calls:
+        path = os.path.join(tmp, "split8.json")
+        with open(path, "w") as f:
+            json.dump(p8, f)
+        sync()
+        reset_counts()
+        t0 = time.monotonic()
+        code, lines = _cli_run(["--params", path, "--output-dir", tmp, "--serve-report"] + base)
+        sync()
+        wall = time.monotonic() - t0
+        launches = read_counts()
+        with open(os.path.join(tmp, "serve_report.json")) as f:
+            art = json.load(f)
+    printed, report = json.loads(lines[0]), art["report"]
+    want = _surv_counts(calls, layers)
+    for line in lines[1:]:
+        log(f"  split8: {line}")
+    plan_line = next((line for line in lines if line.startswith("  plan ")), "")
+    replanned = f"cuts={[round(cfg.num_layers / 2) - 1]}"
+    row = {"rc": code, "wall_s": wall, "printed": printed, "kill": art["kill"],
+           "failovers": report["failovers"], "reasons": report["reasons"],
+           "link_counters": report.get("link_counters"), "identity": art["token_identity"],
+           "calls": {k: v for k, v in calls.items() if k != "spec_calls"},
+           "launches": launches, "launches_expected": want, "plan_line": plan_line}
+    lc = report.get("link_counters") or {}
+    row["copies_per_hop"] = (lc["hops"] + lc["retried"]) / lc["hops"] if lc.get("hops") else None
+    rows["split8"] = row
+    log(json.dumps({"survivable_split8": {k: v for k, v in row.items()
+                                          if k not in ("launches_expected",)}}))
+    if code != 0 or printed["requests"] != 24 or sum(printed["outcomes"].values()) != 24:
+        raise SystemExit(f"split8: rc {code}, not every request accounted for: {printed}")
+    if report["failovers"] < 1 or (art["kill"] or {}).get("stage") != 1 \
+            or replanned not in plan_line:
+        raise SystemExit(f"split8: no kill / failover onto {replanned}: kill {art['kill']}, "
+                         f"failovers {report['failovers']}, plan {plan_line!r}")
+    if not lc.get("hops"):
+        raise SystemExit(f"split8: the front counted no link hops: {report}")
+    if on_card and launches != want:
+        raise SystemExit(f"split8: kernel launches {launches} != expected {want}")
+    out["split8 serve"] = launches
+    lap("split8 cli")
+
+    # split8 at SURV_SMALL_LAYERS layers on the card and the CPU, same weights
+    small_cfg, small = _small_model(cfg, params, SURV_SMALL_LAYERS)
+    p_small = {**p8, "cuts": SURV_SMALL_CUTS}
+    replays = {}
+    for dev in ((device, "cpu") if on_card else ("cpu",)):
+        with tempfile.TemporaryDirectory() as tmp:
+            res = run.run_serve_requests(small_cfg, params_to(small, device=dev), p_small,
+                                         lambda name, tmp=tmp: os.path.join(tmp, name))
+        a = res["_artifact"]
+        replays[dev] = {"outcomes": a["outcomes"], "reasons": a["report"]["reasons"],
+                        "failovers": a["report"]["failovers"],
+                        "link_counters": a["report"].get("link_counters"),
+                        "identity": {k: a["token_identity"][k] for k in ("checked", "matched")},
+                        "tokens": a["tokens"]}
+    first = replays[device]
+    rows["split8 small card vs cpu"] = {d: {k: v for k, v in r.items() if k != "tokens"}
+                                        for d, r in replays.items()}
+    log(json.dumps({"survivable_split8_cross": rows["split8 small card vs cpu"]}))
+    for key in first:
+        if replays["cpu"][key] != first[key]:
+            raise SystemExit(f"split8 at {SURV_SMALL_LAYERS} layers: {key} differ, card "
+                             f"{first[key]} vs CPU {replays['cpu'][key]}")
+    del small
+    lap("split8 card vs cpu")
+
+    # (2) split6 failover as shipped, through the CLI
+    with open(SPLIT6F_CONFIG) as f:
+        p6 = json.load(f)
+    if model != "qwen2-0.5b":
+        p6["cuts"] = SURV_SMALL_CUTS
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "split6.json")
+        with open(path, "w") as f:
+            json.dump(p6, f)
+        sync()
+        reset_counts()
+        t0 = time.monotonic()
+        code, lines = _cli_run(["--params", path, "--output-dir", tmp,
+                                "--max-chunks", str(SURV_CHUNKS), "--window-batch", str(SURV_WB),
+                                "--fault-report"] + base)
+        sync()
+        wall = time.monotonic() - t0
+        launches = read_counts()
+    res6 = json.loads(lines[0])
+    groups = math.ceil(SURV_CHUNKS / SURV_WB)
+    lost_group = p6["stage_failure"]["at_step"] // SURV_WB
+    hops = 2 * lost_group + 1 * (groups - lost_group) + HOP_ITERS
+    want = want_counts(layers * groups, causal_attention=layers * groups,
+                       int8_affine_encode=hops, int8_affine_decode=hops)
+    rec = res6.get("recovery") or {}
+    rows["split6 failover"] = {"rc": code, "wall_s": wall, "chunks": res6["chunks"],
+                               "ppl": res6["ppl"], "recovery": rec, "report": lines[1:],
+                               "launches": launches, "launches_expected": want,
+                               "s_per_chunk": res6["wall_s"] / max(res6["chunks"], 1)}
+    log(json.dumps({"survivable_split6": rows["split6 failover"]}))
+    counters = rec.get("counters", {})
+    if code != 0 or res6["chunks"] != SURV_CHUNKS or not np.isfinite(res6["ppl"]) \
+            or counters.get("failovers") != 1 or counters.get("replans") != 1 \
+            or rec.get("replanned_cuts") != [round(cfg.num_layers / 2) - 1]:
+        raise SystemExit(f"split6 failover: rc {code}, {res6['chunks']} chunks, recovery {rec}")
+    if on_card and launches != want:
+        raise SystemExit(f"split6 failover: kernel launches {launches} != expected {want}")
+    out["split6 failover"] = launches
+    lap("split6 cli")
+    cross_cfg, cross = _small_model(cfg, params, min(SURV_CROSS_LAYERS, layers))
+    corpus = np.random.default_rng(args.seed).integers(0, cfg.vocab_size, CLI_CORPUS_LEN)
+    kw = dict(cuts=p6["cuts"], hop_codecs=p6["hop_codecs"], max_length=p6["max_length"], stride=p6["stride"],
+              window_batch=SURV_WB, max_chunks=SURV_CROSS_CHUNKS, time_hops=False,
+              deadline_s=p6["deadline"], stage_failure=p6["stage_failure"],
+              recovery=p6["recovery"])
+    got = {dev: run_split_eval(cross_cfg, params_to(cross, device=dev), corpus, device=dev, **kw)
+           for dev in ((device, "cpu") if on_card else ("cpu",))}
+    rel = abs(got[device]["ppl"] - got["cpu"]["ppl"]) / got["cpu"]["ppl"]
+    rows["split6 failover card vs cpu"] = {
+        "layers": cross_cfg.num_layers, "card_ppl": got[device]["ppl"],
+        "cpu_ppl": got["cpu"]["ppl"], "rel": rel, "recovery": got["cpu"]["recovery"]}
+    log(json.dumps({"survivable_split6_cross": rows["split6 failover card vs cpu"]}))
+    # the re-planned codecs by the names each device runs (the twin's on the
+    # card), the rest of the block exactly
+    plain = lambda r: {**r, "failover_hop_codecs": [  # noqa: E731
+        c.replace("_pallas", "") for c in r["failover_hop_codecs"]]}
+    if plain(got[device]["recovery"]) != plain(got["cpu"]["recovery"]) \
+            or rel > SPLIT_CROSS_RTOL or got[device]["n_tokens"] != got["cpu"]["n_tokens"]:
+        raise SystemExit(f"split6 failover card vs CPU: {rows['split6 failover card vs cpu']}, "
+                         f"card recovery {got[device]['recovery']}")
+    del cross
+    lap("split6 card vs cpu")
+
+    # (3) generate_split's recovery drills over split8's cuts and link
+    drill = SplitConfig(SURV_DRILL_PLAN[0] if model == "qwen2-0.5b" else tuple(SURV_SMALL_CUTS),
+                        SURV_DRILL_PLAN[1])
+    rng = np.random.default_rng(args.seed + 18)
+    prompt = rng.integers(0, cfg.vocab_size, (2, 8))
+    new = p8["serving"]["soak"]["max_new_tokens"]
+    kw = dict(capacity=24, temperature=0.7, rng_key=prng.key(3), raw_params=params)
+    drills = {}
+    with tempfile.TemporaryDirectory() as tmp, split_call_log() as calls:
+        reset_counts()
+        rt = SplitRuntime(cfg, drill, [device] * 3, **link)
+        placed = rt.place_params(params)
+        clean = generate_split(rt, placed, prompt, new, **kw).cpu()
+        stats = {}
+        periodic = generate_split(rt, placed, prompt, new, stats=stats, **kw,
+                                  recovery=rc_mod.RecoveryConfig(
+                                      checkpoint_path=os.path.join(tmp, "p.ckpt"),
+                                      checkpoint_every=3)).cpu()
+        halt_path = os.path.join(tmp, "h.ckpt")
+        part = generate_split(rt, placed, prompt, new, **kw, recovery=rc_mod.RecoveryConfig(
+            checkpoint_path=halt_path, halt_at_step=3)).cpu()
+        resumed = resume_split(rt, placed, halt_path).cpu()
+        drills["periodic"] = torch.equal(periodic, clean)
+        drills["halt_prefix"] = torch.equal(part, clean[:, :4])
+        drills["resume"] = torch.equal(resumed, clean)
+        ck = rc_mod.DecodeCheckpoint.load(halt_path)
+        drills["checkpoint_codecs"] = ck.meta["hop_codecs"]
+        drills["checkpoints_written"] = stats["recovery_counters"]["checkpoints_written"]
+        fail_rt = SplitRuntime(cfg, drill, [device] * 3, **link)
+        fstats = {}
+        failed = generate_split(fail_rt, fail_rt.place_params(params), prompt, new, stats=fstats,
+                                **kw, recovery=rc_mod.RecoveryConfig(
+                                    stage_failure=rc_mod.StageFailure(stage=2, at_step=3))).cpu()
+        drills["stage_failure"] = torch.equal(failed, clean)
+        drills["recovery_counters"] = fstats["recovery_counters"]
+        spec = SpecConfig(k=4)
+        skw = {**kw, "speculative": spec}
+        spec_clean = generate_split(rt, placed, prompt[:1], new, **skw).cpu()
+        spec_path = os.path.join(tmp, "s.ckpt")
+        generate_split(rt, placed, prompt[:1], new, **skw, recovery=rc_mod.RecoveryConfig(
+            checkpoint_path=spec_path, halt_at_step=3))
+        spec_resumed = resume_split(rt, placed, spec_path, speculative=spec,
+                                    raw_params=params).cpu()
+        drills["spec_resume"] = torch.equal(spec_resumed, spec_clean)
+        sync()
+        launches = read_counts()
+    want = _surv_counts(calls, layers, draft_layers=drill.cuts[0] + 1)
+    drills.update(launches=launches, launches_expected=want,
+                  calls={k: v for k, v in calls.items() if k != "spec_calls"})
+    rows["recovery drills"] = drills
+    log(json.dumps({"survivable_drills": {k: v for k, v in drills.items()
+                                          if k != "launches_expected"}}))
+    if not all(drills[k] for k in ("periodic", "halt_prefix", "resume", "stage_failure",
+                                   "spec_resume")) \
+            or drills["recovery_counters"]["failovers"] != 1 \
+            or drills["recovery_counters"]["recompute_tokens"] != 2 * (8 + 3):
+        raise SystemExit(f"recovery drills: {drills}")
+    if on_card and launches != want:
+        raise SystemExit(f"recovery drills: kernel launches {launches} != expected {want}")
+    out["generate_split recovery"] = launches
+    del rt, fail_rt, placed
+    lap("recovery drills")
+
+    # (4) split9 with cut 11 and split8's link inline, through the CLI; the
+    # counters against the CPU's with the same weights
+    with open("configs/split9_qwen_paged.json") as f:
+        p9 = json.load(f)
+    p9.update(cuts=[round(cfg.num_layers / 2) - 1], hop_codecs=["int8_per_token"],
+              faults=p8["faults"], link_policy=p8["link_policy"])
+    with tempfile.TemporaryDirectory() as tmp, split_call_log() as calls:
+        sync()
+        reset_counts()
+        code, lines = _cli_run(["--params", json.dumps(p9), "--output-dir", tmp] + base)
+        sync()
+        launches = read_counts()
+        with open(os.path.join(tmp, "serve_report.json")) as f:
+            rep9 = json.load(f)["batcher"]
+    want = _surv_counts(calls, layers)
+    lap("split9 cli")
+    cpu_cfg, cpu_params = _small_model(cfg, params, min(SURV_SPLIT9_CPU_LAYERS, layers))
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu9 = run.run_serve(cpu_cfg, params_to(cpu_params, device="cpu"),
+                             {**p9, "cuts": SURV_SPLIT9_CPU_CUTS},
+                             lambda name: os.path.join(tmp, name))["_batcher"]
+    lap("split9 cpu")
+    rows["split9 link"] = {"rc": code, "printed": json.loads(lines[-1]),
+                           "link_counters": rep9.get("link_counters"),
+                           "cpu_link_counters": cpu9.get("link_counters"), "steps": rep9["steps"],
+                           "launches": launches, "launches_expected": want}
+    log(json.dumps({"survivable_split9_link": {k: v for k, v in rows["split9 link"].items()
+                                               if k != "launches_expected"}}))
+    if code != 0 or json.loads(lines[-1])["outcomes"] != {"completed": 24} \
+            or not rep9.get("link_counters") or rep9["link_counters"] != cpu9["link_counters"]:
+        raise SystemExit(f"split9 with the link: {rows['split9 link']}")
+    if on_card and launches != want:
+        raise SystemExit(f"split9 with the link: kernel launches {launches} != expected {want}")
+    out["split9 link serve"] = launches
+
+    # a stream at split14's int4 tier checkpointed and restored (K14)
+    with open("configs/split14_qwen_kvq.json") as f:
+        p14 = json.load(f)
+    p14.update(cuts=p9["cuts"], hop_codecs=p9["hop_codecs"])
+    bcfg = run.batching_config(cfg, p14)
+    srt = SplitRuntime(cfg, SplitConfig(tuple(p14["cuts"]), tuple(p14["hop_codecs"])),
+                       [device] * 2, **link)
+    splaced = srt.place_params(params)
+    prompts = [rng.integers(1, cfg.vocab_size, 72).astype(np.int32) for _ in range(3)]
+
+    def batcher():
+        b = sb.ContinuousBatcher(cfg, params, bcfg, split_runtime=srt, placed_params=splaced)
+        return b, [b.submit(pr, 8, temperature=0.7, rng_seed=40 + i)
+                   for i, pr in enumerate(prompts)]
+
+    b, sids = batcher()
+    want_toks = b.run()
+    b, sids = batcher()
+    for _ in range(3):
+        b.step()
+    state = b._gather_state(b._streams[sids[1]].slot)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = b.checkpoint_stream(sids[1], os.path.join(tmp, "stream.ckpt"))
+        other = sb.ContinuousBatcher(cfg, params, bcfg, split_runtime=srt,
+                                     placed_params=splaced)
+        sid = other.restore_stream(path)
+    reset_counts()
+    other.step()
+    sync()
+    step_launches = read_counts()
+    n = int(state["length"])
+    idx = other.pool._flat_indices(other._streams[sid].slot, n)
+    restored = srt.gather_paged_packed(other._split_pool, idx)
+    pages_equal = all(np.array_equal(g[:, :, :n], state[k]) for g, k in
+                      zip(restored, ("k_codes", "v_codes", "k_scale", "v_scale")))
+    tokens_equal = np.array_equal(other.run()[sid], want_toks[sids[1]])
+    rows["int4 stream restore"] = {"pages_equal": pages_equal, "tokens_equal": tokens_equal,
+                                   "length": n, "step_launches": step_launches}
+    log(json.dumps({"survivable_int4_restore": rows["int4 stream restore"]}))
+    if not (pages_equal and tokens_equal) or (
+            on_card and step_launches["paged_decode_attention_quant"] != layers):
+        raise SystemExit(f"int4 stream restore: {rows['int4 stream restore']}")
+    out["int4 stream restore step"] = step_launches
+    del b, other, srt, splaced
+    lap("int4 restore")
+
+    # (5) a decode step with and without split8's link, one call: the wall
+    # of STEP_READS steps in turns (clean, link, link, clean), then one
+    # short profile of each for the idle share and the kernels a step
+    if on_card:
+        plan = SplitConfig(tuple(p8["cuts"]), tuple(p8["hop_codecs"]))
+        ids = torch.from_numpy(prompt[:1]).to(device)
+        tok = ids[:, -1]
+        reads, steps = {}, {}
+        for name, kw_rt in (("clean", {}), ("link", link)):
+            rt = SplitRuntime(cfg, plan, [device] * 3, **kw_rt)
+            placed = rt.place_params(params)
+            _, cache = rt.prefill_decode(placed, ids, 24)
+            steps[name] = (lambda rt=rt, placed=placed, cache=cache:
+                           rt.decode_step(placed, cache, tok))
+            steps[name]()  # warm
+            reads[name] = {"wall_ms_per_step": []}
+        for name in ("clean", "link", "link", "clean"):
+            sync()
+            t0 = time.monotonic()
+            for _ in range(STEP_READS):
+                steps[name]()
+            sync()
+            reads[name]["wall_ms_per_step"].append((time.monotonic() - t0) * 1e3 / STEP_READS)
+        for name in ("clean", "link"):
+            prof = profile_kinds(steps[name], 5)
+            reads[name].update({k: prof[k] for k in (
+                "device_busy_ms_per_call", "kernels_per_call", "idle_share",
+                "device_ms_by_kind_per_call")}, profiled_wall_ms_per_call=prof["wall_ms_per_call"])
+            log(json.dumps({"survivable_step_read": {name: reads[name]}}))
+        rows["decode step reads"] = reads
+        lap("decode step reads")
+    rows["part_s"] = part_s
+    log(json.dumps({"survivable_part_s": part_s}))
+    detail["survivable"] = rows
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3155,6 +3610,7 @@ def main() -> int:
                     help="chunks of the main-path sweep (chunk 0 + full groups of 8)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.monotonic()
 
     import torch
 
@@ -3217,10 +3673,13 @@ def main() -> int:
     t8 = time.monotonic()
     by_path.update(boundary_link_paths(args, detail,
                                        os.path.join(probe_dir, "probe_cache_phase17.json")))
+    t9 = time.monotonic()
+    by_path.update(survivable_paths(args, detail))
     detail["phase_s"] = {"kernels": t1 - t0, "token_sweep": t2 - t1, "split_paths": t3 - t2,
                          "serve_paths": t4 - t3, "cross_checks": t5 - t4,
                          "experiments": t6 - t5, "split_decode": t7 - t6,
-                         "split_paged": t8 - t7, "boundary_link": time.monotonic() - t8}
+                         "split_paged": t8 - t7, "boundary_link": t9 - t8,
+                         "survivable": time.monotonic() - t9, "total": time.monotonic() - t_start}
     log(json.dumps({"phase_s": detail["phase_s"]}))
 
     kernels = []

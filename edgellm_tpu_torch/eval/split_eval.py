@@ -23,8 +23,15 @@ or a :class:`~..codecs.fec.LinkHealth` with one runtime per tier, built on
 first demand; :func:`run_fault_sweep` draws the PPL / counter curve over a
 fault rate.
 
-Not ported yet (each raises naming its argument): survivability
-(``deadline_s``, ``stage_failure``, ``recovery``), the micro-batch
+Survivability: ``deadline_s`` arms a :class:`~..serve.recovery.Watchdog`
+petted once a drained chunk; ``stage_failure`` marks a stage dark at a
+chunk index, and the harness re-plans the split onto the surviving stages
+(evenly spaced cuts, the first hop's codec on every new hop), rebuilds the
+runtimes of every tier and carries the partial sums on; ``recovery``
+(``replan``, ``max_failovers``) tunes it, and the result's ``recovery``
+block accounts the byte totals per plan generation.
+
+Not ported yet (each raises naming its argument): the micro-batch
 ``pipeline`` and the stage x seq runtime (``n_seq > 1``).
 """
 from __future__ import annotations
@@ -46,6 +53,8 @@ from ..models.paged_kv import (init_pool, init_quant_pool, kv_page_bytes, paged_
                                paged_decode_step_quant, resolve_kv_codec)
 from ..models.transformer import nll_from_logits, params_to, run_layers_from_ids
 from ..parallel.split import NOT_PORTED_MSG, SplitConfig, SplitRuntime
+from ..serve.recovery import (DecodeTimeout, RecoveryCounters, StageFailure, StageLostError,
+                              Watchdog)
 from ..utils.clock import MONOTONIC
 from .harness import (ResumableDriver, _emit, _group_arrays, _iter_window_groups,
                       _run_pipelined)
@@ -80,9 +89,6 @@ def _importance(cfg: ModelConfig, params: dict, ids: torch.Tensor, method: str,
     ``_importance_fn``)."""
     _, aux = run_layers_from_ids(cfg, params, ids, capture_stats=True)
     return importance_per_layer(aux["stats"], method, head_weights)
-
-
-_UNPORTED_ARGS = ("deadline_s", "stage_failure", "recovery", "pipeline")
 
 
 def _link_configs(faults, link_policy, fec, hedge, link_health) -> tuple:
@@ -170,16 +176,36 @@ def run_split_eval(
     ``degraded_chunks``, ``fec`` / ``hedge`` / ``link_health`` as given,
     and, beyond the reference's keys, ``link_by_tier``: each tier's codecs
     and counters (None for a tier never built), which say how often each
-    tier's kernels ran."""
-    given = dict(deadline_s=deadline_s, stage_failure=stage_failure, recovery=recovery,
-                 pipeline=pipeline)
-    for name in _UNPORTED_ARGS:
-        if given[name] is not None:
-            raise ValueError(f"run_split_eval {name} {NOT_PORTED_MSG}")
+    tier's kernels ran.
+
+    ``deadline_s`` (a :class:`~..serve.recovery.Watchdog` petted once a
+    drained chunk; ``_clock`` its clock), ``stage_failure`` (a
+    :class:`~..serve.recovery.StageFailure` or dict; ``at_step`` a chunk
+    index) and ``recovery`` (``{"replan", "max_failovers"}``) as in the
+    reference: a lost stage re-plans the split onto the survivors and the
+    same accumulation continues; the result then holds a ``recovery`` block
+    (counters, plan generations, the re-planned cuts and codecs, the byte
+    totals per post-failover generation) and the timed hops are the
+    surviving plan's."""
+    if pipeline is not None:
+        raise ValueError(f"run_split_eval pipeline {NOT_PORTED_MSG}")
     if n_seq > 1:
         raise ValueError(f"n_seq > 1 (the stage x seq ring runtime) {NOT_PORTED_MSG}")
     faults, link_policy, fec, hedge, link_health, fault_on = _link_configs(
         faults, link_policy, fec, hedge, link_health)
+    if isinstance(stage_failure, dict):
+        stage_failure = StageFailure(**stage_failure)
+    recovery_on = deadline_s is not None or stage_failure is not None or bool(recovery)
+    recovery = dict(recovery or {})
+    unknown = set(recovery) - {"replan", "max_failovers"}
+    if unknown:
+        raise ValueError(f"unknown recovery key(s): {sorted(unknown)}")
+    rec_replan = bool(recovery.get("replan", True))
+    rec_max_failovers = int(recovery.get("max_failovers", 1))
+    if rec_max_failovers < 1:
+        raise ValueError("recovery.max_failovers must be >= 1")
+    rcounters = RecoveryCounters()
+    wd = Watchdog(deadline_s, clock=_clock) if deadline_s is not None else None
     policy = link_policy if link_policy is not None else LinkPolicy()
     codecs = [parse_hop_codec(c) if isinstance(c, str) else c for c in hop_codecs]
     split = SplitConfig(cuts=tuple(cuts), hop_codecs=tuple(codecs))
@@ -188,7 +214,8 @@ def run_split_eval(
 
     def _make_runtime(tier_codecs):
         return SplitRuntime(cfg, SplitConfig(cuts=split.cuts, hop_codecs=tuple(tier_codecs)),
-                            devices, faults=faults, policy=link_policy, fec=fec, hedge=hedge)
+                            devices[:split.n_stages], faults=faults, policy=link_policy,
+                            fec=fec, hedge=hedge)
 
     # tier 0 is the configured codec set; lower tiers swap EVERY hop to one
     # fallback codec (payload shapes change, hence separate runtimes; the
@@ -238,6 +265,8 @@ def run_split_eval(
             axes["hedge"] = dataclasses.asdict(hedge)
         if link_health is not None:
             axes["link_health"] = dataclasses.asdict(link_health)
+    if stage_failure is not None:
+        axes["stage_failure"] = dataclasses.asdict(stage_failure)
     rd = ResumableDriver(checkpoint_path, axes, checkpoint_every)
     total_nll, n_tokens = 0.0, 0.0
     fwd_tokens = 0  # every token pushed through the pipeline
@@ -257,21 +286,52 @@ def run_split_eval(
     bytes_cache: dict = {}
     degraded_chunks = 0  # chunks that ran below tier 0
     tier_log: list = []  # (chunk_index, tier) at every controller switch
+    gen = 0  # plan generation: one more at every failover re-plan
+    # generation 0 shares the checkpointed byte totals; a re-planned split
+    # has another hop count, so its bytes accumulate per generation
+    gen_bytes = {0: hop_bytes_total}
+    sf_pending = stage_failure is not None
+
+    def _eval_failover(lost: int, err: StageLostError):
+        """Re-plan onto the survivors and swap every tier's runtime; the
+        partial sums carry over (the PPL does not depend on the cut)."""
+        nonlocal split, placed, gen, ladder, devices
+        if not rec_replan or rcounters.failovers >= rec_max_failovers:
+            raise err  # the lost stage stays fatal
+        rcounters.failovers += 1
+        devices = devices[:lost] + devices[lost + 1:]
+        split = split.replan(cfg.num_layers, len(devices))
+        rcounters.replans += 1
+        ladder = [list(split.hop_codecs)]
+        if controller is not None or health is not None:
+            for name in policy.tiers:
+                ladder.append([name] * len(split.hop_codecs))
+        runtimes.clear()
+        runtimes[0] = _make_runtime(ladder[0])
+        placed = runtimes[0].place_params(params)
+        gen += 1
+        gen_bytes[gen] = [0] * len(split.hop_codecs)
 
     def submit_group(group):
+        nonlocal sf_pending
         n_real = len(group)
         s_unpadded = group[0].input_ids.shape[1]
         counts = [c.num_loss_tokens for c in group]
         ids = torch.from_numpy(np.concatenate([c.input_ids for c in group]).astype(np.int64))
         targets = torch.from_numpy(np.concatenate([c.target_ids for c in group]))
         ids = ids.to(devices[0])
+        if sf_pending and group[0].index >= stage_failure.at_step:
+            sf_pending = False
+            for r in runtimes.values():
+                r.mark_stage_lost(stage_failure.stage)
         tier = health.tier if health is not None else (
             controller.tier if controller is not None else 0)
-        if tier not in runtimes:  # built on first demand, kept thereafter
-            runtimes[tier] = _make_runtime(ladder[tier])
-        art = runtimes[tier]
-        needs_t = [c.needs_importance for c in art.codecs]
-        with torch.inference_mode():
+
+        def _forward():
+            if tier not in runtimes:  # built on first demand, kept thereafter
+                runtimes[tier] = _make_runtime(ladder[tier])
+            art = runtimes[tier]
+            needs_t = [c.needs_importance for c in art.codecs]
             hop_imp = None
             if any(needs_t):
                 imp = _importance(cfg, params, ids, importance_method, hw)  # (L, W, S)
@@ -279,26 +339,33 @@ def run_split_eval(
                            for cut, need in zip(split.cuts, needs_t)]
             # the chunk index drives the fault stream: same seed => same
             # chunks corrupted, run after run (ignored without a link)
-            logits = art.forward(placed, ids, hop_importance=hop_imp,
-                                 fault_step=group[0].index)
+            return art, art.forward(placed, ids, hop_importance=hop_imp,
+                                    fault_step=group[0].index)
+
+        with torch.inference_mode():
+            try:
+                art, logits = _forward()
+            except StageLostError as e:
+                _eval_failover(e.stage, e)
+                art, logits = _forward()  # the same chunk on the re-planned split
             nlls = nll_from_logits(logits, targets.to(logits.device), per_example=True)
         chunk_counters = art._counter_accum[-1] if fault_on else None
         return (group, n_real, s_unpadded, counts, tuple(ids.shape), nlls, tier,
-                chunk_counters, art)
+                chunk_counters, art, gen)
 
     def drain_group(rec):
         nonlocal total_nll, n_tokens, fwd_tokens, real_fwd_tokens, degraded_chunks
         (group, n_real, s_unpadded, counts, (w, s_chunk), nlls, tier, chunk_counters,
-         art) = rec
+         art, g) = rec
         total_nll += float(nlls.double().cpu().numpy() @ np.asarray(counts, np.float64))
         n_tokens += sum(counts)
         fwd_tokens += w * s_chunk
         real_fwd_tokens += n_real * s_unpadded
-        key = (tier, w, s_chunk)
+        key = (g, tier, w, s_chunk)
         if key not in bytes_cache:  # payloads are shape-determined
             bytes_cache[key] = art.hop_bytes(w, s_chunk)
         for i, b in enumerate(bytes_cache[key]):
-            hop_bytes_total[i] += b
+            gen_bytes[g][i] += b
         if tier:
             degraded_chunks += 1
         if health is not None:
@@ -322,6 +389,14 @@ def run_split_eval(
             if health is not None:
                 rec_out["burn_rate"] = health.burn_rate
             _emit(metrics_path, rec_out)
+        if wd is not None:
+            # pet the dog once a drained chunk; a stall past the deadline
+            # writes a best-effort resume checkpoint and raises typed
+            try:
+                wd.check(save_checkpoint, what="eval chunk")
+            except DecodeTimeout:
+                rcounters.watchdog_fires += 1
+                raise
 
     _run_pipelined(
         _iter_window_groups(token_ids, max_length, stride, window_batch=window_batch,
@@ -351,12 +426,14 @@ def run_split_eval(
         "real_fwd_tokens": real_fwd_tokens,
         "pad_fraction": 1.0 - real_fwd_tokens / max(fwd_tokens, 1),
         "real_tokens_per_s": real_fwd_tokens / max(wall, 1e-9),
-        "mesh": mesh,
+        "mesh": {**mesh, "stage": split.n_stages},
     }
     if fault_on:
         agg = None  # per-hop counters summed over every tier's runtime
         for r in runtimes.values():
             c = r.link_counters()
+            if c is None:
+                continue
             if agg is None:
                 agg = {k: v.copy() for k, v in c.items()}
             else:
@@ -364,7 +441,7 @@ def run_split_eval(
                     agg[k] += c[k]
         result["faults"] = dataclasses.asdict(faults)
         result["link_policy"] = {**dataclasses.asdict(policy), "tiers": list(policy.tiers)}
-        result["link_counters"] = {k: [int(x) for x in v] for k, v in agg.items()}
+        result["link_counters"] = {k: [int(x) for x in v] for k, v in (agg or {}).items()}
         result["tier_ladder"] = [[c if isinstance(c, str) else c.name for c in t]
                                  for t in ladder]
         result["tier_switches"] = [list(t) for t in tier_log]
@@ -383,14 +460,29 @@ def run_split_eval(
              "counters": {k: [int(x) for x in v]
                           for k, v in runtimes[t].link_counters().items()}}
             for t in range(len(ladder))]
+    if recovery_on:
+        rec_block = {"deadline_s": deadline_s,
+                     "stage_failure": (dataclasses.asdict(stage_failure)
+                                       if stage_failure is not None else None),
+                     "counters": rcounters.as_dict(), "plan_generations": gen + 1}
+        if rcounters.failovers:
+            rec_block["replanned_cuts"] = list(split.cuts)
+            rec_block["failover_hop_codecs"] = [c.name for c in runtimes[0].codecs]
+            rec_block["failover_hop_bytes_total"] = {str(g): list(b)
+                                                     for g, b in gen_bytes.items() if g > 0}
+            rec_block["failover_mesh"] = {**mesh, "stage": split.n_stages}
+        result["recovery"] = rec_block
     if time_hops and rd.chunks:
-        result["per_hop_ms"] = rt.time_hops(1, seq)
-        result["per_decode_hop_ms"] = rt.time_decode_hops(1)
+        # after a failover, the boundary that finished the run
+        timed_rt = runtimes[0] if rcounters.failovers else rt
+        timed_cuts = list(timed_rt.split.cuts)
+        result["per_hop_ms"] = timed_rt.time_hops(1, seq)
+        result["per_decode_hop_ms"] = timed_rt.time_decode_hops(1)
         result["per_hop_timing"] = [
-            {"hop": s, "cut_layer": int(split.cuts[s]), "codec": rt.codecs[s].name,
+            {"hop": s, "cut_layer": int(timed_cuts[s]), "codec": timed_rt.codecs[s].name,
              "forward_ms": result["per_hop_ms"][s],
              "decode_ms": result["per_decode_hop_ms"][s]}
-            for s in range(len(split.cuts))]
+            for s in range(len(timed_cuts))]
     final_rec = {"final": True, "chunks": rd.chunks, "n_tokens": n_tokens,
                  "ppl": result["ppl"], "wall_s": wall,
                  "hop_bytes_total": hop_bytes_total,
@@ -400,6 +492,8 @@ def run_split_eval(
         final_rec["degraded_chunks"] = degraded_chunks
         if health is not None:
             final_rec["burn_rate"] = health.burn_rate
+    if recovery_on:
+        final_rec["failovers"] = rcounters.failovers
     _emit(metrics_path, final_rec)
     return result
 

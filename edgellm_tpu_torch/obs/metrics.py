@@ -7,8 +7,8 @@ A metric has a name, a help string and one value per label set (a frozen
 registry is created ``enabled=False`` unless told otherwise, and every
 adapter records nothing into a disabled one. Names follow the reference's
 catalog: ``edgellm_link_<counter>_total`` (per-hop link-ladder counters,
-label ``hop``) and ``edgellm_link_health_*`` (burn rate, windowed rates,
-tier).
+label ``hop``), ``edgellm_link_health_*`` (burn rate, windowed rates,
+tier) and ``edgellm_recovery_<field>_total`` (the recovery counters).
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import threading
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 __all__ = ["Counter", "Gauge", "MetricsRegistry", "format_table", "record_link_counters",
-           "record_link_health"]
+           "record_link_health", "record_recovery_counters"]
 
 LabelKey = Tuple[Tuple[str, str], ...]
 
@@ -144,6 +144,19 @@ def record_link_health(summary: Optional[Mapping[str, Any]],
             continue
         registry.gauge(f"edgellm_link_health_{key}",
                        f"windowed link-SLO field {key!r}").set(float(v))
+
+
+def record_recovery_counters(counters: Optional[Any], registry: MetricsRegistry) -> None:
+    """Absorb a :class:`~..serve.recovery.RecoveryCounters` (or its
+    ``as_dict()`` form) as ``edgellm_recovery_<field>_total``; zero fields
+    are not recorded."""
+    if not registry.enabled or counters is None:
+        return
+    d = counters.as_dict() if hasattr(counters, "as_dict") else dict(counters)
+    for key, v in d.items():
+        if int(v):
+            registry.counter(f"edgellm_recovery_{key}_total",
+                             f"recovery orchestration counter {key!r}").inc(int(v))
 
 
 def format_table(registry: MetricsRegistry, title: str = "metrics") -> str:

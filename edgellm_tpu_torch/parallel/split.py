@@ -48,12 +48,22 @@ goes through its seal / inject / verify / retry protocol (FEC and hedged
 routes with ``fec`` / ``hedge``), keyed by ``fold_in(key(faults.seed),
 fault_step)``; the per-hop counters accumulate on the runtime
 (:meth:`link_counters`). An active link owns the hop, so no hop fuses.
+The decode paths take the link too, each keyed as the reference keys it:
+``prefill_decode`` by ``fold_in(fold_in(key(seed), 0x9EF1), fault_step)``,
+``decode_step`` and ``verify_step`` by ``fold_in(fold_in(key(seed),
+0x57E9), fill level before the write)`` and ``decode_step_paged`` by the
+deepest slot's length in place of the fill level.
 
-Not ported yet: the link on the decode, verify and paged paths (they raise
-under an active link), the micro-batch pipeline and the "data" / "model"
-mesh axes (each raises naming its argument), the micro-batched decode
-accounting (``pipelined_decode_hop_bytes``) and stage loss
-(``mark_stage_lost``).
+Stage loss (``mark_stage_lost``): every entry point raises the typed
+:class:`~..serve.recovery.StageLostError` until the caller fails over to a
+re-planned runtime (``SplitConfig.replan``). ``cache_state`` /
+``load_cache_state`` move a decode cache to and from the host in the
+reference's padded (n_stages, stage_size, B, capacity, KV, hd) layout, the
+form a :class:`~..serve.recovery.DecodeCheckpoint` stores.
+
+Not ported yet: the micro-batch pipeline and the "data" / "model" mesh axes
+(each raises naming its argument) and the micro-batched decode accounting
+(``pipelined_decode_hop_bytes``).
 """
 from __future__ import annotations
 
@@ -65,15 +75,20 @@ import numpy as np
 import torch
 
 from ..codecs.codec_kernels import pallas_variant
-from ..codecs.faults import FaultyLink, LinkPolicy, fault_key, sum_counters
+from ..codecs.faults import FaultyLink, LinkPolicy, fault_key, fold, sum_counters
 from ..codecs.fused_hop import fused_hop, fused_hop_plan
 from ..codecs.packing import WireCodec, get_wire_codec
 from ..models.configs import ModelConfig
 from ..models.flash_attention import dequantize_kv_rows, quantize_kv_rows
 from ..models.paged_kv import (KVTierMismatchError, _host, _rows_get, _rows_set,
                                resolve_kv_codec, run_layers_paged)
-from ..models.transformer import (block_decode, block_verify, embed, precompute_rope,
-                                  run_layers, unembed)
+from ..models.transformer import (apply_rotary, block_decode, block_verify, embed,
+                                  precompute_rope, run_layers, unembed)
+from ..serve.recovery import StageLostError
+
+#: the reference's fold of the fault key for a split prefill, and for a
+#: decode, verify or paged step
+PREFILL_FAULT_FOLD, STEP_FAULT_FOLD = 0x9EF1, 0x57E9
 
 NOT_PORTED_MSG = "is not ported yet to edgellm_tpu_torch"
 
@@ -262,11 +277,15 @@ class SplitRuntime:
                                  f"{NOT_PORTED_MSG}")
         self.cfg = cfg
         self.split = split
+        self.faults = faults
+        self.policy = policy if policy is not None else LinkPolicy()
+        self.fec = fec
+        self.hedge = hedge
         # an all-zero-rate config builds no link: the hop is the fault-free one
-        self._link = (FaultyLink(faults, policy if policy is not None else LinkPolicy(),
-                                 fec=fec, hedge=hedge)
+        self._link = (FaultyLink(faults, self.policy, fec=fec, hedge=hedge)
                       if faults is not None and faults.enabled else None)
         self._counter_accum: list = []
+        self._lost_stage: Optional[int] = None
         n_stages = split.n_stages
         devices = ["cuda"] * n_stages if devices is None else list(devices)
         if len(devices) != n_stages:
@@ -285,6 +304,24 @@ class SplitRuntime:
         #: the deepest stage's layer count: the depth every stage of a
         #: paged payload is padded to, as the reference pads its stages
         self.stage_size = max(stop - start for start, stop in self.bounds)
+
+    # ---------- stage liveness ----------
+
+    def mark_stage_lost(self, stage: int) -> None:
+        """Record a dark stage: every later call raises
+        :class:`~..serve.recovery.StageLostError` until the caller fails
+        over. Host state only."""
+        if not 0 <= stage < self.split.n_stages:
+            raise ValueError(f"stage {stage} out of range for {self.split.n_stages} stages")
+        self._lost_stage = stage
+
+    @property
+    def lost_stage(self) -> Optional[int]:
+        return self._lost_stage
+
+    def _check_alive(self) -> None:
+        if self._lost_stage is not None:
+            raise StageLostError(self._lost_stage)
 
     # ---------- parameter placement ----------
 
@@ -350,6 +387,7 @@ class SplitRuntime:
         ``fault_step``: the fault layer's per-call fold (pass the chunk index,
         so each chunk draws its own faults); ignored without a link. The
         per-hop counters accumulate on the runtime (:meth:`link_counters`)."""
+        self._check_alive()
         batch, seq = input_ids.shape
         imps = self._stacked_importance(hop_importance, batch, seq)
         hidden = embed(placed["first"], input_ids.to(self.devices[0]))
@@ -359,15 +397,27 @@ class SplitRuntime:
             n_layers = self.bounds[s][1] - self.bounds[s][0]
             return run_layers(self.cfg, {"layers": stage}, h, start=0, stop=n_layers)[0]
 
+        out = self._run_stages(run_stage, hidden, imps, lambda seed: fault_key(seed, fault_step))
+        return unembed(self.cfg, placed["last"], out)
+
+    def _run_stages(self, run_stage, hidden, imps, key_fn):
+        """:func:`run_pipeline_stages` over this runtime's hops: through the
+        link keyed by ``key_fn(seed)`` when one is active (this call's
+        counters accumulate on the runtime), else the plain or fused hops."""
         if self._link is None:
-            out = run_pipeline_stages(self.split.n_stages, self.codecs, run_stage, hidden,
-                                      imps, self.devices, self.fused_plans)
-            return unembed(self.cfg, placed["last"], out)
+            return run_pipeline_stages(self.split.n_stages, self.codecs, run_stage, hidden,
+                                       imps, self.devices, self.fused_plans)
         out, counters = run_pipeline_stages(
             self.split.n_stages, self.codecs, run_stage, hidden, imps, self.devices,
-            link=self._link, fault_key=fault_key(self._link.faults.seed, fault_step))
+            link=self._link, fault_key=key_fn(self._link.faults.seed))
         self._counter_accum.append(counters)
-        return unembed(self.cfg, placed["last"], out)
+        return out
+
+    @staticmethod
+    def _step_key(level: int):
+        """The decode / verify / paged step's key builder: the reference's
+        ``fold_in(fold_in(key(seed), 0x57E9), level)``."""
+        return lambda seed: fold(fault_key(seed, STEP_FAULT_FOLD), level)
 
     # ---------- the faulty link's accounting ----------
 
@@ -377,8 +427,9 @@ class SplitRuntime:
         return self._link
 
     def link_counters(self, reset: bool = False) -> Optional[dict]:
-        """Per-hop fault counters accumulated over every forward so far:
-        {name: (n_hops,) int64}. None when faults are off."""
+        """Per-hop fault counters accumulated over every forward, prefill,
+        step and verify so far: {name: (n_hops,) int64}. None when faults
+        are off."""
         if self._link is None:
             return None
         tot = sum_counters(self._counter_accum)
@@ -415,9 +466,7 @@ class SplitRuntime:
     # per-stage caches never cross a cut.
 
     def _check_decode_supported(self):
-        if self._link is not None:
-            raise ValueError("SplitRuntime decode, verify and paged steps under an active "
-                             f"faulty link: the link there {NOT_PORTED_MSG}")
+        self._check_alive()
         bad = [c.name for c in self.codecs if c.needs_importance]
         if bad:
             raise ValueError(
@@ -445,15 +494,16 @@ class SplitRuntime:
                              kc[i], vc[i], pos)
             return h
 
-        return run_pipeline_stages(self.split.n_stages, self.codecs, run_stage, hidden,
-                                   None, self.devices, self.fused_plans)
+        return self._run_stages(run_stage, hidden, None, self._step_key(pos))
 
-    def prefill_decode(self, placed: dict, input_ids: torch.Tensor, capacity: int) -> tuple:
+    def prefill_decode(self, placed: dict, input_ids: torch.Tensor, capacity: int,
+                       fault_step: int = 0) -> tuple:
         """Pipeline-split prefill that also fills the per-stage KV caches ->
         (logits (B, S, V) float32, cache). The cache dict holds ``k`` and
         ``v`` (one (layers_of_stage, B, capacity, KV, hd) tensor per stage, on
         the stage's device, in the embedding's dtype), ``length`` (S) and
-        ``capacity``; feed it to :meth:`decode_step` or :meth:`verify_step`."""
+        ``capacity``; feed it to :meth:`decode_step` or :meth:`verify_step`.
+        ``fault_step`` folds the link's prefill key (ignored without one)."""
         self._check_decode_supported()
         b, s = input_ids.shape
         capacity = int(capacity)
@@ -477,10 +527,67 @@ class SplitRuntime:
             vs.append(vc)
             return out
 
-        out = run_pipeline_stages(self.split.n_stages, self.codecs, run_stage, hidden,
-                                  None, self.devices, self.fused_plans)
+        out = self._run_stages(run_stage, hidden, None, lambda seed: fold(
+            fault_key(seed, PREFILL_FAULT_FOLD), fault_step))
         logits = unembed(self.cfg, placed["last"], out)
-        return logits, {"k": ks, "v": vs, "length": s, "capacity": capacity}
+        return logits, {"k": ks, "v": vs, "length": s, "capacity": capacity,
+                        "prefill_len": s}
+
+    def cache_state(self, cache: dict) -> dict:
+        """A decode cache as host arrays in the reference's layout: ``k`` /
+        ``v`` (n_stages, stage_size, B, capacity, KV, hd) in the cache dtype
+        (bf16 as a CPU bf16 tensor), ``length`` int32. The layers that pad a
+        shorter stage hold what the reference's zero layers write: zero V
+        rows, and K rows that are the rotary embedding of a zero key at each
+        prefilled position (+0 or -0 by the signs of cos and sin); a restored
+        cache gives its loaded padding rows back."""
+        bf16 = cache["k"][0].dtype == torch.bfloat16
+        host = lambda t: (t.view(torch.int16) if bf16 else t).cpu().numpy()  # noqa: E731
+        out = {}
+        for name in ("k", "v"):
+            padded = self._padded([host(t) for t in cache[name]])
+            for s, rows in enumerate(self._padding_rows(cache, name)):
+                if rows is not None:
+                    padded[s, self._layers(s):] = host(rows)
+            out[name] = torch.from_numpy(padded).view(torch.bfloat16) if bf16 else padded
+        out["length"] = np.asarray(int(cache["length"]), np.int32)
+        return out
+
+    def _padding_rows(self, cache: dict, name: str) -> list:
+        """Per stage, the (stage_size - layers, B, capacity, KV, hd) rows of
+        its padding layers as the reference holds them, or None (zeros)."""
+        if "padding" in cache:
+            return cache["padding"][name]
+        n_pre = cache.get("prefill_len", 0)
+        out = []
+        for s, t in enumerate(cache[name]):
+            n_pad = self.stage_size - self._layers(s)
+            if not n_pad or not n_pre or name == "v":
+                out.append(None)
+                continue
+            rows = torch.zeros((n_pad,) + tuple(t.shape[1:]), dtype=t.dtype)
+            cos, sin = precompute_rope(self.cfg, n_pre, device="cpu")
+            rows[:, :, :n_pre] = apply_rotary(
+                torch.zeros(t.shape[1:2] + (n_pre,) + tuple(t.shape[3:])), cos, sin,
+                self.cfg.rotary_dim).to(t.dtype)
+            out.append(rows)
+        return out
+
+    def load_cache_state(self, state: dict, placed: Optional[dict] = None) -> dict:
+        """:meth:`cache_state` output (or a checkpoint's) back on the stage
+        devices: each stage's own layer rows; the padding layers' rows are
+        kept on the host, so the cache writes back the bytes it was given."""
+        out = {"length": int(np.asarray(state["length"])),
+               "capacity": int(state["k"].shape[3]), "padding": {}}
+        for name in ("k", "v"):
+            arr = state[name]
+            arr = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.asarray(arr))
+            out[name] = [arr[s, :self._layers(s)].to(self.devices[s], copy=True)
+                         for s in range(self.split.n_stages)]
+            out["padding"][name] = [arr[s, self._layers(s):].clone()
+                                    if self._layers(s) < self.stage_size else None
+                                    for s in range(self.split.n_stages)]
+        return out
 
     def decode_step(self, placed: dict, cache: dict, token_ids: torch.Tensor) -> tuple:
         """One decode position across the pipeline: (B,) token ids -> (logits
@@ -698,6 +805,8 @@ class SplitRuntime:
         codec = self._pool_codec(pool)
         page_table = torch.as_tensor(page_table)
         lengths = torch.as_tensor(lengths)
+        # the deepest slot's fill level keys the link (host lengths: no sync)
+        deepest = int(lengths.max()) if self._link is not None else 0
         ids = torch.as_tensor(token_ids).reshape(-1, 1).to(self.devices[0], torch.long)
         hidden = embed(placed["first"], ids)  # (B, 1, D)
 
@@ -707,6 +816,5 @@ class SplitRuntime:
                                     page_table.to(dev, torch.int32),
                                     lengths.to(dev, torch.int32), codec)
 
-        out = run_pipeline_stages(self.split.n_stages, self.codecs, run_stage, hidden,
-                                  None, self.devices, self.fused_plans)
+        out = self._run_stages(run_stage, hidden, None, self._step_key(deepest))
         return unembed(self.cfg, placed["last"], out)[:, -1], pool

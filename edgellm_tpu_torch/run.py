@@ -12,8 +12,10 @@ Dispatch mirrors the reference:
 - ``experiment: "split"``     -> the real split eval (``run_split_eval``): the
   model cut at ``cuts``, each cut crossed as a packed ``hop_codecs`` payload;
   with ``faults`` (and ``link_policy``, ``fec``, ``hedge``, ``link_health``)
-  over the faulty link, whose counters and tier trail ``--fault-report``
-  prints
+  over the faulty link, whose counters, tier trail and recovery counters
+  ``--fault-report`` prints; ``deadline`` (or ``--deadline-s``) arms the
+  per-chunk watchdog, ``stage_failure`` kills a stage at a chunk and
+  ``recovery`` tunes the re-plan onto the survivors
 - ``experiment: "relevance"`` -> LRP head-relevance extraction
   (``attention_head_weights.json``, the ``--head-weights`` input of
   ``weighted_importance``)
@@ -30,18 +32,22 @@ Dispatch mirrors the reference:
   route through ``run_soak``: with ``cuts`` / ``hop_codecs`` every request
   on a ``SplitRuntime`` (``generate_split``; ``speculative``: the draft /
   verify burst loop), else on the single-device ``generate``; the identity
-  audit, ``serve_report.json`` and one JSON line
+  audit, ``serve_report.json`` and one JSON line; ``serving.soak.kill_stage``
+  kills a stage mid-soak (the front re-plans onto the survivors)
+
+Under ``serve`` the link keys build the runtime's faulty link (both
+routes; ``link_health`` a tracker on the soak's clock for the per-request
+route), and ``serving.checkpoint_dir`` / ``step_deadline_s`` (per request)
+and ``batching.checkpoint_dir`` (per evicted stream) arm the checkpoints.
+``--serve-report`` prints the front's report after the JSON line.
 
 A split config that carries a key of a split feature not ported yet
-(``UNPORTED_SPLIT_KEYS``: survivability, pipelining, the seq / data / model
-mesh axes) exits non-zero, and so do a serve config with a key of a serve
-feature not ported yet (``UNPORTED_SERVE_KEYS``: the link keys among them,
-since the decode paths take no link yet), the per-request route's recovery
-and chaos fields (``serving.checkpoint_dir``, ``serving.step_deadline_s``,
-``serving.soak.kill_stage``), and ``--serve-report``, each naming what is
-missing. ``fused_hops`` maps onto the ``EDGELLM_FUSED_HOP`` gate as in the
-reference ("auto" fuses a hop only where this card's probe cache recorded
-a win, ``codecs/probe_cache.py``).
+(``UNPORTED_SPLIT_KEYS``: pipelining, the seq / data / model mesh axes)
+exits non-zero, and so does a serve config with a key of a serve feature
+not ported yet (``UNPORTED_SERVE_KEYS``: pipelining and the fleet), each
+naming it. ``fused_hops`` maps onto the ``EDGELLM_FUSED_HOP`` gate as in
+the reference ("auto" fuses a hop only where this card's probe cache
+recorded a win, ``codecs/probe_cache.py``).
 
 Corpus input is a ``.npy``/``.npz`` of token ids, or a raw ``.txt`` plus
 ``--tokenizer`` (a local HF tokenizer path). Weights: ``--weights`` (a
@@ -56,6 +62,7 @@ import dataclasses
 import json
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -63,14 +70,11 @@ import torch
 #: experiments of the reference CLI that this package has not ported yet
 NOT_PORTED = ()
 #: split keys whose feature is not ported yet (the mesh axes only above 1)
-UNPORTED_SPLIT_KEYS = ("pipeline", "deadline", "stage_failure", "recovery",
-                       "n_seq", "n_data", "n_model")
-#: the faulty link's keys (ported under experiment "split")
+UNPORTED_SPLIT_KEYS = ("pipeline", "n_seq", "n_data", "n_model")
+#: the faulty link's keys
 LINK_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health")
-#: serve keys whose feature is not ported yet (the boundary's faulty links on
-#: the decode paths, µ-batch pipelining, the fleet)
-UNPORTED_SERVE_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health", "pipeline",
-                       "cluster", "disagg", "gray")
+#: serve keys whose feature is not ported yet (µ-batch pipelining, the fleet)
+UNPORTED_SERVE_KEYS = ("pipeline", "cluster", "disagg", "gray")
 #: the fused_hops key's values onto the EDGELLM_FUSED_HOP gate ("auto" clears it)
 FUSED_HOP_ENV = {"off": "0", "wire": "wire", "remote": "remote"}
 
@@ -281,6 +285,47 @@ def _validate_split(p: dict, die, device) -> None:
                 f"the split with python -m edgellm_tpu.run")
     _validate_cuts(p, die, device)
     _validate_link(p, die)
+    _validate_recovery(p, die)
+
+
+def _validate_recovery(p: dict, die) -> None:
+    """The reference's checks of ``deadline``, ``stage_failure`` and
+    ``recovery``, with its messages."""
+    if "deadline" in p:
+        d = p["deadline"]
+        if isinstance(d, bool) or not isinstance(d, (int, float)) or d <= 0:
+            die(f"deadline must be a positive number of seconds, got {d!r}")
+    if "stage_failure" in p:
+        from .serve.recovery import StageFailure
+
+        sf = p["stage_failure"]
+        if not isinstance(sf, dict):
+            die(f"stage_failure must be an object of StageFailure fields, got {sf!r}")
+        fields = {f.name for f in dataclasses.fields(StageFailure)}
+        bad = sorted(set(sf) - fields)
+        if bad:
+            die(f"stage_failure: unknown field(s) {bad}; known: {sorted(fields)}")
+        try:
+            obj = StageFailure(**sf)
+        except (TypeError, ValueError) as e:
+            die(f"stage_failure: {e}")
+        if obj.stage > len(p["cuts"]):
+            die(f"stage_failure.stage {obj.stage} out of range for "
+                f"{len(p['cuts']) + 1} pipeline stage(s)")
+        if p.get("n_seq", 1) > 1:
+            die("stage_failure needs the plain split runtime (n_seq == 1)")
+    if "recovery" in p:
+        r = p["recovery"]
+        if not isinstance(r, dict):
+            die(f"recovery must be an object, got {r!r}")
+        bad = sorted(set(r) - {"replan", "max_failovers"})
+        if bad:
+            die(f"recovery: unknown field(s) {bad}; known: ['max_failovers', 'replan']")
+        if "replan" in r and not isinstance(r["replan"], bool):
+            die(f"recovery.replan must be a boolean, got {r['replan']!r}")
+        mf = r.get("max_failovers", 1)
+        if isinstance(mf, bool) or not isinstance(mf, int) or mf < 1:
+            die(f"recovery.max_failovers must be a positive integer, got {mf!r}")
 
 
 def _validate_link(p: dict, die) -> None:
@@ -366,6 +411,7 @@ def _validate_serve(p: dict, die, device) -> None:
                 f"drop it or run with python -m edgellm_tpu.run")
     if "cuts" in p:
         _validate_cuts(p, die, device)
+    _validate_link(p, die)
     from .serve.batching import BatchingConfig
     from .serve.frontend import ServeFrontConfig
     from .serve.overload import (AdmissionConfig, BreakerConfig, BrownoutConfig,
@@ -405,13 +451,6 @@ def _validate_serve(p: dict, die, device) -> None:
         die(f"serving.soak.kill_stage {ks} out of range for "
             f"{len(p['cuts']) + 1} pipeline stage(s)")
     if "batching" not in p:
-        for name in ("checkpoint_dir", "step_deadline_s"):
-            if sv.get(name) is not None:
-                die(f"serving.{name} (the per-request route's recovery) is not ported yet "
-                    f"to edgellm_tpu_torch; drop it or run with python -m edgellm_tpu.run")
-        if ks is not None:
-            die("serving.soak.kill_stage (stage loss) is not ported yet to "
-                "edgellm_tpu_torch; drop it or run with python -m edgellm_tpu.run")
         for key, msg in (
                 ("prefix_cache", "prefix_cache rides the continuous batcher's paged pool — "
                                  "add a 'batching' block"),
@@ -549,13 +588,22 @@ def batching_config(cfg, params_json: dict):
 def _split_runtime(cfg, params: dict, params_json: dict):
     """The :class:`SplitRuntime` of a serve config's ``cuts`` /
     ``hop_codecs``, every stage on the weights' device, after ``fused_hops``
-    is applied to the gate."""
+    is applied to the gate, with the config's faulty link (``faults``,
+    ``link_policy``, ``fec``, ``hedge``) as the reference builds it."""
+    from .codecs.faults import FaultConfig, LinkPolicy
+    from .codecs.fec import FECConfig, HedgeConfig
     from .parallel.split import SplitConfig, SplitRuntime
 
     apply_fused_hops(params_json)
     cuts = tuple(params_json["cuts"])
+    lp = params_json.get("link_policy")
+    link = dict(
+        faults=FaultConfig(**params_json["faults"]) if "faults" in params_json else None,
+        policy=LinkPolicy(**{**lp, "tiers": tuple(lp.get("tiers", ()))}) if lp else None,
+        fec=FECConfig(**params_json["fec"]) if "fec" in params_json else None,
+        hedge=HedgeConfig(**params_json["hedge"]) if "hedge" in params_json else None)
     return SplitRuntime(cfg, SplitConfig(cuts=cuts, hop_codecs=tuple(params_json["hop_codecs"])),
-                        [params["embed"].device] * (len(cuts) + 1))
+                        [params["embed"].device] * (len(cuts) + 1), **link)
 
 
 def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
@@ -628,7 +676,8 @@ def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
         raise SystemExit(
             f"prefix cache enabled with shared_prefix_len={soak.shared_prefix_len} but the "
             f"radix index never hit: {pf}")
-    return {**summary, "_records": records, "_batcher": rep}
+    return {**summary, "_records": records, "_batcher": rep, "_report": front.report(),
+            "_front": front}
 
 
 def apply_fused_hops(params_json: dict) -> None:
@@ -666,9 +715,15 @@ def run_serve_requests(cfg, params: dict, params_json: dict, out) -> dict:
     soak = SoakConfig(**sv.get("soak", {}))
     clock = FakeClock()
     rt = _split_runtime(cfg, params, params_json) if "cuts" in params_json else None
+    link_health = None
+    if rt is not None and "link_health" in params_json:
+        from .codecs.fec import LinkHealth, LinkHealthConfig
+
+        link_health = LinkHealth(config=LinkHealthConfig(**params_json["link_health"]),
+                                 clock=clock)
     spec = SpecConfig(**params_json["speculative"]) if "speculative" in params_json else None
     front = ServeFront(cfg, params, split_runtime=rt, config=front_cfg, clock=clock,
-                       speculative=spec)
+                       speculative=spec, link_health=link_health)
     # warm the soak's one (batch, capacity) plan: the virtual clock advances
     # by measured service time, which a first call's kernel builds would skew
     cr = front_cfg.capacity_round
@@ -694,17 +749,61 @@ def run_serve_requests(cfg, params: dict, params_json: dict, out) -> dict:
                "p99_ttft_s": artifact["p99_ttft_s"],
                "token_identity_ok": (artifact["token_identity"] or {}).get("ok"),
                "artifact": out("serve_report.json")}
-    return {**summary, "_artifact": artifact, "_records": list(front.records)}
+    return {**summary, "_artifact": artifact, "_records": list(front.records),
+            "_report": artifact["report"], "_front": front}
+
+
+def _print_serve_report(report: dict, front=None, artifact: Optional[dict] = None) -> None:
+    """``--serve-report``'s tail, the reference's lines: outcome counts,
+    reject / shed reasons, per-breaker states, the brownout and retry-budget
+    posture, the prefix index. Beyond them, where they exist: the front's
+    plan (the cuts it serves on after any failover), its failovers and its
+    link counters summed over the requests it served, and the soak's kill."""
+    print("serve report:")
+    for k in sorted(report["outcomes"]):
+        print(f"  outcome {k:<14} {report['outcomes'][k]}")
+    for k in sorted(report.get("reasons", {})):
+        print(f"  reason  {k:<28} {report['reasons'][k]}")
+    for name, b in sorted(report["breakers"].items()):
+        print(f"  breaker {name:<8} {b['state']:<9} opens={b['opens']} "
+              f"failures={b['total_failures']}")
+    bo = report["brownout"]
+    print(f"  brownout level={bo['level']} mode={bo['mode']} "
+          f"switches={bo['switches']} sheds={bo['sheds']}")
+    rb = report["retry_budget"]
+    print(f"  retry budget spent={rb['spent']} denied={rb['denied']} "
+          f"available={rb['available']:.1f}")
+    pf = report.get("prefix")
+    if pf:
+        print(f"  prefix  hits={pf['hits']} misses={pf['misses']} "
+              f"hit_rate={pf['hit_rate']:.3f} "
+              f"prefill_tokens_saved={pf['saved_tokens']}")
+        print(f"  prefix  cow_forks={pf['cow_forks']} "
+              f"shared_pages={pf['shared_pages']} "
+              f"index_pages={pf['index_pages']} "
+              f"evictions={pf['index_evictions']} "
+              f"reclaimed={pf['reclaimed_pages']}")
+    rt = front.split_runtime if front is not None else None
+    if rt is not None:
+        print(f"  plan    cuts={list(rt.split.cuts)} "
+              f"hop_codecs={[c.name for c in rt.codecs]} failovers={report['failovers']}")
+    lc = report.get("link_counters")
+    if lc:
+        print("  link    " + " ".join(f"{k}={v}" for k, v in lc.items()))
+    kill = (artifact or {}).get("kill")
+    if kill:
+        print(f"  kill    stage={kill['stage']} at_s={kill['at_s']:.3f} "
+              f"recovery_s={kill['recovery_s']}")
 
 
 def _print_fault_report(result: dict) -> None:
     """``--fault-report``'s tail, as the reference prints it: the summed
-    per-hop link counters and the link-health gauges in one metrics
-    registry, printed as one table, then the tier trail. The recovery block
-    (item 21) is not ported: the table carries no recovery counters."""
+    per-hop link counters, the link-health gauges and the recovery
+    counters in one metrics registry, printed as one table, then the tier
+    trail."""
     from .codecs.faults import flatten_counters
     from .obs.metrics import (MetricsRegistry, format_table, record_link_counters,
-                              record_link_health)
+                              record_link_health, record_recovery_counters)
 
     counters = result.get("link_counters")
     if not counters:
@@ -715,6 +814,7 @@ def _print_fault_report(result: dict) -> None:
     for k, total in flatten_counters(counters).items():
         reg.counter(f"edgellm_link_{k}_total").inc(total, hop="total")
     record_link_health(result.get("link_health"), registry=reg)
+    record_recovery_counters((result.get("recovery") or {}).get("counters"), registry=reg)
     print(format_table(reg, title="fault report (obs metrics registry)"))
     if result.get("tier_switches"):
         print(f"  tier switches: {result['tier_switches']} "
@@ -793,20 +893,24 @@ def main(argv=None) -> int:
                     help="evaluation windows batched per forward (identical "
                          "accumulation)")
     ap.add_argument("--checkpoint-every", type=int, default=1000)
+    ap.add_argument("--deadline-s", type=float,
+                    help="split experiment: per-chunk watchdog deadline in seconds — a "
+                         "stalled eval writes a best-effort resume checkpoint and exits "
+                         "with a typed DecodeTimeout (overrides params.json \"deadline\")")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--synthetic-corpus-len", type=int, default=4096)
     ap.add_argument("--device", default="cuda",
                     help="torch device the sweep runs on (default: cuda)")
     ap.add_argument("--serve-report", action="store_true",
-                    help="the reference's serve-report printer (not ported yet)")
+                    help="serve experiment: after the soak, print outcome counts, "
+                         "reject / shed reasons, breaker states, the brownout and "
+                         "retry-budget posture, the plan, failovers, link counters "
+                         "and the kill")
     ap.add_argument("--fault-report", action="store_true",
                     help="split experiment: after the sweep, print the summed per-hop "
                          "link counters (detected / repaired / retried / hedge wins / "
                          "substituted), the tier trail and the link-health budget burn")
     args = ap.parse_args(argv)
-    if args.serve_report:
-        raise SystemExit("--serve-report is not ported yet to edgellm_tpu_torch; run it "
-                         "with python -m edgellm_tpu.run")
 
     if args.params.lstrip().startswith("{"):
         params_json = json.loads(args.params)
@@ -832,6 +936,9 @@ def main(argv=None) -> int:
         summary = run(cfg, params, params_json, out)
         print(json.dumps({k: v for k, v in summary.items() if not k.startswith("_")},
                          default=float))
+        if args.serve_report:
+            _print_serve_report(summary["_report"], summary["_front"],
+                                summary.get("_artifact"))
         return 0
     corpus = _load_corpus(args, cfg.vocab_size)
     if corpus.max() >= cfg.vocab_size or corpus.min() < 0:
@@ -873,7 +980,11 @@ def main(argv=None) -> int:
             checkpoint_path=out("split_checkpoint.json"),
             checkpoint_every=args.checkpoint_every,
             metrics_path=out("split_metrics.jsonl"),
-            **{k: params_json.get(k) for k in LINK_KEYS}, device=device)
+            **{k: params_json.get(k) for k in LINK_KEYS},
+            deadline_s=(args.deadline_s if args.deadline_s is not None
+                        else params_json.get("deadline")),
+            stage_failure=params_json.get("stage_failure"),
+            recovery=params_json.get("recovery"), device=device)
         with open(out("split_eval_results.json"), "w") as f:
             json.dump(result, f, indent=1)
         print(json.dumps(result))

@@ -1,27 +1,32 @@
 """Serving: the continuous batcher over the paged KV pool (``batching``), the
 single-stream ``generate`` and the split ``generate_split`` (``decode``),
 speculative decode across the split (``speculative``), the serving front and
-its overload controllers (``frontend``, ``overload``), and the deterministic
-soak (``soak``)."""
+its overload controllers (``frontend``, ``overload``), the deterministic
+soak (``soak``), and survivable decode: checkpoints, stage failover and
+resume (``recovery``, ``decode.resume_split``)."""
 from .batching import BatchingConfig, ContinuousBatcher, Stream
-from .decode import generate, generate_split
+from .decode import generate, generate_split, resume_split
 from .frontend import Request, RequestRecord, ServeFront, ServeFrontConfig
 from .overload import (AdmissionConfig, AdmissionController, AdmissionError, BreakerConfig,
                        BrownoutConfig, BrownoutController, CircuitBreaker, CircuitOpen,
                        DeadlineInfeasible, QueueFull, RetryBudget, RetryBudgetConfig,
                        RetryBudgetExhausted, ServeFrontConfigError)
-from .recovery import (CheckpointError, CheckpointTierMismatchError, DecodeTimeout,
-                       StageLostError, Watchdog)
+from .recovery import (CheckpointError, CheckpointTierMismatchError, DecodeCheckpoint,
+                       DecodeTimeout, LocalRuntime, RecoveryConfig, RecoveryCounters,
+                       StageFailure, StageLostError, Watchdog, runtime_plan_meta)
 from .soak import SoakConfig, run_soak
-from .speculative import SpecConfig, generate_speculative
+from .speculative import SpecConfig, generate_speculative, resume_speculative
 
 __all__ = [
     "BatchingConfig", "ContinuousBatcher", "Stream", "generate", "generate_split",
+    "resume_split",
     "Request", "RequestRecord", "ServeFront", "ServeFrontConfig",
     "AdmissionConfig", "AdmissionController", "AdmissionError", "BreakerConfig",
     "BrownoutConfig", "BrownoutController", "CircuitBreaker", "CircuitOpen",
     "DeadlineInfeasible", "QueueFull", "RetryBudget", "RetryBudgetConfig",
     "RetryBudgetExhausted", "ServeFrontConfigError",
-    "CheckpointError", "CheckpointTierMismatchError", "DecodeTimeout", "StageLostError",
-    "Watchdog", "SoakConfig", "run_soak", "SpecConfig", "generate_speculative",
+    "CheckpointError", "CheckpointTierMismatchError", "DecodeCheckpoint", "DecodeTimeout",
+    "LocalRuntime", "RecoveryConfig", "RecoveryCounters", "StageFailure", "StageLostError",
+    "Watchdog", "runtime_plan_meta", "SoakConfig", "run_soak", "SpecConfig",
+    "generate_speculative", "resume_speculative",
 ]

@@ -36,13 +36,22 @@ suffix runs through ``verify_step`` over the gathered rows, COW forks go to
 each step is one ``decode_step_paged`` (every cut moves the (max_slots, 1,
 D) hidden through its hop) followed by the same per-slot sampler.
 
+Per-stream checkpoints: :meth:`ContinuousBatcher.checkpoint_stream` writes
+one stream's contiguous KV prefix (the split twin in the reference's
+padded (n_stages, stage_size, n, KV, hd) layout; a quantized tier's codes
+and row scales as they lie in the pool) as a
+:class:`~.recovery.DecodeCheckpoint`, and :meth:`restore_stream` re-queues
+it, bit for bit, in any pool geometry whose span covers it; another tier is
+refused with :class:`~.recovery.CheckpointTierMismatchError`. With
+``checkpoint_dir`` every eviction snapshots its stream there.
+
 Not ported yet: the split runtime's µ-batch pipeline, the
 disaggregated-prefill hooks (``prefill_hold``, ``gather_rows``,
-``release_handoff``), per-stream checkpoints (``checkpoint_dir``,
-``checkpoint_stream`` / ``restore_stream``) and observability spans.
+``release_handoff``) and observability spans.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import deque
@@ -59,11 +68,20 @@ from ..models.transformer import KVCache
 from ..utils import prng
 from ..utils.concurrency import guarded_by
 from .decode import _prefill_impl, _prefill_suffix_impl, _sample, _fold
-from .recovery import Watchdog
+from .recovery import (CheckpointError, CheckpointTierMismatchError, DecodeCheckpoint,
+                       Watchdog)
 
 __all__ = ["BatchingConfig", "Stream", "ContinuousBatcher"]
 
 _NOT_PORTED = "is not ported yet to edgellm_tpu_torch"
+
+
+def _fp_rows(a):
+    """A checkpoint leaf as the adopt paths take it: bf16 rows (a CPU bf16
+    tensor) widened to fp32 exactly, the rest as stored."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return a
 
 
 @dataclass(frozen=True)
@@ -100,13 +118,18 @@ class BatchingConfig:
             raise ValueError(f"prefix_cache must be a PrefixCacheConfig or None, got "
                              f"{type(self.prefix_cache).__name__}")
         resolve_kv_codec(self.kv_codec)
-        if self.checkpoint_dir is not None:
-            raise ValueError(f"checkpoint_dir (per-stream DecodeCheckpoint snapshots) "
-                             f"{_NOT_PORTED}")
 
     @property
     def span(self) -> int:
         return self.pages_per_slot * self.page_size
+
+
+def _model_sig(cfg: ModelConfig) -> dict:
+    """The model signature ``recovery.runtime_plan_meta`` records, so a
+    stream checkpoint refuses restore onto another model."""
+    return {"family": cfg.family, "num_layers": cfg.num_layers,
+            "hidden_size": cfg.hidden_size, "num_heads": cfg.num_heads,
+            "vocab_size": cfg.vocab_size}
 
 
 @dataclass
@@ -459,6 +482,9 @@ class ContinuousBatcher:
         self._waiting.appendleft(sid)  # resumed work goes to the head
         with self._stats_lock:
             self.stats["evicted"] += 1
+        if self.bcfg.checkpoint_dir is not None:
+            self.checkpoint_stream(sid, os.path.join(self.bcfg.checkpoint_dir,
+                                                     f"stream_{sid}.ckpt"))
 
     def _evict_for_pages(self, needed: int, protect: set) -> bool:
         """Evict youngest-admitted running streams (never ``protect``) until
@@ -585,6 +611,82 @@ class ContinuousBatcher:
                     "one waiting stream — shrink prompts or grow the pool")
         return self.results
 
+    # -- checkpoint / restore ----------------------------------------------
+
+    def checkpoint_stream(self, sid: int, path: str) -> str:
+        """Snapshot one stream, running (pages gathered) or waiting with a
+        resume payload, as a :class:`~.recovery.DecodeCheckpoint` with the
+        reference's leaves and meta; restorable into any pool geometry whose
+        span covers it (the payload is the contiguous prefix)."""
+        st = self._streams[sid]
+        if st.status == "running":
+            state = self._gather_state(st.slot)
+        elif st.resume is not None:
+            state = st.resume
+        else:
+            raise CheckpointError(f"stream {sid} ({st.status}) has no cache state to snapshot")
+        if "k_codes" in state:
+            # a quantized tier: the codes and row scales as they lie in the
+            # pool, so the restore scatters the same bytes back
+            arrays = {f"cache/{k}": state[k] for k in ("k_codes", "v_codes", "k_scale",
+                                                       "v_scale")}
+        else:
+            arrays = {"cache/k": state["k"], "cache/v": state["v"]}
+        arrays.update({"cache/length": np.asarray(int(state["length"]), np.int32),
+                       "prompt_ids": st.prompt[None, :].astype(np.int32),
+                       "tokens": np.asarray(st.tokens, np.int32)[None, :]})
+        meta = {"mode": self._ckpt_mode(), "model": _model_sig(self.cfg), "sid": int(sid),
+                "step": int(st.t - 1), "rng_seed": int(st.rng_seed),
+                "temperature": float(st.temperature),
+                "max_new_tokens": int(st.max_new_tokens)}
+        if self.bcfg.kv_codec != "fp":
+            meta["kv_codec"] = self.bcfg.kv_codec
+        if self.rt is not None:
+            meta["cuts"] = [int(c) for c in self.rt.split.cuts]
+            meta["hop_codecs"] = [c.name for c in self.rt.codecs]
+            meta["num_microbatches"] = 1
+        return DecodeCheckpoint(arrays, meta).save(path)
+
+    def _ckpt_mode(self) -> str:
+        return "paged" if self.rt is None else "paged_split"
+
+    def restore_stream(self, path: str) -> int:
+        """Re-queue a checkpointed stream; its remaining tokens come out
+        equal to the uninterrupted run's (per-step keys depend only on the
+        seed and the step index, and the KV prefix is restored bit for
+        bit). A checkpoint of another mode, model, plan or tier is
+        refused."""
+        ckpt = DecodeCheckpoint.load(path)
+        meta = ckpt.meta
+        if meta.get("mode") != self._ckpt_mode():
+            raise CheckpointError(f"{path} is a {meta.get('mode')!r} checkpoint, this "
+                                  f"batcher restores {self._ckpt_mode()!r} stream snapshots")
+        if meta.get("model") != _model_sig(self.cfg):
+            raise CheckpointError(f"{path} was written for model {meta.get('model')!r}, this "
+                                  f"batcher runs {_model_sig(self.cfg)!r}")
+        ck = meta.get("kv_codec", "fp")
+        if ck != self.bcfg.kv_codec:
+            raise CheckpointTierMismatchError(
+                offered=ck, pool=self.bcfg.kv_codec, where="restore_stream",
+                detail=f"{path} stores {ck!r} KV pages; restore into a batcher built at "
+                       f"the checkpoint's tier")
+        if self.rt is not None:
+            want = {"cuts": [int(c) for c in self.rt.split.cuts],
+                    "hop_codecs": [c.name for c in self.rt.codecs], "num_microbatches": 1}
+            for k, v in want.items():
+                if meta.get(k, 1 if k == "num_microbatches" else None) != v:
+                    raise CheckpointError(f"{path} {k}={meta.get(k)!r} does not match this "
+                                          f"runtime's {k}={v!r}")
+        sid = self.submit(ckpt.arrays["prompt_ids"][0], int(meta["max_new_tokens"]),
+                          temperature=float(meta["temperature"]),
+                          rng_seed=int(meta["rng_seed"]))
+        st = self._streams[sid]
+        st.tokens = [int(x) for x in ckpt.arrays["tokens"][0]]
+        names = ("k_codes", "v_codes", "k_scale", "v_scale") if ck != "fp" else ("k", "v")
+        st.resume = {k: _fp_rows(ckpt.arrays[f"cache/{k}"]) for k in names}
+        st.resume["length"] = int(ckpt.arrays["cache/length"])
+        return sid
+
     # -- reporting ---------------------------------------------------------
 
     def report(self) -> dict:
@@ -593,7 +695,7 @@ class ContinuousBatcher:
         ``mode`` is the name the reference's stream checkpoints give the
         pool ("paged", or "paged_split" over a split runtime, which adds the
         plan's ``cuts`` and ``hop_codecs`` as those checkpoints record
-        them)."""
+        them, and under a faulty link its per-hop ``link_counters``)."""
         with self._stats_lock:
             stats = dict(self.stats)
         n = stats["steps"]
@@ -621,4 +723,8 @@ class ContinuousBatcher:
             "mode": "paged" if self.rt is None else "paged_split",
             **({"cuts": [int(c) for c in self.rt.split.cuts],
                 "hop_codecs": [c.name for c in self.rt.codecs]} if self.rt is not None else {}),
+            # beyond the reference's keys: the split runtime's link counters
+            **({"link_counters": {k: [int(x) for x in v]
+                                  for k, v in self.rt.link_counters().items()}}
+               if self.rt is not None and self.rt.link is not None else {}),
         }

@@ -18,11 +18,19 @@ stream's tokens are those of its solo ``generate`` run.
 The per-request route (``drain``) serves each request with one call: on the
 installed :class:`~..parallel.split.SplitRuntime` (``generate_split``, with
 ``speculative`` the draft / verify burst loop) while the split's breakers
-allow it, else on the single-device ``generate`` (``local_fallback``).
+and, under a faulty link, the retry budget allow it, else on the
+single-device ``generate`` (``local_fallback``). Each call's link retries
+are charged to the retry budget, a substituted payload fails the request,
+and the per-hop burn rates drive the ``link<i>`` breakers. A
+``split_ladder`` of same-topology runtimes is walked by ``link_health.tier
++ brownout.tier_bias``. A lost stage trips its breaker and re-plans the
+split onto the surviving stage devices (faults, policy, FEC and hedge
+carried over); ``checkpoint_dir`` / ``step_deadline_s`` arm each call's
+recovery (checkpoints ``req<rid>.ckpt``, the watchdog; no mid-call
+re-plan).
 
-Not ported yet: the ``split_ladder``, link health, the per-request route's
-recovery (``checkpoint_dir``, ``step_deadline_s``) and the observability
-hooks (spans, the flight recorder, metrics publication, the live endpoint).
+Not ported yet: the observability hooks (spans, the flight recorder,
+metrics publication, the live endpoint).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import bisect
 import dataclasses
 import heapq
 import math
+import os
 import threading
 from typing import Any, Optional
 
@@ -43,11 +52,9 @@ from .overload import (COMPLETED, FAILED, FAILED_OVER, REJECTED, SHED, TIMED_OUT
                        AdmissionConfig, AdmissionController, AdmissionError, BreakerConfig,
                        BrownoutConfig, BrownoutController, CircuitBreaker, RetryBudget,
                        RetryBudgetConfig, ServeFrontConfigError)
-from .recovery import DecodeTimeout, StageLostError
+from .recovery import DecodeTimeout, RecoveryConfig, StageLostError
 
 __all__ = ["Request", "RequestRecord", "ServeFrontConfig", "ServeFront"]
-
-_NOT_PORTED = "is not ported yet to edgellm_tpu_torch"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,7 +125,7 @@ class ServeFrontConfig:
     ``generate`` when the split's breakers refuse; ``replan_on_stage_loss``
     re-plans the split onto the surviving stages. ``checkpoint_dir`` /
     ``checkpoint_every`` / ``step_deadline_s`` arm the per-request route's
-    recovery, which is not ported yet: ``drain`` refuses them."""
+    recovery."""
 
     admission: AdmissionConfig = dataclasses.field(default_factory=AdmissionConfig)
     breaker: BreakerConfig = dataclasses.field(default_factory=BreakerConfig)
@@ -219,15 +226,18 @@ class ServeFront:
     :meth:`drain_batched` (the continuous batcher) executes, every terminal
     state becomes a :class:`RequestRecord` in ``records``. ``speculative``
     (a :class:`~.speculative.SpecConfig`) runs every split-served request
-    through the draft / verify burst loop."""
+    through the draft / verify burst loop. ``split_ladder``: same-topology
+    runtimes at decreasing fidelity, served from index ``link_health.tier +
+    brownout.tier_bias`` (clamped); with one ``split_runtime`` the tier
+    signals are reported, not actuated."""
 
     def __init__(self, model_cfg: Any, params: dict, *, split_runtime: Any = None,
                  split_ladder: Any = None, config: Optional[ServeFrontConfig] = None,
                  link_health: Any = None, compute_dtype: Any = None, batcher: Any = None,
                  speculative: Any = None, clock: Clock = MONOTONIC):
-        for name, value in (("split_ladder", split_ladder), ("link_health", link_health)):
-            if value is not None:
-                raise ServeFrontConfigError(f"ServeFront {name} {_NOT_PORTED}")
+        if split_runtime is not None and split_ladder is not None:
+            raise ServeFrontConfigError("pass split_runtime OR split_ladder, not both")
+        self.link_health = link_health
         self.batcher = batcher
         self.speculative = speculative
         self.model_cfg = model_cfg
@@ -244,7 +254,8 @@ class ServeFront:
         self._submit_lock = threading.Lock()
         self.records: list[RequestRecord] = []
         self._agg: dict = {"requests": 0, "finished": 0, "tokens_out": 0, "met": 0,
-                           "with_deadline": 0, "outcomes": {}, "reasons": {}}
+                           "with_deadline": 0, "outcomes": {}, "reasons": {},
+                           "link_counters": {}}
         self._ttft_hist = _Histogram()
         self._latency_hist = _Histogram()
         self._inflight_rids: set = set()
@@ -253,19 +264,38 @@ class ServeFront:
         self._rt = None
         self._placed = None
         self._split_names: tuple = ()
+        self._ladder = None
+        self._ladder_idx = 0
+        self._ladder_placed: dict = {}
         self._breakers = {"local": CircuitBreaker("local", self.config.breaker, clock=clock)}
-        if split_runtime is not None:
+        if split_ladder is not None:
+            if not split_ladder:
+                raise ServeFrontConfigError("split_ladder may not be empty")
+            self._ladder = tuple(split_ladder)
+            self._install_runtime(self._ladder[0])
+        elif split_runtime is not None:
             self._install_runtime(split_runtime)
 
     # -- runtime management ------------------------------------------------
 
-    def _install_runtime(self, rt: Any) -> None:
+    def set_split_runtime(self, rt: Any, *, keep_breakers: bool = False) -> None:
+        """Swap the split backend (the soak's corruption burst on and off).
+        Clears any ladder; ``keep_breakers`` keeps the breakers' state across
+        the swap (same topology)."""
+        self._ladder = None
+        self._ladder_placed = {}
+        self._install_runtime(rt, keep_breakers=keep_breakers)
+
+    def _install_runtime(self, rt: Any, *, keep_breakers: bool = False) -> None:
         """Serve on ``rt``: its placed weights, and fresh closed breakers for
-        the split, each stage and each link."""
+        the split, each stage and each link (kept with ``keep_breakers`` when
+        the topology is the same)."""
         self._rt = rt
         self._placed = rt.place_params(self._params)
         names = (["split"] + [f"stage{i}" for i in range(rt.split.n_stages)]
                  + [f"link{i}" for i in range(len(rt.split.cuts))])
+        if keep_breakers and self._split_names == tuple(names):
+            return
         for n in self._split_names:
             self._breakers.pop(n, None)
         self._split_names = tuple(names)
@@ -273,8 +303,20 @@ class ServeFront:
             self._breakers[n] = CircuitBreaker(n, self.config.breaker, clock=self.clock)
 
     def _walk_ladder(self) -> None:
-        """Serve from the ladder entry the tier signals point at: without a
-        ladder (the port has none yet), nothing to walk."""
+        """Serve from the ladder entry the tier signals point at."""
+        if self._ladder is None:
+            return
+        base = self.link_health.tier if self.link_health is not None else 0
+        idx = min(base + self.brownout.tier_bias, len(self._ladder) - 1)
+        if idx == self._ladder_idx and self._rt is self._ladder[idx]:
+            return
+        self._ladder_idx = idx
+        rt = self._ladder[idx]
+        if idx in self._ladder_placed:
+            self._rt, self._placed = rt, self._ladder_placed[idx]  # same topology: breakers stay
+        else:
+            self._install_runtime(rt, keep_breakers=True)
+            self._ladder_placed[idx] = self._placed
 
     @property
     def split_runtime(self) -> Any:
@@ -373,10 +415,6 @@ class ServeFront:
     def drain(self, max_requests: Optional[int] = None) -> list:
         """Execute queued requests in (priority, deadline) order, one
         generate call each; returns the records produced by this call."""
-        for name in ("checkpoint_dir", "step_deadline_s"):
-            if getattr(self.config, name) is not None:
-                raise ServeFrontConfigError(
-                    f"ServeFrontConfig {name} (the per-request route's recovery) {_NOT_PORTED}")
         out: list = []
         while max_requests is None or len(out) < max_requests:
             pend = self._pop_pending()
@@ -407,7 +445,7 @@ class ServeFront:
                                 p.submitted_at, queue_wait_s=wait)
         capacity = _round_up(s + p.granted, self.config.capacity_round)
         try:
-            toks, stats = self._run(p, backend, capacity)
+            toks, stats, retries = self._run(p, backend, capacity)
             attempt2 = False
         except StageLostError as e:
             self._on_stage_loss(e.stage)
@@ -417,7 +455,7 @@ class ServeFront:
                                     p.submitted_at, queue_wait_s=wait, backend=None,
                                     started_at=now)
             try:
-                toks, stats = self._run(p, backend, capacity)
+                toks, stats, retries = self._run(p, backend, capacity)
                 attempt2 = True
                 route_note = f"stage_lost:{e.stage}"
             except (StageLostError, DecodeTimeout) as e2:
@@ -425,16 +463,28 @@ class ServeFront:
                           else "watchdog")
                 return self._finish(p.rid, p.req, b, s, FAILED, reason, p.submitted_at,
                                     queue_wait_s=wait, backend=backend, started_at=now)
+        except DecodeTimeout:
+            self._breakers["split" if backend == "split" else "local"].record_failure()
+            return self._finish(p.rid, p.req, b, s, TIMED_OUT, "watchdog", p.submitted_at,
+                                queue_wait_s=wait, backend=backend, started_at=now)
+        lc = stats.get("link_counters")
+        substituted = sum(lc.get("substituted", ())) if lc else 0
         service = stats.get("prefill_s", 0.0) + stats.get("decode_s", 0.0)
         self.admission.record(s, stats.get("prefill_s", 0.0), stats.get("decode_steps", 0),
                               stats.get("decode_s", 0.0))
         if backend == "split":
-            self._breakers["split"].record_success()
-            for i in range(self._rt.split.n_stages):
-                self._breakers[f"stage{i}"].record_success()
+            if substituted:
+                self._breakers["split"].record_failure()
+            else:
+                self._breakers["split"].record_success()
+                for i in range(self._rt.split.n_stages):
+                    self._breakers[f"stage{i}"].record_success()
+            self._observe_link_burn(lc)
         else:
             self._breakers["local"].record_success()
-        if attempt2:
+        if substituted:
+            outcome, reason = FAILED, "substituted_payload"
+        elif attempt2:
             outcome, reason = FAILED_OVER, route_note
         else:
             outcome, reason = COMPLETED, (route_note or "")
@@ -447,20 +497,25 @@ class ServeFront:
             p.rid, p.req, b, s, outcome, reason, p.submitted_at, queue_wait_s=wait,
             backend=backend, started_at=now, ttft_s=wait + stats.get("prefill_s", 0.0),
             service_s=service, latency_s=wait + service, granted_tokens=p.granted,
-            capacity=capacity, plan=plan, jit_misses=stats.get("decode_step_cache_misses"),
-            tokens=np.asarray(toks.cpu()))
+            capacity=capacity, plan=plan, retries_charged=retries,
+            jit_misses=stats.get("decode_step_cache_misses"), tokens=np.asarray(toks.cpu()),
+            recovery=stats.get("recovery_counters"))
 
     # -- routing + backends ------------------------------------------------
 
     def _choose_route(self):
-        """Pick a backend the breakers allow -> (backend, note): the note
-        names why the split was skipped. (The retry-budget gate of the
-        reference belongs to the faulty link, which the port has not yet.)"""
+        """Pick a backend the breakers and the retry budget will fund ->
+        (backend, note): the note names why the split was skipped."""
         note = None
         if self._rt is not None:
             if all(self._breakers[n].allow() for n in self._split_names):
-                return "split", None
-            note = "circuit_open"
+                if self._rt.faults is not None and self.budget.exhausted():
+                    self.budget.deny()
+                    note = "retry_budget_exhausted"
+                else:
+                    return "split", None
+            else:
+                note = "circuit_open"
             if self.config.local_fallback and self._breakers["local"].allow():
                 return "local", note
             return None, note
@@ -468,10 +523,24 @@ class ServeFront:
             return "local", None
         return None, "circuit_open"
 
+    def _recovery_cfg(self, rid: int) -> Optional[RecoveryConfig]:
+        """The call's recovery, or None (the plain loops) when nothing is
+        configured. ``replan=False``: a mid-call re-plan would be invisible
+        to the front's routing, so a stage loss propagates here."""
+        ckpt_dir = self.config.checkpoint_dir
+        if ckpt_dir is None and self.config.step_deadline_s is None:
+            return None
+        path = os.path.join(ckpt_dir, f"req{rid}.ckpt") if ckpt_dir is not None else None
+        return RecoveryConfig(checkpoint_path=path,
+                              checkpoint_every=self.config.checkpoint_every if path else 0,
+                              deadline_s=self.config.step_deadline_s, replan=False,
+                              clock=self.clock)
+
     def _run(self, p: _Pending, backend: str, capacity: int):
-        """One generation attempt -> (tokens, stats)."""
+        """One generation attempt -> (tokens, stats, retries charged)."""
         stats: dict = {}
         key = prng.key(p.req.rng_seed)
+        rec = self._recovery_cfg(p.rid)
         if backend == "split":
             if self.speculative is not None and self.speculative.enabled:
                 # a verify burst may write k - 1 draft rows past the vanilla
@@ -479,18 +548,29 @@ class ServeFront:
                 capacity = max(capacity, p.prompt.shape[1] + p.granted + self.speculative.k - 2)
             toks = generate_split(self._rt, self._placed, p.prompt, p.granted,
                                   capacity=capacity, temperature=p.req.temperature,
-                                  rng_key=key, stats=stats, raw_params=self._params,
+                                  rng_key=key, fault_step=p.rid, stats=stats, recovery=rec,
+                                  raw_params=self._params, link_health=self.link_health,
                                   speculative=self.speculative)
         else:
             toks = generate(self.model_cfg, self._params, p.prompt, p.granted,
                             capacity=capacity, temperature=p.req.temperature, rng_key=key,
-                            compute_dtype=self.compute_dtype, stats=stats)
-        return toks, stats
+                            compute_dtype=self.compute_dtype, stats=stats, recovery=rec)
+        lc = stats.get("link_counters")
+        retries = int(sum(lc.get("retried", ()))) if lc else 0
+        self.budget.charge(retries)
+        if lc:
+            with self._submit_lock:
+                totals = self._agg["link_counters"]
+                for k, v in lc.items():
+                    totals[k] = totals.get(k, 0) + int(sum(v))
+        return toks, stats, retries
 
     def _on_stage_loss(self, stage: int) -> None:
         """Trip the breakers, then route around: re-plan the split onto the
-        surviving stages' devices (>= 2 left) or leave the open breakers to
-        force the local fallback."""
+        surviving stages' devices (>= 2 left; the link's faults, policy, FEC
+        and hedge carried over) or leave the open breakers to force the
+        local fallback. The re-planned runtime persists for later
+        requests."""
         self.failovers += 1
         if f"stage{stage}" in self._breakers:
             self._breakers[f"stage{stage}"].trip()
@@ -503,9 +583,27 @@ class ServeFront:
         from ..parallel.split import SplitRuntime
 
         survivors = devices[:stage] + devices[stage + 1:]
-        cfg = self._rt.cfg
-        new_split = self._rt.split.replan(cfg.num_layers, len(survivors))
-        self._install_runtime(SplitRuntime(cfg, new_split, survivors))
+        rt = self._rt
+        new_split = rt.split.replan(rt.cfg.num_layers, len(survivors))
+        new_rt = SplitRuntime(rt.cfg, new_split, survivors, faults=rt.faults,
+                              policy=rt.policy, fec=rt.fec, hedge=rt.hedge)
+        self._ladder = None
+        self._ladder_placed = {}
+        self._install_runtime(new_rt)
+
+    def _observe_link_burn(self, lc: Optional[dict]) -> None:
+        """Per-hop burn rates -> the ``link<i>`` breakers, priced with the
+        link SLO's error budget (0.02 without a tracker)."""
+        if lc is None:
+            return
+        budget = self.link_health.cfg.error_budget if self.link_health is not None else 0.02
+        hops, det, rep = lc.get("hops", ()), lc.get("detected", ()), lc.get("repaired", ())
+        for i, h in enumerate(hops):
+            name = f"link{i}"
+            if name not in self._breakers or not h:
+                continue
+            unrepaired = (det[i] if i < len(det) else 0) - (rep[i] if i < len(rep) else 0)
+            self._breakers[name].observe_burn((unrepaired / h) / budget)
 
     def drain_batched(self, max_requests: Optional[int] = None,
                       max_steps: int = 100_000) -> list:
@@ -655,7 +753,8 @@ class ServeFront:
 
         with self._submit_lock:
             agg = {**self._agg, "outcomes": dict(self._agg["outcomes"]),
-                   "reasons": dict(self._agg["reasons"])}
+                   "reasons": dict(self._agg["reasons"]),
+                   "link_counters": dict(self._agg["link_counters"])}
             depth = len(self._queue)
         return {
             "requests": agg["requests"], "finished": agg["finished"],
@@ -671,6 +770,11 @@ class ServeFront:
             "plans": {f"{b}x{c}": n for (b, c), n in sorted(self._plans.items())},
             **({"prefix": self.batcher.pool.prefix_report()}
                if self.batcher is not None and self.batcher.pool.prefix is not None else {}),
+            # beyond the reference's keys: the link counters of every split
+            # call this front made, summed over hops and requests
+            **({"link_counters": agg["link_counters"]} if agg["link_counters"] else {}),
+            **({"link_health": self.link_health.summary()}
+               if self.link_health is not None else {}),
         }
 
     def health_summary(self) -> dict:
@@ -680,7 +784,10 @@ class ServeFront:
             breakers = {n: b.summary() for n, b in sorted(self._breakers.items())}
             open_names = [n for n, s in breakers.items() if s.get("state") != "closed"]
             level = self.brownout.level
-            return {"status": "degraded" if open_names or level else "ok",
-                    "open_breakers": open_names, "brownout_level": level,
-                    "queue_depth": len(self._queue), "inflight": len(self._inflight_rids),
-                    "records": self._agg["requests"], "failovers": self.failovers}
+            health = {"status": "degraded" if open_names or level else "ok",
+                      "open_breakers": open_names, "brownout_level": level,
+                      "queue_depth": len(self._queue), "inflight": len(self._inflight_rids),
+                      "records": self._agg["requests"], "failovers": self.failovers}
+            if self.link_health is not None:
+                health["link_health"] = self.link_health.summary()
+            return health

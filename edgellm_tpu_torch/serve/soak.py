@@ -13,9 +13,18 @@ rates, p99 TTFT, the retry-budget account, and an identity audit of every
 - The workload is ``numpy.default_rng(seed)``: interarrival gaps, prompts
   and priorities replay bit for bit from ``SoakConfig.seed``, the
   reference's draws in the reference's order.
+- Chaos is scheduled by arrival index: the kill (``kill_stage``) fires just
+  before request ``int(n * kill_at_frac)`` is submitted, marking the stage
+  lost on the front's runtime (the front then re-plans onto the
+  survivors); ``burst_runtime=`` (a same-topology runtime with a corrupting
+  link) is swapped in over the ``[burst_start_frac, burst_end_frac)``
+  arrival window with the breakers kept, and the original restored after
+  it unless a re-plan happened in between.
 
-Not ported yet: the scheduled chaos (``kill_stage`` needs stage loss, the
-corruption burst ``burst_runtime=`` needs faulty links) and the flight
+The identity audit replays each completed request on a clean runtime of the
+plan that served it (its stage devices captured when the plan first
+served); under a faulty link a substituted hop can make a request differ
+from that replay, in the reference as in the port. Not ported: the flight
 recorder (the artifact's ``flight_dumps`` is None).
 """
 from __future__ import annotations
@@ -29,11 +38,9 @@ from ..utils import prng
 from ..utils.clock import FakeClock
 from .decode import generate, generate_split
 from .frontend import Request, ServeFront
-from .overload import COMPLETED, REJECTED, SHED
+from .overload import COMPLETED, FAILED_OVER, REJECTED, SHED
 
 __all__ = ["SoakConfig", "run_soak"]
-
-_NOT_PORTED = "is not ported yet to edgellm_tpu_torch"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +48,10 @@ class SoakConfig:
     """The replayable soak definition. ``arrival_rate`` is requests per
     virtual second; ``deadline_s`` applies to every request (None = best
     effort); ``shared_prefix_len`` opens every prompt with the same seeded
-    token block (a system prompt). The chaos fields (``kill_stage``, the
-    burst window) and ``verify_identity`` belong to ``run_soak``."""
+    token block (a system prompt). ``kill_stage`` / ``kill_at_frac``
+    schedule the stage kill; the burst window is actuated by ``run_soak``'s
+    ``burst_runtime``; ``verify_identity`` replays every completed request
+    on a clean runtime."""
 
     n_requests: int = 32
     arrival_rate: float = 2.0
@@ -134,7 +143,8 @@ class _IdentityVerifier:
                 spec_kw = {"speculative": spec, "raw_params": self.front.params}
                 cap = max(cap, prompt.shape[1] + r.granted_tokens + spec.k - 2)
             ref = generate_split(clean, placed, prompt, r.granted_tokens, capacity=cap,
-                                 temperature=temperature, rng_key=rng, **spec_kw)
+                                 temperature=temperature, rng_key=rng,
+                                 fault_step=r.request_id, **spec_kw)
         self.checked += 1
         if np.array_equal(np.asarray(ref.cpu()), r.tokens):
             self.matched += 1
@@ -152,14 +162,12 @@ def run_soak(front: ServeFront, soak: SoakConfig, *, clock: FakeClock,
     """Run one deterministic soak through ``front.drain`` -> the artifact
     dict (the reference's keys). ``front`` must be freshly built on
     ``clock``: the soak owns the virtual timeline, and the artifact's rates
-    assume the front's records are this soak's."""
+    assume the front's records are this soak's. ``burst_runtime``: a
+    same-topology split runtime with burst-level corruption, swapped in
+    over the burst window (breaker state kept)."""
     if not isinstance(clock, FakeClock):
         raise TypeError("run_soak needs the front's FakeClock — the soak owns the "
                         "virtual timeline")
-    if soak.kill_stage is not None:
-        raise ValueError(f"SoakConfig kill_stage (stage loss) {_NOT_PORTED}")
-    if burst_runtime is not None:
-        raise ValueError(f"run_soak burst_runtime= (faulty links) {_NOT_PORTED}")
     rng = np.random.default_rng(soak.seed)
     n = soak.n_requests
     arrive_t = clock.now + np.cumsum(rng.exponential(1.0 / soak.arrival_rate, n))
@@ -171,16 +179,42 @@ def run_soak(front: ServeFront, soak: SoakConfig, *, clock: FakeClock,
             0, vocab, soak.shared_prefix_len, dtype=np.int32)
     priorities = rng.integers(0, soak.priority_levels, n)
 
+    kill_idx = int(n * soak.kill_at_frac) if soak.kill_stage is not None else None
+    burst_on_idx = int(n * soak.burst_start_frac) if burst_runtime is not None else None
+    burst_off_idx = int(n * soak.burst_end_frac) if burst_runtime is not None else None
+    normal_rt = front.split_runtime
+    failovers_at_burst_on = 0
+    kill_at_s: Optional[float] = None
+    burst_window_s: list = []
+    first_done_after_kill: Optional[float] = None
+
     submitted: dict = {}       # in-flight request id -> (prompt, temperature)
     plan_devices: dict = {}    # split plan key -> (SplitConfig, stage devices)
     verifier = _IdentityVerifier(front, plan_devices) if soak.verify_identity else None
     max_call = 0               # largest retries_charged on any one record
     start_s = clock.now
+
+    def fire_events(i: int) -> None:
+        nonlocal kill_at_s, failovers_at_burst_on
+        if burst_on_idx is not None and i == burst_on_idx:
+            failovers_at_burst_on = front.failovers
+            burst_window_s.append(clock.now)
+            front.set_split_runtime(burst_runtime, keep_breakers=True)
+        if burst_off_idx is not None and i == burst_off_idx:
+            burst_window_s.append(clock.now)
+            if front.failovers == failovers_at_burst_on:
+                front.set_split_runtime(normal_rt, keep_breakers=True)
+        if kill_idx is not None and i == kill_idx:
+            kill_at_s = clock.now
+            if front.split_runtime is not None:
+                front.split_runtime.mark_stage_lost(soak.kill_stage)
+
     i = 0
     while i < n or front.queue_depth:
         if front.queue_depth == 0 and i < n and clock.now < arrive_t[i]:
             clock.set_time(float(arrive_t[i]))
         while i < n and arrive_t[i] <= clock.now:
+            fire_events(i)
             rid, refusal = front.submit_ex(Request(
                 prompt_ids=prompts[i], max_new_tokens=soak.max_new_tokens,
                 priority=int(priorities[i]), deadline_s=soak.deadline_s,
@@ -197,10 +231,18 @@ def run_soak(front: ServeFront, soak: SoakConfig, *, clock: FakeClock,
                     rt = front.split_runtime
                     plan_devices[key] = (rt.split, rt.devices)
             max_call = max(max_call, rec.retries_charged)
+            if (kill_at_s is not None and rec.outcome in (COMPLETED, FAILED_OVER)
+                    and rec.finished_at is not None and rec.finished_at > kill_at_s):
+                first_done_after_kill = (rec.finished_at if first_done_after_kill is None
+                                         else min(first_done_after_kill, rec.finished_at))
             meta = submitted.pop(rec.request_id, None)
             if verifier is not None and meta is not None:
                 verifier.check(rec, meta[0], meta[1])
     span_s = max(clock.now - start_s, 1e-9)
+    # recovery time: the kill -> the first request finishing cleanly after it
+    recovery_s = None
+    if kill_at_s is not None and first_done_after_kill is not None:
+        recovery_s = first_done_after_kill - kill_at_s
 
     report = front.report()
     outcomes = report["outcomes"]
@@ -217,8 +259,11 @@ def run_soak(front: ServeFront, soak: SoakConfig, *, clock: FakeClock,
         "shed_rate": outcomes.get(SHED, 0) / n,
         "p99_ttft_s": (report["ttft_s"] or {}).get("p99"),
         "p99_latency_s": (report["latency_s"] or {}).get("p99"),
-        "kill": None,
-        "burst": None,
+        "kill": (None if kill_at_s is None else
+                 {"stage": soak.kill_stage, "at_s": kill_at_s, "recovery_s": recovery_s}),
+        "burst": (None if not burst_window_s else
+                  {"start_s": burst_window_s[0],
+                   "end_s": burst_window_s[1] if len(burst_window_s) > 1 else None}),
         "retry_budget": {**budget, "max_single_call": max_call,
                          "within_budget": budget["spent"] <= budget_bound},
         "token_identity": verifier.summary() if verifier is not None else None,

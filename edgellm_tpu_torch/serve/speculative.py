@@ -25,8 +25,11 @@ prompt and ``c_0..c_{n-2}``, the vanilla loop's invariant):
    a fully accepted burst for the row its k - 1 steps never wrote.
 
 Every burst emits 1..k tokens for one boundary round trip: ``hops_per_token``
-is ``bursts / emitted``. Not ported yet: ``recovery=`` and
-``resume_speculative`` (checkpoints, the watchdog).
+is ``bursts / emitted``. Under a faulty link each verify burst is keyed by
+the cache fill level, as a vanilla step is. ``recovery=`` checkpoints,
+halts and guards the loop at burst boundaries (a stage failure is refused,
+as in the reference: failover re-plans the runtime mid-run), and
+:func:`resume_speculative` continues a checkpoint token for token.
 """
 from __future__ import annotations
 
@@ -40,14 +43,16 @@ import torch
 from ..models.configs import ModelConfig
 from ..models.transformer import KVCache, decode_step, prefill
 from ..utils import prng
-from .decode import _fold, _sample, _sync, _validate_decode_args
+from .decode import (_check_plan, _fold, _sample, _sync, _validate_decode_args,
+                     _write_checkpoint, counter_delta, load_resume_state)
+from .recovery import (CheckpointError, DecodeCheckpoint, DecodeTimeout, RecoveryConfig,
+                       RecoveryCounters, Watchdog)
 
 __all__ = ["DRAFT_SOURCES", "MAX_SPEC_K", "SpecConfig", "draft_from_params",
-           "generate_speculative", "spec_capacity"]
+           "generate_speculative", "resume_speculative", "spec_capacity"]
 
 MAX_SPEC_K = 16  # verify window ceiling: beyond this the draft rarely holds
 DRAFT_SOURCES = ("stage0",)
-_NOT_PORTED = "is not ported yet to edgellm_tpu_torch"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,8 +110,10 @@ def spec_capacity(prompt_len: int, max_new_tokens: int, k: int) -> int:
 def generate_speculative(rt: Any, placed_params: dict, prompt_ids, max_new_tokens: int, *,
                          spec: SpecConfig, capacity: Optional[int] = None,
                          temperature: float = 0.0, rng_key: Optional[tuple] = None,
-                         stats: Optional[dict] = None, recovery: Any = None,
-                         raw_params: Optional[dict] = None) -> torch.Tensor:
+                         fault_step: int = 0, stats: Optional[dict] = None,
+                         recovery: Optional[RecoveryConfig] = None,
+                         raw_params: Optional[dict] = None,
+                         link_health: Any = None) -> torch.Tensor:
     """``generate_split`` through the burst loop -> (1, max_new_tokens) int32
     (speculation is per stream: batch 1). Greedy output equals the vanilla
     loop's on the same seed and plan. ``raw_params`` (the unplaced weights)
@@ -114,7 +121,9 @@ def generate_speculative(rt: Any, placed_params: dict, prompt_ids, max_new_token
     ``stats`` gets the vanilla keys (``decode_steps`` counts the tokens the
     bursts emitted) and ``speculative``: k, draft_layers, bursts, drafted,
     accepted, rejected, acceptance_rate, hops_per_token and
-    ``draft_step_cache_misses`` (0: nothing compiles)."""
+    ``draft_step_cache_misses`` (0: nothing compiles). ``fault_step``,
+    ``link_health`` and ``recovery`` are ``generate_split``'s (recovery at
+    burst granularity; a stage failure is refused)."""
     if not spec.enabled:
         raise ValueError("generate_speculative called with spec.enabled=False; use "
                          "generate_split (which this disabled config leaves byte-identical)")
@@ -124,8 +133,10 @@ def generate_speculative(rt: Any, placed_params: dict, prompt_ids, max_new_token
     if raw_params is None:
         raise ValueError("speculative decoding needs raw_params= (the unplaced parameter "
                          "pytree) to slice out the stage-0 draft layers")
-    if recovery is not None:
-        raise ValueError(f"generate_speculative recovery= {_NOT_PORTED}")
+    if recovery is not None and recovery.stage_failure is not None:
+        raise ValueError("speculative decoding does not compose with stage-failure "
+                         "injection (failover re-plans the runtime mid-run); run failover "
+                         "drills on the vanilla loop")
     prompt_len = (prompt_ids.shape if isinstance(prompt_ids, torch.Tensor)
                   else np.shape(prompt_ids))[-1]
     need = spec_capacity(prompt_len, max_new_tokens, spec.k)
@@ -143,7 +154,8 @@ def generate_speculative(rt: Any, placed_params: dict, prompt_ids, max_new_token
     cut = int(rt.split.cuts[0]) if rt.split.cuts else None
     draft_cfg, draft_params = draft_from_params(rt.cfg, raw_params, spec, cut)
     return _spec_loop(rt, placed_params, prompt_ids, max_new_tokens, capacity, temperature,
-                      key, spec, draft_cfg, draft_params, stats)
+                      key, fault_step, spec, draft_cfg, draft_params, stats, recovery,
+                      link_health=link_health)
 
 
 def _accept(vlogits: torch.Tensor, feed: list, key, n: int, k: int,
@@ -182,26 +194,59 @@ def _accept(vlogits: torch.Tensor, feed: list, key, n: int, k: int,
 
 
 def _spec_loop(rt, placed: dict, prompt_ids: torch.Tensor, max_new_tokens: int,
-               capacity: int, temperature: float, key, spec: SpecConfig,
-               draft_cfg: ModelConfig, draft_params: dict,
-               stats: Optional[dict]) -> torch.Tensor:
-    """The burst loop (the reference's ``_spec_loop`` without recovery)."""
+               capacity: int, temperature: float, key, fault_step: int, spec: SpecConfig,
+               draft_cfg: ModelConfig, draft_params: dict, stats: Optional[dict],
+               rec: Optional[RecoveryConfig], link_health: Any = None, resume_state=None,
+               resumed: bool = False) -> torch.Tensor:
+    """The burst loop. ``resume_state`` = (last_done_step, toks, cache)
+    continues a checkpointed run from the burst boundary at step
+    ``last_done_step`` (the draft cache is rebuilt by a draft prefill over
+    the committed prefix)."""
     b, s = prompt_ids.shape
     k = spec.k
+    counters = RecoveryCounters()
+    wd = (Watchdog(rec.deadline_s, clock=rec.clock)
+          if rec is not None and rec.deadline_s is not None else None)
+    run_meta = {"capacity": int(capacity), "temperature": float(temperature),
+                "max_new_tokens": int(max_new_tokens), "fault_step": int(fault_step),
+                "prompt_len": int(s), "batch": int(b),
+                "speculative": {"k": int(k), "draft_source": spec.draft_source,
+                                "draft_layers": int(draft_cfg.num_layers)}}
+    counters0 = rt.link_counters()
     draft_device = draft_params["embed"].device
+    halted_at = None
+    if wd is not None:
+        wd.arm()
+
+    def checkpoint(toks, cache, t):
+        _write_checkpoint(rec, rt, counters, prompt_ids, toks, cache, key, t, run_meta)
+
     t0 = time.monotonic()
-    logits, cache = rt.prefill_decode(placed, prompt_ids, capacity)
-    tok = _sample(logits[:, -1], _fold(key, 0), temperature)
-    # the draft prefill fills the stage-0 cache to the same level (its logits
-    # are discarded: token 0 is the target's, as in the vanilla loop)
-    _, dcache = prefill(draft_cfg, draft_params, prompt_ids.to(draft_device), capacity)
-    toks = [int(tok[0])]
-    _sync(rt.devices[-1])
-    t1 = time.monotonic()
+    if resume_state is None:
+        logits, cache = rt.prefill_decode(placed, prompt_ids, capacity, fault_step=fault_step)
+        tok = _sample(logits[:, -1], _fold(key, 0), temperature)
+        # the draft prefill fills the stage-0 cache to the same level (its
+        # logits are discarded: token 0 is the target's, as in the vanilla loop)
+        _, dcache = prefill(draft_cfg, draft_params, prompt_ids.to(draft_device), capacity)
+        toks = [int(tok[0])]
+        _sync(rt.devices[-1])
+        t1 = time.monotonic()
+        if rec is not None and rec.halt_at_step == 0:
+            checkpoint(toks, cache, 0)
+            halted_at = 0
+        elif rec is not None and rec.checkpoint_every and rec.checkpoint_path:
+            checkpoint(toks, cache, 0)
+    else:
+        _, toks_in, cache = resume_state
+        toks = [int(t.reshape(-1)[0]) for t in toks_in]
+        fed = torch.cat([prompt_ids.cpu(), torch.tensor([toks[:-1]], dtype=torch.long)], 1)
+        _, dcache = prefill(draft_cfg, draft_params, fed.to(draft_device), capacity)
+        t1 = t0
 
     n = len(toks)
     drafted = accepted = rejected = bursts = emitted_total = 0
-    while n < max_new_tokens:
+    while halted_at is None and n < max_new_tokens:
+        t_prev = n - 1
         feed = [toks[-1]]
         for _ in range(1, k):
             dlogits, dcache = decode_step(
@@ -228,9 +273,34 @@ def _spec_loop(rt, placed: dict, prompt_ids: torch.Tensor, max_new_tokens: int,
                 draft_cfg, draft_params, dcache,
                 torch.tensor([feed[k - 1]], dtype=torch.long, device=draft_device))
         dcache = KVCache(dcache.k, dcache.v, s + n - 1)
+        # recovery hooks, at burst granularity
+        t = n - 1
+        if rec is not None:
+            if rec.halt_at_step is not None and t >= rec.halt_at_step:
+                checkpoint(toks, cache, t)
+                halted_at = t
+                break
+            if (rec.checkpoint_every and rec.checkpoint_path
+                    and t_prev // rec.checkpoint_every < t // rec.checkpoint_every):
+                checkpoint(toks, cache, t)
+            if wd is not None:
+                ckpt_fn = ((lambda: checkpoint(toks, cache, t)) if rec.checkpoint_path
+                           else None)
+                try:
+                    wd.check(ckpt_fn)
+                except DecodeTimeout:
+                    counters.watchdog_fires += 1
+                    if stats is not None:
+                        stats["recovery_counters"] = counters.as_dict()
+                    raise
     out = torch.tensor([toks], dtype=torch.int32, device=rt.devices[-1])
     _sync(rt.devices[-1])
     t2 = time.monotonic()
+    if resumed and halted_at is None:
+        counters.resume_ok += 1
+    delta = counter_delta(rt, counters0)
+    if link_health is not None:
+        link_health.observe(delta)
     if stats is not None:
         stats.update(
             capacity=capacity, prefill_s=t1 - t0, decode_s=t2 - t1,
@@ -243,4 +313,60 @@ def _spec_loop(rt, placed: dict, prompt_ids: torch.Tensor, max_new_tokens: int,
                 "acceptance_rate": (accepted / drafted) if drafted else 0.0,
                 "hops_per_token": (bursts / emitted_total) if emitted_total else 0.0,
                 "draft_step_cache_misses": 0})
+        if halted_at is not None:
+            stats["halted_at_step"] = halted_at
+        if rec is not None or resumed:
+            stats["recovery_counters"] = counters.as_dict()
+        if delta is not None:
+            stats["link_counters"] = delta
+        if link_health is not None:
+            stats["link_health"] = link_health.summary()
     return out
+
+
+def resume_speculative(rt: Any, placed_params: dict, checkpoint_path: str, *,
+                       spec: SpecConfig, stats: Optional[dict] = None,
+                       recovery: Optional[RecoveryConfig] = None,
+                       raw_params: Optional[dict] = None) -> torch.Tensor:
+    """Resume a checkpointed speculative generation -> the full (1, max_new)
+    token matrix, equal to the uninterrupted run's (checkpoints land on
+    burst boundaries, which depend only on the committed prefix). Checks
+    the plan and model signature as ``resume_split`` does, plus the
+    checkpoint's ``speculative`` block against ``spec``; a vanilla
+    checkpoint resumes too (greedy identity does not care where the
+    boundaries fall)."""
+    if not spec.enabled:
+        raise ValueError("resume_speculative called with spec.enabled=False; use "
+                         "resume_split")
+    if raw_params is None:
+        raise ValueError("speculative resume needs raw_params= (the unplaced parameter "
+                         "pytree) to rebuild the stage-0 draft")
+    ckpt = DecodeCheckpoint.load(checkpoint_path)
+    meta = ckpt.meta
+    _check_plan(meta, rt, checkpoint_path,
+                (("mode", "runtime mode", None), ("model", "model signature", None),
+                 ("cuts", "split cuts", None), ("hop_codecs", "hop codecs", None)))
+    cut = int(rt.split.cuts[0]) if rt.split.cuts else None
+    draft_cfg, draft_params = draft_from_params(rt.cfg, raw_params, spec, cut)
+    sm = meta.get("speculative")
+    if sm is not None:
+        got = {"k": int(spec.k), "draft_source": spec.draft_source,
+               "draft_layers": int(draft_cfg.num_layers)}
+        if {kk: sm.get(kk) for kk in got} != got:
+            raise CheckpointError(
+                f"checkpoint {checkpoint_path} was written with speculative config {sm!r}, "
+                f"the resuming run has {got!r}; a window or draft mismatch breaks the "
+                f"token-identical-resume guarantee")
+    prompt_ids, key, step, toks, cache = load_resume_state(rt, placed_params, ckpt,
+                                                           checkpoint_path)
+    if recovery is not None and recovery.stage_failure is not None:
+        raise ValueError("speculative decoding does not compose with stage-failure "
+                         "injection; run failover drills on the vanilla loop")
+    if stats is not None:
+        stats["resumed_from_step"] = step
+        if "link_counters" in meta:
+            stats["checkpoint_link_counters"] = meta["link_counters"]
+    return _spec_loop(rt, placed_params, prompt_ids, int(meta["max_new_tokens"]),
+                      int(meta["capacity"]), float(meta["temperature"]), key,
+                      int(meta["fault_step"]), spec, draft_cfg, draft_params, stats,
+                      recovery, resume_state=(step, toks, cache), resumed=True)

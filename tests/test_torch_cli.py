@@ -150,10 +150,7 @@ def test_every_config_is_accepted_or_named_not_ported(config):
     exp = p.get("experiment", "")
     unported_split = exp == "split" and any(
         k in p and p[k] != 1 for k in trun.UNPORTED_SPLIT_KEYS)
-    soak = p.get("serving", {}).get("soak", {})
-    unported_serve = exp == "serve" and (
-        any(k in p for k in trun.UNPORTED_SERVE_KEYS)
-        or ("batching" not in p and soak.get("kill_stage") is not None))
+    unported_serve = exp == "serve" and any(k in p for k in trun.UNPORTED_SERVE_KEYS)
     if exp in trun.NOT_PORTED or "observability" in p or unported_split or unported_serve:
         with pytest.raises(SystemExit, match="not ported yet"):
             trun._validate_params_json(p)
@@ -163,16 +160,16 @@ def test_every_config_is_accepted_or_named_not_ported(config):
 
 @pytest.mark.parametrize("experiment", ["serve"])
 def test_unported_experiments_exit_nonzero_naming_them(experiment, tmp_path):
-    """A serve config with a feature still to port (the faulty link under
-    the per-request split route) exits non-zero naming it."""
+    """A serve config with a feature still to port (the µ-batch pipeline
+    under the per-request split route) exits non-zero naming it."""
     params = json.dumps({"experiment": experiment, "cuts": [1], "hop_codecs": ["fp32"],
-                         "faults": {"drop_rate": 0.05}, "serving": {}})
+                         "pipeline": {"num_microbatches": 2}, "serving": {}})
     proc = subprocess.run(
         [sys.executable, "-m", "edgellm_tpu_torch.run", "--params", params,
          "--model", "tiny-qwen2", "--device", "cpu", "--output-dir", str(tmp_path)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
-    assert (f"faults is not ported yet to edgellm_tpu_torch under experiment {experiment!r}"
+    assert (f"pipeline is not ported yet to edgellm_tpu_torch under experiment {experiment!r}"
             in proc.stderr)
 
 
@@ -237,10 +234,12 @@ def test_split_config_with_faults_exits_naming_the_key(tmp_path):
     assert "hedge requires an enabled 'faults' config" in proc.stderr
 
 
-#: split keys the faulty link retired from the unported list, with what the
-#: reference's validation now says of each alone (None: it validates)
+#: split keys the faulty link and survivability retired from the unported
+#: list, with what the reference's validation now says of each alone (None:
+#: it validates)
 LINK_KEY_ALONE = {"link_policy": None,
-                  "hedge": "hedge requires an enabled 'faults' config"}
+                  "hedge": "hedge requires an enabled 'faults' config",
+                  "deadline": None, "stage_failure": None, "recovery": None}
 
 
 @pytest.mark.parametrize("key,value", [
@@ -248,8 +247,8 @@ LINK_KEY_ALONE = {"link_policy": None,
     ("deadline", 10.0), ("stage_failure", {"stage": 1, "at_step": 1}), ("recovery", {}),
     ("n_seq", 4), ("n_data", 2), ("n_model", 2)])
 def test_unported_split_keys_are_named(key, value):
-    """Unported split keys die naming themselves; the link keys (ported)
-    validate as the reference validates them alone."""
+    """Unported split keys die naming themselves; the link and recovery keys
+    (ported) validate as the reference validates them alone."""
     p = {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"], key: value}
     if key in LINK_KEY_ALONE:
         assert key not in trun.UNPORTED_SPLIT_KEYS
@@ -319,18 +318,18 @@ def test_cli_serve_cuts_beside_batching_matches_reference_cli(name, tmp_path, ca
 
 
 def test_cli_serve_cuts_beside_batching_still_refuses_unported():
-    """Beside ``cuts`` and ``batching`` the µ-batch pipeline, the faulty
-    link and the batcher's checkpoints still die "not ported yet";
-    speculative decoding stays refused as the reference refuses it."""
+    """Beside ``cuts`` and ``batching`` the µ-batch pipeline still dies "not
+    ported yet"; the faulty link and the batcher's checkpoints validate, as
+    in the reference; speculative decoding stays refused as the reference
+    refuses it."""
     base = _split_serve("split9_qwen_paged.json")
     trun._validate_params_json(base)
-    for bad, message in (
-            ({**base, "pipeline": {"num_microbatches": 2}}, "pipeline is not ported yet"),
-            ({**base, "faults": {"drop_rate": 0.1}}, "faults is not ported yet"),
-            ({**base, "batching": {**base["batching"], "checkpoint_dir": "ckpt"}},
-             "checkpoint_dir .* not ported yet")):
-        with pytest.raises(SystemExit, match=message):
-            trun._validate_params_json(bad)
+    with pytest.raises(SystemExit, match="pipeline is not ported yet"):
+        trun._validate_params_json({**base, "pipeline": {"num_microbatches": 2}})
+    for ok in ({**base, "faults": {"drop_rate": 0.1}},
+               {**base, "batching": {**base["batching"], "checkpoint_dir": "ckpt"}}):
+        trun._validate_params_json(ok)
+        jrun._validate_params_json(ok)
     spec = {**base, "speculative": {"k": 4}}
     with pytest.raises(SystemExit) as want:
         jrun._validate_params_json(spec)
@@ -699,3 +698,45 @@ def test_cli_distances_refuses_an_npz_sample_out_of_range(tmp_path):
     with pytest.raises(SystemExit, match=r"npz sample 1 has token ids outside \[0, 256\)"):
         trun.main(["--params", json.dumps({"experiment": "distances"}), "--model", "tiny-qwen2",
                    "--device", "cpu", "--corpus", str(npz), "--output-dir", str(tmp_path)])
+
+
+def test_cli_split6_failover_recovery_block_matches_reference(tmp_path, capsys):
+    """configs/split6_qwen_failover.json through both CLIs, its cuts inside
+    tiny-qwen2's 6 layers and ``--deadline-s`` over its ``deadline``: the
+    printed result's recovery block (stage 2 lost at chunk 4, one failover
+    and re-plan onto cut 2, the byte totals of the new plan, the mesh) and
+    token count equal the reference CLI's (the weights differ: each CLI
+    draws its own from ``--seed``); ``--fault-report`` has no link to
+    report, as in the reference."""
+    p = json.loads((REPO / "configs/split6_qwen_failover.json").read_text())
+    p.update(cuts=[1, 3], max_length=64, stride=16)
+    argv = ["--params", json.dumps(p), "--model", "tiny-qwen2", "--max-chunks", "12",
+            "--window-batch", "4", "--deadline-s", "90", "--fault-report"]
+    assert trun.main(argv + ["--device", "cpu", "--output-dir", str(tmp_path / "t")]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert jrun.main(argv + ["--output-dir", str(tmp_path / "j")]) == 0
+    jout = capsys.readouterr().out.strip().splitlines()
+    got, want = json.loads(out[0]), json.loads(jout[0])
+    assert got["recovery"] == want["recovery"]
+    assert got["recovery"]["deadline_s"] == 90.0 and got["recovery"]["replanned_cuts"] == [2]
+    assert got["recovery"]["counters"]["failovers"] == 1
+    for key in ("n_tokens", "chunks", "mesh", "measured_hop_bytes_total", "cuts"):
+        assert got[key] == want[key], key
+    assert np.isfinite(got["ppl"])
+    assert out[1:] == jout[1:] == ["fault report: no link counters recorded (faults were off)"]
+
+
+def test_fault_report_prints_the_recovery_counters_as_the_reference(capsys):
+    """``--fault-report``'s table carries the recovery counters beside the
+    link counters, line for line the reference's."""
+    result = {"link_counters": {"hops": [12, 6], "detected": [2, 0], "retried": [2, 0],
+                                "recovered": [2, 0], "substituted": [0, 0],
+                                "budget_dropped": [0, 0]},
+              "recovery": {"counters": {"failovers": 1, "replans": 1, "recompute_tokens": 0,
+                                        "resume_ok": 0, "checkpoints_written": 0,
+                                        "watchdog_fires": 0}}}
+    trun._print_fault_report(result)
+    got = capsys.readouterr().out
+    jrun._print_fault_report(result)
+    assert got == capsys.readouterr().out
+    assert "edgellm_recovery_failovers_total" in got and "edgellm_recovery_replans_total" in got

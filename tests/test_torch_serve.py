@@ -222,8 +222,10 @@ def test_batcher_refusals():
         b.submit([], 2)
     with pytest.raises(ValueError, match="split_runtime needs placed_params"):
         tb.ContinuousBatcher(TCFG, tparams, split_runtime=object())
-    with pytest.raises(ValueError, match="checkpoint_dir .* not ported yet"):
-        tb.BatchingConfig(checkpoint_dir="/nowhere")
+    assert tb.BatchingConfig(checkpoint_dir="/nowhere").checkpoint_dir == "/nowhere"
+    with pytest.raises(tb.CheckpointError, match="no cache state to snapshot"):
+        b.checkpoint_stream(b.submit(np.ones(3, np.int32), 2), "/nowhere/s.ckpt")
+    b.discard(0)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         b.prefill_hold(0)
     b.submit(np.ones(3, np.int32), 4)
@@ -280,20 +282,28 @@ def test_serve_front_drain_batched_outcomes_match_reference(weights):
 
 
 def test_serve_front_refusals():
-    """What the port's front still refuses names itself: the split ladder,
-    link health and the per-request route's recovery fields; the batched
-    route needs its batcher; the per-request route drains an empty queue."""
-    for name in ("split_ladder", "link_health"):
-        with pytest.raises(tf.ServeFrontConfigError, match=f"{name} .* not ported yet"):
-            tf.ServeFront(TCFG, {}, **{name: object()})
+    """The front refuses as the reference does: a runtime and a ladder
+    together, an empty ladder; the batched route needs its batcher; the
+    per-request route drains an empty queue, its recovery fields arming a
+    per-request ``RecoveryConfig`` (``req<rid>.ckpt``, no mid-call re-plan)."""
+    with pytest.raises(tf.ServeFrontConfigError, match="not both"):
+        tf.ServeFront(TCFG, {}, split_runtime=object(), split_ladder=[object()])
+    with pytest.raises(tf.ServeFrontConfigError, match="may not be empty"):
+        tf.ServeFront(TCFG, {}, split_ladder=[])
     front = tf.ServeFront(TCFG, {}, clock=FakeClock())
     with pytest.raises(tf.ServeFrontConfigError, match="needs a continuous batcher"):
         front.drain_batched()
-    assert front.drain() == []
+    assert front.drain() == [] and front._recovery_cfg(1) is None
     for field, value in (("checkpoint_dir", "/nonexistent"), ("step_deadline_s", 5.0)):
-        cfg = tf.ServeFrontConfig(**{field: value})
-        with pytest.raises(tf.ServeFrontConfigError, match=f"{field} .* not ported yet"):
-            tf.ServeFront(TCFG, {}, config=cfg, clock=FakeClock()).drain()
+        cfg = tf.ServeFrontConfig(**{field: value}, checkpoint_every=2)
+        front = tf.ServeFront(TCFG, {}, config=cfg, clock=FakeClock())
+        assert front.drain() == []
+        rec = front._recovery_cfg(7)
+        assert rec.replan is False and rec.clock is front.clock
+        if field == "checkpoint_dir":
+            assert rec.checkpoint_path == "/nonexistent/req7.ckpt" and rec.checkpoint_every == 2
+        else:
+            assert rec.checkpoint_path is None and rec.deadline_s == 5.0
     with pytest.raises(ValueError, match="capacity_round"):
         tf.ServeFrontConfig(capacity_round=0)
 
@@ -382,9 +392,6 @@ def test_run_soak_on_a_split_front_matches_reference(weights, speculative, monke
     for rid, (outcome, toks) in got_toks.items():
         assert outcome == want_toks[rid][0]
         np.testing.assert_array_equal(toks, want_toks[rid][1])
-    with pytest.raises(ValueError, match="kill_stage .* not ported yet"):
-        tsoak.run_soak(tf.ServeFront(TCFG, tparams, clock=FakeClock()),
-                       tsoak.SoakConfig(kill_stage=1), clock=FakeClock())
     with pytest.raises(TypeError, match="FakeClock"):
         tsoak.run_soak(tf.ServeFront(TCFG, tparams), tsoak.SoakConfig(), clock=lambda: 0.0)
 
@@ -517,17 +524,27 @@ def test_serve_cli_greedy_tokens_equal_reference(name, hf_checkpoint, tmp_path):
 
 
 @pytest.mark.parametrize("key,value,message", [
-    ("link_health", {}, "link_health is not ported yet"),
+    ("link_health", {}, "link_health requires an enabled 'faults' config"),
     ("gray", {}, "gray is not ported yet"),
     ("cluster", {}, "cluster is not ported yet"),
     ("disagg", {}, "disagg is not ported yet"),
     ("pipeline", {}, "pipeline is not ported yet"),
-    ("faults", {}, "faults is not ported yet"),
+    ("faults", {}, None),
 ])
 def test_unported_serve_keys_are_named(key, value, message):
+    """Keys still to port die naming themselves; the link's keys (ported)
+    validate as the reference validates them (``faults`` alone passes,
+    ``link_health`` needs an enabled ``faults``)."""
     p = {**_config("split9_qwen_paged.json"), key: value}
+    if message is None:
+        trun._validate_params_json(p)
+        jrun._validate_params_json(p)
+        return
     with pytest.raises(SystemExit, match=message):
         trun._validate_params_json(p)
+    if key in ("link_health", "faults"):
+        with pytest.raises(SystemExit, match=message):
+            jrun._validate_params_json(p)
 
 
 def test_serve_validation_messages_match_reference():
@@ -548,27 +565,33 @@ def test_serve_validation_messages_match_reference():
 
 
 def test_serve_without_batching_and_serve_report_die_not_ported(tmp_path):
-    """Serve without ``batching`` is the per-request route, ported: it
-    validates, and dies naming what it still lacks (the route's recovery and
-    stage-kill fields, the faulty link); ``--serve-report`` is not ported."""
+    """Serve without ``batching`` is the per-request route, ported with its
+    recovery and stage-kill fields and the faulty link: each validates as
+    the reference validates it; a kill out of range dies with its message;
+    ``--serve-report`` prints the front's report after the JSON line."""
     p = {k: v for k, v in _config("split9_qwen_paged.json").items() if k != "batching"}
     trun._validate_params_json(p)
-    for bad, message in (
-            ({**p, "serving": {**p["serving"], "checkpoint_dir": "ckpt"}},
-             "serving.checkpoint_dir .* is not ported yet"),
-            ({**p, "serving": {**p["serving"], "step_deadline_s": 2.0}},
-             "serving.step_deadline_s .* is not ported yet"),
-            ({**p, "serving": {**p["serving"], "soak": {"kill_stage": 1}}},
-             "serving.soak.kill_stage .* is not ported yet"),
-            ({**p, "faults": {"drop_rate": 0.1}}, "faults is not ported yet")):
-        with pytest.raises(SystemExit, match=message):
-            trun._validate_params_json(bad)
+    for ok in ({**p, "serving": {**p["serving"], "checkpoint_dir": "ckpt"}},
+               {**p, "serving": {**p["serving"], "step_deadline_s": 2.0}},
+               {**p, "serving": {**p["serving"], "soak": {"kill_stage": 1}}},
+               {**p, "faults": {"drop_rate": 0.1}}):
+        trun._validate_params_json(ok)
+        jrun._validate_params_json(ok)
+    bad = {**p, "cuts": [1], "hop_codecs": ["fp32"],
+           "serving": {**p["serving"], "soak": {"kill_stage": 2}}}
+    for validate in (trun._validate_params_json, jrun._validate_params_json):
+        with pytest.raises(SystemExit, match="kill_stage 2 out of range for 2 pipeline"):
+            validate(bad)
     proc = subprocess.run(
         [sys.executable, "-m", "edgellm_tpu_torch.run", "--params",
          "configs/split9_qwen_paged.json", "--model", "tiny-qwen2", "--device", "cpu",
          "--serve-report", "--output-dir", str(tmp_path)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0 and "--serve-report is not ported yet" in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert json.loads(lines[0])["outcomes"] == {"completed": 24}
+    assert lines[1] == "serve report:" and "  outcome completed      24" in lines
+    assert any(line.startswith("  retry budget spent=0") for line in lines)
 
 
 #: the reference's checks of the per-request route's blocks: both CLIs refuse

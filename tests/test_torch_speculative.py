@@ -118,8 +118,11 @@ def test_generate_speculative_guards(setup):
         run(_ids(batch=2), spec=spec, raw_params=s["tp"])
     with pytest.raises(ValueError, match="cache overflow"):
         run(_ids(), spec=spec, raw_params=s["tp"], capacity=PROMPT + MAX_NEW)
-    with pytest.raises(ValueError, match="recovery= .*not ported yet"):
-        run(_ids(), spec=spec, raw_params=s["tp"], recovery=object())
+    from edgellm_tpu_torch.serve.recovery import RecoveryConfig, StageFailure
+
+    with pytest.raises(ValueError, match="stage-failure"):
+        run(_ids(), spec=spec, raw_params=s["tp"],
+            recovery=RecoveryConfig(stage_failure=StageFailure(stage=1, at_step=1)))
 
 
 @pytest.mark.parametrize("k", [1, 2, 4])

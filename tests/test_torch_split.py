@@ -212,6 +212,8 @@ UNPORTED_EVAL = {"faults": {"drop_rate": 0.1}, "link_policy": {}, "fec": {},
 
 #: the link's arguments, ported: what each does alone
 LINK_EVAL_ARGS = ("faults", "link_policy", "fec", "hedge", "link_health")
+#: survivability's arguments, ported: what each does alone
+RECOVERY_EVAL_ARGS = ("deadline_s", "stage_failure", "recovery")
 
 
 @pytest.mark.parametrize("arg", sorted(UNPORTED_EVAL))
@@ -220,10 +222,24 @@ def test_unported_split_eval_args_raise(qwen, corpus, arg):
     ported: ``faults`` runs the link (its counters in the result),
     ``link_policy`` alone runs the clean split, and ``fec`` / ``hedge`` /
     ``link_health`` without an enabled ``faults`` raise the reference's
-    message."""
+    message. So are survivability's: ``deadline_s`` and ``stage_failure``
+    add the recovery block (a loss at chunk 0 of two stages fails over to
+    one), an empty ``recovery`` alone adds none."""
     _, tc, _, tp = qwen
     kw = dict(cuts=[2], hop_codecs=["int8_per_token"], max_length=64, stride=32,
               device="cpu", max_chunks=2, time_hops=False)
+    if arg in RECOVERY_EVAL_ARGS:
+        res = run_split_eval(tc, tp, corpus, **{**kw, arg: UNPORTED_EVAL[arg]})
+        assert np.isfinite(res["ppl"]) and res["chunks"] == 2
+        if arg == "recovery":
+            assert "recovery" not in res
+        elif arg == "deadline_s":
+            assert res["recovery"]["deadline_s"] == 10.0
+            assert res["recovery"]["counters"]["failovers"] == 0
+        else:
+            assert res["recovery"]["counters"]["failovers"] == 1
+            assert res["recovery"]["replanned_cuts"] == [] and res["mesh"]["stage"] == 1
+        return
     if arg not in LINK_EVAL_ARGS:
         with pytest.raises(ValueError, match=f"{arg}.*not ported yet"):
             run_split_eval(tc, tp, corpus, **{**kw, arg: UNPORTED_EVAL[arg]})

@@ -201,14 +201,23 @@ def test_generate_split_tokens_equal_reference(weights, cuts, codecs, temperatur
 
 def test_generate_split_fp32_hop_equals_generate(weights):
     """An fp32 hop is lossless: greedy split tokens equal the unsplit
-    ``generate``'s; refused arguments name themselves."""
+    ``generate``'s, and so do those of the survivable loop with every
+    recovery feature off (its counters all zero) and of a call observed by
+    a link-health tracker (no link: one empty observation)."""
+    from edgellm_tpu_torch.codecs.fec import LinkHealth
+    from edgellm_tpu_torch.serve.recovery import RecoveryConfig
+
     _, tp = weights
     rt = SplitRuntime(TCFG, SplitConfig((2,), ("fp32",)), ["cpu"] * 2)
     prompt = _ids(4, 3, 5)
+    want = generate(TCFG, tp, prompt, 8).numpy()
     np.testing.assert_array_equal(generate_split(rt, rt.place_params(tp), prompt, 8).numpy(),
-                                  generate(TCFG, tp, prompt, 8).numpy())
-    for kw in ({"recovery": object()}, {"link_health": object()}):
-        with pytest.raises(ValueError, match=f"{next(iter(kw))}= .*not ported yet"):
-            generate_split(rt, rt.place_params(tp), prompt, 4, **kw)
+                                  want)
+    stats = {}
+    for kw in ({"recovery": RecoveryConfig()}, {"link_health": LinkHealth()}):
+        got = generate_split(rt, rt.place_params(tp), prompt, 8, stats=stats, **kw)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert not any(stats["recovery_counters"].values())
+    assert stats["link_health"]["observations"] == 1 and stats["link_health"]["tier"] == 0
     with pytest.raises(ValueError, match="capacity overflow"):
         generate_split(rt, rt.place_params(tp), prompt, 8, capacity=10)
