@@ -182,7 +182,25 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    checkpointed and restored (pages bit for bit, K14 launched, the
    uninterrupted tokens); ms a decode step with and without the link, in
    turns, its idle share and kernels a step;
-19. a JSON line of every kernel (launches summed over the counted paths,
+19. the µ-batch pipeline and observability at full Qwen2-0.5B width and
+   depth, fp32 random weights from ``--seed``:
+   configs/split12_qwen_pipeline.json (cuts 9 and 18, two int8_per_token
+   hops, four µ-batches) through ``run.main`` beside the same split with
+   ``pipeline`` removed, in turns (s/chunk, PPL within 1e-4, one group of
+   each profiled, K-attn 24 · M and K3 / K4 2 · M a group), with split6's
+   link inline (``--fault-report``; the (M, 2) µ-batch counters summing to
+   the link counters), under fused "remote" (K8 2 · M a group), one
+   pipelined forward with int4_per_token hops (K1 / K2); pipelined
+   ``generate_split`` at B = M = 4 (the unpipelined tokens, and at 6 layers
+   the CPU's); split9 with cut 11 and two µ-batches through ``run.main``
+   (every request completed, K13 24 · M a ragged step, the unpipelined
+   batcher's tokens); split12 with ``--metrics-out``, ``--trace-out``,
+   ``--trace-report`` and ``--profile`` (the Prometheus text parses, the
+   trace holds the reference's span names, the profile holds them as
+   ranges, result and launches equal the unobserved run's) and a decode
+   step timed in turns with observability on and off (tokens and launches
+   equal, the overhead reported);
+20. a JSON line of every kernel (launches summed over the counted paths,
    and by path; K-attn's also by dtype and path; K-stats' fp32 column pass
    apart; ``ms`` its device time, ``event_ms`` the call's CUDA-event time),
    the ``nvidia-smi`` line, and
@@ -2469,22 +2487,25 @@ def _split_serve_cli(base_argv, p: dict, label: str) -> tuple[dict, dict, dict, 
     return printed, report["batcher"], launches, wall
 
 
-def _split_serve_expected(cfg, rep: dict, n_cuts: int, kv_codec: str, remote: bool) -> tuple:
+def _split_serve_expected(cfg, rep: dict, n_cuts: int, kv_codec: str, remote: bool,
+                          m: int = 1) -> tuple:
     """The launches a split-paged serve run implies, and the warm batcher's
     share (one prefill and one step) apart: 24 K13 / K14 a ragged step and
     24 fp32 K-attn a split prefill (a prefix hit's suffix runs verify_step's
     plain attention, a resume adopts rows); each cut one hop (K3 + K4, or K8
-    under "remote") a step, a prefill and a prefix hit's suffix."""
+    under "remote") a step, a prefill and a prefix hit's suffix. Under a
+    pipeline of ``m`` µ-batches a ragged step runs K13 and each cut's hop
+    once a µ-batch (the prefills stay sequential)."""
     hits = rep.get("prefix", {}).get("hits", 0)
     prefills = rep["admitted"] - rep["evicted"] - hits
     attn = "paged_decode_attention" if kv_codec == "fp" else "paged_decode_attention_quant"
 
     def counts(steps, prefills, hits):
-        hops = n_cuts * (steps + prefills + hits)
+        hops = n_cuts * (m * steps + prefills + hits)
         codec = ({"remote_hop": hops} if remote else
                  {"int8_affine_encode": hops, "int8_affine_decode": hops})
         return want_counts(cfg.num_layers * prefills, causal_attention=cfg.num_layers * prefills,
-                           **{attn: cfg.num_layers * steps}, **codec)
+                           **{attn: cfg.num_layers * m * steps}, **codec)
 
     warm = counts(1, 1, 0)
     want = counts(rep["steps"] + 1, prefills + 1, hits)
@@ -3602,6 +3623,416 @@ def survivable_paths(args, detail: dict, device: str = "cuda",
     return out
 
 
+#: phase 19's shipped config and its split eval: 21 chunks at window batch
+#: 8 are groups of 8, 8 and 5 (the tail padded to 8: 2 rows a µ-batch)
+SPLIT12_CONFIG = "configs/split12_qwen_pipeline.json"
+PIPE_CHUNKS, PIPE_WB = 21, 8
+#: pipelined generate_split: batch, µ-batches, prompt and new tokens; the
+#: card against the CPU at this depth (split12's cuts moved inside)
+PIPE_DECODE = dict(batch=4, m=4, prompt=8, new=12)
+PIPE_SMALL_LAYERS, PIPE_SMALL_CUTS = 6, [1, 3]
+#: the split-paged batcher with a pipeline: split9's geometry (max_slots 6)
+#: with split1's cut and two µ-batches
+PIPE_SERVE = {"cuts": [11], "hop_codecs": ["int8_per_token"], "pipeline": {"num_microbatches": 2}}
+#: the span names a split eval's trace holds (the reference's)
+EVAL_SPANS = {"eval.submit_group", "eval.drain_group", "eval.checkpoint_write",
+              "eval.time_hops", "eval.time_decode_hops", "split.hop"}
+#: decode steps a wall reading of phase 19 times (four readings, in turns)
+PIPE_STEP_READS = 12
+
+
+def _prom_parse(text: str) -> dict:
+    """Prometheus text -> {family: kind}; raises on a line that does not
+    parse (a sample outside a declared family, a value that is no float)."""
+    kinds: dict = {}
+    for line in text.strip().splitlines():
+        if line.startswith("# HELP "):
+            continue
+        if line.startswith("# TYPE "):
+            _, _, fam, kind = line.split()
+            kinds[fam] = kind
+            continue
+        name, value = line.split("{")[0].split()[0], line.rsplit(" ", 1)[1]
+        float(value)
+        if not any(name == f or name.startswith(f + "_") for f in kinds):
+            raise SystemExit(f"metrics: sample {line!r} outside a declared family")
+    return kinds
+
+
+def pipeline_paths(args, detail: dict, device: str = "cuda",
+                   model: str = "qwen2-0.5b") -> dict:
+    """Phase 19: the µ-batch pipeline and the observability it reports
+    through, fp32 weights from ``--seed`` (the CLI's default), full
+    Qwen2-0.5B width and depth. (1) configs/split12_qwen_pipeline.json as
+    shipped through ``run.main`` (:data:`PIPE_CHUNKS` chunks, window batch
+    :data:`PIPE_WB`: 2 rows a µ-batch) and beside it the same cuts and
+    codecs with ``pipeline`` removed, in turns (pipelined, plain, plain,
+    pipelined): s/chunk, PPL within :data:`SPLIT_CROSS_RTOL`, launches
+    exactly 24 · M K-attn and 2 · M K3 / K4 a group (1 · 24 and 2 unpipelined)
+    plus the timed hops, bytes per token per hop, the summary, and one
+    group of each profiled (idle share). (2) split12 with split6's link
+    inline through ``--fault-report``: the (M, 2) µ-batch counters sum to
+    ``link_counters``. (3) ``fused_hops: "remote"``: K8 2 · M a group; one
+    pipelined forward with ``int4_per_token`` hops: K1 / K2 2 · M. (4)
+    ``generate_split`` at B = 4, M = 4 on split12's cuts, greedy: tokens
+    equal the unpipelined run's and, at :data:`PIPE_SMALL_LAYERS` layers,
+    the CPU's; ms a step of both in turns. (5) split9's batcher with cut 11
+    and two µ-batches through ``run.main``: every request completed,
+    launches exactly as counted (K13 24 · M a ragged step), tokens equal
+    the unpipelined batcher's. (6) split12 with ``--metrics-out``,
+    ``--trace-out``, ``--trace-report`` and ``--profile``: the Prometheus
+    text parses, the trace holds the reference's span names, the profile
+    holds them as ranges, the result and launches equal the unobserved
+    run's; a decode step timed in turns with observability on and off
+    (tokens and launches a gate, the overhead reported) -> launches by
+    path."""
+    import argparse as ap
+    import tempfile
+
+    import torch
+
+    from edgellm_tpu_torch import obs, run
+    from edgellm_tpu_torch.models import PRESETS
+    from edgellm_tpu_torch.parallel import PipelineConfig, SplitConfig, SplitRuntime
+    from edgellm_tpu_torch.serve.decode import generate_split
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out, rows, part_s = {}, {}, {}
+    t_part = [time.monotonic()]
+
+    def lap(name):
+        now = time.monotonic()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+    cfg = PRESETS[model]
+    layers = cfg.num_layers
+    base = ["--model", model, "--seed", str(args.seed), "--device", device]
+    with open(SPLIT12_CONFIG) as f:
+        p12 = json.load(f)
+    if model != "qwen2-0.5b":  # a CPU rehearsal at tiny depth
+        p12.update(cuts=PIPE_SMALL_CUTS, max_length=64)
+    m = p12["pipeline"]["num_microbatches"]
+    n_cuts = len(p12["cuts"])
+    plain12 = {k: v for k, v in p12.items() if k != "pipeline"}
+    n_groups = math.ceil(PIPE_CHUNKS / PIPE_WB)
+    hop_iters = HOP_ITERS * n_cuts
+    eval_argv = ["--max-chunks", str(PIPE_CHUNKS), "--window-batch", str(PIPE_WB)] + base
+
+    def split_cli(p, label, extra=()):
+        """One split eval through ``run.main`` with the counts set to 0 just
+        before (the fused-hop gate restored after: the CLI sets it from
+        ``fused_hops``) -> (result, launches, other printed lines)."""
+        with tempfile.TemporaryDirectory() as tmp, fused_hops("auto"):
+            sync()
+            reset_counts()
+            code, lines = _cli_run(["--params", json.dumps(p), "--output-dir", tmp]
+                                   + eval_argv + list(extra))
+            sync()
+            launches = read_counts()
+        if code != 0:
+            raise SystemExit(f"{label}: run.main exited {code}")
+        return json.loads(lines[0]), launches, lines[1:]
+
+    def eval_counts(per_group_m: int, codec: str = "int8") -> dict:
+        hops = n_cuts * per_group_m * n_groups
+        codecs = ({"remote_hop": hops, "int8_affine_encode": hop_iters,
+                   "int8_affine_decode": hop_iters} if codec == "remote" else
+                  {"int8_affine_encode": hops + hop_iters,
+                   "int8_affine_decode": hops + hop_iters})
+        attn = layers * per_group_m * n_groups
+        return want_counts(attn, causal_attention=attn, **codecs)
+
+    # (1) split12 as shipped and without its pipeline, in turns
+    split_cli(p12, "split12 warm-up")
+    runs = {"pipelined": [], "plain": []}
+    for name in ("pipelined", "plain", "plain", "pipelined"):
+        res, launches, _ = split_cli(p12 if name == "pipelined" else plain12, f"split12 {name}")
+        want = eval_counts(m if name == "pipelined" else 1)
+        runs[name].append({"s_per_chunk": res["wall_s"] / res["chunks"], "ppl": res["ppl"],
+                           "total_nll": res["total_nll"], "launches": launches,
+                           "result": res})
+        if on_card and launches != want:
+            raise SystemExit(f"split12 {name}: kernel launches {launches} != expected {want}")
+    pipe, plain = runs["pipelined"][0]["result"], runs["plain"][0]["result"]
+    rel = abs(pipe["ppl"] - plain["ppl"]) / plain["ppl"]
+    row = {"s_per_chunk": {k: [r["s_per_chunk"] for r in v] for k, v in runs.items()},
+           "ppl": {k: [r["ppl"] for r in v] for k, v in runs.items()},
+           "ppl_rel_diff": rel, "chunks": pipe["chunks"], "groups": n_groups,
+           "pad_fraction": pipe["pad_fraction"], "pipeline": pipe.get("pipeline"),
+           "bytes_per_token_per_hop": {"pipelined": pipe["bytes_per_token_per_hop"],
+                                       "plain": plain["bytes_per_token_per_hop"]},
+           "measured_hop_bytes_total": {"pipelined": pipe["measured_hop_bytes_total"],
+                                        "plain": plain["measured_hop_bytes_total"]},
+           "per_hop_ms": pipe.get("per_hop_ms"),
+           "launches": {k: v[0]["launches"] for k, v in runs.items()}}
+    _, params = run._load_model(ap.Namespace(weights=None, model=model, seed=args.seed),
+                                torch.device(device))
+    if on_card:
+        for name, split_kw in (("pipelined", {"pipeline": PipelineConfig(m)}),
+                               ("plain", {})):
+            with fused_hops("off"):
+                prof = profile_split_group(cfg, params, f"pipeline_group_{name}",
+                                           cuts=p12["cuts"], hop_codecs=p12["hop_codecs"],
+                                           **split_kw)
+            row.setdefault("group_profile", {})[name] = {
+                k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share")}
+    rows["split12"] = row
+    log(json.dumps({"pipeline_split12": {k: v for k, v in row.items() if k != "launches"}}))
+    if (pipe.get("pipeline") or {}).get("num_microbatches") != m or not rel <= SPLIT_CROSS_RTOL:
+        raise SystemExit(f"split12: pipeline {pipe.get('pipeline')}, PPL {pipe['ppl']} against "
+                         f"{plain['ppl']} unpipelined (rel {rel:.3e} > {SPLIT_CROSS_RTOL})")
+    out["split12 pipelined"] = runs["pipelined"][0]["launches"]
+    out["split12 unpipelined"] = runs["plain"][0]["launches"]
+    lap("split12")
+
+    # (2) split12 with split6's link inline, --fault-report
+    with open("configs/split6_qwen_chaos.json") as f:
+        p6 = json.load(f)
+    p_link = {**p12, "faults": p6["faults"], "link_policy": p6["link_policy"]}
+    res, launches, report = split_cli(p_link, "split12 link", ["--fault-report"])
+    mb, lc = res.get("microbatch_counters") or {}, res.get("link_counters") or {}
+    sums_ok = bool(mb) and all(np.asarray(mb[k]).shape == (m, n_cuts)
+                               and np.asarray(mb[k]).sum(axis=0).tolist() == lc[k] for k in lc)
+    rows["split12 link"] = {"microbatch_counters": mb, "link_counters": lc,
+                            "tier_switches": res.get("tier_switches"), "ppl": res["ppl"],
+                            "s_per_chunk": res["wall_s"] / res["chunks"], "sums_equal": sums_ok}
+    log(json.dumps({"pipeline_link": rows["split12 link"]}))
+    for line in report:
+        log(f"  split12 link: {line}")
+    if not sums_ok or not any("fault report" in line for line in report):
+        raise SystemExit(f"split12 link: µ-batch counters {mb} do not sum to {lc}")
+    out["split12 link"] = launches
+    lap("split12 link")
+
+    # (3) fused "remote" hops; one pipelined forward with int4 hops (K1 / K2)
+    res, launches, _ = split_cli({**p12, "fused_hops": "remote"}, "split12 remote")
+    want = eval_counts(m, "remote")
+    rows["split12 remote"] = {"ppl": res["ppl"], "s_per_chunk": res["wall_s"] / res["chunks"],
+                              "launches": launches}
+    log(json.dumps({"pipeline_remote": rows["split12 remote"]}))
+    if not abs(res["ppl"] - pipe["ppl"]) <= SPLIT_CROSS_RTOL * pipe["ppl"] or (
+            on_card and launches != want):
+        raise SystemExit(f"split12 remote: PPL {res['ppl']}, launches {launches} != {want}")
+    out["split12 remote"] = launches
+    ids = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (PIPE_WB, p12["max_length"]))).to(device)
+    with fused_hops("off"):
+        rt4 = SplitRuntime(cfg, SplitConfig(tuple(p12["cuts"]), ("int4_per_token",) * n_cuts),
+                           [device] * (n_cuts + 1), pipeline=PipelineConfig(m))
+        placed = rt4.place_params(params)
+        rt4.forward(placed, ids[:m])  # warm
+        sync()
+        reset_counts()
+        logits = rt4.forward(placed, ids)
+        sync()
+        launches = read_counts()
+    want = want_counts(layers * m, causal_attention=layers * m, int4_encode=n_cuts * m,
+                       int4_decode=n_cuts * m)
+    if not bool(torch.isfinite(logits).all()) or (on_card and launches != want):
+        raise SystemExit(f"pipelined int4 forward: launches {launches} != expected {want}")
+    out["pipelined int4 forward"] = launches
+    del rt4, placed, logits
+    lap("remote and int4")
+
+    # (4) pipelined generate_split, B = 4, M = 4, greedy
+    b, new = PIPE_DECODE["batch"], PIPE_DECODE["new"]
+    plan = SplitConfig(tuple(p12["cuts"]), tuple(p12["hop_codecs"]))
+    prompt = np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab_size, (b, PIPE_DECODE["prompt"])).astype(np.int32)
+    decode_rts = {}
+    toks = {}
+    with fused_hops("off"):
+        for name, pc in (("pipelined", PipelineConfig(PIPE_DECODE["m"])), ("plain", None)):
+            rt = SplitRuntime(cfg, plan, [device] * (n_cuts + 1), pipeline=pc)
+            decode_rts[name] = (rt, rt.place_params(params))
+        generate_split(*decode_rts["pipelined"], prompt, 3)  # warm
+        sync()
+        reset_counts()
+        stats: dict = {}
+        toks["pipelined"] = generate_split(*decode_rts["pipelined"], prompt, new, stats=stats)
+        sync()
+        launches = read_counts()
+        toks["plain"] = generate_split(*decode_rts["plain"], prompt, new)
+        small, small_params = _small_model(cfg, params, PIPE_SMALL_LAYERS)
+        small_plan = SplitConfig(tuple(PIPE_SMALL_CUTS), plan.hop_codecs)
+        for dev in (device, "cpu"):
+            rt = SplitRuntime(small, small_plan, [dev] * 3,
+                              pipeline=PipelineConfig(PIPE_DECODE["m"]))
+            sp = {k: (v.to(dev) if not isinstance(v, dict) else {kk: vv.to(dev)
+                                                                  for kk, vv in v.items()})
+                  for k, v in small_params.items()}
+            toks[f"small {dev}"] = generate_split(rt, rt.place_params(sp), prompt, new)
+    mb_hops = n_cuts * PIPE_DECODE["m"] * (new - 1) + n_cuts
+    want = want_counts(layers, causal_attention=layers, int8_affine_encode=mb_hops,
+                       int8_affine_decode=mb_hops)
+    same = {k: bool(np.array_equal(toks["pipelined"].cpu().numpy(), v.cpu().numpy()))
+            for k, v in toks.items() if k == "plain"}
+    same["small card vs cpu"] = bool(np.array_equal(toks[f"small {device}"].cpu().numpy(),
+                                                    toks["small cpu"].cpu().numpy()))
+    decode_row = {"tokens_equal": same, "pipeline": stats.get("pipeline"), "launches": launches,
+                  "launches_expected": want}
+    log(json.dumps({"pipeline_decode": decode_row}))
+    if not all(same.values()) or (on_card and launches != want):
+        raise SystemExit(f"pipelined generate_split: {decode_row}")
+    out["generate_split pipelined"] = launches
+    lap("generate_split")
+
+    # (5) split9's batcher with cut 11 and two µ-batches through run.main
+    with open("configs/split9_qwen_paged.json") as f:
+        p9 = json.load(f)
+    p9.update(PIPE_SERVE)
+    if model != "qwen2-0.5b":
+        p9["cuts"] = [2]
+    kept: dict = {}
+    real_serve = run.run_serve
+
+    def keep_serve(*a, **kw):
+        kept.update(real_serve(*a, **kw))
+        return kept
+
+    run.run_serve = keep_serve
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            sync()
+            reset_counts()
+            t0 = time.monotonic()
+            code, lines = _cli_run(["--params", json.dumps(p9), "--output-dir", tmp] + base)
+            sync()
+            wall = time.monotonic() - t0
+            launches = read_counts()
+    finally:
+        run.run_serve = real_serve
+    if code != 0:
+        raise SystemExit(f"split9 pipelined serve: run.main exited {code}")
+    printed, rep = json.loads(lines[-1]), kept["_batcher"]
+    m9 = PIPE_SERVE["pipeline"]["num_microbatches"]
+    want, warm, prefills, hits = _split_serve_expected(cfg, rep, 1, "fp", False, m=m9)
+    with tempfile.TemporaryDirectory() as tmp:
+        plain9 = run.run_serve(cfg, params, {k: v for k, v in p9.items() if k != "pipeline"},
+                               lambda f: os.path.join(tmp, f))
+    got_t = {r.request_id: np.asarray(r.tokens).tolist() for r in kept["_records"]}
+    want_t = {r.request_id: np.asarray(r.tokens).tolist() for r in plain9["_records"]}
+    serve_row = {"printed": printed, "steps": rep["steps"], "prefills": prefills,
+                 "pipeline": rep.get("pipeline"), "wall_s": wall,
+                 "ms_per_step": 1e3 * rep["decode_s"] / max(rep["steps"], 1),
+                 "unpipelined_ms_per_step": 1e3 * plain9["_batcher"]["decode_s"]
+                 / max(plain9["_batcher"]["steps"], 1),
+                 "tokens_equal_unpipelined": got_t == want_t, "launches": launches,
+                 "launches_expected": want}
+    log(json.dumps({"pipeline_serve": serve_row}))
+    n_req = p9["serving"]["soak"]["n_requests"]
+    if printed["outcomes"] != {"completed": n_req} or got_t != want_t or (
+            on_card and launches != want):
+        raise SystemExit(f"split9 pipelined serve: {serve_row}")
+    out["split9 pipelined serve"] = {k: v - warm.get(k, 0) for k, v in launches.items()}
+    rows["split9 pipelined"] = serve_row
+    del kept, plain9
+    lap("split9 pipelined")
+
+    # (6) observability: split12 with every obs flag, then a decode step
+    # with observability on and off in turns
+    with tempfile.TemporaryDirectory() as tmp:
+        obs.get_registry().clear()
+        obs.get_tracer().clear()
+        flags = ["--metrics-out", os.path.join(tmp, "m.prom"),
+                 "--trace-out", os.path.join(tmp, "t.json"), "--trace-report",
+                 "--profile", os.path.join(tmp, "prof")]
+        res, launches, lines = split_cli(p12, "split12 observed", flags)
+        with open(os.path.join(tmp, "m.prom")) as f:
+            kinds = _prom_parse(f.read())
+        with open(os.path.join(tmp, "t.json")) as f:
+            spans = {e["name"] for e in json.load(f)["traceEvents"]}
+        with open(os.path.join(tmp, "prof", "torch_trace.json")) as f:
+            ranges = {e.get("name") for e in json.load(f)["traceEvents"]}
+        prof_mb = os.path.getsize(os.path.join(tmp, "prof", "torch_trace.json")) / 2**20
+    obs.get_registry().clear()
+    obs.get_tracer().clear()
+    unobserved = runs["pipelined"][0]
+    obs_row = {"metric_families": kinds, "spans": sorted(spans),
+               "profile_ranges_found": sorted(EVAL_SPANS & ranges), "profile_mb": prof_mb,
+               "report": [line for line in lines if line.startswith("trace report")],
+               "total_nll_equal": res["total_nll"] == unobserved["total_nll"],
+               "launches_equal": launches == unobserved["launches"]}
+    log(json.dumps({"pipeline_obs_cli": obs_row}))
+    if (spans != EVAL_SPANS or not EVAL_SPANS <= ranges
+            or kinds.get("edgellm_wire_bytes_total") != "counter"
+            or not obs_row["total_nll_equal"] or not obs_row["launches_equal"]
+            or not obs_row["report"] or obs.enabled()):
+        raise SystemExit(f"split12 observed: {obs_row}")
+    out["split12 observed"] = launches
+
+    rt, placed = decode_rts["pipelined"]
+    ids = torch.from_numpy(prompt).to(device)
+    tok = ids[:, -1]
+    reads = {"off": [], "on": []}
+    step_toks, step_launches = {}, {}
+
+    def steps(observed: bool) -> float:
+        """PIPE_STEP_READS decode steps of one cache (the same position
+        rewritten), observed as the decode loop observes a step: the
+        sampled token through a LatencyObserver, metrics and tracing armed
+        -> ms a step."""
+        observer = obs.LatencyObserver() if observed else None
+        if observed:
+            obs.enable()
+        try:
+            sync()
+            t0 = time.monotonic()
+            with obs.span("generate_split.decode_loop", steps=PIPE_STEP_READS):
+                for _ in range(PIPE_STEP_READS):
+                    logits, _ = rt.decode_step(placed, cache, tok)
+                    nxt = torch.argmax(logits, dim=-1)
+                    if observer is not None:
+                        observer.token(nxt)
+            sync()
+            ms = (time.monotonic() - t0) * 1e3 / PIPE_STEP_READS
+        finally:
+            obs.disable()
+        step_toks.setdefault(observed, nxt.cpu().numpy())
+        return ms
+
+    with fused_hops("off"):
+        _, cache = rt.prefill_decode(placed, ids, PIPE_DECODE["prompt"] + 4)
+        for observed in (False, True):
+            reset_counts()
+            steps(observed)  # warm, and the launches of one reading
+            sync()
+            step_launches[observed] = read_counts()
+        for name in ("off", "on", "on", "off"):
+            reads[name].append(steps(name == "on"))
+        # the unpipelined step beside it, one reading
+        prt, pplaced = decode_rts["plain"]
+        _, pcache = prt.prefill_decode(pplaced, ids, PIPE_DECODE["prompt"] + 4)
+        sync()
+        t0 = time.monotonic()
+        for _ in range(PIPE_STEP_READS):
+            prt.decode_step(pplaced, pcache, tok)
+        sync()
+        plain_ms = (time.monotonic() - t0) * 1e3 / PIPE_STEP_READS
+    obs.get_registry().clear()
+    obs.get_tracer().clear()
+    off_ms, on_ms = statistics.median(reads["off"]), statistics.median(reads["on"])
+    step_row = {"ms_per_step_off": reads["off"], "ms_per_step_on": reads["on"],
+                "overhead": on_ms / off_ms - 1, "budget": 0.03,
+                "unpipelined_ms_per_step": plain_ms,
+                "tokens_equal": bool(np.array_equal(step_toks[False], step_toks[True])),
+                "launches_equal": step_launches[False] == step_launches[True],
+                "launches_a_reading": step_launches[True]}
+    rows["decode step obs"] = step_row
+    log(json.dumps({"pipeline_obs_step": step_row}))
+    if not step_row["tokens_equal"] or not step_row["launches_equal"]:
+        raise SystemExit(f"observed decode step: {step_row}")
+    lap("observability")
+    rows["part_s"] = part_s
+    log(json.dumps({"pipeline_part_s": part_s}))
+    detail["pipeline"] = rows
+    del params, decode_rts
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3675,11 +4106,14 @@ def main() -> int:
                                        os.path.join(probe_dir, "probe_cache_phase17.json")))
     t9 = time.monotonic()
     by_path.update(survivable_paths(args, detail))
+    t10 = time.monotonic()
+    by_path.update(pipeline_paths(args, detail))
     detail["phase_s"] = {"kernels": t1 - t0, "token_sweep": t2 - t1, "split_paths": t3 - t2,
                          "serve_paths": t4 - t3, "cross_checks": t5 - t4,
                          "experiments": t6 - t5, "split_decode": t7 - t6,
                          "split_paged": t8 - t7, "boundary_link": t9 - t8,
-                         "survivable": time.monotonic() - t9, "total": time.monotonic() - t_start}
+                         "survivable": t10 - t9, "pipeline": time.monotonic() - t10,
+                         "total": time.monotonic() - t_start}
     log(json.dumps({"phase_s": detail["phase_s"]}))
 
     kernels = []

@@ -21,9 +21,9 @@ counterpart of ``edgellm_tpu/codecs/fec.py``).
   :class:`~.faults.TierController` over windowed corruption / repair /
   retry / hedge-win rates, which degrades the codec tier while the error
   budget burns and re-promotes once it recovers, with a full-window
-  re-measure and a clock dwell between switches. The port does not publish
-  into an observability registry (not ported yet); ``--fault-report``
-  reads :meth:`LinkHealth.summary`.
+  re-measure and a clock dwell between switches. Each observation
+  publishes :meth:`LinkHealth.summary` into the global obs registry when
+  it is enabled; ``--fault-report`` reads the summary too.
 """
 from __future__ import annotations
 
@@ -313,7 +313,17 @@ class LinkHealth:
                     self.switches += 1
                     self._last_switch = now
                     self._window.clear()
-            return self.tier
+            tier = self.tier
+        self._publish()
+        return tier
+
+    def _publish(self) -> None:
+        """Mirror the windowed SLO fields into the global obs registry; with
+        observability off, one attribute check an observation."""
+        from ..obs.metrics import get_registry, record_link_health
+
+        if get_registry().enabled:
+            record_link_health(self.summary())
 
     def _sum_locked(self, key: str) -> int:
         return sum(o[key] for o in self._window)

@@ -31,8 +31,20 @@ runtimes of every tier and carries the partial sums on; ``recovery``
 (``replan``, ``max_failovers``) tunes it, and the result's ``recovery``
 block accounts the byte totals per plan generation.
 
-Not ported yet (each raises naming its argument): the micro-batch
-``pipeline`` and the stage x seq runtime (``n_seq > 1``).
+``pipeline`` (a :class:`~..parallel.split.PipelineConfig` or kwargs dict)
+runs every group's forward through the µ-batch schedule: ``window_batch``
+must split into its µ-batches, a partial tail group is padded up to a
+multiple of M with repeated windows of zero loss weight, a batch-variant
+tier on the degradation ladder is refused, and the result carries the
+pipeline's summary.
+
+Observability, as the reference places it: ``eval.*`` spans around the
+group submits, drains, checkpoints, failovers and hop timings; the
+sweep's wire bytes, fused-hop decisions and link / recovery counters
+published into the global registry, and one ``split.hop`` span a cut.
+
+Not ported yet (raises naming its argument): the stage x seq runtime
+(``n_seq > 1``).
 """
 from __future__ import annotations
 
@@ -52,7 +64,11 @@ from ..models.configs import ModelConfig
 from ..models.paged_kv import (init_pool, init_quant_pool, kv_page_bytes, paged_decode_step,
                                paged_decode_step_quant, resolve_kv_codec)
 from ..models.transformer import nll_from_logits, params_to, run_layers_from_ids
-from ..parallel.split import NOT_PORTED_MSG, SplitConfig, SplitRuntime
+from ..obs.metrics import (get_registry, record_link_counters, record_link_health,
+                           record_probe_decisions, record_recovery_counters, record_wire_bytes)
+from ..obs.tracing import span as obs_span
+from ..obs.tracing import tracing_enabled
+from ..parallel.split import NOT_PORTED_MSG, PipelineConfig, SplitConfig, SplitRuntime
 from ..serve.recovery import (DecodeTimeout, RecoveryCounters, StageFailure, StageLostError,
                               Watchdog)
 from ..utils.clock import MONOTONIC
@@ -176,7 +192,8 @@ def run_split_eval(
     ``degraded_chunks``, ``fec`` / ``hedge`` / ``link_health`` as given,
     and, beyond the reference's keys, ``link_by_tier``: each tier's codecs
     and counters (None for a tier never built), which say how often each
-    tier's kernels ran.
+    tier's kernels ran, and under a pipeline ``microbatch_counters``: the
+    (M, n_hops) rows of every tier's runtime, summing to ``link_counters``.
 
     ``deadline_s`` (a :class:`~..serve.recovery.Watchdog` petted once a
     drained chunk; ``_clock`` its clock), ``stage_failure`` (a
@@ -186,9 +203,16 @@ def run_split_eval(
     same accumulation continues; the result then holds a ``recovery`` block
     (counters, plan generations, the re-planned cuts and codecs, the byte
     totals per post-failover generation) and the timed hops are the
-    surviving plan's."""
-    if pipeline is not None:
-        raise ValueError(f"run_split_eval pipeline {NOT_PORTED_MSG}")
+    surviving plan's.
+
+    ``pipeline`` (a :class:`~..parallel.split.PipelineConfig` or kwargs
+    dict) runs the µ-batch schedule, as the reference does: a partial tail
+    group is padded to a multiple of M (zero loss weight; the padding
+    crosses the wire and counts in the pushed-token and byte totals), and
+    the result gains ``pipeline``, the runtime's summary."""
+    if isinstance(pipeline, dict):
+        pipeline = PipelineConfig(**pipeline)
+    pipelined = pipeline is not None and pipeline.enabled
     if n_seq > 1:
         raise ValueError(f"n_seq > 1 (the stage x seq ring runtime) {NOT_PORTED_MSG}")
     faults, link_policy, fec, hedge, link_health, fault_on = _link_configs(
@@ -215,7 +239,7 @@ def run_split_eval(
     def _make_runtime(tier_codecs):
         return SplitRuntime(cfg, SplitConfig(cuts=split.cuts, hop_codecs=tuple(tier_codecs)),
                             devices[:split.n_stages], faults=faults, policy=link_policy,
-                            fec=fec, hedge=hedge)
+                            fec=fec, hedge=hedge, pipeline=pipeline)
 
     # tier 0 is the configured codec set; lower tiers swap EVERY hop to one
     # fallback codec (payload shapes change, hence separate runtimes; the
@@ -225,7 +249,12 @@ def run_split_eval(
     health = None
     if fault_on and policy.tiers:
         for name in policy.tiers:
-            get_wire_codec(name)  # fail fast on a bad ladder entry
+            c = get_wire_codec(name)  # fail fast on a bad ladder entry
+            if pipelined and not c.batch_invariant and not c.needs_importance:
+                raise ValueError(
+                    f"degradation-ladder tier '{name}' couples batch rows; "
+                    "its wire scales would change under the µ-batch split — "
+                    "use batch-invariant fallback tiers or drop pipeline")
             ladder.append([name] * len(codecs))
     if link_health is not None:
         health = LinkHealth(len(ladder), link_health, clock=_clock)
@@ -240,6 +269,11 @@ def run_split_eval(
     hw = (None if head_weights is None else
           torch.as_tensor(np.asarray(head_weights, np.float32), device=devices[0]))
     mesh = {"stage": split.n_stages, "data": 1, "model": 1}
+    if rt.pipelined:
+        # fail before the first chunk, not inside the first forward
+        rt.pipeline.validate_batch(window_batch, "window_batch")
+    # a partial tail group pads up to the µ-batch grid
+    group_pad = rt.pipeline.num_microbatches if rt.pipelined else 1
 
     # resume axes: the USER-LEVEL split spec (requested codec specs, not the
     # runtime's kernel-twin names), exactly the reference's
@@ -254,6 +288,11 @@ def run_split_eval(
         "window_batch": int(window_batch), "n_seq": int(n_seq),
         "mesh": mesh,
     }
+    if pipelined:
+        # the µ-batch count changes a chunk's wire traffic and counter
+        # shapes: a plan axis, written only when pipelining is on, so an
+        # unpipelined checkpoint keeps the reference's axes
+        axes["num_microbatches"] = int(pipeline.num_microbatches)
     if fault_on:
         # a checkpoint written under one fault regime must not resume under
         # another (JSON round-trips lists, so tuples are listified here)
@@ -279,9 +318,10 @@ def run_split_eval(
         hop_bytes_total = list(rd.state["hop_bytes_total"])
 
     def save_checkpoint():
-        rd.save({"total_nll": total_nll, "n_tokens": n_tokens,
-                 "fwd_tokens": fwd_tokens, "real_fwd_tokens": real_fwd_tokens,
-                 "hop_bytes_total": hop_bytes_total})
+        with obs_span("eval.checkpoint_write"):
+            rd.save({"total_nll": total_nll, "n_tokens": n_tokens,
+                     "fwd_tokens": fwd_tokens, "real_fwd_tokens": real_fwd_tokens,
+                     "hop_bytes_total": hop_bytes_total})
 
     bytes_cache: dict = {}
     degraded_chunks = 0  # chunks that ran below tier 0
@@ -295,10 +335,14 @@ def run_split_eval(
     def _eval_failover(lost: int, err: StageLostError):
         """Re-plan onto the survivors and swap every tier's runtime; the
         partial sums carry over (the PPL does not depend on the cut)."""
-        nonlocal split, placed, gen, ladder, devices
         if not rec_replan or rcounters.failovers >= rec_max_failovers:
             raise err  # the lost stage stays fatal
         rcounters.failovers += 1
+        with obs_span("eval.failover", lost_stage=lost):
+            _replan(lost)
+
+    def _replan(lost: int):
+        nonlocal split, placed, gen, ladder, devices
         devices = devices[:lost] + devices[lost + 1:]
         split = split.replan(cfg.num_layers, len(devices))
         rcounters.replans += 1
@@ -317,6 +361,11 @@ def run_split_eval(
         n_real = len(group)
         s_unpadded = group[0].input_ids.shape[1]
         counts = [c.num_loss_tokens for c in group]
+        # pad a partial group up to the µ-batch grid with repeated windows;
+        # their loss weight is zero
+        while len(group) % group_pad:
+            group = group + [group[-1]]
+            counts = counts + [0]
         ids = torch.from_numpy(np.concatenate([c.input_ids for c in group]).astype(np.int64))
         targets = torch.from_numpy(np.concatenate([c.target_ids for c in group]))
         ids = ids.to(devices[0])
@@ -344,7 +393,8 @@ def run_split_eval(
 
         with torch.inference_mode():
             try:
-                art, logits = _forward()
+                with obs_span("eval.submit_group", chunk=group[0].index, tier=tier):
+                    art, logits = _forward()
             except StageLostError as e:
                 _eval_failover(e.stage, e)
                 art, logits = _forward()  # the same chunk on the re-planned split
@@ -354,6 +404,10 @@ def run_split_eval(
                 chunk_counters, art, gen)
 
     def drain_group(rec):
+        with obs_span("eval.drain_group", chunk=rec[0][-1].index):
+            _drain_impl(rec)
+
+    def _drain_impl(rec):
         nonlocal total_nll, n_tokens, fwd_tokens, real_fwd_tokens, degraded_chunks
         (group, n_real, s_unpadded, counts, (w, s_chunk), nlls, tier, chunk_counters,
          art, g) = rec
@@ -454,6 +508,13 @@ def run_split_eval(
             result["hedge"] = dataclasses.asdict(hedge)
         if health is not None:
             result["link_health"] = health.summary()
+        if pipelined:
+            # beyond the reference's keys: the per-µ-batch rows of every
+            # tier's pipelined forwards, {name: (M, n_hops)}, summing to
+            # link_counters
+            mb = [r.microbatch_counters() for r in runtimes.values()]
+            result["microbatch_counters"] = {
+                k: sum(np.asarray(c[k]) for c in mb).tolist() for k in mb[0]}
         result["link_by_tier"] = [
             None if t not in runtimes else
             {"hop_codecs": [c.name for c in runtimes[t].codecs],
@@ -472,17 +533,39 @@ def run_split_eval(
                                                      for g, b in gen_bytes.items() if g > 0}
             rec_block["failover_mesh"] = {**mesh, "stage": split.n_stages}
         result["recovery"] = rec_block
+    if rt.pipelined:
+        result["pipeline"] = rt.pipeline_summary()
     if time_hops and rd.chunks:
         # after a failover, the boundary that finished the run
         timed_rt = runtimes[0] if rcounters.failovers else rt
         timed_cuts = list(timed_rt.split.cuts)
-        result["per_hop_ms"] = timed_rt.time_hops(1, seq)
-        result["per_decode_hop_ms"] = timed_rt.time_decode_hops(1)
+        with obs_span("eval.time_hops", seq=seq):
+            result["per_hop_ms"] = timed_rt.time_hops(1, seq)
+        with obs_span("eval.time_decode_hops"):
+            result["per_decode_hop_ms"] = timed_rt.time_decode_hops(1)
         result["per_hop_timing"] = [
             {"hop": s, "cut_layer": int(timed_cuts[s]), "codec": timed_rt.codecs[s].name,
              "forward_ms": result["per_hop_ms"][s],
              "decode_ms": result["per_decode_hop_ms"][s]}
             for s in range(len(timed_cuts))]
+    # this sweep's totals into the global registry (no-ops with
+    # observability off): wire bytes, the fused-hop decisions, the link and
+    # recovery counters, and one attribution span a cut
+    record_wire_bytes(hop_bytes_total, kind="eval_forward")
+    final_rt = runtimes[0] if recovery_on and rcounters.failovers else rt
+    if get_registry().enabled:
+        record_probe_decisions(final_rt.wire_summary(1, seq))
+    if fault_on:
+        record_link_counters(result["link_counters"])
+        if health is not None:
+            record_link_health(result["link_health"])
+    if recovery_on:
+        record_recovery_counters(rcounters)
+    if tracing_enabled():
+        from ..serve.decode import _emit_hop_spans
+
+        _emit_hop_spans(final_rt, result.get("link_counters"), list(hop_bytes_total),
+                        link_tier=getattr(health, "tier", None), chunks=int(rd.chunks))
     final_rec = {"final": True, "chunks": rd.chunks, "n_tokens": n_tokens,
                  "ppl": result["ppl"], "wall_s": wall,
                  "hop_bytes_total": hop_bytes_total,

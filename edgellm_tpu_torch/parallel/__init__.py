@@ -1,7 +1,9 @@
 """Pipeline-split runtime: the model cut across stage devices, packed payloads
-at every cut."""
-from .split import (SplitConfig, SplitRuntime, apply_default_codec_backend,
-                    hop_payload_bytes, measure_hop_times, run_pipeline_stages)
+at every cut, and the µ-batch pipeline over the stages."""
+from .split import (PipelineConfig, SplitConfig, SplitRuntime, apply_default_codec_backend,
+                    hop_payload_bytes, measure_hop_times, run_pipeline_stages,
+                    run_pipeline_stages_microbatched)
 
-__all__ = ["SplitConfig", "SplitRuntime", "apply_default_codec_backend",
-           "hop_payload_bytes", "measure_hop_times", "run_pipeline_stages"]
+__all__ = ["PipelineConfig", "SplitConfig", "SplitRuntime", "apply_default_codec_backend",
+           "hop_payload_bytes", "measure_hop_times", "run_pipeline_stages",
+           "run_pipeline_stages_microbatched"]

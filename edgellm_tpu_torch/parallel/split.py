@@ -61,9 +61,21 @@ re-planned runtime (``SplitConfig.replan``). ``cache_state`` /
 reference's padded (n_stages, stage_size, B, capacity, KV, hd) layout, the
 form a :class:`~..serve.recovery.DecodeCheckpoint` stores.
 
-Not ported yet: the micro-batch pipeline and the "data" / "model" mesh axes
-(each raises naming its argument) and the micro-batched decode accounting
-(``pipelined_decode_hop_bytes``).
+The µ-batch pipeline (``pipeline=PipelineConfig(num_microbatches=M)``):
+``forward``, ``decode_step`` and ``decode_step_paged`` split the batch
+into M contiguous row groups and run the reference's fill / steady / drain
+schedule (:func:`run_pipeline_stages_microbatched`): at unroll step t
+stage s runs µ-batch t - s, then the in-flight hops cross in reversed cut
+order. The stages share one card and run in turn, so the fill and drain
+steps, which the reference computes and masks, are never run; each
+µ-batch flows through the sequential path's math, and the logits equal the
+sequential run's. Under a link µ-batch m draws ``fold_in(key, m)`` and
+bumps its own counter row (:meth:`SplitRuntime.microbatch_counters`).
+``prefill_decode`` and ``verify_step`` stay sequential, as in the
+reference.
+
+Not ported yet: the "data" / "model" mesh axes (each raises naming its
+argument).
 """
 from __future__ import annotations
 
@@ -135,20 +147,137 @@ def run_pipeline_stages(n_stages: int, codecs: list, run_stage, hidden,
     for s in range(n_stages):
         hidden = run_stage(s, hidden)
         if s < n_stages - 1:
-            if link is not None:
-                imp = hop_imps[s] if codecs[s].needs_importance else None
-                hidden = link.hop(codecs[s], hidden, s, devices[s + 1], fault_key, counters,
-                                  hop_imp=imp)
-                continue
-            if fused_plans is not None and fused_plans[s] is not None:
-                hidden = fused_hop(fused_plans[s], codecs[s], hidden, devices[s + 1])
-                continue
             imp = hop_imps[s] if codecs[s].needs_importance else None
-            decoded = _hop(codecs[s], hidden, imp, devices[s + 1])
-            hidden = decoded.to(torch.promote_types(decoded.dtype, hidden.dtype))
+            hidden = _cross(s, codecs[s], hidden, imp, devices[s + 1], fused_plans, link,
+                            fault_key, counters)
     if link is None:
         return hidden
     return hidden, counters
+
+
+def _cross(s: int, codec: WireCodec, hidden, imp, dst, fused_plans, link, key, counters):
+    """Cut ``s`` crossed once: through the faulty link (keyed by ``key``,
+    bumping ``counters`` in place), the cut's fused plan, or the separate
+    hop, whose float32 decode the hidden's dtype promotes as the
+    reference's select does."""
+    if link is not None:
+        return link.hop(codec, hidden, s, dst, key, counters, hop_imp=imp)
+    if fused_plans is not None and fused_plans[s] is not None:
+        return fused_hop(fused_plans[s], codec, hidden, dst)
+    decoded = _hop(codec, hidden, imp, dst)
+    return decoded.to(torch.promote_types(decoded.dtype, hidden.dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Micro-batch pipelining of the stage unroll.
+
+    ``num_microbatches`` (M): the batch is split into M contiguous row
+    groups and the stages run a GPipe-style fill / steady / drain schedule
+    of M + n_stages - 1 unroll steps, so in steady state every stage has a
+    different µ-batch while the quantized boundary activations of the
+    others are on the wire. M == 1 is the disabled configuration: the
+    runtime runs the sequential unroll.
+
+    The schedule keeps token identity with the sequential path at any M:
+    each µ-batch flows through the same per-stage math and the same per-cut
+    codec. That holds only when codecs treat batch rows independently
+    (``WireCodec.batch_invariant``), which :class:`SplitRuntime` checks at
+    construction.
+    """
+
+    num_microbatches: int = 1
+
+    def __post_init__(self):
+        if self.num_microbatches < 1:
+            raise ValueError(
+                f"num_microbatches must be >= 1, got {self.num_microbatches}")
+
+    @property
+    def enabled(self) -> bool:
+        return self.num_microbatches > 1
+
+    def validate_batch(self, batch: int, what: str = "batch") -> int:
+        """Check ``batch`` splits evenly into µ-batches; return rows per
+        µ-batch."""
+        m = self.num_microbatches
+        if batch < m or batch % m:
+            raise ValueError(
+                f"{what} {batch} must be a positive multiple of "
+                f"num_microbatches={m} (each µ-batch needs >= 1 row)")
+        return batch // m
+
+    def summary(self, n_stages: int) -> dict:
+        """Host-side schedule accounting: unroll length, per-stage
+        occupancy (every stage is busy M of the M + n - 1 steps) and the
+        analytic bubble fraction (n - 1) / (M + n - 1)."""
+        m, n = self.num_microbatches, n_stages
+        t = m + n - 1
+        return {
+            "enabled": self.enabled,
+            "num_microbatches": m,
+            "n_stages": n,
+            "unroll_steps": t,
+            "stage_occupancy": [m / t] * n,
+            "bubble_fraction_schedule": (n - 1) / t,
+            "bubble_fraction_sequential": (n - 1) / n,
+        }
+
+
+def _microbatch_imp(codec, hop_imps, s: int, mb: int, mb_rows: int):
+    """The importance one (cut, µ-batch) hop ships: per-row (B, S)
+    importance sliced to the µ-batch's rows, shared (S,) importance whole."""
+    if not codec.needs_importance:
+        return None
+    imp = hop_imps[s]
+    return imp[mb * mb_rows:(mb + 1) * mb_rows] if imp.dim() == 2 else imp
+
+
+def run_pipeline_stages_microbatched(n_stages: int, codecs: list, num_microbatches: int,
+                                     run_stage, hidden, hop_imps=None,
+                                     devices: Optional[Sequence] = None,
+                                     fused_plans: Optional[Sequence] = None, link=None,
+                                     fault_key=None):
+    """The µ-batch twin of :func:`run_pipeline_stages` (the reference's
+    ``run_pipeline_stages_microbatched`` and its carry form in one: a stage
+    body that keeps state, the decode caches, writes it in place).
+
+    The batch splits into M contiguous row views. For t in range(M + n - 1)
+    stage s runs ``run_stage(s, h, mb)`` on µ-batch mb = t - s wherever
+    0 <= mb < M (the fill and drain triangles are not run), then the hops
+    of the µ-batches in flight cross in reversed cut order, each as the
+    sequential path crosses it (fused plans too). Under ``link`` µ-batch mb
+    draws ``fold_in(fault_key, mb)`` and bumps its own counter row; the
+    return value is then ``(out, {key: (M, n_hops)})``. The M outputs are
+    concatenated back to the caller's (B, ...) batch."""
+    devices = devices if devices is not None else [hidden.device] * n_stages
+    m, n_hops = int(num_microbatches), n_stages - 1
+    mb_rows = hidden.shape[0] // m
+    micro = [hidden[b * mb_rows:(b + 1) * mb_rows] for b in range(m)]
+    counters = [link.init_counters(n_hops) for _ in range(m)] if link is not None else None
+    at = [None] * n_stages  # the µ-batch activation held at each stage
+    outs = []
+    for t in range(m + n_stages - 1):
+        if t < m:
+            at[0] = micro[t]
+        for s in range(n_stages):
+            if 0 <= t - s < m:
+                at[s] = run_stage(s, at[s], t - s)
+        if 0 <= t - n_hops < m:
+            outs.append(at[n_hops])
+        for s in reversed(range(n_hops)):
+            mb = t - s
+            if not 0 <= mb < m:
+                continue
+            at[s + 1] = _cross(s, codecs[s], at[s],
+                               _microbatch_imp(codecs[s], hop_imps, s, mb, mb_rows),
+                               devices[s + 1], fused_plans, link,
+                               None if link is None else fold(fault_key, mb),
+                               None if link is None else counters[mb])
+    out = torch.cat(outs)
+    if link is None:
+        return out
+    return out, {k: np.stack([c[k] for c in counters]) for k in counters[0]}
 
 
 def hop_payload_bytes(codecs, cfg: ModelConfig, batch: int, seq: int) -> list:
@@ -269,8 +398,6 @@ class SplitRuntime:
                  devices: Optional[Sequence] = None, *,
                  faults=None, policy=None, fec=None, hedge=None, pipeline=None,
                  n_data: int = 1, n_model: int = 1):
-        if pipeline is not None:
-            raise ValueError(f"SplitRuntime pipeline {NOT_PORTED_MSG}")
         for name, value in (("n_data", n_data), ("n_model", n_model)):
             if value != 1:
                 raise ValueError(f"SplitRuntime {name} > 1 (the {name[2:]!r} mesh axis) "
@@ -281,10 +408,12 @@ class SplitRuntime:
         self.policy = policy if policy is not None else LinkPolicy()
         self.fec = fec
         self.hedge = hedge
+        self.pipeline = pipeline
         # an all-zero-rate config builds no link: the hop is the fault-free one
         self._link = (FaultyLink(faults, self.policy, fec=fec, hedge=hedge)
                       if faults is not None and faults.enabled else None)
         self._counter_accum: list = []
+        self._mb_counter_accum: list = []  # pipelined: {key: (M, n_hops)}
         self._lost_stage: Optional[int] = None
         n_stages = split.n_stages
         devices = ["cuda"] * n_stages if devices is None else list(devices)
@@ -304,6 +433,24 @@ class SplitRuntime:
         #: the deepest stage's layer count: the depth every stage of a
         #: paged payload is padded to, as the reference pads its stages
         self.stage_size = max(stop - start for start, stop in self.bounds)
+        if pipeline is not None and pipeline.enabled:
+            if n_stages < 2:
+                raise ValueError(
+                    "micro-batch pipelining needs a cut to hide hops behind; "
+                    f"got n_stages={n_stages} with num_microbatches="
+                    f"{pipeline.num_microbatches}")
+            # a batch-wide codec scale changes when the batch splits into
+            # µ-batches (token-selective codecs ship per-row importance at
+            # any batch > 1, so their payloads are row-local)
+            bad = [c.name for c in self.codecs
+                   if not c.batch_invariant and not c.needs_importance]
+            if bad:
+                raise ValueError(
+                    f"codecs {bad} compute scales over the batch axis; their "
+                    f"payloads change when the batch splits into "
+                    f"{pipeline.num_microbatches} µ-batches, breaking the "
+                    f"token-identity guarantee — use per-token codecs or "
+                    f"num_microbatches=1")
 
     # ---------- stage liveness ----------
 
@@ -389,29 +536,65 @@ class SplitRuntime:
         per-hop counters accumulate on the runtime (:meth:`link_counters`)."""
         self._check_alive()
         batch, seq = input_ids.shape
+        if self.pipelined:
+            self.pipeline.validate_batch(batch, "forward batch")
         imps = self._stacked_importance(hop_importance, batch, seq)
         hidden = embed(placed["first"], input_ids.to(self.devices[0]))
 
-        def run_stage(s, h):
+        def run_stage(s, h, mb=None):
             stage = placed["stages"][s]
             n_layers = self.bounds[s][1] - self.bounds[s][0]
             return run_layers(self.cfg, {"layers": stage}, h, start=0, stop=n_layers)[0]
 
-        out = self._run_stages(run_stage, hidden, imps, lambda seed: fault_key(seed, fault_step))
+        out = self._run_stages(run_stage, hidden, imps, lambda seed: fault_key(seed, fault_step),
+                               microbatched=True)
         return unembed(self.cfg, placed["last"], out)
 
-    def _run_stages(self, run_stage, hidden, imps, key_fn):
-        """:func:`run_pipeline_stages` over this runtime's hops: through the
-        link keyed by ``key_fn(seed)`` when one is active (this call's
-        counters accumulate on the runtime), else the plain or fused hops."""
-        if self._link is None:
-            return run_pipeline_stages(self.split.n_stages, self.codecs, run_stage, hidden,
-                                       imps, self.devices, self.fused_plans)
-        out, counters = run_pipeline_stages(
-            self.split.n_stages, self.codecs, run_stage, hidden, imps, self.devices,
-            link=self._link, fault_key=key_fn(self._link.faults.seed))
-        self._counter_accum.append(counters)
+    def _run_stages(self, run_stage, hidden, imps, key_fn, microbatched: bool = False):
+        """The stage unroll over this runtime's hops: the µ-batch schedule
+        (:func:`run_pipeline_stages_microbatched`, ``run_stage(s, h, mb)``)
+        when ``microbatched`` and the runtime is pipelined, else
+        :func:`run_pipeline_stages`; through the link keyed by
+        ``key_fn(seed)`` when one is active (this call's counters accumulate
+        on the runtime), else the plain or fused hops."""
+        n, link = self.split.n_stages, self._link
+        key = key_fn(link.faults.seed) if link is not None else None
+        if microbatched and self.pipelined:
+            got = run_pipeline_stages_microbatched(
+                n, self.codecs, self.pipeline.num_microbatches, run_stage, hidden, imps,
+                self.devices, self.fused_plans, link, key)
+        else:
+            got = run_pipeline_stages(n, self.codecs, run_stage, hidden, imps, self.devices,
+                                      self.fused_plans, link, key)
+        if link is None:
+            return got
+        out, counters = got
+        self._accum_counters(counters)
         return out
+
+    @property
+    def pipelined(self) -> bool:
+        """True when the µ-batch schedule is armed (num_microbatches > 1);
+        False, ``PipelineConfig(num_microbatches=1)`` included, runs the
+        sequential unroll."""
+        return self.pipeline is not None and self.pipeline.enabled
+
+    def pipeline_summary(self) -> dict:
+        """Schedule accounting for the obs gauges and the result dicts:
+        µ-batch count, unroll length, per-stage occupancy, the analytic
+        bubble fraction (the reference's; the stages of one card run in
+        turn on one stream). Meaningful when pipelining is off too."""
+        pipe = self.pipeline if self.pipeline is not None else PipelineConfig()
+        return pipe.summary(self.split.n_stages)
+
+    def _accum_counters(self, counters: dict) -> None:
+        """Park one call's counters. A pipelined call's {key: (M, n_hops)}
+        rows accumulate apart (:meth:`microbatch_counters`) and their hop
+        totals join the (n_hops,) stream :meth:`link_counters` reports."""
+        if np.asarray(next(iter(counters.values()))).ndim == 2:
+            self._mb_counter_accum.append(counters)
+            counters = {k: v.sum(axis=0) for k, v in counters.items()}
+        self._counter_accum.append(counters)
 
     @staticmethod
     def _step_key(level: int):
@@ -438,6 +621,78 @@ class SplitRuntime:
         if reset:
             self._counter_accum = []
         return tot
+
+    def microbatch_counters(self, reset: bool = False) -> Optional[dict]:
+        """Per-µ-batch fault counters of the pipelined calls: {name: (M,
+        n_hops) int64}, row m the faults µ-batch m's payloads drew on each
+        cut. None when faults are off or pipelining is disabled. Sequential
+        calls on the same runtime (prefill, verify) appear only in
+        :meth:`link_counters`."""
+        if self._link is None or not self.pipelined:
+            return None
+        tot = sum_counters(self._mb_counter_accum)
+        if tot is None:
+            m, n_hops = self.pipeline.num_microbatches, len(self.codecs)
+            tot = {k: np.zeros((m, n_hops), np.int64)
+                   for k in self._link.init_counters(n_hops)}
+        if reset:
+            self._mb_counter_accum = []
+        return tot
+
+    def wire_summary(self, batch: int, seq: int) -> list:
+        """Per-hop wire accounting in one shot, the rows the obs registry
+        reads: codec name, whole-window forward bytes, single-step decode
+        bytes, steady-state bytes per token and the fused-plan decision."""
+        fwd = self.hop_bytes(batch, seq)
+        dec = self.decode_hop_bytes(batch)
+        per_tok = self.bytes_per_token(seq)
+        return [{"hop": i, "codec": self.codecs[i].name,
+                 "forward_bytes": int(fwd[i]),
+                 "decode_step_bytes": int(dec[i]) if i < len(dec) else 0,
+                 "bytes_per_token": float(per_tok[i]),
+                 "fused": (None if self.fused_plans[i] is None else
+                           {"mode": self.fused_plans[i].mode,
+                            "reason": self.fused_plans[i].reason})}
+                for i in range(len(self.codecs))]
+
+    def hop_attribution(self, delta: Optional[dict], per_hop_bytes: Optional[list] = None, *,
+                        link_tier: Optional[int] = None) -> list:
+        """Per-cut attribution rows for the tracing plane: {hop, cut layer,
+        codec, wire bytes, ladder outcome} a boundary hop. ``delta`` is one
+        call's :meth:`link_counters` delta (None without a link),
+        ``per_hop_bytes`` the call's per-hop wire bytes, ``link_tier`` the
+        LinkHealth tier if the caller tracks one. The outcome is the worst
+        rung the hop reached: substituted > hedged > retried > repaired >
+        degraded (tier > 0) > clean. Host arithmetic on host counters."""
+        def counted(key: str, i: int) -> int:
+            if not delta or key not in delta:
+                return 0
+            v = delta[key]
+            try:
+                return int(v[i])
+            except (TypeError, IndexError):
+                return int(v)
+
+        rows = []
+        for i, codec in enumerate(self.codecs):
+            if counted("substituted", i):
+                outcome = "substituted"
+            elif counted("hedge_wins", i):
+                outcome = "hedged"
+            elif counted("retried", i):
+                outcome = "retried"
+            elif counted("repaired", i):
+                outcome = "repaired"
+            elif link_tier:
+                outcome = "degraded"
+            else:
+                outcome = "clean"
+            wire = 0.0
+            if per_hop_bytes is not None and i < len(per_hop_bytes):
+                wire = float(per_hop_bytes[i])
+            rows.append({"hop": i, "cut": int(self.split.cuts[i]), "codec": codec.name,
+                         "wire_bytes": wire, "outcome": outcome})
+        return rows
 
     # ---------- wire accounting and timing ----------
 
@@ -473,28 +728,35 @@ class SplitRuntime:
                 f"token-selective hop codecs {bad} have no importance source "
                 f"for a single decode position; use per-token/channel codecs")
 
-    def _run_cached(self, placed: dict, cache: dict, token_ids: torch.Tensor, block_fn):
+    def _run_cached(self, placed: dict, cache: dict, token_ids: torch.Tensor, block_fn,
+                    microbatched: bool = False):
         """Embed the (B, K) ids at positions ``length ..``, run every stage's
         layers through ``block_fn`` (:func:`block_decode` or
         :func:`block_verify`: each writes its rows into the stage's cache in
         place), crossing each cut as the forward does -> the last stage's
-        (B, K, D) hidden."""
+        (B, K, D) hidden. ``microbatched``: the µ-batch schedule on a
+        pipelined runtime, each µ-batch over its own cache rows."""
         pos, kq, capacity = int(cache["length"]), token_ids.shape[1], cache["capacity"]
         if pos + kq > capacity:
             raise ValueError(f"cache capacity overflow: {pos} filled + {kq} new > "
                              f"capacity {capacity}")
         hidden = embed(placed["first"], token_ids.to(self.devices[0]))
+        rope = {d: precompute_rope(self.cfg, capacity, device=d) for d in set(self.devices)}
+        rows = token_ids.shape[0] // (self.pipeline.num_microbatches
+                                      if microbatched and self.pipelined else 1)
 
-        def run_stage(s, h):
-            cos, sin = precompute_rope(self.cfg, capacity, device=h.device)
+        def run_stage(s, h, mb=None):
+            cos, sin = rope[self.devices[s]]
             kc, vc = cache["k"][s], cache["v"][s]
+            if mb is not None:  # this µ-batch's cache rows, written in place
+                kc, vc = kc[:, mb * rows:(mb + 1) * rows], vc[:, mb * rows:(mb + 1) * rows]
             for i in range(kc.shape[0]):
                 lp = {name: t[i] for name, t in placed["stages"][s].items()}
                 h = block_fn(self.cfg, lp, h, cos[pos:pos + kq], sin[pos:pos + kq],
                              kc[i], vc[i], pos)
             return h
 
-        return self._run_stages(run_stage, hidden, None, self._step_key(pos))
+        return self._run_stages(run_stage, hidden, None, self._step_key(pos), microbatched)
 
     def prefill_decode(self, placed: dict, input_ids: torch.Tensor, capacity: int,
                        fault_step: int = 0) -> tuple:
@@ -594,13 +856,26 @@ class SplitRuntime:
         (B, V) float32, the cache with ``length + 1``; its rows written in
         place). Each cut moves the (B, 1, D) hidden through its hop."""
         self._check_decode_supported()
-        out = self._run_cached(placed, cache, token_ids.reshape(-1, 1), block_decode)
+        if self.pipelined:
+            self.pipeline.validate_batch(int(cache["k"][0].shape[1]), "decode batch")
+        out = self._run_cached(placed, cache, token_ids.reshape(-1, 1), block_decode,
+                               microbatched=True)
         logits = unembed(self.cfg, placed["last"], out)[:, -1]
         return logits, {**cache, "length": int(cache["length"]) + 1}
 
     def decode_hop_bytes(self, batch: int) -> list:
         """Payload bytes per hop of one decode step's (batch, 1, D) hidden."""
         return hop_payload_bytes(self.codecs, self.cfg, batch, 1)
+
+    def pipelined_decode_hop_bytes(self, batch: int) -> list:
+        """:meth:`decode_hop_bytes` under the µ-batch schedule: each cut
+        moves M payloads of (batch / M, 1, D) a step (per-µ-batch scales
+        replicate M-fold). The sequential accounting when pipelining is off
+        or ``batch`` does not µ-batch."""
+        if not self.pipelined or batch % self.pipeline.num_microbatches or batch < 1:
+            return self.decode_hop_bytes(batch)
+        m = self.pipeline.num_microbatches
+        return [m * b for b in hop_payload_bytes(self.codecs, self.cfg, batch // m, 1)]
 
     # ---------- speculative verify ----------
 
@@ -803,18 +1078,30 @@ class SplitRuntime:
         (max_slots, V) float32, the pool, written in place)."""
         self._check_decode_supported()
         codec = self._pool_codec(pool)
+        if self.pipelined and codec != "fp":
+            raise ValueError("quantized paged decode composes with the unpipelined split "
+                             "runtime only (n_micro must be 1)")
         page_table = torch.as_tensor(page_table)
         lengths = torch.as_tensor(lengths)
+        rows = page_table.shape[0]
+        if self.pipelined:
+            rows = self.pipeline.validate_batch(rows, "paged decode slots")
         # the deepest slot's fill level keys the link (host lengths: no sync)
         deepest = int(lengths.max()) if self._link is not None else 0
         ids = torch.as_tensor(token_ids).reshape(-1, 1).to(self.devices[0], torch.long)
         hidden = embed(placed["first"], ids)  # (B, 1, D)
+        tables = {d: (page_table.to(d, torch.int32), lengths.to(d, torch.int32))
+                  for d in set(self.devices)}
 
-        def run_stage(s, h):
-            dev = self.devices[s]
+        def run_stage(s, h, mb=None):
+            # a µ-batch sees only its own slots' page-table rows and lengths
+            # (contiguous row views); the pool is shared by every slot
+            pt, ln = tables[self.devices[s]]
+            if mb is not None:
+                pt, ln = pt[mb * rows:(mb + 1) * rows], ln[mb * rows:(mb + 1) * rows]
             return run_layers_paged(self.cfg, placed["stages"][s], h, self._stage_pool(pool, s),
-                                    page_table.to(dev, torch.int32),
-                                    lengths.to(dev, torch.int32), codec)
+                                    pt, ln, codec)
 
-        out = self._run_stages(run_stage, hidden, None, self._step_key(deepest))
+        out = self._run_stages(run_stage, hidden, None, self._step_key(deepest),
+                               microbatched=True)
         return unembed(self.cfg, placed["last"], out)[:, -1], pool

@@ -41,11 +41,23 @@ route), and ``serving.checkpoint_dir`` / ``step_deadline_s`` (per request)
 and ``batching.checkpoint_dir`` (per evicted stream) arm the checkpoints.
 ``--serve-report`` prints the front's report after the JSON line.
 
+``pipeline`` (``{"num_microbatches": M}``) runs the split and serve
+runtimes' µ-batch schedule (split12), with the reference's checks.
+
+Observability: ``--metrics-out PATH`` (Prometheus text for ``.prom`` /
+``.txt``, JSON otherwise), ``--trace-out PATH`` (Chrome trace-event JSON),
+``--trace-report`` (per-request span trees after the run) and ``--profile
+DIR`` (a torch.profiler Chrome trace of the run, every span a
+``record_function`` range) arm the ``obs`` package; a params.json
+``observability`` block picks the pillars.
+
 A split config that carries a key of a split feature not ported yet
-(``UNPORTED_SPLIT_KEYS``: pipelining, the seq / data / model mesh axes)
-exits non-zero, and so does a serve config with a key of a serve feature
-not ported yet (``UNPORTED_SERVE_KEYS``: pipelining and the fleet), each
-naming it. ``fused_hops`` maps onto the ``EDGELLM_FUSED_HOP`` gate as in
+(``UNPORTED_SPLIT_KEYS``: the seq / data / model mesh axes) exits
+non-zero, and so does a serve config with a key of a serve feature not
+ported yet (``UNPORTED_SERVE_KEYS``: the fleet), each naming it, and so
+do the flight recorder and the live endpoint (``observability``'s
+``flight_recorder`` and ``obs_port``, ``--obs-port``). ``fused_hops`` maps
+onto the ``EDGELLM_FUSED_HOP`` gate as in
 the reference ("auto" fuses a hop only where this card's probe cache
 recorded a win, ``codecs/probe_cache.py``).
 
@@ -70,11 +82,11 @@ import torch
 #: experiments of the reference CLI that this package has not ported yet
 NOT_PORTED = ()
 #: split keys whose feature is not ported yet (the mesh axes only above 1)
-UNPORTED_SPLIT_KEYS = ("pipeline", "n_seq", "n_data", "n_model")
+UNPORTED_SPLIT_KEYS = ("n_seq", "n_data", "n_model")
 #: the faulty link's keys
 LINK_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health")
-#: serve keys whose feature is not ported yet (µ-batch pipelining, the fleet)
-UNPORTED_SERVE_KEYS = ("pipeline", "cluster", "disagg", "gray")
+#: serve keys whose feature is not ported yet (the fleet)
+UNPORTED_SERVE_KEYS = ("cluster", "disagg", "gray")
 #: the fused_hops key's values onto the EDGELLM_FUSED_HOP gate ("auto" clears it)
 FUSED_HOP_ENV = {"off": "0", "wire": "wire", "remote": "remote"}
 
@@ -196,8 +208,24 @@ def _validate_params_json(p: dict, device="cuda") -> None:
         die(f"experiment {exp!r} is not ported yet to edgellm_tpu_torch; "
             f"run it with python -m edgellm_tpu.run")
     if "observability" in p:
-        die("observability is not ported yet to edgellm_tpu_torch; drop the "
-            "block or run with python -m edgellm_tpu.run")
+        from .obs import ObservabilityConfig
+
+        ob = p["observability"]
+        if not isinstance(ob, dict):
+            die(f"observability must be an object of ObservabilityConfig "
+                f"fields, got {ob!r}")
+        fields = {f.name for f in dataclasses.fields(ObservabilityConfig)}
+        bad = sorted(set(ob) - fields)
+        if bad:
+            die(f"observability: unknown field(s) {bad}; "
+                f"known: {sorted(fields)}")
+        try:
+            obc = ObservabilityConfig(**ob)
+        except (TypeError, ValueError) as e:
+            die(f"observability: {e}")
+        for name in obc.unported():
+            die(f"observability.{name} is not ported yet to edgellm_tpu_torch; drop it "
+                f"or run with python -m edgellm_tpu.run")
     if "budget" in p:
         b = p["budget"]
         if not isinstance(b, dict):
@@ -271,7 +299,7 @@ def _validate_params_json(p: dict, device="cuda") -> None:
         _validate_serve(p, die, device)
         return
     for key, msg in _ONLY_FOR:
-        if key in p:
+        if key in p and not (key == "pipeline" and exp == "split"):
             die(msg)
 
 
@@ -286,6 +314,48 @@ def _validate_split(p: dict, die, device) -> None:
     _validate_cuts(p, die, device)
     _validate_link(p, die)
     _validate_recovery(p, die)
+    _validate_pipeline(p, die)
+
+
+def _validate_pipeline(p: dict, die) -> None:
+    """The reference's checks of the ``pipeline`` block under ``split`` and
+    ``serve``, with its messages."""
+    if "pipeline" not in p:
+        return
+    from .parallel.split import PipelineConfig
+
+    if "cuts" not in p:
+        die("pipeline schedules micro-batches across the split boundary "
+            "— add 'cuts'/'hop_codecs'")
+    pl = p["pipeline"]
+    if not isinstance(pl, dict):
+        die(f"pipeline must be an object of PipelineConfig fields, got {pl!r}")
+    fields = {f.name for f in dataclasses.fields(PipelineConfig)}
+    bad = sorted(set(pl) - fields)
+    if bad:
+        die(f"pipeline: unknown field(s) {bad}; known: {sorted(fields)}")
+    try:
+        pc = PipelineConfig(**pl)
+    except (TypeError, ValueError) as e:
+        die(f"pipeline: {e}")
+    if pc.enabled and p.get("n_seq", 1) > 1:
+        die("pipeline needs the plain split runtime (n_seq == 1); the "
+            "stage x seq runtime overlaps hops with its ring rotation")
+    if pc.enabled and "batching" in p:
+        ms = p["batching"].get("max_slots", 4)
+        if ms % pc.num_microbatches:
+            die(f"batching.max_slots {ms} must be a multiple of "
+                f"pipeline.num_microbatches {pc.num_microbatches}")
+    if pc.enabled and "speculative" in p:
+        if p["speculative"].get("enabled", True):
+            die("pipeline + speculative: the spec loop verifies one "
+                "stream at a time (B == 1), leaving nothing to "
+                "micro-batch — drop one of the two blocks")
+    if pc.enabled and p.get("kv_at_rest", {}).get("codec", "fp") != "fp":
+        # the µ-batch step has no quantized twin
+        die("kv_at_rest + pipeline: quantized paged decode composes "
+            "with the unpipelined split runtime only — drop 'pipeline' "
+            "or use codec 'fp'")
 
 
 def _validate_recovery(p: dict, die) -> None:
@@ -458,6 +528,7 @@ def _validate_serve(p: dict, die, device) -> None:
                                "— add a 'batching' block")):
             if key in p:
                 die(msg)
+        _validate_pipeline(p, die)
         _validate_speculative(p, die)
         return
     b = p["batching"]
@@ -520,6 +591,7 @@ def _validate_serve(p: dict, die, device) -> None:
                                    or isinstance(kq["pool_bytes"], bool)
                                    or kq["pool_bytes"] < 1):
             die(f"kv_at_rest.pool_bytes must be a positive integer, got {kq['pool_bytes']!r}")
+    _validate_pipeline(p, die)
     _validate_speculative(p, die)
 
 
@@ -589,7 +661,8 @@ def _split_runtime(cfg, params: dict, params_json: dict):
     """The :class:`SplitRuntime` of a serve config's ``cuts`` /
     ``hop_codecs``, every stage on the weights' device, after ``fused_hops``
     is applied to the gate, with the config's faulty link (``faults``,
-    ``link_policy``, ``fec``, ``hedge``) as the reference builds it."""
+    ``link_policy``, ``fec``, ``hedge``) and ``pipeline`` as the reference
+    builds it."""
     from .codecs.faults import FaultConfig, LinkPolicy
     from .codecs.fec import FECConfig, HedgeConfig
     from .parallel.split import SplitConfig, SplitRuntime
@@ -603,7 +676,17 @@ def _split_runtime(cfg, params: dict, params_json: dict):
         fec=FECConfig(**params_json["fec"]) if "fec" in params_json else None,
         hedge=HedgeConfig(**params_json["hedge"]) if "hedge" in params_json else None)
     return SplitRuntime(cfg, SplitConfig(cuts=cuts, hop_codecs=tuple(params_json["hop_codecs"])),
-                        [params["embed"].device] * (len(cuts) + 1), **link)
+                        [params["embed"].device] * (len(cuts) + 1),
+                        pipeline=pipeline_config(params_json), **link)
+
+
+def pipeline_config(params_json: dict):
+    """The :class:`PipelineConfig` of a ``"pipeline"`` block, or None."""
+    if "pipeline" not in params_json:
+        return None
+    from .parallel.split import PipelineConfig
+
+    return PipelineConfig(**params_json["pipeline"])
 
 
 def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
@@ -822,6 +905,66 @@ def _print_fault_report(result: dict) -> None:
               f"{result.get('degraded_chunks', 0)} degraded chunk(s))")
 
 
+def _print_trace_report(tracer) -> None:
+    """``--trace-report``'s tail, the reference's: one block a request id
+    with the span tree the host tracer recorded (wall time, TTFT from the
+    first span to the end of ``generate.prefill``, nested span durations,
+    every boundary hop's {cut, codec, wire bytes, ladder outcome}). Spans
+    without a request id (warm-up, eval sweeps) are counted, not listed."""
+    events = tracer.to_chrome_trace()["traceEvents"]
+    by_rid: dict = {}
+    unattributed = 0
+    for ev in events:
+        rid = (ev.get("args") or {}).get("rid")
+        if rid is None:
+            unattributed += 1
+        else:
+            by_rid.setdefault(str(rid), []).append(ev)
+    if not by_rid:
+        print(f"trace report: no request-attributed spans "
+              f"({unattributed} unattributed span(s); tracing off, or "
+              f"nothing was submitted)")
+        return
+
+    def _order(rid: str):
+        # "r12" sorts numerically, anything else lexically after
+        tail = rid.lstrip("r")
+        return (0, int(tail), rid) if tail.isdigit() else (1, 0, rid)
+
+    print(f"trace report: {len(by_rid)} request(s), "
+          f"{sum(len(v) for v in by_rid.values())} attributed span(s)"
+          + (f", {unattributed} unattributed" if unattributed else ""))
+    for rid in sorted(by_rid, key=_order):
+        evs = sorted(by_rid[rid], key=lambda e: (e["ts"], -e["dur"]))
+        t0 = min(e["ts"] for e in evs)
+        wall_ms = (max(e["ts"] + e["dur"] for e in evs) - t0) / 1e3
+        prefill = [e for e in evs if e["name"] == "generate.prefill"]
+        head = f"  {rid}: {wall_ms:.2f} ms wall"
+        if prefill:
+            head += (f", ttft "
+                     f"{(prefill[0]['ts'] + prefill[0]['dur'] - t0) / 1e3:.2f}"
+                     f" ms")
+        print(head)
+        open_until: list = []  # end timestamps of still-open ancestors
+        for e in evs:
+            while open_until and e["ts"] >= open_until[-1]:
+                open_until.pop()
+            pad = "    " + "  " * len(open_until)
+            a = dict(e.get("args") or {})
+            a.pop("rid", None)
+            if e["name"] == "split.hop":
+                line = (f"hop {a.pop('hop', '?')}: "
+                        f"cut={a.pop('cut', '?')} codec={a.pop('codec', '?')}"
+                        f" wire_bytes={a.pop('wire_bytes', '?')} "
+                        f"outcome={a.pop('outcome', '?')}")
+            else:
+                line = f"{e['name']} {e['dur'] / 1e3:.2f} ms"
+            if a:
+                line += " " + " ".join(f"{k}={a[k]}" for k in sorted(a))
+            print(pad + line)
+            open_until.append(e["ts"] + e["dur"])
+
+
 def run_distances(cfg, params: dict, corpus: np.ndarray, params_json: dict, args, out,
                   device) -> dict:
     """The layer-distance analysis, as the reference CLI runs it: one sample
@@ -910,7 +1053,27 @@ def main(argv=None) -> int:
                     help="split experiment: after the sweep, print the summed per-hop "
                          "link counters (detected / repaired / retried / hedge wins / "
                          "substituted), the tier trail and the link-health budget burn")
+    ap.add_argument("--metrics-out", metavar="PATH",
+                    help="enable the obs metrics registry and write its final snapshot to "
+                         "PATH after the experiment: Prometheus text for .prom / .txt, "
+                         "JSON otherwise")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="enable host-side span tracing and write the Chrome trace-event "
+                         "JSON to PATH (load at ui.perfetto.dev)")
+    ap.add_argument("--trace-report", action="store_true",
+                    help="after the experiment, print per-request span trees from the host "
+                         "tracer (wall time, TTFT, every boundary hop's {cut, codec, wire "
+                         "bytes, ladder outcome}); implies tracing")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="capture a torch.profiler trace of the experiment (CPU and CUDA "
+                         "activity, every span a record_function range) into "
+                         "DIR/torch_trace.json")
+    ap.add_argument("--obs-port", type=int, metavar="PORT",
+                    help="the live telemetry endpoint: not ported yet (exits naming it)")
     args = ap.parse_args(argv)
+    if args.obs_port is not None:
+        raise SystemExit("--obs-port (the live telemetry endpoint) is not ported yet to "
+                         "edgellm_tpu_torch; drop it or run with python -m edgellm_tpu.run")
 
     if args.params.lstrip().startswith("{"):
         params_json = json.loads(args.params)
@@ -931,6 +1094,49 @@ def main(argv=None) -> int:
     cfg, params = _load_model(args, device)
     os.makedirs(args.output_dir, exist_ok=True)
     out = lambda name: os.path.join(args.output_dir, name)
+    from . import obs
+
+    # --metrics-out / --trace-out / --trace-report arm the obs package; a
+    # params.json "observability" object picks the pillars (a flag forces
+    # its own pillar on); the previous state comes back after the run
+    armed = (obs.get_registry().enabled, obs.tracing.tracing_enabled())
+    obs_params = params_json.get("observability")
+    if args.metrics_out or args.trace_out or args.trace_report or obs_params is not None:
+        ob_cfg = obs.ObservabilityConfig(**(obs_params or {}))
+        ob_cfg = dataclasses.replace(
+            ob_cfg, metrics=ob_cfg.metrics or bool(args.metrics_out),
+            tracing=ob_cfg.tracing or bool(args.trace_out) or args.trace_report)
+        obs.enable(ob_cfg)
+    try:
+        with obs.trace_capture(args.profile):
+            return _dispatch(args, cfg, params, params_json, head_weights, out, device)
+    finally:
+        # written even when the experiment dies: a partial trace or
+        # snapshot is what a post-mortem needs
+        _export_observability(args, obs)
+        if args.trace_report:
+            _print_trace_report(obs.get_tracer())
+        obs.get_registry().enabled = armed[0]
+        obs.tracing.configure(enabled=armed[1])
+
+
+def _export_observability(args, obs) -> None:
+    """``--metrics-out`` and ``--trace-out``'s files, as the reference
+    writes them."""
+    if args.metrics_out:
+        reg = obs.get_registry()
+        text = (reg.to_prometheus() if args.metrics_out.endswith((".prom", ".txt"))
+                else reg.to_json(indent=1))
+        with open(args.metrics_out, "w") as f:
+            f.write(text)
+        print(f"metrics snapshot -> {args.metrics_out}", flush=True)
+    if args.trace_out:
+        obs.get_tracer().export(args.trace_out)
+        print(f"chrome trace -> {args.trace_out}", flush=True)
+
+
+def _dispatch(args, cfg, params: dict, params_json: dict, head_weights, out, device) -> int:
+    """Run the experiment the params name and print its result line."""
     if params_json.get("experiment") == "serve":
         run = run_serve if "batching" in params_json else run_serve_requests
         summary = run(cfg, params, params_json, out)
@@ -984,7 +1190,8 @@ def main(argv=None) -> int:
             deadline_s=(args.deadline_s if args.deadline_s is not None
                         else params_json.get("deadline")),
             stage_failure=params_json.get("stage_failure"),
-            recovery=params_json.get("recovery"), device=device)
+            recovery=params_json.get("recovery"),
+            pipeline=pipeline_config(params_json), device=device)
         with open(out("split_eval_results.json"), "w") as f:
             json.dump(result, f, indent=1)
         print(json.dumps(result))

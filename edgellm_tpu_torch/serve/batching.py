@@ -45,9 +45,16 @@ it, bit for bit, in any pool geometry whose span covers it; another tier is
 refused with :class:`~.recovery.CheckpointTierMismatchError`. With
 ``checkpoint_dir`` every eviction snapshots its stream there.
 
-Not ported yet: the split runtime's µ-batch pipeline, the
-disaggregated-prefill hooks (``prefill_hold``, ``gather_rows``,
-``release_handoff``) and observability spans.
+A pipelined split runtime (``SplitRuntime(pipeline=...)``) runs every
+ragged step through the µ-batch schedule: ``max_slots`` must split into
+its µ-batches and the pool must be fp (the reference has no quantized
+pipelined step); stream checkpoints record ``num_microbatches`` (and a
+running stream's ``microbatch``) and the report carries the pipeline's
+summary. The ``batch.submit`` / ``batch.admit`` / ``batch.step`` spans and
+the stream id bound around an eviction's checkpoint are the reference's.
+
+Not ported yet: the disaggregated-prefill hooks (``prefill_hold``,
+``gather_rows``, ``release_handoff``).
 """
 from __future__ import annotations
 
@@ -65,6 +72,8 @@ from ..models.configs import ModelConfig
 from ..models.paged_kv import (OutOfPages, OutOfSlots, PagedKVCache, PrefixCacheConfig,
                                paged_decode_step, paged_decode_step_quant, resolve_kv_codec)
 from ..models.transformer import KVCache
+from ..obs import context as obs_context
+from ..obs.tracing import span as obs_span
 from ..utils import prng
 from ..utils.concurrency import guarded_by
 from .decode import _prefill_impl, _prefill_suffix_impl, _sample, _fold
@@ -203,6 +212,19 @@ class ContinuousBatcher:
             if self.bcfg.compute_dtype is not None:
                 raise ValueError("compute_dtype is a local-pool knob; the split runtime "
                                  "owns its own dtypes — leave it None")
+            if getattr(split_runtime, "pipelined", False):
+                m = split_runtime.pipeline.num_microbatches
+                if self.bcfg.max_slots % m != 0:
+                    raise ValueError(
+                        f"max_slots={self.bcfg.max_slots} must be a multiple "
+                        f"of num_microbatches={m}: every ragged decode step "
+                        f"feeds the full slot set through the pipelined "
+                        f"schedule, which splits it into {m} equal µ-batches")
+                if self.bcfg.kv_codec != "fp":
+                    raise ValueError(
+                        f"kv_codec={self.bcfg.kv_codec!r} composes with the "
+                        f"unpipelined split runtime only; the pipelined "
+                        f"µ-batch schedule has no quantized paged step yet")
         self.placed = placed_params
         self.device = (split_runtime.devices[0] if split_runtime is not None
                        else params["embed"].device)
@@ -262,6 +284,9 @@ class ContinuousBatcher:
         self._waiting.append(sid)
         with self._stats_lock:
             self.stats["submitted"] += 1
+        with obs_span("batch.submit", sid=sid, prompt_len=int(prompt.size),
+                      max_new_tokens=int(max_new_tokens)):
+            pass
         return sid
 
     def pop_result(self, sid: int) -> np.ndarray:
@@ -311,6 +336,19 @@ class ContinuousBatcher:
         the t - 1 tokens already fed back."""
         return st.prompt.size + max(st.t - 1, 0)
 
+    def _num_microbatches(self) -> int:
+        """The µ-batch count of the split runtime's schedule (1 without a
+        pipeline or a split runtime)."""
+        pipe = getattr(self.rt, "pipeline", None) if self.rt is not None else None
+        return int(pipe.num_microbatches) if pipe is not None else 1
+
+    def _microbatch_of(self, slot: int) -> int:
+        """Which µ-batch a slot rides in under the pipelined split schedule
+        (0 when pipelining is off or the pool is local): the label admit
+        spans and stream checkpoints record."""
+        m = self._num_microbatches()
+        return int(slot // (self.bcfg.max_slots // m)) if m > 1 else 0
+
     def _try_admit(self, sid: int) -> bool:
         st = self._streams[sid]
         need_len = int(st.resume["length"]) if st.resume is not None else st.prompt.size
@@ -333,6 +371,7 @@ class ContinuousBatcher:
         except OutOfPages:
             self.pool.free_slot(slot)
             return False
+        resumed = st.resume is not None
         if tok0 is not None:
             st.tokens.append(int(tok0[0]))
         st.status, st.slot = "running", slot
@@ -342,6 +381,9 @@ class ContinuousBatcher:
         with self._stats_lock:
             self.stats["prefill_s"] += time.monotonic() - t0
             self.stats["admitted"] += 1
+        with obs_span("batch.admit", sid=sid, slot=slot,
+                      microbatch=self._microbatch_of(slot), resumed=resumed):
+            pass
         if st.t >= st.max_new_tokens:  # max_new_tokens == 1: prefill is all
             self._finish(st)
         return True
@@ -483,8 +525,10 @@ class ContinuousBatcher:
         with self._stats_lock:
             self.stats["evicted"] += 1
         if self.bcfg.checkpoint_dir is not None:
-            self.checkpoint_stream(sid, os.path.join(self.bcfg.checkpoint_dir,
-                                                     f"stream_{sid}.ckpt"))
+            # bound, so the checkpoint-save span carries the stream id
+            with obs_context.bind(sid=sid):
+                self.checkpoint_stream(sid, os.path.join(self.bcfg.checkpoint_dir,
+                                                         f"stream_{sid}.ckpt"))
 
     def _evict_for_pages(self, needed: int, protect: set) -> bool:
         """Evict youngest-admitted running streams (never ``protect``) until
@@ -580,6 +624,10 @@ class ContinuousBatcher:
         with self._stats_lock:
             self.stats["decode_s"] += step_s
             self.stats["steps"] += 1
+            step_no = int(self.stats["steps"]) - 1
+        with obs_span("batch.step", step=step_no, running=len(running),
+                      step_ms=round(step_s * 1e3, 3)):
+            pass
         for st in running:
             st.tokens.append(int(toks_host[st.slot]))
             self.pool.lengths[st.slot] = self._cache_len(st)
@@ -644,7 +692,12 @@ class ContinuousBatcher:
         if self.rt is not None:
             meta["cuts"] = [int(c) for c in self.rt.split.cuts]
             meta["hop_codecs"] = [c.name for c in self.rt.codecs]
-            meta["num_microbatches"] = 1
+            # the µ-batch count is a plan axis (checked on restore); a
+            # running stream also records the µ-batch its slot rides in
+            m = self._num_microbatches()
+            meta["num_microbatches"] = m
+            if st.status == "running" and m > 1:
+                meta["microbatch"] = self._microbatch_of(st.slot)
         return DecodeCheckpoint(arrays, meta).save(path)
 
     def _ckpt_mode(self) -> str:
@@ -672,7 +725,8 @@ class ContinuousBatcher:
                        f"the checkpoint's tier")
         if self.rt is not None:
             want = {"cuts": [int(c) for c in self.rt.split.cuts],
-                    "hop_codecs": [c.name for c in self.rt.codecs], "num_microbatches": 1}
+                    "hop_codecs": [c.name for c in self.rt.codecs],
+                    "num_microbatches": self._num_microbatches()}
             for k, v in want.items():
                 if meta.get(k, 1 if k == "num_microbatches" else None) != v:
                     raise CheckpointError(f"{path} {k}={meta.get(k)!r} does not match this "
@@ -695,14 +749,18 @@ class ContinuousBatcher:
         ``mode`` is the name the reference's stream checkpoints give the
         pool ("paged", or "paged_split" over a split runtime, which adds the
         plan's ``cuts`` and ``hop_codecs`` as those checkpoints record
-        them, and under a faulty link its per-hop ``link_counters``)."""
+        them, and under a faulty link its per-hop ``link_counters``); a
+        pipelined split runtime adds its ``pipeline`` summary."""
         with self._stats_lock:
             stats = dict(self.stats)
         n = stats["steps"]
         alloc_n = stats["alloc_n"]
         dec = stats["decode_s"]
         emitted = stats["emitted_tokens"]
+        pipeline = (self.rt.pipeline_summary()
+                    if getattr(self.rt, "pipelined", False) else None)
         return {
+            **({"pipeline": pipeline} if pipeline is not None else {}),
             "streams": stats["submitted"],
             "finished": stats["finished"],
             "steps": n,

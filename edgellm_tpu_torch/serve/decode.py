@@ -26,6 +26,18 @@ prefix there, and resumes from a checkpoint token for token
 (:func:`resume_split`). With ``recovery=None`` the loop is the plain one.
 There is no jit here: PyTorch runs eagerly, so nothing compiles per shape
 and there are no cache misses to count.
+
+On a pipelined runtime (``SplitRuntime(pipeline=...)``) every decode step
+runs the µ-batch schedule; ``stats["pipeline"]`` holds its summary, the
+wire bytes are the µ-batched ones (``pipelined_decode_hop_bytes``), and a
+failover rebuilds the runtime with the same pipeline.
+
+Observability, as the reference places it: ``generate*.prefill`` /
+``generate*.decode_loop`` and ``decode.*`` spans, one ``split.hop`` span a
+cut at call granularity (:func:`_emit_hop_spans`), the ``record_*``
+adapters into the global registry, and ``observe=``, a
+:class:`~..obs.latency.LatencyObserver` (one sync a sampled token). With
+observability off every hook is a flag test: no sync, no extra kernel.
 """
 from __future__ import annotations
 
@@ -36,6 +48,12 @@ import numpy as np
 import torch
 
 from ..models.configs import ModelConfig
+from ..obs.latency import LatencyObserver
+from ..obs.metrics import (get_registry, record_decode_stats, record_link_counters,
+                           record_link_health, record_pipeline_stats, record_probe_decisions,
+                           record_recovery_counters, record_wire_bytes)
+from ..obs.tracing import span as obs_span
+from ..obs.tracing import tracing_enabled
 from ..models.transformer import (KVCache, _cast_params, block_verify, decode_step, embed,
                                   params_to, precompute_rope, prefill, unembed)
 from ..utils import prng
@@ -96,6 +114,32 @@ def _step_impl(cfg: ModelConfig, params: dict, cache: KVCache, token_ids: torch.
     return _sample(logits, key, temperature), cache
 
 
+def _emit_hop_spans(rt: Any, delta: Optional[dict], per_hop_bytes: Optional[list], *,
+                    link_tier: Optional[int] = None, **extra: Any) -> None:
+    """One zero-duration ``split.hop`` span a boundary cut, at call
+    granularity: {hop, cut layer, codec, wire bytes, ladder outcome} plus
+    the caller's extras (µ-batch count, spec bursts) and, through the bound
+    trace context, the request labels. Gated on tracing, so disabled
+    tracing skips the attribution arithmetic too; a runtime without a
+    boundary (``LocalRuntime``) emits nothing."""
+    if not tracing_enabled() or not hasattr(rt, "hop_attribution"):
+        return
+    for row in rt.hop_attribution(delta, per_hop_bytes, link_tier=link_tier):
+        with obs_span("split.hop", **row, **extra):
+            pass
+
+
+def _microbatches(rt: Any) -> int:
+    """The µ-batch count a runtime's decode steps run (1 unpipelined)."""
+    return int(rt.pipeline.num_microbatches) if getattr(rt, "pipelined", False) else 1
+
+
+def _step_hop_bytes(rt: Any, b: int) -> list:
+    """The wire bytes one decode step of batch ``b`` moves a hop."""
+    return (rt.pipelined_decode_hop_bytes(b) if getattr(rt, "pipelined", False)
+            else rt.decode_hop_bytes(b))
+
+
 def _validate_decode_args(prompt_ids, max_new_tokens: int, capacity: Optional[int],
                           temperature: float, rng_key, device):
     """The reference's argument checks -> (prompt (B, S) int64 on ``device``,
@@ -130,7 +174,8 @@ def generate(cfg: ModelConfig, params: dict, prompt_ids, max_new_tokens: int, *,
              capacity: Optional[int] = None, temperature: float = 0.0,
              rng_key: Optional[tuple] = None, compute_dtype=None,
              stats: Optional[dict] = None,
-             recovery: Optional[RecoveryConfig] = None) -> torch.Tensor:
+             recovery: Optional[RecoveryConfig] = None,
+             observe: Optional[LatencyObserver] = None) -> torch.Tensor:
     """Generate ``max_new_tokens`` per batch row after a KV-cached prefill.
 
     prompt_ids: (B, S) int token ids (a tensor on the device the weights
@@ -142,30 +187,46 @@ def generate(cfg: ModelConfig, params: dict, prompt_ids, max_new_tokens: int, *,
 
     ``recovery`` routes the call through the survivable loop on a
     :class:`~.recovery.LocalRuntime` (checkpoints, the watchdog; a stage
-    failure does not apply on one device)."""
+    failure does not apply on one device). ``observe``: a
+    :class:`~..obs.latency.LatencyObserver` records TTFT and per-token
+    latency (one sync a sampled token); its summary joins ``stats``."""
     device = params["embed"].device
     prompt_ids, capacity, temperature, key = _validate_decode_args(
         prompt_ids, max_new_tokens, capacity, temperature, rng_key, device)
+    b, s = prompt_ids.shape
     if recovery is not None:
         return _survivable_loop(LocalRuntime(cfg, compute_dtype), params, prompt_ids,
                                 max_new_tokens, capacity, temperature, key, 0, stats,
-                                recovery, raw_params=params)
+                                recovery, raw_params=params, observe=observe)
+    if observe is not None:
+        observe.start()
     t0 = time.monotonic()
-    last_logits, cache = _prefill_impl(cfg, params, prompt_ids, capacity, compute_dtype)
-    tok = _sample(last_logits, _fold(key, 0), temperature)
-    _sync(device)
+    with obs_span("generate.prefill", batch=b, prompt_len=s):
+        last_logits, cache = _prefill_impl(cfg, params, prompt_ids, capacity, compute_dtype)
+        tok = _sample(last_logits, _fold(key, 0), temperature)
+        _sync(device)
+    if observe is not None:
+        observe.first_token(tok)
     t1 = time.monotonic()
     toks = [tok]
-    for t in range(1, max_new_tokens):
-        tok, cache = _step_impl(cfg, params, cache, tok.long(), _fold(key, t), temperature,
-                                compute_dtype)
-        toks.append(tok)
+    with obs_span("generate.decode_loop", steps=max_new_tokens - 1):
+        for t in range(1, max_new_tokens):
+            tok, cache = _step_impl(cfg, params, cache, tok.long(), _fold(key, t), temperature,
+                                    compute_dtype)
+            if observe is not None:
+                observe.token(tok)
+            toks.append(tok)
     out = torch.stack(toks, dim=1)
     _sync(device)
     t2 = time.monotonic()
-    _decode_stats(stats, capacity, prompt_ids.shape[0], max_new_tokens - 1, t0, t1, t2)
+    _decode_stats(stats, capacity, b, max_new_tokens - 1, t0, t1, t2)
     if stats is not None:
         stats["decode_step_cache_misses"] = 0
+        if observe is not None:
+            stats.update(observe.summary())
+        record_decode_stats(stats)
+    if observe is not None:
+        observe.publish()
     return out
 
 
@@ -174,7 +235,8 @@ def generate_split(rt: Any, placed_params: dict, prompt_ids, max_new_tokens: int
                    rng_key: Optional[tuple] = None, fault_step: int = 0,
                    stats: Optional[dict] = None, recovery: Optional[RecoveryConfig] = None,
                    raw_params: Optional[dict] = None, link_health: Any = None,
-                   speculative: Any = None) -> torch.Tensor:
+                   speculative: Any = None,
+                   observe: Optional[LatencyObserver] = None) -> torch.Tensor:
     """``generate`` over a :class:`~..parallel.split.SplitRuntime`: one split
     prefill (:meth:`~..parallel.split.SplitRuntime.prefill_decode`), then one
     ``rt.decode_step`` per token, each crossing every cut as a packed (B, 1,
@@ -194,7 +256,11 @@ def generate_split(rt: Any, placed_params: dict, prompt_ids, max_new_tokens: int
 
     ``speculative``: an enabled :class:`~.speculative.SpecConfig` runs the
     draft / verify burst loop (needs ``raw_params``, from which the stage-0
-    draft is sliced); None or a disabled config is this loop."""
+    draft is sliced); None or a disabled config is this loop.
+
+    On a pipelined runtime each step runs the µ-batch schedule (the batch
+    must split into its µ-batches) and ``stats["pipeline"]`` holds
+    ``rt.pipeline_summary()``. ``observe``: as :func:`generate`."""
     if speculative is not None and speculative.enabled:
         from .speculative import generate_speculative
 
@@ -202,38 +268,71 @@ def generate_split(rt: Any, placed_params: dict, prompt_ids, max_new_tokens: int
                                     spec=speculative, capacity=capacity,
                                     temperature=temperature, rng_key=rng_key,
                                     fault_step=fault_step, stats=stats, recovery=recovery,
-                                    raw_params=raw_params, link_health=link_health)
+                                    raw_params=raw_params, link_health=link_health,
+                                    observe=observe)
     device = rt.devices[0]
     prompt_ids, capacity, temperature, key = _validate_decode_args(
         prompt_ids, max_new_tokens, capacity, temperature, rng_key, device)
+    b, s = prompt_ids.shape
     if recovery is not None:
         return _survivable_loop(rt, placed_params, prompt_ids, max_new_tokens, capacity,
                                 temperature, key, fault_step, stats, recovery,
-                                raw_params=raw_params)
+                                raw_params=raw_params, observe=observe)
     counters0 = rt.link_counters()
+    if observe is not None:
+        observe.start()
     t0 = time.monotonic()
-    logits, cache = rt.prefill_decode(placed_params, prompt_ids, capacity,
-                                      fault_step=fault_step)
-    tok = _sample(logits[:, -1], _fold(key, 0), temperature)
-    _sync(rt.devices[-1])
+    with obs_span("generate_split.prefill", batch=b, prompt_len=s):
+        logits, cache = rt.prefill_decode(placed_params, prompt_ids, capacity,
+                                          fault_step=fault_step)
+        tok = _sample(logits[:, -1], _fold(key, 0), temperature)
+        _sync(rt.devices[-1])
+    if observe is not None:
+        observe.first_token(tok)
     t1 = time.monotonic()
     toks = [tok]
-    for t in range(1, max_new_tokens):
-        step_logits, cache = rt.decode_step(placed_params, cache, tok.long())
-        tok = _sample(step_logits, _fold(key, t), temperature)
-        toks.append(tok)
+    with obs_span("generate_split.decode_loop", steps=max_new_tokens - 1):
+        for t in range(1, max_new_tokens):
+            step_logits, cache = rt.decode_step(placed_params, cache, tok.long())
+            tok = _sample(step_logits, _fold(key, t), temperature)
+            if observe is not None:
+                observe.token(tok)
+            toks.append(tok)
     out = torch.stack(toks, dim=1)
     _sync(rt.devices[-1])
     t2 = time.monotonic()
     delta = counter_delta(rt, counters0)
     if link_health is not None:
         link_health.observe(delta)
-    _decode_stats(stats, capacity, prompt_ids.shape[0], max_new_tokens - 1, t0, t1, t2)
+    record_link_counters(delta)
+    if link_health is not None:
+        record_link_health(link_health.summary())
+    pipelined = bool(getattr(rt, "pipelined", False))
+    hop_bytes = (_step_hop_bytes(rt, b) if get_registry().enabled or tracing_enabled()
+                 else None)
+    if get_registry().enabled:
+        record_wire_bytes(hop_bytes, kind="decode", steps=max_new_tokens - 1)
+        if hasattr(rt, "wire_summary"):
+            record_probe_decisions(rt.wire_summary(b, max(s, 1)))
+    _emit_hop_spans(rt, delta, None if hop_bytes is None
+                    else [x * (max_new_tokens - 1) for x in hop_bytes],
+                    link_tier=getattr(link_health, "tier", None),
+                    microbatches=_microbatches(rt))
+    if pipelined:
+        record_pipeline_stats(rt.pipeline_summary())
+    _decode_stats(stats, capacity, b, max_new_tokens - 1, t0, t1, t2)
     if stats is not None:
+        if pipelined:
+            stats["pipeline"] = rt.pipeline_summary()
         if delta is not None:
             stats["link_counters"] = delta
         if link_health is not None:
             stats["link_health"] = link_health.summary()
+        if observe is not None:
+            stats.update(observe.summary())
+        record_decode_stats(stats)
+    if observe is not None:
+        observe.publish()
     return out
 
 
@@ -271,6 +370,12 @@ def _write_checkpoint(rec: RecoveryConfig, rt, counters: RecoveryCounters, promp
     loop state at the top of iteration t + 1). The leaves and meta are the
     reference's: ``rng_key`` as JAX's uint32 key words, ``cache/length``
     int32, the split cache in the padded per-stage layout."""
+    with obs_span("decode.checkpoint_write", step=t):
+        _write_checkpoint_impl(rec, rt, counters, prompt_ids, toks, cache, key, t, run_meta)
+
+
+def _write_checkpoint_impl(rec: RecoveryConfig, rt, counters: RecoveryCounters, prompt_ids,
+                           toks: list, cache, key, t: int, run_meta: dict) -> None:
     cs = rt.cache_state(cache)
     arrays = {"prompt_ids": np.asarray(prompt_ids.cpu(), np.int32),
               "tokens": _host_tokens(toks),
@@ -299,15 +404,27 @@ def _decode_failover(rt, raw_params, lost_stage: int, prompt_ids, toks: list,
         raise ValueError("stage failover needs raw_params= (the unplaced parameter "
                          "pytree) to re-place weights onto the surviving devices")
     counters.failovers += 1
+    with obs_span("decode.failover", lost_stage=lost_stage):
+        return _decode_failover_impl(rt, raw_params, lost_stage, prompt_ids, toks, capacity,
+                                     fault_step, counters)
+
+
+def _decode_failover_impl(rt, raw_params, lost_stage: int, prompt_ids, toks: list,
+                          capacity: int, fault_step: int, counters: RecoveryCounters):
+    """The re-plan, re-place and re-prefill of :func:`_decode_failover`
+    (apart, so its span covers exactly that work)."""
     survivors = [d for i, d in enumerate(rt.devices) if i != lost_stage]
     cfg = rt.cfg
     if len(survivors) >= 2:
         from ..parallel.split import SplitRuntime
 
-        # faults and policy carry over, as the reference carries them (its
-        # decode failover rebuilds without fec / hedge)
+        # faults, policy and the µ-batch schedule carry over, as the
+        # reference carries them (its decode failover rebuilds without fec /
+        # hedge); the batch is unchanged and the re-planned cuts reuse the
+        # (batch-invariant) first codec, so the pipeline still validates
         new_rt = SplitRuntime(cfg, rt.split.replan(cfg.num_layers, len(survivors)),
-                              survivors, faults=rt.faults, policy=rt.policy)
+                              survivors, faults=rt.faults, policy=rt.policy,
+                              pipeline=getattr(rt, "pipeline", None))
     else:
         new_rt = LocalRuntime(cfg)  # one survivor: nothing left to cut
     counters.replans += 1
@@ -324,7 +441,8 @@ def _decode_failover(rt, raw_params, lost_stage: int, prompt_ids, toks: list,
 def _survivable_loop(rt, placed, prompt_ids: torch.Tensor, max_new_tokens: int,
                      capacity: int, temperature: float, key, fault_step: int,
                      stats: Optional[dict], rec: RecoveryConfig, raw_params: Optional[dict],
-                     resume_state=None, resumed: bool = False) -> torch.Tensor:
+                     resume_state=None, resumed: bool = False,
+                     observe: Optional[LatencyObserver] = None) -> torch.Tensor:
     """The decode loop with the reference's recovery orchestration around
     the runtime's calls. ``resume_state`` = (last_done_step, toks, cache)
     continues a checkpointed generation from step ``last_done_step + 1``."""
@@ -338,6 +456,8 @@ def _survivable_loop(rt, placed, prompt_ids: torch.Tensor, max_new_tokens: int,
                 "prompt_len": int(s), "batch": int(b)}
     counters0 = rt.link_counters()
     halted_at = None
+    if observe is not None:
+        observe.start()
 
     def post_step(t, toks, cache) -> bool:
         """The halt hook, the periodic checkpoint, the watchdog, in that
@@ -376,6 +496,8 @@ def _survivable_loop(rt, placed, prompt_ids: torch.Tensor, max_new_tokens: int,
                 rt, raw_params, e.stage, prompt_ids, [], capacity, fault_step, counters, rec)
         tok = _sample(last, _fold(key, 0), temperature)
         _sync(tok.device)
+        if observe is not None:
+            observe.first_token(tok)
         t1 = time.monotonic()
         toks = [tok]
         start_t = 1
@@ -399,6 +521,8 @@ def _survivable_loop(rt, placed, prompt_ids: torch.Tensor, max_new_tokens: int,
                     rt, raw_params, e.stage, prompt_ids, toks, capacity, fault_step,
                     counters, rec)
                 tok = _sample(last, _fold(key, t), temperature)
+            if observe is not None:
+                observe.token(tok)
             toks.append(tok)
             if post_step(t, toks, cache):
                 halted_at = t
@@ -410,7 +534,7 @@ def _survivable_loop(rt, placed, prompt_ids: torch.Tensor, max_new_tokens: int,
     if resumed and halted_at is None:
         counters.resume_ok += 1
     delta = None
-    if stats is not None:
+    if stats is not None or tracing_enabled():
         # after a failover the runtime is new: absolute totals, not deltas
         delta = counter_delta(rt, None if counters.failovers else counters0)
     steps = len(toks) - (0 if resume_state is not None else 1)
@@ -424,6 +548,16 @@ def _survivable_loop(rt, placed, prompt_ids: torch.Tensor, max_new_tokens: int,
         stats["recovery_counters"] = counters.as_dict()
         if delta is not None:
             stats["link_counters"] = delta
+            record_link_counters(delta)
+        if observe is not None:
+            stats.update(observe.summary())
+        record_decode_stats(stats)
+    if tracing_enabled() and hasattr(rt, "hop_attribution"):
+        _emit_hop_spans(rt, delta, [x * max(steps, 0) for x in _step_hop_bytes(rt, b)],
+                        microbatches=_microbatches(rt), failovers=int(counters.failovers))
+    record_recovery_counters(counters)
+    if observe is not None:
+        observe.publish()
     return out
 
 
@@ -462,7 +596,8 @@ def load_resume_state(rt, placed: dict, ckpt: DecodeCheckpoint, path: str) -> tu
 
 def resume_split(rt: Any, placed_params: dict, checkpoint_path: str, *,
                  stats: Optional[dict] = None, recovery: Optional[RecoveryConfig] = None,
-                 raw_params: Optional[dict] = None, speculative: Any = None) -> torch.Tensor:
+                 raw_params: Optional[dict] = None, speculative: Any = None,
+                 observe: Optional[LatencyObserver] = None) -> torch.Tensor:
     """Resume a checkpointed generation -> the full (B, max_new) token
     matrix, the checkpointed prefix plus the tokens decoded here, equal to
     the uninterrupted same-seed run's. ``rt`` must match the checkpoint's
@@ -478,8 +613,10 @@ def resume_split(rt: Any, placed_params: dict, checkpoint_path: str, *,
         from .speculative import resume_speculative
 
         return resume_speculative(rt, placed_params, checkpoint_path, spec=speculative,
-                                  stats=stats, recovery=recovery, raw_params=raw_params)
-    ckpt = DecodeCheckpoint.load(checkpoint_path)
+                                  stats=stats, recovery=recovery, raw_params=raw_params,
+                                  observe=observe)
+    with obs_span("decode.checkpoint_resume", path=checkpoint_path):
+        ckpt = DecodeCheckpoint.load(checkpoint_path)
     meta = ckpt.meta
     _check_plan(meta, rt, checkpoint_path,
                 (("mode", "runtime mode", None), ("model", "model signature", None),
@@ -495,4 +632,4 @@ def resume_split(rt: Any, placed_params: dict, checkpoint_path: str, *,
     return _survivable_loop(rt, placed_params, prompt_ids, int(meta["max_new_tokens"]),
                             int(meta["capacity"]), float(meta["temperature"]), key,
                             int(meta["fault_step"]), stats, rec, raw_params,
-                            resume_state=(step, toks, cache), resumed=True)
+                            resume_state=(step, toks, cache), resumed=True, observe=observe)

@@ -29,21 +29,27 @@ carried over); ``checkpoint_dir`` / ``step_deadline_s`` arm each call's
 recovery (checkpoints ``req<rid>.ckpt``, the watchdog; no mid-call
 re-plan).
 
-Not ported yet: the observability hooks (spans, the flight recorder,
-metrics publication, the live endpoint).
+Observability, as the reference places it: ``submit`` and ``_execute``
+bind the request id (``r<rid>``) into the trace context around the
+``serve.submit`` / ``serve.execute`` spans, so every span the decode loops
+open carries it; each terminal record publishes ``serve_*`` metrics into
+the global registry when it is enabled, and a batched drain publishes the
+prefix-cache counters. Not ported yet: the flight recorder and the live
+endpoint.
 """
 from __future__ import annotations
 
-import bisect
 import dataclasses
 import heapq
-import math
 import os
 import threading
 from typing import Any, Optional
 
 import numpy as np
 
+from ..obs import context as obs_context
+from ..obs.metrics import Histogram, get_registry, record_prefix_stats
+from ..obs.tracing import span as obs_span
 from ..utils.clock import MONOTONIC, Clock
 from ..utils.concurrency import guarded_by
 from ..utils import prng
@@ -172,52 +178,6 @@ def _round_up(n: int, quantum: int) -> int:
     return ((n + quantum - 1) // quantum) * quantum
 
 
-class _Histogram:
-    """The reference's log-bucketed latency histogram (``obs.metrics``), as
-    far as ``report()`` reads it: 400 geometric buckets over [lo, hi), an
-    underflow and an overflow bucket, interpolated quantiles."""
-
-    def __init__(self, lo: float = 1e-6, hi: float = 1e4, n_buckets: int = 400):
-        ratio = (hi / lo) ** (1.0 / n_buckets)
-        self.edges = [0.0] + [lo * ratio ** i for i in range(n_buckets)] + [hi]
-        self._counts = [0] * len(self.edges)
-        self._lock = threading.Lock()
-        self.count = 0
-        self._min = math.inf
-        self._max = -math.inf
-
-    def observe(self, value: float) -> None:
-        v = float(value)
-        with self._lock:
-            b = bisect.bisect_right(self.edges, v) - 1 if v >= 0 else 0
-            self._counts[min(b, len(self._counts) - 1)] += 1
-            self.count += 1
-            self._min = min(self._min, v)
-            self._max = max(self._max, v)
-
-    def quantile(self, q: float) -> float:
-        with self._lock:
-            if self.count == 0:
-                return math.nan
-            rank = q * (self.count - 1)
-            cum = 0
-            for b, c in enumerate(self._counts):
-                if c == 0:
-                    continue
-                if rank < cum + c:
-                    lob = self.edges[b]
-                    hib = (self.edges[b + 1] if b + 1 < len(self.edges)
-                           else max(self._max, self.edges[-1]))
-                    lob = max(lob, self._min) if b == 0 or lob == 0.0 else lob
-                    hib = min(hib, self._max) if self._max > lob else hib
-                    frac = (rank - cum + 0.5) / c
-                    if lob <= 0.0:
-                        return lob + (hib - lob) * frac
-                    return lob * (hib / lob) ** frac
-                cum += c
-            return self._max
-
-
 @guarded_by("_submit_lock", fields=["_seq", "_queue", "_backlog_s", "_inflight_rids",
                                     "_agg", "records"])
 class ServeFront:
@@ -256,8 +216,10 @@ class ServeFront:
         self._agg: dict = {"requests": 0, "finished": 0, "tokens_out": 0, "met": 0,
                            "with_deadline": 0, "outcomes": {}, "reasons": {},
                            "link_counters": {}}
-        self._ttft_hist = _Histogram()
-        self._latency_hist = _Histogram()
+        # the report's percentiles: call-private histograms (the registry's
+        # series are published in _finish when the registry is enabled)
+        self._ttft_hist = Histogram("serve_ttft_s", lo=1e-6, hi=1e4, n_buckets=400)
+        self._latency_hist = Histogram("serve_latency_s", lo=1e-6, hi=1e4, n_buckets=400)
         self._inflight_rids: set = set()
         self.failovers = 0
         self._plans: dict = {}
@@ -360,7 +322,9 @@ class ServeFront:
         with self._submit_lock:
             self._seq += 1
             rid = self._seq
-        return rid, self._submit_impl(rid, req, now)
+        with obs_context.bind(rid=f"r{rid}"):
+            with obs_span("serve.submit", priority=int(req.priority)):
+                return rid, self._submit_impl(rid, req, now)
 
     def _submit_impl(self, rid: int, req: Request, now: float) -> Optional[RequestRecord]:
         depth = len(self._queue)
@@ -425,9 +389,13 @@ class ServeFront:
         return out
 
     def _execute(self, p: _Pending) -> RequestRecord:
-        """One request's terminal execution: the reference's ``_execute_impl``
-        (its ``_execute`` only binds the trace context; the port has no
-        tracing yet)."""
+        """One request's terminal execution, bound to its trace context:
+        every hop span the decode loops emit below carries the request id."""
+        with obs_context.bind(rid=f"r{p.rid}"):
+            with obs_span("serve.execute", priority=int(p.req.priority)):
+                return self._execute_impl(p)
+
+    def _execute_impl(self, p: _Pending) -> RequestRecord:
         now = self.clock()
         wait = now - p.submitted_at
         b, s = p.prompt.shape
@@ -664,6 +632,8 @@ class ServeFront:
                 "num_pages": self.batcher.bcfg.num_pages,
                 "max_slots": self.batcher.bcfg.max_slots}
         if rep.get("prefix"):
+            # once a drain (the counters carry running totals)
+            record_prefix_stats(rep["prefix"])
             plan["prefix"] = {"hit_rate": rep["prefix"]["hit_rate"],
                               "saved_tokens": rep["prefix"]["saved_tokens"],
                               "shared_pages": rep["prefix"]["shared_pages"]}
@@ -738,6 +708,20 @@ class ServeFront:
             if self.config.record_history:
                 self.records.append(rec)
             self._inflight_rids.discard(rid)
+        reg = get_registry()
+        if reg.enabled:
+            reg.counter("serve_requests_total", "terminal serve outcomes").inc(outcome=outcome)
+            if ttft_s is not None:
+                reg.histogram("serve_ttft_s", "submit -> first token",
+                              lo=1e-4, hi=120.0).observe(ttft_s)
+            if latency_s is not None:
+                reg.histogram("serve_latency_s", "submit -> last token",
+                              lo=1e-4, hi=600.0).observe(latency_s)
+            if retries_charged:
+                reg.counter("serve_retries_charged_total",
+                            "ladder retries charged to the retry budget").inc(retries_charged)
+            reg.gauge("serve_brownout_level", "current brownout level").set(self.brownout.level)
+            reg.gauge("serve_queue_depth", "queued requests").set(len(self._queue))
         return rec
 
     def report(self) -> dict:

@@ -36,6 +36,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from ..obs.tracing import span as obs_span
 from ..models.paged_kv import KVTierMismatchError
 from ..models.transformer import KVCache, decode_step, prefill
 from ..utils.clock import MONOTONIC, Clock
@@ -244,19 +245,28 @@ class DecodeCheckpoint:
         return _HEADER.pack(_MAGIC, _VERSION, len(payload), zlib.crc32(payload)) + payload
 
     def save(self, path: str) -> str:
-        """Atomic write: ``path + ".part"``, fsync, rename."""
-        blob = self.to_bytes()
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        tmp = path + ".part"
-        with open(tmp, "wb") as f:
-            f.write(blob)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
+        """Atomic write: ``path + ".part"``, fsync, rename (in a
+        ``recovery.checkpoint_save`` span carrying the byte count)."""
+        with obs_span("recovery.checkpoint_save", path=path) as sp:
+            blob = self.to_bytes()
+            if sp is not None:
+                sp.args["bytes"] = len(blob)
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            tmp = path + ".part"
+            with open(tmp, "wb") as f:
+                f.write(blob)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
         return path
 
     @classmethod
     def load(cls, path: str) -> "DecodeCheckpoint":
+        with obs_span("recovery.checkpoint_load", path=path):
+            return cls._load_impl(path)
+
+    @classmethod
+    def _load_impl(cls, path: str) -> "DecodeCheckpoint":
         try:
             with open(path, "rb") as f:
                 blob = f.read()
@@ -300,7 +310,8 @@ class DecodeCheckpoint:
 def runtime_plan_meta(rt: Any) -> dict:
     """The plan / model signature a checkpoint records and resume validates
     (the reference's keys): a split runtime adds its cuts, the hop codecs as
-    they run (``*_pallas`` twins on the card) and the µ-batch count (1)."""
+    they run (``*_pallas`` twins on the card) and the µ-batch count (1 for
+    the sequential schedule)."""
     cfg = rt.cfg
     meta = {"mode": "split" if hasattr(rt, "split") else "local",
             "model": {"family": cfg.family, "num_layers": cfg.num_layers,
@@ -309,7 +320,8 @@ def runtime_plan_meta(rt: Any) -> dict:
     if hasattr(rt, "split"):
         meta["cuts"] = [int(c) for c in rt.split.cuts]
         meta["hop_codecs"] = [c.name for c in rt.codecs]
-        meta["num_microbatches"] = 1
+        pipe = getattr(rt, "pipeline", None)
+        meta["num_microbatches"] = int(pipe.num_microbatches) if pipe else 1
     return meta
 
 

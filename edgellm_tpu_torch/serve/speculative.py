@@ -42,9 +42,17 @@ import torch
 
 from ..models.configs import ModelConfig
 from ..models.transformer import KVCache, decode_step, prefill
+from ..obs import context as obs_context
+from ..obs.latency import LatencyObserver
+from ..obs.metrics import (get_registry, record_decode_stats, record_link_counters,
+                           record_link_health, record_probe_decisions,
+                           record_recovery_counters, record_spec_stats, record_wire_bytes)
+from ..obs.tracing import span as obs_span
+from ..obs.tracing import tracing_enabled
 from ..utils import prng
-from .decode import (_check_plan, _fold, _sample, _sync, _validate_decode_args,
-                     _write_checkpoint, counter_delta, load_resume_state)
+from .decode import (_check_plan, _emit_hop_spans, _fold, _sample, _sync,
+                     _validate_decode_args, _write_checkpoint, counter_delta,
+                     load_resume_state)
 from .recovery import (CheckpointError, DecodeCheckpoint, DecodeTimeout, RecoveryConfig,
                        RecoveryCounters, Watchdog)
 
@@ -113,7 +121,8 @@ def generate_speculative(rt: Any, placed_params: dict, prompt_ids, max_new_token
                          fault_step: int = 0, stats: Optional[dict] = None,
                          recovery: Optional[RecoveryConfig] = None,
                          raw_params: Optional[dict] = None,
-                         link_health: Any = None) -> torch.Tensor:
+                         link_health: Any = None,
+                         observe: Optional[LatencyObserver] = None) -> torch.Tensor:
     """``generate_split`` through the burst loop -> (1, max_new_tokens) int32
     (speculation is per stream: batch 1). Greedy output equals the vanilla
     loop's on the same seed and plan. ``raw_params`` (the unplaced weights)
@@ -122,8 +131,8 @@ def generate_speculative(rt: Any, placed_params: dict, prompt_ids, max_new_token
     bursts emitted) and ``speculative``: k, draft_layers, bursts, drafted,
     accepted, rejected, acceptance_rate, hops_per_token and
     ``draft_step_cache_misses`` (0: nothing compiles). ``fault_step``,
-    ``link_health`` and ``recovery`` are ``generate_split``'s (recovery at
-    burst granularity; a stage failure is refused)."""
+    ``link_health``, ``recovery`` and ``observe`` are ``generate_split``'s
+    (recovery at burst granularity; a stage failure is refused)."""
     if not spec.enabled:
         raise ValueError("generate_speculative called with spec.enabled=False; use "
                          "generate_split (which this disabled config leaves byte-identical)")
@@ -155,7 +164,7 @@ def generate_speculative(rt: Any, placed_params: dict, prompt_ids, max_new_token
     draft_cfg, draft_params = draft_from_params(rt.cfg, raw_params, spec, cut)
     return _spec_loop(rt, placed_params, prompt_ids, max_new_tokens, capacity, temperature,
                       key, fault_step, spec, draft_cfg, draft_params, stats, recovery,
-                      link_health=link_health)
+                      link_health=link_health, observe=observe)
 
 
 def _accept(vlogits: torch.Tensor, feed: list, key, n: int, k: int,
@@ -197,7 +206,8 @@ def _spec_loop(rt, placed: dict, prompt_ids: torch.Tensor, max_new_tokens: int,
                capacity: int, temperature: float, key, fault_step: int, spec: SpecConfig,
                draft_cfg: ModelConfig, draft_params: dict, stats: Optional[dict],
                rec: Optional[RecoveryConfig], link_health: Any = None, resume_state=None,
-               resumed: bool = False) -> torch.Tensor:
+               resumed: bool = False,
+               observe: Optional[LatencyObserver] = None) -> torch.Tensor:
     """The burst loop. ``resume_state`` = (last_done_step, toks, cache)
     continues a checkpointed run from the burst boundary at step
     ``last_done_step`` (the draft cache is rebuilt by a draft prefill over
@@ -215,6 +225,8 @@ def _spec_loop(rt, placed: dict, prompt_ids: torch.Tensor, max_new_tokens: int,
     counters0 = rt.link_counters()
     draft_device = draft_params["embed"].device
     halted_at = None
+    if observe is not None:
+        observe.start()
     if wd is not None:
         wd.arm()
 
@@ -223,13 +235,18 @@ def _spec_loop(rt, placed: dict, prompt_ids: torch.Tensor, max_new_tokens: int,
 
     t0 = time.monotonic()
     if resume_state is None:
-        logits, cache = rt.prefill_decode(placed, prompt_ids, capacity, fault_step=fault_step)
-        tok = _sample(logits[:, -1], _fold(key, 0), temperature)
-        # the draft prefill fills the stage-0 cache to the same level (its
-        # logits are discarded: token 0 is the target's, as in the vanilla loop)
-        _, dcache = prefill(draft_cfg, draft_params, prompt_ids.to(draft_device), capacity)
-        toks = [int(tok[0])]
-        _sync(rt.devices[-1])
+        with obs_span("generate_spec.prefill", batch=b, prompt_len=s):
+            logits, cache = rt.prefill_decode(placed, prompt_ids, capacity,
+                                              fault_step=fault_step)
+            tok = _sample(logits[:, -1], _fold(key, 0), temperature)
+            # the draft prefill fills the stage-0 cache to the same level (its
+            # logits are discarded: token 0 is the target's, as in the vanilla
+            # loop)
+            _, dcache = prefill(draft_cfg, draft_params, prompt_ids.to(draft_device), capacity)
+            toks = [int(tok[0])]
+            _sync(rt.devices[-1])
+        if observe is not None:
+            observe.first_token(tok)
         t1 = time.monotonic()
         if rec is not None and rec.halt_at_step == 0:
             checkpoint(toks, cache, 0)
@@ -240,79 +257,98 @@ def _spec_loop(rt, placed: dict, prompt_ids: torch.Tensor, max_new_tokens: int,
         _, toks_in, cache = resume_state
         toks = [int(t.reshape(-1)[0]) for t in toks_in]
         fed = torch.cat([prompt_ids.cpu(), torch.tensor([toks[:-1]], dtype=torch.long)], 1)
-        _, dcache = prefill(draft_cfg, draft_params, fed.to(draft_device), capacity)
+        with obs_span("generate_spec.resume_draft_prefill", prefix_len=int(fed.shape[1])):
+            _, dcache = prefill(draft_cfg, draft_params, fed.to(draft_device), capacity)
         t1 = t0
 
     n = len(toks)
     drafted = accepted = rejected = bursts = emitted_total = 0
-    while halted_at is None and n < max_new_tokens:
-        t_prev = n - 1
-        feed = [toks[-1]]
-        for _ in range(1, k):
-            dlogits, dcache = decode_step(
-                draft_cfg, draft_params, dcache,
-                torch.tensor([feed[-1]], dtype=torch.long, device=draft_device))
-            feed.append(int(dlogits.argmax(dim=-1)[0]))
-        drafted += k - 1
-        x = torch.tensor([feed], dtype=torch.long, device=rt.devices[0])
-        vlogits, vcache = rt.verify_step(placed, cache, x)
-        bursts += 1
-        emitted, acc = _accept(vlogits, feed, key, n, k, temperature)
-        rejected += (k - 1) - acc
-        accepted += acc
-        emitted = emitted[:max_new_tokens - n]  # budget clamp
-        m = len(emitted)
-        emitted_total += m
-        toks.extend(emitted)
-        n += m
-        cache = {**vcache, "length": s + n - 1}
-        if m == k:
-            # fully accepted: one catch-up step writes the row of the last
-            # fed token, which the k - 1 draft steps never wrote
-            _, dcache = decode_step(
-                draft_cfg, draft_params, dcache,
-                torch.tensor([feed[k - 1]], dtype=torch.long, device=draft_device))
-        dcache = KVCache(dcache.k, dcache.v, s + n - 1)
-        # recovery hooks, at burst granularity
-        t = n - 1
-        if rec is not None:
-            if rec.halt_at_step is not None and t >= rec.halt_at_step:
-                checkpoint(toks, cache, t)
-                halted_at = t
-                break
-            if (rec.checkpoint_every and rec.checkpoint_path
-                    and t_prev // rec.checkpoint_every < t // rec.checkpoint_every):
-                checkpoint(toks, cache, t)
-            if wd is not None:
-                ckpt_fn = ((lambda: checkpoint(toks, cache, t)) if rec.checkpoint_path
-                           else None)
-                try:
-                    wd.check(ckpt_fn)
-                except DecodeTimeout:
-                    counters.watchdog_fires += 1
-                    if stats is not None:
-                        stats["recovery_counters"] = counters.as_dict()
-                    raise
+    with obs_span("generate_spec.burst_loop", k=k, budget=max_new_tokens - n):
+        while halted_at is None and n < max_new_tokens:
+            t_prev = n - 1
+            feed = [toks[-1]]
+            for _ in range(1, k):
+                dlogits, dcache = decode_step(
+                    draft_cfg, draft_params, dcache,
+                    torch.tensor([feed[-1]], dtype=torch.long, device=draft_device))
+                feed.append(int(dlogits.argmax(dim=-1)[0]))
+            drafted += k - 1
+            x = torch.tensor([feed], dtype=torch.long, device=rt.devices[0])
+            vlogits, vcache = rt.verify_step(placed, cache, x)
+            bursts += 1
+            emitted, acc = _accept(vlogits, feed, key, n, k, temperature)
+            rejected += (k - 1) - acc
+            accepted += acc
+            emitted = emitted[:max_new_tokens - n]  # budget clamp
+            m = len(emitted)
+            emitted_total += m
+            if observe is not None:
+                for e in emitted:
+                    observe.token(e)
+            toks.extend(emitted)
+            n += m
+            cache = {**vcache, "length": s + n - 1}
+            if m == k:
+                # fully accepted: one catch-up step writes the row of the last
+                # fed token, which the k - 1 draft steps never wrote
+                _, dcache = decode_step(
+                    draft_cfg, draft_params, dcache,
+                    torch.tensor([feed[k - 1]], dtype=torch.long, device=draft_device))
+            dcache = KVCache(dcache.k, dcache.v, s + n - 1)
+            # recovery hooks, at burst granularity
+            t = n - 1
+            if rec is not None:
+                with obs_context.bind(spec_burst=bursts):
+                    if rec.halt_at_step is not None and t >= rec.halt_at_step:
+                        checkpoint(toks, cache, t)
+                        halted_at = t
+                        break
+                    if (rec.checkpoint_every and rec.checkpoint_path
+                            and t_prev // rec.checkpoint_every < t // rec.checkpoint_every):
+                        checkpoint(toks, cache, t)
+                    if wd is not None:
+                        ckpt_fn = ((lambda: checkpoint(toks, cache, t)) if rec.checkpoint_path
+                                   else None)
+                        try:
+                            wd.check(ckpt_fn)
+                        except DecodeTimeout:
+                            counters.watchdog_fires += 1
+                            if stats is not None:
+                                stats["recovery_counters"] = counters.as_dict()
+                            raise
     out = torch.tensor([toks], dtype=torch.int32, device=rt.devices[-1])
     _sync(rt.devices[-1])
     t2 = time.monotonic()
     if resumed and halted_at is None:
         counters.resume_ok += 1
+    spec_stats = {
+        "k": int(k), "draft_layers": int(draft_cfg.num_layers), "bursts": bursts,
+        "drafted": drafted, "accepted": accepted, "rejected": rejected,
+        "acceptance_rate": (accepted / drafted) if drafted else 0.0,
+        "hops_per_token": (bursts / emitted_total) if emitted_total else 0.0,
+        "draft_step_cache_misses": 0}
     delta = counter_delta(rt, counters0)
     if link_health is not None:
         link_health.observe(delta)
+    record_link_counters(delta)
+    if link_health is not None:
+        record_link_health(link_health.summary())
+    record_spec_stats(spec_stats)
+    if get_registry().enabled:
+        record_wire_bytes(rt.verify_hop_bytes(b, k), kind="verify", steps=bursts)
+        record_probe_decisions(rt.wire_summary(b, k))
+    if tracing_enabled():
+        # one hop round a burst: the k-token verify payload times the bursts
+        _emit_hop_spans(rt, delta, [x * bursts for x in rt.verify_hop_bytes(b, k)],
+                        link_tier=getattr(link_health, "tier", None),
+                        spec_bursts=int(bursts))
     if stats is not None:
         stats.update(
             capacity=capacity, prefill_s=t1 - t0, decode_s=t2 - t1,
             decode_steps=emitted_total,
             decode_tokens_per_s=(emitted_total / (t2 - t1)) if emitted_total and t2 > t1
             else 0.0,
-            speculative={
-                "k": int(k), "draft_layers": int(draft_cfg.num_layers), "bursts": bursts,
-                "drafted": drafted, "accepted": accepted, "rejected": rejected,
-                "acceptance_rate": (accepted / drafted) if drafted else 0.0,
-                "hops_per_token": (bursts / emitted_total) if emitted_total else 0.0,
-                "draft_step_cache_misses": 0})
+            speculative=spec_stats)
         if halted_at is not None:
             stats["halted_at_step"] = halted_at
         if rec is not None or resumed:
@@ -321,13 +357,21 @@ def _spec_loop(rt, placed: dict, prompt_ids: torch.Tensor, max_new_tokens: int,
             stats["link_counters"] = delta
         if link_health is not None:
             stats["link_health"] = link_health.summary()
+        if observe is not None:
+            stats.update(observe.summary())
+        record_decode_stats(stats)
+    if rec is not None or resumed:
+        record_recovery_counters(counters)
+    if observe is not None:
+        observe.publish()
     return out
 
 
 def resume_speculative(rt: Any, placed_params: dict, checkpoint_path: str, *,
                        spec: SpecConfig, stats: Optional[dict] = None,
                        recovery: Optional[RecoveryConfig] = None,
-                       raw_params: Optional[dict] = None) -> torch.Tensor:
+                       raw_params: Optional[dict] = None,
+                       observe: Optional[LatencyObserver] = None) -> torch.Tensor:
     """Resume a checkpointed speculative generation -> the full (1, max_new)
     token matrix, equal to the uninterrupted run's (checkpoints land on
     burst boundaries, which depend only on the committed prefix). Checks
@@ -341,7 +385,8 @@ def resume_speculative(rt: Any, placed_params: dict, checkpoint_path: str, *,
     if raw_params is None:
         raise ValueError("speculative resume needs raw_params= (the unplaced parameter "
                          "pytree) to rebuild the stage-0 draft")
-    ckpt = DecodeCheckpoint.load(checkpoint_path)
+    with obs_span("decode.checkpoint_resume", path=checkpoint_path):
+        ckpt = DecodeCheckpoint.load(checkpoint_path)
     meta = ckpt.meta
     _check_plan(meta, rt, checkpoint_path,
                 (("mode", "runtime mode", None), ("model", "model signature", None),
@@ -369,4 +414,5 @@ def resume_speculative(rt: Any, placed_params: dict, checkpoint_path: str, *,
     return _spec_loop(rt, placed_params, prompt_ids, int(meta["max_new_tokens"]),
                       int(meta["capacity"]), float(meta["temperature"]), key,
                       int(meta["fault_step"]), spec, draft_cfg, draft_params, stats,
-                      recovery, resume_state=(step, toks, cache), resumed=True)
+                      recovery, resume_state=(step, toks, cache), resumed=True,
+                      observe=observe)

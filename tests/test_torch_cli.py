@@ -145,13 +145,17 @@ def test_validation_messages_match_reference(params):
 @pytest.mark.parametrize("config", sorted(p.name for p in (REPO / "configs").glob("*.json")))
 def test_every_config_is_accepted_or_named_not_ported(config):
     """Every shipped config either validates or names its experiment as not
-    ported yet; none is silently ignored."""
+    ported yet; none is silently ignored (split12's ``pipeline`` validates;
+    of ``observability`` only the flight recorder and the live endpoint
+    are still to port)."""
     p = json.loads((REPO / "configs" / config).read_text())
     exp = p.get("experiment", "")
     unported_split = exp == "split" and any(
         k in p and p[k] != 1 for k in trun.UNPORTED_SPLIT_KEYS)
     unported_serve = exp == "serve" and any(k in p for k in trun.UNPORTED_SERVE_KEYS)
-    if exp in trun.NOT_PORTED or "observability" in p or unported_split or unported_serve:
+    unported_obs = any((p.get("observability") or {}).get(k) not in (None, False)
+                       for k in ("flight_recorder", "obs_port"))
+    if exp in trun.NOT_PORTED or unported_obs or unported_split or unported_serve:
         with pytest.raises(SystemExit, match="not ported yet"):
             trun._validate_params_json(p)
     else:
@@ -160,183 +164,23 @@ def test_every_config_is_accepted_or_named_not_ported(config):
 
 @pytest.mark.parametrize("experiment", ["serve"])
 def test_unported_experiments_exit_nonzero_naming_them(experiment, tmp_path):
-    """A serve config with a feature still to port (the µ-batch pipeline
-    under the per-request split route) exits non-zero naming it."""
-    params = json.dumps({"experiment": experiment, "cuts": [1], "hop_codecs": ["fp32"],
-                         "pipeline": {"num_microbatches": 2}, "serving": {}})
-    proc = subprocess.run(
-        [sys.executable, "-m", "edgellm_tpu_torch.run", "--params", params,
-         "--model", "tiny-qwen2", "--device", "cpu", "--output-dir", str(tmp_path)],
-        cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0
-    assert (f"pipeline is not ported yet to edgellm_tpu_torch under experiment {experiment!r}"
-            in proc.stderr)
-
-
-#: the shipped split configs' shapes at tiny-model depth (cuts within 6 layers)
-SPLIT_CLI = {
-    "split1": ("tiny-qwen2", {"experiment": "split", "cuts": [2],
-                              "hop_codecs": ["int8_per_token"]}),
-    "split4": ("tiny-qwen2", {"experiment": "split", "cuts": [1, 3],
-                              "hop_codecs": ["int8_per_token", "int4_per_token"]}),
-    "split2": ("tiny-qwen2", {"experiment": "split", "cuts": [2],
-                              "hop_codecs": ["selective_int4:0.25:bf16"],
-                              "importance_method": "regular_importance"}),
-    "split0": ("tiny-neox", {"experiment": "split", "cuts": [1], "hop_codecs": ["fp32"]}),
-}
-
-
-@pytest.mark.parametrize("name", sorted(SPLIT_CLI))
-def test_cli_split_configs(tmp_path, capsys, name):
-    """Split params of the shipped configs' shape on the CPU: the results
-    file with a finite PPL, the checkpoint and the metrics stream."""
-    model, p = SPLIT_CLI[name]
-    p = {**p, "max_length": 64, "stride": 32}
-    rc = trun.main(["--params", json.dumps(p), "--model", model, "--device", "cpu",
-                    "--output-dir", str(tmp_path), "--max-chunks", "5",
-                    "--window-batch", "2"])
-    assert rc == 0
-    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    saved = json.loads((tmp_path / "split_eval_results.json").read_text())
-    assert saved == printed
-    assert saved["chunks"] == 5 and np.isfinite(saved["ppl"]) and saved["ppl"] > 1
-    assert saved["cuts"] == p["cuts"] and len(saved["per_hop_ms"]) == len(p["cuts"])
-    assert json.loads((tmp_path / "split_checkpoint.json").read_text())["chunks"] == 5
-    lines = (tmp_path / "split_metrics.jsonl").read_text().splitlines()
-    assert json.loads(lines[-1])["final"]
-
-
-def test_split_config_with_faults_exits_naming_the_key(tmp_path):
-    """A split config with ``faults`` runs (the faulty link is ported): exit
-    0, the result's link counters, and ``--fault-report``'s table naming
-    every counter key; ``hedge`` without an enabled ``faults`` exits
-    non-zero with the reference's message."""
-    params = json.dumps({"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
-                         "max_length": 64, "stride": 32, "faults": {"drop_rate": 0.5}})
-    proc = subprocess.run(
-        [sys.executable, "-m", "edgellm_tpu_torch.run", "--params", params,
-         "--model", "tiny-qwen2", "--device", "cpu", "--output-dir", str(tmp_path),
-         "--max-chunks", "4", "--window-batch", "2", "--fault-report"],
-        cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    result = json.loads(proc.stdout.splitlines()[0])
-    assert result["link_counters"]["hops"] == [2]
-    assert "fault report (obs metrics registry):" in proc.stdout
-    for key in result["link_counters"]:
-        assert f"edgellm_link_{key}_total" in proc.stdout
-    params = json.dumps({"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"],
-                         "hedge": {"routes": 2}})
-    proc = subprocess.run(
-        [sys.executable, "-m", "edgellm_tpu_torch.run", "--params", params,
-         "--model", "tiny-qwen2", "--device", "cpu", "--output-dir", str(tmp_path)],
-        cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0
-    assert "hedge requires an enabled 'faults' config" in proc.stderr
-
-
-#: split keys the faulty link and survivability retired from the unported
-#: list, with what the reference's validation now says of each alone (None:
-#: it validates)
-LINK_KEY_ALONE = {"link_policy": None,
-                  "hedge": "hedge requires an enabled 'faults' config",
-                  "deadline": None, "stage_failure": None, "recovery": None}
-
-
-@pytest.mark.parametrize("key,value", [
-    ("link_policy", {}), ("hedge", {}), ("pipeline", {"num_microbatches": 2}),
-    ("deadline", 10.0), ("stage_failure", {"stage": 1, "at_step": 1}), ("recovery", {}),
-    ("n_seq", 4), ("n_data", 2), ("n_model", 2)])
-def test_unported_split_keys_are_named(key, value):
-    """Unported split keys die naming themselves; the link and recovery keys
-    (ported) validate as the reference validates them alone."""
-    p = {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"], key: value}
-    if key in LINK_KEY_ALONE:
-        assert key not in trun.UNPORTED_SPLIT_KEYS
-        if LINK_KEY_ALONE[key] is None:
-            trun._validate_params_json(p)
-            jrun._validate_params_json(p)
-            return
-        for validate in (trun._validate_params_json, jrun._validate_params_json):
-            with pytest.raises(SystemExit, match=LINK_KEY_ALONE[key]):
-                validate(p)
-        return
-    with pytest.raises(SystemExit, match=f"{key} is not ported yet"):
-        trun._validate_params_json(p)
-
-
-def test_split_mesh_axes_of_one_and_unported_twins():
-    """Mesh axes of one validate, and so does every kernel twin by its
-    ``*_pallas`` name (K5-K7 included) and every fused_hops mode."""
-    base = {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token_pallas"]}
-    trun._validate_params_json({**base, "n_seq": 1, "n_data": 1, "n_model": 1})
-    for twin in ("int8_per_channel_pallas", "int4_per_channel_pallas",
-                 "ternary_mean_pallas", "ternary_max_pallas"):
-        trun._validate_params_json({**base, "hop_codecs": [twin]}, "cuda")
-    for mode in ("auto", "off", "wire", "remote"):
-        trun._validate_params_json({**base, "fused_hops": mode}, "cuda")
-    with pytest.raises(SystemExit, match="importance_method must be one of"):
-        trun._validate_params_json({**base, "importance_method": "attention"})
-    with pytest.raises(SystemExit, match="prefix_cache only applies to experiment 'serve'"):
-        trun._validate_params_json({**base, "prefix_cache": {}})
-
-
-#: the committed batched serve configs, each with a cut inside tiny-qwen2's
-#: 6 layers (no shipped config carries cuts beside batching)
-SPLIT_SERVE = ["split9_qwen_paged.json", "split13_qwen_prefix.json", "split14_qwen_kvq.json"]
-
-
-def _split_serve(name: str, **extra) -> dict:
-    p = json.loads((REPO / "configs" / name).read_text())
-    p.update(cuts=[2], hop_codecs=["int8_per_token"], fused_hops="off", **extra)
-    p["serving"]["soak"]["n_requests"] = 10
-    return p
-
-
-@pytest.mark.parametrize("name", SPLIT_SERVE)
-def test_cli_serve_cuts_beside_batching_matches_reference_cli(name, tmp_path, capsys,
-                                                              monkeypatch):
-    """``cuts`` beside ``batching`` on the CPU: the split-paged batcher
-    serves every request, the printed line has the reference CLI's keys and
-    counts (mode "batched_split"), and serve_report.json holds the
-    batcher's "paged_split" report (split13: prefix hits)."""
-    monkeypatch.setenv("EDGELLM_FUSED_HOP", "0")  # the CLIs set it; restored after
-    argv = ["--params", json.dumps(_split_serve(name)), "--model", "tiny-qwen2"]
-    assert trun.main(argv + ["--device", "cpu", "--output-dir", str(tmp_path / "t")]) == 0
-    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert jrun.main(argv + ["--output-dir", str(tmp_path / "j")]) == 0
-    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert set(got) == set(want)
-    for key in got:
-        if key not in ("decode_tokens_per_s", "artifact"):
-            assert got[key] == want[key], key
-    assert got["mode"] == "batched_split" and got["outcomes"] == {"completed": 10}
-    rep = json.loads((tmp_path / "t" / "serve_report.json").read_text())["batcher"]
-    assert rep["mode"] == "paged_split" and rep["cuts"] == [2]
-    assert rep["hop_codecs"] == ["int8_per_token"] and rep["jit_misses"] == 0
-    if name == "split13_qwen_prefix.json":
-        assert rep["prefix"]["hits"] >= 1
-
-
-def test_cli_serve_cuts_beside_batching_still_refuses_unported():
-    """Beside ``cuts`` and ``batching`` the µ-batch pipeline still dies "not
-    ported yet"; the faulty link and the batcher's checkpoints validate, as
-    in the reference; speculative decoding stays refused as the reference
-    refuses it."""
-    base = _split_serve("split9_qwen_paged.json")
+    """A serve config with a part still to port (the live telemetry
+    endpoint, ``observability.obs_port``, or ``--obs-port``) exits non-zero
+    naming it; the µ-batch pipeline it used to name validates as the
+    reference validates it."""
+    base = {"experiment": experiment, "cuts": [1], "hop_codecs": ["fp32"],
+            "pipeline": {"num_microbatches": 2}, "serving": {}}
     trun._validate_params_json(base)
-    with pytest.raises(SystemExit, match="pipeline is not ported yet"):
-        trun._validate_params_json({**base, "pipeline": {"num_microbatches": 2}})
-    for ok in ({**base, "faults": {"drop_rate": 0.1}},
-               {**base, "batching": {**base["batching"], "checkpoint_dir": "ckpt"}}):
-        trun._validate_params_json(ok)
-        jrun._validate_params_json(ok)
-    spec = {**base, "speculative": {"k": 4}}
-    with pytest.raises(SystemExit) as want:
-        jrun._validate_params_json(spec)
-    with pytest.raises(SystemExit) as got:
-        trun._validate_params_json(spec)
-    assert str(got.value) == str(want.value) and "drop 'speculative' or 'batching'" in str(
-        got.value)
+    jrun._validate_params_json(base)
+    for params, extra, name in (
+            ({**base, "observability": {"obs_port": 0}}, [], "observability.obs_port"),
+            (base, ["--obs-port", "0"], "--obs-port (the live telemetry endpoint)")):
+        proc = subprocess.run(
+            [sys.executable, "-m", "edgellm_tpu_torch.run", "--params", json.dumps(params),
+             "--model", "tiny-qwen2", "--device", "cpu", "--output-dir", str(tmp_path)] + extra,
+            cwd=REPO, capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert f"{name} is not ported yet to edgellm_tpu_torch" in proc.stderr
 
 
 @pytest.fixture(scope="module")
@@ -356,57 +200,6 @@ def hf_checkpoint(tmp_path_factory):
     save_file({k: v.contiguous() for k, v in model.state_dict().items()
                if k != "lm_head.weight"}, str(path / "model.safetensors"))
     return path
-
-
-@pytest.mark.parametrize("codec,label", [("int8_per_channel", "K5"), ("int4_per_channel", "K6"),
-                                         ("ternary_mean", "K7"), ("ternary_max", "K7")])
-def test_split_codec_without_its_kernel_dies_on_the_card_only(codec, label, hf_checkpoint,
-                                                              tmp_path, capsys):
-    """The per-channel and ternary hop codecs validate for a run on the card
-    (their kernel twins, ``label``) and on the CPU; the CPU run of the CLI
-    gives the reference's PPL and bytes on the same checkpoint and synthetic
-    corpus (window batch 1: ternary_mean's channel mean is bit-exact on one
-    full window)."""
-    from edgellm_tpu.eval.split_eval import run_split_eval as j_split_eval
-    from edgellm_tpu.models.safetensors_io import load_checkpoint as j_load
-
-    p = {"experiment": "split", "cuts": [1, 2], "hop_codecs": ["int8_per_token", codec],
-         "max_length": 64, "stride": 32}
-    trun._validate_params_json(p, "cuda")
-    trun._validate_params_json(p, "cpu")
-    rc = trun.main(["--params", json.dumps(p), "--weights", str(hf_checkpoint),
-                    "--device", "cpu", "--output-dir", str(tmp_path), "--max-chunks", "3",
-                    "--window-batch", "1", "--synthetic-corpus-len", "160"])
-    assert rc == 0
-    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    jcfg, jparams = j_load(str(hf_checkpoint))
-    corpus = np.random.default_rng(0).integers(0, 256, 160)
-    want = j_split_eval(jcfg, jparams, corpus, cuts=p["cuts"], hop_codecs=p["hop_codecs"],
-                        max_length=64, stride=32, max_chunks=3, window_batch=1)
-    assert got["chunks"] == want["chunks"] == 3
-    np.testing.assert_allclose(got["ppl"], want["ppl"], rtol=1e-5)
-    assert got["hop_codecs"] == want["hop_codecs"] == p["hop_codecs"]
-    assert got["measured_hop_bytes_total"] == want["measured_hop_bytes_total"]
-
-
-@pytest.mark.parametrize("mode", ["auto", "off", "wire", "remote"])
-def test_cli_fused_hops_modes(mode, tmp_path, capsys, monkeypatch):
-    """configs/split10_qwen_fused.json's key on the CPU: every mode runs,
-    maps onto EDGELLM_FUSED_HOP as the reference's CLI does, and gives the
-    unfused PPL (the hops decode the same bytes)."""
-    monkeypatch.setenv("EDGELLM_FUSED_HOP", "")
-    p = {"experiment": "split", "cuts": [2], "hop_codecs": ["int8_per_token"],
-         "max_length": 64, "stride": 32}
-    argv = ["--model", "tiny-qwen2", "--device", "cpu", "--output-dir", str(tmp_path),
-            "--max-chunks", "3", "--window-batch", "2"]
-    assert trun.main(["--params", json.dumps(p)] + argv) == 0
-    unfused = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert trun.main(["--params", json.dumps({**p, "fused_hops": mode})] + argv) == 0
-    fused = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert os.environ.get("EDGELLM_FUSED_HOP") == {"auto": None, "off": "0", "wire": "wire",
-                                                   "remote": "remote"}[mode]
-    assert fused["ppl"] == unfused["ppl"]
-    assert fused["measured_hop_bytes_total"] == unfused["measured_hop_bytes_total"]
 
 
 def test_port_runs_with_jax_and_reference_poisoned():
@@ -536,54 +329,6 @@ def test_entry_points_default_to_cuda():
     assert proc.returncode != 0 and "--device cpu" in proc.stderr
 
 
-#: configs/split11_qwen_spec.json's keys at hf_checkpoint's depth (4 layers:
-#: cut 2, as SPLIT_CLI cuts the split configs), fewer requests for time, and
-#: arrivals 20 virtual seconds apart: the virtual clock advances by measured
-#: service time, so denser arrivals would queue (and shed) by the host's load
-SPLIT11_CLI = {"cuts": [2], "serving": {"soak": {"n_requests": 8, "arrival_rate": 0.05}}}
-
-
-@pytest.mark.parametrize("speculative", [True, False])
-def test_cli_split11_per_request_route_matches_reference(speculative, hf_checkpoint, tmp_path,
-                                                         capsys, monkeypatch):
-    """split11 through both CLIs on one checkpoint (and without its
-    ``speculative`` block, the vanilla per-request split route): the same
-    ``requests``, ``outcomes`` and ``token_identity_ok``, and every
-    request's tokens in the port's ``serve_report.json`` equal to the
-    reference front's records. Timings are not compared."""
-    from edgellm_tpu.serve import soak as jsoak
-
-    p = json.loads((REPO / "configs/split11_qwen_spec.json").read_text())
-    p["cuts"] = SPLIT11_CLI["cuts"]
-    p["serving"]["soak"].update(SPLIT11_CLI["serving"]["soak"])
-    if not speculative:
-        del p["speculative"]
-    trun._validate_params_json(p, "cuda")
-    fronts = []
-    real = jsoak.run_soak
-
-    def keep_front(front, soak, **kw):
-        fronts.append(front)
-        return real(front, soak, **kw)
-
-    monkeypatch.setattr(jsoak, "run_soak", keep_front)
-    argv = ["--params", json.dumps(p), "--weights", str(hf_checkpoint)]
-    assert trun.main(argv + ["--device", "cpu", "--output-dir", str(tmp_path / "t")]) == 0
-    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert jrun.main(argv + ["--output-dir", str(tmp_path / "j")]) == 0
-    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert set(got) == set(want)
-    for key in ("requests", "outcomes", "token_identity_ok"):
-        assert got[key] == want[key], key
-    assert got["outcomes"] == {"completed": 8} and got["token_identity_ok"] is True
-    saved = json.loads((tmp_path / "t" / "serve_report.json").read_text())
-    want_toks = {str(r.request_id): np.asarray(r.tokens).tolist() for r in fronts[0].records}
-    assert saved["tokens"] == want_toks and len(want_toks) == 8
-    assert saved["token_identity"]["checked"] == 8
-    if speculative:
-        assert saved["soak"]["temperature"] == 0.7  # the residual-resampling branch
-
-
 #: the relevance run both CLI tests below read: hf_checkpoint's weights, the
 #: synthetic corpus of --seed 0, 160 tokens, window 64, stride 32
 REL_ARGS = ["--device", "cpu", "--max-chunks", "3", "--window-batch", "2",
@@ -698,45 +443,3 @@ def test_cli_distances_refuses_an_npz_sample_out_of_range(tmp_path):
     with pytest.raises(SystemExit, match=r"npz sample 1 has token ids outside \[0, 256\)"):
         trun.main(["--params", json.dumps({"experiment": "distances"}), "--model", "tiny-qwen2",
                    "--device", "cpu", "--corpus", str(npz), "--output-dir", str(tmp_path)])
-
-
-def test_cli_split6_failover_recovery_block_matches_reference(tmp_path, capsys):
-    """configs/split6_qwen_failover.json through both CLIs, its cuts inside
-    tiny-qwen2's 6 layers and ``--deadline-s`` over its ``deadline``: the
-    printed result's recovery block (stage 2 lost at chunk 4, one failover
-    and re-plan onto cut 2, the byte totals of the new plan, the mesh) and
-    token count equal the reference CLI's (the weights differ: each CLI
-    draws its own from ``--seed``); ``--fault-report`` has no link to
-    report, as in the reference."""
-    p = json.loads((REPO / "configs/split6_qwen_failover.json").read_text())
-    p.update(cuts=[1, 3], max_length=64, stride=16)
-    argv = ["--params", json.dumps(p), "--model", "tiny-qwen2", "--max-chunks", "12",
-            "--window-batch", "4", "--deadline-s", "90", "--fault-report"]
-    assert trun.main(argv + ["--device", "cpu", "--output-dir", str(tmp_path / "t")]) == 0
-    out = capsys.readouterr().out.strip().splitlines()
-    assert jrun.main(argv + ["--output-dir", str(tmp_path / "j")]) == 0
-    jout = capsys.readouterr().out.strip().splitlines()
-    got, want = json.loads(out[0]), json.loads(jout[0])
-    assert got["recovery"] == want["recovery"]
-    assert got["recovery"]["deadline_s"] == 90.0 and got["recovery"]["replanned_cuts"] == [2]
-    assert got["recovery"]["counters"]["failovers"] == 1
-    for key in ("n_tokens", "chunks", "mesh", "measured_hop_bytes_total", "cuts"):
-        assert got[key] == want[key], key
-    assert np.isfinite(got["ppl"])
-    assert out[1:] == jout[1:] == ["fault report: no link counters recorded (faults were off)"]
-
-
-def test_fault_report_prints_the_recovery_counters_as_the_reference(capsys):
-    """``--fault-report``'s table carries the recovery counters beside the
-    link counters, line for line the reference's."""
-    result = {"link_counters": {"hops": [12, 6], "detected": [2, 0], "retried": [2, 0],
-                                "recovered": [2, 0], "substituted": [0, 0],
-                                "budget_dropped": [0, 0]},
-              "recovery": {"counters": {"failovers": 1, "replans": 1, "recompute_tokens": 0,
-                                        "resume_ok": 0, "checkpoints_written": 0,
-                                        "watchdog_fires": 0}}}
-    trun._print_fault_report(result)
-    got = capsys.readouterr().out
-    jrun._print_fault_report(result)
-    assert got == capsys.readouterr().out
-    assert "edgellm_recovery_failovers_total" in got and "edgellm_recovery_replans_total" in got

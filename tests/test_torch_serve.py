@@ -528,13 +528,14 @@ def test_serve_cli_greedy_tokens_equal_reference(name, hf_checkpoint, tmp_path):
     ("gray", {}, "gray is not ported yet"),
     ("cluster", {}, "cluster is not ported yet"),
     ("disagg", {}, "disagg is not ported yet"),
-    ("pipeline", {}, "pipeline is not ported yet"),
+    ("pipeline", {}, "pipeline schedules micro-batches across the split boundary"),
     ("faults", {}, None),
 ])
 def test_unported_serve_keys_are_named(key, value, message):
-    """Keys still to port die naming themselves; the link's keys (ported)
-    validate as the reference validates them (``faults`` alone passes,
-    ``link_health`` needs an enabled ``faults``)."""
+    """Keys still to port die naming themselves; the link's and the
+    pipeline's keys (ported) validate as the reference validates them
+    (``faults`` alone passes, ``link_health`` needs an enabled ``faults``,
+    ``pipeline`` needs ``cuts``)."""
     p = {**_config("split9_qwen_paged.json"), key: value}
     if message is None:
         trun._validate_params_json(p)
@@ -542,7 +543,7 @@ def test_unported_serve_keys_are_named(key, value, message):
         return
     with pytest.raises(SystemExit, match=message):
         trun._validate_params_json(p)
-    if key in ("link_health", "faults"):
+    if key in ("link_health", "faults", "pipeline"):
         with pytest.raises(SystemExit, match=message):
             jrun._validate_params_json(p)
 

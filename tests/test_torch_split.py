@@ -207,7 +207,7 @@ def test_split_eval_window_batch_and_resume_are_exact(qwen, corpus, case, tmp_pa
 UNPORTED_EVAL = {"faults": {"drop_rate": 0.1}, "link_policy": {}, "fec": {},
                  "hedge": {}, "link_health": {}, "deadline_s": 10.0,
                  "stage_failure": {"stage": 1, "at_step": 0}, "recovery": {},
-                 "pipeline": object(), "n_seq": 2}
+                 "pipeline": {"num_microbatches": 2}, "n_seq": 2}
 
 
 #: the link's arguments, ported: what each does alone
@@ -224,10 +224,21 @@ def test_unported_split_eval_args_raise(qwen, corpus, arg):
     ``link_health`` without an enabled ``faults`` raise the reference's
     message. So are survivability's: ``deadline_s`` and ``stage_failure``
     add the recovery block (a loss at chunk 0 of two stages fails over to
-    one), an empty ``recovery`` alone adds none."""
+    one), an empty ``recovery`` alone adds none. So is ``pipeline``: at
+    window batch 2 it runs the µ-batch schedule with the sequential PPL and
+    adds its summary; at window batch 1 it raises the reference's words."""
     _, tc, _, tp = qwen
     kw = dict(cuts=[2], hop_codecs=["int8_per_token"], max_length=64, stride=32,
               device="cpu", max_chunks=2, time_hops=False)
+    if arg == "pipeline":
+        with pytest.raises(ValueError, match="window_batch 1 must be a positive multiple"):
+            run_split_eval(tc, tp, corpus, **{**kw, arg: UNPORTED_EVAL[arg]})
+        kw["window_batch"] = 2
+        res = run_split_eval(tc, tp, corpus, **{**kw, arg: UNPORTED_EVAL[arg]})
+        seq = run_split_eval(tc, tp, corpus, **kw)
+        assert res["pipeline"]["num_microbatches"] == 2 and "pipeline" not in seq
+        assert res["total_nll"] == seq["total_nll"] and res["chunks"] == 2
+        return
     if arg in RECOVERY_EVAL_ARGS:
         res = run_split_eval(tc, tp, corpus, **{**kw, arg: UNPORTED_EVAL[arg]})
         assert np.isfinite(res["ppl"]) and res["chunks"] == 2
@@ -259,9 +270,11 @@ def test_unported_split_eval_args_raise(qwen, corpus, arg):
 @pytest.mark.parametrize("arg", ["faults", "policy", "fec", "hedge", "pipeline",
                                  "n_data", "n_model"])
 def test_unported_runtime_args_raise(arg):
-    """``pipeline`` and the mesh axes raise naming themselves; the link's
-    arguments are ported: ``faults`` (enabled) builds a ``FaultyLink`` with
-    the policy, FEC and hedge given beside it, each alone builds none."""
+    """The mesh axes raise naming themselves; the link's arguments are
+    ported: ``faults`` (enabled) builds a ``FaultyLink`` with the policy,
+    FEC and hedge given beside it, each alone builds none. So is
+    ``pipeline``: a ``PipelineConfig`` of two µ-batches builds a pipelined
+    runtime, one of one the sequential schedule."""
     from edgellm_tpu_torch.codecs.faults import FaultConfig, LinkPolicy
     from edgellm_tpu_torch.codecs.fec import FECConfig, HedgeConfig
 
@@ -269,6 +282,11 @@ def test_unported_runtime_args_raise(arg):
     cfg = tcfg.PRESETS["tiny-qwen2"]
     link_args = {"faults": FaultConfig(drop_rate=0.1), "policy": LinkPolicy(max_retries=1),
                  "fec": FECConfig(), "hedge": HedgeConfig()}
+    if arg == "pipeline":
+        pc = tsplit.PipelineConfig
+        assert SplitRuntime(cfg, split, ["cpu"] * 2, pipeline=pc(2)).pipelined
+        assert not SplitRuntime(cfg, split, ["cpu"] * 2, pipeline=pc(1)).pipelined
+        return
     if arg not in link_args:
         with pytest.raises(ValueError, match=f"{arg}.*not ported yet"):
             SplitRuntime(cfg, split, ["cpu"] * 2, **{arg: 2})
