@@ -200,7 +200,26 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    ranges, result and launches equal the unobserved run's) and a decode
    step timed in turns with observability on and off (tokens and launches
    equal, the overhead reported);
-20. a JSON line of every kernel (launches summed over the counted paths,
+20. the fleet's first pieces at full Qwen2-0.5B width and depth, fp32
+   random weights from ``--seed``: configs/split16_qwen_disagg.json through
+   ``run.main`` (two prefill workers x two staging slots, int8 pages, FEC
+   on the migration link; mode "disagg_batched", every request completed,
+   3 pages a request, the link's wire bytes the sum of
+   ``migration_wire_nbytes`` over the pages, the colocated batcher's tokens,
+   24 fp32 K-attn a prefill with none for an adopted stream and 24 K14 a
+   ragged step), disagg and colocated in turns (ms a decode step, wall a
+   request: on one card the prefill workers and the decode pool share the
+   device and run in turn); split16 with cut 11 (mode
+   "disagg_batched_split", K3 / K4 once a hop, K14 12 a stage a step, the
+   colocated split-paged batcher's tokens); ``run_disagg_soak`` with a
+   prefill worker killed mid-migration, the decode worker killed, the link
+   failed and a bit-flip window (the identity audit passing), with the
+   flight recorder and the live endpoint armed (one artifact a
+   migration-fatal failure, read back; /metrics, /healthz, /snapshot.json
+   and /trace answering on 127.0.0.1, /metrics the registry's text, a 404
+   for any other path); the soak at 2 layers on the card and the CPU
+   (kills, identity counts and the disagg report equal);
+21. a JSON line of every kernel (launches summed over the counted paths,
    and by path; K-attn's also by dtype and path; K-stats' fp32 column pass
    apart; ``ms`` its device time, ``event_ms`` the call's CUDA-event time),
    the ``nvidia-smi`` line, and
@@ -218,6 +237,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4033,6 +4053,311 @@ def pipeline_paths(args, detail: dict, device: str = "cuda",
     return out
 
 
+#: phase 20's shipped config; the cut its split run adds (split1's boundary,
+#: the hop held separate so K3 / K4 run once a hop whatever the probe cache
+#: says)
+SPLIT16_CONFIG = "configs/split16_qwen_disagg.json"
+DISAGG_CUT = {"cuts": [11], "hop_codecs": ["int8_per_token"], "fused_hops": "off"}
+#: phase 20's chaos soak (the reference test's legs, prompts inside split16's
+#: 32-position span): a prefill worker killed mid-migration, the decode worker
+#: killed, the link failed, and a bit-flip window hot enough that no page
+#: verifies (every migration in it fails, falls back colocated and leaves
+#: one flight artifact)
+DISAGG_SOAK = dict(n_requests=12, seed=7, min_prompt_len=3, max_prompt_len=24,
+                   max_new_tokens=6,
+                   kills=((0.2, "prefill"), (0.5, "decode"), (0.85, "link")),
+                   burst_start_frac=0.3, burst_end_frac=0.5, burst_bitflip_rate=1e-3)
+DISAGG_SOAK_SERVER = dict(num_prefill_workers=3, queue_bound=4, degrade_after=50)
+#: the soak's card-against-CPU depth
+DISAGG_SMALL_LAYERS = 2
+#: the endpoint's routes phase 20 scrapes
+OBS_ROUTES = ("/metrics", "/healthz", "/snapshot.json", "/trace")
+
+
+def disagg_paths(args, detail: dict, device: str = "cuda",
+                 model: str = "qwen2-0.5b") -> dict:
+    """Phase 20: the fleet's first pieces, fp32 weights from ``--seed`` (the
+    CLI's default), full Qwen2-0.5B width and depth. (a)
+    configs/split16_qwen_disagg.json as shipped through ``run.main``: every
+    request completed, mode "disagg_batched", 3 pages a request migrated,
+    the link's wire bytes the sum of ``migration_wire_nbytes`` over the
+    pages, every request's tokens those of a colocated ``ContinuousBatcher``
+    on the card, launches exactly 24 fp32 K-attn a prefill (the staging
+    prefills, the colocated fallbacks and the warm batcher's, none for an
+    adopted stream) and 24 K14 a ragged step; then disagg and colocated in
+    turns (ms a decode step, wall a request). (b) split16 with cut 11
+    (mode "disagg_batched_split"): K3 / K4 once a hop, K14 12 a stage a
+    step, the colocated split-paged batcher's tokens. (c) ``run_disagg_soak``
+    with every chaos leg, its identity audit passing; at
+    :data:`DISAGG_SMALL_LAYERS` layers the same soak on the card and the
+    CPU with equal kills, identity counts and ``disagg`` report. (d) during
+    (c) the flight recorder and the live endpoint armed: one artifact a
+    migration-fatal failure, each read back; the four routes answer 200 on
+    127.0.0.1, ``/metrics`` the registry's text of that instant, and an
+    unknown path 404 -> launches by path."""
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from edgellm_tpu_torch import obs
+    from edgellm_tpu_torch import run
+    from edgellm_tpu_torch.codecs.fec import FECConfig
+    from edgellm_tpu_torch.models import PRESETS, init_params, params_to
+    from edgellm_tpu_torch.models.paged_kv import resolve_kv_codec
+    from edgellm_tpu_torch.parallel import SplitConfig, SplitRuntime
+    from edgellm_tpu_torch.serve import ContinuousBatcher
+    from edgellm_tpu_torch.serve import disagg as dg
+    from edgellm_tpu_torch.serve import soak as sk
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out, rows, part_s = {}, {}, {}
+    t_part = [time.monotonic()]
+
+    def lap(name):
+        now = time.monotonic()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+    cfg = PRESETS[model]
+    n_layers = cfg.num_layers
+    base = ["--model", model, "--seed", str(args.seed), "--device", device]
+    with open(SPLIT16_CONFIG) as f:
+        p16 = json.load(f)
+    if model != "qwen2-0.5b":  # a CPU rehearsal: the cut inside the tiny model
+        p16["serving"]["soak"]["n_requests"] = 6
+    cut = dict(DISAGG_CUT, cuts=[11] if model == "qwen2-0.5b" else [2])
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed),
+                         device=device)
+    bcfg = run.batching_config(cfg, p16)
+    n_req = p16["serving"]["soak"]["n_requests"]
+
+    def cli(p, label):
+        """``run.main`` on ``p`` with the counts set to 0 just before -> (the
+        printed line, serve_report.json, launches, wall s, the requests the
+        server took by sid, its tokens by sid)."""
+        reqs, results = {}, {}
+        real_submit, real_run = dg.DisaggServer.submit, dg.DisaggServer.run
+
+        def submit(self, prompt_ids, max_new_tokens, **kw):
+            sid = real_submit(self, prompt_ids, max_new_tokens, **kw)
+            reqs[sid] = (np.asarray(prompt_ids, np.int32).copy(), int(max_new_tokens), kw)
+            return sid
+
+        def run_all(self, *a, **kw):
+            res = real_run(self, *a, **kw)
+            results.update({sid: np.asarray(t).copy() for sid, t in res.items()})
+            return res
+
+        dg.DisaggServer.submit, dg.DisaggServer.run = submit, run_all
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                sync()
+                reset_counts()
+                t0 = time.monotonic()
+                rc, printed = _cli_json_line(["--params", json.dumps(p), "--output-dir", tmp]
+                                             + base)
+                sync()
+                wall = time.monotonic() - t0
+                launches = read_counts()
+                with open(os.path.join(tmp, "serve_report.json")) as f:
+                    report = json.load(f)
+        finally:
+            dg.DisaggServer.submit, dg.DisaggServer.run = real_submit, real_run
+        if rc != 0:
+            raise SystemExit(f"{label}: run.main exited {rc}")
+        return printed, report, launches, wall, reqs, results
+
+    def colocated(reqs, split_kw=None):
+        """The same requests on a colocated batcher of split16's geometry ->
+        (tokens by the server's sid, its report, wall s)."""
+        b = ContinuousBatcher(cfg, params, bcfg, **(split_kw or {}))
+        sync()
+        t0 = time.monotonic()
+        ids = {sid: b.submit(pr, n, **kw) for sid, (pr, n, kw) in sorted(reqs.items())}
+        res = b.run()
+        sync()
+        return {sid: res[i] for sid, i in ids.items()}, b.report(), time.monotonic() - t0
+
+    def expected(rep, n_cuts):
+        """24 fp32 K-attn a prefill (the staging workers', the colocated
+        fallbacks', the warm batcher's one), 24 K14 a ragged step (the warm
+        batcher's one too), one K3 / K4 a cut a prefill and a step."""
+        d = rep["disagg"]
+        prefills = d["prefills"] + d["colocated_fallbacks"] + 1
+        steps = rep["steps"] + 1
+        hops = n_cuts * (prefills + steps)
+        codec = {"int8_affine_encode": hops, "int8_affine_decode": hops} if n_cuts else {}
+        return want_counts(n_layers * prefills, causal_attention=n_layers * prefills,
+                           paged_decode_attention_quant=n_layers * steps, **codec)
+
+    codec = resolve_kv_codec(bcfg.kv_codec)
+    row_bytes = 2 * n_layers * cfg.num_kv_heads * (codec.code_lanes(cfg.head_dim) + 4)
+    fec = FECConfig(**p16["disagg"]["fec"])
+    ps = bcfg.page_size
+
+    def wire_bytes(prompt_len):
+        return sum(dg.migration_wire_nbytes(min(ps, prompt_len - a) * row_bytes, fec)
+                   for a in range(0, prompt_len, ps))
+
+    # (a) split16 as shipped, (b) with cut 11
+    for label, p, n_cuts in (("split16", p16, 0), ("split16 cut 11", {**p16, **cut}, 1)):
+        printed, report, launches, wall, reqs, toks = cli(p, label)
+        rep, d = report["batcher"], report["batcher"]["disagg"]
+        split_kw = None
+        if n_cuts:
+            with fused_hops("off"):
+                rt = SplitRuntime(cfg, SplitConfig(tuple(p["cuts"]), tuple(p["hop_codecs"])),
+                                  [params["embed"].device] * 2)
+            split_kw = dict(split_runtime=rt, placed_params=rt.place_params(params))
+        want_toks, col_rep, col_wall = colocated(reqs, split_kw)
+        pages = sum(-(-pr.size // ps) for pr, _, _ in reqs.values())
+        want = expected(rep, n_cuts)
+        row = {"path": label, "printed": printed, "mode": report["mode"],
+               "decode_steps": rep["steps"], "ms_per_decode_step":
+                   1e3 * rep["decode_s"] / max(rep["steps"], 1),
+               "colocated_decode_steps": col_rep["steps"],
+               "colocated_ms_per_decode_step":
+                   1e3 * col_rep["decode_s"] / max(col_rep["steps"], 1),
+               "wall_s": wall, "colocated_wall_s": col_wall, "disagg": d,
+               "pages": pages, "wire_bytes_expected": sum(
+                   wire_bytes(pr.size) for pr, _, _ in reqs.values()),
+               "bytes_a_page_chunk": {r: dg.migration_wire_nbytes(r * row_bytes, fec)
+                                      for r in sorted({min(ps, pr.size - a)
+                                                       for pr, _, _ in reqs.values()
+                                                       for a in range(0, pr.size, ps)})},
+               "tokens_equal_colocated": sorted(toks) == sorted(want_toks) and all(
+                   np.array_equal(toks[s], want_toks[s]) for s in want_toks),
+               "launches": launches, "launches_expected": want}
+        log(json.dumps({"disagg_path": {k: v for k, v in row.items() if k != "printed"}}))
+        rows[label] = row
+        mode = "disagg_batched_split" if n_cuts else "disagg_batched"
+        if printed["outcomes"] != {"completed": n_req} or printed["mode"] != mode \
+                or printed["disagg_migrations"] != n_req or printed["disagg_degraded"]:
+            raise SystemExit(f"{label}: {printed}")
+        if d["migrated_pages"] != pages or d["link"]["transmissions"] != pages \
+                or d["link"]["wire_bytes"] != row["wire_bytes_expected"]:
+            raise SystemExit(f"{label}: {pages} pages of {row['wire_bytes_expected']} wire "
+                             f"bytes expected, the link says {d['link']}")
+        if not row["tokens_equal_colocated"]:
+            raise SystemExit(f"{label}: disagg tokens differ from the colocated batcher's")
+        if on_card and launches != want:
+            raise SystemExit(f"{label}: kernel launches {launches} != expected {want}")
+        out[label] = launches
+        turn_reqs = reqs if not n_cuts else turn_reqs
+        lap(label)
+
+    # (a) in turns: disagg, colocated, colocated, disagg on (a)'s requests
+    turns = {"disagg": [], "colocated": []}
+    for name in ("disagg", "colocated", "colocated", "disagg"):
+        if name == "colocated":
+            _, rep_t, wall_t = colocated(turn_reqs)
+        else:
+            srv = dg.DisaggServer(cfg, params, bcfg, run._disagg_config(p16["disagg"]))
+            sync()
+            t0 = time.monotonic()
+            for sid in sorted(turn_reqs):
+                pr, n, kw = turn_reqs[sid]
+                srv.submit(pr, n, **kw)
+            srv.run()
+            sync()
+            wall_t = time.monotonic() - t0
+            rep_t = srv.report()
+        turns[name].append({"ms_per_decode_step": 1e3 * rep_t["decode_s"] / max(rep_t["steps"], 1),
+                            "decode_steps": rep_t["steps"],
+                            "wall_ms_per_request": 1e3 * wall_t / len(turn_reqs)})
+    rows["turns"] = turns
+    log(json.dumps({"disagg_turns": turns}))
+    lap("turns")
+
+    # (c) + (d): the chaos soak with the recorder and the endpoint armed
+    dcfg = dg.DisaggConfig(fec=fec, **DISAGG_SOAK_SERVER)
+
+    def soak(c, prm):
+        srv = dg.DisaggServer(c, prm, bcfg, dcfg)
+        return sk.run_disagg_soak(
+            srv, sk.DisaggSoakConfig(vocab_size=c.vocab_size, **DISAGG_SOAK),
+            reference_factory=lambda: ContinuousBatcher(c, prm, bcfg))
+
+    def get(url):
+        try:
+            with urllib.request.urlopen(url, timeout=5) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, b""
+
+    fr_dir = tempfile.mkdtemp(prefix="flight_")
+    obs.enable(obs.ObservabilityConfig(flight_recorder=fr_dir, obs_port=0))
+    try:
+        sync()
+        reset_counts()
+        art = soak(cfg, params)
+        sync()
+        launches = read_counts()
+        srv = obs.server.get_global()
+        status = {}
+        status["/metrics"], body = get(srv.url + "/metrics")
+        metrics_equal = body.decode() == obs.get_registry().to_prometheus()
+        for route in OBS_ROUTES[1:] + ("/no-such-route",):
+            status[route], _ = get(srv.url + route)
+        dumps = obs.get_flight_recorder().dumps()
+        reasons = [obs.load_flight(path)["reason"] for path in dumps]
+    finally:
+        obs.disable()
+        obs.get_registry().clear()
+        obs.get_tracer().clear()
+        shutil.rmtree(fr_dir, ignore_errors=True)
+    d = art["disagg"]
+    soak_row = {"completed": art["completed"], "accepted_lost": art["accepted_lost"],
+                "kills": art["kills"], "burst": art["burst"],
+                "token_identity": art["token_identity"], "disagg": d,
+                "flight_dumps": len(dumps), "flight_reasons": reasons,
+                "endpoint_status": status, "metrics_equal_registry": metrics_equal,
+                "launches": launches}
+    log(json.dumps({"disagg_soak": soak_row}))
+    rows["soak"] = soak_row
+    targets = {k["target"].split(":")[0] for k in art["kills"]}
+    if art["accepted_lost"] or not art["token_identity"]["ok"] \
+            or art["token_identity"]["checked"] != art["requests"]:
+        raise SystemExit(f"disagg soak: {soak_row}")
+    if targets != {"prefill", "decode", "link"} or not any(
+            k["mid_migration"] for k in art["kills"]) or d["degrade_reason"] != "migration_link_dead":
+        raise SystemExit(f"disagg soak: a chaos leg did not fire: {art['kills']}, {d}")
+    # one artifact a migration-fatal failure: each exhausted ladder (the
+    # link's "failed") and each worker lost mid-migration
+    if reasons.count("MigrationError") != d["link"]["failed"] or d["link"]["failed"] < 1 \
+            or set(reasons) - {"MigrationError", "PrefillWorkerLost"}:
+        raise SystemExit(f"disagg soak: flight artifacts {reasons} for {d['link']['failed']} "
+                         f"failed migrations")
+    if any(status[r] != 200 for r in OBS_ROUTES) or status["/no-such-route"] != 404 \
+            or not metrics_equal:
+        raise SystemExit(f"obs endpoint: {status}, /metrics equal: {metrics_equal}")
+    out["disagg soak"] = launches
+    lap("soak")
+
+    # (c) at DISAGG_SMALL_LAYERS layers: the card against the CPU
+    small_cfg, small = _small_model(cfg, params, DISAGG_SMALL_LAYERS)
+    arts = {dev: soak(small_cfg, params_to(small, device=dev))
+            for dev in ((device, "cpu") if on_card else ("cpu",))}
+    keep = ("completed", "accepted_lost", "kills", "burst", "disagg")
+    cross = {"equal": all(arts[device][k] == arts["cpu"][k] for k in keep),
+             "identity": {dev: a["token_identity"] for dev, a in arts.items()},
+             "disagg": arts["cpu"]["disagg"]}
+    rows["soak card vs cpu"] = cross
+    log(json.dumps({"disagg_soak_card_vs_cpu": cross}))
+    if not cross["equal"] or not all(a["token_identity"]["ok"] for a in arts.values()):
+        raise SystemExit(f"disagg soak card vs CPU: {[{k: a[k] for k in keep} for a in arts.values()]}")
+    lap("soak card vs cpu")
+    rows["part_s"] = part_s
+    log(json.dumps({"disagg_part_s": part_s}))
+    detail["disagg"] = rows
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4108,11 +4433,14 @@ def main() -> int:
     by_path.update(survivable_paths(args, detail))
     t10 = time.monotonic()
     by_path.update(pipeline_paths(args, detail))
+    t11 = time.monotonic()
+    by_path.update(disagg_paths(args, detail))
     detail["phase_s"] = {"kernels": t1 - t0, "token_sweep": t2 - t1, "split_paths": t3 - t2,
                          "serve_paths": t4 - t3, "cross_checks": t5 - t4,
                          "experiments": t6 - t5, "split_decode": t7 - t6,
                          "split_paged": t8 - t7, "boundary_link": t9 - t8,
-                         "survivable": t10 - t9, "pipeline": time.monotonic() - t10,
+                         "survivable": t10 - t9, "pipeline": t11 - t10,
+                         "disagg": time.monotonic() - t11,
                          "total": time.monotonic() - t_start}
     log(json.dumps({"phase_s": detail["phase_s"]}))
 

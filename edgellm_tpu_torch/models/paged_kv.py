@@ -30,6 +30,10 @@ Conventions (the reference's):
   pages live per stage (``SplitRuntime.init_paged_pool``); every method that
   needs the pool raises, and :meth:`PagedKVCache.ensure_writable` hands its
   COW pairs back for the caller to copy.
+- migration holds (disaggregated prefill): :meth:`PagedKVCache.hold_slot`
+  pins a slot whose pages are in flight to another pool (``free_slot``
+  refuses it, ``defrag`` defers), and :meth:`PagedKVCache.gather_slot_rows`
+  / :meth:`PagedKVCache.gather_slot_rows_packed` read one page's rows.
 
 Where the reference donates its pool buffers to jitted surgery, the port
 updates the pool tensors in place: page writes are ``index_copy_`` / indexed
@@ -471,6 +475,11 @@ class PagedKVCache:
         self.prefix_counters = {"hits": 0, "misses": 0, "saved_tokens": 0,
                                 "cow_forks": 0, "index_evictions": 0,
                                 "reclaimed_pages": 0}
+        # migration holds: slots pinned while their pages are in flight to
+        # another pool; free_slot refuses a held slot and defrag defers, so
+        # the flat indices a transfer read stay valid until it lands
+        self._slot_holds = np.zeros((max_slots,), np.int32)
+        self.deferred_defrags = 0
 
     # -- geometry ----------------------------------------------------------
 
@@ -563,12 +572,38 @@ class PagedKVCache:
         free list only at refcount 0. Page contents are left stale."""
         if not self.active[slot]:
             raise ValueError(f"slot {slot} is not active")
+        if self._slot_holds[slot]:
+            raise ValueError(
+                f"slot {slot} is held for an in-flight migration "
+                f"({int(self._slot_holds[slot])} hold(s)); release the hold "
+                f"before freeing")
         for p in reversed(self._slot_pages[slot]):
             self._release_ref(p)
         self._slot_pages[slot] = []
         self.page_table[slot] = 0
         self.lengths[slot] = 0
         self.active[slot] = False
+
+    # -- migration holds ---------------------------------------------------
+
+    def hold_slot(self, slot: int) -> None:
+        """Pin ``slot`` for an in-flight page handoff: while a hold is out,
+        :meth:`free_slot` refuses the slot and :meth:`defrag` defers (returns
+        0, counted in ``deferred_defrags``), so the source rows of a
+        transfer's retries stay where its flat indices point."""
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not active")
+        self._slot_holds[slot] += 1
+
+    def release_slot_hold(self, slot: int) -> None:
+        """Drop one migration hold on ``slot``."""
+        if self._slot_holds[slot] <= 0:
+            raise ValueError(f"slot {slot} has no outstanding hold")
+        self._slot_holds[slot] -= 1
+
+    @property
+    def held_slots(self) -> list:
+        return [s for s in range(self.max_slots) if self._slot_holds[s] > 0]
 
     # -- reference counting / prefix sharing -------------------------------
 
@@ -908,11 +943,42 @@ class PagedKVCache:
         return {"k_codes": kc, "v_codes": vc, "k_scale": ks, "v_scale": vs,
                 "length": np.asarray(n, np.int32)}
 
+    def _check_row_range(self, slot: int, start: int, stop: int) -> None:
+        if not 0 <= start < stop <= int(self.lengths[slot]):
+            raise ValueError(f"row range [{start}, {stop}) out of slot {slot}'s "
+                             f"length {int(self.lengths[slot])}")
+
+    def gather_slot_rows(self, slot: int, start: int, stop: int) -> dict:
+        """Rows ``[start, stop)`` of :meth:`gather_slot` as host {"k", "v"}:
+        one migrated page's chunk (concatenated along the row axis the
+        chunks give :meth:`gather_slot`'s arrays)."""
+        self._require_pool("gather_slot_rows")
+        self._check_row_range(slot, start, stop)
+        k, v = self._gather_fp(self._dest(slot, stop, start))
+        return {"k": _host(k), "v": _host(v)}
+
+    def gather_slot_rows_packed(self, slot: int, start: int, stop: int) -> dict:
+        """Rows ``[start, stop)`` of :meth:`gather_slot_packed`: the raw pool
+        bytes of one migrated page, so the packed adopt on the far side is a
+        byte move."""
+        self._require_pool("gather_slot_rows_packed")
+        if self.kv_codec == "fp":
+            raise ValueError("gather_slot_rows_packed is for quantized "
+                             "tiers; fp pools use gather_slot_rows()")
+        self._check_row_range(slot, start, stop)
+        idx = self._dest(slot, stop, start)
+        kc, vc, ks, vs = (_rows_get(a, idx).cpu().numpy() for a in self.pool)
+        return {"k_codes": kc, "v_codes": vc, "k_scale": ks, "v_scale": vs}
+
     def defrag(self) -> int:
         """Compact referenced pages to the low end of the pool (slot order,
         then index nodes; a shared page moves once) and rebuild the free list
-        above them. Returns the number of pages that moved."""
+        above them. Returns the number of pages that moved. Deferred
+        (returns 0) while any slot holds a migration pin."""
         self._require_pool("defrag")
+        if self._slot_holds.any():
+            self.deferred_defrags += 1
+            return 0
         src = np.zeros((self.num_pages,), np.int32)  # new -> old; src[0] = 0
         new_of: dict = {}
         moved = 0
@@ -1072,6 +1138,7 @@ class PagedKVCache:
                 assert not self._slot_pages[s], f"inactive slot {s} owns pages"
                 assert (self.page_table[s] == 0).all()
                 assert self.lengths[s] == 0
+                assert self._slot_holds[s] == 0, f"inactive slot {s} carries a migration hold"
 
     def prefix_report(self) -> dict:
         """Host-side sharing stats (the reference's keys)."""

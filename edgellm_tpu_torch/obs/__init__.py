@@ -11,25 +11,28 @@ registry, the span tracer and the per-token latency SLOs.
 - :mod:`.latency`: TTFT and per-token latency histograms for the decode
   loops, one synchronisation per sampled token;
 - :mod:`.context`: the request-scoped labels spans inherit; :mod:`.names`:
-  the registered metric and span names.
+  the registered metric and span names;
+- :mod:`.flight`: the failure flight recorder, a bounded ring of spans and
+  counter deltas dumped as a CRC-framed artifact once a typed failure;
+- :mod:`.server`: the live endpoint (``/metrics``, ``/healthz``,
+  ``/snapshot.json``, ``/trace``) on a loopback daemon thread.
 
 Everything is host-side: with observability disabled (the default) the
 serve and split stacks run the same operations, with no host sync and no
-extra kernel, and give the same tokens and logits. Still to port: the
-flight recorder and the live endpoint (the ``flight_recorder`` and
-``obs_port`` fields, which :func:`enable` refuses).
+extra kernel, and give the same tokens and logits.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from . import context, latency, metrics, names, tracing
+from . import context, flight, latency, metrics, names, server, tracing
 from .context import TraceContext
+from .flight import (FlightRecorder, configure_flight, flight_dump_for, get_flight_recorder,
+                     load_flight)
 from .latency import LatencyObserver
 from .metrics import Counter, CounterSource, Gauge, Histogram, MetricsRegistry, get_registry
+from .server import ObsServer
 from .tracing import Tracer, get_tracer, span, trace_capture
-
-NOT_PORTED_MSG = "is not ported yet to edgellm_tpu_torch"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,16 +41,15 @@ class ObservabilityConfig:
     ``"observability"`` object and the ``--metrics-out`` / ``--trace-out``
     flags resolve to one of these); the reference's fields and defaults.
     The three pillars default on; the flight recorder and the live endpoint
-    are opt-in and not ported yet."""
+    are opt-in."""
 
     metrics: bool = True
     tracing: bool = True
     latency: bool = True
-    #: False = off; True = record into ``flight_recorder/``; a string names
-    #: the artifact directory (not ported yet)
+    #: False = off; True = record into ``flight_recorder/`` under the cwd; a
+    #: string names the artifact directory
     flight_recorder: bool | str = False
-    #: None = no live endpoint; 0 = an OS-assigned port; else the port (not
-    #: ported yet)
+    #: None = no live endpoint; 0 = an OS-assigned port; else the port
     obs_port: int | None = None
 
     def __post_init__(self) -> None:
@@ -68,29 +70,29 @@ class ObservabilityConfig:
             raise ValueError(f"observability.obs_port must be null or an "
                              f"integer in [0, 65535], got {p!r}")
 
-    def unported(self) -> list:
-        """The fields set to a part not ported yet (the flight recorder, the
-        live endpoint)."""
-        return [name for name, on in (("flight_recorder", bool(self.flight_recorder)),
-                                      ("obs_port", self.obs_port is not None)) if on]
-
 
 def enable(config: ObservabilityConfig | None = None) -> None:
     """Arm the global registry and tracer per ``config`` (default:
-    everything). A config that asks for the flight recorder or the live
-    endpoint raises: neither is ported yet."""
+    everything); the opt-in extras also arm the flight recorder (unless one
+    is configured already) and start the live endpoint."""
     cfg = config if config is not None else ObservabilityConfig()
-    bad = cfg.unported()
-    if bad:
-        raise ValueError(f"observability.{bad[0]} {NOT_PORTED_MSG}")
     metrics.get_registry().enabled = cfg.metrics
     tracing.configure(enabled=cfg.tracing)
+    if cfg.flight_recorder and flight.get_flight_recorder() is None:
+        out_dir = (cfg.flight_recorder if isinstance(cfg.flight_recorder, str)
+                   else "flight_recorder")
+        flight.configure_flight(FlightRecorder(out_dir))
+    if cfg.obs_port is not None:
+        server.start_global(cfg.obs_port)
 
 
 def disable() -> None:
-    """Back to the default: metrics and tracing off."""
+    """Back to the default: metrics and tracing off, the flight recorder
+    detached, the live endpoint stopped."""
     metrics.get_registry().enabled = False
     tracing.configure(enabled=False)
+    flight.configure_flight(None)
+    server.stop_global()
 
 
 def enabled() -> bool:
@@ -98,8 +100,10 @@ def enabled() -> bool:
 
 
 __all__ = [
-    "Counter", "CounterSource", "Gauge", "Histogram", "LatencyObserver",
-    "MetricsRegistry", "ObservabilityConfig", "TraceContext", "Tracer",
-    "context", "disable", "enable", "enabled", "get_registry", "get_tracer",
-    "latency", "metrics", "names", "span", "trace_capture", "tracing",
+    "Counter", "CounterSource", "FlightRecorder", "Gauge", "Histogram",
+    "LatencyObserver", "MetricsRegistry", "ObservabilityConfig", "ObsServer",
+    "TraceContext", "Tracer", "configure_flight", "context", "disable",
+    "enable", "enabled", "flight", "flight_dump_for", "get_flight_recorder",
+    "get_registry", "get_tracer", "latency", "load_flight", "metrics",
+    "names", "server", "span", "trace_capture", "tracing",
 ]

@@ -27,7 +27,11 @@ Dispatch mirrors the reference:
   behind the serving front (``prefix_cache`` and ``kv_at_rest`` too): seeded
   arrivals on a fake clock, ``serve_report.json`` and one JSON line; with
   ``cuts`` / ``hop_codecs`` beside it the batcher's ragged step runs through
-  a ``SplitRuntime`` (the split-paged batcher, mode "batched_split")
+  a ``SplitRuntime`` (the split-paged batcher, mode "batched_split"); with
+  ``disagg`` the front drains a ``DisaggServer`` (prefill workers, verified
+  KV-page migration, a decode pool: mode "disagg_batched" or
+  "disagg_batched_split", ``disagg_migrations`` / ``disagg_degraded`` on
+  the line)
 - ``experiment: "serve"`` without ``batching`` -> the front's per-request
   route through ``run_soak``: with ``cuts`` / ``hop_codecs`` every request
   on a ``SplitRuntime`` (``generate_split``; ``speculative``: the draft /
@@ -49,14 +53,17 @@ Observability: ``--metrics-out PATH`` (Prometheus text for ``.prom`` /
 ``--trace-report`` (per-request span trees after the run) and ``--profile
 DIR`` (a torch.profiler Chrome trace of the run, every span a
 ``record_function`` range) arm the ``obs`` package; a params.json
-``observability`` block picks the pillars.
+``observability`` block picks the pillars, ``flight_recorder: true`` writes
+post-mortem artifacts under ``<output-dir>/flight_recorder`` and
+``obs_port`` (or ``--obs-port PORT``, 0 for any free port) serves the live
+endpoint on 127.0.0.1 for the run (its URL printed, ``/healthz`` the serve
+front's health).
 
 A split config that carries a key of a split feature not ported yet
 (``UNPORTED_SPLIT_KEYS``: the seq / data / model mesh axes) exits
 non-zero, and so does a serve config with a key of a serve feature not
-ported yet (``UNPORTED_SERVE_KEYS``: the fleet), each naming it, and so
-do the flight recorder and the live endpoint (``observability``'s
-``flight_recorder`` and ``obs_port``, ``--obs-port``). ``fused_hops`` maps
+ported yet (``UNPORTED_SERVE_KEYS``: the replica router and its gray
+hardening), each naming it. ``fused_hops`` maps
 onto the ``EDGELLM_FUSED_HOP`` gate as in
 the reference ("auto" fuses a hop only where this card's probe cache
 recorded a win, ``codecs/probe_cache.py``).
@@ -85,8 +92,8 @@ NOT_PORTED = ()
 UNPORTED_SPLIT_KEYS = ("n_seq", "n_data", "n_model")
 #: the faulty link's keys
 LINK_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health")
-#: serve keys whose feature is not ported yet (the fleet)
-UNPORTED_SERVE_KEYS = ("cluster", "disagg", "gray")
+#: serve keys whose feature is not ported yet (the replica router, gray hardening)
+UNPORTED_SERVE_KEYS = ("cluster", "gray")
 #: the fused_hops key's values onto the EDGELLM_FUSED_HOP gate ("auto" clears it)
 FUSED_HOP_ENV = {"off": "0", "wire": "wire", "remote": "remote"}
 
@@ -220,12 +227,9 @@ def _validate_params_json(p: dict, device="cuda") -> None:
             die(f"observability: unknown field(s) {bad}; "
                 f"known: {sorted(fields)}")
         try:
-            obc = ObservabilityConfig(**ob)
+            ObservabilityConfig(**ob)
         except (TypeError, ValueError) as e:
             die(f"observability: {e}")
-        for name in obc.unported():
-            die(f"observability.{name} is not ported yet to edgellm_tpu_torch; drop it "
-                f"or run with python -m edgellm_tpu.run")
     if "budget" in p:
         b = p["budget"]
         if not isinstance(b, dict):
@@ -473,8 +477,8 @@ def _validate_cuts(p: dict, die, device) -> None:
 def _validate_serve(p: dict, die, device) -> None:
     """The serve branch: unported features die naming what is missing, then
     the reference's checks of ``cuts``, the ``serving``, ``batching``,
-    ``prefix_cache``, ``kv_at_rest`` and ``speculative`` blocks, with its
-    messages."""
+    ``prefix_cache``, ``kv_at_rest``, ``speculative`` and ``disagg``
+    blocks, with its messages."""
     for key in UNPORTED_SERVE_KEYS:
         if key in p:
             die(f"{key} is not ported yet to edgellm_tpu_torch under experiment 'serve'; "
@@ -530,6 +534,7 @@ def _validate_serve(p: dict, die, device) -> None:
                 die(msg)
         _validate_pipeline(p, die)
         _validate_speculative(p, die)
+        _validate_disagg(p, die)
         return
     b = p["batching"]
     if not isinstance(b, dict):
@@ -593,6 +598,57 @@ def _validate_serve(p: dict, die, device) -> None:
             die(f"kv_at_rest.pool_bytes must be a positive integer, got {kq['pool_bytes']!r}")
     _validate_pipeline(p, die)
     _validate_speculative(p, die)
+    _validate_disagg(p, die)
+
+
+def _validate_disagg(p: dict, die) -> None:
+    """The reference's checks of the ``disagg`` block (experiment "serve")."""
+    if "disagg" not in p:
+        return
+    from .codecs.faults import FaultConfig
+    from .codecs.fec import FECConfig, HedgeConfig
+    from .serve.disagg import DisaggConfig
+
+    if "speculative" in p:
+        die("disagg + speculative: the spec loop is single-stream with "
+            "no prefill/decode split story — drop one of the two blocks")
+    if "batching" not in p:
+        die("disagg splits the continuous batcher into prefill and "
+            "decode workers — add a 'batching' block")
+    dg = p["disagg"]
+    if not isinstance(dg, dict):
+        die(f"disagg must be an object of DisaggConfig fields, got {dg!r}")
+    top = {f.name for f in dataclasses.fields(DisaggConfig)}
+    bad = sorted(set(dg) - top)
+    if bad:
+        die(f"disagg: unknown field(s) {bad}; known: {sorted(top)}")
+    for key, cls in (("fec", FECConfig), ("hedge", HedgeConfig), ("faults", FaultConfig)):
+        if dg.get(key) is None:
+            continue
+        if not isinstance(dg[key], dict):
+            die(f"disagg.{key} must be an object of {cls.__name__} fields, got {dg[key]!r}")
+        fields = {f.name for f in dataclasses.fields(cls)}
+        bad = sorted(set(dg[key]) - fields)
+        if bad:
+            die(f"disagg.{key}: unknown field(s) {bad}; known: {sorted(fields)}")
+    try:
+        _disagg_config(dg)
+    except (TypeError, ValueError) as e:
+        die(f"disagg: {e}")
+
+
+def _disagg_config(dg: dict):
+    """The :class:`DisaggConfig` a ``"disagg"`` block describes: the nested
+    ``fec`` / ``hedge`` / ``faults`` objects become the link's configs."""
+    from .codecs.faults import FaultConfig
+    from .codecs.fec import FECConfig, HedgeConfig
+    from .serve.disagg import DisaggConfig
+
+    kwargs = dict(dg)
+    for key, cls in (("fec", FECConfig), ("hedge", HedgeConfig), ("faults", FaultConfig)):
+        if kwargs.get(key) is not None:
+            kwargs[key] = cls(**kwargs[key])
+    return DisaggConfig(**kwargs)
 
 
 def _validate_speculative(p: dict, die) -> None:
@@ -697,7 +753,10 @@ def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
     seed, a shared system prompt of ``shared_prefix_len`` tokens) submitted
     to a :class:`ServeFront` over one :class:`ContinuousBatcher` and drained
     through it. With ``cuts`` both batchers take a :class:`SplitRuntime`
-    and its placed weights (mode "batched_split"). Writes
+    and its placed weights (mode "batched_split"); with ``disagg`` the
+    front drains a :class:`~.serve.disagg.DisaggServer` on the same clock
+    (the mode prefixed "disagg_", the migration count and the degrade flag
+    on the line; the warm batcher stays colocated). Writes
     ``out("serve_report.json")`` and returns the printed
     summary line (the reference's keys) plus the records and the batcher
     report under ``"_records"`` / ``"_batcher"``. Raises ``SystemExit`` when
@@ -716,8 +775,15 @@ def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
     if "cuts" in params_json:
         rt = _split_runtime(cfg, params, params_json)
         split_kw = dict(split_runtime=rt, placed_params=rt.place_params(params))
-    batcher = ContinuousBatcher(cfg, params, bcfg, **split_kw)
+    if "disagg" in params_json:
+        from .serve.disagg import DisaggServer
+
+        batcher = DisaggServer(cfg, params, bcfg, _disagg_config(params_json["disagg"]),
+                               clock=clock, **split_kw)
+    else:
+        batcher = ContinuousBatcher(cfg, params, bcfg, **split_kw)
     front = ServeFront(cfg, params, config=front_cfg, clock=clock, batcher=batcher)
+    _attach_front_obs(front)
     # warm the ragged step and the soak's prefill shape (kernel build,
     # allocator) before the first request
     warm = ContinuousBatcher(cfg, params, bcfg, **split_kw)
@@ -742,7 +808,8 @@ def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
     for rec in records:
         outcomes[rec.outcome] = outcomes.get(rec.outcome, 0) + 1
     artifact = {"requests": len(records), "outcomes": outcomes,
-                "mode": "batched_split" if split_kw else "batched",
+                "mode": (("disagg_" if "disagg" in params_json else "")
+                         + ("batched_split" if split_kw else "batched")),
                 "batcher": rep, "records": [r.as_dict() for r in records]}
     with open(out("serve_report.json"), "w") as f:
         json.dump(artifact, f, indent=1, default=float)
@@ -754,6 +821,8 @@ def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
         "decode_tokens_per_s": round(rep["decode_tokens_per_s"], 3),
         **({"prefix_hit_rate": round(pf["hit_rate"], 4),
             "prefill_tokens_saved": pf["saved_tokens"]} if pf else {}),
+        **({"disagg_migrations": rep["disagg"]["migrations"],
+            "disagg_degraded": rep["disagg"]["degraded"]} if rep.get("disagg") else {}),
         "artifact": out("serve_report.json")}
     if pf and soak.shared_prefix_len and not pf["hits"]:
         raise SystemExit(
@@ -807,6 +876,7 @@ def run_serve_requests(cfg, params: dict, params_json: dict, out) -> dict:
     spec = SpecConfig(**params_json["speculative"]) if "speculative" in params_json else None
     front = ServeFront(cfg, params, split_runtime=rt, config=front_cfg, clock=clock,
                        speculative=spec, link_health=link_health)
+    _attach_front_obs(front)
     # warm the soak's one (batch, capacity) plan: the virtual clock advances
     # by measured service time, which a first call's kernel builds would skew
     cr = front_cfg.capacity_round
@@ -1069,11 +1139,9 @@ def main(argv=None) -> int:
                          "activity, every span a record_function range) into "
                          "DIR/torch_trace.json")
     ap.add_argument("--obs-port", type=int, metavar="PORT",
-                    help="the live telemetry endpoint: not ported yet (exits naming it)")
+                    help="serve the live telemetry endpoint on 127.0.0.1:PORT for the run "
+                         "(0 = any free port): /metrics, /healthz, /snapshot.json, /trace")
     args = ap.parse_args(argv)
-    if args.obs_port is not None:
-        raise SystemExit("--obs-port (the live telemetry endpoint) is not ported yet to "
-                         "edgellm_tpu_torch; drop it or run with python -m edgellm_tpu.run")
 
     if args.params.lstrip().startswith("{"):
         params_json = json.loads(args.params)
@@ -1096,17 +1164,34 @@ def main(argv=None) -> int:
     out = lambda name: os.path.join(args.output_dir, name)
     from . import obs
 
-    # --metrics-out / --trace-out / --trace-report arm the obs package; a
-    # params.json "observability" object picks the pillars (a flag forces
-    # its own pillar on); the previous state comes back after the run
-    armed = (obs.get_registry().enabled, obs.tracing.tracing_enabled())
+    # --metrics-out / --trace-out / --trace-report / --obs-port arm the obs
+    # package; a params.json "observability" object picks the pillars (a
+    # flag forces its own pillar on); the previous state comes back after
+    # the run: the pillars' flags, and a recorder or endpoint this run armed
+    # is detached or stopped
+    armed = (obs.get_registry().enabled, obs.tracing.tracing_enabled(),
+             obs.get_flight_recorder(), obs.server.get_global())
     obs_params = params_json.get("observability")
-    if args.metrics_out or args.trace_out or args.trace_report or obs_params is not None:
+    if (args.metrics_out or args.trace_out or args.trace_report
+            or args.obs_port is not None or obs_params is not None):
         ob_cfg = obs.ObservabilityConfig(**(obs_params or {}))
         ob_cfg = dataclasses.replace(
             ob_cfg, metrics=ob_cfg.metrics or bool(args.metrics_out),
             tracing=ob_cfg.tracing or bool(args.trace_out) or args.trace_report)
+        if args.obs_port is not None:
+            try:
+                ob_cfg = dataclasses.replace(ob_cfg, obs_port=args.obs_port)
+            except ValueError as e:
+                raise SystemExit(f"--obs-port: {e}")
+        if ob_cfg.flight_recorder is True:
+            # an unnamed recorder writes beside the run's other artifacts
+            ob_cfg = dataclasses.replace(
+                ob_cfg, flight_recorder=os.path.join(args.output_dir, "flight_recorder"))
         obs.enable(ob_cfg)
+        srv = obs.server.get_global()
+        if ob_cfg.obs_port is not None and srv is not None:
+            print(f"obs endpoint -> {srv.url}  (/metrics /healthz /snapshot.json /trace)",
+                  flush=True)
     try:
         with obs.trace_capture(args.profile):
             return _dispatch(args, cfg, params, params_json, head_weights, out, device)
@@ -1118,6 +1203,21 @@ def main(argv=None) -> int:
             _print_trace_report(obs.get_tracer())
         obs.get_registry().enabled = armed[0]
         obs.tracing.configure(enabled=armed[1])
+        if armed[2] is None:
+            obs.configure_flight(None)
+        if armed[3] is None:
+            obs.server.stop_global()
+
+
+def _attach_front_obs(front) -> None:
+    """Point the live endpoint's ``/healthz`` at this serve front when
+    ``--obs-port`` or ``obs_port`` started one (the endpoint starts before
+    the front exists)."""
+    from .obs.server import get_global
+
+    srv = get_global()
+    if srv is not None:
+        srv.health_fn = front.health_summary
 
 
 def _export_observability(args, obs) -> None:

@@ -51,10 +51,18 @@ its µ-batches and the pool must be fp (the reference has no quantized
 pipelined step); stream checkpoints record ``num_microbatches`` (and a
 running stream's ``microbatch``) and the report carries the pipeline's
 summary. The ``batch.submit`` / ``batch.admit`` / ``batch.step`` spans and
-the stream id bound around an eviction's checkpoint are the reference's.
+the stream id bound around an eviction's checkpoint are the reference's; an
+unservable growth and a stalled run are dumped by the armed flight recorder
+before they raise.
 
-Not ported yet: the disaggregated-prefill hooks (``prefill_hold``,
-``gather_rows``, ``release_handoff``).
+The disaggregated-prefill hooks (``serve/disagg.py``'s staging workers):
+:meth:`ContinuousBatcher.prefill_hold` admits one waiting stream now (the
+fresh-admit prefill, token 0 from ``fold_in(key, 0)``) and pins its slot
+with a migration hold instead of decoding; :meth:`ContinuousBatcher.
+gather_rows` reads one page's rows in the pool's at-rest form (the split
+runtime's per-stage layout in split mode); :meth:`ContinuousBatcher.
+release_handoff` drops the hold and frees the slot. A stream adopted with
+``resume_prefix`` re-publishes its prompt's pages into the prefix index.
 """
 from __future__ import annotations
 
@@ -73,6 +81,7 @@ from ..models.paged_kv import (OutOfPages, OutOfSlots, PagedKVCache, PrefixCache
                                paged_decode_step, paged_decode_step_quant, resolve_kv_codec)
 from ..models.transformer import KVCache
 from ..obs import context as obs_context
+from ..obs.flight import flight_dump_for
 from ..obs.tracing import span as obs_span
 from ..utils import prng
 from ..utils.concurrency import guarded_by
@@ -81,9 +90,6 @@ from .recovery import (CheckpointError, CheckpointTierMismatchError, DecodeCheck
                        Watchdog)
 
 __all__ = ["BatchingConfig", "Stream", "ContinuousBatcher"]
-
-_NOT_PORTED = "is not ported yet to edgellm_tpu_torch"
-
 
 def _fp_rows(a):
     """A checkpoint leaf as the adopt paths take it: bf16 rows (a CPU bf16
@@ -154,6 +160,7 @@ class Stream:
     slot: int = -1
     tokens: list = field(default_factory=list)  # sampled ids, host ints
     resume: Optional[dict] = None  # gathered payload for re-admit
+    resume_prefix: bool = False   # re-publish the prompt's pages on adopt
     admit_seq: int = -1           # admission order; youngest = largest
     evictions: int = 0
 
@@ -320,15 +327,6 @@ class ContinuousBatcher:
                 pass
         st.status = "discarded"
 
-    def prefill_hold(self, sid: int):
-        raise NotImplementedError(f"prefill_hold (disaggregated prefill) {_NOT_PORTED}")
-
-    def gather_rows(self, slot: int, start: int, stop: int):
-        raise NotImplementedError(f"gather_rows (disaggregated prefill) {_NOT_PORTED}")
-
-    def release_handoff(self, sid: int):
-        raise NotImplementedError(f"release_handoff (disaggregated prefill) {_NOT_PORTED}")
-
     # -- admission / eviction ----------------------------------------------
 
     def _cache_len(self, st: Stream) -> int:
@@ -412,6 +410,11 @@ class ContinuousBatcher:
             else:
                 self.pool.adopt(slot, st.resume["k"], st.resume["v"], need_len)
             st.resume = None
+            if st.resume_prefix and self.pool.prefix is not None:
+                # a migrated prefill: the payload's first prompt.size rows
+                # are prompt K/V (the handoff is at t == 1), so the pages go
+                # back into the radix index; generated rows never do
+                self.pool.register_prefix(slot, st.prompt)
             return None
         s = st.prompt.size
         matched = 0
@@ -530,6 +533,55 @@ class ContinuousBatcher:
                 self.checkpoint_stream(sid, os.path.join(self.bcfg.checkpoint_dir,
                                                          f"stream_{sid}.ckpt"))
 
+    # -- disaggregated prefill handoff -------------------------------------
+
+    def prefill_hold(self, sid: int) -> Optional[Stream]:
+        """Admit waiting stream ``sid`` now (the fresh-admit prefill, token 0
+        sampled with ``fold_in(key, 0)`` as colocated serving samples it),
+        then pin its slot with a migration hold instead of decoding. Returns
+        the Stream, or None when the pool cannot admit it now; a
+        ``max_new_tokens == 1`` stream comes back ``finished`` with no held
+        slot (token 0 is the whole answer)."""
+        st = self._streams[sid]
+        if st.status != "waiting":
+            raise ValueError(f"stream {sid} is not waiting")
+        if not self._try_admit(sid):
+            return None
+        self._waiting.remove(sid)
+        if st.status == "running":
+            self.pool.hold_slot(st.slot)
+        return st
+
+    def gather_rows(self, slot: int, start: int, stop: int) -> dict:
+        """Rows ``[start, stop)`` of ``slot`` in the pool's at-rest form, as
+        host arrays: one migrated page (packed codes and scales on a
+        quantized tier; the (n_stages, stage_size, n, ...) layout in split
+        mode). The chunks concatenated along the row axis are
+        :meth:`_gather_state`'s arrays."""
+        if self.rt is None:
+            if self.bcfg.kv_codec != "fp":
+                return self.pool.gather_slot_rows_packed(slot, start, stop)
+            return self.pool.gather_slot_rows(slot, start, stop)
+        idx = self.pool._flat_indices(slot, stop)[start:]
+        if self.bcfg.kv_codec != "fp":
+            kc, vc, ks, vs = self.rt.gather_paged_packed(self._split_pool, idx)
+            return {"k_codes": kc, "v_codes": vc, "k_scale": ks, "v_scale": vs}
+        k_seq, v_seq = self.rt.gather_paged(self._split_pool, idx)
+        return {"k": k_seq, "v": v_seq}
+
+    def release_handoff(self, sid: int) -> None:
+        """Retire a handoff stream: drop the migration hold and free the
+        staging slot (its pages landed in the decode pool, or the handoff
+        was abandoned). The prompt's pages stay in the staging prefix index,
+        where one is on."""
+        st = self._streams.pop(sid)
+        if st.status == "running":
+            self.pool.release_slot_hold(st.slot)
+            self.pool.free_slot(st.slot)
+            del self._slot_to_sid[st.slot]
+            st.status, st.slot = "finished", -1
+        self.results.pop(sid, None)
+
     def _evict_for_pages(self, needed: int, protect: set) -> bool:
         """Evict youngest-admitted running streams (never ``protect``) until
         ``needed`` pages are free."""
@@ -580,10 +632,13 @@ class ContinuousBatcher:
                 continue  # evicted by a predecessor's growth
             try:
                 self._grow_writable(st.slot, self._cache_len(st) + 1)
-            except OutOfPages:
+            except OutOfPages as e:
                 need = max(1, self.pool.pages_for(self._cache_len(st) + 1)
                            - len(self.pool._slot_pages[st.slot]))
                 if not self._evict_for_pages(need, {st.sid}):
+                    # an unservable growth: the pool's state post-mortem
+                    flight_dump_for(e, sid=st.sid, slot=st.slot,
+                                    free_pages=self.pool.num_free_pages)
                     raise
                 self._grow_writable(st.slot, self._cache_len(st) + 1)
         running = self._running()
@@ -654,9 +709,12 @@ class ContinuousBatcher:
             if not self._waiting and not self._slot_to_sid:
                 break
             if self.step() == 0 and self._waiting:
-                raise OutOfPages(
+                exc = OutOfPages(
                     "no stream can make progress: the pool cannot hold even "
                     "one waiting stream — shrink prompts or grow the pool")
+                flight_dump_for(exc, waiting=len(self._waiting),
+                                free_pages=self.pool.num_free_pages)
+                raise exc
         return self.results
 
     # -- checkpoint / restore ----------------------------------------------

@@ -34,8 +34,17 @@ bind the request id (``r<rid>``) into the trace context around the
 ``serve.submit`` / ``serve.execute`` spans, so every span the decode loops
 open carries it; each terminal record publishes ``serve_*`` metrics into
 the global registry when it is enabled, and a batched drain publishes the
-prefix-cache counters. Not ported yet: the flight recorder and the live
-endpoint.
+prefix-cache counters. The armed flight recorder tracks every admitted
+request (``note_request`` / ``end_request``), folds the front's
+control-plane state into each artifact (:meth:`ServeFront._flight_context`)
+and dumps a stage loss on the retry ladder once;
+:meth:`ServeFront.start_obs_server` serves the live endpoint with
+:meth:`ServeFront.health_summary` as ``/healthz``.
+
+``drain_batched`` drives a :class:`~.disagg.DisaggServer` as it drives a
+batcher (the record's plan mode "disagg", or "disagg_split" over a split
+runtime, with the migration scoreboard); :meth:`ServeFront.disagg_state`
+and the report's ``"disagg"`` entry carry its degrade state.
 """
 from __future__ import annotations
 
@@ -48,7 +57,9 @@ from typing import Any, Optional
 import numpy as np
 
 from ..obs import context as obs_context
+from ..obs.flight import flight_dump_for, get_flight_recorder
 from ..obs.metrics import Histogram, get_registry, record_prefix_stats
+from ..obs.server import ObsServer
 from ..obs.tracing import span as obs_span
 from ..utils.clock import MONOTONIC, Clock
 from ..utils.concurrency import guarded_by
@@ -212,6 +223,10 @@ class ServeFront:
         self._backlog_s = 0.0
         self._seq = 0
         self._submit_lock = threading.Lock()
+        self._obs_server: Optional[ObsServer] = None
+        fl = get_flight_recorder()
+        if fl is not None:
+            fl.set_context_provider(self._flight_context)
         self.records: list[RequestRecord] = []
         self._agg: dict = {"requests": 0, "finished": 0, "tokens_out": 0, "met": 0,
                            "with_deadline": 0, "outcomes": {}, "reasons": {},
@@ -322,6 +337,11 @@ class ServeFront:
         with self._submit_lock:
             self._seq += 1
             rid = self._seq
+        fl = get_flight_recorder()
+        if fl is not None:
+            fl.note_request(f"r{rid}", priority=int(req.priority),
+                            prompt=int(np.asarray(req.prompt_ids).size),
+                            max_new_tokens=int(req.max_new_tokens))
         with obs_context.bind(rid=f"r{rid}"):
             with obs_span("serve.submit", priority=int(req.priority)):
                 return rid, self._submit_impl(rid, req, now)
@@ -374,6 +394,10 @@ class ServeFront:
                 _, _, _, pend = heapq.heappop(self._queue)
                 out.append((pend.rid, pend.req))
             self._backlog_s = 0.0
+        fl = get_flight_recorder()
+        if fl is not None:
+            for rid, _ in out:
+                fl.end_request(f"r{rid}")
         return out
 
     def drain(self, max_requests: Optional[int] = None) -> list:
@@ -416,6 +440,8 @@ class ServeFront:
             toks, stats, retries = self._run(p, backend, capacity)
             attempt2 = False
         except StageLostError as e:
+            # the post-mortem before routing around (once an instance)
+            flight_dump_for(e, rid=p.rid, backend=backend)
             self._on_stage_loss(e.stage)
             backend, _ = self._choose_route()
             if backend is None:
@@ -427,6 +453,7 @@ class ServeFront:
                 attempt2 = True
                 route_note = f"stage_lost:{e.stage}"
             except (StageLostError, DecodeTimeout) as e2:
+                flight_dump_for(e2, rid=p.rid, backend=backend)
                 reason = (f"stage_lost:{e2.stage}" if isinstance(e2, StageLostError)
                           else "watchdog")
                 return self._finish(p.rid, p.req, b, s, FAILED, reason, p.submitted_at,
@@ -637,6 +664,19 @@ class ServeFront:
             plan["prefix"] = {"hit_rate": rep["prefix"]["hit_rate"],
                               "saved_tokens": rep["prefix"]["saved_tokens"],
                               "shared_pages": rep["prefix"]["shared_pages"]}
+        if getattr(self.batcher, "rt", None) is not None:
+            # a split-driven batcher: the plan its ragged steps ran on
+            plan["mode"] = "batched_split"
+            plan["cuts"] = [int(c) for c in self.batcher.rt.split.cuts]
+            plan["hop_codecs"] = [c.name for c in self.batcher.rt.codecs]
+        if rep.get("disagg"):
+            # a disaggregated front: the migration scoreboard, so a degrade
+            # is attributable to the drain it happened in
+            plan["mode"] = "disagg_split" if plan["mode"] == "batched_split" else "disagg"
+            plan["disagg"] = {"degraded": rep["disagg"]["degraded"],
+                              "degrade_reason": rep["disagg"]["degrade_reason"],
+                              "migrations": rep["disagg"]["migrations"],
+                              "recompute_tokens": rep["disagg"]["recompute_tokens"]}
         for sid in sorted(inflight):
             pend, wait, started = inflight[sid]
             b, s = pend.prompt.shape
@@ -708,6 +748,9 @@ class ServeFront:
             if self.config.record_history:
                 self.records.append(rec)
             self._inflight_rids.discard(rid)
+        fl = get_flight_recorder()
+        if fl is not None:
+            fl.end_request(f"r{rid}")
         reg = get_registry()
         if reg.enabled:
             reg.counter("serve_requests_total", "terminal serve outcomes").inc(outcome=outcome)
@@ -759,7 +802,30 @@ class ServeFront:
             **({"link_counters": agg["link_counters"]} if agg["link_counters"] else {}),
             **({"link_health": self.link_health.summary()}
                if self.link_health is not None else {}),
+            # present only when this front drains a disaggregated server
+            **({"disagg": self.disagg_state()} if self.disagg_state() is not None else {}),
         }
+
+    def disagg_state(self) -> Optional[dict]:
+        """A disaggregated batcher's degrade state, or None for a colocated
+        front (a degraded disagg front still answers, token for token, at
+        colocated throughput)."""
+        b = self.batcher
+        if b is None or not hasattr(b, "degrade_reason"):
+            return None
+        return {"degraded": bool(b.degraded), "degrade_reason": b.degrade_reason}
+
+    # -- live telemetry ----------------------------------------------------
+
+    def _flight_context(self) -> dict:
+        """What the flight recorder folds into every artifact: the front's
+        control-plane state at dump time."""
+        ctx: dict = {"queue_depth": len(self._queue), "brownout": self.brownout.summary(),
+                     "failovers": self.failovers,
+                     "breakers": {n: b.summary() for n, b in sorted(self._breakers.items())}}
+        if self.link_health is not None:
+            ctx["link_health"] = self.link_health.summary()
+        return ctx
 
     def health_summary(self) -> dict:
         """Degraded whenever a breaker left the closed state or brownout is
@@ -775,3 +841,22 @@ class ServeFront:
             if self.link_health is not None:
                 health["link_health"] = self.link_health.summary()
             return health
+
+    def start_obs_server(self, port: int = 0) -> int:
+        """Serve the live endpoint for this front (``/healthz`` is
+        :meth:`health_summary`) and point the armed flight recorder at the
+        front's context -> the bound port (``port=0``: the OS picks)."""
+        if self._obs_server is None:
+            self._obs_server = ObsServer(port, health_fn=self.health_summary)
+            self._obs_server.start()
+        fl = get_flight_recorder()
+        if fl is not None:
+            fl.set_context_provider(self._flight_context)
+        port_ = self._obs_server.port
+        assert port_ is not None  # started above
+        return port_
+
+    def stop_obs_server(self) -> None:
+        if self._obs_server is not None:
+            self._obs_server.stop()
+            self._obs_server = None

@@ -16,7 +16,9 @@
   decode step (the chunk index in the eval); every call into the runtime
   raises until the caller fails over.
 - :class:`Watchdog`: a host-side monotonic deadline for decode and eval
-  loops.
+  loops. Its :class:`DecodeTimeout`, and a checkpoint load refused with a
+  :class:`CheckpointError`, are dumped by the armed flight recorder at the
+  raise site (``obs/flight.py``, once an exception instance).
 - :class:`LocalRuntime`: a single-device runtime with ``SplitRuntime``'s
   decode surface on the port's ``prefill`` / ``decode_step``, the failover
   target when one stage survives and the recovery path of ``generate``.
@@ -36,6 +38,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from ..obs.flight import flight_dump_for
 from ..obs.tracing import span as obs_span
 from ..models.paged_kv import KVTierMismatchError
 from ..models.transformer import KVCache, decode_step, prefill
@@ -166,10 +169,15 @@ class Watchdog:
                 checkpoint_fn()
             except Exception:  # noqa: BLE001 — best-effort by contract
                 pass
-        raise DecodeTimeout(
+        exc = DecodeTimeout(
             f"{what} exceeded the {self.deadline_s:g}s deadline "
             f"(elapsed {elapsed:.3f}s); a best-effort checkpoint was "
             f"attempted — resume from it instead of re-running")
+        # the post-mortem at the raise site, once per exception instance
+        # however many catch sites also dump
+        flight_dump_for(exc, what=what, deadline_s=self.deadline_s,
+                        elapsed_s=round(elapsed, 3))
+        raise exc
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +271,12 @@ class DecodeCheckpoint:
     @classmethod
     def load(cls, path: str) -> "DecodeCheckpoint":
         with obs_span("recovery.checkpoint_load", path=path):
-            return cls._load_impl(path)
+            try:
+                return cls._load_impl(path)
+            except CheckpointError as e:
+                # a refused restore is a post-mortem moment (once an instance)
+                flight_dump_for(e, path=path)
+                raise
 
     @classmethod
     def _load_impl(cls, path: str) -> "DecodeCheckpoint":

@@ -24,23 +24,34 @@ rates, p99 TTFT, the retry-budget account, and an identity audit of every
 The identity audit replays each completed request on a clean runtime of the
 plan that served it (its stage devices captured when the plan first
 served); under a faulty link a substituted hop can make a request differ
-from that replay, in the reference as in the port. Not ported: the flight
-recorder (the artifact's ``flight_dumps`` is None).
+from that replay, in the reference as in the port. The artifact's
+``flight_dumps`` lists the armed flight recorder's artifacts (None when
+none is armed).
+
+:func:`run_disagg_soak` is the disaggregated server's chaos soak
+(:class:`DisaggSoakConfig`): requests regenerated from their index, kills
+of a prefill worker mid-migration (through ``page_hook``), of a given
+worker, of the decode worker and of the link scheduled by arrival index, a
+seeded bit-flip window on the migration link, and the identity audit of
+every completed request against a fault-free colocated batcher.
 """
 from __future__ import annotations
 
 import dataclasses
+import struct
+import zlib
 from typing import Any, Optional
 
 import numpy as np
 
+from ..obs.flight import get_flight_recorder
 from ..utils import prng
 from ..utils.clock import FakeClock
 from .decode import generate, generate_split
 from .frontend import Request, ServeFront
 from .overload import COMPLETED, FAILED_OVER, REJECTED, SHED
 
-__all__ = ["SoakConfig", "run_soak"]
+__all__ = ["DisaggSoakConfig", "SoakConfig", "run_disagg_soak", "run_soak"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,6 +259,7 @@ def run_soak(front: ServeFront, soak: SoakConfig, *, clock: FakeClock,
     outcomes = report["outcomes"]
     budget = report["retry_budget"]
     budget_bound = budget["capacity"] + budget["refill_per_s"] * span_s + max_call
+    fl = get_flight_recorder()
     return {
         "soak": dataclasses.asdict(soak),
         "virtual_span_s": span_s,
@@ -267,6 +279,203 @@ def run_soak(front: ServeFront, soak: SoakConfig, *, clock: FakeClock,
         "retry_budget": {**budget, "max_single_call": max_call,
                          "within_budget": budget["spent"] <= budget_bound},
         "token_identity": verifier.summary() if verifier is not None else None,
-        "flight_dumps": None,
+        # every artifact the armed recorder wrote (one a failure instance),
+        # None without a recorder
+        "flight_dumps": list(fl.dumps()) if fl is not None else None,
         "report": report,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the disaggregated prefill / decode chaos soak
+# ---------------------------------------------------------------------------
+
+
+def _draw(seed: int, i: int, salt: int) -> int:
+    """One deterministic 32-bit workload draw addressed by (seed, index,
+    stream): a request is regenerated from its index alone."""
+    return zlib.crc32(struct.pack("<qqq", seed, i, salt)) & 0xFFFFFFFF
+
+
+def _u01(seed: int, i: int, salt: int) -> float:
+    return (_draw(seed, i, salt) + 0.5) / 2.0 ** 32
+
+
+@dataclasses.dataclass(frozen=True)
+class DisaggSoakConfig:
+    """Replayable chaos soak of a :class:`~.disagg.DisaggServer` (the
+    reference's fields, defaults and messages): the real server, so every
+    leg of the failure matrix runs for real.
+
+    ``kills`` fires just before request ``int(n * frac)`` is submitted;
+    targets: ``"prefill"`` arms a mid-migration kill (the worker that just
+    moved a page dies before its next one), ``"prefill:<i>"`` kills worker
+    ``i`` now, ``"decode"`` kills the decode worker and ``"link"`` fails
+    the migration link. ``[burst_start_frac, burst_end_frac)`` bounds a
+    seeded bit-flip window on the link at ``burst_bitflip_rate``. The
+    identity audit replays every completed request on a fault-free
+    colocated batcher."""
+
+    n_requests: int = 16
+    seed: int = 0
+    vocab_size: int = 128
+    min_prompt_len: int = 3
+    max_prompt_len: int = 18
+    max_new_tokens: int = 6
+    sampled_frac: float = 0.5
+    sample_temperature: float = 0.7
+    #: ((arrival_frac, target), ...), targets as above
+    kills: tuple = ()
+    burst_start_frac: float = 0.0
+    burst_end_frac: float = 0.0
+    burst_bitflip_rate: float = 0.0
+    verify_identity: bool = True
+    #: pump the server this many times between arrivals, so chaos lands on
+    #: a busy front (prefills in flight, the queue non-empty)
+    steps_per_arrival: int = 1
+
+    def __post_init__(self):
+        if self.n_requests < 1:
+            raise ValueError("n_requests must be >= 1")
+        if not 1 <= self.min_prompt_len <= self.max_prompt_len:
+            raise ValueError(
+                f"need 1 <= min_prompt_len <= max_prompt_len, got "
+                f"[{self.min_prompt_len}, {self.max_prompt_len}]")
+        if self.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if not 0.0 <= self.sampled_frac <= 1.0:
+            raise ValueError(f"sampled_frac must be in [0, 1], got {self.sampled_frac!r}")
+        for f in ("burst_start_frac", "burst_end_frac"):
+            if not 0.0 <= getattr(self, f) <= 1.0:
+                raise ValueError(f"{f} must be in [0, 1], got {getattr(self, f)!r}")
+        if self.burst_end_frac < self.burst_start_frac:
+            raise ValueError("burst_end_frac must be >= burst_start_frac")
+        if not 0.0 <= self.burst_bitflip_rate <= 1.0:
+            raise ValueError(f"burst_bitflip_rate must be in [0, 1], got "
+                             f"{self.burst_bitflip_rate!r}")
+        for frac, target in self.kills:
+            if not 0.0 <= frac <= 1.0:
+                raise ValueError(f"kill fraction must be in [0, 1], got {frac!r}")
+            if target not in ("prefill", "decode", "link") and not (
+                    isinstance(target, str) and target.startswith("prefill:")):
+                raise ValueError(
+                    f"unknown kill target {target!r}; expected 'prefill', "
+                    f"'prefill:<i>', 'decode', or 'link'")
+        if self.steps_per_arrival < 0:
+            raise ValueError("steps_per_arrival must be >= 0")
+
+
+def _disagg_request(soak: DisaggSoakConfig, i: int) -> tuple:
+    """Request ``i`` regenerated from its index: (prompt, max_new_tokens,
+    temperature, rng_seed)."""
+    span = soak.max_prompt_len - soak.min_prompt_len + 1
+    ln = soak.min_prompt_len + _draw(soak.seed, i, 11) % span
+    toks = (_draw(soak.seed, i, 12) + 104729 * (np.arange(ln, dtype=np.int64) + 1)
+            ) % (soak.vocab_size - 1) + 1
+    sampled = _u01(soak.seed, i, 13) < soak.sampled_frac
+    return (toks.astype(np.int32), soak.max_new_tokens,
+            soak.sample_temperature if sampled else 0.0,
+            _draw(soak.seed, i, 14) if sampled else 0)
+
+
+def run_disagg_soak(server: Any, soak: DisaggSoakConfig, *,
+                    reference_factory: Any = None) -> dict:
+    """Drive the seeded workload through a real DisaggServer while the
+    scheduled chaos fires, then audit: no accepted request lost, and every
+    completed request's tokens equal to a fault-free colocated batcher's
+    (``reference_factory()``). Returns the artifact (the reference's keys);
+    an identity mismatch raises nothing: gate on
+    ``artifact["token_identity"]["ok"]``."""
+    from ..codecs.faults import FaultConfig
+
+    n = soak.n_requests
+    kill_sched = sorted(((int(n * frac), target) for frac, target in soak.kills),
+                        key=lambda kv: kv[0])
+    burst_on = (int(n * soak.burst_start_frac)
+                if soak.burst_bitflip_rate > 0 and soak.burst_end_frac > soak.burst_start_frac
+                else None)
+    burst_off = int(n * soak.burst_end_frac) if burst_on is not None else None
+    saved_faults = server.link.faults
+    kill_events: list = []
+    armed_midmig = {"want": 0}
+
+    def page_hook(wid: int, sid: int, page: int) -> None:
+        # an armed "prefill" kill fires on the worker that just moved a
+        # page: it dies mid-migration, between two page transfers
+        if armed_midmig["want"] > 0 and server.workers[wid].alive:
+            armed_midmig["want"] -= 1
+            server.kill_prefill_worker(wid)
+            kill_events.append({"target": f"prefill:{wid}", "mid_migration": True,
+                                "at_index": None})
+
+    server.page_hook = page_hook
+
+    def fire_events(i: int) -> None:
+        while kill_sched and kill_sched[0][0] <= i:
+            _, target = kill_sched.pop(0)
+            if target == "prefill":
+                armed_midmig["want"] += 1
+            elif target.startswith("prefill:"):
+                server.kill_prefill_worker(int(target.split(":", 1)[1]))
+                kill_events.append({"target": target, "mid_migration": False,
+                                    "at_index": i})
+            elif target == "decode":
+                server.kill_decode_worker()
+                kill_events.append({"target": "decode", "mid_migration": False,
+                                    "at_index": i})
+            else:  # "link"
+                server.fail_link()
+                kill_events.append({"target": "link", "mid_migration": False,
+                                    "at_index": i})
+        if burst_on is not None and i == burst_on:
+            server.link.faults = FaultConfig(bitflip_rate=soak.burst_bitflip_rate,
+                                             seed=soak.seed + 17)
+        if burst_off is not None and i == burst_off:
+            server.link.faults = saved_faults
+
+    sids = []
+    for i in range(n):
+        fire_events(i)
+        prompt, mnt, temp, seed = _disagg_request(soak, i)
+        sids.append(server.submit(prompt, mnt, temperature=temp, rng_seed=seed))
+        for _ in range(soak.steps_per_arrival):
+            server.step()
+    if burst_off is not None and server.link.faults is not saved_faults:
+        server.link.faults = saved_faults  # the window ran past the last arrival
+    server.run()
+    server.page_hook = None
+
+    completed = sum(1 for s in sids if s in server.results)
+    checked = matched = 0
+    mismatched: list = []
+    if soak.verify_identity and reference_factory is not None:
+        ref = reference_factory()
+        ref_ids = []
+        for i in range(n):
+            prompt, mnt, temp, seed = _disagg_request(soak, i)
+            ref_ids.append(ref.submit(prompt, mnt, temperature=temp, rng_seed=seed))
+        ref_res = ref.run()
+        for i, (s, r) in enumerate(zip(sids, ref_ids)):
+            if s not in server.results:
+                continue
+            checked += 1
+            if np.array_equal(server.results[s], ref_res[r]):
+                matched += 1
+            elif len(mismatched) < 32:
+                mismatched.append(i)
+
+    rep = server.report()
+    return {
+        "soak": dataclasses.asdict(soak),
+        "requests": n,
+        "completed": completed,
+        "accepted_lost": n - completed,
+        "kills": kill_events,
+        "burst": (None if burst_on is None else
+                  {"start_index": burst_on, "end_index": burst_off,
+                   "bitflip_rate": soak.burst_bitflip_rate}),
+        "token_identity": {"checked": checked, "matched": matched, "ok": checked == matched,
+                           "mismatched_indices": mismatched},
+        "disagg": rep["disagg"],
+        "report": rep,
     }

@@ -144,18 +144,16 @@ def test_validation_messages_match_reference(params):
 
 @pytest.mark.parametrize("config", sorted(p.name for p in (REPO / "configs").glob("*.json")))
 def test_every_config_is_accepted_or_named_not_ported(config):
-    """Every shipped config either validates or names its experiment as not
-    ported yet; none is silently ignored (split12's ``pipeline`` validates;
-    of ``observability`` only the flight recorder and the live endpoint
-    are still to port)."""
+    """Every shipped config either validates or names its feature as not
+    ported yet; none is silently ignored (split12's ``pipeline``, split16's
+    ``disagg`` and every ``observability`` field validate; the replica
+    router and its gray hardening are still to port)."""
     p = json.loads((REPO / "configs" / config).read_text())
     exp = p.get("experiment", "")
     unported_split = exp == "split" and any(
         k in p and p[k] != 1 for k in trun.UNPORTED_SPLIT_KEYS)
     unported_serve = exp == "serve" and any(k in p for k in trun.UNPORTED_SERVE_KEYS)
-    unported_obs = any((p.get("observability") or {}).get(k) not in (None, False)
-                       for k in ("flight_recorder", "obs_port"))
-    if exp in trun.NOT_PORTED or unported_obs or unported_split or unported_serve:
+    if exp in trun.NOT_PORTED or unported_split or unported_serve:
         with pytest.raises(SystemExit, match="not ported yet"):
             trun._validate_params_json(p)
     else:
@@ -164,23 +162,30 @@ def test_every_config_is_accepted_or_named_not_ported(config):
 
 @pytest.mark.parametrize("experiment", ["serve"])
 def test_unported_experiments_exit_nonzero_naming_them(experiment, tmp_path):
-    """A serve config with a part still to port (the live telemetry
-    endpoint, ``observability.obs_port``, or ``--obs-port``) exits non-zero
-    naming it; the µ-batch pipeline it used to name validates as the
-    reference validates it."""
+    """A serve config with a part still to port (the replica router,
+    ``cluster``, and its gray hardening, ``gray``) exits non-zero naming it;
+    the µ-batch pipeline and the live endpoint (``observability.obs_port``,
+    ``--obs-port``) it used to name validate as the reference validates
+    them, and an out-of-range ``--obs-port`` exits with the reference's
+    message."""
     base = {"experiment": experiment, "cuts": [1], "hop_codecs": ["fp32"],
             "pipeline": {"num_microbatches": 2}, "serving": {}}
-    trun._validate_params_json(base)
-    jrun._validate_params_json(base)
+    for ok in (base, {**base, "observability": {"obs_port": 0, "flight_recorder": True}}):
+        trun._validate_params_json(ok)
+        jrun._validate_params_json(ok)
+    batched = {**base, "batching": {"max_slots": 4}}
     for params, extra, name in (
-            ({**base, "observability": {"obs_port": 0}}, [], "observability.obs_port"),
-            (base, ["--obs-port", "0"], "--obs-port (the live telemetry endpoint)")):
+            ({**batched, "cluster": {}}, [], "cluster is not ported yet to edgellm_tpu_torch"),
+            ({**batched, "gray": {}}, [], "gray is not ported yet to edgellm_tpu_torch"),
+            (base, ["--obs-port", "70000"],
+             "--obs-port: observability.obs_port must be null or an integer in [0, 65535], "
+             "got 70000")):
         proc = subprocess.run(
             [sys.executable, "-m", "edgellm_tpu_torch.run", "--params", json.dumps(params),
              "--model", "tiny-qwen2", "--device", "cpu", "--output-dir", str(tmp_path)] + extra,
             cwd=REPO, capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
-        assert f"{name} is not ported yet to edgellm_tpu_torch" in proc.stderr
+        assert name in proc.stderr
 
 
 @pytest.fixture(scope="module")

@@ -55,7 +55,7 @@ def test_cli_serve_cuts_beside_batching_still_refuses_unported():
     reference's own refusals (the pipeline beside ``speculative``, beside a
     ``max_slots`` it does not divide, beside a quantized ``kv_at_rest``;
     speculative decoding beside the batcher) come in its words, and the
-    flight recorder dies "not ported yet"."""
+    flight recorder validates as the reference validates it."""
     base = _split_serve("split9_qwen_paged.json")
     trun._validate_params_json(base)
     pipe = {**base, "pipeline": {"num_microbatches": 2}}
@@ -72,8 +72,9 @@ def test_cli_serve_cuts_beside_batching_still_refuses_unported():
         with pytest.raises(SystemExit) as got:
             trun._validate_params_json(bad)
         assert str(got.value) == str(want.value) and "pipeline" in str(got.value)
-    with pytest.raises(SystemExit, match="observability.flight_recorder is not ported yet"):
-        trun._validate_params_json({**pipe, "observability": {"flight_recorder": True}})
+    flight = {**pipe, "observability": {"flight_recorder": True}}
+    trun._validate_params_json(flight)
+    jrun._validate_params_json(flight)
     spec = {**base, "speculative": {"k": 4}}
     with pytest.raises(SystemExit) as want:
         jrun._validate_params_json(spec)

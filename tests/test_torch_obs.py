@@ -320,8 +320,9 @@ def test_latency_observer_summary_matches_reference(monkeypatch):
                                 {"obs_port": 70000}, {"obs_port": 0},
                                 {"flight_recorder": "dir"}])
 def test_observability_config_matches_reference(kw):
-    """The reference's fields, defaults and messages; ``enable`` refuses the
-    parts still to port by name."""
+    """The reference's fields, defaults and messages; ``enable`` arms what
+    the config names: the pillars, the flight recorder (its directory) and
+    the live endpoint, and ``disable`` takes them down."""
     import dataclasses
 
     assert ([(f.name, f.default) for f in dataclasses.fields(obs.ObservabilityConfig)]
@@ -335,17 +336,18 @@ def test_observability_config_matches_reference(kw):
         return
     cfg = obs.ObservabilityConfig(**kw)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
-    if cfg.unported():
-        with pytest.raises(ValueError, match=f"observability.{cfg.unported()[0]} is not ported"):
-            obs.enable(cfg)
-        assert not obs.enabled()
-    else:
-        obs.enable(cfg)
-        try:
-            assert obs.get_registry().enabled == cfg.metrics
-            assert ttracing.tracing_enabled() == cfg.tracing
-        finally:
-            obs.disable()
+    obs.enable(cfg)
+    try:
+        assert obs.get_registry().enabled == cfg.metrics
+        assert ttracing.tracing_enabled() == cfg.tracing
+        rec = obs.get_flight_recorder()
+        assert (rec is not None) == bool(cfg.flight_recorder)
+        if isinstance(cfg.flight_recorder, str):
+            assert rec.out_dir == cfg.flight_recorder
+        assert (obs.server.get_global() is not None) == (cfg.obs_port is not None)
+    finally:
+        obs.disable()
+    assert obs.get_flight_recorder() is None and obs.server.get_global() is None
 
 
 def test_names_tables_are_the_references():

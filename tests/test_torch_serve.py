@@ -226,7 +226,7 @@ def test_batcher_refusals():
     with pytest.raises(tb.CheckpointError, match="no cache state to snapshot"):
         b.checkpoint_stream(b.submit(np.ones(3, np.int32), 2), "/nowhere/s.ckpt")
     b.discard(0)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(KeyError):  # a discarded stream has no handoff, as in the reference
         b.prefill_hold(0)
     b.submit(np.ones(3, np.int32), 4)
     b.submit(np.ones(3, np.int32), 4)
@@ -527,22 +527,27 @@ def test_serve_cli_greedy_tokens_equal_reference(name, hf_checkpoint, tmp_path):
     ("link_health", {}, "link_health requires an enabled 'faults' config"),
     ("gray", {}, "gray is not ported yet"),
     ("cluster", {}, "cluster is not ported yet"),
-    ("disagg", {}, "disagg is not ported yet"),
+    ("disagg", {"queue_bound": 0}, "disagg: queue_bound must be an integer >= 1"),
     ("pipeline", {}, "pipeline schedules micro-batches across the split boundary"),
     ("faults", {}, None),
 ])
 def test_unported_serve_keys_are_named(key, value, message):
-    """Keys still to port die naming themselves; the link's and the
-    pipeline's keys (ported) validate as the reference validates them
+    """Keys still to port die naming themselves; the link's, the pipeline's
+    and disagg's keys (ported) validate as the reference validates them
     (``faults`` alone passes, ``link_health`` needs an enabled ``faults``,
-    ``pipeline`` needs ``cuts``)."""
+    ``pipeline`` needs ``cuts``, a ``disagg`` field is held to its bound),
+    with the reference's messages."""
     p = {**_config("split9_qwen_paged.json"), key: value}
     if message is None:
         trun._validate_params_json(p)
         jrun._validate_params_json(p)
         return
-    with pytest.raises(SystemExit, match=message):
+    with pytest.raises(SystemExit, match=message) as got:
         trun._validate_params_json(p)
+    if "not ported yet" not in message:
+        with pytest.raises(SystemExit) as want:
+            jrun._validate_params_json(p)
+        assert str(got.value) == str(want.value)
     if key in ("link_health", "faults", "pipeline"):
         with pytest.raises(SystemExit, match=message):
             jrun._validate_params_json(p)
