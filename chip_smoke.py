@@ -108,14 +108,15 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    windows of 512 (the argmax tokens identical, then rtol 1e-3, atol 1e-6 *
    max |R|) and the distance matrix (1e-5 absolute);
 15. split decode and the per-request serve route at full Qwen2-0.5B width
-   and depth, fp32 random weights from ``--seed``: ``run.main`` on
+   and depth (the two CLI runs at 13 layers, the shallowest cut 11 allows),
+   fp32 random weights from ``--seed``: ``run.main`` on
    configs/split11_qwen_spec.json (cut 11, int8_per_token, speculative k =
    4, 24 requests at T = 0.7) and on the same params without
    ``speculative`` (the vanilla per-request split route), each with every
    request completed, the identity replay green, each call's speculative
    stats consistent, per-request service ms, and K3 / K4 and fp32 K-attn
    launched exactly as the counted calls imply (cuts x (prefills + decode
-   steps + verify bursts); 24 a split prefill, 12 a draft prefill, 24 a
+   steps + verify bursts); 13 a split prefill, 12 a draft prefill, 13 a
    local prefill); ``generate_split`` under ``fused_hops`` "remote" (K8,
    1 + steps a call) and "wire" against the separate hop (tokens equal,
    teacher-forced logits within 1e-5); K3 / K4 device ms at the path's N =
@@ -219,7 +220,23 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    and /trace answering on 127.0.0.1, /metrics the registry's text, a 404
    for any other path); the soak at 2 layers on the card and the CPU
    (kills, identity counts and the disagg report equal);
-21. a JSON line of every kernel (launches summed over the counted paths,
+21. the replica router and the gray plane at full Qwen2-0.5B width and
+   depth, fp32 random weights from ``--seed`` (the replicas share the card
+   and drain in turn): configs/split15_qwen_cluster.json and
+   configs/split17_qwen_gray.json through ``run.main`` (every request
+   completed, mode "cluster_batched", placements by kind, K-attn and K13
+   exactly as every replica's prefills and ragged steps and the warm
+   batcher's imply; split17's ``gray`` report equal to a 2-layer CPU run's,
+   the whole fleet report too), split15 with cut 11 (K3 / K4 once a hop)
+   and over split16's ``disagg`` block with int8 pages (K14 a step, one
+   migration a request); the real-model kill drill of the reference bench
+   (2 replicas, 12 requests with a shared prefix, half sampled through
+   recorded seeds, replica 0 killed at request 6, against a 1-replica fleet:
+   zero accepted loss, every stream identical, one flight dump, re-admitted
+   work, the dead replica's pool freed, peak memory; card against CPU at 2
+   layers); the simulated chaos soak (4 replicas, two kills, a corruption
+   burst) and the 600-request gray soak hedged and unhedged, host only;
+22. a JSON line of every kernel (launches summed over the counted paths,
    and by path; K-attn's also by dtype and path; K-stats' fp32 column pass
    apart; ``ms`` its device time, ``event_ms`` the call's CUDA-event time),
    the ``nvidia-smi`` line, and
@@ -2043,6 +2060,12 @@ def experiment_paths(args, detail: dict) -> dict:
 #: the per-request split route's config: Qwen2-0.5B, cut 11, int8_per_token,
 #: speculative k = 4 with a stage-0 draft, 24 seeded requests at T = 0.7
 SPLIT11_CONFIG = "configs/split11_qwen_spec.json"
+#: the depth of phase 15's two split11 runs through ``run.main`` (cut 11
+#: needs 13 layers), registered for the run as a preset of Qwen2-0.5B's
+#: width: the shallowest split11, to keep the whole smoke run near its
+#: length before phase 21
+SPLIT11_LAYERS = 13
+SPLIT11_PRESET = f"qwen2-0.5b-{SPLIT11_LAYERS}l"
 #: teacher-forced split-decode and verify logits, card vs CPU (absolute, as
 #: phase 13 holds serve): an fp32 hop, and an int8 hop, where a row that
 #: rounds on a .5 boundary may move one code by a step
@@ -2241,9 +2264,10 @@ def _split11_cli(base_argv, p: dict, label: str, rows: dict) -> tuple[dict, dict
 
 def split_decode_paths(args, detail: dict) -> dict:
     """Phase 15: split decode and the per-request serve route at full
-    Qwen2-0.5B width and depth, fp32 weights from ``--seed``: (a)
-    configs/split11_qwen_spec.json through ``run.main``, (b) the same
-    without ``speculative`` (the vanilla per-request split route), each with
+    Qwen2-0.5B width, fp32 weights from ``--seed``: (a)
+    configs/split11_qwen_spec.json through ``run.main`` at
+    :data:`SPLIT11_LAYERS` layers (a preset registered for the run), (b) the
+    same without ``speculative`` (the vanilla per-request split route), each with
     every request terminal, the identity audit green, every kernel's
     launches against the count the calls imply, and per-request service ms;
     (c) ``generate_split`` under ``fused_hops`` "remote" (K8) and "wire"
@@ -2266,22 +2290,28 @@ def split_decode_paths(args, detail: dict) -> dict:
     p11 = json.load(open(SPLIT11_CONFIG))
     n_cuts, k = len(p11["cuts"]), p11["speculative"]["k"]
     draft_layers = p11["cuts"][0] + 1
-    base = ["--model", "qwen2-0.5b", "--seed", str(args.seed)]
+    base = ["--model", SPLIT11_PRESET, "--seed", str(args.seed)]
     out, rows = {}, {}
 
-    # (a), (b): the CLI, speculative and vanilla
+    # (a), (b): the CLI, speculative and vanilla, at SPLIT11_LAYERS layers
     vanilla = {key: v for key, v in p11.items() if key != "speculative"}
+    L = SPLIT11_LAYERS
     for label, p in (("split11 speculative", p11), ("split11 vanilla", vanilla)):
-        printed, report, calls = _split11_cli(base, p, label, rows)
+        PRESETS[SPLIT11_PRESET] = dataclasses.replace(cfg, num_layers=L)
+        try:
+            printed, report, calls = _split11_cli(base, p, label, rows)
+        finally:
+            del PRESETS[SPLIT11_PRESET]
+        rows[label]["layers"] = L
         n = p["serving"]["soak"]["n_requests"]
         row = rows[label]
         spec = calls["spec_calls"]
         bursts = sum(c["bursts"] for c in spec)
         hops = calls["prefill_decode"] + calls["decode_step"] + calls["verify_step"]
         want = want_counts(
-            24 * calls["prefill_decode"] + draft_layers * len(spec) + 24 * calls["local_prefill"],
-            causal_attention=(24 * calls["prefill_decode"] + draft_layers * len(spec)
-                              + 24 * calls["local_prefill"]),
+            L * calls["prefill_decode"] + draft_layers * len(spec) + L * calls["local_prefill"],
+            causal_attention=(L * calls["prefill_decode"] + draft_layers * len(spec)
+                              + L * calls["local_prefill"]),
             int8_affine_encode=n_cuts * hops, int8_affine_decode=n_cuts * hops)
         row["launches_expected"] = want
         row["spec"] = {"calls": len(spec), "bursts": bursts,
@@ -4358,6 +4388,390 @@ def disagg_paths(args, detail: dict, device: str = "cuda",
     return out
 
 
+#: phase 21's shipped configs; split16's blocks the disagg leg takes over split15
+SPLIT15_CONFIG = "configs/split15_qwen_cluster.json"
+SPLIT17_CONFIG = "configs/split17_qwen_gray.json"
+#: the kill drill (the reference bench's real leg, fp32): requests, prompt /
+#: new / shared-prefix tokens, the request before which replica 0 dies
+DRILL = dict(n=12, prompt_len=16, new_tokens=8, shared_len=8, kill_at=6)
+#: the simulated soaks (host only): the bench's chaos soak at a request
+#: count that keeps it near a minute, and its gray soak as shipped
+SIM_CHAOS = dict(n_requests=20_000, arrival_rate=80.0, prompt_len=16, shared_prefix_len=8,
+                 num_prefix_groups=32, max_new_tokens=16, deadline_s=120.0, sampled_frac=0.5,
+                 sample_temperature=0.7, kills=((0.3, 0), (0.6, 1)), burst_start_frac=0.45,
+                 burst_end_frac=0.55, burst_corrupt_rate=0.05)
+SIM_GRAY = dict(n_requests=600, arrival_rate=30.0, seed=7, deadline_s=0.5,
+                slowdowns=((0.3, 0, 20.0),))
+#: the card-against-CPU depth of the gray report and the kill drill
+CLUSTER_SMALL_LAYERS = 2
+
+
+def _batcher_counts(n_layers: int, rep: dict, n_cuts: int = 0, kv_codec: str = "fp",
+                    staging_hits: int = 0) -> dict:
+    """The launches one replica's batcher report implies: L fp32 K-attn a
+    prefill (a prefix hit's suffix takes the plain attention; a disagg
+    server counts its staging prefills, less the ``staging_hits`` its
+    workers' own prefix indexes served, and its colocated fallbacks), L K13
+    (K14 on quantized pages) a ragged step, each cut one K3 + K4 hop a step,
+    a prefill and a prefix hit."""
+    d = rep.get("disagg")
+    hits = rep.get("prefix", {}).get("hits", 0) if rep.get("prefix") else 0
+    prefills = (d["prefills"] - staging_hits + d["colocated_fallbacks"] if d
+                else rep["admitted"] - rep["evicted"] - hits)
+    paged = "paged_decode_attention" if kv_codec == "fp" else "paged_decode_attention_quant"
+    hops = n_cuts * (rep["steps"] + prefills + hits)
+    return {"causal_attention": n_layers * prefills, "causal_attention float32":
+            n_layers * prefills, paged: n_layers * rep["steps"],
+            **({"int8_affine_encode": hops, "int8_affine_decode": hops} if n_cuts else {})}
+
+
+def _sum_counts(parts) -> dict:
+    want = dict.fromkeys(list(KERNELS) + list(ATTN_BY_DTYPE), 0)
+    for part in parts:
+        for k, v in part.items():
+            want[k] += v
+    want["causal_attention bfloat16"] = want["causal_attention"] \
+        - want["causal_attention float32"]
+    return want
+
+
+def cluster_paths(args, detail: dict, device: str = "cuda",
+                  model: str = "qwen2-0.5b") -> dict:
+    """Phase 21: the replica router and the gray plane, fp32 weights from
+    ``--seed`` (the CLI's default), full Qwen2-0.5B width and depth. Every
+    fleet's replicas share the one device and drain in turn (the router's
+    round-robin). (a) configs/split15_qwen_cluster.json and
+    configs/split17_qwen_gray.json through ``run.main``, the counts set to 0
+    just before each: every request completed, mode "cluster_batched",
+    placements by kind, launches exactly what every replica's batcher
+    report and the warm batcher imply; split17's ``gray`` report (and the
+    whole fleet report, which the fake clock makes model-independent)
+    equal to a :data:`CLUSTER_SMALL_LAYERS`-layer CPU run's. (b) split15
+    with cut 11 (mode "cluster_batched_split", K3 / K4 once a hop) and (c)
+    over split16's ``disagg`` block with int8 ``kv_at_rest`` pages (mode
+    "disagg_cluster_batched", K14 a step, one migration a request). (d) the
+    kill drill: 2 replicas, replica 0 killed before request 6, against a
+    1-replica fleet (zero accepted loss, every stream identical, one flight
+    dump, re-admissions, the dead pool freed, peak memory), and at
+    :data:`CLUSTER_SMALL_LAYERS` layers the card against the CPU. (e) the
+    simulated chaos and gray soaks, host only -> launches by path."""
+    import gc
+    import resource
+
+    import torch
+
+    from edgellm_tpu_torch import run
+    from edgellm_tpu_torch.models import PRESETS, init_params, params_to
+    from edgellm_tpu_torch.serve import (BatchingConfig, ClusterConfig, ClusterFront,
+                                         ClusterSoakConfig, ContinuousBatcher, GrayConfig,
+                                         Request, RespawnConfig, ServeFront, SimReplicaConfig,
+                                         SimReplicaFront, run_cluster_soak)
+    from edgellm_tpu_torch.utils.clock import FakeClock
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out, rows, part_s = {}, {}, {}
+    t_part = [time.monotonic()]
+
+    def lap(name):
+        now = time.monotonic()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+    cfg = PRESETS[model]
+    n_layers = cfg.num_layers
+    base = ["--model", model, "--seed", str(args.seed), "--device", device]
+    with open(SPLIT15_CONFIG) as f:
+        p15 = json.load(f)
+    with open(SPLIT17_CONFIG) as f:
+        p17 = json.load(f)
+    with open(SPLIT16_CONFIG) as f:
+        p16 = json.load(f)
+    cut = dict(DISAGG_CUT, cuts=[11] if model == "qwen2-0.5b" else [2])
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed),
+                         device=device)
+    small_cfg, small = _small_model(cfg, params, CLUSTER_SMALL_LAYERS)
+    small_cpu = params_to(small, device="cpu")
+
+    def cli(p, label):
+        """``run.main`` on ``p``, the counts set to 0 just before -> (the
+        printed line, cluster_report.json, launches, wall s, the router)."""
+        kept = {}
+        real = run.run_cluster
+
+        def keep(*a, **kw):
+            kept.update(real(*a, **kw))
+            return kept
+
+        run.run_cluster = keep
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                sync()
+                reset_counts()
+                t0 = time.monotonic()
+                rc, printed = _cli_json_line(["--params", json.dumps(p), "--output-dir", tmp]
+                                             + base)
+                sync()
+                wall = time.monotonic() - t0
+                launches = read_counts()
+                with open(os.path.join(tmp, "cluster_report.json")) as f:
+                    report = json.load(f)
+        finally:
+            run.run_cluster = real
+        if rc != 0:
+            raise SystemExit(f"{label}: run.main exited {rc}")
+        return printed, report, launches, wall, kept["_cluster"]
+
+    # (a) split15 and split17 as shipped, (b) cut 11, (c) over split16's disagg
+    legs = (("split15", p15, 0, "cluster_batched"), ("split17", p17, 0, "cluster_batched"),
+            ("split15 cut 11", {**p15, **cut}, 1, "cluster_batched_split"),
+            ("split15 disagg", {**p15, "disagg": p16["disagg"],
+                                "kv_at_rest": p16["kv_at_rest"]}, 0, "disagg_cluster_batched"))
+    for label, p, n_cuts, mode in legs:
+        printed, report, launches, wall, cluster = cli(p, label)
+        reps = {rid: r.front.batcher.report() for rid, r in sorted(cluster.replicas.items())}
+        # a disagg replica's prefill workers each keep a prefix index of their own
+        staging_hits = {rid: sum((w.bat.report().get("prefix") or {}).get("hits", 0)
+                                 for w in getattr(r.front.batcher, "workers", ()))
+                        for rid, r in cluster.replicas.items()}
+        kv_codec = p.get("kv_at_rest", {}).get("codec", "fp")
+        want = _sum_counts([_batcher_counts(n_layers, b, n_cuts, kv_codec, staging_hits[rid])
+                            for rid, b in reps.items()]
+                           + [_batcher_counts(n_layers, {"steps": 1, "admitted": 1,
+                                                         "evicted": 0}, n_cuts, kv_codec)])
+        rep = report["cluster"]
+        n = p["serving"]["soak"]["n_requests"]
+        row = {"path": label, "printed": printed, "mode": report["mode"], "wall_s": wall,
+               "replicas_ran": "in turn on one device", "totals": rep["totals"],
+               "replicas": {rid: {"placed": r["placed"], "completed": r["completed"],
+                                  "disagg": r["disagg"]} for rid, r in rep["replicas"].items()},
+               "batchers": {rid: {k: b.get(k) for k in ("admitted", "evicted", "steps",
+                                                        "decode_s", "prefill_s")}
+                            | {"prefix_hits": (b.get("prefix") or {}).get("hits"),
+                               "staging_prefix_hits": staging_hits[rid],
+                               "disagg_prefills": (b.get("disagg") or {}).get("prefills"),
+                               "migrations": (b.get("disagg") or {}).get("migrations")}
+                            for rid, b in reps.items()},
+               "gray": rep["gray"], "launches": launches, "launches_expected": want}
+        log(json.dumps({"cluster_path": {k: v for k, v in row.items() if k != "printed"}}))
+        rows[label] = row
+        if printed["outcomes"] != {"completed": n} or printed["mode"] != mode \
+                or printed["replicas"] != p["cluster"]["num_replicas"] or rep["pending"]:
+            raise SystemExit(f"{label}: {printed}")
+        if "disagg" in p and sum(b["disagg"]["migrations"] for b in reps.values()) != n:
+            raise SystemExit(f"{label}: {n} migrations expected: {row['batchers']}")
+        if on_card and launches != want:
+            raise SystemExit(f"{label}: kernel launches {launches} != expected {want}")
+        if label == "split17":
+            with tempfile.TemporaryDirectory() as tmp:
+                small_sum = run.run_cluster(small_cfg, small_cpu, p,
+                                            lambda f: os.path.join(tmp, f))
+            small_rep = json.loads(json.dumps(small_sum["_report"], default=float))
+            row["gray_equal_cpu_small"] = small_rep["gray"] == rep["gray"]
+            row["report_equal_cpu_small"] = small_rep == rep
+            log(json.dumps({"cluster_gray_vs_cpu": {
+                "card": rep["gray"], "cpu_2_layers": small_rep["gray"],
+                "report_equal": row["report_equal_cpu_small"]}}))
+            if sorted(rep["gray"]) != ["detector", "flagged", "hedge_delay_s"] \
+                    or rep["gray"]["detector"]["observed"] != n \
+                    or not row["gray_equal_cpu_small"] or not row["report_equal_cpu_small"]:
+                raise SystemExit(f"split17: the gray report {rep['gray']} against the "
+                                 f"CPU's {small_rep['gray']}")
+        out[f"cluster {label}"] = launches
+        del cluster
+        lap(label)
+
+    # (d) the kill drill: a 2-replica fleet, replica 0 killed before request 6
+    def drill(c, prm, dev, n_replicas, kill_at, flight_dir, count=False):
+        d = DRILL
+        pps = -(-(d["prompt_len"] + d["new_tokens"]) // 8)
+        bcfg = BatchingConfig(page_size=8, max_slots=4, num_pages=1 + 4 * pps,
+                              pages_per_slot=pps)
+        rng = np.random.default_rng(args.seed)
+        shared = rng.integers(1, c.vocab_size, size=d["shared_len"]).astype(np.int32)
+        prompts = []
+        for _ in range(d["n"]):
+            pr = rng.integers(1, c.vocab_size, size=d["prompt_len"]).astype(np.int32)
+            pr[:d["shared_len"]] = shared
+            prompts.append(pr)
+        gaps = rng.exponential(0.5, size=d["n"])
+        mem = {}
+        on_dev = torch.device(dev).type == "cuda"
+
+        def allocated():
+            gc.collect()
+            return torch.cuda.memory_allocated() if on_dev else None
+
+        if count:
+            sync()
+            reset_counts()
+        if on_dev:
+            torch.cuda.reset_peak_memory_stats()
+        warm = ContinuousBatcher(c, prm, bcfg)
+        warm.submit(np.ones((d["prompt_len"],), np.int32), 2, temperature=0.7)
+        warm.run()
+        reps = [warm.report()]   # every batcher's report: the warm one, the dead one, the live
+        del warm
+        clock = FakeClock()
+        fronts = []
+
+        def factory(rid, gen):
+            fronts.append((rid, gen))
+            return ServeFront(c, prm, clock=clock, batcher=ContinuousBatcher(c, prm, bcfg))
+
+        mem["before_fleet"] = allocated()
+        cluster = ClusterFront(factory, ClusterConfig(
+            num_replicas=n_replicas, min_affinity_tokens=d["shared_len"],
+            flight_dir=flight_dir, respawn=RespawnConfig(backoff_base_s=0.5, jitter_frac=0.0)),
+            clock=clock)
+        mem["fleet"] = allocated()
+        by_req, records = {}, []
+        for i in range(d["n"]):
+            if kill_at is not None and i == kill_at:
+                reps.append(cluster.replicas[0].front.batcher.report())
+                cluster.kill_replica(0, "chaos")
+                mem["after_kill"] = allocated()
+            clock.advance(float(gaps[i]))
+            sampled = i % 2 == 1
+            by_req[cluster.submit(Request(
+                prompt_ids=prompts[i].copy(), max_new_tokens=d["new_tokens"],
+                temperature=0.7 if sampled else 0.0, rng_seed=100 + i if sampled else 0,
+                deadline_s=600.0))] = i
+        mem["after_respawn"] = allocated()
+        while True:
+            recs = cluster.drain()
+            if recs:
+                records.extend(recs)
+                continue
+            if not cluster.pending:
+                break
+            ev = cluster.next_event_s()
+            if ev is None:
+                break
+            clock.set_time(max(ev, clock.now))
+        sync()
+        if count:
+            mem["launches"] = read_counts()
+        if on_dev:
+            mem["peak"] = torch.cuda.max_memory_allocated()
+        reps.extend(r.front.batcher.report() for _, r in sorted(cluster.replicas.items())
+                    if r.front is not None)
+        toks = {by_req[r.request_id]: (r.outcome, None if r.tokens is None
+                                       else np.asarray(r.tokens).reshape(-1).tolist())
+                for r in records}
+        return {"tokens": toks, "report": json.loads(json.dumps(cluster.report(), default=float)),
+                "pending": cluster.pending, "dumps": cluster.flight_dumps(),
+                "fronts_built": fronts, "batcher_reports": reps, "mem": mem}
+
+    fr_dir = tempfile.mkdtemp(prefix="cluster_flight_")
+    try:
+        chaos = drill(cfg, params, device, 2, DRILL["kill_at"], os.path.join(fr_dir, "chaos"),
+                      count=True)
+        alone = drill(cfg, params, device, 1, None, os.path.join(fr_dir, "alone"))
+        small_runs = {dev: drill(small_cfg, prm, dev, 2, DRILL["kill_at"],
+                                 os.path.join(fr_dir, f"small_{dev}"))
+                      for dev, prm in (((device, small), ("cpu", small_cpu)) if on_card
+                                       else (("cpu", small_cpu),))}
+    finally:
+        shutil.rmtree(fr_dir, ignore_errors=True)
+    launches = chaos["mem"].pop("launches")
+    want = _sum_counts(_batcher_counts(n_layers, rep) for rep in chaos["batcher_reports"])
+    mem = chaos["mem"]
+    pool = mem["fleet"] - mem["before_fleet"] if on_card else None
+    n = DRILL["n"]
+    cross = {k: small_runs[device][k] == small_runs["cpu"][k]
+             for k in ("tokens", "report", "pending")}
+    drill_row = {
+        "replicas_ran": "in turn on one device",
+        "completed": sum(o == "completed" for o, _ in chaos["tokens"].values()),
+        "accepted_lost": chaos["pending"] + n - len(chaos["tokens"]),
+        "streams_identical": chaos["tokens"] == alone["tokens"],
+        "flight_dumps": len(chaos["dumps"]), "readmitted": chaos["report"]["totals"]["readmitted"],
+        "kills": chaos["report"]["kills"], "fronts_built": chaos["fronts_built"],
+        "totals": chaos["report"]["totals"], "memory_bytes": mem,
+        "pool_bytes_per_replica": None if pool is None else pool // 2,
+        "dead_pool_freed": None if pool is None else (
+            mem["after_kill"] == mem["fleet"] - pool // 2
+            and mem["after_respawn"] <= mem["fleet"]),
+        "card_vs_cpu_2_layers": cross, "launches": launches, "launches_expected": want}
+    log(json.dumps({"cluster_kill_drill": drill_row}))
+    rows["kill drill"] = drill_row
+    if drill_row["completed"] != n or drill_row["accepted_lost"] \
+            or not drill_row["streams_identical"] or drill_row["flight_dumps"] != 1 \
+            or drill_row["readmitted"] < 1:
+        raise SystemExit(f"kill drill: {drill_row}")
+    if on_card and (launches != want or not drill_row["dead_pool_freed"]):
+        raise SystemExit(f"kill drill: launches {launches} against {want}, memory {mem}")
+    if not all(cross.values()):
+        raise SystemExit(f"kill drill card vs CPU at {CLUSTER_SMALL_LAYERS} layers: {cross}")
+    out["cluster kill drill"] = launches
+    lap("kill drill")
+
+    # (e) the simulated soaks: host code on the virtual clock, no device work
+    def sim_soak(n_replicas, soak, gray=None, flight_dir=None):
+        clock = FakeClock()
+        scfg = SimReplicaConfig(deadline_propagation=gray is not None and gray.enabled)
+        cluster = ClusterFront(
+            lambda rid, gen: SimReplicaFront(scfg, clock=clock, replica_id=rid),
+            ClusterConfig(num_replicas=n_replicas, flight_dir=flight_dir,
+                          gray=gray or GrayConfig(),
+                          respawn=RespawnConfig(backoff_base_s=0.5, jitter_seed=args.seed)),
+            clock=clock)
+        rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        t0 = time.monotonic()
+        art = run_cluster_soak(cluster, soak, clock=clock)
+        wall = time.monotonic() - t0
+        art["host_wall_s"] = wall
+        art["requests_per_s_host"] = soak.n_requests / wall
+        art["maxrss_growth_kib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - rss0
+        art["pending"] = cluster.pending
+        return art
+
+    fr_dir = tempfile.mkdtemp(prefix="cluster_sim_")
+    try:
+        n_chaos = SIM_CHAOS["n_requests"] if model == "qwen2-0.5b" else 2000
+        sim_chaos = sim_soak(4, ClusterSoakConfig(**{**SIM_CHAOS, "n_requests": n_chaos},
+                                              seed=args.seed), flight_dir=fr_dir)
+    finally:
+        shutil.rmtree(fr_dir, ignore_errors=True)
+    armed = GrayConfig(enabled=True, min_dwell_s=0.5, min_samples=8, window_s=30.0,
+                       max_hedge_fraction=0.4)
+    hedged = sim_soak(3, ClusterSoakConfig(**SIM_GRAY), gray=armed)
+    unhedged = sim_soak(3, ClusterSoakConfig(**SIM_GRAY))
+    sim_row = {
+        "host_only": "simulated replicas on the virtual clock; no device work",
+        "chaos": {k: sim_chaos[k] for k in ("requests", "outcomes", "token_identity", "readmitted",
+                                        "respawns", "host_wall_s", "requests_per_s_host",
+                                        "maxrss_growth_kib", "pending")}
+        | {"kills": len(sim_chaos["kills"]), "flight_dumps": len(sim_chaos["flight_dumps"])},
+        "gray": {leg: {k: a[k] for k in ("outcomes", "slo_goodput", "hedges", "hedge_fraction",
+                                         "deadline_expired", "token_identity", "host_wall_s",
+                                         "requests_per_s_host", "pending")}
+                 for leg, a in (("hedged", hedged), ("unhedged", unhedged))},
+        "hedged_over_unhedged_slo_goodput":
+            hedged["slo_goodput"] / max(unhedged["slo_goodput"], 1e-9)}
+    sim_row["chaos"]["token_identity"] = {k: v for k, v in sim_chaos["token_identity"].items()
+                                          if k != "mismatched_ids"}
+    log(json.dumps({"cluster_sim_soaks": sim_row}))
+    rows["sim soaks"] = sim_row
+    ti = sim_chaos["token_identity"]
+    if not ti["ok"] or not ti["checked"] or sim_chaos["pending"] \
+            or sum(sim_chaos["outcomes"].values()) != n_chaos \
+            or len(sim_chaos["flight_dumps"]) != 2 or sim_chaos["respawns"] != 2:
+        raise SystemExit(f"simulated chaos soak: {sim_row['chaos']}")
+    if not hedged["token_identity"]["ok"] or hedged["pending"] \
+            or hedged["outcomes"].get("failed", 0) \
+            or sum(hedged["outcomes"].values()) != SIM_GRAY["n_requests"]:
+        raise SystemExit(f"gray soak: {sim_row['gray']}")
+    lap("sim soaks")
+    rows["part_s"] = part_s
+    log(json.dumps({"cluster_part_s": part_s}))
+    detail["cluster"] = rows
+    del params, small, small_cpu
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4435,12 +4849,14 @@ def main() -> int:
     by_path.update(pipeline_paths(args, detail))
     t11 = time.monotonic()
     by_path.update(disagg_paths(args, detail))
+    t12 = time.monotonic()
+    by_path.update(cluster_paths(args, detail))
     detail["phase_s"] = {"kernels": t1 - t0, "token_sweep": t2 - t1, "split_paths": t3 - t2,
                          "serve_paths": t4 - t3, "cross_checks": t5 - t4,
                          "experiments": t6 - t5, "split_decode": t7 - t6,
                          "split_paged": t8 - t7, "boundary_link": t9 - t8,
                          "survivable": t10 - t9, "pipeline": t11 - t10,
-                         "disagg": time.monotonic() - t11,
+                         "disagg": t12 - t11, "cluster": time.monotonic() - t12,
                          "total": time.monotonic() - t_start}
     log(json.dumps({"phase_s": detail["phase_s"]}))
 

@@ -27,8 +27,10 @@ counters, label ``hop``), ``edgellm_link_health_*``,
 ``edgellm_decode_token_latency_seconds`` (histograms),
 ``edgellm_spec_*`` (speculative decode), ``edgellm_pipeline_*`` (µ-batch
 pipelined decode, label ``stage``), ``edgellm_fused_*`` (fused-hop plan
-decisions, labels ``hop``, ``codec``, ``mode``, ``reason``). The fleet's
-``record_cluster_stats`` waits for the fleet.
+decisions, labels ``hop``, ``codec``, ``mode``, ``reason``),
+``edgellm_cluster_*`` (the replica router's fleet gauges and its kill /
+respawn / readmission / recompute / autoscale counters,
+:func:`record_cluster_stats`).
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ from ..utils.concurrency import acquire_in_order, guarded_by
 
 __all__ = [
     "Counter", "CounterSource", "Gauge", "Histogram", "MetricsRegistry",
-    "format_table", "get_registry", "record_decode_stats",
+    "format_table", "get_registry", "record_cluster_stats", "record_decode_stats",
     "record_link_counters", "record_link_health", "record_pipeline_stats",
     "record_prefix_stats", "record_probe_decisions",
     "record_recovery_counters", "record_spec_stats", "record_wire_bytes",
@@ -586,6 +588,53 @@ def record_probe_decisions(rows: Optional[Sequence[Mapping[str, Any]]],
                          reason="no fused plan (gate ladder refused)")
         w = probe_cache.measured_win(f"fused_hop:{codec}")
         win.set(0.0 if w is None else (1.0 if w else -1.0), codec=codec)
+
+
+def record_cluster_stats(report: Optional[Mapping[str, Any]],
+                         registry: Optional[MetricsRegistry] = None) -> None:
+    """Absorb a :meth:`~..serve.cluster.ClusterFront.report` dict
+    as ``edgellm_cluster_*`` series: fleet-size/pressure/parked gauges plus
+    kill/respawn/readmission/recompute counters (incremented with the
+    report's running totals — call once per report, not per drain tick)."""
+    reg = registry if registry is not None else _REGISTRY
+    if not reg.enabled or not report:
+        return
+    replicas = report.get("replicas", {})
+    live = sum(1 for r in replicas.values() if r.get("state") == "live")
+    reg.gauge("edgellm_cluster_replicas",
+              "replicas in the fleet (any state)").set(float(len(replicas)))
+    reg.gauge("edgellm_cluster_live_replicas",
+              "replicas currently serving").set(float(live))
+    reg.gauge("edgellm_cluster_parked",
+              "accepted requests waiting for a routable replica").set(
+        float(report.get("parked", 0)))
+    pressure = report.get("pressure")
+    if pressure is not None:
+        reg.gauge("edgellm_cluster_pressure",
+                  "mean live-replica load fraction").set(float(pressure))
+    kills = report.get("kills")
+    if kills:
+        reg.counter("edgellm_cluster_kills_total",
+                    "replicas removed by fault or chaos").inc(len(kills))
+    respawns = sum(r.get("respawns", 0) for r in replicas.values())
+    if respawns:
+        reg.counter("edgellm_cluster_respawns_total",
+                    "replica respawns from a clean plan").inc(int(respawns))
+    totals = report.get("totals", {})
+    if totals.get("readmitted"):
+        reg.counter("edgellm_cluster_readmitted_total",
+                    "accepted requests re-placed after a replica loss").inc(
+            int(totals["readmitted"]))
+    if totals.get("recompute_tokens"):
+        reg.counter("edgellm_cluster_recompute_tokens_total",
+                    "tokens regenerated after scratch re-admissions").inc(
+            int(totals["recompute_tokens"]))
+    events = report.get("autoscale_events")
+    if events:
+        c = reg.counter("edgellm_cluster_autoscale_events_total",
+                        "autoscaler scale decisions")
+        for ev in events:
+            c.inc(direction=ev.get("direction", "?"))
 
 
 def format_table(registry: Optional[MetricsRegistry] = None,

@@ -32,6 +32,14 @@ Dispatch mirrors the reference:
   KV-page migration, a decode pool: mode "disagg_batched" or
   "disagg_batched_split", ``disagg_migrations`` / ``disagg_degraded`` on
   the line)
+- ``experiment: "serve"`` with ``batching`` and a ``cluster`` block -> the
+  replica router (``ClusterFront``): ``num_replicas`` serve fronts, each
+  over its own batcher (split-paged with ``cuts``, a ``DisaggServer`` with
+  ``disagg``), prefix-affine placement, the same seeded arrivals,
+  ``cluster_report.json`` and one JSON line (mode "cluster_batched",
+  "cluster_batched_split" or their "disagg_" forms); ``gray`` arms the
+  router's straggler demotion and hedging. The replicas share the card
+  and drain in turn
 - ``experiment: "serve"`` without ``batching`` -> the front's per-request
   route through ``run_soak``: with ``cuts`` / ``hop_codecs`` every request
   on a ``SplitRuntime`` (``generate_split``; ``speculative``: the draft /
@@ -61,11 +69,8 @@ front's health).
 
 A split config that carries a key of a split feature not ported yet
 (``UNPORTED_SPLIT_KEYS``: the seq / data / model mesh axes) exits
-non-zero, and so does a serve config with a key of a serve feature not
-ported yet (``UNPORTED_SERVE_KEYS``: the replica router and its gray
-hardening), each naming it. ``fused_hops`` maps
-onto the ``EDGELLM_FUSED_HOP`` gate as in
-the reference ("auto" fuses a hop only where this card's probe cache
+non-zero naming it. ``fused_hops`` maps onto the ``EDGELLM_FUSED_HOP``
+gate as in the reference ("auto" fuses a hop only where this card's probe cache
 recorded a win, ``codecs/probe_cache.py``).
 
 Corpus input is a ``.npy``/``.npz`` of token ids, or a raw ``.txt`` plus
@@ -92,8 +97,6 @@ NOT_PORTED = ()
 UNPORTED_SPLIT_KEYS = ("n_seq", "n_data", "n_model")
 #: the faulty link's keys
 LINK_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health")
-#: serve keys whose feature is not ported yet (the replica router, gray hardening)
-UNPORTED_SERVE_KEYS = ("cluster", "gray")
 #: the fused_hops key's values onto the EDGELLM_FUSED_HOP gate ("auto" clears it)
 FUSED_HOP_ENV = {"off": "0", "wire": "wire", "remote": "remote"}
 
@@ -475,14 +478,10 @@ def _validate_cuts(p: dict, die, device) -> None:
 
 
 def _validate_serve(p: dict, die, device) -> None:
-    """The serve branch: unported features die naming what is missing, then
-    the reference's checks of ``cuts``, the ``serving``, ``batching``,
-    ``prefix_cache``, ``kv_at_rest``, ``speculative`` and ``disagg``
-    blocks, with its messages."""
-    for key in UNPORTED_SERVE_KEYS:
-        if key in p:
-            die(f"{key} is not ported yet to edgellm_tpu_torch under experiment 'serve'; "
-                f"drop it or run with python -m edgellm_tpu.run")
+    """The serve branch: the reference's checks of ``cuts``, the
+    ``serving``, ``batching``, ``prefix_cache``, ``kv_at_rest``,
+    ``pipeline``, ``speculative``, ``cluster``, ``disagg`` and ``gray``
+    blocks, in its order, with its messages."""
     if "cuts" in p:
         _validate_cuts(p, die, device)
     _validate_link(p, die)
@@ -532,9 +531,7 @@ def _validate_serve(p: dict, die, device) -> None:
                                "— add a 'batching' block")):
             if key in p:
                 die(msg)
-        _validate_pipeline(p, die)
-        _validate_speculative(p, die)
-        _validate_disagg(p, die)
+        _validate_serve_blocks(p, die)
         return
     b = p["batching"]
     if not isinstance(b, dict):
@@ -596,9 +593,110 @@ def _validate_serve(p: dict, die, device) -> None:
                                    or isinstance(kq["pool_bytes"], bool)
                                    or kq["pool_bytes"] < 1):
             die(f"kv_at_rest.pool_bytes must be a positive integer, got {kq['pool_bytes']!r}")
+    _validate_serve_blocks(p, die)
+
+
+def _validate_serve_blocks(p: dict, die) -> None:
+    """The serve blocks the reference checks after ``kv_at_rest``, in its
+    order."""
     _validate_pipeline(p, die)
     _validate_speculative(p, die)
+    _validate_cluster(p, die)
     _validate_disagg(p, die)
+    _validate_gray(p, die)
+
+
+def _validate_cluster(p: dict, die) -> None:
+    """The reference's checks of the ``cluster`` block (experiment "serve")."""
+    if "cluster" not in p:
+        return
+    from .serve.cluster import AutoscalerConfig, ClusterConfig, RespawnConfig
+    from .serve.overload import BreakerConfig, RetryBudgetConfig
+
+    if "batching" not in p:
+        die("cluster replicas each run the continuous batcher — add a "
+            "'batching' block")
+    if "speculative" in p:
+        die("cluster + speculative: the spec loop is single-stream with "
+            "no replica routing story — drop one of the two blocks")
+    cl = p["cluster"]
+    if not isinstance(cl, dict):
+        die(f"cluster must be an object of ClusterConfig fields, got {cl!r}")
+    top = {f.name for f in dataclasses.fields(ClusterConfig)}
+    bad = sorted(set(cl) - top)
+    if bad:
+        die(f"cluster: unknown field(s) {bad}; known: {sorted(top)}")
+    for key, cls in (("breaker", BreakerConfig), ("retry_budget", RetryBudgetConfig),
+                     ("respawn", RespawnConfig), ("autoscaler", AutoscalerConfig)):
+        if key not in cl:
+            continue
+        if not isinstance(cl[key], dict):
+            die(f"cluster.{key} must be an object of {cls.__name__} fields, got {cl[key]!r}")
+        fields = {f.name for f in dataclasses.fields(cls)}
+        bad = sorted(set(cl[key]) - fields)
+        if bad:
+            die(f"cluster.{key}: unknown field(s) {bad}; known: {sorted(fields)}")
+    try:
+        ccfg = _cluster_config(cl)
+    except (TypeError, ValueError) as e:
+        die(f"cluster: {e}")
+    if ccfg.num_replicas < 2:
+        die(f"cluster.num_replicas must be >= 2 (a one-replica cluster "
+            f"is the plain serve front — drop the 'cluster' block), "
+            f"got {ccfg.num_replicas}")
+    if (p.get("serving", {}).get("soak") or {}).get("kill_stage") is not None:
+        die("cluster + serving.soak.kill_stage: the stage kill is the "
+            "single-front chaos hook — replica kills belong to the "
+            "router (ClusterFront.kill_replica, exercised by the "
+            "cluster tests/bench)")
+
+
+def _validate_gray(p: dict, die) -> None:
+    """The reference's checks of the ``gray`` block (experiment "serve")."""
+    if "gray" not in p:
+        return
+    from .serve.cluster import GrayConfig
+
+    if "cluster" not in p:
+        die("gray hardening (straggler demotion, request hedging) is a "
+            "router policy — add a 'cluster' block")
+    gy = p["gray"]
+    if not isinstance(gy, dict):
+        die(f"gray must be an object of GrayConfig fields, got {gy!r}")
+    top = {f.name for f in dataclasses.fields(GrayConfig)}
+    bad = sorted(set(gy) - top)
+    if bad:
+        die(f"gray: unknown field(s) {bad}; known: {sorted(top)}")
+    try:
+        _gray_config(gy)
+    except (TypeError, ValueError) as e:
+        die(f"gray: {e}")
+
+
+def _cluster_config(cl: dict):
+    """The :class:`ClusterConfig` a ``"cluster"`` block describes: the nested
+    ``breaker`` / ``retry_budget`` / ``respawn`` / ``autoscaler`` objects
+    become the matching sub-configs."""
+    from .serve.cluster import AutoscalerConfig, ClusterConfig, RespawnConfig
+    from .serve.overload import BreakerConfig, RetryBudgetConfig
+
+    kwargs = dict(cl)
+    for key, cls in (("breaker", BreakerConfig), ("retry_budget", RetryBudgetConfig),
+                     ("respawn", RespawnConfig), ("autoscaler", AutoscalerConfig)):
+        if key in kwargs:
+            kwargs[key] = cls(**kwargs[key])
+    return ClusterConfig(**kwargs)
+
+
+def _gray_config(gy: dict):
+    """The :class:`GrayConfig` a ``"gray"`` block describes. A block that is
+    present is armed unless it says otherwise: ``enabled`` defaults to True
+    here (the dataclass's False serves programmatic construction)."""
+    from .serve.cluster import GrayConfig
+
+    kwargs = dict(gy)
+    kwargs.setdefault("enabled", True)
+    return GrayConfig(**kwargs)
 
 
 def _validate_disagg(p: dict, die) -> None:
@@ -745,6 +843,67 @@ def pipeline_config(params_json: dict):
     return PipelineConfig(**params_json["pipeline"])
 
 
+def _batched_setup(cfg, params: dict, params_json: dict) -> tuple:
+    """What the batched serve routes share: the front's config, the soak,
+    a :class:`FakeClock`, the batching config, the split runtime and its
+    placed weights as batcher kwargs (with ``cuts``) and a factory of the
+    batcher a front drains (a :class:`~.serve.disagg.DisaggServer` on the
+    clock with ``disagg``, else a :class:`ContinuousBatcher`)."""
+    from .serve.batching import ContinuousBatcher
+    from .serve.soak import SoakConfig
+    from .utils.clock import FakeClock
+
+    sv = params_json["serving"]
+    front_cfg = _serve_front_config(sv)
+    soak = SoakConfig(**sv.get("soak", {}))
+    clock = FakeClock()
+    bcfg = batching_config(cfg, params_json)
+    split_kw = {}
+    if "cuts" in params_json:
+        rt = _split_runtime(cfg, params, params_json)
+        split_kw = dict(split_runtime=rt, placed_params=rt.place_params(params))
+    dcfg = _disagg_config(params_json["disagg"]) if "disagg" in params_json else None
+
+    def make_batcher():
+        if dcfg is not None:
+            from .serve.disagg import DisaggServer
+
+            return DisaggServer(cfg, params, bcfg, dcfg, clock=clock, **split_kw)
+        return ContinuousBatcher(cfg, params, bcfg, **split_kw)
+
+    return front_cfg, soak, clock, bcfg, split_kw, make_batcher
+
+
+def _warm_batcher(cfg, params: dict, bcfg, split_kw: dict, soak) -> None:
+    """Warm the ragged step and the soak's prefill shape (kernel build,
+    allocator) on a colocated batcher before the first request."""
+    from .serve.batching import ContinuousBatcher
+
+    warm = ContinuousBatcher(cfg, params, bcfg, **split_kw)
+    warm.submit(np.ones((soak.prompt_len,), np.int32), 2)
+    warm.run()
+
+
+def _submit_arrivals(cfg, soak, clock, submit) -> None:
+    """The soak's seeded arrivals, the reference's draws in its order:
+    exponential gaps on ``clock``, prompts from ``soak.seed`` opening with
+    one shared system prompt of ``shared_prefix_len`` tokens, request ``i``
+    sampling under seed ``i``; each :class:`Request` goes to ``submit``."""
+    from .serve.frontend import Request
+
+    rng = np.random.default_rng(soak.seed)
+    gaps = rng.exponential(1.0 / soak.arrival_rate, size=soak.n_requests)
+    shared_pfx = (rng.integers(1, cfg.vocab_size, size=soak.shared_prefix_len).astype(np.int32)
+                  if soak.shared_prefix_len else None)
+    for i in range(soak.n_requests):
+        clock.advance(float(gaps[i]))
+        pi = rng.integers(1, cfg.vocab_size, size=soak.prompt_len).astype(np.int32)
+        if shared_pfx is not None:
+            pi[:soak.shared_prefix_len] = shared_pfx
+        submit(Request(prompt_ids=pi, max_new_tokens=soak.max_new_tokens,
+                       temperature=soak.temperature, deadline_s=soak.deadline_s, rng_seed=i))
+
+
 def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
     """The batched serve experiment (a ``batching`` block), as the reference
     CLI runs it: a warm
@@ -761,47 +920,15 @@ def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
     summary line (the reference's keys) plus the records and the batcher
     report under ``"_records"`` / ``"_batcher"``. Raises ``SystemExit`` when
     a shared prefix was promised and the radix index never hit."""
-    from .serve.batching import ContinuousBatcher
-    from .serve.frontend import Request, ServeFront
-    from .serve.soak import SoakConfig
-    from .utils.clock import FakeClock
+    from .serve.frontend import ServeFront
 
-    sv = params_json["serving"]
-    front_cfg = _serve_front_config(sv)
-    soak = SoakConfig(**sv.get("soak", {}))
-    clock = FakeClock()
-    bcfg = batching_config(cfg, params_json)
-    split_kw = {}
-    if "cuts" in params_json:
-        rt = _split_runtime(cfg, params, params_json)
-        split_kw = dict(split_runtime=rt, placed_params=rt.place_params(params))
-    if "disagg" in params_json:
-        from .serve.disagg import DisaggServer
-
-        batcher = DisaggServer(cfg, params, bcfg, _disagg_config(params_json["disagg"]),
-                               clock=clock, **split_kw)
-    else:
-        batcher = ContinuousBatcher(cfg, params, bcfg, **split_kw)
+    front_cfg, soak, clock, bcfg, split_kw, make_batcher = _batched_setup(
+        cfg, params, params_json)
+    batcher = make_batcher()
     front = ServeFront(cfg, params, config=front_cfg, clock=clock, batcher=batcher)
     _attach_front_obs(front)
-    # warm the ragged step and the soak's prefill shape (kernel build,
-    # allocator) before the first request
-    warm = ContinuousBatcher(cfg, params, bcfg, **split_kw)
-    warm.submit(np.ones((soak.prompt_len,), np.int32), 2)
-    warm.run()
-    del warm
-    rng = np.random.default_rng(soak.seed)
-    gaps = rng.exponential(1.0 / soak.arrival_rate, size=soak.n_requests)
-    shared_pfx = (rng.integers(1, cfg.vocab_size, size=soak.shared_prefix_len).astype(np.int32)
-                  if soak.shared_prefix_len else None)
-    for i in range(soak.n_requests):
-        clock.advance(float(gaps[i]))
-        pi = rng.integers(1, cfg.vocab_size, size=soak.prompt_len).astype(np.int32)
-        if shared_pfx is not None:
-            pi[:soak.shared_prefix_len] = shared_pfx
-        front.submit(Request(prompt_ids=pi, max_new_tokens=soak.max_new_tokens,
-                             temperature=soak.temperature, deadline_s=soak.deadline_s,
-                             rng_seed=i))
+    _warm_batcher(cfg, params, bcfg, split_kw, soak)
+    _submit_arrivals(cfg, soak, clock, front.submit)
     records = front.drain_batched()
     rep = batcher.report()
     outcomes: dict = {}
@@ -830,6 +957,64 @@ def run_serve(cfg, params: dict, params_json: dict, out) -> dict:
             f"radix index never hit: {pf}")
     return {**summary, "_records": records, "_batcher": rep, "_report": front.report(),
             "_front": front}
+
+
+def run_cluster(cfg, params: dict, params_json: dict, out) -> dict:
+    """The replica-router serve experiment (``batching`` and ``cluster``),
+    as the reference CLI runs it: a :class:`~.serve.cluster.ClusterFront`
+    of ``num_replicas`` :class:`ServeFront` s, each over its own batcher
+    from the batched route's factory (so ``cuts`` and ``disagg`` compose
+    with it), ``gray`` folded into the router's config; a warm colocated
+    batcher, the batched route's seeded arrivals through ``cluster.submit``,
+    then ``cluster.drain`` until it returns nothing. The replicas share the
+    weights' device and drain in turn. ``record_cluster_stats`` absorbs the
+    final report; writes ``out("cluster_report.json")`` (the report and
+    every record) and returns the printed summary line (the reference's
+    keys) plus the records, the report and the router under ``"_records"``
+    / ``"_report"`` / ``"_cluster"``, and under ``"_lost"`` the message of
+    the ``SystemExit`` the caller raises after printing when accepted work
+    was left unterminated (None otherwise)."""
+    from .obs.metrics import record_cluster_stats
+    from .serve.cluster import ClusterFront
+    from .serve.frontend import ServeFront
+
+    front_cfg, soak, clock, bcfg, split_kw, make_batcher = _batched_setup(
+        cfg, params, params_json)
+    ccfg = _cluster_config(params_json["cluster"])
+    if "gray" in params_json:
+        ccfg = dataclasses.replace(ccfg, gray=_gray_config(params_json["gray"]))
+
+    def replica_factory(replica_id, generation):
+        return ServeFront(cfg, params, config=front_cfg, clock=clock, batcher=make_batcher())
+
+    cluster = ClusterFront(replica_factory, ccfg, clock=clock)
+    _attach_front_obs(cluster)
+    _warm_batcher(cfg, params, bcfg, split_kw, soak)
+    _submit_arrivals(cfg, soak, clock, cluster.submit)
+    records = []
+    while True:
+        recs = cluster.drain()
+        if not recs:
+            break
+        records.extend(recs)
+    rep = cluster.report()
+    record_cluster_stats(rep)
+    outcomes: dict = {}
+    for rec in records:
+        outcomes[rec.outcome] = outcomes.get(rec.outcome, 0) + 1
+    artifact = {"requests": len(records), "outcomes": outcomes,
+                "mode": (("disagg_" if "disagg" in params_json else "")
+                         + ("cluster_batched_split" if split_kw else "cluster_batched")),
+                "cluster": rep, "records": [r.as_dict() for r in records]}
+    with open(out("cluster_report.json"), "w") as f:
+        json.dump(artifact, f, indent=1, default=float)
+    summary = {"requests": len(records), "outcomes": outcomes, "mode": artifact["mode"],
+               "replicas": len(rep["replicas"]), "placements": rep["totals"],
+               "artifact": out("cluster_report.json")}
+    lost = (f"cluster drain left {cluster.pending} accepted request(s) unterminated — the "
+            f"router lost work: {rep}" if cluster.pending else None)
+    return {**summary, "_records": records, "_report": rep, "_cluster": cluster,
+            "_lost": lost}
 
 
 def apply_fused_hops(params_json: dict) -> None:
@@ -1238,11 +1423,14 @@ def _export_observability(args, obs) -> None:
 def _dispatch(args, cfg, params: dict, params_json: dict, head_weights, out, device) -> int:
     """Run the experiment the params name and print its result line."""
     if params_json.get("experiment") == "serve":
-        run = run_serve if "batching" in params_json else run_serve_requests
+        run = (run_serve_requests if "batching" not in params_json
+               else run_cluster if "cluster" in params_json else run_serve)
         summary = run(cfg, params, params_json, out)
         print(json.dumps({k: v for k, v in summary.items() if not k.startswith("_")},
                          default=float))
-        if args.serve_report:
+        if summary.get("_lost"):
+            raise SystemExit(summary["_lost"])
+        if args.serve_report and "_front" in summary:
             _print_serve_report(summary["_report"], summary["_front"],
                                 summary.get("_artifact"))
         return 0

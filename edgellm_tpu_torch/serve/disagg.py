@@ -55,6 +55,7 @@ from ..obs.metrics import get_registry
 from ..obs.tracing import span as obs_span
 from ..utils.clock import MONOTONIC, Clock
 from .batching import BatchingConfig, ContinuousBatcher
+from .overload import _linear_quantile
 
 __all__ = [
     "DEGRADE_LINK_DEAD", "DEGRADE_LINK_SLOW", "DEGRADE_MIGRATION_FAILURES",
@@ -92,18 +93,6 @@ DEGRADE_MIGRATION_FAILURES = "migration_failures"
 DEGRADE_WORKERS_LOST = "prefill_workers_lost"
 DEGRADE_REASONS = (DEGRADE_LINK_DEAD, DEGRADE_LINK_SLOW,
                    DEGRADE_MIGRATION_FAILURES, DEGRADE_WORKERS_LOST)
-
-
-def _linear_quantile(ordered: list, q: float) -> float:
-    """numpy's default (linear) quantile over a sorted list."""
-    n = len(ordered)
-    if n == 1:
-        return float(ordered[0])
-    pos = q * (n - 1)
-    lo = int(pos)
-    hi = min(lo + 1, n - 1)
-    frac = pos - lo
-    return float(ordered[lo] * (1.0 - frac) + ordered[hi] * frac)
 
 
 # ---------------------------------------------------------------------------

@@ -12,17 +12,20 @@ tests run them on a :class:`~..utils.clock.FakeClock`:
 - :class:`RetryBudget`: a leaky bucket over observed ladder retries;
 - :class:`CircuitBreaker`: closed -> open -> half-open, per guarded resource;
 - :class:`BrownoutController`: staged quality degradation under queue
-  pressure with dwell hysteresis in both directions.
+  pressure with dwell hysteresis in both directions;
+- :class:`StragglerDetector`: the gray-failure eye, windowed per-key
+  latency samples judged against the pooled fleet median, with min-sample
+  and min-dwell hysteresis; re-promotion needs fresh measurements.
 
-The gray-failure ``StragglerDetector`` is not ported yet. Every controller
-owns a ``threading.Lock`` (``@guarded_by``): the front reads them from a
-scrape thread while the decode thread mutates them.
+Every controller owns a ``threading.Lock`` (``@guarded_by``): the front
+reads them from a scrape thread while the decode thread mutates them.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
-from typing import Optional
+from typing import Any, Optional
 
 from ..utils.clock import MONOTONIC, Clock
 from ..utils.concurrency import guarded_by
@@ -36,6 +39,7 @@ __all__ = [
     "RetryBudgetConfig", "RetryBudget",
     "BreakerConfig", "CircuitBreaker",
     "BrownoutConfig", "BrownoutController",
+    "StragglerConfig", "StragglerDetector",
 ]
 
 
@@ -627,3 +631,212 @@ class BrownoutController:
                     "switches": self.switches,
                     "observations": self.observations,
                     "sheds": self.sheds}
+
+
+# ---------------------------------------------------------------------------
+# straggler detection: windowed quantiles vs the fleet median, with dwell
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StragglerConfig:
+    """Gray-failure thresholds. A key is flagged when its windowed
+    ``quantile`` (p95 by default) is at least ``p95_multiple`` times the
+    pooled fleet median, judged only with ``min_samples`` fresh samples in
+    the key's window and at least two measured keys (one peer alone has no
+    fleet to be slower than). ``min_dwell_s`` is the hysteresis floor
+    between verdict flips in either direction; samples expire after
+    ``window_s`` and each key's window is bounded at ``max_samples``."""
+
+    p95_multiple: float = 3.0
+    quantile: float = 0.95
+    window_s: float = 120.0
+    max_samples: int = 256
+    min_samples: int = 8
+    min_dwell_s: float = 5.0
+
+    def __post_init__(self):
+        for f, lo in (("p95_multiple", 1.0), ("window_s", 0.0)):
+            v = getattr(self, f)
+            if isinstance(v, bool) or not isinstance(v, (int, float)) or v <= lo:
+                raise ValueError(f"{f} must be a number > {lo}, got {v!r}")
+        if (isinstance(self.quantile, bool)
+                or not isinstance(self.quantile, (int, float))
+                or not 0.0 < self.quantile < 1.0):
+            raise ValueError(f"quantile must be in (0, 1), "
+                             f"got {self.quantile!r}")
+        for f in ("max_samples", "min_samples"):
+            v = getattr(self, f)
+            if isinstance(v, bool) or not isinstance(v, int) or v < 1:
+                raise ValueError(f"{f} must be an integer >= 1, got {v!r}")
+        if self.min_samples > self.max_samples:
+            raise ValueError(
+                f"min_samples ({self.min_samples}) cannot exceed "
+                f"max_samples ({self.max_samples})")
+        if (isinstance(self.min_dwell_s, bool)
+                or not isinstance(self.min_dwell_s, (int, float))
+                or self.min_dwell_s < 0):
+            raise ValueError(f"min_dwell_s must be a number >= 0, "
+                             f"got {self.min_dwell_s!r}")
+
+
+def _linear_quantile(ordered: list, q: float) -> float:
+    """numpy's default (linear-interpolation) quantile over a sorted list —
+    kept bit-compatible with ``np.quantile(..., method="linear")`` so the
+    detector's window math is testable against the numpy reference without
+    importing numpy into this pure-host module."""
+    n = len(ordered)
+    if n == 1:
+        return float(ordered[0])
+    pos = q * (n - 1)
+    lo = int(pos)
+    hi = min(lo + 1, n - 1)
+    frac = pos - lo
+    return float(ordered[lo] * (1.0 - frac) + ordered[hi] * frac)
+
+
+@guarded_by("_lock", fields=["_samples", "_flagged", "_last_flip",
+                             "observed", "demotions", "promotions"])
+class StragglerDetector:
+    """Flags the peers that are *slow*, not dead.
+
+    ``observe(key, latency_s)`` feeds one measured latency (a completed
+    request's service time, one migration-page transfer, ...) into the
+    key's window on the injected clock. Verdicts are recomputed lazily on
+    read (:meth:`is_straggler` / :meth:`stragglers` / :meth:`summary`):
+
+    - **flag** a key whose windowed ``cfg.quantile`` is >=
+      ``cfg.p95_multiple`` x the pooled fleet median, once it has
+      ``cfg.min_samples`` in-window samples and a fleet (>= 2 keys) exists;
+    - **re-promote** the key when fresh measurements bring the quantile
+      back under the threshold — a flagged key with an empty window stays
+      flagged (re-promotion requires re-measure, never just elapsed time);
+    - both flips honor ``cfg.min_dwell_s`` so a borderline peer cannot flap
+      in and out of the rotation.
+
+    :meth:`fleet_quantile` exposes the pooled windowed quantile — the
+    hedge-delay source (hedge a request once it has been outstanding longer
+    than the fleet's observed q-th percentile)."""
+
+    def __init__(self, config: Optional[StragglerConfig] = None,
+                 clock: Clock = MONOTONIC):
+        self.cfg = config if config is not None else StragglerConfig()
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._samples: dict = {}     # key -> deque[(t, latency_s)]
+        self._flagged: dict = {}     # key -> flagged_at
+        self._last_flip: dict = {}   # key -> last verdict flip time
+        self.observed = 0
+        self.demotions = 0
+        self.promotions = 0
+
+    # -- sample intake ------------------------------------------------------
+
+    def observe(self, key, latency_s: float) -> None:
+        """Record one measured latency for ``key`` at the current time."""
+        if latency_s < 0:
+            raise ValueError(f"latency_s must be >= 0, got {latency_s!r}")
+        with self._lock:
+            now = self.clock()
+            dq = self._samples.setdefault(key, collections.deque())
+            dq.append((now, float(latency_s)))
+            while len(dq) > self.cfg.max_samples:
+                dq.popleft()
+            self.observed += 1
+            self._expire_locked(now)
+
+    def _expire_locked(self, now: float) -> None:
+        horizon = now - self.cfg.window_s
+        for key in list(self._samples):
+            dq = self._samples[key]
+            while dq and dq[0][0] <= horizon:
+                dq.popleft()
+            if not dq:
+                del self._samples[key]
+
+    # -- windowed quantile math --------------------------------------------
+
+    def quantile(self, key, q: Optional[float] = None) -> Optional[float]:
+        """The key's windowed q-th quantile (``cfg.quantile`` by default),
+        or None with no in-window samples."""
+        with self._lock:
+            self._expire_locked(self.clock())
+            dq = self._samples.get(key)
+            if not dq:
+                return None
+            vals = sorted(v for _, v in dq)
+            return _linear_quantile(vals, self.cfg.quantile if q is None
+                                    else q)
+
+    def sample_count(self, key) -> int:
+        with self._lock:
+            self._expire_locked(self.clock())
+            dq = self._samples.get(key)
+            return len(dq) if dq else 0
+
+    def fleet_quantile(self, q: Optional[float] = None, *,
+                       exclude: Any = ()) -> Optional[float]:
+        """The q-th quantile pooled over every key's window, or None when
+        nothing has been measured recently. ``exclude`` drops the named
+        keys from the pool — the hedge delay derives from HEALTHY peers,
+        so a straggler's inflated tail cannot push the trigger past every
+        deadline and disarm hedging exactly when it is needed."""
+        with self._lock:
+            self._expire_locked(self.clock())
+            vals = sorted(v for key, dq in self._samples.items()
+                          if key not in exclude for _, v in dq)
+            if not vals:
+                return None
+            return _linear_quantile(vals, self.cfg.quantile if q is None
+                                    else q)
+
+    # -- verdicts -----------------------------------------------------------
+
+    def _update_locked(self, now: float) -> None:
+        self._expire_locked(now)
+        pooled = sorted(v for dq in self._samples.values() for _, v in dq)
+        if not pooled:
+            return   # flagged keys stay flagged: no fresh fleet to re-judge
+        med = _linear_quantile(pooled, 0.5)
+        for key in sorted(set(self._samples) | set(self._flagged),
+                          key=repr):
+            dq = self._samples.get(key)
+            if dq is None or len(dq) < self.cfg.min_samples:
+                continue   # too few fresh samples: verdict stands as-is
+            last = self._last_flip.get(key)
+            if last is not None and now - last < self.cfg.min_dwell_s:
+                continue
+            p = _linear_quantile(sorted(v for _, v in dq),
+                                 self.cfg.quantile)
+            slow = (len(self._samples) >= 2
+                    and p >= self.cfg.p95_multiple * med)
+            if slow and key not in self._flagged:
+                self._flagged[key] = now
+                self._last_flip[key] = now
+                self.demotions += 1
+            elif not slow and key in self._flagged:
+                del self._flagged[key]
+                self._last_flip[key] = now
+                self.promotions += 1
+
+    def is_straggler(self, key) -> bool:
+        with self._lock:
+            self._update_locked(self.clock())
+            return key in self._flagged
+
+    def stragglers(self) -> tuple:
+        """Currently flagged keys, sorted for deterministic iteration."""
+        with self._lock:
+            self._update_locked(self.clock())
+            return tuple(sorted(self._flagged, key=repr))
+
+    def summary(self) -> dict:
+        with self._lock:
+            self._update_locked(self.clock())
+            return {
+                "keys": len(self._samples),
+                "flagged": sorted(self._flagged, key=repr),
+                "observed": self.observed,
+                "demotions": self.demotions,
+                "promotions": self.promotions,
+            }

@@ -28,6 +28,13 @@ from that replay, in the reference as in the port. The artifact's
 ``flight_dumps`` lists the armed flight recorder's artifacts (None when
 none is armed).
 
+:func:`run_cluster_soak` is the replica router's chaos soak
+(:class:`ClusterSoakConfig`): every request regenerated from its arrival
+index by a crc32 draw, replica kills, gray slowdowns and a corruption
+burst scheduled by arrival index, aggregates folded as records drain (flat
+memory), and each completed request replayed against the sim replica's
+crc chain; the artifact is the reference's, key for key.
+
 :func:`run_disagg_soak` is the disaggregated server's chaos soak
 (:class:`DisaggSoakConfig`): requests regenerated from their index, kills
 of a prefill worker mid-migration (through ``page_hook``), of a given
@@ -38,6 +45,7 @@ every completed request against a fault-free colocated batcher.
 from __future__ import annotations
 
 import dataclasses
+import math
 import struct
 import zlib
 from typing import Any, Optional
@@ -45,13 +53,15 @@ from typing import Any, Optional
 import numpy as np
 
 from ..obs.flight import get_flight_recorder
+from ..obs.metrics import Histogram
 from ..utils import prng
 from ..utils.clock import FakeClock
 from .decode import generate, generate_split
 from .frontend import Request, ServeFront
-from .overload import COMPLETED, FAILED_OVER, REJECTED, SHED
+from .overload import COMPLETED, FAILED_OVER, REJECTED, SHED, TIMED_OUT
 
-__all__ = ["DisaggSoakConfig", "SoakConfig", "run_disagg_soak", "run_soak"]
+__all__ = ["ClusterSoakConfig", "DisaggSoakConfig", "SoakConfig", "run_cluster_soak",
+           "run_disagg_soak", "run_soak"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,7 +297,7 @@ def run_soak(front: ServeFront, soak: SoakConfig, *, clock: FakeClock,
 
 
 # ---------------------------------------------------------------------------
-# the disaggregated prefill / decode chaos soak
+# workload draws addressed by index (the cluster and disaggregated soaks)
 # ---------------------------------------------------------------------------
 
 
@@ -299,6 +309,331 @@ def _draw(seed: int, i: int, salt: int) -> int:
 
 def _u01(seed: int, i: int, salt: int) -> float:
     return (_draw(seed, i, salt) + 0.5) / 2.0 ** 32
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterSoakConfig:
+    """The replayable cluster-soak definition — the million-request shape.
+
+    Prompts open with one of ``num_prefix_groups`` shared prefixes (the
+    "system prompt" population the router's prefix affinity should exploit)
+    followed by per-request suffix tokens. ``sampled_frac`` of requests
+    sample at ``sample_temperature`` with a per-index recorded seed; the
+    rest are greedy — both replay token-identically from the index.
+    Chaos: ``kills`` schedules replica kills by arrival fraction,
+    ``burst_start_frac``/``burst_end_frac`` bound a link-corruption window
+    (``burst_corrupt_rate`` per completing request, seeded) across the
+    fleet. ``goodput_bucket_s`` is the resolution of the tokens-per-virtual-
+    second series the outage-window goodput gate reads."""
+
+    n_requests: int = 1000
+    arrival_rate: float = 200.0
+    seed: int = 0
+    vocab_size: int = 50_000
+    prompt_len: int = 16
+    shared_prefix_len: int = 8
+    num_prefix_groups: int = 32
+    max_new_tokens: int = 16
+    deadline_s: Optional[float] = 120.0
+    sampled_frac: float = 0.5
+    sample_temperature: float = 0.7
+    priority_levels: int = 2
+    #: ((arrival_frac, replica_id), ...) — each kills that replica just
+    #: before the request at ``floor(n * frac)`` is submitted
+    kills: tuple = ()
+    #: ((arrival_frac, replica_id, service_multiplier), ...) — gray
+    #: failures: just before the request at ``floor(n * frac)`` is
+    #: submitted, the replica starts serving every phase ``multiplier`` ×
+    #: slower. Re-asserted per arrival, so a respawn inherits the slowdown
+    #: — gray hardware stays gray across process restarts. Firing AFTER the
+    #: fleet has warmed up captures the nasty case: prefix affinity keeps
+    #: routing a slow replica's groups at it no matter how its queue grows.
+    slowdowns: tuple = ()
+    burst_start_frac: float = 0.0
+    burst_end_frac: float = 0.0
+    burst_corrupt_rate: float = 0.0
+    verify_identity: bool = True
+    goodput_bucket_s: float = 1.0
+
+    def __post_init__(self):
+        if self.n_requests < 1:
+            raise ValueError("n_requests must be >= 1")
+        if self.arrival_rate <= 0:
+            raise ValueError("arrival_rate must be > 0")
+        if not 0 <= self.shared_prefix_len <= self.prompt_len:
+            raise ValueError(
+                f"shared_prefix_len must be in [0, prompt_len="
+                f"{self.prompt_len}], got {self.shared_prefix_len}")
+        if self.num_prefix_groups < 1:
+            raise ValueError("num_prefix_groups must be >= 1")
+        if not 0.0 <= self.sampled_frac <= 1.0:
+            raise ValueError(
+                f"sampled_frac must be in [0, 1], got {self.sampled_frac!r}")
+        for f in ("burst_start_frac", "burst_end_frac"):
+            v = getattr(self, f)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"{f} must be in [0, 1], got {v!r}")
+        if self.burst_end_frac < self.burst_start_frac:
+            raise ValueError("burst_end_frac must be >= burst_start_frac")
+        if not 0.0 <= self.burst_corrupt_rate <= 1.0:
+            raise ValueError(
+                f"burst_corrupt_rate must be in [0, 1], got "
+                f"{self.burst_corrupt_rate!r}")
+        for frac, _rid in self.kills:
+            if not 0.0 <= frac <= 1.0:
+                raise ValueError(
+                    f"kill fraction must be in [0, 1], got {frac!r}")
+        for frac, _rid, mult in self.slowdowns:
+            if not 0.0 <= frac <= 1.0:
+                raise ValueError(
+                    f"slowdown fraction must be in [0, 1], got {frac!r}")
+            if mult < 1.0:
+                raise ValueError(
+                    f"slowdown multiplier must be >= 1, got {mult!r}")
+        if self.goodput_bucket_s <= 0:
+            raise ValueError("goodput_bucket_s must be > 0")
+        if self.priority_levels < 1:
+            raise ValueError("priority_levels must be >= 1")
+
+
+def _cluster_prompt(soak: ClusterSoakConfig, i: int) -> np.ndarray:
+    """Request ``i``'s prompt, regenerated from the index (never stored):
+    a shared prefix drawn from one of ``num_prefix_groups`` seeded blocks +
+    an affine per-request suffix."""
+    h = _draw(soak.seed, i, 1)
+    group = _draw(soak.seed, h % soak.num_prefix_groups, 2)
+    pre = (group + 7919
+           * np.arange(soak.shared_prefix_len, dtype=np.int64)
+           ) % soak.vocab_size
+    suf_len = soak.prompt_len - soak.shared_prefix_len
+    suf = (h + 104729 * (np.arange(suf_len, dtype=np.int64) + 1)
+           ) % soak.vocab_size
+    return np.concatenate([pre, suf]).astype(np.int32)
+
+
+def _cluster_request(soak: ClusterSoakConfig, i: int) -> Request:
+    sampled = _u01(soak.seed, i, 3) < soak.sampled_frac
+    return Request(
+        prompt_ids=_cluster_prompt(soak, i),
+        max_new_tokens=soak.max_new_tokens,
+        priority=_draw(soak.seed, i, 5) % soak.priority_levels,
+        deadline_s=soak.deadline_s,
+        temperature=soak.sample_temperature if sampled else 0.0,
+        rng_seed=_draw(soak.seed, i, 4) if sampled else 0)
+
+
+def run_cluster_soak(cluster: Any, soak: ClusterSoakConfig, *,
+                     clock: FakeClock) -> dict:
+    """Push the seeded open-loop workload through a
+    :class:`~.cluster.ClusterFront` of simulated replicas
+    (each advances the shared FakeClock by its virtual service time) while
+    scheduled replica kills and link-corruption bursts fire; returns the
+    artifact dict.
+
+    Memory is flat in ``n_requests``: every per-request quantity is either
+    regenerated from its arrival index (prompts, temperatures, seeds — see
+    :func:`_draw`) or folded into a running aggregate (outcome counts,
+    log-bucketed TTFT/latency histograms, per-virtual-second goodput
+    buckets) the moment its record drains. The identity audit replays each
+    completed request against the pure
+    :func:`~.cluster.sim_reference_tokens` chain — the
+    fault-free same-plan reference — as it completes."""
+    from .cluster import sim_reference_tokens
+
+    if not isinstance(clock, FakeClock):
+        raise TypeError("run_cluster_soak needs the cluster's FakeClock — "
+                        "the soak owns the virtual timeline")
+    n = soak.n_requests
+    kill_sched = sorted((int(n * frac), int(rid))
+                        for frac, rid in soak.kills)
+    slow_sched = sorted((int(n * frac), int(rid), float(mult))
+                        for frac, rid, mult in soak.slowdowns)
+    active_slowdowns: dict = {}    # replica_id -> multiplier
+    burst_on_idx = (int(n * soak.burst_start_frac)
+                    if soak.burst_corrupt_rate > 0
+                    and soak.burst_end_frac > soak.burst_start_frac
+                    else None)
+    burst_off_idx = (int(n * soak.burst_end_frac)
+                     if burst_on_idx is not None else None)
+    burst_active = False
+    burst_window_s: list = []
+
+    outcomes: dict = {}
+    reasons: dict = {}
+    tokens_out = 0
+    met = with_deadline = 0
+    ttft_hist = Histogram("serve_ttft_s", lo=1e-6, hi=1e4, n_buckets=400)
+    latency_hist = Histogram("serve_latency_s", lo=1e-6, hi=1e4,
+                             n_buckets=400)
+    goodput_buckets: dict = {}     # int bucket -> tokens completed in it
+    checked = matched = 0
+    mismatched_ids: list = []
+    pending_meta: dict = {}        # cluster rid -> arrival index (in-flight)
+    kill_events: list = []         # [{replica, at_s, recovery_s}]
+    start_s = clock.now
+
+    def apply_burst() -> None:
+        """(Re)assert the corruption rate on every live front — respawned
+        replicas join the burst too."""
+        rate = soak.burst_corrupt_rate if burst_active else 0.0
+        for r in cluster.replicas.values():
+            set_rate = getattr(r.front, "set_corrupt_rate", None)
+            if set_rate is not None:
+                set_rate(rate)
+
+    def apply_slowdowns() -> None:
+        """(Re)assert active gray-failure service multipliers — a respawned
+        replica inherits its slowdown (the hardware is gray, not the
+        process)."""
+        for rid, mult in active_slowdowns.items():
+            r = cluster.replicas.get(rid)
+            if r is None or r.front is None:
+                continue
+            set_mult = getattr(r.front, "set_service_multiplier", None)
+            if set_mult is not None:
+                set_mult(mult)
+
+    def fire_events(i: int) -> None:
+        nonlocal burst_active
+        while kill_sched and kill_sched[0][0] == i:
+            _, rid = kill_sched.pop(0)
+            cluster.kill_replica(rid, "chaos")
+            kill_events.append({"replica": rid, "at_s": clock.now,
+                                "recovery_s": None})
+        while slow_sched and slow_sched[0][0] <= i:
+            _, rid, mult = slow_sched.pop(0)
+            active_slowdowns[rid] = mult
+        if burst_on_idx is not None and i == burst_on_idx:
+            burst_active = True
+            burst_window_s.append(clock.now)
+        if burst_off_idx is not None and i == burst_off_idx:
+            burst_active = False
+            burst_window_s.append(clock.now)
+
+    def absorb(rec: Any) -> None:
+        nonlocal tokens_out, met, with_deadline, checked, matched
+        outcomes[rec.outcome] = outcomes.get(rec.outcome, 0) + 1
+        if rec.reason:
+            reasons[rec.reason] = reasons.get(rec.reason, 0) + 1
+        idx = pending_meta.pop(rec.request_id, None)
+        if rec.outcome not in (COMPLETED, FAILED_OVER):
+            return
+        granted = rec.granted_tokens or 0
+        tokens_out += rec.batch * granted
+        if rec.ttft_s is not None:
+            ttft_hist.observe(rec.ttft_s)
+        if rec.latency_s is not None:
+            latency_hist.observe(rec.latency_s)
+        if rec.deadline_s is not None and rec.deadline_met is not None:
+            with_deadline += 1
+            met += int(rec.deadline_met)
+        if rec.finished_at is not None:
+            b = int((rec.finished_at - start_s) / soak.goodput_bucket_s)
+            goodput_buckets[b] = (goodput_buckets.get(b, 0)
+                                  + rec.batch * granted)
+            for ev in kill_events:
+                if (ev["recovery_s"] is None
+                        and rec.finished_at > ev["at_s"]):
+                    ev["recovery_s"] = rec.finished_at - ev["at_s"]
+        if (soak.verify_identity and rec.outcome == COMPLETED
+                and rec.tokens is not None and idx is not None):
+            ref, _ = sim_reference_tokens(
+                _cluster_prompt(soak, idx), granted,
+                temperature=(soak.sample_temperature
+                             if _u01(soak.seed, idx, 3) < soak.sampled_frac
+                             else 0.0),
+                rng_seed=(_draw(soak.seed, idx, 4)
+                          if _u01(soak.seed, idx, 3) < soak.sampled_frac
+                          else 0),
+                vocab_size=soak.vocab_size)
+            checked += 1
+            if np.array_equal(np.asarray(rec.tokens).reshape(-1), ref):
+                matched += 1
+            elif len(mismatched_ids) < 32:
+                mismatched_ids.append(rec.request_id)
+
+    i = 0
+    next_t = clock.now
+    while i < n or cluster.pending or cluster.busy:
+        while i < n and next_t <= clock.now:
+            fire_events(i)
+            apply_burst()
+            apply_slowdowns()
+            crid = cluster.submit(_cluster_request(soak, i))
+            pending_meta[crid] = i
+            gap = -math.log(_u01(soak.seed, i, 0)) / soak.arrival_rate
+            next_t += gap
+            i += 1
+        recs = cluster.drain(max_requests=8)
+        for rec in recs:
+            absorb(rec)
+        if not recs:
+            # nothing drained: jump the virtual clock to whatever happens
+            # next — the next arrival or the next scheduled respawn
+            targets = [next_t] if i < n else []
+            ev = cluster.next_event_s()
+            if ev is not None:
+                targets.append(ev)
+            if targets and min(targets) > clock.now:
+                clock.set_time(min(targets))
+            elif i >= n:
+                break  # idle fleet, nothing scheduled: drained dry
+    span_s = max(clock.now - start_s, 1e-9)
+
+    report = cluster.report()
+
+    def pct(h: Histogram, q: float) -> Optional[float]:
+        return float(h.quantile(q)) if h.count else None
+
+    return {
+        "soak": dataclasses.asdict(soak),
+        "virtual_span_s": span_s,
+        "requests": n,
+        "outcomes": outcomes,
+        "reasons": reasons,
+        "goodput_tokens_per_s": tokens_out / span_s,
+        "slo_attainment": (met / with_deadline) if with_deadline else None,
+        # fleet-level SLO: deadline-met completions over ALL submitted
+        # requests, so a timed-out request counts as a miss instead of
+        # silently leaving the denominator — the gray bench gates on this
+        "slo_goodput": met / n,
+        "reject_rate": outcomes.get(REJECTED, 0) / n,
+        "shed_rate": outcomes.get(SHED, 0) / n,
+        "timeout_rate": outcomes.get(TIMED_OUT, 0) / n,
+        "p99_ttft_s": pct(ttft_hist, 0.99),
+        "p99_latency_s": pct(latency_hist, 0.99),
+        "kills": kill_events,
+        "burst": (None if not burst_window_s else
+                  {"start_s": burst_window_s[0],
+                   "end_s": (burst_window_s[1]
+                             if len(burst_window_s) > 1 else None),
+                   "corrupt_rate": soak.burst_corrupt_rate}),
+        "goodput_buckets": {"width_s": soak.goodput_bucket_s,
+                            "tokens": goodput_buckets},
+        "token_identity": {"checked": checked, "matched": matched,
+                           "ok": checked == matched,
+                           "mismatched_ids": mismatched_ids},
+        "readmitted": report["totals"]["readmitted"],
+        "recompute_tokens": report["totals"]["recompute_tokens"],
+        "parked_total": report["totals"]["parked_total"],
+        "hedges": report["totals"].get("hedges", 0),
+        "hedge_wins": (report["totals"].get("hedge_wins_primary", 0)
+                       + report["totals"].get("hedge_wins_hedge", 0)),
+        "hedge_discarded": report["totals"].get("hedge_discarded", 0),
+        "hedge_fraction": (report["totals"].get("hedges", 0)
+                           / max(report["totals"].get("placed", 0), 1)),
+        "deadline_expired": report["totals"].get("deadline_expired", 0),
+        "gray": report.get("gray"),
+        "respawns": sum(r["respawns"]
+                        for r in report["replicas"].values()),
+        "flight_dumps": cluster.flight_dumps(),
+        "report": report,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the disaggregated prefill / decode chaos soak
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

@@ -144,39 +144,45 @@ def test_validation_messages_match_reference(params):
 
 @pytest.mark.parametrize("config", sorted(p.name for p in (REPO / "configs").glob("*.json")))
 def test_every_config_is_accepted_or_named_not_ported(config):
-    """Every shipped config either validates or names its feature as not
-    ported yet; none is silently ignored (split12's ``pipeline``, split16's
-    ``disagg`` and every ``observability`` field validate; the replica
-    router and its gray hardening are still to port)."""
+    """Every shipped config either validates in both CLIs or names its
+    feature as not ported yet (only the seq / data / model mesh axes, split5
+    and split5b); none is silently ignored (split12's ``pipeline``,
+    split15's ``cluster``, split16's ``disagg``, split17's ``gray`` and
+    every ``observability`` field validate)."""
     p = json.loads((REPO / "configs" / config).read_text())
     exp = p.get("experiment", "")
     unported_split = exp == "split" and any(
         k in p and p[k] != 1 for k in trun.UNPORTED_SPLIT_KEYS)
-    unported_serve = exp == "serve" and any(k in p for k in trun.UNPORTED_SERVE_KEYS)
-    if exp in trun.NOT_PORTED or unported_split or unported_serve:
+    if exp in trun.NOT_PORTED or unported_split:
         with pytest.raises(SystemExit, match="not ported yet"):
             trun._validate_params_json(p)
     else:
+        jrun._validate_params_json(p)
         trun._validate_params_json(p)
 
 
 @pytest.mark.parametrize("experiment", ["serve"])
 def test_unported_experiments_exit_nonzero_naming_them(experiment, tmp_path):
-    """A serve config with a part still to port (the replica router,
-    ``cluster``, and its gray hardening, ``gray``) exits non-zero naming it;
-    the µ-batch pipeline and the live endpoint (``observability.obs_port``,
-    ``--obs-port``) it used to name validate as the reference validates
-    them, and an out-of-range ``--obs-port`` exits with the reference's
-    message."""
+    """The serve blocks it used to name as still to port validate as the
+    reference validates them: the µ-batch pipeline, the live endpoint
+    (``observability.obs_port``, ``--obs-port``), the replica router
+    (``cluster``) and its gray hardening (``gray``); a one-replica
+    ``cluster``, a ``gray`` without ``cluster`` and an out-of-range
+    ``--obs-port`` exit non-zero with the reference's messages."""
     base = {"experiment": experiment, "cuts": [1], "hop_codecs": ["fp32"],
             "pipeline": {"num_microbatches": 2}, "serving": {}}
-    for ok in (base, {**base, "observability": {"obs_port": 0, "flight_recorder": True}}):
+    batched = {**base, "batching": {"max_slots": 4}}
+    for ok in (base, {**base, "observability": {"obs_port": 0, "flight_recorder": True}},
+               {**batched, "cluster": {}}, {**batched, "cluster": {}, "gray": {}}):
         trun._validate_params_json(ok)
         jrun._validate_params_json(ok)
-    batched = {**base, "batching": {"max_slots": 4}}
     for params, extra, name in (
-            ({**batched, "cluster": {}}, [], "cluster is not ported yet to edgellm_tpu_torch"),
-            ({**batched, "gray": {}}, [], "gray is not ported yet to edgellm_tpu_torch"),
+            ({**batched, "cluster": {"num_replicas": 1}}, [],
+             "cluster.num_replicas must be >= 2 (a one-replica cluster is the plain serve "
+             "front — drop the 'cluster' block), got 1"),
+            ({**batched, "gray": {}}, [],
+             "gray hardening (straggler demotion, request hedging) is a router policy — add "
+             "a 'cluster' block"),
             (base, ["--obs-port", "70000"],
              "--obs-port: observability.obs_port must be null or an integer in [0, 65535], "
              "got 70000")):
@@ -259,6 +265,22 @@ b = ContinuousBatcher(cfg, params, BatchingConfig(page_size=8, num_pages=8, max_
                       split_runtime=rt, placed_params=rt.place_params(params))
 sid = b.submit(np.arange(1, 6), 4, temperature=0.5, rng_seed=1)
 assert b.run()[sid].shape == (4,) and b.report()["mode"] == "paged_split"
+from edgellm_tpu_torch.serve import (ClusterConfig, ClusterFront, ClusterSoakConfig, GrayConfig,
+                                     Request, SimReplicaConfig, SimReplicaFront,
+                                     run_cluster_soak)
+clock = FakeClock()
+cl = ClusterFront(lambda rid, gen: SimReplicaFront(SimReplicaConfig(), clock=clock,
+                                                   replica_id=rid),
+                  ClusterConfig(num_replicas=2, gray=GrayConfig(enabled=True)), clock=clock)
+art = run_cluster_soak(cl, ClusterSoakConfig(n_requests=20, kills=((0.5, 0),)), clock=clock)
+assert art["token_identity"]["ok"] and sum(art["outcomes"].values()) == 20
+bcfg = BatchingConfig(page_size=8, num_pages=8, max_slots=2, pages_per_slot=2)
+cl = ClusterFront(lambda rid, gen: ServeFront(cfg, params, clock=clock,
+                                              batcher=ContinuousBatcher(cfg, params, bcfg)),
+                  ClusterConfig(num_replicas=2), clock=clock)
+for i in range(3):
+    cl.submit(Request(prompt_ids=np.arange(1, 6) + i, max_new_tokens=4))
+assert [r.outcome for r in cl.drain()] == ["completed"] * 3 and cl.pending == 0
 from edgellm_tpu_torch.eval import run_kv_tier_sweep
 rows = run_kv_tier_sweep(cfg, params, np.arange(60) % 256, max_length=16, stride=8,
                          page_size=8, max_chunks=2, device="cpu")

@@ -550,3 +550,68 @@ def test_serve_front_drains_a_disagg_server(weights):
     plain = tf.ServeFront(TCFG, weights["port"], batcher=tb.ContinuousBatcher(
         TCFG, weights["port"], _bcfg("port")), clock=FakeClock())
     assert plain.disagg_state() is None and "disagg" not in plain.report()
+
+
+def test_cluster_demotes_degraded_disagg_replicas(weights):
+    """The router's placement sort demotes a replica whose disaggregated
+    front degraded to colocated serving, in both packages (a sim front
+    reporting a ``disagg_state``: the same placements, the same replica
+    summaries); then on the port's real fronts: two ``ServeFront`` s over
+    ``DisaggServer`` s, replica 0's link failed, a fresh request placed on
+    replica 1, its summary carrying the typed reason, and both replicas'
+    requests completed."""
+    from edgellm_tpu.serve import cluster as jc
+    from edgellm_tpu.serve import frontend as jf
+    from edgellm_tpu_torch.serve import cluster as tc
+    from edgellm_tpu_torch.serve import frontend as tf
+
+    prompt = np.random.default_rng(5).integers(1, 50_000, size=16).astype(np.int32)
+    got = {}
+    for pkg, c, f, clock in (("ref", jc, jf, JClock()), ("port", tc, tf, FakeClock())):
+        class DisaggSimFront(c.SimReplicaFront):
+            degraded = False
+
+            def disagg_state(self):
+                return {"degraded": self.degraded,
+                        "degrade_reason": "migration_link_dead" if self.degraded else None}
+
+        fronts = {}
+
+        def factory(rid, gen, _cls=DisaggSimFront, _clock=clock, _fronts=fronts):
+            _fronts[rid] = _cls(c.SimReplicaConfig(), clock=_clock, replica_id=rid)
+            return _fronts[rid]
+
+        cluster = c.ClusterFront(factory, c.ClusterConfig(num_replicas=2), clock=clock)
+        fronts[0].degraded = True
+        crid = cluster.submit(f.Request(prompt_ids=prompt, max_new_tokens=4))
+        assert cluster._placements[crid].replica_id == 1
+        summaries = {r.id: r.summary() for r in cluster.replicas.values()}
+        assert summaries[0]["disagg"]["degrade_reason"] == "migration_link_dead"
+        assert summaries[1]["disagg"]["degraded"] is False
+        fronts[0].degraded = False
+        crid2 = cluster.submit(f.Request(prompt_ids=prompt[::-1].copy(), max_new_tokens=4))
+        assert cluster._placements[crid2].replica_id == 0
+        got[pkg] = summaries, [(p.crid, p.replica_id) for p in cluster._placements.values()]
+    assert got["port"] == got["ref"]
+
+    clock = FakeClock()
+    servers = {}
+
+    def real_factory(rid, gen):
+        servers[rid] = _server("port", weights)
+        return tf.ServeFront(TCFG, weights["port"], batcher=servers[rid], clock=clock)
+
+    cluster = tc.ClusterFront(real_factory, tc.ClusterConfig(num_replicas=2), clock=clock)
+    servers[0].fail_link()
+    short = prompt[:9] % 128
+    crid = cluster.submit(tf.Request(prompt_ids=short, max_new_tokens=4))
+    assert cluster._placements[crid].replica_id == 1
+    assert cluster.replicas[0].summary()["disagg"] == {
+        "degraded": True, "degrade_reason": "migration_link_dead"}
+    crid2 = cluster.submit(tf.Request(prompt_ids=short[::-1].copy(), max_new_tokens=4))
+    # the penalty outranks queue depth: the degraded replica loses even to
+    # a busier healthy peer
+    assert cluster._placements[crid2].replica_id == 1
+    recs = cluster.drain()
+    assert sorted(r.request_id for r in recs) == [crid, crid2]
+    assert all(r.outcome == "completed" and r.plan["replica"] == 1 for r in recs)

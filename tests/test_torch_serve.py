@@ -525,18 +525,19 @@ def test_serve_cli_greedy_tokens_equal_reference(name, hf_checkpoint, tmp_path):
 
 @pytest.mark.parametrize("key,value,message", [
     ("link_health", {}, "link_health requires an enabled 'faults' config"),
-    ("gray", {}, "gray is not ported yet"),
-    ("cluster", {}, "cluster is not ported yet"),
+    ("gray", {}, "gray hardening \\(straggler demotion, request hedging\\) is a router policy"),
+    ("cluster", {}, None),
     ("disagg", {"queue_bound": 0}, "disagg: queue_bound must be an integer >= 1"),
     ("pipeline", {}, "pipeline schedules micro-batches across the split boundary"),
     ("faults", {}, None),
 ])
 def test_unported_serve_keys_are_named(key, value, message):
-    """Keys still to port die naming themselves; the link's, the pipeline's
-    and disagg's keys (ported) validate as the reference validates them
-    (``faults`` alone passes, ``link_health`` needs an enabled ``faults``,
-    ``pipeline`` needs ``cuts``, a ``disagg`` field is held to its bound),
-    with the reference's messages."""
+    """The serve keys once named as still to port validate as the reference
+    validates them, with its messages: the link's (``faults`` alone passes,
+    ``link_health`` needs an enabled ``faults``), the pipeline's (it needs
+    ``cuts``), disagg's (a field is held to its bound), the router's
+    (``cluster`` with its defaults passes) and the gray plane's (``gray``
+    needs a ``cluster`` block)."""
     p = {**_config("split9_qwen_paged.json"), key: value}
     if message is None:
         trun._validate_params_json(p)
@@ -544,13 +545,9 @@ def test_unported_serve_keys_are_named(key, value, message):
         return
     with pytest.raises(SystemExit, match=message) as got:
         trun._validate_params_json(p)
-    if "not ported yet" not in message:
-        with pytest.raises(SystemExit) as want:
-            jrun._validate_params_json(p)
-        assert str(got.value) == str(want.value)
-    if key in ("link_health", "faults", "pipeline"):
-        with pytest.raises(SystemExit, match=message):
-            jrun._validate_params_json(p)
+    with pytest.raises(SystemExit) as want:
+        jrun._validate_params_json(p)
+    assert str(got.value) == str(want.value)
 
 
 def test_serve_validation_messages_match_reference():
