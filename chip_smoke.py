@@ -236,7 +236,22 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    work, the dead replica's pool freed, peak memory; card against CPU at 2
    layers); the simulated chaos soak (4 replicas, two kills, a corruption
    burst) and the 600-request gray soak hedged and unhedged, host only;
-22. a JSON line of every kernel (launches summed over the counted paths,
+22. long context at full Qwen2-0.5B width and depth, S = 2048 in four
+   sequence shards (the stage x seq runtime; the shards run in turn on the
+   one card), fp32 random weights from ``--seed``: K1-K4 at the ring's
+   shapes against their plain versions; configs/split5_qwen_ring_long.json
+   and split5b_qwen_ring_selective.json through ``run.main`` (2 chunks:
+   PPL, bytes per token, s/chunk, K1 / K2 exactly 4 a group and 4 a timed
+   hop for split5, no kernel for split5b) and split5 with n_seq 1 (the dense
+   split: PPL within 1e-4 relative, the same bytes per token); the ring
+   codec's global mode against the dense ``selective_int4`` bit for bit and
+   ``importance_sp`` against the dense K-stats importance; a 2-layer ring
+   forward and ``importance_sp`` on the card against the CPU; the ring under
+   the link with an int8_per_token hop (a zero-rate link bit for bit the
+   link-free logits, drop_rate 0.5 seed 11 counters the CPU's, K3 / K4 once
+   a shard's hop encoded / a copy sent); ``tools/ring_mode_gap.measure`` at
+   split5b's shape (|dNLL| per ratio);
+23. a JSON line of every kernel (launches summed over the counted paths,
    and by path; K-attn's also by dtype and path; K-stats' fp32 column pass
    apart; ``ms`` its device time, ``event_ms`` the call's CUDA-event time),
    the ``nvidia-smi`` line, and
@@ -4772,6 +4787,279 @@ def cluster_paths(args, detail: dict, device: str = "cuda",
     return out
 
 
+#: phase 22's shipped configs; the depth and length of its card-against-CPU
+#: checks; the chunks each CLI run takes
+SPLIT5_CONFIG = "configs/split5_qwen_ring_long.json"
+SPLIT5B_CONFIG = "configs/split5b_qwen_ring_selective.json"
+RING_SMALL_LAYERS = 2
+RING_CROSS_SEQ = 512
+RING_CHUNKS = 2
+#: split5 over the ring against the dense split (n_seq 1) on the card, PPL
+#: relative: the same int4 hop bytes, attention summed blockwise (plain
+#: float32) against K-attn's 3xTF32 tiles; a code that sits on an int4
+#: rounding boundary may move a step (the card's splits read 3.21e-5
+#: against the CPU)
+RING_DENSE_RTOL = 1e-4
+#: importance_sp (plain float32 blocks) against the dense K-stats
+#: importance at full depth on the card, absolute (importance lies in [0, 1])
+RING_IMP_ATOL = 1e-4
+#: the card against the CPU at 2 layers: logits (atol, rtol) as the
+#: other card-vs-CPU forwards (PAGED_CROSS_TOL's fp tolerance); the
+#: statistics' importance as K-stats against its plain version (STATS_TOL)
+RING_CROSS_TOL = (1e-4, 1e-4)
+#: the reference test's bound on the local mode's |dNLL| against global
+RING_DNLL_MAX = 0.02
+
+
+def long_context_paths(args, detail: dict, device: str = "cuda",
+                       model: str = "qwen2-0.5b") -> dict:
+    """Phase 22: long context, the stage x seq runtime, fp32 random weights
+    from ``--seed`` (the CLI's default), full Qwen2-0.5B width and depth,
+    S = 2048 in 4 sequence shards (the shards run in turn on the one
+    device). (0) K1-K4 at the ring's shapes (one shard's rows, and a group
+    of two windows') against their plain versions, bit for bit. (a)
+    configs/split5_qwen_ring_long.json and split5b_qwen_ring_selective.json
+    through ``run.main`` as shipped, :data:`RING_CHUNKS` chunks (one group),
+    split5 once before to warm up, the counts set to 0 just before each run:
+    PPL, bytes per token, s/chunk, K1 / K2 exactly 4 a group plus 4 a timed
+    hop (split5), no kernel (split5b: the ring's attention and the selective
+    codec are plain ops); split5 again with n_seq 1 (the dense split:
+    K-attn 24 a group, K1 / K2 one a group and a timed hop), its PPL within
+    :data:`RING_DENSE_RTOL` and its bytes per token equal. (b) the ring
+    codec's global mode against the dense
+    ``selective_int4`` on one importance vector (the decoded boundary bit for
+    bit) and ``importance_sp`` against the dense K-stats importance. (c) a
+    :data:`RING_SMALL_LAYERS`-layer ring forward and ``importance_sp`` on the
+    card and on the CPU. (d) the ring under the link with an int8_per_token
+    hop: a zero-rate link's logits bit for bit the link-free ones; at
+    drop_rate 0.5, seed 11, six fault steps, the counters a CPU run's and K3
+    / K4 once a shard's hop encoded / a copy sent. (e)
+    ``tools/ring_mode_gap.measure`` at split5b's shape (bf16 weights, 2
+    windows): |dNLL| per ratio -> launches by path.
+    ``long_context_paths(args, {}, device="cpu", model="tiny-qwen2")``
+    rehearses it on the CPU (cut 2, S = 64)."""
+    import gc
+
+    import torch
+
+    from edgellm_tpu_torch.codecs import codec_kernels as ck
+    from edgellm_tpu_torch.codecs.faults import FaultConfig, LinkPolicy
+    from edgellm_tpu_torch.codecs.packing import SATURATE_MAG, selective_int4
+    from edgellm_tpu_torch.codecs.ring_codecs import ring_selective_int4
+    from edgellm_tpu_torch.eval.split_eval import _importance
+    from edgellm_tpu_torch.models import PRESETS, init_params, params_to
+    from edgellm_tpu_torch.models.flash_attention import kernel_plan
+    from edgellm_tpu_torch.parallel import SplitRingRuntime, forward_sp, importance_sp
+    from edgellm_tpu_torch.tools.ring_mode_gap import measure
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    full = model == "qwen2-0.5b"
+    cfg = PRESETS[model]
+    n_seq, card = 4, detail.get("card", "a CPU rehearsal")
+    seq, cut, stride = (2048, 11, 128) if full else (64, 2, 16)
+    cross_seq = RING_CROSS_SEQ if full else seq
+    rows, out, part_s = {}, {}, {}
+    t_part = [time.monotonic()]
+
+    def lap(name):
+        now = time.monotonic()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+
+    # (0) the codec kernels at the shapes the ring's hops give them
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    kernel_rows = []
+    for n in (seq // n_seq, 2 * seq // n_seq):
+        x = torch.randn((n, cfg.hidden_size), generator=gen, device=device)
+        enc, enc_plain = ck.int4_encode(x), ck.int4_encode_plain(x)
+        dec, dec_plain = ck.int4_decode(*enc), ck.int4_decode_plain(*enc_plain)
+        q8, q8_plain = (ck.int8_affine_encode(x, max_mag=SATURATE_MAG),
+                        ck.int8_affine_encode_plain(x))
+        d8, d8_plain = ck.int8_affine_decode(*q8), ck.int8_affine_decode_plain(*q8_plain)
+        same = {"int4_encode": all(_same(a, b) for a, b in zip(enc, enc_plain)),
+                "int4_decode": _same(dec, dec_plain),
+                "int8_affine_encode": all(_same(a, b) for a, b in zip(q8, q8_plain)),
+                "int8_affine_decode": _same(d8, d8_plain)}
+        kernel_rows.append({"n": n, "d": cfg.hidden_size, "bit_for_bit": same})
+        if not all(same.values()):
+            raise SystemExit(f"phase 22 kernels at N={n}: {same}")
+    lap("kernels")
+
+    # (a) split5, split5b and split5 dense through run.main
+    base = ["--model", model, "--seed", str(args.seed), "--device", device,
+            "--max-chunks", str(RING_CHUNKS)]
+    with open(SPLIT5_CONFIG) as f:
+        p5 = json.load(f)
+    with open(SPLIT5B_CONFIG) as f:
+        p5b = json.load(f)
+    if not full:  # the cut inside the tiny model, a short window
+        p5.update(cuts=[cut], max_length=seq, stride=stride)
+        p5b.update(cuts=[cut], max_length=seq, stride=stride)
+
+    def cli(p, label):
+        with tempfile.TemporaryDirectory() as tmp:
+            sync()
+            reset_counts()
+            t0 = time.monotonic()
+            rc, printed = _cli_json_line(["--params", json.dumps(p), "--output-dir", tmp]
+                                         + base)
+            sync()
+            wall = time.monotonic() - t0
+            launches = read_counts()
+        if rc != 0 or printed["chunks"] != RING_CHUNKS or not np.isfinite(printed["ppl"]):
+            raise SystemExit(f"{label}: run.main exited {rc}: {printed}")
+        return printed, launches, wall
+
+    groups, hop_iters = 1, 1 + 20  # the CLI's window batch 8 takes both chunks
+    n_layers = cfg.num_layers
+    attn = n_layers * groups if kernel_plan(seq, cfg.num_heads, cfg.num_kv_heads,
+                                            cfg.head_dim, 4) else 0
+    ring_want = want_counts(0, int4_encode=n_seq * (groups + hop_iters),
+                            int4_decode=n_seq * (groups + hop_iters))
+    # the first ring run pays the plain ops' first calls at these shapes
+    # (4.79 s/chunk against 0.32 for split5b after it, on the H100): warm up
+    legs = (("split5 ring warm-up", p5, ring_want), ("split5 ring", p5, ring_want),
+            ("split5b ring", p5b, want_counts(0)),
+            ("split5 dense", {**p5, "n_seq": 1},
+             want_counts(attn, causal_attention=attn,
+                         int4_encode=groups + 2 * hop_iters, int4_decode=groups + 2 * hop_iters)))
+    for label, p, want in legs:
+        printed, launches, wall = cli(p, label)
+        if not on_card:
+            want = want_counts(0)
+        row = {"path": label, "card": card, "n_seq": p["n_seq"],
+               "shards_ran": "in turn on one device", "ppl": printed["ppl"],
+               "chunks": printed["chunks"], "mesh": printed["mesh"],
+               "hop_codecs": printed["hop_codecs"],
+               "bytes_per_token_per_hop": printed["bytes_per_token_per_hop"],
+               "s_per_chunk": printed["wall_s"] / printed["chunks"], "wall_s": wall,
+               "per_hop_ms": printed.get("per_hop_ms"), "pad_fraction": printed["pad_fraction"],
+               "launches": {k: v for k, v in launches.items() if v},
+               "launches_expected": {k: v for k, v in want.items() if v}}
+        log(json.dumps({"long_context": row}))
+        rows[label] = row
+        if "warm-up" not in label:
+            out[label] = launches
+        if launches != want:
+            raise SystemExit(f"{label}: kernel launches {launches} != expected {want}")
+    ring, dense = rows["split5 ring"], rows["split5 dense"]
+    rel = abs(ring["ppl"] - dense["ppl"]) / dense["ppl"]
+    rows["ring_vs_dense"] = {"ppl_rel_diff": rel, "rtol": RING_DENSE_RTOL,
+                             "bytes_equal": ring["bytes_per_token_per_hop"]
+                             == dense["bytes_per_token_per_hop"]}
+    log(f"  split5 ring vs dense ({card}): PPL {ring['ppl']} vs {dense['ppl']} (rel "
+        f"{rel:.3e}), s/chunk {ring['s_per_chunk']:.4f} vs {dense['s_per_chunk']:.4f}, "
+        f"split5b s/chunk {rows['split5b ring']['s_per_chunk']:.4f}")
+    if rel > RING_DENSE_RTOL or not rows["ring_vs_dense"]["bytes_equal"]:
+        raise SystemExit(f"split5 ring vs dense: {rows['ring_vs_dense']}")
+    lap("cli")
+
+    # (b) the ring codec against the dense codec; ring against K-stats importance
+    h = torch.randn((1, seq, cfg.hidden_size), generator=gen, device=device)
+    imp = torch.round(torch.rand((seq,), generator=gen, device=device) * 64) / 64  # ties
+    dense_codec = selective_int4(0.25, "bf16")
+    want_h = dense_codec.decode(dense_codec.encode(h, imp))
+    ring_codec = ring_selective_int4(0.25, "bf16", n_seq=n_seq, mode="global")
+    pays = ring_codec.encode(list(torch.chunk(h, n_seq, dim=1)), list(torch.chunk(imp, n_seq)))
+    got_h = torch.cat([ring_codec.decode(p) for p in pays], dim=1)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed),
+                         device=device)
+    ids = torch.as_tensor(np.random.default_rng(args.seed).integers(0, cfg.vocab_size,
+                                                                    (1, seq)), device=device)
+    with torch.inference_mode():
+        imp_ring = importance_sp(cfg, params, ids, n_seq, "last_row", device=device)
+        imp_dense = _importance(cfg, params, ids, "last_row", None)
+    imp_err = float((imp_ring - imp_dense).abs().max())
+    rows["codec_and_importance"] = {"global_decode_bit_for_bit": _same(got_h, want_h),
+                                    "importance_max_abs_diff": imp_err,
+                                    "importance_atol": RING_IMP_ATOL, "layers": n_layers}
+    log(json.dumps({"long_context": rows["codec_and_importance"]}))
+    if not _same(got_h, want_h) or imp_err > RING_IMP_ATOL:
+        raise SystemExit(f"ring codec / importance: {rows['codec_and_importance']}")
+    lap("codec_importance")
+
+    # (c) the card against the CPU at 2 layers
+    small_cfg, small = _small_model(cfg, params, RING_SMALL_LAYERS)
+    small_cpu = params_to(small, device="cpu")
+    ids_x = ids[:, :cross_seq]
+    with torch.inference_mode():
+        got = [forward_sp(small_cfg, small, ids_x, n_seq, device=device).cpu(),
+               importance_sp(small_cfg, small, ids_x, n_seq, "last_row", device=device).cpu()]
+        want = [forward_sp(small_cfg, small_cpu, ids_x.cpu(), n_seq, device="cpu"),
+                importance_sp(small_cfg, small_cpu, ids_x.cpu(), n_seq, "last_row",
+                              device="cpu")]
+    logit_err, imp_x_err = (float((a - b).abs().max()) for a, b in zip(got, want))
+    ok = (torch.allclose(got[0], want[0], atol=RING_CROSS_TOL[0], rtol=RING_CROSS_TOL[1])
+          and imp_x_err <= STATS_TOL[0])
+    rows["card_vs_cpu"] = {"layers": RING_SMALL_LAYERS, "seq": cross_seq,
+                           "logits_max_abs_diff": logit_err, "logits_tol": RING_CROSS_TOL,
+                           "importance_max_abs_diff": imp_x_err, "importance_atol": STATS_TOL[0]}
+    log(json.dumps({"long_context": rows["card_vs_cpu"]}))
+    if not ok:
+        raise SystemExit(f"ring card vs CPU: {rows['card_vs_cpu']}")
+    lap("card_vs_cpu")
+
+    # (d) the ring under the link
+    def ring_rt(cfg_, dev, **link):
+        return SplitRingRuntime(cfg_, (cut,), ("int8_per_token",), n_seq, dev, **link)
+
+    with torch.inference_mode():
+        free = ring_rt(cfg, device)
+        logits0 = free.forward(free.place_params(params), ids)
+        zero = ring_rt(cfg, device, faults=FaultConfig(byte_budget=10**9),
+                       policy=LinkPolicy(max_retries=1))
+        logits1 = zero.forward(zero.place_params(params), ids, fault_step=2)
+        zero_ok = _same(logits1, logits0) and zero.link_counters()["hops"].tolist() == [n_seq]
+        del logits0, logits1
+        faulty = dict(faults=FaultConfig(drop_rate=0.5, seed=11), policy=LinkPolicy(max_retries=3))
+        rt_f = ring_rt(cfg, device, **faulty)
+        placed = rt_f.place_params(params)
+        sync()
+        reset_counts()
+        for step in range(6):
+            logits_f = rt_f.forward(placed, ids, fault_step=step)
+        sync()
+        link_launches = read_counts()
+        finite = bool(torch.isfinite(logits_f).all())
+        del logits_f, placed
+        rt_c = SplitRingRuntime(small_cfg, (0,), ("int8_per_token",), n_seq, "cpu", **faulty)
+        placed_c = rt_c.place_params(small_cpu)
+        for step in range(6):
+            rt_c.forward(placed_c, ids[:, :64].cpu(), fault_step=step)
+    counters = {k: v.tolist() for k, v in rt_f.link_counters().items()}
+    cpu_counters = {k: v.tolist() for k, v in rt_c.link_counters().items()}
+    copies = counters["hops"][0] + counters["retried"][0]
+    want = want_counts(0, int8_affine_encode=6 * n_seq, int8_affine_decode=copies) \
+        if on_card else want_counts(0)
+    rows["link"] = {"zero_rate_bit_for_bit": zero_ok, "counters": counters,
+                    "cpu_counters": cpu_counters, "finite": finite,
+                    "launches": {k: v for k, v in link_launches.items() if v}}
+    log(json.dumps({"long_context": rows["link"]}))
+    out["ring link"] = link_launches
+    if not zero_ok or counters != cpu_counters or not finite or link_launches != want:
+        raise SystemExit(f"ring under the link: {rows['link']} (launches expected {want})")
+    del params, small, free, zero, rt_f
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    lap("link")
+
+    # (e) the local mode's gap against the global mode at split5b's shape
+    gap = (measure(device=device) if full else
+           measure(model, seq=seq, cut=cut, windows=1, device=device))
+    worst = {r: max(g["dnll"] for g in gap if g["ratio"] == r) for r in (0.25, 0.5)}
+    rows["ring_mode_gap"] = {"card": card, "records": gap, "worst_dnll_by_ratio": worst}
+    log(json.dumps({"long_context": {"ring_mode_gap_worst_dnll": worst, "card": card}}))
+    if not all(np.isfinite(g["dnll"]) and g["dnll"] <= RING_DNLL_MAX for g in gap):
+        raise SystemExit(f"ring_mode_gap: {gap}")
+    lap("ring_mode_gap")
+    rows["kernels"] = kernel_rows
+    rows["part_s"] = part_s
+    detail["long_context"] = rows
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4851,12 +5139,15 @@ def main() -> int:
     by_path.update(disagg_paths(args, detail))
     t12 = time.monotonic()
     by_path.update(cluster_paths(args, detail))
+    t13 = time.monotonic()
+    by_path.update(long_context_paths(args, detail))
     detail["phase_s"] = {"kernels": t1 - t0, "token_sweep": t2 - t1, "split_paths": t3 - t2,
                          "serve_paths": t4 - t3, "cross_checks": t5 - t4,
                          "experiments": t6 - t5, "split_decode": t7 - t6,
                          "split_paged": t8 - t7, "boundary_link": t9 - t8,
                          "survivable": t10 - t9, "pipeline": t11 - t10,
-                         "disagg": t12 - t11, "cluster": time.monotonic() - t12,
+                         "disagg": t12 - t11, "cluster": t13 - t12,
+                         "long_context": time.monotonic() - t13,
                          "total": time.monotonic() - t_start}
     log(json.dumps({"phase_s": detail["phase_s"]}))
 

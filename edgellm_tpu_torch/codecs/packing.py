@@ -326,7 +326,19 @@ def _selective_scale(low: torch.Tensor, nonempty: bool, per_row: bool) -> torch.
 _HIGH_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 
 
-def selective_int4(ratio: float, high: str = "bf16") -> WireCodec:
+def select_low(h: torch.Tensor, importance: torch.Tensor, k: int) -> tuple:
+    """The token selection of :func:`selective_int4`: the stable ascending
+    order of ``importance`` ((S,) shared or (B, S) per row) and the ``k``
+    least important tokens of ``h``, (B, k, D)."""
+    if importance.dim() == 2:  # per-row ordering
+        order = torch.argsort(importance, dim=-1, stable=True)  # (B, S) ascending
+        rows = torch.arange(h.shape[0], device=h.device)[:, None]
+        return order, h[rows, order[:, :k]]
+    order = torch.argsort(importance, stable=True)  # least important first
+    return order, h.index_select(1, order[:k])
+
+
+def selective_int4(ratio: float, high: str = "bf16", *, scale_fn=None) -> WireCodec:
     """Token-selective mixed-precision boundary codec.
 
     The ``k = int(ratio * S)`` least-important tokens cross as symmetric int4
@@ -338,10 +350,14 @@ def selective_int4(ratio: float, high: str = "bf16") -> WireCodec:
     ``encode(hidden, importance)``: ``importance`` is a shared (S,) vector, or
     per row (B, S), in which case each row carries its own ordering and scale
     (each evaluation window selects alone, as the reference does at batch
-    1)."""
+    1). ``scale_fn(low, nonempty, per_row)`` overrides the scale reduction
+    (the ring codec's local mode passes the scale its shards agreed on,
+    ``codecs/ring_codecs.py``); the default is max|low| with the zero /
+    empty-k guard."""
     if not 0.0 <= ratio <= 1.0:
         raise ValueError(f"ratio must be in [0, 1], got {ratio}")
     high_dtype = _HIGH_DTYPES[high]
+    scale_fn = scale_fn or _selective_scale
 
     def encode(h, importance):
         b, s, d = h.shape
@@ -349,11 +365,10 @@ def selective_int4(ratio: float, high: str = "bf16") -> WireCodec:
             raise ValueError(f"selective_int4 int16 index side channel needs "
                              f"S <= 32767, got {s}")
         k = int(ratio * s)
+        order, low = select_low(h, importance, k)
         if importance.dim() == 2:  # per-row ordering + scale
-            order = torch.argsort(importance, dim=-1, stable=True)  # (B, S) ascending
             rows = torch.arange(b, device=h.device)[:, None]
-            low = h[rows, order[:, :k]]  # (B, k, D)
-            safe = _selective_scale(low, k > 0, True)  # (B,)
+            safe = scale_fn(low, k > 0, True)  # (B,)
             high_pos = torch.sort(order[:, k:], dim=-1).values
             return {
                 "low": (_quant_pack(low, safe[:, None, None]) if k else
@@ -362,11 +377,9 @@ def selective_int4(ratio: float, high: str = "bf16") -> WireCodec:
                 "high": h[rows, high_pos].to(high_dtype),
                 "order": order[:, :k].to(torch.int16),
             }
-        order = torch.argsort(importance, stable=True)  # least important first
         low_idx = order[:k]
         high_pos = torch.sort(order[k:]).values  # position-ascending
-        low = h.index_select(1, low_idx)  # (B, k, D)
-        safe = _selective_scale(low, k > 0, False)
+        safe = scale_fn(low, k > 0, False)
         return {
             "low": (_quant_pack(low, safe) if k else
                     torch.zeros((b, 0, d // 2), dtype=torch.uint8, device=h.device)),

@@ -43,8 +43,14 @@ group submits, drains, checkpoints, failovers and hop timings; the
 sweep's wire bytes, fused-hop decisions and link / recovery counters
 published into the global registry, and one ``split.hop`` span a cut.
 
-Not ported yet (raises naming its argument): the stage x seq runtime
-(``n_seq > 1``).
+``n_seq > 1`` runs the stage x seq runtime (``parallel/ring.py``
+``SplitRingRuntime``): within every stage the sequence is ring-sharded into
+``n_seq`` shards, which run in turn on the one device, and each shard
+crosses every cut with its own payload; importance comes from the ring's
+own statistics pass (``importance_sp``), a window is right-padded to a
+multiple of ``n_seq`` with masked (-100) targets, and ``selective_int4``
+specs resolve to the ring codec (``codecs/ring_codecs.py``, ``:global`` or
+``:local``).
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ from ..codecs.codec_kernels import SELECTIVE_EXCLUSION
 from ..codecs.faults import FaultConfig, LinkPolicy, TierController
 from ..codecs.fec import FECConfig, HedgeConfig, LinkHealth, LinkHealthConfig
 from ..codecs.packing import get_wire_codec, selective_int4
+from ..codecs.ring_codecs import ring_selective_int4
 from ..importance.metrics import importance_per_layer
 from ..models.configs import ModelConfig
 from ..models.paged_kv import (init_pool, init_quant_pool, kv_page_bytes, paged_decode_step,
@@ -68,7 +75,8 @@ from ..obs.metrics import (get_registry, record_link_counters, record_link_healt
                            record_probe_decisions, record_recovery_counters, record_wire_bytes)
 from ..obs.tracing import span as obs_span
 from ..obs.tracing import tracing_enabled
-from ..parallel.split import NOT_PORTED_MSG, PipelineConfig, SplitConfig, SplitRuntime
+from ..parallel.ring import SplitRingRuntime, importance_sp
+from ..parallel.split import PipelineConfig, SplitConfig, SplitRuntime
 from ..serve.recovery import (DecodeTimeout, RecoveryCounters, StageFailure, StageLostError,
                               Watchdog)
 from ..utils.clock import MONOTONIC
@@ -80,18 +88,28 @@ def parse_hop_codec(spec: str, n_seq: int = 1) -> object:
     """Codec spec -> registry name or ``WireCodec``.
 
     Plain names pass through (``"int4_per_token"``, ``"int8_per_token_pallas"``);
-    token-selective specs are ``"selective_int4:<ratio>[:<high>]"`` (e.g.
-    ``"selective_int4:0.25:bf16"``). ``n_seq > 1`` (the stage x seq ring
-    runtime) is not ported yet."""
-    if n_seq > 1:
-        raise ValueError(f"n_seq > 1 (the stage x seq ring runtime) {NOT_PORTED_MSG}")
+    token-selective specs are ``"selective_int4:<ratio>[:<high>][:<mode>]"``
+    (e.g. ``"selective_int4:0.25:bf16"``). With ``n_seq > 1`` (the stage x
+    seq runtime) they resolve to the ring codec
+    (:func:`~..codecs.ring_codecs.ring_selective_int4`), ``mode`` "global"
+    (the exact dense selection, the default) or "local" (shard-local
+    selection, agreed scale)."""
     if not spec.startswith("selective_int4"):
         return spec
     parts = spec.split(":")
     ratio = float(parts[1]) if len(parts) > 1 else 0.25
     high = parts[2] if len(parts) > 2 else "bf16"
+    mode = parts[3] if len(parts) > 3 else "global"
+    if n_seq > 1:
+        if parts[0].endswith("_pallas"):
+            # no kernel ring variant exists; the plain ring codec in its
+            # place would discard the explicit pin
+            raise ValueError(
+                f"{parts[0]!r} has no ring (n_seq > 1) implementation; use "
+                f"'selective_int4:...' and let the backend choose")
+        return ring_selective_int4(ratio, high, n_seq=n_seq, mode=mode)
     if len(parts) > 3:
-        raise ValueError(f"selective mode {parts[3]!r} only applies to the "
+        raise ValueError(f"selective mode {mode!r} only applies to the "
                          f"stage x seq runtime (n_seq > 1)")
     if parts[0].endswith("_pallas"):
         raise ValueError(f"'selective_int4_pallas' no longer exists: {SELECTIVE_EXCLUSION}")
@@ -173,6 +191,17 @@ def run_split_eval(
     accumulation (per-row NLL weighting; token-selective hops carry per-row
     importance, so every window keeps its own ordering and scale).
 
+    ``n_seq > 1`` selects the stage x seq runtime
+    (:class:`~..parallel.ring.SplitRingRuntime`): the sequence ring-sharded
+    within every stage (the shards in turn on ``device``), per-token or ring
+    hop codecs, importance from :func:`~..parallel.ring.importance_sp`, and
+    windows whose length ``n_seq`` does not divide right-padded with masked
+    (-100) positions, which causal attention keeps from every scored one.
+    The result's ``mesh`` then reads ``{"stage", "seq"}``, and the hops are
+    timed at the padded length with no decode-hop timing (the ring runtime
+    has no decode surface). ``stage_failure`` and ``pipeline`` need
+    ``n_seq == 1``.
+
     Returns the reference's result dict: ``ppl``, ``total_nll``,
     ``n_tokens``, ``chunks``, ``wall_s``, the token rates, ``cuts``,
     ``hop_codecs`` (as they ran: ``*_pallas`` for the kernel twins),
@@ -213,12 +242,14 @@ def run_split_eval(
     if isinstance(pipeline, dict):
         pipeline = PipelineConfig(**pipeline)
     pipelined = pipeline is not None and pipeline.enabled
-    if n_seq > 1:
-        raise ValueError(f"n_seq > 1 (the stage x seq ring runtime) {NOT_PORTED_MSG}")
     faults, link_policy, fec, hedge, link_health, fault_on = _link_configs(
         faults, link_policy, fec, hedge, link_health)
     if isinstance(stage_failure, dict):
         stage_failure = StageFailure(**stage_failure)
+    if stage_failure is not None and n_seq > 1:
+        raise ValueError(
+            "stage_failure needs the plain split runtime: the stage x seq "
+            "ring has no failover re-planning (n_seq must be 1)")
     recovery_on = deadline_s is not None or stage_failure is not None or bool(recovery)
     recovery = dict(recovery or {})
     unknown = set(recovery) - {"replan", "max_failovers"}
@@ -231,12 +262,20 @@ def run_split_eval(
     rcounters = RecoveryCounters()
     wd = Watchdog(deadline_s, clock=_clock) if deadline_s is not None else None
     policy = link_policy if link_policy is not None else LinkPolicy()
-    codecs = [parse_hop_codec(c) if isinstance(c, str) else c for c in hop_codecs]
+    codecs = [parse_hop_codec(c, n_seq) if isinstance(c, str) else c for c in hop_codecs]
     split = SplitConfig(cuts=tuple(cuts), hop_codecs=tuple(codecs))
     devices = [torch.device(device)] * split.n_stages
     params = params_to(params, device=devices[0])
+    if pipelined and n_seq > 1:
+        raise ValueError(
+            "micro-batch pipelining composes with the plain split runtime "
+            "only; the stage x seq ring runtime already overlaps its hops "
+            "with the ring rotation — drop pipeline or set n_seq=1")
 
     def _make_runtime(tier_codecs):
+        if n_seq > 1:
+            return SplitRingRuntime(cfg, split.cuts, list(tier_codecs), n_seq, devices[0],
+                                    faults=faults, policy=link_policy, fec=fec, hedge=hedge)
         return SplitRuntime(cfg, SplitConfig(cuts=split.cuts, hop_codecs=tuple(tier_codecs)),
                             devices[:split.n_stages], faults=faults, policy=link_policy,
                             fec=fec, hedge=hedge, pipeline=pipeline)
@@ -268,12 +307,13 @@ def run_split_eval(
         raise ValueError("token-selective hop codecs require importance_method")
     hw = (None if head_weights is None else
           torch.as_tensor(np.asarray(head_weights, np.float32), device=devices[0]))
-    mesh = {"stage": split.n_stages, "data": 1, "model": 1}
-    if rt.pipelined:
+    mesh = ({"stage": split.n_stages, "seq": n_seq} if n_seq > 1 else
+            {"stage": split.n_stages, "data": 1, "model": 1})
+    if pipelined:
         # fail before the first chunk, not inside the first forward
         rt.pipeline.validate_batch(window_batch, "window_batch")
     # a partial tail group pads up to the µ-batch grid
-    group_pad = rt.pipeline.num_microbatches if rt.pipelined else 1
+    group_pad = rt.pipeline.num_microbatches if pipelined else 1
 
     # resume axes: the USER-LEVEL split spec (requested codec specs, not the
     # runtime's kernel-twin names), exactly the reference's
@@ -308,8 +348,8 @@ def run_split_eval(
         axes["stage_failure"] = dataclasses.asdict(stage_failure)
     rd = ResumableDriver(checkpoint_path, axes, checkpoint_every)
     total_nll, n_tokens = 0.0, 0.0
-    fwd_tokens = 0  # every token pushed through the pipeline
-    real_fwd_tokens = 0  # the same, minus batch-pad windows
+    fwd_tokens = 0  # every token pushed through the pipeline (pads included)
+    real_fwd_tokens = 0  # the same, minus batch-pad windows and seq-pad positions
     hop_bytes_total = [0] * len(rt.codecs)  # measured per chunk, tail included
     if rd.state is not None:
         total_nll, n_tokens = rd.state["total_nll"], rd.state["n_tokens"]
@@ -366,9 +406,15 @@ def run_split_eval(
         while len(group) % group_pad:
             group = group + [group[-1]]
             counts = counts + [0]
-        ids = torch.from_numpy(np.concatenate([c.input_ids for c in group]).astype(np.int64))
-        targets = torch.from_numpy(np.concatenate([c.target_ids for c in group]))
-        ids = ids.to(devices[0])
+        ids = np.concatenate([c.input_ids for c in group]).astype(np.int64)
+        targets = np.concatenate([c.target_ids for c in group])
+        if n_seq > 1 and ids.shape[1] % n_seq:
+            # right-pad to a shardable length; the padded positions are
+            # masked (-100) and, under causal attention, unseen by scored ones
+            pad = n_seq - ids.shape[1] % n_seq
+            ids = np.pad(ids, ((0, 0), (0, pad)))
+            targets = np.pad(targets, ((0, 0), (0, pad)), constant_values=-100)
+        ids, targets = torch.from_numpy(ids).to(devices[0]), torch.from_numpy(targets)
         if sf_pending and group[0].index >= stage_failure.at_step:
             sf_pending = False
             for r in runtimes.values():
@@ -383,7 +429,10 @@ def run_split_eval(
             needs_t = [c.needs_importance for c in art.codecs]
             hop_imp = None
             if any(needs_t):
-                imp = _importance(cfg, params, ids, importance_method, hw)  # (L, W, S)
+                # the stage x seq runtime takes the ring's own statistics
+                imp = (importance_sp(cfg, params, ids, n_seq, importance_method, hw,
+                                     device=devices[0]) if n_seq > 1 else
+                       _importance(cfg, params, ids, importance_method, hw))  # (L, W, S)
                 hop_imp = [(imp[cut] if len(group) > 1 else imp[cut, 0]) if need else None
                            for cut, need in zip(split.cuts, needs_t)]
             # the chunk index drives the fault stream: same seed => same
@@ -533,27 +582,31 @@ def run_split_eval(
                                                      for g, b in gen_bytes.items() if g > 0}
             rec_block["failover_mesh"] = {**mesh, "stage": split.n_stages}
         result["recovery"] = rec_block
-    if rt.pipelined:
+    if pipelined:
         result["pipeline"] = rt.pipeline_summary()
     if time_hops and rd.chunks:
-        # after a failover, the boundary that finished the run
+        # the padded length the ring's hops move; after a failover, the
+        # boundary that finished the run
+        t_seq = seq + (-seq) % n_seq
         timed_rt = runtimes[0] if rcounters.failovers else rt
         timed_cuts = list(timed_rt.split.cuts)
-        with obs_span("eval.time_hops", seq=seq):
-            result["per_hop_ms"] = timed_rt.time_hops(1, seq)
-        with obs_span("eval.time_decode_hops"):
-            result["per_decode_hop_ms"] = timed_rt.time_decode_hops(1)
+        with obs_span("eval.time_hops", seq=t_seq):
+            result["per_hop_ms"] = timed_rt.time_hops(1, t_seq)
+        if n_seq == 1:  # the ring runtime is a whole-window forward: no decode hop
+            with obs_span("eval.time_decode_hops"):
+                result["per_decode_hop_ms"] = timed_rt.time_decode_hops(1)
         result["per_hop_timing"] = [
             {"hop": s, "cut_layer": int(timed_cuts[s]), "codec": timed_rt.codecs[s].name,
              "forward_ms": result["per_hop_ms"][s],
-             "decode_ms": result["per_decode_hop_ms"][s]}
+             **({"decode_ms": result["per_decode_hop_ms"][s]}
+                if "per_decode_hop_ms" in result else {})}
             for s in range(len(timed_cuts))]
     # this sweep's totals into the global registry (no-ops with
     # observability off): wire bytes, the fused-hop decisions, the link and
     # recovery counters, and one attribution span a cut
     record_wire_bytes(hop_bytes_total, kind="eval_forward")
     final_rt = runtimes[0] if recovery_on and rcounters.failovers else rt
-    if get_registry().enabled:
+    if get_registry().enabled and n_seq == 1:  # the ring's hops never fuse
         record_probe_decisions(final_rt.wire_summary(1, seq))
     if fault_on:
         record_link_counters(result["link_counters"])
@@ -561,7 +614,7 @@ def run_split_eval(
             record_link_health(result["link_health"])
     if recovery_on:
         record_recovery_counters(rcounters)
-    if tracing_enabled():
+    if tracing_enabled() and n_seq == 1:
         from ..serve.decode import _emit_hop_spans
 
         _emit_hop_spans(final_rt, result.get("link_counters"), list(hop_bytes_total),

@@ -250,9 +250,10 @@ class Histogram:
 @runtime_checkable
 class CounterSource(Protocol):
     """Any runtime that can report per-hop fault counters and per-step
-    decode wire bytes: ``SplitRuntime`` and ``LocalRuntime`` satisfy it
-    structurally (``LocalRuntime`` reports ``None`` / ``[]``: nothing
-    crosses a wire)."""
+    decode wire bytes: ``SplitRuntime``, ``SplitRingRuntime`` and
+    ``LocalRuntime`` satisfy it structurally (``LocalRuntime`` reports
+    ``None`` / ``[]``: nothing crosses a wire; ``SplitRingRuntime`` ``[]``
+    decode bytes: it has no decode surface)."""
 
     def link_counters(self, reset: bool = False) -> Optional[dict]:
         """Accumulated per-hop counters ``{name: (n_hops,) ints}``, or None

@@ -74,6 +74,11 @@ bumps its own counter row (:meth:`SplitRuntime.microbatch_counters`).
 ``prefill_decode`` and ``verify_step`` stay sequential, as in the
 reference.
 
+The stage x seq runtime (``parallel/ring.py``) shares the hop protocol:
+its stage activation is the list of its sequence shards, and
+:func:`run_pipeline_stages` crosses each cut shard by shard
+(:func:`_cross_shards`), each with its own payload and fault key.
+
 Not ported yet: the "data" / "model" mesh axes (each raises naming its
 argument).
 """
@@ -90,6 +95,7 @@ from ..codecs.codec_kernels import pallas_variant
 from ..codecs.faults import FaultyLink, LinkPolicy, fault_key, fold, sum_counters
 from ..codecs.fused_hop import fused_hop, fused_hop_plan
 from ..codecs.packing import WireCodec, get_wire_codec
+from ..codecs.ring_codecs import RingWireCodec
 from ..models.configs import ModelConfig
 from ..models.flash_attention import dequantize_kv_rows, quantize_kv_rows
 from ..models.paged_kv import (KVTierMismatchError, _host, _rows_get, _rows_set,
@@ -141,8 +147,15 @@ def run_pipeline_stages(n_stages: int, codecs: list, run_stage, hidden,
 
     ``link`` (a :class:`~..codecs.faults.FaultyLink`) reroutes every hop
     through the faulty-wire protocol keyed by ``fault_key``; the return
-    value then becomes ``(out, counters)``, this call's per-hop counters."""
-    devices = devices if devices is not None else [hidden.device] * n_stages
+    value then becomes ``(out, counters)``, this call's per-hop counters.
+
+    ``hidden`` may be the list of a stage x seq activation's sequence shards
+    (``parallel/ring.py``): ``run_stage`` then takes and returns the list,
+    ``hop_imps[s]`` holds the shards' importance slices, and every shard
+    crosses each cut with its own payload (:func:`_cross_shards`)."""
+    if devices is None:
+        dev = hidden[0].device if isinstance(hidden, list) else hidden.device
+        devices = [dev] * n_stages
     counters = link.init_counters(n_stages - 1) if link is not None else None
     for s in range(n_stages):
         hidden = run_stage(s, hidden)
@@ -160,12 +173,36 @@ def _cross(s: int, codec: WireCodec, hidden, imp, dst, fused_plans, link, key, c
     bumping ``counters`` in place), the cut's fused plan, or the separate
     hop, whose float32 decode the hidden's dtype promotes as the
     reference's select does."""
+    if isinstance(hidden, list):
+        return _cross_shards(s, codec, hidden, imp, dst, link, key, counters)
     if link is not None:
         return link.hop(codec, hidden, s, dst, key, counters, hop_imp=imp)
     if fused_plans is not None and fused_plans[s] is not None:
         return fused_hop(fused_plans[s], codec, hidden, dst)
     decoded = _hop(codec, hidden, imp, dst)
     return decoded.to(torch.promote_types(decoded.dtype, hidden.dtype))
+
+
+def _sent(codec: WireCodec, payload: dict) -> WireCodec:
+    """``codec`` whose encode hands back ``payload``, a shard's payload
+    encoded already: the hop protocols take it as they take any encode."""
+    return dataclasses.replace(codec, encode=lambda *_: payload)
+
+
+def _cross_shards(s: int, codec: WireCodec, shards: list, imps, dst, link, key, counters):
+    """Cut ``s`` crossed by the sequence shards of a stage x seq activation:
+    a ring codec encodes every shard at once (its selection and scale agreed
+    across them), any other codec each shard alone; then each shard's
+    payload crosses as a separate hop would, under ``link`` keyed by
+    ``fold_in(key, shard)`` with the counters bumped for every shard."""
+    if isinstance(codec, RingWireCodec):
+        payloads = codec.encode(shards, imps)
+    else:
+        payloads = [_encode(codec, h, None if imps is None else imps[i])
+                    for i, h in enumerate(shards)]
+    return [_cross(s, _sent(codec, payload), h, None, dst, None, link,
+                   None if link is None else fold(key, i), counters)
+            for i, (h, payload) in enumerate(zip(shards, payloads))]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,19 +319,25 @@ def run_pipeline_stages_microbatched(n_stages: int, codecs: list, num_microbatch
 
 def hop_payload_bytes(codecs, cfg: ModelConfig, batch: int, seq: int) -> list:
     """Measured payload bytes per hop for one (batch, seq, D) boundary
-    activation."""
+    activation. For the stage x seq runtime this is the sum over its shards'
+    payloads: per-token payloads add up over the sequence, and a
+    :class:`~..codecs.ring_codecs.RingWireCodec` counts its own (its
+    ``payload_bytes`` is analytic, per-row at any batch, as it crosses)."""
     shape = (batch, seq, cfg.hidden_size)
     return [c.payload_bytes(shape) for c in codecs]
 
 
 def measure_hop_times(codecs, cfg: ModelConfig, batch: int, seq: int,
-                      devices: Sequence, *, iters: int = 20, warmup: int = 1) -> list:
+                      devices: Sequence, *, iters: int = 20, warmup: int = 1,
+                      n_seq: int = 1) -> list:
     """Per-hop boundary-transfer time (ms): encode -> copy to the next
     stage's device -> decode of one random (batch, seq, D) float32
     activation, apart from the stage compute. ``warmup`` is clamped to >= 1
     (the first call builds and loads the kernels). On one CUDA device the
     time is CUDA events around ``iters`` hops; across devices or on the CPU
-    it is the host clock between synchronisations."""
+    it is the host clock between synchronisations. ``n_seq`` > 1 splits the
+    probe (and its importance) into the stage x seq runtime's sequence
+    shards, and a hop is every shard's crossing (:func:`_cross_shards`)."""
     warmup = max(1, int(warmup))
     results = []
     for s, codec in enumerate(codecs):
@@ -307,8 +350,17 @@ def measure_hop_times(codecs, cfg: ModelConfig, batch: int, seq: int,
         if batch > 1:
             imp = imp.expand(batch, seq)
 
-        def hop():
-            return _hop(codec, hidden, imp, dst)
+        if n_seq > 1:
+            s_loc = seq // n_seq
+            blocks = [slice(i * s_loc, (i + 1) * s_loc) for i in range(n_seq)]
+            shards = [hidden[:, blk].contiguous() for blk in blocks]
+            imp_shards = [imp[..., blk] for blk in blocks] if codec.needs_importance else None
+
+            def hop():
+                return _cross_shards(s, codec, shards, imp_shards, dst, None, None, None)
+        else:
+            def hop():
+                return _hop(codec, hidden, imp, dst)
 
         for _ in range(warmup):
             hop()
@@ -336,6 +388,57 @@ def _sync(*devices):
     for d in devices:
         if d.type == "cuda":
             torch.cuda.synchronize(d)
+
+
+def place_stage_params(params: dict, bounds: list, devices: list, fused_plans: list) -> dict:
+    """Each stage's layer slice on its device, the embedding on the first
+    stage's and the final norm and head on the last stage's. A stage behind
+    a separate (unfused) hop computes in float32 (see the module note), so
+    its floating weights are held in float32; an unchanged slice on its own
+    device is a view, not a copy. ``fused_plans``: one plan or None a cut."""
+    layers = params["layers"]
+    stages = []
+    for s, ((start, stop), dev) in enumerate(zip(bounds, devices)):
+        promoted = any(plan is None for plan in fused_plans[:s])
+        stage = {}
+        for name, t in layers.items():
+            dtype = (torch.promote_types(t.dtype, torch.float32)
+                     if promoted and t.is_floating_point() else None)
+            stage[name] = t[start:stop].to(device=dev, dtype=dtype)
+        stages.append(stage)
+    rest = {k: v for k, v in params.items() if k != "layers"}
+    return {"stages": stages,
+            "first": {k: v.to(devices[0]) for k, v in rest.items()},
+            "last": {k: v.to(devices[-1]) for k, v in rest.items()}}
+
+
+def stacked_importance(codecs: list, hop_importance, batch: int, seq: int,
+                       devices: list) -> list:
+    """Validate the per-hop importance entries and shape them as the
+    reference stacks them: every entry (S,), or every entry (B, S) when any
+    is per-row or an importance hop runs at batch > 1; a hop without one
+    gets zeros. Each entry lands on its cut's device."""
+    n_hops = len(codecs)
+    imps = list(hop_importance) if hop_importance is not None else [None] * n_hops
+    if len(imps) != n_hops:
+        raise ValueError(f"expected {n_hops} hop_importance entries, got {len(imps)}")
+    imps = [None if i is None else torch.as_tensor(i) for i in imps]
+    for c, imp in zip(codecs, imps):
+        if c.needs_importance and imp is None:
+            raise ValueError(f"hop codec {c.name} requires an importance vector")
+        if c.needs_importance and batch > 1 and (
+                imp.dim() != 2 or imp.shape[0] != batch):
+            # one (S,) vector cannot speak for several evaluation windows:
+            # each window has its own token ordering in the reference
+            raise ValueError(
+                f"hop codec {c.name} with batch {batch} needs per-row "
+                f"({batch}, S) importance (got shape {tuple(imp.shape)})")
+    per_row = any(i is not None and i.dim() == 2 for i in imps) or (
+        batch > 1 and any(c.needs_importance for c in codecs))
+    shape = (batch, seq) if per_row else (seq,)
+    return [torch.zeros(shape, dtype=torch.float32, device=dev) if i is None
+            else torch.broadcast_to(i.to(device=dev, dtype=torch.float32), shape)
+            for i, dev in zip(imps, devices)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -474,52 +577,11 @@ class SplitRuntime:
 
     def place_params(self, params: dict) -> dict:
         """Each stage's layer slice on its device, the embedding on the first
-        stage's and the final norm and head on the last stage's. A stage
-        behind a separate (unfused) hop computes in float32 (see the module
-        note), so its floating weights are held in float32; an unchanged
-        slice on its own device is a view, not a copy."""
-        layers = params["layers"]
-        stages = []
-        for s, ((start, stop), dev) in enumerate(zip(self.bounds, self.devices)):
-            promoted = any(plan is None for plan in self.fused_plans[:s])
-            stage = {}
-            for name, t in layers.items():
-                dtype = (torch.promote_types(t.dtype, torch.float32)
-                         if promoted and t.is_floating_point() else None)
-                stage[name] = t[start:stop].to(device=dev, dtype=dtype)
-            stages.append(stage)
-        rest = {k: v for k, v in params.items() if k != "layers"}
-        return {"stages": stages,
-                "first": {k: v.to(self.devices[0]) for k, v in rest.items()},
-                "last": {k: v.to(self.devices[-1]) for k, v in rest.items()}}
+        stage's and the final norm and head on the last stage's
+        (:func:`place_stage_params`)."""
+        return place_stage_params(params, self.bounds, self.devices, self.fused_plans)
 
     # ---------- forward ----------
-
-    def _stacked_importance(self, hop_importance, batch: int, seq: int) -> list:
-        """Validate the per-hop importance entries and shape them as the
-        reference stacks them: every entry (S,), or every entry (B, S) when
-        any is per-row or a token-selective hop runs at batch > 1."""
-        n_hops = len(self.codecs)
-        imps = list(hop_importance) if hop_importance is not None else [None] * n_hops
-        if len(imps) != n_hops:
-            raise ValueError(f"expected {n_hops} hop_importance entries, got {len(imps)}")
-        imps = [None if i is None else torch.as_tensor(i) for i in imps]
-        for c, imp in zip(self.codecs, imps):
-            if c.needs_importance and imp is None:
-                raise ValueError(f"hop codec {c.name} requires an importance vector")
-            if c.needs_importance and batch > 1 and (
-                    imp.dim() != 2 or imp.shape[0] != batch):
-                # one (S,) vector cannot speak for several evaluation windows:
-                # each window has its own token ordering in the reference
-                raise ValueError(
-                    f"hop codec {c.name} with batch {batch} needs per-row "
-                    f"({batch}, S) importance (got shape {tuple(imp.shape)})")
-        per_row = any(i is not None and i.dim() == 2 for i in imps) or (
-            batch > 1 and any(c.needs_importance for c in self.codecs))
-        shape = (batch, seq) if per_row else (seq,)
-        return [torch.zeros(shape, dtype=torch.float32, device=dev) if i is None
-                else torch.broadcast_to(i.to(device=dev, dtype=torch.float32), shape)
-                for i, dev in zip(imps, self.devices)]
 
     def forward(self, placed: dict, input_ids: torch.Tensor,
                 hop_importance: Optional[Sequence] = None,
@@ -538,7 +600,7 @@ class SplitRuntime:
         batch, seq = input_ids.shape
         if self.pipelined:
             self.pipeline.validate_batch(batch, "forward batch")
-        imps = self._stacked_importance(hop_importance, batch, seq)
+        imps = stacked_importance(self.codecs, hop_importance, batch, seq, self.devices)
         hidden = embed(placed["first"], input_ids.to(self.devices[0]))
 
         def run_stage(s, h, mb=None):

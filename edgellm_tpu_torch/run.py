@@ -67,9 +67,11 @@ post-mortem artifacts under ``<output-dir>/flight_recorder`` and
 endpoint on 127.0.0.1 for the run (its URL printed, ``/healthz`` the serve
 front's health).
 
-A split config that carries a key of a split feature not ported yet
-(``UNPORTED_SPLIT_KEYS``: the seq / data / model mesh axes) exits
-non-zero naming it. ``fused_hops`` maps onto the ``EDGELLM_FUSED_HOP``
+``n_seq`` (split5, split5b) runs the split's stage x seq runtime: the
+sequence ring-sharded within every stage, the shards in turn on the one
+device. A split config that carries a key of a split feature not ported
+yet (``UNPORTED_SPLIT_KEYS``: the data / model mesh axes) exits non-zero
+naming it. ``fused_hops`` maps onto the ``EDGELLM_FUSED_HOP``
 gate as in the reference ("auto" fuses a hop only where this card's probe cache
 recorded a win, ``codecs/probe_cache.py``).
 
@@ -94,7 +96,7 @@ import torch
 #: experiments of the reference CLI that this package has not ported yet
 NOT_PORTED = ()
 #: split keys whose feature is not ported yet (the mesh axes only above 1)
-UNPORTED_SPLIT_KEYS = ("n_seq", "n_data", "n_model")
+UNPORTED_SPLIT_KEYS = ("n_data", "n_model")
 #: the faulty link's keys
 LINK_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health")
 #: the fused_hops key's values onto the EDGELLM_FUSED_HOP gate ("auto" clears it)
@@ -313,9 +315,14 @@ def _validate_params_json(p: dict, device="cuda") -> None:
 def _validate_split(p: dict, die, device) -> None:
     """The split branch: unported features die naming their key, then the
     reference's checks of ``cuts``, ``hop_codecs`` and ``importance_method``,
-    the codecs' resolution on ``device``, then the link keys."""
+    the codecs' resolution on ``device``, then the link keys. ``n_seq``
+    combined with ``n_data`` / ``n_model`` exits with the reference's
+    message (its run time check) before they are refused as not ported."""
+    if p.get("n_seq", 1) > 1 and (p.get("n_data", 1) > 1 or p.get("n_model", 1) > 1):
+        raise SystemExit("n_seq composes the pipeline with sequence sharding only; "
+                         "combining it with n_data/n_model is not supported")
     for key in UNPORTED_SPLIT_KEYS:
-        if key in p and not (key in ("n_seq", "n_data", "n_model") and p[key] == 1):
+        if key in p and p[key] != 1:
             die(f"{key} is not ported yet to edgellm_tpu_torch; drop it or run "
                 f"the split with python -m edgellm_tpu.run")
     _validate_cuts(p, die, device)
@@ -461,7 +468,7 @@ def _validate_cuts(p: dict, die, device) -> None:
         if not isinstance(spec, str):
             die(f"hop_codecs entries must be codec spec strings, got {spec!r}")
         try:
-            resolved = parse_hop_codec(spec)
+            resolved = parse_hop_codec(spec, p.get("n_seq", 1))
             if isinstance(resolved, str):
                 resolved = get_wire_codec(resolved)
         except (ValueError, KeyError) as e:
@@ -1479,7 +1486,8 @@ def _dispatch(args, cfg, params: dict, params_json: dict, head_weights, out, dev
                         else params_json.get("deadline")),
             stage_failure=params_json.get("stage_failure"),
             recovery=params_json.get("recovery"),
-            pipeline=pipeline_config(params_json), device=device)
+            pipeline=pipeline_config(params_json), n_seq=params_json.get("n_seq", 1),
+            device=device)
         with open(out("split_eval_results.json"), "w") as f:
             json.dump(result, f, indent=1)
         print(json.dumps(result))

@@ -145,8 +145,9 @@ def test_validation_messages_match_reference(params):
 @pytest.mark.parametrize("config", sorted(p.name for p in (REPO / "configs").glob("*.json")))
 def test_every_config_is_accepted_or_named_not_ported(config):
     """Every shipped config either validates in both CLIs or names its
-    feature as not ported yet (only the seq / data / model mesh axes, split5
-    and split5b); none is silently ignored (split12's ``pipeline``,
+    feature as not ported yet (only the data / model mesh axes, which no
+    shipped config sets); none is silently ignored (split5's ``n_seq``,
+    split12's ``pipeline``,
     split15's ``cluster``, split16's ``disagg``, split17's ``gray`` and
     every ``observability`` field validate)."""
     p = json.loads((REPO / "configs" / config).read_text())
@@ -215,7 +216,8 @@ def hf_checkpoint(tmp_path_factory):
 
 def test_port_runs_with_jax_and_reference_poisoned():
     """A process where importing jax or edgellm_tpu fails still imports the
-    whole port and runs a tiny CPU forward and sweep."""
+    whole port and runs a tiny CPU forward and sweep (and the split, the
+    ring, serving, the fleet and the experiments)."""
     code = r"""
 import sys
 sys.modules["jax"] = None
@@ -243,6 +245,11 @@ split = run_split_eval(cfg, params, np.arange(100) % 256, cuts=[1], hop_codecs=[
                        link_health={"window": 2}, link_policy={"tiers": ["int4_per_token"]},
                        max_length=32, stride=16, device="cpu")
 assert split["link_counters"]["hops"][0] > 0 and "link_health" in split
+split = run_split_eval(cfg, params, np.arange(100) % 256, cuts=[1],
+                       hop_codecs=["selective_int4:0.5:bf16:local"], importance_method="last_row",
+                       max_length=30, stride=16, n_seq=4, device="cpu")
+assert np.isfinite(split["ppl"]) and split["mesh"] == {"stage": 2, "seq": 4}
+import edgellm_tpu_torch.tools.ring_mode_gap
 import edgellm_tpu_torch.tools.pallas_probe, edgellm_tpu_torch.tools.attn_probe
 import edgellm_tpu_torch.codecs.probe_cache, edgellm_tpu_torch.obs.metrics
 import edgellm_tpu_torch.serve.frontend, edgellm_tpu_torch.serve.soak

@@ -29,15 +29,21 @@ from edgellm_tpu_torch.utils.clock import FakeClock
 PKGS = {"ref": (jobs, jflight, jrecovery, JClock), "port": (obs, tflight, trecovery, FakeClock)}
 
 
-@pytest.fixture(autouse=True)
-def _clean_obs():
-    """Never leak armed process-global obs state across tests."""
-    yield
+def _reset_obs():
     for o, fl, _, _ in PKGS.values():
         o.disable()
         o.get_registry().clear()
         o.get_tracer().clear()
         fl.configure_flight(None)
+
+
+@pytest.fixture(autouse=True)
+def _clean_obs():
+    """Never leak armed process-global obs state across tests, and start
+    clean of what another test file in this worker left behind."""
+    _reset_obs()
+    yield
+    _reset_obs()
 
 
 def _scenario(pkg, out_dir, *, registry: bool, spans: bool):

@@ -22,14 +22,22 @@ from edgellm_tpu_torch.obs import server as tserver
 from edgellm_tpu_torch.obs.server import ObsServer
 
 
-@pytest.fixture(autouse=True)
-def _clean_obs():
-    yield
+def _reset_obs():
     for o, fl in ((jobs, jflight), (obs, tflight)):
         o.disable()
         o.get_registry().clear()
         o.get_tracer().clear()
         fl.configure_flight(None)
+
+
+@pytest.fixture(autouse=True)
+def _clean_obs():
+    """Each test starts and leaves the process-global obs state clean: a
+    CLI run of another test file in this worker may have left spans in the
+    tracer (it restores the armed flags, not the recorded spans)."""
+    _reset_obs()
+    yield
+    _reset_obs()
 
 
 def _get(url):

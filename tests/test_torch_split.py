@@ -226,7 +226,9 @@ def test_unported_split_eval_args_raise(qwen, corpus, arg):
     add the recovery block (a loss at chunk 0 of two stages fails over to
     one), an empty ``recovery`` alone adds none. So is ``pipeline``: at
     window batch 2 it runs the µ-batch schedule with the sequential PPL and
-    adds its summary; at window batch 1 it raises the reference's words."""
+    adds its summary; at window batch 1 it raises the reference's words. So
+    is ``n_seq``: the stage x seq runtime, whose per-token hop gives the
+    plain split's PPL."""
     _, tc, _, tp = qwen
     kw = dict(cuts=[2], hop_codecs=["int8_per_token"], max_length=64, stride=32,
               device="cpu", max_chunks=2, time_hops=False)
@@ -238,6 +240,13 @@ def test_unported_split_eval_args_raise(qwen, corpus, arg):
         seq = run_split_eval(tc, tp, corpus, **kw)
         assert res["pipeline"]["num_microbatches"] == 2 and "pipeline" not in seq
         assert res["total_nll"] == seq["total_nll"] and res["chunks"] == 2
+        return
+    if arg == "n_seq":
+        res = run_split_eval(tc, tp, corpus, **{**kw, arg: UNPORTED_EVAL[arg]})
+        plain = run_split_eval(tc, tp, corpus, **kw)
+        assert res["mesh"] == {"stage": 2, "seq": 2} and res["chunks"] == 2
+        np.testing.assert_allclose(res["ppl"], plain["ppl"], rtol=PPL_RTOL)
+        assert res["measured_hop_bytes_total"] == plain["measured_hop_bytes_total"]
         return
     if arg in RECOVERY_EVAL_ARGS:
         res = run_split_eval(tc, tp, corpus, **{**kw, arg: UNPORTED_EVAL[arg]})
@@ -303,8 +312,11 @@ def test_unported_runtime_args_raise(arg):
 def test_parse_hop_codec_and_split_config():
     assert parse_hop_codec("int8_per_token") == "int8_per_token"
     assert parse_hop_codec("selective_int4:0.5:fp16").name == "selective_int4_r0.5_fp16"
-    with pytest.raises(ValueError, match="not ported yet"):
-        parse_hop_codec("int4_per_token", n_seq=4)
+    assert parse_hop_codec("int4_per_token", n_seq=4) == "int4_per_token"
+    assert (parse_hop_codec("selective_int4:0.25:bf16", n_seq=4).name
+            == "ring_selective_int4_r0.25_bf16_global")
+    with pytest.raises(ValueError, match="no ring"):
+        parse_hop_codec("selective_int4_pallas:0.25", n_seq=4)
     with pytest.raises(ValueError, match="no longer exists"):
         parse_hop_codec("selective_int4_pallas:0.25")
     with pytest.raises(ValueError, match="stage x seq"):
