@@ -14,7 +14,9 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    envelope's (Pythia-70M at S=2048, Qwen2-1.5B hd=128), with stated
    tolerances, and at the bf16 kernels' tile edges (S = 1, 63, 64, 65, 100,
    127, 128, 129) and the serve prefill lengths (12, 72), both head dims and
-   dtypes, the stats deterministic; the codec kernels K1-K7 (K2 also with a
+   dtypes, the stats deterministic, and at the tensor-parallel shards' heads
+   of phase 23 (:data:`TP_SHAPES`: 7 over 1 at hd 64, 6 over 1 at hd 128, 2
+   over 2 at S = 2048); the codec kernels K1-K7 (K2 also with a
    (1, D) scale, through the int4_per_channel twin; K3 also saturating
    float32, bf16 and fp16 hiddens with NaN, +-Inf and 1e30 in the kernel)
    and the fused hop K8 bit for bit at N = 4096 x D = 896 and 1536, and
@@ -87,8 +89,9 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    from ``--seed`` (the CLI's default), a synthetic corpus, 9 chunks each:
    s/chunk, tokens/s, peak memory, a finite PPL table, every kernel's
    launches against the count the groups imply (fp32 K-stats 24 and 6 a
-   group, fp32 K-attn the suffix passes), one group under torch.profiler
-   with the column pass, the forward and the LM head named;
+   group, fp32 K-attn the suffix passes, and the memory preflight's probes
+   at window batch 1 and 2), one group under torch.profiler with the
+   column pass, the forward and the LM head named;
 13. serve cross-checks at Qwen2-0.5B width, 3 layers, fp32: the paged step
    on the card (K13 / K14) against the CPU (plain versions) under teacher
    forcing, greedy batched streams identical on the card and the CPU, and
@@ -251,7 +254,20 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    link-free logits, drop_rate 0.5 seed 11 counters the CPU's, K3 / K4 once
    a shard's hop encoded / a copy sent); ``tools/ring_mode_gap.measure`` at
    split5b's shape (|dNLL| per ratio);
-23. a JSON line of every kernel (launches summed over the counted paths,
+23. the "data" and "model" mesh axes and the offline tools at full
+   Qwen2-0.5B width and depth, fp32 random weights from ``--seed``, through
+   ``run.main`` (:func:`mesh_paths`): split1 as shipped and with inline
+   ``n_model`` 2, ``n_data`` 2 and both (PPL within 1e-4 of the plain run,
+   equal bytes per token, K-attn exactly layers x groups x n_data x
+   n_model and K3 / K4 n_data a group, s/chunk and peak memory), split2's
+   selective hop at ``n_data`` 2 (K-stats counted), split4 (Qwen2-1.5B) at
+   ``n_model`` 2 and split0 (Pythia-70M) at 4 beside their plain runs,
+   ``--distributed`` in two processes on the card (gloo for the host
+   gather; the ranks' line the one-process run's, only rank 0 writing),
+   the memory preflight (the token sweep with ``BENCH_HBM_GB`` below
+   window batch 8's estimate: the batch chosen, its estimate and the
+   measured peak under the budget) and the refusals exiting non-zero;
+24. a JSON line of every kernel (launches summed over the counted paths,
    and by path; K-attn's also by dtype and path; K-stats' fp32 column pass
    apart; ``ms`` its device time, ``event_ms`` the call's CUDA-event time),
    the ``nvidia-smi`` line, and
@@ -445,7 +461,8 @@ def kernel_checks(detail: dict) -> dict:
         ("qwen2-0.5b", 32, 512, 14, 2, 64, ("causal_attention",), True),
         ("pythia-70m", 4, 2048, 8, 8, 64, ("causal_attention", "causal_attention_stats"), False),
         ("qwen2-1.5b", 8, 512, 12, 2, 128, ("causal_attention", "causal_attention_stats"), False),
-    ]
+    ] + [(label, b, s, h, kv, hd, ("causal_attention", "causal_attention_stats"), False)
+         for label, b, s, h, kv, hd in TP_SHAPES]  # phase 23's tensor-parallel shards
     rows, main = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
@@ -1349,16 +1366,23 @@ def _cli_expected(cfg, params_json: dict, n_groups: int) -> dict:
     of interest; each (method, layer of interest) runs one suffix pass over
     the layers after it (every nonzero ratio batched into it; ratio 0 is the
     prefix's own tail, and its continuation past the deepest layer) -> K-attn.
-    The CLI's weights are fp32: every attention launch is fp32."""
+    Before the sweep the CLI's memory preflight (a window batch above 1 on
+    the card) probes the stats prefix with its continuation and the
+    earliest layer's suffix once at each of its probe batches. The CLI's
+    weights are fp32: every attention launch is fp32."""
+    from edgellm_tpu_torch.tools.wb_preflight import PROBE_BATCHES
+
     layers = params_json["layers_of_interest"]
     deepest = max(layers)
     n_methods = len(params_json["methods"])
     zero = any(float(r) == 0.0 for r in params_json["ratios"])
     suffix = sum(cfg.num_layers - 1 - layer for layer in layers) * n_methods
     tail = cfg.num_layers - 1 - deepest if zero else 0  # the ratio-0 continuation
-    attn = (suffix + tail) * n_groups
+    probes = len(PROBE_BATCHES)
+    attn = (suffix + tail) * n_groups + probes * (
+        cfg.num_layers - 1 - min(layers) + cfg.num_layers - 1 - deepest)
     return want_counts(attn, causal_attention=attn,
-                       causal_attention_stats=(deepest + 1) * n_groups)
+                       causal_attention_stats=(deepest + 1) * (n_groups + probes))
 
 
 def cli_sweeps(args, detail: dict, sweeps=CLI_SWEEPS) -> dict:
@@ -2792,10 +2816,16 @@ def split_paged_paths(args, detail: dict) -> dict:
         flops = 4.0 * cfg.num_heads * cfg.head_dim * float(a[-1].long().sum().item())
         bound, bound_by = fa.bound_ms(nbytes, flops, torch.float32)
         k_dev, recorded = _device_ms_per_call(lambda: kern(*a, **kw), 50)
+        plain = getattr(fa, name + "_plain")
+        pkw = {k: v for k, v in kw.items() if k != "plan"}
+        sdpa = paged_sdpa(a, kv_codec)  # the library yardstick, as phase 10's
         reads[f"{name} {kv_codec} item 30"] = {
             "slots": w, "page_size": KV_TIER_FULL["page_size"], "pages_per_slot": pps,
             "kernel_device_ms": k_dev, "recorded": recorded, "bound_ms": bound,
-            "bound_by": bound_by, "roofline_share": bound / k_dev}
+            "bound_by": bound_by, "roofline_share": bound / k_dev,
+            "plain_ms": time_ms(lambda: plain(*a, **pkw), 10),
+            "library_event_ms": time_ms(sdpa, 50),
+            "library": "SDPA (enable_gqa) over the gathered span, length mask"}
     x = torch.randn((32, d), device="cuda") * 3
     q, sc, mn = ck.int8_affine_encode(x, max_mag=SATURATE_MAG)
     for name, call in (
@@ -5060,6 +5090,343 @@ def long_context_paths(args, detail: dict, device: str = "cuda",
     return out
 
 
+#: phase 23's configs; the chunks of its Qwen2-0.5B runs (one group of 8
+#: windows and one of 1, padded to the data axis) and of its other shapes
+SPLIT1_CONFIG = "configs/split1_qwen_int8.json"
+SPLIT2_CONFIG = "configs/split2_qwen_mixed48.json"
+SPLIT4_CONFIG = "configs/split4_qwen15_multihop.json"
+SPLIT0_CONFIG = "configs/split0_pythia_noquant.json"
+BASELINE_TABLE_CONFIG = "configs/qwen_baseline_table.json"
+MESH_CHUNKS, MESH_SMALL_CHUNKS = 9, 2
+#: the tensor-parallel shard shapes phase 3 holds K-attn and K-stats at
+#: (label, b, s, h, kv, hd): Qwen2-0.5B's 14 over 2 heads in two shards,
+#: Qwen2-1.5B's 12 over 2 in two, Pythia-70M's 8 over 8 in four
+TP_SHAPES = (("qwen2-0.5b tp2", 8, 512, 7, 1, 64), ("qwen2-1.5b tp2", 2, 512, 6, 1, 128),
+             ("pythia-70m tp4", 2, 2048, 2, 2, 64))
+#: a mesh run against the plain split on the card, PPL relative: the same
+#: windows through the same kernels, but a data group is a smaller batch
+#: (cuBLAS may take another GEMM for it) and the shards' partial products
+#: sum the output projections in another order; the int8 hop can then move
+#: a code on a rounding boundary a step (the splits' card-vs-CPU bound)
+MESH_RTOL = SPLIT_CROSS_RTOL
+#: a tensor-parallel run over fp32 hops against the plain one: only the
+#: shards' sums of the output projections differ (the CPU read 9.5e-7 at
+#: Qwen2-1.5B's split4 cuts)
+MESH_FP32_RTOL = 1e-5
+#: split4's shipped int8 + int4 hops under tensor parallelism: an element
+#: within the forward's rounding difference of an int4 code boundary moves
+#: a whole int4 step (1/7 of its token's largest value), and 2 chunks score
+#: 544 tokens; such moves read 1.46e-4 on the CPU (and 9.5e-7 over fp32
+#: hops), so the TP math is held by the fp32-hop twin above
+MESH_INT4_RTOL = 1e-3
+#: the two-process run against the one-process run at n_data 2: each rank
+#: runs its data group's rows through the same shapes and kernels, and the
+#: gathered NLLs sum in the same order
+DIST_RTOL = 1e-6
+#: the codec kernels a hop codec launches on the card (its twin's encode
+#: and decode)
+HOP_KERNELS = {"int8_per_token": ("int8_affine_encode", "int8_affine_decode"),
+               "int4_per_token": ("int4_encode", "int4_decode")}
+
+
+def _mesh_want(cfg, p: dict, n_groups: int, n_data: int = 1, n_model: int = 1) -> dict:
+    """The launches of a split CLI run over the mesh: K-attn (fp32: the
+    CLI's weights) once a layer a data group a model shard a group; K-stats
+    once a layer a group for an importance codec (the importance pass runs
+    unsplit); each kernel hop's encode and decode once a data group a
+    group, plus time_hops' :data:`HOP_ITERS`."""
+    attn = cfg.num_layers * n_groups * n_data * n_model
+    hops: dict = {}
+    for codec in p["hop_codecs"]:
+        for kernel in HOP_KERNELS.get(codec, ()):
+            hops[kernel] = hops.get(kernel, 0) + n_groups * n_data + HOP_ITERS
+    stats = cfg.num_layers * n_groups if "importance_method" in p else 0
+    return want_counts(attn, causal_attention=attn, causal_attention_stats=stats, **hops)
+
+
+def mesh_paths(args, detail: dict, device: str = "cuda", model: str = "qwen2-0.5b") -> dict:
+    """Phase 23: the "data" and "model" mesh axes and the offline tools,
+    fp32 random weights from ``--seed`` (the CLI's default), every run
+    through ``run.main``. (a) configs/split1_qwen_int8.json at full
+    Qwen2-0.5B width and depth (cut 11, int8_per_token, window 512, stride
+    32, window batch 8, :data:`MESH_CHUNKS` chunks) as shipped and with
+    inline ``n_model`` 2, ``n_data`` 2 and both: PPL within
+    :data:`MESH_RTOL` of the plain run, bytes per token equal, s/chunk,
+    peak memory, K-attn exactly layers x groups x n_data x n_model and K3 /
+    K4 exactly n_data a group (plus time_hops'). (b) split2's selective hop
+    at n_data 2 beside n_data 1 (K-stats 24 a group). (c)
+    configs/split4_qwen15_multihop.json at n_model 2 (hd 128, three stages;
+    as shipped within :data:`MESH_INT4_RTOL` and over fp32 hops within
+    :data:`MESH_FP32_RTOL`) and configs/split0_pythia_noquant.json at
+    n_model 4 (GPT-NeoX, S = 2048, an fp32 hop: :data:`MESH_FP32_RTOL`),
+    :data:`MESH_SMALL_CHUNKS` chunks each, beside their plain runs.
+    (d) ``--distributed``: two processes on the card (gloo for the host
+    gather, each its data group on the card) at split1's n_data 2, each
+    with a timeout of its own: both ranks print the same result, the
+    one-process n_data 2 run's within :data:`DIST_RTOL`, and only rank 0's
+    directory holds the checkpoint and the metrics. (e) the memory
+    preflight: configs/qwen_baseline_table.json with ``BENCH_HBM_GB`` set
+    between the estimates at window batch 4 and 8, so 8 does not fit: the
+    batch the CLI chose, the estimate at it and the run's measured peak,
+    which must be under the budget. (f) the refusals exit non-zero with the
+    reference's messages: int4_global at n_data 2 and a pipeline at
+    n_model 2 -> launches by path. ``mesh_paths(args, {}, device="cpu",
+    model="tiny-qwen2")`` rehearses it on the CPU (cut 2, S = 64)."""
+    import gc
+
+    import torch
+
+    from edgellm_tpu_torch import run
+    from edgellm_tpu_torch.models import PRESETS
+    from edgellm_tpu_torch.tools.wb_preflight import (_budget_bytes, estimate_from_costs,
+                                                      probe_sweep_costs)
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    full = model == "qwen2-0.5b"
+    cfg = PRESETS[model]
+    card = detail.get("card", "a CPU rehearsal")
+    rows, out, part_s = {}, {}, {}
+    t_part = [time.monotonic()]
+
+    def lap(name):
+        now = time.monotonic()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+
+    def load(path, **tiny):
+        with open(path) as f:
+            p = json.load(f)
+        return p if full else {**p, **tiny}
+
+    tiny_split = dict(cuts=[2], max_length=64, stride=16)
+    split1, split2 = load(SPLIT1_CONFIG, **tiny_split), load(SPLIT2_CONFIG, **tiny_split)
+
+    def cli(p, label, model_=model, chunks=MESH_CHUNKS):
+        with tempfile.TemporaryDirectory() as tmp:
+            sync()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.monotonic()
+            rc, printed = _cli_json_line(
+                ["--params", json.dumps(p), "--output-dir", tmp, "--model", model_,
+                 "--seed", str(args.seed), "--device", device, "--window-batch", "8",
+                 "--max-chunks", str(chunks)])
+            sync()
+            wall = time.monotonic() - t0
+            launches = read_counts()
+            peak = torch.cuda.max_memory_allocated() if on_card else None
+        if rc != 0 or printed["chunks"] != chunks or not np.isfinite(printed["ppl"]):
+            raise SystemExit(f"{label}: run.main exited {rc}: {printed}")
+        return printed, launches, wall, peak
+
+    def leg(label, p, cfg_, plain_ppl=None, model_=model, chunks=MESH_CHUNKS,
+            rtol=MESH_RTOL):
+        n_data, n_model = p.get("n_data", 1), p.get("n_model", 1)
+        printed, launches, wall, peak = cli(p, label, model_, chunks)
+        n_groups = math.ceil(chunks / 8)
+        want = _mesh_want(cfg_, p, n_groups, n_data, n_model) if on_card else want_counts(0)
+        rel = None if plain_ppl is None else abs(printed["ppl"] - plain_ppl) / plain_ppl
+        row = {"path": label, "card": card, "mesh": printed["mesh"], "ppl": printed["ppl"],
+               "ppl_rel_diff_to_plain": rel, "chunks": printed["chunks"], "groups": n_groups,
+               "bytes_per_token_per_hop": printed["bytes_per_token_per_hop"],
+               "s_per_chunk": printed["wall_s"] / printed["chunks"], "wall_s": wall,
+               "max_memory_allocated_bytes": peak, "per_hop_ms": printed.get("per_hop_ms"),
+               "launches": {k: v for k, v in launches.items() if v},
+               "launches_expected": {k: v for k, v in want.items() if v}}
+        log(json.dumps({"mesh_path": row}))
+        rows[label] = row
+        out[label] = launches
+        want_mesh = {"stage": len(p["cuts"]) + 1, "data": n_data, "model": n_model}
+        if launches != want or printed["mesh"] != want_mesh:
+            raise SystemExit(f"{label}: launches {launches} != expected {want}, or mesh "
+                             f"{printed['mesh']} != {want_mesh}")
+        row["ppl_rtol"] = rtol
+        if rel is not None and rel > rtol:
+            raise SystemExit(f"{label}: PPL {printed['ppl']} against the plain {plain_ppl} "
+                             f"(rel {rel:.3e} > {rtol})")
+        return printed
+
+    # (a) split1 plain (after a warm-up run), then over each mesh
+    cli(split1, "split1 warm-up")
+    plain = leg("split1 plain", split1, cfg)
+    for axes in ({"n_model": 2}, {"n_data": 2}, {"n_data": 2, "n_model": 2}):
+        tag = " ".join(f"{k} {v}" for k, v in axes.items())
+        got = leg(f"split1 {tag}", {**split1, **axes}, cfg, plain["ppl"])
+        if got["bytes_per_token_per_hop"] != plain["bytes_per_token_per_hop"]:
+            raise SystemExit(f"split1 {tag}: bytes per token {got['bytes_per_token_per_hop']}"
+                             f" != the plain {plain['bytes_per_token_per_hop']}")
+    log(f"  split1 over the mesh ({card}): s/chunk " + ", ".join(
+        f"{k[7:]} {r['s_per_chunk']:.4f}" for k, r in rows.items()) + "; peak GB " + ", ".join(
+        f"{k[7:]} {(r['max_memory_allocated_bytes'] or 0) / 2**30:.2f}" for k, r in rows.items()))
+    lap("split1")
+
+    # (b) the selective split at n_data 2
+    sel = leg("split2 plain", split2, cfg)
+    leg("split2 n_data 2", {**split2, "n_data": 2}, cfg, sel["ppl"])
+    lap("split2")
+
+    # (c) the other two shapes: Qwen2-1.5B at n_model 2 (as shipped and over
+    # fp32 hops), Pythia-70M at 4 (split0's hop is fp32)
+    others = ((SPLIT4_CONFIG, "qwen2-1.5b", 2, dict(cuts=[1, 3], max_length=64, stride=16)),
+              (SPLIT0_CONFIG, "pythia-70m", 4, dict(cuts=[1], max_length=64, stride=16)))
+    for path, name, n_model, tiny in others:
+        p = load(path, **tiny)
+        model_ = name if full else ("tiny-qwen2" if "qwen" in name else "tiny-neox")
+        cfg_ = PRESETS[model_]
+        tag = os.path.basename(path)[:-5]
+        twins = [(p, MESH_INT4_RTOL if "int4_per_token" in p["hop_codecs"] else MESH_FP32_RTOL)]
+        if any(c != "fp32" for c in p["hop_codecs"]):
+            twins.append(({**p, "hop_codecs": ["fp32"] * len(p["cuts"])}, MESH_FP32_RTOL))
+        for q, rtol in twins:
+            hops = "" if q is p else " fp32 hops"
+            base_run = leg(f"{tag}{hops} plain", q, cfg_, model_=model_,
+                           chunks=MESH_SMALL_CHUNKS)
+            leg(f"{tag}{hops} n_model {n_model}", {**q, "n_model": n_model}, cfg_,
+                base_run["ppl"], model_=model_, chunks=MESH_SMALL_CHUNKS, rtol=rtol)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    lap("other_shapes")
+
+    # (d) --distributed: two processes on the one card at split1's n_data 2
+    one = rows["split1 n_data 2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = lambda r: [sys.executable, "-m", "edgellm_tpu_torch.run",  # noqa: E731
+                          "--distributed", "--params", json.dumps({**split1, "n_data": 2}),
+                          "--model", model, "--seed", str(args.seed), "--device", device,
+                          "--window-batch", "8", "--max-chunks", str(MESH_CHUNKS),
+                          "--output-dir", os.path.join(tmp, f"r{r}")]
+        t0 = time.monotonic()
+        done = _spawn_ranks(argv, tmp)
+        wall = time.monotonic() - t0
+        lines = [json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+                 for text in done]
+        wrote = {r: sorted(os.listdir(os.path.join(tmp, f"r{r}"))) for r in (0, 1)}
+    keys = ("ppl", "n_tokens", "chunks", "measured_hop_bytes_total", "mesh")
+    same = all(lines[0][k] == lines[1][k] for k in keys)
+    rel = abs(lines[0]["ppl"] - one["ppl"]) / one["ppl"]
+    rows["distributed"] = {"card": card, "processes": 2, "wall_s": wall,
+                           "ppl_by_rank": [ln["ppl"] for ln in lines],
+                           "one_process_ppl": one["ppl"], "ppl_rel_diff": rel,
+                           "ranks_equal": same, "files_by_rank": wrote,
+                           "s_per_chunk_by_rank": [ln["wall_s"] / ln["chunks"] for ln in lines]}
+    log(json.dumps({"mesh_path": {"distributed": rows["distributed"]}}))
+    writer = {"split_checkpoint.json", "split_metrics.jsonl"}
+    if (not same or rel > DIST_RTOL or not writer <= set(wrote[0])
+            or writer & set(wrote[1]) or lines[0]["mesh"] != one["mesh"]):
+        raise SystemExit(f"--distributed: {rows['distributed']}")
+    lap("distributed")
+
+    # (e) the memory preflight on the token sweep
+    sweep = load(BASELINE_TABLE_CONFIG, layers_of_interest=[1, 3], max_length=64, stride=16)
+    import argparse as ap
+
+    t_cfg, t_params = run._load_model(ap.Namespace(weights=None, model=model, seed=args.seed),
+                                      torch.device(device))
+    reader = None if on_card else (lambda call: (call(), 0)[1])  # the CPU has no peak stats
+    layers = tuple(sweep["layers_of_interest"])
+    costs = probe_sweep_costs(t_cfg, sweep["max_length"], sweep["stride"] + 1, min(layers),
+                              "int4_token_select",
+                              sum(1 for r in sweep["ratios"] if float(r) != 0.0),
+                              torch.float32, layers, params=t_params, device=device,
+                              peak_reader=reader)
+    est = {wb: estimate_from_costs(t_cfg, costs, wb, sweep["max_length"], torch.float32,
+                                   layers)["peak"] for wb in (1, 2, 4, 8)}
+    frac = 0.8
+    hbm_gb = (est[4] + est[8]) / 2 / frac / 2 ** 30
+    del t_params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    os.environ["BENCH_HBM_GB"] = repr(hbm_gb)
+    try:
+        budget = _budget_bytes(None, frac, device) if on_card else None
+        with tempfile.TemporaryDirectory() as tmp:
+            sync()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            rc, printed = _cli_run(["--params", json.dumps(sweep), "--model", model, "--seed",
+                                    str(args.seed), "--device", device, "--window-batch", "8",
+                                    "--max-chunks", str(MESH_CHUNKS), "--output-dir", tmp])
+            sync()
+            measured = torch.cuda.max_memory_allocated() if on_card else None
+    finally:
+        del os.environ["BENCH_HBM_GB"]
+    chose = [ln for ln in printed if "exceeds the memory budget" in ln]
+    wb = int(chose[0].rsplit(" ", 1)[1]) if chose else 8
+    row = {"card": card, "bench_hbm_gb": hbm_gb, "budget_frac": frac, "budget_bytes": budget,
+           "estimate_bytes_by_batch": est, "chosen_window_batch": wb, "printed": chose,
+           "estimate_at_chosen": est.get(wb), "measured_peak_bytes": measured,
+           "estimate_error": (None if measured is None or wb not in est
+                              else (est[wb] - measured) / measured)}
+    rows["preflight"] = row
+    log(json.dumps({"mesh_path": {"preflight": row}}))
+    if rc != 0 or (on_card and (wb != 4 or measured > budget)):
+        raise SystemExit(f"the preflight: rc {rc}, {row}")
+    lap("preflight")
+
+    # (f) the refusals exit non-zero, with the reference's words
+    refusals = (({**split1, "hop_codecs": ["int4_global"], "n_data": 2},
+                 "compute scales over the batch axis and would diverge"),
+                ({**split1, "n_model": 2, "pipeline": {"num_microbatches": 2}},
+                 "micro-batch pipelining supports stage-only meshes"))
+    for p, words in refusals:
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                rc, msg = _cli_run(["--params", json.dumps(p), "--output-dir", tmp, "--model",
+                                    model, "--device", device, "--max-chunks", "1"])[0], ""
+            except (ValueError, SystemExit) as e:
+                rc, msg = 1, str(e)
+        rows.setdefault("refusals", []).append({"params": p, "message": msg})
+        if rc == 0 or words not in msg:
+            raise SystemExit(f"refusal of {p}: exit {rc}, {msg!r}")
+    log(json.dumps({"mesh_path": {"refusals": rows["refusals"]}}))
+    lap("refusals")
+    rows["part_s"] = part_s
+    detail["mesh"] = rows
+    return out
+
+
+def _spawn_ranks(argv_of, out_dir: str, nprocs: int = 2, timeout: int = 300) -> list:
+    """Start one process per rank from the repository root with the env://
+    rendezvous variables (a free localhost port), its output to a file;
+    each waits at most ``timeout`` seconds, a rank still running is killed,
+    and every rank must exit 0 -> each rank's output."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+           "WORLD_SIZE": str(nprocs),
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w+") for r in range(nprocs)]
+    procs = [subprocess.Popen(argv_of(r), env={**env, "RANK": str(r)}, cwd=root,
+                              stdout=logs[r], stderr=subprocess.STDOUT, text=True)
+             for r in range(nprocs)]
+    texts = []
+    try:
+        for proc in procs:
+            proc.wait(timeout=timeout)
+    finally:
+        for proc in procs:  # no rank outlives the phase
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log_f in logs:
+            log_f.seek(0)
+            texts.append(log_f.read())
+            log_f.close()
+    for r, (proc, text) in enumerate(zip(procs, texts)):
+        if proc.returncode != 0:
+            raise SystemExit(f"--distributed rank {r} exited {proc.returncode}:\n{text[-3000:]}")
+    return texts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -5141,13 +5508,15 @@ def main() -> int:
     by_path.update(cluster_paths(args, detail))
     t13 = time.monotonic()
     by_path.update(long_context_paths(args, detail))
+    t14 = time.monotonic()
+    by_path.update(mesh_paths(args, detail))
     detail["phase_s"] = {"kernels": t1 - t0, "token_sweep": t2 - t1, "split_paths": t3 - t2,
                          "serve_paths": t4 - t3, "cross_checks": t5 - t4,
                          "experiments": t6 - t5, "split_decode": t7 - t6,
                          "split_paged": t8 - t7, "boundary_link": t9 - t8,
                          "survivable": t10 - t9, "pipeline": t11 - t10,
                          "disagg": t12 - t11, "cluster": t13 - t12,
-                         "long_context": time.monotonic() - t13,
+                         "long_context": t14 - t13, "mesh": time.monotonic() - t14,
                          "total": time.monotonic() - t_start}
     log(json.dumps({"phase_s": detail["phase_s"]}))
 

@@ -42,6 +42,12 @@ from .windowing import sliding_windows
 TOKEN_CODECS = ("int4_token_select", "affine_int8_rank", "affine_int8_top_rho")
 
 
+def is_oom_error(e: BaseException) -> bool:
+    """True for device or host memory exhaustion: torch's out-of-memory
+    error (the card's allocator) or a ``MemoryError``."""
+    return isinstance(e, (MemoryError, torch.cuda.OutOfMemoryError))
+
+
 def run_with_oom_backoff(run: Callable[[int], object], window_batch: int,
                          min_window_batch: int = 1, on_backoff=None):
     """Call ``run(window_batch)``, halving the batch on out-of-memory instead
@@ -54,8 +60,8 @@ def run_with_oom_backoff(run: Callable[[int], object], window_batch: int,
         msg = None
         try:
             return run(wb), wb
-        except (MemoryError, torch.cuda.OutOfMemoryError) as e:
-            if wb <= min_window_batch:
+        except Exception as e:
+            if not is_oom_error(e) or wb <= min_window_batch:
                 raise
             msg = str(e)
             wb = max(wb // 2, min_window_batch)
@@ -304,9 +310,19 @@ def _load_checkpoint(path: Optional[str], axes: dict) -> Optional[dict]:
     return None
 
 
+def _writer() -> bool:
+    """True on the process that writes checkpoints and metrics: process 0
+    of a process group (every process holds the same accumulators), or the
+    one process."""
+    from ..parallel.distributed import process_index
+
+    return process_index() == 0
+
+
 def _save_checkpoint_state(path: Optional[str], state: dict):
-    """Atomic JSON checkpoint write (tmp + rename)."""
-    if not path:
+    """Atomic JSON checkpoint write (tmp + rename), from process 0 only;
+    resume expects the checkpoint where every process reads it."""
+    if not path or not _writer():
         return
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
@@ -354,7 +370,7 @@ class ResumableDriver:
 
 
 def _emit(metrics_path: Optional[str], record: dict):
-    if not metrics_path:
+    if not metrics_path or not _writer():
         return
     with open(metrics_path, "a") as f:
         f.write(json.dumps(record) + "\n")

@@ -43,6 +43,17 @@ group submits, drains, checkpoints, failovers and hop timings; the
 sweep's wire bytes, fused-hop decisions and link / recovery counters
 published into the global registry, and one ``split.hop`` span a cut.
 
+``mesh`` (a ("stage", "data", "model") :class:`~..parallel.split.Mesh`,
+``make_stage_mesh``) adds the data and model axes: ``window_batch`` must be
+a multiple of the data axis, a partial tail group pads up to it, each data
+group crosses every cut with its own payload, each stage runs in
+``n_model`` tensor-parallel shards, and ``mesh`` in the result and the
+resume axes holds the real sizes (a failover keeps the data and model
+axes). On a mesh whose data axis spans processes
+(``parallel.distributed``) each process runs its own data groups, the
+per-example NLLs are all-gathered in group order, and only process 0
+writes the checkpoint and the metrics stream.
+
 ``n_seq > 1`` runs the stage x seq runtime (``parallel/ring.py``
 ``SplitRingRuntime``): within every stage the sequence is ring-sharded into
 ``n_seq`` shards, which run in turn on the one device, and each shard
@@ -75,8 +86,10 @@ from ..obs.metrics import (get_registry, record_link_counters, record_link_healt
                            record_probe_decisions, record_recovery_counters, record_wire_bytes)
 from ..obs.tracing import span as obs_span
 from ..obs.tracing import tracing_enabled
+from ..parallel.distributed import all_gather_rows
 from ..parallel.ring import SplitRingRuntime, importance_sp
-from ..parallel.split import PipelineConfig, SplitConfig, SplitRuntime
+from ..parallel.split import (Mesh, PipelineConfig, SplitConfig, SplitRuntime, make_stage_mesh,
+                              mesh_stage_devices)
 from ..serve.recovery import (DecodeTimeout, RecoveryCounters, StageFailure, StageLostError,
                               Watchdog)
 from ..utils.clock import MONOTONIC
@@ -166,6 +179,7 @@ def run_split_eval(
     time_hops: bool = True,
     window_batch: int = 1,
     n_seq: int = 1,
+    mesh: Optional[Mesh] = None,
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 1000,
     metrics_path: Optional[str] = None,
@@ -182,7 +196,8 @@ def run_split_eval(
     _clock=MONOTONIC,
 ) -> dict:
     """Token-weighted sliding-window PPL with the model split at ``cuts``,
-    every stage on ``device``.
+    every stage on ``device`` (or on its slots of ``mesh``, whose data and
+    model axes then apply: see the module note).
 
     ``hop_codecs`` entries are names, codec-spec strings or ``WireCodec``
     instances. Token-selective hops take their importance from
@@ -264,8 +279,13 @@ def run_split_eval(
     policy = link_policy if link_policy is not None else LinkPolicy()
     codecs = [parse_hop_codec(c, n_seq) if isinstance(c, str) else c for c in hop_codecs]
     split = SplitConfig(cuts=tuple(cuts), hop_codecs=tuple(codecs))
-    devices = [torch.device(device)] * split.n_stages
-    params = params_to(params, device=devices[0])
+    if mesh is not None and n_seq > 1:
+        raise ValueError("n_seq composes the pipeline with sequence sharding only; "
+                         "combining it with n_data/n_model is not supported")
+    if mesh is None:
+        mesh = make_stage_mesh(split.n_stages, device=device)
+    dev0 = torch.device(device) if n_seq > 1 else mesh_stage_devices(mesh)[0]
+    params = params_to(params, device=dev0)
     if pipelined and n_seq > 1:
         raise ValueError(
             "micro-batch pipelining composes with the plain split runtime "
@@ -274,11 +294,11 @@ def run_split_eval(
 
     def _make_runtime(tier_codecs):
         if n_seq > 1:
-            return SplitRingRuntime(cfg, split.cuts, list(tier_codecs), n_seq, devices[0],
+            return SplitRingRuntime(cfg, split.cuts, list(tier_codecs), n_seq, dev0,
                                     faults=faults, policy=link_policy, fec=fec, hedge=hedge)
         return SplitRuntime(cfg, SplitConfig(cuts=split.cuts, hop_codecs=tuple(tier_codecs)),
-                            devices[:split.n_stages], faults=faults, policy=link_policy,
-                            fec=fec, hedge=hedge, pipeline=pipeline)
+                            mesh, faults=faults, policy=link_policy, fec=fec, hedge=hedge,
+                            pipeline=pipeline)
 
     # tier 0 is the configured codec set; lower tiers swap EVERY hop to one
     # fallback codec (payload shapes change, hence separate runtimes; the
@@ -306,14 +326,21 @@ def run_split_eval(
     if any(needs_imp) and importance_method is None:
         raise ValueError("token-selective hop codecs require importance_method")
     hw = (None if head_weights is None else
-          torch.as_tensor(np.asarray(head_weights, np.float32), device=devices[0]))
-    mesh = ({"stage": split.n_stages, "seq": n_seq} if n_seq > 1 else
-            {"stage": split.n_stages, "data": 1, "model": 1})
+          torch.as_tensor(np.asarray(head_weights, np.float32), device=dev0))
+    n_data = 1 if n_seq > 1 else mesh.shape["data"]
+    if window_batch % n_data:
+        raise ValueError(f"window_batch {window_batch} must be a multiple of the "
+                         f"mesh data axis size {n_data}")
     if pipelined:
         # fail before the first chunk, not inside the first forward
         rt.pipeline.validate_batch(window_batch, "window_batch")
-    # a partial tail group pads up to the µ-batch grid
-    group_pad = rt.pipeline.num_microbatches if pipelined else 1
+    # a partial tail group pads up to the data axis and the µ-batch grid
+    # (n_data is 1 whenever pipelined: the runtime takes a stage-only mesh)
+    group_pad = n_data * (rt.pipeline.num_microbatches if pipelined else 1)
+
+    def mesh_dict() -> dict:
+        return ({"stage": split.n_stages, "seq": n_seq} if n_seq > 1 else
+                {k: int(v) for k, v in mesh.shape.items()})
 
     # resume axes: the USER-LEVEL split spec (requested codec specs, not the
     # runtime's kernel-twin names), exactly the reference's
@@ -326,7 +353,7 @@ def run_split_eval(
         "max_length": int(max_length), "stride": int(stride),
         "importance_method": importance_method,
         "window_batch": int(window_batch), "n_seq": int(n_seq),
-        "mesh": mesh,
+        "mesh": mesh_dict(),
     }
     if pipelined:
         # the µ-batch count changes a chunk's wire traffic and counter
@@ -382,9 +409,10 @@ def run_split_eval(
             _replan(lost)
 
     def _replan(lost: int):
-        nonlocal split, placed, gen, ladder, devices
-        devices = devices[:lost] + devices[lost + 1:]
-        split = split.replan(cfg.num_layers, len(devices))
+        nonlocal split, placed, gen, ladder, mesh
+        # the survivors keep the data and model axes
+        mesh = Mesh(np.delete(mesh.devices, lost, axis=0), mesh.axis_names)
+        split = split.replan(cfg.num_layers, mesh.shape["stage"])
         rcounters.replans += 1
         ladder = [list(split.hop_codecs)]
         if controller is not None or health is not None:
@@ -414,7 +442,7 @@ def run_split_eval(
             pad = n_seq - ids.shape[1] % n_seq
             ids = np.pad(ids, ((0, 0), (0, pad)))
             targets = np.pad(targets, ((0, 0), (0, pad)), constant_values=-100)
-        ids, targets = torch.from_numpy(ids).to(devices[0]), torch.from_numpy(targets)
+        ids, targets = torch.from_numpy(ids).to(dev0), torch.from_numpy(targets)
         if sf_pending and group[0].index >= stage_failure.at_step:
             sf_pending = False
             for r in runtimes.values():
@@ -431,7 +459,7 @@ def run_split_eval(
             if any(needs_t):
                 # the stage x seq runtime takes the ring's own statistics
                 imp = (importance_sp(cfg, params, ids, n_seq, importance_method, hw,
-                                     device=devices[0]) if n_seq > 1 else
+                                     device=dev0) if n_seq > 1 else
                        _importance(cfg, params, ids, importance_method, hw))  # (L, W, S)
                 hop_imp = [(imp[cut] if len(group) > 1 else imp[cut, 0]) if need else None
                            for cut, need in zip(split.cuts, needs_t)]
@@ -447,6 +475,9 @@ def run_split_eval(
             except StageLostError as e:
                 _eval_failover(e.stage, e)
                 art, logits = _forward()  # the same chunk on the re-planned split
+            # on a mesh whose data axis spans processes the logits are this
+            # process's groups' rows
+            targets = targets[_local_rows(art, targets.shape[0])]
             nlls = nll_from_logits(logits, targets.to(logits.device), per_example=True)
         chunk_counters = art._counter_accum[-1] if fault_on else None
         return (group, n_real, s_unpadded, counts, tuple(ids.shape), nlls, tier,
@@ -460,7 +491,12 @@ def run_split_eval(
         nonlocal total_nll, n_tokens, fwd_tokens, real_fwd_tokens, degraded_chunks
         (group, n_real, s_unpadded, counts, (w, s_chunk), nlls, tier, chunk_counters,
          art, g) = rec
-        total_nll += float(nlls.double().cpu().numpy() @ np.asarray(counts, np.float64))
+        # the per-example NLLs of every process's data groups, in group order
+        # (the reference's fetch_global)
+        nlls = nlls.double().cpu().numpy()
+        if getattr(art, "spans_processes", False):
+            nlls = all_gather_rows(nlls)
+        total_nll += float(nlls @ np.asarray(counts, np.float64))
         n_tokens += sum(counts)
         fwd_tokens += w * s_chunk
         real_fwd_tokens += n_real * s_unpadded
@@ -529,7 +565,7 @@ def run_split_eval(
         "real_fwd_tokens": real_fwd_tokens,
         "pad_fraction": 1.0 - real_fwd_tokens / max(fwd_tokens, 1),
         "real_tokens_per_s": real_fwd_tokens / max(wall, 1e-9),
-        "mesh": {**mesh, "stage": split.n_stages},
+        "mesh": mesh_dict(),
     }
     if fault_on:
         agg = None  # per-hop counters summed over every tier's runtime
@@ -580,7 +616,7 @@ def run_split_eval(
             rec_block["failover_hop_codecs"] = [c.name for c in runtimes[0].codecs]
             rec_block["failover_hop_bytes_total"] = {str(g): list(b)
                                                      for g, b in gen_bytes.items() if g > 0}
-            rec_block["failover_mesh"] = {**mesh, "stage": split.n_stages}
+            rec_block["failover_mesh"] = mesh_dict()
         result["recovery"] = rec_block
     if pipelined:
         result["pipeline"] = rt.pipeline_summary()
@@ -632,6 +668,15 @@ def run_split_eval(
         final_rec["failovers"] = rcounters.failovers
     _emit(metrics_path, final_rec)
     return result
+
+
+def _local_rows(rt, batch: int):
+    """The batch rows ``rt.forward`` returns: every row, or this process's
+    data groups' on a mesh whose data axis spans processes."""
+    if not getattr(rt, "spans_processes", False):
+        return slice(None)
+    rows = batch // rt.n_data
+    return torch.cat([torch.arange(g * rows, (g + 1) * rows) for g in rt.data_groups])
 
 
 def run_fault_sweep(

@@ -148,9 +148,15 @@ def project_qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor):
 
 def project_out(lp: dict, out: torch.Tensor) -> torch.Tensor:
     """(B, S, H, hd) attention output -> (B, S, D): output projection + bias."""
-    b, s = out.shape[:2]
-    out = out.reshape(b, s, -1) @ lp["wo"]
+    out = _out_partial(lp, out)
     return out + lp["bo"] if "bo" in lp else out
+
+
+def _out_partial(lp: dict, out: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, D) through ``wo``, before the bias: a
+    tensor-parallel shard's partial product of its local heads."""
+    b, s = out.shape[:2]
+    return out.reshape(b, s, -1) @ lp["wo"]
 
 
 def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin,
@@ -166,7 +172,17 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin,
     explicit ``stats_block``, take the eager formulation, whose
     ``stats_block=0`` single block is the oracle in tests. Stats are
     (col_sum / S, last_row), each (B, H, S) fp32."""
-    b, s, d = x.shape
+    out, stats, kv = _attention_core(cfg, lp, x, cos, sin, capture_stats, stats_block)
+    out = project_out(lp, out)
+    return (out, stats, kv) if return_kv else (out, stats)
+
+
+def _attention_core(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin,
+                    capture_stats: bool = False, stats_block: Optional[int] = None):
+    """:func:`attention` before its output projection -> ((B, S, H, hd) out,
+    stats or None, post-rotary (k, v)). Head counts come from the weight
+    shapes, so a tensor-parallel shard attends over its own heads."""
+    s = x.shape[1]
     q, k, v = project_qkv(cfg, lp, x)
     h, kv, hd = q.shape[2], k.shape[2], cfg.head_dim
     q = apply_rotary(q, cos, sin, cfg.rotary_dim)
@@ -181,15 +197,20 @@ def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin,
         out, stats = causal_attention_stats(q, k, v, plan=plan)
     else:
         out, stats = attention_plain(q, k, v, q_blk=_stats_block_size(s, stats_block))
-    out = project_out(lp, out)
-    return (out, stats, (k, v)) if return_kv else (out, stats)
+    return out, stats, (k, v)
 
 
 def mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
     """GELU (exact) MLP for gpt_neox, SwiGLU for qwen2/llama."""
+    out = _mlp_partial(cfg, lp, x)
+    return out + lp["b_out"] if cfg.family == "gpt_neox" else out
+
+
+def _mlp_partial(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    """The MLP's down projection before its output bias: a tensor-parallel
+    shard's partial product of its own F columns."""
     if cfg.family == "gpt_neox":
-        hidden = F.gelu(x @ lp["w_in"] + lp["b_in"], approximate="none")
-        return hidden @ lp["w_out"] + lp["b_out"]
+        return F.gelu(x @ lp["w_in"] + lp["b_in"], approximate="none") @ lp["w_out"]
     return (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
 
 
@@ -200,16 +221,19 @@ def _block_norm(cfg: ModelConfig, lp: dict, x: torch.Tensor, n: int) -> torch.Te
     return _rmsnorm(x, lp[f"ln{n}_scale"], cfg.norm_eps)
 
 
-def block_with(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, attn: Callable):
+def block_with(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, attn: Callable,
+               ffn: Optional[Callable] = None):
     """One decoder block around an attention core: ``attn(normed)`` returns
     ``(attn_out, *extra)`` -> (hidden, *extra). GPT-NeoX: parallel residual;
     Qwen2/Llama: sequential. The prefill, decode, verify and paged blocks
-    differ only in their attention core."""
+    differ only in their attention core; ``ffn(normed)`` replaces the MLP
+    (the tensor-parallel block's)."""
+    ffn = ffn if ffn is not None else (lambda x: mlp(cfg, lp, x))
     attn_out, *extra = attn(_block_norm(cfg, lp, hidden, 1))
     if cfg.family == "gpt_neox":
-        return (hidden + attn_out + mlp(cfg, lp, _block_norm(cfg, lp, hidden, 2)), *extra)
+        return (hidden + attn_out + ffn(_block_norm(cfg, lp, hidden, 2)), *extra)
     hidden = hidden + attn_out
-    return (hidden + mlp(cfg, lp, _block_norm(cfg, lp, hidden, 2)), *extra)
+    return (hidden + ffn(_block_norm(cfg, lp, hidden, 2)), *extra)
 
 
 def block(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, cos, sin,
@@ -218,6 +242,67 @@ def block(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, cos, sin,
     """One decoder block -> (hidden, stats[, (k, v)])."""
     return block_with(cfg, lp, hidden, lambda x: attention(
         cfg, lp, x, cos, sin, capture_stats, stats_block, return_kv))
+
+
+#: the column-split weights of the tensor-parallel block (the first matmul of
+#: each Megatron pair: q / k / v head-contiguous, the MLP's up / gate
+#: F-contiguous) and the row-split ones (the second, whose partial products
+#: are summed); every other layer weight is replicated on each shard
+TP_COL_SPLIT = frozenset({"wq", "wk", "wv", "bq", "bk", "bv", "w_gate", "w_up", "w_in", "b_in"})
+TP_ROW_SPLIT = frozenset({"wo", "w_down", "w_out"})
+
+
+def tp_shard_layers(layers: dict, n_model: int) -> list:
+    """A stack of layers ((L, ...) tensors) -> ``n_model`` shard stacks:
+    column-split weights cut along their last (output-feature) axis,
+    row-split ones along their input-feature axis, each cut a contiguous
+    tensor of its own; the rest shared by every shard."""
+    def cut(name: str, t: torch.Tensor, m: int) -> torch.Tensor:
+        axis = -1 if name in TP_COL_SPLIT else 1
+        width = t.shape[axis] // n_model
+        return t.narrow(axis, m * width, width).contiguous()
+
+    return [{name: (cut(name, t, m) if name in TP_COL_SPLIT | TP_ROW_SPLIT else t)
+             for name, t in layers.items()} for m in range(n_model)]
+
+
+def tp_sum(partials: list) -> torch.Tensor:
+    """The row-split partial products summed in shard order, in their own
+    dtype: the reference's ``psum`` over the "model" axis."""
+    total = partials[0]
+    for p in partials[1:]:
+        total = total + p
+    return total
+
+
+def block_tp(cfg: ModelConfig, shards: list, hidden: torch.Tensor, cos, sin) -> torch.Tensor:
+    """One decoder block over its ``n_model`` tensor-parallel shards (one
+    layer's shard dicts, :func:`tp_shard_layers`): each shard attends over
+    its local heads (K-attn on the card) and multiplies by its rows of
+    ``wo``; the partial products are summed (:func:`tp_sum`) and ``bo``
+    added once. The MLP pairs the same way, ``b_out`` added after the sum.
+    The shards run in turn on one device."""
+    lp = shards[0]
+
+    def attn(x):
+        out = tp_sum([_out_partial(s, _attention_core(cfg, s, x, cos, sin)[0]) for s in shards])
+        return (out + lp["bo"] if "bo" in lp else out,)
+
+    def ffn(x):
+        out = tp_sum([_mlp_partial(cfg, s, x) for s in shards])
+        return out + lp["b_out"] if cfg.family == "gpt_neox" else out
+
+    return block_with(cfg, lp, hidden, attn, ffn)[0]
+
+
+def run_layers_tp(cfg: ModelConfig, shards: list, hidden: torch.Tensor) -> torch.Tensor:
+    """Every layer of a stage's tensor-parallel shard stacks over
+    ``hidden`` (:func:`block_tp`) -> the stage's output hidden."""
+    cos, sin = precompute_rope(cfg, hidden.shape[1], device=hidden.device)
+    for i in range(next(iter(shards[0].values())).shape[0]):
+        hidden = block_tp(cfg, [{name: t[i] for name, t in s.items()} for s in shards],
+                          hidden, cos, sin)
+    return hidden
 
 
 def embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:

@@ -79,8 +79,28 @@ its stage activation is the list of its sequence shards, and
 :func:`run_pipeline_stages` crosses each cut shard by shard
 (:func:`_cross_shards`), each with its own payload and fault key.
 
-Not ported yet: the "data" / "model" mesh axes (each raises naming its
-argument).
+The "data" and "model" mesh axes (``n_data``, ``n_model``, or a
+:class:`Mesh` from :func:`make_stage_mesh`): the reference lays them out as
+devices of its mesh; on one card every slot is the card, and the data groups
+and model shards run in turn, as the ring's sequence shards do. ``forward``
+cuts the batch into ``n_data`` contiguous row groups; each group runs the
+whole stage chain and crosses every cut with its own payload (its rows of a
+per-row importance with it, its own fault masks at its own shape from the
+same key) and the groups' logits are joined in group order. Under the link
+the runtime keeps its first data group's counters: the reference's leave
+its shard_map through ``out_specs=P()``, which hands a process one slot's,
+and every group draws the same masks. With ``n_model`` > 1 each stage's layers are
+cut into ``n_model`` shard stacks (``models.transformer.tp_shard_layers``,
+the reference's ``_TP_COL_SPLIT`` / ``_TP_ROW_SPLIT``): a shard computes
+q / k / v over its head-contiguous columns, attends over its local heads
+(K-attn on the card) and multiplies by its rows of ``wo``; the partial
+products are summed in shard order, the reference's ``psum``
+(``run_layers_tp``). The hidden the shards sum is the full activation, so
+a cut crosses it once a data group: the bytes the reference replicates over
+the model axis. On a mesh whose data axis spans processes
+(``parallel.distributed.make_multihost_stage_mesh``) ``forward`` runs this
+process's groups and returns their rows. Decode and the µ-batch pipeline
+take a stage-only mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -101,14 +121,70 @@ from ..models.flash_attention import dequantize_kv_rows, quantize_kv_rows
 from ..models.paged_kv import (KVTierMismatchError, _host, _rows_get, _rows_set,
                                resolve_kv_codec, run_layers_paged)
 from ..models.transformer import (apply_rotary, block_decode, block_verify, embed,
-                                  precompute_rope, run_layers, unembed)
+                                  precompute_rope, run_layers, run_layers_tp,
+                                  tp_shard_layers, unembed)
 from ..serve.recovery import StageLostError
 
 #: the reference's fold of the fault key for a split prefill, and for a
 #: decode, verify or paged step
 PREFILL_FAULT_FOLD, STEP_FAULT_FOLD = 0x9EF1, 0x57E9
 
-NOT_PORTED_MSG = "is not ported yet to edgellm_tpu_torch"
+
+class Mesh:
+    """A named device grid, the counterpart of ``jax.sharding.Mesh``:
+    ``devices`` an object array whose axes ``axis_names`` name, each slot a
+    torch device or a :class:`~.distributed.DeviceSlot` (whose ``device``
+    is the process's own card); ``shape`` the {axis: size} dict."""
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        self.devices = np.asarray(devices, dtype=object)
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"a {self.devices.ndim}-d device grid for axes {self.axis_names}")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+
+def slot_device(slot) -> torch.device:
+    """The torch device a mesh slot runs on."""
+    return torch.device(getattr(slot, "device", slot))
+
+
+def slot_is_local(slot) -> bool:
+    """True when this process runs the slot (a plain device always is)."""
+    from .distributed import process_index
+
+    return getattr(slot, "process_index", process_index()) == process_index()
+
+
+def mesh_stage_devices(mesh: Mesh) -> list:
+    """Each stage's torch device on a ("stage", "data", "model") mesh: the
+    data groups and model shards of a stage run in turn on it, so this
+    process's slots of a stage must be one device."""
+    out = []
+    for s, row in enumerate(mesh.devices):
+        local = {slot_device(x) for x in row.ravel() if slot_is_local(x)}
+        if len(local) != 1:
+            raise ValueError(f"stage {s}'s slots of this process are on {local or 'no device'}: "
+                             f"its data groups and model shards run in turn on one device")
+        out.append(local.pop())
+    return out
+
+
+def make_stage_mesh(n_stages: int, n_data: int = 1, n_model: int = 1,
+                    devices=None, device="cuda") -> Mesh:
+    """A ("stage", "data", "model") mesh from the first
+    n_stages * n_data * n_model of ``devices``; by default every slot is
+    ``device`` (on one card the slots run in turn)."""
+    need = n_stages * n_data * n_model
+    devices = np.asarray([torch.device(d) for d in ([device] * need if devices is None
+                                                     else devices)], dtype=object)
+    if devices.size < need:
+        raise ValueError(f"need {need} devices, have {devices.size}")
+    return Mesh(devices.reshape(-1)[:need].reshape(n_stages, n_data, n_model),
+                ("stage", "data", "model"))
 
 
 def apply_default_codec_backend(codecs: list, device="cuda") -> list:
@@ -390,12 +466,15 @@ def _sync(*devices):
             torch.cuda.synchronize(d)
 
 
-def place_stage_params(params: dict, bounds: list, devices: list, fused_plans: list) -> dict:
+def place_stage_params(params: dict, bounds: list, devices: list, fused_plans: list,
+                       n_model: int = 1) -> dict:
     """Each stage's layer slice on its device, the embedding on the first
     stage's and the final norm and head on the last stage's. A stage behind
     a separate (unfused) hop computes in float32 (see the module note), so
     its floating weights are held in float32; an unchanged slice on its own
-    device is a view, not a copy. ``fused_plans``: one plan or None a cut."""
+    device is a view, not a copy. ``fused_plans``: one plan or None a cut.
+    With ``n_model`` > 1 a stage is the list of its ``n_model`` shard
+    stacks (:func:`~..models.transformer.tp_shard_layers`)."""
     layers = params["layers"]
     stages = []
     for s, ((start, stop), dev) in enumerate(zip(bounds, devices)):
@@ -405,7 +484,7 @@ def place_stage_params(params: dict, bounds: list, devices: list, fused_plans: l
             dtype = (torch.promote_types(t.dtype, torch.float32)
                      if promoted and t.is_floating_point() else None)
             stage[name] = t[start:stop].to(device=dev, dtype=dtype)
-        stages.append(stage)
+        stages.append(tp_shard_layers(stage, n_model) if n_model > 1 else stage)
     rest = {k: v for k, v in params.items() if k != "layers"}
     return {"stages": stages,
             "first": {k: v.to(devices[0]) for k, v in rest.items()},
@@ -498,13 +577,41 @@ class SplitRuntime:
     """
 
     def __init__(self, cfg: ModelConfig, split: SplitConfig,
-                 devices: Optional[Sequence] = None, *,
+                 devices=None, *,
                  faults=None, policy=None, fec=None, hedge=None, pipeline=None,
                  n_data: int = 1, n_model: int = 1):
-        for name, value in (("n_data", n_data), ("n_model", n_model)):
-            if value != 1:
-                raise ValueError(f"SplitRuntime {name} > 1 (the {name[2:]!r} mesh axis) "
-                                 f"{NOT_PORTED_MSG}")
+        """``devices``: one torch device a stage (default: the card for
+        every stage), or a ("stage", "data", "model") :class:`Mesh`, whose
+        data and model sizes then replace ``n_data`` / ``n_model``."""
+        n_stages = split.n_stages
+        if isinstance(devices, Mesh):
+            mesh = devices
+        else:
+            devices = ["cuda"] * n_stages if devices is None else list(devices)
+            if len(devices) != n_stages:
+                raise ValueError(f"{len(devices)} stage devices given, split needs {n_stages}")
+            mesh = make_stage_mesh(n_stages, n_data, n_model,
+                                   [d for d in devices for _ in range(n_data * n_model)])
+        self.mesh = mesh
+        n_data, n_model = mesh.shape["data"], mesh.shape["model"]
+        if mesh.shape["stage"] != n_stages:
+            raise ValueError(
+                f"mesh has {mesh.shape['stage']} stage slots, split needs {n_stages}")
+        grid = mesh.devices
+        #: this process's data groups: every group, but on a mesh whose data
+        #: axis spans processes
+        self.data_groups = [g for g in range(n_data) if slot_is_local(grid[0, g, 0])]
+        self.spans_processes = len(self.data_groups) < n_data
+        devices = mesh_stage_devices(mesh)
+        self.n_data, self.n_model = n_data, n_model
+        if n_model > 1:
+            bad = [(name, dim) for name, dim in
+                   [("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads),
+                    ("intermediate_size", cfg.intermediate_size)] if dim % n_model]
+            if bad:
+                raise ValueError(
+                    f"tensor parallelism n_model={n_model} requires head/FFN dims "
+                    f"divisible by the axis; offending: {bad}")
         self.cfg = cfg
         self.split = split
         self.faults = faults
@@ -518,11 +625,7 @@ class SplitRuntime:
         self._counter_accum: list = []
         self._mb_counter_accum: list = []  # pipelined: {key: (M, n_hops)}
         self._lost_stage: Optional[int] = None
-        n_stages = split.n_stages
-        devices = ["cuda"] * n_stages if devices is None else list(devices)
-        if len(devices) != n_stages:
-            raise ValueError(f"{len(devices)} stage devices given, split needs {n_stages}")
-        self.devices = [torch.device(d) for d in devices]
+        self.devices = devices
         self.bounds = split.stage_bounds(cfg.num_layers)
         self.codecs: list[WireCodec] = apply_default_codec_backend(
             list(split.hop_codecs), self.devices[0])
@@ -536,12 +639,28 @@ class SplitRuntime:
         #: the deepest stage's layer count: the depth every stage of a
         #: paged payload is padded to, as the reference pads its stages
         self.stage_size = max(stop - start for start, stop in self.bounds)
+        if n_data > 1:
+            # token-selective codecs are exempt: forward gives batched
+            # windows per-row (B, S) importance, so their ordering and scale
+            # are row-local, the same on any cut of the batch
+            bad = [c.name for c in self.codecs
+                   if not c.batch_invariant and not c.needs_importance]
+            if bad:
+                raise ValueError(
+                    f"codecs {bad} compute scales over the batch axis and would "
+                    f"diverge from a single-device run under data parallelism "
+                    f"(n_data={n_data}); use per-token codecs or n_data=1")
         if pipeline is not None and pipeline.enabled:
             if n_stages < 2:
                 raise ValueError(
                     "micro-batch pipelining needs a cut to hide hops behind; "
                     f"got n_stages={n_stages} with num_microbatches="
                     f"{pipeline.num_microbatches}")
+            if n_data > 1 or n_model > 1:
+                raise ValueError(
+                    "micro-batch pipelining supports stage-only meshes "
+                    "(n_data=n_model=1): the µ-batch split owns the batch "
+                    f"axis; got data={n_data}, model={n_model}")
             # a batch-wide codec scale changes when the batch splits into
             # µ-batches (token-selective codecs ship per-row importance at
             # any batch > 1, so their payloads are row-local)
@@ -579,7 +698,8 @@ class SplitRuntime:
         """Each stage's layer slice on its device, the embedding on the first
         stage's and the final norm and head on the last stage's
         (:func:`place_stage_params`)."""
-        return place_stage_params(params, self.bounds, self.devices, self.fused_plans)
+        return place_stage_params(params, self.bounds, self.devices, self.fused_plans,
+                                  self.n_model)
 
     # ---------- forward ----------
 
@@ -595,30 +715,51 @@ class SplitRuntime:
 
         ``fault_step``: the fault layer's per-call fold (pass the chunk index,
         so each chunk draws its own faults); ignored without a link. The
-        per-hop counters accumulate on the runtime (:meth:`link_counters`)."""
+        per-hop counters accumulate on the runtime (:meth:`link_counters`).
+
+        With ``n_data`` > 1 the batch splits into ``n_data`` contiguous row
+        groups, each through the whole stage chain with its own payloads
+        (see the module note); on a mesh whose data axis spans processes
+        the logits are this process's groups' rows."""
         self._check_alive()
         batch, seq = input_ids.shape
         if self.pipelined:
             self.pipeline.validate_batch(batch, "forward batch")
+        if batch % self.n_data:
+            raise ValueError(f"forward batch {batch} must be a multiple of the mesh data "
+                             f"axis size {self.n_data}")
         imps = stacked_importance(self.codecs, hop_importance, batch, seq, self.devices)
         hidden = embed(placed["first"], input_ids.to(self.devices[0]))
 
         def run_stage(s, h, mb=None):
             stage = placed["stages"][s]
+            if self.n_model > 1:
+                return run_layers_tp(self.cfg, stage, h)
             n_layers = self.bounds[s][1] - self.bounds[s][0]
             return run_layers(self.cfg, {"layers": stage}, h, start=0, stop=n_layers)[0]
 
-        out = self._run_stages(run_stage, hidden, imps, lambda seed: fault_key(seed, fault_step),
-                               microbatched=True)
-        return unembed(self.cfg, placed["last"], out)
+        rows, outs, counters = batch // self.n_data, [], []
+        for g in self.data_groups:
+            sl = slice(g * rows, (g + 1) * rows)
+            outs.append(self._run_stages(
+                run_stage, hidden[sl], [i[sl] if i.dim() == 2 else i for i in imps],
+                lambda seed: fault_key(seed, fault_step), microbatched=True,
+                accum=counters.append))
+        if counters:
+            # the reference's counters leave its shard_map as if replicated
+            # (out_specs=P()): a process reads its first local slot's
+            self._accum_counters(counters[0])
+        return unembed(self.cfg, placed["last"], outs[0] if len(outs) == 1 else torch.cat(outs))
 
-    def _run_stages(self, run_stage, hidden, imps, key_fn, microbatched: bool = False):
+    def _run_stages(self, run_stage, hidden, imps, key_fn, microbatched: bool = False,
+                    accum=None):
         """The stage unroll over this runtime's hops: the µ-batch schedule
         (:func:`run_pipeline_stages_microbatched`, ``run_stage(s, h, mb)``)
         when ``microbatched`` and the runtime is pipelined, else
         :func:`run_pipeline_stages`; through the link keyed by
-        ``key_fn(seed)`` when one is active (this call's counters accumulate
-        on the runtime), else the plain or fused hops."""
+        ``key_fn(seed)`` when one is active (this call's counters go to
+        ``accum``, by default accumulating on the runtime), else the plain
+        or fused hops."""
         n, link = self.split.n_stages, self._link
         key = key_fn(link.faults.seed) if link is not None else None
         if microbatched and self.pipelined:
@@ -631,7 +772,7 @@ class SplitRuntime:
         if link is None:
             return got
         out, counters = got
-        self._accum_counters(counters)
+        (accum or self._accum_counters)(counters)
         return out
 
     @property
@@ -784,6 +925,10 @@ class SplitRuntime:
 
     def _check_decode_supported(self):
         self._check_alive()
+        if self.n_data > 1 or self.n_model > 1:
+            raise ValueError(
+                "split decode supports stage-only meshes (n_data=n_model=1); "
+                f"got data={self.n_data}, model={self.n_model}")
         bad = [c.name for c in self.codecs if c.needs_importance]
         if bad:
             raise ValueError(

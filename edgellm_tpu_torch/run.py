@@ -69,9 +69,14 @@ front's health).
 
 ``n_seq`` (split5, split5b) runs the split's stage x seq runtime: the
 sequence ring-sharded within every stage, the shards in turn on the one
-device. A split config that carries a key of a split feature not ported
-yet (``UNPORTED_SPLIT_KEYS``: the data / model mesh axes) exits non-zero
-naming it. ``fused_hops`` maps onto the ``EDGELLM_FUSED_HOP``
+device. ``n_data`` / ``n_model`` add the data and model mesh axes (the
+window batch cut into data groups, each stage in tensor-parallel shards;
+on one card the groups and shards run in turn). ``--distributed`` joins a
+``torch.distributed`` process group first (gloo; ``env://`` rendezvous, one
+process without one) and the split's mesh spreads its data axis over the
+processes. On the card a token sweep with ``--window-batch`` above 1 first
+shrinks the batch to what the memory preflight says fits
+(``tools/wb_preflight.py``). ``fused_hops`` maps onto the ``EDGELLM_FUSED_HOP``
 gate as in the reference ("auto" fuses a hop only where this card's probe cache
 recorded a win, ``codecs/probe_cache.py``).
 
@@ -95,8 +100,6 @@ import torch
 
 #: experiments of the reference CLI that this package has not ported yet
 NOT_PORTED = ()
-#: split keys whose feature is not ported yet (the mesh axes only above 1)
-UNPORTED_SPLIT_KEYS = ("n_data", "n_model")
 #: the faulty link's keys
 LINK_KEYS = ("faults", "link_policy", "fec", "hedge", "link_health")
 #: the fused_hops key's values onto the EDGELLM_FUSED_HOP gate ("auto" clears it)
@@ -313,18 +316,14 @@ def _validate_params_json(p: dict, device="cuda") -> None:
 
 
 def _validate_split(p: dict, die, device) -> None:
-    """The split branch: unported features die naming their key, then the
-    reference's checks of ``cuts``, ``hop_codecs`` and ``importance_method``,
-    the codecs' resolution on ``device``, then the link keys. ``n_seq``
-    combined with ``n_data`` / ``n_model`` exits with the reference's
-    message (its run time check) before they are refused as not ported."""
+    """The split branch: ``n_seq`` combined with ``n_data`` / ``n_model``
+    exits with the reference's message (its run time check), then the
+    reference's checks of ``cuts``, ``hop_codecs`` and
+    ``importance_method``, the codecs' resolution on ``device``, then the
+    link keys."""
     if p.get("n_seq", 1) > 1 and (p.get("n_data", 1) > 1 or p.get("n_model", 1) > 1):
         raise SystemExit("n_seq composes the pipeline with sequence sharding only; "
                          "combining it with n_data/n_model is not supported")
-    for key in UNPORTED_SPLIT_KEYS:
-        if key in p and p[key] != 1:
-            die(f"{key} is not ported yet to edgellm_tpu_torch; drop it or run "
-                f"the split with python -m edgellm_tpu.run")
     _validate_cuts(p, die, device)
     _validate_link(p, die)
     _validate_recovery(p, die)
@@ -1333,7 +1332,18 @@ def main(argv=None) -> int:
     ap.add_argument("--obs-port", type=int, metavar="PORT",
                     help="serve the live telemetry endpoint on 127.0.0.1:PORT for the run "
                          "(0 = any free port): /metrics, /healthz, /snapshot.json, /trace")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join a torch.distributed process group (gloo, env:// rendezvous: "
+                         "MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK) before touching "
+                         "devices; the split's data axis spreads over the processes")
     args = ap.parse_args(argv)
+
+    if args.distributed:
+        from .parallel import initialize_distributed
+        from .parallel.distributed import process_index
+
+        n_proc = initialize_distributed()
+        print(f"distributed: process {process_index()} of {n_proc}", flush=True)
 
     if args.params.lstrip().startswith("{"):
         params_json = json.loads(args.params)
@@ -1427,6 +1437,28 @@ def _export_observability(args, obs) -> None:
         print(f"chrome trace -> {args.trace_out}", flush=True)
 
 
+def split_mesh(params_json: dict, distributed: bool, device):
+    """The split's mesh, as the reference builds it: under ``--distributed``
+    the slice-aware multi-process layout (the data axis over the
+    processes; a stage x seq mesh is checked, and the ring runs on
+    ``device``); else a ("stage", "data", "model") mesh of the
+    ``n_data`` / ``n_model`` sizes, every slot on ``device``; None for a
+    stage x seq split."""
+    from .parallel import (make_multihost_sp_stage_mesh, make_multihost_stage_mesh,
+                           make_stage_mesh)
+
+    n_stages = len(params_json["cuts"]) + 1
+    n_data, n_model = params_json.get("n_data"), params_json.get("n_model", 1)
+    if params_json.get("n_seq", 1) > 1:
+        if distributed:
+            make_multihost_sp_stage_mesh(n_stages, params_json["n_seq"], device=device)
+        return None
+    if distributed:
+        return make_multihost_stage_mesh(n_stages, n_data=n_data, n_model=n_model,
+                                         device=device)
+    return make_stage_mesh(n_stages, n_data=n_data or 1, n_model=n_model, device=device)
+
+
 def _dispatch(args, cfg, params: dict, params_json: dict, head_weights, out, device) -> int:
     """Run the experiment the params name and print its result line."""
     if params_json.get("experiment") == "serve":
@@ -1487,7 +1519,7 @@ def _dispatch(args, cfg, params: dict, params_json: dict, head_weights, out, dev
             stage_failure=params_json.get("stage_failure"),
             recovery=params_json.get("recovery"),
             pipeline=pipeline_config(params_json), n_seq=params_json.get("n_seq", 1),
-            device=device)
+            mesh=split_mesh(params_json, args.distributed, device), device=device)
         with open(out("split_eval_results.json"), "w") as f:
             json.dump(result, f, indent=1)
         print(json.dumps(result))
@@ -1515,6 +1547,20 @@ def _dispatch(args, cfg, params: dict, params_json: dict, head_weights, out, dev
         if head_weights is None and "weighted_importance" in methods:
             raise SystemExit("weighted_importance requires --head-weights "
                              "(produce it with experiment: \"relevance\")")
+        if device.type == "cuda" and common["window_batch"] > 1:
+            # an out-of-memory mid-sweep costs the run: shrink the window
+            # batch first to what the probes say fits the card's budget
+            from .tools.wb_preflight import preflight_token_sweep_batch
+
+            wb = preflight_token_sweep_batch(
+                cfg, common["window_batch"], max_length=max_length, stride=common["stride"],
+                layers_of_interest=params_json["layers_of_interest"],
+                ratios=params_json["ratios"],
+                dtype=next(iter(params["layers"].values())).dtype, params=params, device=device)
+            if wb != common["window_batch"]:
+                print(f"window_batch {common['window_batch']} exceeds the memory budget; "
+                      f"running at {wb}", flush=True)
+                common["window_batch"] = wb
         result = run_token_sweep(
             cfg, params, corpus, methods=methods or ["regular_importance"],
             layers_of_interest=params_json["layers_of_interest"],

@@ -145,16 +145,13 @@ def test_validation_messages_match_reference(params):
 @pytest.mark.parametrize("config", sorted(p.name for p in (REPO / "configs").glob("*.json")))
 def test_every_config_is_accepted_or_named_not_ported(config):
     """Every shipped config either validates in both CLIs or names its
-    feature as not ported yet (only the data / model mesh axes, which no
-    shipped config sets); none is silently ignored (split5's ``n_seq``,
-    split12's ``pipeline``,
-    split15's ``cluster``, split16's ``disagg``, split17's ``gray`` and
-    every ``observability`` field validate)."""
+    feature as not ported yet (no experiment is left: ``NOT_PORTED`` is
+    empty); none is silently ignored (split5's ``n_seq``, split12's
+    ``pipeline``, split15's ``cluster``, split16's ``disagg``, split17's
+    ``gray`` and every ``observability`` field validate)."""
     p = json.loads((REPO / "configs" / config).read_text())
     exp = p.get("experiment", "")
-    unported_split = exp == "split" and any(
-        k in p and p[k] != 1 for k in trun.UNPORTED_SPLIT_KEYS)
-    if exp in trun.NOT_PORTED or unported_split:
+    if exp in trun.NOT_PORTED:
         with pytest.raises(SystemExit, match="not ported yet"):
             trun._validate_params_json(p)
     else:

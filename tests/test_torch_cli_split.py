@@ -78,13 +78,14 @@ def test_split_config_with_faults_exits_naming_the_key(tmp_path):
     assert "hedge requires an enabled 'faults' config" in proc.stderr
 
 
-#: split keys the faulty link, survivability, the µ-batch pipeline and the
-#: stage x seq runtime retired from the unported list, with what the
-#: reference's validation now says of each alone (None: it validates)
+#: split keys the faulty link, survivability, the µ-batch pipeline, the
+#: stage x seq runtime and the data / model mesh axes retired from the
+#: unported list, with what the reference's validation now says of each
+#: alone (None: it validates)
 LINK_KEY_ALONE = {"link_policy": None,
                   "hedge": "hedge requires an enabled 'faults' config",
                   "deadline": None, "stage_failure": None, "recovery": None,
-                  "pipeline": None, "n_seq": None}
+                  "pipeline": None, "n_seq": None, "n_data": None, "n_model": None}
 
 
 @pytest.mark.parametrize("key,value", [
@@ -92,22 +93,18 @@ LINK_KEY_ALONE = {"link_policy": None,
     ("deadline", 10.0), ("stage_failure", {"stage": 1, "at_step": 1}), ("recovery", {}),
     ("n_seq", 4), ("n_data", 2), ("n_model", 2)])
 def test_unported_split_keys_are_named(key, value):
-    """Unported split keys die naming themselves; the link, recovery,
-    pipeline and ``n_seq`` keys (ported) validate as the reference validates
-    them alone."""
+    """Every split key is ported: the link, recovery, pipeline, ``n_seq``
+    and mesh-axis keys validate as the reference validates them alone (the
+    unported list is gone)."""
+    assert not hasattr(trun, "UNPORTED_SPLIT_KEYS")
     p = {"experiment": "split", "cuts": [1], "hop_codecs": ["int8_per_token"], key: value}
-    if key in LINK_KEY_ALONE:
-        assert key not in trun.UNPORTED_SPLIT_KEYS
-        if LINK_KEY_ALONE[key] is None:
-            trun._validate_params_json(p)
-            jrun._validate_params_json(p)
-            return
-        for validate in (trun._validate_params_json, jrun._validate_params_json):
-            with pytest.raises(SystemExit, match=LINK_KEY_ALONE[key]):
-                validate(p)
-        return
-    with pytest.raises(SystemExit, match=f"{key} is not ported yet"):
+    if LINK_KEY_ALONE[key] is None:
         trun._validate_params_json(p)
+        jrun._validate_params_json(p)
+        return
+    for validate in (trun._validate_params_json, jrun._validate_params_json):
+        with pytest.raises(SystemExit, match=LINK_KEY_ALONE[key]):
+            validate(p)
 
 
 def test_split_mesh_axes_of_one_and_unported_twins():

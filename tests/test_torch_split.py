@@ -279,8 +279,9 @@ def test_unported_split_eval_args_raise(qwen, corpus, arg):
 @pytest.mark.parametrize("arg", ["faults", "policy", "fec", "hedge", "pipeline",
                                  "n_data", "n_model"])
 def test_unported_runtime_args_raise(arg):
-    """The mesh axes raise naming themselves; the link's arguments are
-    ported: ``faults`` (enabled) builds a ``FaultyLink`` with the policy,
+    """The mesh axes are ported: ``n_data`` / ``n_model`` of 2 build a
+    runtime over a (2, 2, 1) / (2, 1, 2) mesh; the link's arguments too:
+    ``faults`` (enabled) builds a ``FaultyLink`` with the policy,
     FEC and hedge given beside it, each alone builds none. So is
     ``pipeline``: a ``PipelineConfig`` of two µ-batches builds a pipelined
     runtime, one of one the sequential schedule."""
@@ -297,8 +298,9 @@ def test_unported_runtime_args_raise(arg):
         assert not SplitRuntime(cfg, split, ["cpu"] * 2, pipeline=pc(1)).pipelined
         return
     if arg not in link_args:
-        with pytest.raises(ValueError, match=f"{arg}.*not ported yet"):
-            SplitRuntime(cfg, split, ["cpu"] * 2, **{arg: 2})
+        rt = SplitRuntime(cfg, split, ["cpu"] * 2, **{arg: 2})
+        assert rt.mesh.shape == {"stage": 2, "data": 1, "model": 1, arg[2:]: 2}
+        assert getattr(rt, arg) == 2 and rt.devices == [torch.device("cpu")] * 2
         return
     alone = SplitRuntime(cfg, split, ["cpu"] * 2, **{arg: link_args[arg]})
     assert (alone.link is not None) == (arg == "faults")
