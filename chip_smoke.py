@@ -267,7 +267,13 @@ from the repository root, on a machine with a CUDA card and ``nvcc``
    the memory preflight (the token sweep with ``BENCH_HBM_GB`` below
    window batch 8's estimate: the batch chosen, its estimate and the
    measured peak under the budget) and the refusals exiting non-zero;
-24. a JSON line of every kernel (launches summed over the counted paths,
+24. graphlint on the card (:func:`lint_paths`): ``python3 -m
+   edgellm_tpu_torch.run --lint`` as a subprocess (exit 0 or the run
+   fails), each contract clean with its launches beside the declared ones
+   and its host_sync check, the lattice's rows at exact launches, each
+   config's footprint beside its ``aot_peak_bytes``, the wall time; then
+   ``--device cpu --graph-only``, whose clean contracts must be the card's;
+25. a JSON line of every kernel (launches summed over the counted paths,
    and by path; K-attn's also by dtype and path; K-stats' fp32 column pass
    apart; ``ms`` its device time, ``event_ms`` the call's CUDA-event time),
    the ``nvidia-smi`` line, and
@@ -5427,6 +5433,127 @@ def _spawn_ranks(argv_of, out_dir: str, nprocs: int = 2, timeout: int = 300) -> 
     return texts
 
 
+#: the lattice rows phase 24 holds to exact launches (config, entry point)
+#: and the arithmetic behind them, at the lint's card geometry: K-attn and
+#: K13 / K14 once a layer, K-stats once a stats layer (the tiny model's
+#: clamped layer 3: layers 0-3), each hop codec's kernels once a hop
+def _lint_lattice_launches(layers: int) -> dict:
+    from edgellm_tpu_torch.lint.contracts import hop_launches
+
+    return {("split4_qwen15_multihop", "split.forward"): {
+                "causal_attention": layers,
+                **hop_launches(["int8_per_token", "int4_per_token"])},
+            ("qwen_token_sweep", "eval.stats_forward"): {"causal_attention_stats": layers},
+            ("split9_qwen_paged", "batched.step"): {"paged_decode_attention": layers},
+            ("split14_qwen_kvq", "batched.step_quant"): {
+                "paged_decode_attention_quant": layers}}
+
+
+def lint_paths(args, detail: dict) -> dict:
+    """Phase 24: ``python3 -m edgellm_tpu_torch.run --lint`` on the card as
+    a user runs it (a subprocess; a non-zero exit fails the run), its
+    report and capability matrix read back: every contract clean with
+    host_sync checked, its launches beside the declared ones, the lattice's
+    exact rows (:func:`_lint_lattice_launches`), each config's footprint
+    beside its budget; then ``python -m edgellm_tpu_torch.lint --device cpu
+    --graph-only``, whose clean contracts must be the card's -> the card
+    lint's launches, by kernel."""
+    from edgellm_tpu_torch.lint.entrypoints import CARD_GEOMETRY
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "chip_smoke", "lint")
+    os.makedirs(out_dir, exist_ok=True)
+    card_json, cpu_json = (os.path.join(out_dir, f"{n}.json") for n in ("card", "cpu"))
+    matrix_json = os.path.join(out_dir, "capability_matrix.json")
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    env.pop("EDGELLM_FUSED_HOP", None)
+    runs = {"card": ["-m", "edgellm_tpu_torch.run", "--lint", "--json", card_json,
+                     "--matrix", matrix_json],
+            "cpu": ["-m", "edgellm_tpu_torch.lint", "--device", "cpu", "--graph-only",
+                    "--json", cpu_json]}
+    for path in (card_json, cpu_json, matrix_json):
+        if os.path.exists(path):
+            os.remove(path)
+    # the two runs side by side: the card's and the host's, each its own process
+    t0 = time.monotonic()
+    procs = {label: subprocess.Popen([sys.executable, *argv], cwd=root, env=env,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True)
+             for label, argv in runs.items()}
+    walls, texts = {}, {}
+    try:
+        for label, proc in procs.items():
+            texts[label] = proc.communicate(timeout=600)
+            walls[label] = time.monotonic() - t0
+    finally:
+        for proc in procs.values():  # no lint outlives the phase
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for label, proc in procs.items():
+        out_text, err_text = texts[label]
+        last = out_text.strip().splitlines()[-1][:300] if out_text.strip() else ""
+        log(f"lint {label}: exit {proc.returncode} after {walls[label]:.2f} s: {last}")
+        if proc.returncode != 0:
+            raise SystemExit(f"lint ({label}) exited {proc.returncode}:\n"
+                             f"{out_text[-4000:]}\n{err_text[-2000:]}")
+    with open(card_json) as f:
+        card = json.load(f)
+    with open(cpu_json) as f:
+        cpu = json.load(f)
+    with open(matrix_json) as f:
+        matrix = json.load(f)
+    contracts = card["details"]["contracts"]
+    bad = []
+    for name in sorted(set(contracts) | set(card["checked_contracts"]) - {
+            c for c in card["checked_contracts"] if c.startswith("lattice.")}):
+        d = contracts.get(name, {})
+        sync = d.get("host_sync")
+        log(f"lint contract {name}: {'clean' if name in card['checked_contracts'] else 'FINDING'}"
+            + (f"; launches {d['launches']} declared {d.get('launches_declared')}"
+               if "launches_declared" in d else "")
+            + (f"; host_sync checked, syncs at {sync.get('syncs') or 'none'}"
+               + (f" (declared {sync['declared']})" if sync.get("declared") else "")
+               if sync and sync.get("checked") else "")
+            + ("; host_sync NOT checked" if sync and not sync.get("checked") else ""))
+        if name not in card["checked_contracts"]:
+            bad.append(f"{name} not clean")
+        if sync is not None and not sync.get("checked"):
+            bad.append(f"{name}: host_sync not checked on the card")
+        if "launches_declared" in d and d["launches"] != d["launches_declared"]:
+            bad.append(f"{name}: launches {d['launches']} != {d['launches_declared']}")
+    layers = CARD_GEOMETRY["num_layers"]
+    for (config, entry), want in _lint_lattice_launches(layers).items():
+        got = matrix["configs"][config]["entrypoints"][entry].get("launches")
+        log(f"lint lattice {config} {entry}: launches {got} declared {want}")
+        if got != want:
+            bad.append(f"lattice {config} {entry}: launches {got} != {want}")
+    budget = card["details"].get("budget", {})
+    for name, row in sorted(budget.items()):
+        log(f"lint budget {name}: port {row['port_bytes']} B (increment + arguments at "
+            f"the reference's geometry) / aot_peak_bytes {row['aot_peak_bytes']}")
+        if row["port_bytes"] is None or row["port_bytes"] > row["aot_peak_bytes"]:
+            bad.append(f"budget {name}: {row}")
+    card_graph = {c for c in card["checked_contracts"] if not c.startswith("lattice.")}
+    if set(cpu["checked_contracts"]) != card_graph or cpu["findings"]:
+        bad.append(f"CPU clean set {sorted(cpu['checked_contracts'])} != card's "
+                   f"{sorted(card_graph)} or CPU findings {cpu['findings']}")
+    launches = card["details"].get("launches_total", {})
+    row = {"wall_s": walls, "contracts_clean": len(card_graph),
+           "lattice_clean": len(card["checked_contracts"]) - len(card_graph),
+           "skipped_card": card["skipped"], "skipped_cpu": cpu["skipped"],
+           "launches_total": launches, "budget": budget,
+           "sync_sites": {n: d["host_sync"]["syncs"] for n, d in contracts.items()
+                          if d.get("host_sync", {}).get("syncs")}}
+    detail["lint"] = row
+    log(json.dumps({"lint": row}))
+    if bad:
+        raise SystemExit(f"phase 24 lint: {bad}")
+    out = {name: launches.get(name, 0) for name in KERNELS}
+    out["causal_attention float32"] = out["causal_attention"]  # the lint model is fp32
+    return {"lint": out}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -5510,13 +5637,16 @@ def main() -> int:
     by_path.update(long_context_paths(args, detail))
     t14 = time.monotonic()
     by_path.update(mesh_paths(args, detail))
+    t15 = time.monotonic()
+    by_path.update(lint_paths(args, detail))
     detail["phase_s"] = {"kernels": t1 - t0, "token_sweep": t2 - t1, "split_paths": t3 - t2,
                          "serve_paths": t4 - t3, "cross_checks": t5 - t4,
                          "experiments": t6 - t5, "split_decode": t7 - t6,
                          "split_paged": t8 - t7, "boundary_link": t9 - t8,
                          "survivable": t10 - t9, "pipeline": t11 - t10,
                          "disagg": t12 - t11, "cluster": t13 - t12,
-                         "long_context": t14 - t13, "mesh": time.monotonic() - t14,
+                         "long_context": t14 - t13, "mesh": t15 - t14,
+                         "lint": time.monotonic() - t15,
                          "total": time.monotonic() - t_start}
     log(json.dumps({"phase_s": detail["phase_s"]}))
 

@@ -38,6 +38,21 @@ def cuda_peak_bytes(call: Callable[[], object], device="cuda") -> int:
     return int(torch.cuda.max_memory_allocated(device))
 
 
+def cuda_increment_bytes(call: Callable[[], object], device="cuda") -> int:
+    """Run ``call()`` once on ``device`` and return what it allocated above
+    what was resident just before it: the allocator's peak during the call
+    minus ``memory_allocated`` at its start (the weights, the cuBLAS
+    workspace and every other resident tensor left out)."""
+    device = torch.device(device)
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    result = call()
+    torch.cuda.synchronize(device)
+    del result
+    return int(torch.cuda.max_memory_allocated(device)) - int(base)
+
+
 def call_total_bytes(call: Callable[[], object], device="cuda",
                      peak_reader: Optional[Callable] = None) -> Optional[int]:
     """The peak bytes of one call (``peak_reader(call)``, by default

@@ -38,7 +38,9 @@ import numpy as np
 import torch
 
 from ..utils import prng
-from .wire_format import _leaves, _rebuild, seal_payload, tree_nbytes, verify_payload
+from ..lint import graph_contract
+from ..lint.contracts import hop_launches
+from .wire_format import _leaves, _rebuild, cross_cut, seal_payload, tree_nbytes, verify_payload
 
 #: per-hop counter names accumulated by :class:`FaultyLink` (receiver-side):
 #: hops = transfers attempted, detected = corrupted arrivals caught by the
@@ -166,7 +168,7 @@ def transport(tree: dict, dst) -> dict:
     alias): the crossing of the cut."""
     if isinstance(tree, dict):
         return {k: transport(v, dst) for k, v in tree.items()}
-    return tree.to(dst, copy=True)
+    return cross_cut(tree, dst)
 
 
 def encode_hop(codec, hidden: torch.Tensor, hop_imp):
@@ -220,6 +222,25 @@ class FaultyLink:
     def init_counters(self, n_hops: int) -> dict:
         return {k: np.zeros((n_hops,), np.int64) for k in self.counter_keys}
 
+    @graph_contract(
+        "faults.hop",
+        # per cut: every transmission sends every sealed leaf (payload +
+        # canary + crc); the driver counts the transmissions this call made
+        # from its counters (hops + retried) and supplies the measured ctx
+        hops=lambda ctx: ctx["hops"],
+        wire_dtypes=lambda ctx: ctx["wire_dtypes"],
+        wire_bytes=lambda ctx: ctx["wire_bytes"],
+        host_syncs={
+            "codecs/faults.py:FaultyLink.hop":
+                "the verify flag decides on the host whether to retransmit "
+                "(the reference unrolls every attempt on the device)",
+            "codecs/faults.py:inject_faults":
+                "the fault draws key on host words copied to the card a leaf",
+            "utils/prng.py:bernoulli":
+                "a fault rate becomes a card scalar a draw"},
+        launches=lambda ctx: {"causal_attention": ctx["layers"],
+                              **hop_launches(ctx["codecs"],
+                                             decodes=ctx["transmissions"])})
     def hop(self, codec: Any, hidden: torch.Tensor, s: int, dst, key: torch.Tensor,
             counters: dict, hop_imp: Optional[torch.Tensor] = None) -> tuple:
         """One faulty crossing of cut ``s`` to device ``dst``: encode once,

@@ -36,6 +36,8 @@ import numpy as np
 import torch
 
 from ..utils.clock import MONOTONIC, Clock
+from ..lint import graph_contract
+from ..lint.contracts import hop_launches
 from .faults import encode_hop, finish_hop, fold, inject_faults, transport
 from .wire_format import (_CRC_MULT, _MASK, _as_u32, _from_u32, _mulmod, flatten_bytes,
                           seal_payload, tree_nbytes, unflatten_bytes, verify_payload)
@@ -164,6 +166,26 @@ def fec_decode(wire: dict, cfg: FECConfig, like: Any) -> tuple:
     return unflatten_bytes(stream, like), bool(bad.any()), bool(fix.any())
 
 
+@graph_contract(
+    "fec.hop",
+    # per cut: every transmission (attempts x hedge routes) sends the 2-leaf
+    # FEC wire tree (chunk matrix + word vector); the driver counts the
+    # transmissions this call made and supplies the measured ctx
+    hops=lambda ctx: ctx["hops"],
+    wire_dtypes=lambda ctx: ctx["wire_dtypes"],
+    wire_bytes=lambda ctx: ctx["wire_bytes"],
+    host_syncs={
+        "codecs/fec.py:healing_hop":
+            "the verify flag decides on the host whether to retransmit "
+            "(the reference unrolls every attempt on the device)",
+        "codecs/fec.py:fec_decode":
+            "the repair verdicts are host booleans the counters read",
+        "codecs/faults.py:inject_faults":
+            "the fault draws key on host words copied to the card a leaf",
+        "utils/prng.py:bernoulli":
+            "a fault rate becomes a card scalar a draw"},
+    launches=lambda ctx: {"causal_attention": ctx["layers"],
+                          **hop_launches(ctx["codecs"], decodes=ctx["transmissions"])})
 def healing_hop(link: Any, codec: Any, hidden: torch.Tensor, s: int, dst,
                 key: torch.Tensor, counters: dict,
                 hop_imp: Optional[torch.Tensor] = None) -> tuple:

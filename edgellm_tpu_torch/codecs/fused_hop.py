@@ -38,7 +38,7 @@ import torch
 
 from . import codec_kernels as ck
 from .packing import SATURATE_MAG, get_wire_codec, sanitize_hidden, saturation_bound
-from .wire_format import WireFormat, flatten_bytes, seal_payload, verify_payload
+from .wire_format import WireFormat, cross_cut, flatten_bytes, seal_payload, verify_payload
 
 #: base codecs a fused hop can carry: everything with a kernel twin
 #: (``selective_int4`` has none, and its importance sidecar makes the
@@ -116,7 +116,7 @@ def _wire_format(codec, shape, dtype) -> WireFormat:
 
 def _transport(buf: torch.Tensor, dst) -> torch.Tensor:
     """The one copy of a wire buffer that crosses the cut."""
-    return buf.to(dst, copy=True)
+    return cross_cut(buf, dst)
 
 
 def fused_wire_hop(codec, hidden: torch.Tensor, dst) -> torch.Tensor:

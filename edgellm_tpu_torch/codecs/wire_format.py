@@ -13,6 +13,10 @@ of ``edgellm_tpu/codecs/wire_format.py``, byte for byte).
 - :class:`WireFormat`: the flat buffer of one hop for a (codec, activation
   shape): ``[canary u32][crc u32][payload leaves]``, ``wire_nbytes ==
   payload bytes + 8``.
+- :func:`cross_cut`: the copy of one wire leaf to the next stage's device,
+  the one place where bytes cross a cut (the separate hop, the fused hop's
+  buffer, the faulty link's transmissions). :func:`wire_tap` records those
+  copies for the lint's hop contracts; unarmed it records nothing.
 
 Leaf order is JAX's: dict keys sorted, recursively (so the sealed tree is
 canary, crc, then the payload's leaves by sorted key: ``mn``, ``q``,
@@ -26,8 +30,10 @@ int32 bits (a view, no uint32 kernel needed).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Any
+from typing import Any, Iterator
 
 import torch
 
@@ -46,6 +52,34 @@ _MASK = 0xFFFFFFFF
 #: terms per partial sum: a byte times a 32-bit weight is below 2**40, so
 #: 2**22 of them stay below 2**62
 _CHUNK = 1 << 22
+
+
+#: the armed :func:`wire_tap`'s record, or None (nothing recorded)
+_WIRE_TAP: contextvars.ContextVar = contextvars.ContextVar("wire_tap", default=None)
+
+
+def cross_cut(leaf: torch.Tensor, dst) -> torch.Tensor:
+    """One wire leaf copied to ``dst`` (a real copy, never an alias): a
+    crossing of a cut. An armed :func:`wire_tap` records its dtype, shape
+    and bytes."""
+    out = leaf.to(dst, copy=True)
+    tap = _WIRE_TAP.get()
+    if tap is not None:
+        tap.append((str(out.dtype).removeprefix("torch."), tuple(out.shape),
+                    out.numel() * out.element_size()))
+    return out
+
+
+@contextlib.contextmanager
+def wire_tap() -> Iterator[list]:
+    """Record every :func:`cross_cut` of this thread's calls inside the
+    block as ``(dtype name, shape, nbytes)``."""
+    record: list = []
+    token = _WIRE_TAP.set(record)
+    try:
+        yield record
+    finally:
+        _WIRE_TAP.reset(token)
 
 
 def _leaves(tree) -> list:
@@ -189,4 +223,4 @@ class WireFormat:
 
 
 __all__ = ["CANARY", "tree_nbytes", "payload_checksum", "seal_payload", "verify_payload",
-           "flatten_bytes", "unflatten_bytes", "WireFormat"]
+           "flatten_bytes", "unflatten_bytes", "WireFormat", "cross_cut", "wire_tap"]

@@ -53,6 +53,7 @@ from typing import Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..lint import graph_contract
 from .configs import ModelConfig
 from .flash_attention import (dequantize_kv_rows, paged_decode_attention,
                               paged_decode_attention_plain,
@@ -1293,6 +1294,9 @@ def _paged_step(cfg: ModelConfig, params: dict, pools: tuple, page_table: torch.
     return unembed(cfg, params, hidden)[:, -1]
 
 
+@graph_contract("paged.decode_step", hops=0,
+                in_place=lambda ctx: ctx.get("in_place_min", 2),
+                launches=lambda ctx: {"paged_decode_attention": ctx["layers"]})
 def paged_decode_step(cfg: ModelConfig, params: dict, pool_k: torch.Tensor,
                       pool_v: torch.Tensor, page_table: torch.Tensor, lengths: torch.Tensor,
                       token_ids: torch.Tensor, *, compute_dtype=None):
@@ -1309,6 +1313,9 @@ def paged_decode_step(cfg: ModelConfig, params: dict, pool_k: torch.Tensor,
     return logits, pool_k, pool_v
 
 
+@graph_contract("paged.decode_step_quant", hops=0,
+                in_place=lambda ctx: ctx.get("in_place_min", 4),
+                launches=lambda ctx: {"paged_decode_attention_quant": ctx["layers"]})
 def paged_decode_step_quant(cfg: ModelConfig, params: dict, pool_k, pool_v,
                             pool_k_scale, pool_v_scale, page_table: torch.Tensor,
                             lengths: torch.Tensor, token_ids: torch.Tensor, *,

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..lint import graph_contract
 from .configs import ModelConfig
 from .flash_attention import (attention_plain, causal_attention,
                               causal_attention_plain, causal_attention_stats,
@@ -483,6 +484,8 @@ def cache_from_state_dict(state: dict, device="cuda") -> dict:
             "length": int(state["length"])}
 
 
+@graph_contract("transformer.prefill", hops=0,
+                launches=lambda ctx: {"causal_attention": ctx["layers"]})
 def prefill(cfg: ModelConfig, params: dict, input_ids: torch.Tensor, capacity: int, *,
             boundary_fn: Optional[Callable] = None,
             compute_dtype: Optional[torch.dtype] = None):
@@ -548,6 +551,7 @@ def block_verify(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, cos_t, sin_t,
         cfg, lp, x, cos_t, sin_t, k_cache, v_cache, pos))[0]
 
 
+@graph_contract("transformer.decode_step", hops=0, launches={})
 def decode_step(cfg: ModelConfig, params: dict, cache: KVCache, token_ids: torch.Tensor, *,
                 boundary_fn: Optional[Callable] = None,
                 compute_dtype: Optional[torch.dtype] = None):

@@ -116,6 +116,9 @@ from ..codecs.faults import FaultyLink, LinkPolicy, fault_key, fold, sum_counter
 from ..codecs.fused_hop import fused_hop, fused_hop_plan
 from ..codecs.packing import WireCodec, get_wire_codec
 from ..codecs.ring_codecs import RingWireCodec
+from ..codecs.wire_format import cross_cut
+from ..lint import graph_contract
+from ..lint.contracts import hop_launches
 from ..models.configs import ModelConfig
 from ..models.flash_attention import dequantize_kv_rows, quantize_kv_rows
 from ..models.paged_kv import (KVTierMismatchError, _host, _rows_get, _rows_set,
@@ -128,6 +131,29 @@ from ..serve.recovery import StageLostError
 #: the reference's fold of the fault key for a split prefill, and for a
 #: decode, verify or paged step
 PREFILL_FAULT_FOLD, STEP_FAULT_FOLD = 0x9EF1, 0x57E9
+
+
+def _split_launches(ctx: dict, attention=None) -> dict:
+    """The kernels of one split call at lint geometry: ``attention`` once a
+    layer a µ-batch, each cut's codec kernels once an encode and a decode
+    a µ-batch (``ctx``: layers, micro, codecs)."""
+    m = ctx.get("micro", 1)
+    out = {attention: m * ctx["layers"]} if attention else {}
+    out.update(hop_launches(ctx["codecs"], encodes=m, decodes=m))
+    return out
+
+
+def _hop_contract(name: str, attention=None, in_place: bool = False):
+    """One split entry point's contract: the payload leaves, dtypes and
+    bytes the driver measured from the codec registry cross the cuts, the
+    caches (``in_place``) stay in place, and the kernels launch as
+    :func:`_split_launches` counts."""
+    return graph_contract(
+        name, hops=lambda ctx: ctx["hops"],
+        wire_dtypes=lambda ctx: ctx["wire_dtypes"],
+        wire_bytes=lambda ctx: ctx["wire_bytes"],
+        in_place=(lambda ctx: ctx.get("in_place_min", 2)) if in_place else 0,
+        launches=lambda ctx: _split_launches(ctx, attention))
 
 
 class Mesh:
@@ -207,7 +233,7 @@ def _hop(codec: WireCodec, hidden: torch.Tensor, imp, dst) -> torch.Tensor:
     """Encode on ``hidden``'s device, copy every payload leaf to ``dst``,
     decode the copy there (float32)."""
     payload = _encode(codec, hidden, imp)
-    moved = {k: v.to(dst, copy=True) for k, v in payload.items()}
+    moved = {k: cross_cut(v, dst) for k, v in payload.items()}
     return codec.decode(moved)
 
 
@@ -703,6 +729,12 @@ class SplitRuntime:
 
     # ---------- forward ----------
 
+    # every payload leaf of every cut crosses once a call (a fused hop: one
+    # flat sealed buffer a cut, hop_bytes + 8); a pipelined call moves M
+    # payloads of (B / M, S, D) a cut
+    @_hop_contract("split.forward", "causal_attention")
+    @_hop_contract("split.forward.fused", "causal_attention")
+    @_hop_contract("split.forward.pipelined", "causal_attention")
     def forward(self, placed: dict, input_ids: torch.Tensor,
                 hop_importance: Optional[Sequence] = None,
                 fault_step: int = 0) -> torch.Tensor:
@@ -1058,6 +1090,11 @@ class SplitRuntime:
                                     for s in range(self.split.n_stages)]
         return out
 
+    # the (B, 1, D) hidden crosses each cut; the per-stage caches are
+    # written in place
+    @_hop_contract("split.decode_step", in_place=True)
+    @_hop_contract("split.decode_step.fused", in_place=True)
+    @_hop_contract("split.decode_step.pipelined", in_place=True)
     def decode_step(self, placed: dict, cache: dict, token_ids: torch.Tensor) -> tuple:
         """One decode position across the pipeline: (B,) token ids -> (logits
         (B, V) float32, the cache with ``length + 1``; its rows written in
@@ -1086,6 +1123,9 @@ class SplitRuntime:
 
     # ---------- speculative verify ----------
 
+    # ONE (B, k, D) block crosses each cut a burst, not k single-token hops
+    @_hop_contract("split.verify_step", in_place=True)
+    @_hop_contract("split.verify_step.fused", in_place=True)
     def verify_step(self, placed: dict, cache: dict, token_ids: torch.Tensor) -> tuple:
         """Verify k drafted positions in one split pass: ``token_ids`` (B, k)
         is the last committed token and the k - 1 drafts; each cut moves ONE
@@ -1274,6 +1314,11 @@ class SplitRuntime:
                      for s in range(self.split.n_stages)]
         return tuple(self._padded([rows[i] for rows in per_stage]) for i in range(4))
 
+    # the (max_slots, 1, D) hidden crosses each cut; the per-stage pools
+    # are written in place
+    @_hop_contract("split.decode_step_paged", "paged_decode_attention", in_place=True)
+    @_hop_contract("split.decode_step_paged.pipelined", "paged_decode_attention",
+                   in_place=True)
     def decode_step_paged(self, placed: dict, pool: dict, page_table, lengths,
                           token_ids) -> tuple:
         """One ragged decode position across the pipeline: every slot

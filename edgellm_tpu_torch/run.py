@@ -80,6 +80,10 @@ shrinks the batch to what the memory preflight says fits
 gate as in the reference ("auto" fuses a hop only where this card's probe cache
 recorded a win, ``codecs/probe_cache.py``).
 
+``--lint`` runs the port's graphlint gate instead of an experiment (``python
+-m edgellm_tpu_torch.lint --no-mypy``, on the card unless ``--device cpu``)
+and exits with its code.
+
 Corpus input is a ``.npy``/``.npz`` of token ids, or a raw ``.txt`` plus
 ``--tokenizer`` (a local HF tokenizer path). Weights: ``--weights`` (a
 ``.safetensors`` file or directory, a state_dict ``.pt``, or an HF directory),
@@ -1276,7 +1280,32 @@ def run_distances(cfg, params: dict, corpus: np.ndarray, params_json: dict, args
             "n_samples": len(samples), "layers": matrix.shape[0]}
 
 
+#: the flags ``--lint`` passes on to the lint CLI, each with its value
+LINT_PASSTHROUGH = ("--device", "--json", "--matrix")
+
+
+def _lint_argv(argv: list) -> list:
+    """The lint CLI's arguments for ``--lint``: mypy off (as the
+    reference's gate runs it), and ``--device`` (and the report paths
+    ``--json`` / ``--matrix``) passed on when given."""
+    out = ["--no-mypy"]
+    for i, a in enumerate(argv):
+        if a in LINT_PASSTHROUGH and i + 1 < len(argv):
+            out += [a, argv[i + 1]]
+        elif a.split("=", 1)[0] in LINT_PASSTHROUGH and "=" in a:
+            out.append(a)
+    return out
+
+
 def main(argv=None) -> int:
+    # --lint short-circuits before the parser: the graphlint gate needs no
+    # params.json, and running it first means a contract violation is caught
+    # before any experiment spends card time
+    argv_list = sys.argv[1:] if argv is None else list(argv)
+    if "--lint" in argv_list:
+        from .lint.__main__ import main as lint_main
+
+        return lint_main(_lint_argv(argv_list))
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--params", required=True,
@@ -1336,6 +1365,12 @@ def main(argv=None) -> int:
                     help="join a torch.distributed process group (gloo, env:// rendezvous: "
                          "MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK) before touching "
                          "devices; the split's data axis spreads over the processes")
+    ap.add_argument("--lint", action="store_true",
+                    help="run the graphlint gate (AST and thread rules, executed "
+                         "graph contracts and the config lattice: python -m "
+                         "edgellm_tpu_torch.lint --no-mypy, on --device; --json and "
+                         "--matrix PATH pass on) and exit; handled before any other "
+                         "flag is required")
     args = ap.parse_args(argv)
 
     if args.distributed:

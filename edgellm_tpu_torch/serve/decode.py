@@ -47,6 +47,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..lint import graph_contract
 from ..models.configs import ModelConfig
 from ..obs.latency import LatencyObserver
 from ..obs.metrics import (get_registry, record_decode_stats, record_link_counters,
@@ -81,6 +82,8 @@ def _fold(key, t: int):
     return tuple(int(x) for x in out[0])
 
 
+@graph_contract("decode.prefill", hops=0,
+                launches=lambda ctx: {"causal_attention": ctx["layers"]})
 def _prefill_impl(cfg: ModelConfig, params: dict, prompt_ids: torch.Tensor, capacity: int,
                   compute_dtype) -> tuple[torch.Tensor, KVCache]:
     """Prompt prefill -> (last-position logits (B, V) fp32, filled cache)."""
@@ -88,6 +91,8 @@ def _prefill_impl(cfg: ModelConfig, params: dict, prompt_ids: torch.Tensor, capa
     return logits[:, -1], cache
 
 
+@graph_contract("decode.prefill_suffix", hops=0, launches={},
+                in_place=lambda ctx: ctx.get("in_place_min", 2))
 def _prefill_suffix_impl(cfg: ModelConfig, params: dict, suffix_ids: torch.Tensor,
                          cache: KVCache, compute_dtype) -> tuple[torch.Tensor, KVCache]:
     """Prefill ONLY the unmatched suffix of a prompt whose prefix K/V rows
@@ -108,6 +113,8 @@ def _prefill_suffix_impl(cfg: ModelConfig, params: dict, suffix_ids: torch.Tenso
     return unembed(cfg, params, hidden), KVCache(cache.k, cache.v, pos + kq)
 
 
+@graph_contract("decode.step", hops=0, launches={},
+                in_place=lambda ctx: ctx.get("in_place_min", 2))
 def _step_impl(cfg: ModelConfig, params: dict, cache: KVCache, token_ids: torch.Tensor,
                key, temperature: float, compute_dtype) -> tuple[torch.Tensor, KVCache]:
     logits, cache = decode_step(cfg, params, cache, token_ids, compute_dtype=compute_dtype)

@@ -860,3 +860,24 @@ class ServeFront:
         if self._obs_server is not None:
             self._obs_server.stop()
             self._obs_server = None
+
+    # -- graphlint hook ----------------------------------------------------
+
+    def step_trace_spec(self, batch: int, prompt_len: int, max_new_tokens: int,
+                        temperature: float = 0.0) -> dict:
+        """The decode-step parameters this front would run for a request of
+        the given shape: what the ``frontend.decode-step-identity`` lint
+        contract holds against direct ``generate``. ``uses_survivable_loop``
+        is False iff the front runs the untouched direct loop (default
+        config)."""
+        requested = max_new_tokens
+        if self.config.max_new_tokens_cap is not None:
+            requested = min(requested, self.config.max_new_tokens_cap)
+        granted = self.brownout.token_cap(requested)
+        return {
+            "granted_tokens": granted,
+            "capacity": _round_up(prompt_len + granted, self.config.capacity_round),
+            "temperature": float(temperature),
+            "compute_dtype": self.compute_dtype,
+            "uses_survivable_loop": self._recovery_cfg(0) is not None,
+        }

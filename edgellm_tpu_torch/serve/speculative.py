@@ -190,13 +190,16 @@ def _accept(vlogits: torch.Tensor, feed: list, key, n: int, k: int,
         probs = e / e.sum()
         dj = feed[j]
         u = prng.uniform(prng.fold_in(pkey, torch.tensor([1])), 1)[0, 0]
-        if float(u) < float(probs[dj]):
+        # the accept test reads one uniform and one probability a drafted
+        # token on the host, as the reference's _accept does
+        if float(u) < float(probs[dj]):  # graphlint: disable=EG005
             emitted.append(dj)
             continue
         resid = probs.clone()
         resid[dj] = 0.0
         rkey = prng.fold_in(pkey, torch.tensor([2])).to(vlogits.device)
-        emitted.append(int(prng.categorical(rkey, torch.log(resid))))
+        # the residual draw ends the burst: one sync at the first rejection
+        emitted.append(int(prng.categorical(rkey, torch.log(resid))))  # graphlint: disable=EG005
         return emitted, j - 1
     bonus = _sample(vlogits[:, k - 1], _fold(key, n + k - 1), temperature)
     return emitted + [int(bonus[0])], k - 1
@@ -271,7 +274,9 @@ def _spec_loop(rt, placed: dict, prompt_ids: torch.Tensor, max_new_tokens: int,
                 dlogits, dcache = decode_step(
                     draft_cfg, draft_params, dcache,
                     torch.tensor([feed[-1]], dtype=torch.long, device=draft_device))
-                feed.append(int(dlogits.argmax(dim=-1)[0]))
+                # the greedy draft token feeds the next draft step from the
+                # host: one sync a drafted token
+                feed.append(int(dlogits.argmax(dim=-1)[0]))  # graphlint: disable=EG005
             drafted += k - 1
             x = torch.tensor([feed], dtype=torch.long, device=rt.devices[0])
             vlogits, vcache = rt.verify_step(placed, cache, x)
