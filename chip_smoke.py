@@ -3735,9 +3735,11 @@ PIPE_SMALL_LAYERS, PIPE_SMALL_CUTS = 6, [1, 3]
 #: the split-paged batcher with a pipeline: split9's geometry (max_slots 6)
 #: with split1's cut and two µ-batches
 PIPE_SERVE = {"cuts": [11], "hop_codecs": ["int8_per_token"], "pipeline": {"num_microbatches": 2}}
-#: the span names a split eval's trace holds (the reference's)
+#: the span names a split eval's trace holds: the reference's, and the
+#: port's own phases of the call (``obs/names.py`` PORT_SPAN_NAMES)
 EVAL_SPANS = {"eval.submit_group", "eval.drain_group", "eval.checkpoint_write",
-              "eval.time_hops", "eval.time_decode_hops", "split.hop"}
+              "eval.time_hops", "eval.time_decode_hops", "split.hop",
+              "eval.call", "split.stage", "split.cross", "split.unembed", "eval.nll"}
 #: decode steps a wall reading of phase 19 times (four readings, in turns)
 PIPE_STEP_READS = 12
 

@@ -19,10 +19,17 @@ accumulators, written atomically, so a restart is exact.
 Device work is issued without host syncs and drained one group later
 (:func:`_run_pipelined`), so the host's accumulation and checkpointing of one
 group overlap the card's work on the next.
+
+Spans (``obs/tracing.py``, live while tracing is on or a ``torch.profiler``
+capture records): ``eval.call`` around each entry, ``eval.submit_group`` /
+``eval.drain_group`` around each group's halves, and inside a submit the
+device-timed phases ``eval.stats_forward``, ``eval.importance``,
+``eval.codec``, ``eval.suffix`` and ``eval.nll_tail``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -37,6 +44,8 @@ from ..importance.metrics import (aggregate_upto, importance_per_layer,
                                   maximum_aggregation, regular_importance)
 from ..models.configs import ModelConfig
 from ..models.transformer import AttnStats, embed, nll_tail, params_to, run_layers
+from ..obs.tracing import device_span
+from ..obs.tracing import span as obs_span
 from .windowing import sliding_windows
 
 TOKEN_CODECS = ("int4_token_select", "affine_int8_rank", "affine_int8_top_rho")
@@ -101,23 +110,24 @@ def _stats_forward(cfg: ModelConfig, params: dict, ids: torch.Tensor,
     ratio-0 baseline."""
     layers = tuple(sorted({int(l) for l in hidden_layers}))
     upto = max(stats_upto if stats_upto is not None else 0, layers[-1])
-    h = embed(params, ids)
-    cols, lasts, hiddens = [], [], []
-    prev = 0
-    for cut in layers:
-        h, aux = run_layers(cfg, params, h, start=prev, stop=cut + 1, capture_stats=True)
-        cols.append(aux["stats"].col_mean)
-        lasts.append(aux["stats"].last_row)
-        hiddens.append(h)
-        prev = cut + 1
-    if prev <= upto:
-        h, aux = run_layers(cfg, params, h, start=prev, stop=upto + 1, capture_stats=True)
-        cols.append(aux["stats"].col_mean)
-        lasts.append(aux["stats"].last_row)
-        prev = upto + 1
-    stats = AttnStats(col_mean=torch.cat(cols), last_row=torch.cat(lasts))
-    final = run_layers(cfg, params, h, start=prev)[0] if want_final else None
-    return stats, torch.stack(hiddens), final
+    with device_span("eval.stats_forward", ids.device):
+        h = embed(params, ids)
+        cols, lasts, hiddens = [], [], []
+        prev = 0
+        for cut in layers:
+            h, aux = run_layers(cfg, params, h, start=prev, stop=cut + 1, capture_stats=True)
+            cols.append(aux["stats"].col_mean)
+            lasts.append(aux["stats"].last_row)
+            hiddens.append(h)
+            prev = cut + 1
+        if prev <= upto:
+            h, aux = run_layers(cfg, params, h, start=prev, stop=upto + 1, capture_stats=True)
+            cols.append(aux["stats"].col_mean)
+            lasts.append(aux["stats"].last_row)
+            prev = upto + 1
+        stats = AttnStats(col_mean=torch.cat(cols), last_row=torch.cat(lasts))
+        final = run_layers(cfg, params, h, start=prev)[0] if want_final else None
+        return stats, torch.stack(hiddens), final
 
 
 def _plain_forward(cfg: ModelConfig, params: dict, ids: torch.Tensor,
@@ -149,12 +159,16 @@ def _suffix_sweep(cfg: ModelConfig, params: dict, layer: int, codec: str, tail: 
     importance (W, S), ratios (R,) float32, ks R ints -> (R, W)."""
     w, s, d = boundary_hidden.shape
     r = ratios.shape[0]
-    h = torch.stack([_apply_token_codec_windows(codec, boundary_hidden, importance,
-                                                ratios[i], ks[i])
-                     for i in range(r)]).reshape(r * w, s, d)
-    out, _ = run_layers(cfg, params, h, start=layer + 1)
-    tgt = targets[None].expand(r, w, s).reshape(r * w, s)
-    return nll_tail(cfg, params, out, tgt, tail, per_example=True).reshape(r, w)
+    dev = boundary_hidden.device
+    with device_span("eval.codec", dev, layer=layer):
+        h = torch.stack([_apply_token_codec_windows(codec, boundary_hidden, importance,
+                                                    ratios[i], ks[i])
+                         for i in range(r)]).reshape(r * w, s, d)
+    with device_span("eval.suffix", dev, layer=layer):
+        out, _ = run_layers(cfg, params, h, start=layer + 1)
+    with device_span("eval.nll_tail", dev, layer=layer):
+        tgt = targets[None].expand(r, w, s).reshape(r * w, s)
+        return nll_tail(cfg, params, out, tgt, tail, per_example=True).reshape(r, w)
 
 
 def _suffix_channel(cfg: ModelConfig, params: dict, layer: int, method: str, tail: int,
@@ -283,18 +297,40 @@ def _iter_window_groups(token_ids, max_length: int, stride: int, *,
         yield buffer
 
 
-def _run_pipelined(groups, submit, drain):
+def _run_pipelined(groups, submit, drain, device, submit_attrs=None):
     """Drive submit/drain one group apart: ``submit(group)`` enqueues device
     work without host syncs and returns a record; ``drain(record)`` does the
-    host-side accumulation, so it overlaps the next group's device work."""
+    host-side accumulation, so it overlaps the next group's device work.
+
+    Each submit runs inside an ``eval.submit_group`` span, timed on
+    ``device``'s stream too, with the attributes ``submit_attrs()`` returns;
+    each drain inside an ``eval.drain_group`` span."""
     inflight = None
     for group in groups:
-        rec = submit(group)
+        attrs = submit_attrs() if submit_attrs is not None else {}
+        with device_span("eval.submit_group", device, chunk=group[0].index, **attrs):
+            rec = submit(group)
         if inflight is not None:
-            drain(inflight)
-        inflight = rec
+            _drain(drain, *inflight)
+        inflight = (group, rec)
     if inflight is not None:
-        drain(inflight)
+        _drain(drain, *inflight)
+
+
+def _drain(drain, group, rec):
+    with obs_span("eval.drain_group", chunk=group[-1].index):
+        drain(rec)
+
+
+def _call_span(entry: Callable) -> Callable:
+    """``entry``, a sweep or split driver, inside one ``eval.call`` span:
+    its groups and its own edges (parameter placement, runtime build,
+    checkpoint load and saves)."""
+    @functools.wraps(entry)
+    def call(*args, **kwargs):
+        with obs_span("eval.call", entry=entry.__name__):
+            return entry(*args, **kwargs)
+    return call
 
 
 def _load_checkpoint(path: Optional[str], axes: dict) -> Optional[dict]:
@@ -426,7 +462,7 @@ def _run_accumulator_sweep(result: SweepResult, token_ids: np.ndarray, *,
                             start_chunk=drv.start_chunk,
                             max_count=drv.remaining(max_chunks),
                             tail_of=_scoring_tail),
-        submit_group, drain_group)
+        submit_group, drain_group, device)
     result.wall_s = drv.wall()
     save()
     final = {"final": True, "chunks": result.chunks}
@@ -440,6 +476,7 @@ def _nlls(x: torch.Tensor) -> np.ndarray:
     return x.double().cpu().numpy()
 
 
+@_call_span
 def run_token_sweep(
     cfg: ModelConfig,
     params: dict,
@@ -498,10 +535,13 @@ def run_token_sweep(
         ks = [int(float(ratios[i]) * ids.shape[1]) for i in nz_idx]
         stats, hiddens, final = _stats_forward(cfg, params, ids, layer_key,
                                                want_final=bool(zero_idx))
-        base = (nll_tail(cfg, params, final, targets, tail, per_example=True)
-                if zero_idx else None)
+        base = None
+        if zero_idx:
+            with device_span("eval.nll_tail", ids.device):
+                base = nll_tail(cfg, params, final, targets, tail, per_example=True)
         del final
-        imp_all = torch.stack([importance_per_layer(stats, m, hw) for m in methods])
+        with device_span("eval.importance", ids.device):
+            imp_all = torch.stack([importance_per_layer(stats, m, hw) for m in methods])
         pending = []  # (m_indices, l, ratio_indices, device_nlls)
         for l, layer in enumerate(layers_of_interest):
             h_l = hiddens[pos_of[int(layer)]]
@@ -528,6 +568,7 @@ def run_token_sweep(
         progress=progress, emit_tokens=True)
 
 
+@_call_span
 def run_initial_sweep(
     cfg: ModelConfig,
     params: dict,
@@ -600,6 +641,7 @@ def run_initial_sweep(
         metrics_path=metrics_path, max_chunks=max_chunks, device=device)
 
 
+@_call_span
 def run_channel_sweep(
     cfg: ModelConfig,
     params: dict,

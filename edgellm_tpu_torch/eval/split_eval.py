@@ -42,6 +42,10 @@ Observability, as the reference places it: ``eval.*`` spans around the
 group submits, drains, checkpoints, failovers and hop timings; the
 sweep's wire bytes, fused-hop decisions and link / recovery counters
 published into the global registry, and one ``split.hop`` span a cut.
+Beyond the reference's: ``eval.call`` around the whole call, the
+device-timed ``eval.importance`` and ``eval.nll`` of a group, and inside
+the runtime's forward ``split.stage``, ``split.cross`` and
+``split.unembed``.
 
 ``mesh`` (a ("stage", "data", "model") :class:`~..parallel.split.Mesh`,
 ``make_stage_mesh``) adds the data and model axes: ``window_batch`` must be
@@ -84,6 +88,7 @@ from ..models.paged_kv import (init_pool, init_quant_pool, kv_page_bytes, paged_
 from ..models.transformer import nll_from_logits, params_to, run_layers_from_ids
 from ..obs.metrics import (get_registry, record_link_counters, record_link_health,
                            record_probe_decisions, record_recovery_counters, record_wire_bytes)
+from ..obs.tracing import device_span
 from ..obs.tracing import span as obs_span
 from ..obs.tracing import tracing_enabled
 from ..parallel.distributed import all_gather_rows
@@ -93,8 +98,8 @@ from ..parallel.split import (Mesh, PipelineConfig, SplitConfig, SplitRuntime, m
 from ..serve.recovery import (DecodeTimeout, RecoveryCounters, StageFailure, StageLostError,
                               Watchdog)
 from ..utils.clock import MONOTONIC
-from .harness import (ResumableDriver, _emit, _group_arrays, _iter_window_groups,
-                      _run_pipelined)
+from .harness import (ResumableDriver, _call_span, _emit, _group_arrays,
+                      _iter_window_groups, _run_pipelined)
 
 
 def parse_hop_codec(spec: str, n_seq: int = 1) -> object:
@@ -134,8 +139,9 @@ def _importance(cfg: ModelConfig, params: dict, ids: torch.Tensor, method: str,
     """The token importance of every layer, (L, B, S): one full-depth forward
     that captures the attention statistics (the reference's
     ``_importance_fn``)."""
-    _, aux = run_layers_from_ids(cfg, params, ids, capture_stats=True)
-    return importance_per_layer(aux["stats"], method, head_weights)
+    with device_span("eval.importance", ids.device):
+        _, aux = run_layers_from_ids(cfg, params, ids, capture_stats=True)
+        return importance_per_layer(aux["stats"], method, head_weights)
 
 
 def _link_configs(faults, link_policy, fec, hedge, link_health) -> tuple:
@@ -164,6 +170,7 @@ def _link_configs(faults, link_policy, fec, hedge, link_health) -> tuple:
     return faults, link_policy, fec, hedge, link_health, fault_on
 
 
+@_call_span
 def run_split_eval(
     cfg: ModelConfig,
     params: dict,
@@ -424,6 +431,10 @@ def run_split_eval(
         gen += 1
         gen_bytes[gen] = [0] * len(split.hop_codecs)
 
+    def current_tier() -> int:
+        return health.tier if health is not None else (
+            controller.tier if controller is not None else 0)
+
     def submit_group(group):
         nonlocal sf_pending
         n_real = len(group)
@@ -447,8 +458,7 @@ def run_split_eval(
             sf_pending = False
             for r in runtimes.values():
                 r.mark_stage_lost(stage_failure.stage)
-        tier = health.tier if health is not None else (
-            controller.tier if controller is not None else 0)
+        tier = current_tier()
 
         def _forward():
             if tier not in runtimes:  # built on first demand, kept thereafter
@@ -470,24 +480,20 @@ def run_split_eval(
 
         with torch.inference_mode():
             try:
-                with obs_span("eval.submit_group", chunk=group[0].index, tier=tier):
-                    art, logits = _forward()
+                art, logits = _forward()
             except StageLostError as e:
                 _eval_failover(e.stage, e)
                 art, logits = _forward()  # the same chunk on the re-planned split
             # on a mesh whose data axis spans processes the logits are this
             # process's groups' rows
             targets = targets[_local_rows(art, targets.shape[0])]
-            nlls = nll_from_logits(logits, targets.to(logits.device), per_example=True)
+            with device_span("eval.nll", logits.device):
+                nlls = nll_from_logits(logits, targets.to(logits.device), per_example=True)
         chunk_counters = art._counter_accum[-1] if fault_on else None
         return (group, n_real, s_unpadded, counts, tuple(ids.shape), nlls, tier,
                 chunk_counters, art, gen)
 
     def drain_group(rec):
-        with obs_span("eval.drain_group", chunk=rec[0][-1].index):
-            _drain_impl(rec)
-
-    def _drain_impl(rec):
         nonlocal total_nll, n_tokens, fwd_tokens, real_fwd_tokens, degraded_chunks
         (group, n_real, s_unpadded, counts, (w, s_chunk), nlls, tier, chunk_counters,
          art, g) = rec
@@ -541,7 +547,7 @@ def run_split_eval(
         _iter_window_groups(token_ids, max_length, stride, window_batch=window_batch,
                             start_chunk=rd.start_chunk,
                             max_count=rd.remaining(max_chunks)),
-        submit_group, drain_group)
+        submit_group, drain_group, dev0, submit_attrs=lambda: {"tier": current_tier()})
     wall = rd.wall()  # cumulative across resumes
     save_checkpoint()
 

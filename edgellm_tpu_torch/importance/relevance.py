@@ -230,7 +230,7 @@ def run_relevance_extraction(
                             window_batch=window_batch,
                             start_chunk=rd.start_chunk,
                             max_count=rd.remaining(max_chunks)),
-        submit_group, drain_group)
+        submit_group, drain_group, device)
     wall = rd.wall()  # cumulative across resumes
     rd.save({"total": total.tolist()})
     if stats is not None:

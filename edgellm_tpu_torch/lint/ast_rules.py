@@ -78,7 +78,7 @@ TORCH_HOST_FNS = frozenset({
 #: and the span entry points whose first argument is THE name
 METRIC_FACTORY_METHODS = frozenset({"counter", "gauge", "histogram"})
 METRIC_CLASSES = frozenset({"Counter", "Gauge", "Histogram"})
-SPAN_CALLEES = frozenset({"span", "obs_span"})
+SPAN_CALLEES = frozenset({"span", "obs_span", "device_span"})
 
 _DISABLE_RE = re.compile(r"#\s*graphlint:\s*disable(?:=([A-Z0-9, ]+))?")
 

@@ -4,10 +4,12 @@ registry, the span tracer and the per-token latency SLOs.
 - :mod:`.metrics`: typed ``Counter`` / ``Gauge`` / ``Histogram``, a
   process-global named registry, Prometheus text and JSON exporters, and
   the adapters that absorb the stack's counter sources;
-- :mod:`.tracing`: thread-safe host spans on a monotonic clock, exported as
-  Chrome trace-event JSON, and :func:`~.tracing.trace_capture`, a
-  ``torch.profiler`` capture in which every span is a ``record_function``
-  range;
+- :mod:`.tracing`: thread-safe spans on the clock ``torch.profiler``
+  stamps its events on (µs since the Unix epoch), exported as Chrome
+  trace-event JSON; a span is live while tracing is enabled or any
+  ``torch.profiler`` capture records, and appears in the capture as a CPU
+  range; :func:`~.tracing.device_span` also times its body on a CUDA
+  stream; :func:`~.tracing.trace_capture` is the ``--profile`` capture;
 - :mod:`.latency`: TTFT and per-token latency histograms for the decode
   loops, one synchronisation per sampled token;
 - :mod:`.context`: the request-scoped labels spans inherit; :mod:`.names`:
@@ -17,9 +19,11 @@ registry, the span tracer and the per-token latency SLOs.
 - :mod:`.server`: the live endpoint (``/metrics``, ``/healthz``,
   ``/snapshot.json``, ``/trace``) on a loopback daemon thread.
 
-Everything is host-side: with observability disabled (the default) the
-serve and split stacks run the same operations, with no host sync and no
-extra kernel, and give the same tokens and logits.
+Everything is host-side but a device span's two timing events on the
+stream: with observability disabled (the default) and no capture
+recording, the serve and split stacks run the same operations, with no
+host sync and no extra kernel, and give the same tokens and logits; live
+spans add no kernel and no sync either.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from .flight import (FlightRecorder, configure_flight, flight_dump_for, get_flig
 from .latency import LatencyObserver
 from .metrics import Counter, CounterSource, Gauge, Histogram, MetricsRegistry, get_registry
 from .server import ObsServer
-from .tracing import Tracer, get_tracer, span, trace_capture
+from .tracing import Tracer, device_span, get_tracer, span, trace_capture
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +106,7 @@ def enabled() -> bool:
 __all__ = [
     "Counter", "CounterSource", "FlightRecorder", "Gauge", "Histogram",
     "LatencyObserver", "MetricsRegistry", "ObservabilityConfig", "ObsServer",
-    "TraceContext", "Tracer", "configure_flight", "context", "disable",
+    "TraceContext", "Tracer", "configure_flight", "context", "device_span", "disable",
     "enable", "enabled", "flight", "flight_dump_for", "get_flight_recorder",
     "get_registry", "get_tracer", "latency", "load_flight", "metrics",
     "names", "server", "span", "trace_capture", "tracing",

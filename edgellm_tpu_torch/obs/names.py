@@ -1,7 +1,8 @@
 """The registered metric and span names and templates (PyTorch
-counterpart of ``edgellm_tpu/obs/names.py``, the same tables): the one
-vocabulary every ``registry.counter/gauge/histogram(...)`` and
-``span(...)`` call site draws from.
+counterpart of ``edgellm_tpu/obs/names.py``: its tables, and beside them
+the port's own spans): the one vocabulary every
+``registry.counter/gauge/histogram(...)`` and ``span(...)`` /
+``device_span(...)`` call site draws from.
 
 A typo'd metric name is an error nowhere: the registry creates the series
 and nothing scrapes it. So every *literal* name passed to a metric factory
@@ -9,7 +10,10 @@ or a span must appear here, and every f-string name must match a
 registered ``*`` template (the hole is the runtime key, e.g. the
 fault-counter key in ``edgellm_link_*_total``); the port's tests read its
 sources and hold every call site to these tables. The tables are the
-reference's whole, the names of parts still to port included.
+reference's whole, the names of parts still to port included, and
+:data:`PORT_SPAN_NAMES`, the spans only the port opens (the sweep's and
+the split's phases that the benchmark's per-layer metrics read), joins
+:data:`SPAN_NAMES`.
 
 Stdlib-only, importing nothing else of the package.
 """
@@ -19,7 +23,7 @@ from fnmatch import fnmatchcase
 from typing import FrozenSet, Tuple
 
 __all__ = [
-    "METRIC_NAMES", "METRIC_TEMPLATES", "SPAN_NAMES", "SPAN_TEMPLATES",
+    "METRIC_NAMES", "METRIC_TEMPLATES", "PORT_SPAN_NAMES", "SPAN_NAMES", "SPAN_TEMPLATES",
     "metric_registered", "span_registered",
 ]
 
@@ -106,7 +110,7 @@ METRIC_TEMPLATES: Tuple[str, ...] = (
     "edgellm_spec_*_total",
 )
 
-#: every literal span name
+#: every literal span name of the reference
 SPAN_NAMES: FrozenSet[str] = frozenset({
     # serve/decode.py
     "generate.prefill",
@@ -160,6 +164,28 @@ SPAN_NAMES: FrozenSet[str] = frozenset({
     "cluster.hedge",
     "gray.demote",
 })
+
+#: the spans only the port opens, at the layer boundaries of the token
+#: sweep and the split eval (each read by a per-layer metric of the
+#: benchmark, ``portbench/metrics/``)
+PORT_SPAN_NAMES: FrozenSet[str] = frozenset({
+    # eval/harness.py, eval/split_eval.py: one entry call
+    "eval.call",
+    # eval/harness.py: the token sweep's phases of a window group
+    "eval.stats_forward",
+    "eval.importance",
+    "eval.codec",
+    "eval.suffix",
+    "eval.nll_tail",
+    # parallel/split.py SplitRuntime.forward and the stage unrolls
+    "split.stage",
+    "split.cross",
+    "split.unembed",
+    # eval/split_eval.py: the NLL of the split's logits
+    "eval.nll",
+})
+#: every span name: the reference's and the port's own
+SPAN_NAMES = SPAN_NAMES | PORT_SPAN_NAMES
 
 #: span-name templates (none yet: span names are all static); kept so spans
 #: and metrics are checked alike

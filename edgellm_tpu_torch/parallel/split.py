@@ -126,6 +126,7 @@ from ..models.paged_kv import (KVTierMismatchError, _host, _rows_get, _rows_set,
 from ..models.transformer import (apply_rotary, block_decode, block_verify, embed,
                                   precompute_rope, run_layers, run_layers_tp,
                                   tp_shard_layers, unembed)
+from ..obs.tracing import device_span
 from ..serve.recovery import StageLostError
 
 #: the reference's fold of the fault key for a split prefill, and for a
@@ -260,7 +261,8 @@ def run_pipeline_stages(n_stages: int, codecs: list, run_stage, hidden,
         devices = [dev] * n_stages
     counters = link.init_counters(n_stages - 1) if link is not None else None
     for s in range(n_stages):
-        hidden = run_stage(s, hidden)
+        with device_span("split.stage", devices[s], stage=s):
+            hidden = run_stage(s, hidden)
         if s < n_stages - 1:
             imp = hop_imps[s] if codecs[s].needs_importance else None
             hidden = _cross(s, codecs[s], hidden, imp, devices[s + 1], fused_plans, link,
@@ -271,12 +273,21 @@ def run_pipeline_stages(n_stages: int, codecs: list, run_stage, hidden,
 
 
 def _cross(s: int, codec: WireCodec, hidden, imp, dst, fused_plans, link, key, counters):
-    """Cut ``s`` crossed once: through the faulty link (keyed by ``key``,
-    bumping ``counters`` in place), the cut's fused plan, or the separate
-    hop, whose float32 decode the hidden's dtype promotes as the
+    """Cut ``s`` crossed once, inside a ``split.cross`` span timed on the
+    sending device's stream: by the sequence shards of a stage x seq
+    activation (:func:`_cross_shards`), else :func:`_cross_one`."""
+    src = hidden[0].device if isinstance(hidden, list) else hidden.device
+    with device_span("split.cross", src, hop=s, codec=codec.name):
+        if isinstance(hidden, list):
+            return _cross_shards(s, codec, hidden, imp, dst, link, key, counters)
+        return _cross_one(s, codec, hidden, imp, dst, fused_plans, link, key, counters)
+
+
+def _cross_one(s: int, codec: WireCodec, hidden, imp, dst, fused_plans, link, key, counters):
+    """One activation across cut ``s``: through the faulty link (keyed by
+    ``key``, bumping ``counters`` in place), the cut's fused plan, or the
+    separate hop, whose float32 decode the hidden's dtype promotes as the
     reference's select does."""
-    if isinstance(hidden, list):
-        return _cross_shards(s, codec, hidden, imp, dst, link, key, counters)
     if link is not None:
         return link.hop(codec, hidden, s, dst, key, counters, hop_imp=imp)
     if fused_plans is not None and fused_plans[s] is not None:
@@ -302,8 +313,8 @@ def _cross_shards(s: int, codec: WireCodec, shards: list, imps, dst, link, key, 
     else:
         payloads = [_encode(codec, h, None if imps is None else imps[i])
                     for i, h in enumerate(shards)]
-    return [_cross(s, _sent(codec, payload), h, None, dst, None, link,
-                   None if link is None else fold(key, i), counters)
+    return [_cross_one(s, _sent(codec, payload), h, None, dst, None, link,
+                       None if link is None else fold(key, i), counters)
             for i, (h, payload) in enumerate(zip(shards, payloads))]
 
 
@@ -401,7 +412,8 @@ def run_pipeline_stages_microbatched(n_stages: int, codecs: list, num_microbatch
             at[0] = micro[t]
         for s in range(n_stages):
             if 0 <= t - s < m:
-                at[s] = run_stage(s, at[s], t - s)
+                with device_span("split.stage", devices[s], stage=s, microbatch=t - s):
+                    at[s] = run_stage(s, at[s], t - s)
         if 0 <= t - n_hops < m:
             outs.append(at[n_hops])
         for s in reversed(range(n_hops)):
@@ -781,7 +793,9 @@ class SplitRuntime:
             # the reference's counters leave its shard_map as if replicated
             # (out_specs=P()): a process reads its first local slot's
             self._accum_counters(counters[0])
-        return unembed(self.cfg, placed["last"], outs[0] if len(outs) == 1 else torch.cat(outs))
+        with device_span("split.unembed", self.devices[-1]):
+            return unembed(self.cfg, placed["last"],
+                           outs[0] if len(outs) == 1 else torch.cat(outs))
 
     def _run_stages(self, run_stage, hidden, imps, key_fn, microbatched: bool = False,
                     accum=None):

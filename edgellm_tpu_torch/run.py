@@ -59,8 +59,9 @@ runtimes' µ-batch schedule (split12), with the reference's checks.
 Observability: ``--metrics-out PATH`` (Prometheus text for ``.prom`` /
 ``.txt``, JSON otherwise), ``--trace-out PATH`` (Chrome trace-event JSON),
 ``--trace-report`` (per-request span trees after the run) and ``--profile
-DIR`` (a torch.profiler Chrome trace of the run, every span a
-``record_function`` range) arm the ``obs`` package; a params.json
+DIR`` (a torch.profiler Chrome trace of the run; the spans appear in any
+``torch.profiler`` capture as CPU ranges on the capture's clock) arm the
+``obs`` package; a params.json
 ``observability`` block picks the pillars, ``flight_recorder: true`` writes
 post-mortem artifacts under ``<output-dir>/flight_recorder`` and
 ``obs_port`` (or ``--obs-port PORT``, 0 for any free port) serves the live
@@ -1356,8 +1357,8 @@ def main(argv=None) -> int:
                          "bytes, ladder outcome}); implies tracing")
     ap.add_argument("--profile", metavar="DIR",
                     help="capture a torch.profiler trace of the experiment (CPU and CUDA "
-                         "activity, every span a record_function range) into "
-                         "DIR/torch_trace.json")
+                         "activity) into DIR/torch_trace.json; every span opened in a "
+                         "torch.profiler capture is a CPU range on the capture's clock")
     ap.add_argument("--obs-port", type=int, metavar="PORT",
                     help="serve the live telemetry endpoint on 127.0.0.1:PORT for the run "
                          "(0 = any free port): /metrics, /healthz, /snapshot.json, /trace")

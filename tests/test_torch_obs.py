@@ -271,22 +271,30 @@ def test_context_matches_reference():
 
 def test_trace_capture_writes_record_function_ranges(tmp_path):
     """A capture's torch.profiler trace holds every span opened in it as a
-    range; outside a capture no range is entered."""
+    range, with tracing on or off; outside a capture and with tracing off
+    no span is live."""
     tr = ttracing.get_tracer()
     tr.clear()
     ttracing.configure(enabled=True)
     try:
         with obs.trace_capture(str(tmp_path)):
-            assert ttracing.capture_active()
             with ttracing.span("eval.submit_group", chunk=0):
                 torch.ones(4) + 1
-        assert not ttracing.capture_active()
+            with pytest.raises(RuntimeError, match="already recording"):
+                with obs.trace_capture(str(tmp_path / "inner")):
+                    pass
     finally:
         ttracing.configure(enabled=False)
-        tr.clear()
-    names = {e.get("name") for e in
-             json.loads((tmp_path / "torch_trace.json").read_text())["traceEvents"]}
-    assert "eval.submit_group" in names
+    with obs.trace_capture(str(tmp_path / "off")):
+        with ttracing.span("eval.drain_group", chunk=0) as live:
+            assert live is not None
+    assert ttracing.span("eval.drain_group") is ttracing.span("eval.submit_group")
+    assert [s.name for s in tr.spans()] == ["eval.submit_group", "eval.drain_group"]
+    tr.clear()
+    for sub, name in (("", "eval.submit_group"), ("off", "eval.drain_group")):
+        names = {e.get("name") for e in
+                 json.loads((tmp_path / sub / "torch_trace.json").read_text())["traceEvents"]}
+        assert name in names
     with obs.trace_capture(None):
         pass
 
@@ -351,16 +359,21 @@ def test_observability_config_matches_reference(kw):
 
 
 def test_names_tables_are_the_references():
+    """The reference's tables, and beside its spans exactly the port's own:
+    the sweep's and the split's phases the benchmark reads."""
     assert tnames.METRIC_NAMES == jnames.METRIC_NAMES
     assert tnames.METRIC_TEMPLATES == jnames.METRIC_TEMPLATES
-    assert tnames.SPAN_NAMES == jnames.SPAN_NAMES
+    assert jnames.SPAN_NAMES <= tnames.SPAN_NAMES
+    assert tnames.SPAN_NAMES - jnames.SPAN_NAMES == tnames.PORT_SPAN_NAMES == {
+        "eval.call", "eval.stats_forward", "eval.importance", "eval.codec", "eval.suffix",
+        "eval.nll_tail", "split.stage", "split.cross", "split.unembed", "eval.nll"}
     for pat in ("edgellm_link_*_total", "edgellm_link_x_total", "edgellm_nope", "split.hop",
                 "edgellm_link_*z_total"):
         assert tnames.metric_registered(pat) == jnames.metric_registered(pat)
         assert tnames.span_registered(pat) == jnames.span_registered(pat)
 
 
-_SPAN = re.compile(r"""(?:obs_span|\bspan)\(\s*(f?)["']([^"']+)["']""")
+_SPAN = re.compile(r"""(?:obs_span|device_span|\bspan)\(\s*(f?)["']([^"']+)["']""")
 _METRIC = re.compile(r"""\.(?:counter|gauge|histogram)\(\s*(f?)["']([^"']+)["']""")
 _CTOR = re.compile(r"""\b(?:Counter|Gauge|Histogram)\(\s*(f?)["']([^"']+)["']""")
 
@@ -379,7 +392,8 @@ def test_every_span_and_metric_literal_of_the_port_is_registered():
                 found[kind].add(name)
     found["span"].discard("name")  # the tracer's own parameter in docstrings
     assert {"split.hop", "generate_split.prefill", "serve.execute", "batch.step",
-            "eval.submit_group", "recovery.checkpoint_save"} <= found["span"]
+            "eval.submit_group", "recovery.checkpoint_save", "eval.call",
+            "split.cross"} <= found["span"]
     assert {"serve_requests_total", "edgellm_wire_bytes_total",
             "edgellm_pipeline_stage_occupancy", "edgellm_link_*_total"} <= found["metric"]
     for name in found["span"]:
