@@ -1,0 +1,211 @@
+"""The model's fp32 matrix products on the card: a hand-written 3xTF32
+``wgmma`` GEMM (``csrc/gemm_tf32x3.cu``), its prepared weight planes, its
+plain PyTorch version and the rule that decides which product takes it.
+
+The kernel computes ``C = A @ B`` for fp32 operands as three TF32 products
+on the tensor cores: every operand x is split as hi = tf32(x), lo = tf32(x -
+hi), both rounded as ``cvt.rna`` rounds, and a.b = a_lo.b_hi + a_hi.b_lo +
+a_hi.b_hi in fp32 (a_lo.b_lo, 2^-22 relative, dropped): the rule of fp32
+K-attn and the K-stats column pass. It replaces no TPU kernel (the JAX
+package leaves these dots to XLA); the source says what bounds it.
+
+B is the weight, constant within a run, so it is split once into two
+**planes** (:func:`prepare_planes`): the hi and lo parts of B^T (one row an
+output column, K-major as TF32 ``wgmma`` reads B), in the order a
+shared-memory stage holds them, so that the kernel copies a stage's B tile
+as it lies. A is split in registers inside the kernel.
+
+Which product takes the kernel (:func:`route`): fp32 CUDA operands of at
+least :data:`MIN_ROWS` rows and :data:`MIN_TILES` output tiles. CPU
+tensors, other dtypes and smaller products keep ``torch.matmul``. ``transformer.linear`` applies the rule and keeps the
+planes of every weight; :func:`gemm_tf32x3` launches the kernel for CUDA
+tensors or raises, and takes :func:`gemm_tf32x3_plain` only for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..utils import cuda_build
+from .flash_attention import _sm_count
+
+#: output rows and columns of the kernel's tile, and K values of a stage
+TILE_M, TILE_N, CHUNK_K = 128, 128, 32
+#: the fewest rows, and output tiles, a product needs to take the kernel,
+#: from the crossover measured on an H100 (chip_smoke.py, PERF.md). The
+#: kernel does not split K: below a wave its time is one tile's whole K
+#: loop, whatever the tiles. At a decode step's single row cuBLAS was 2.6-17x
+#: the faster at every (N, K) of both configurations, at 8 rows 1.6-9x at 7
+#: of 8; at 24-42 tiles it won at some (N, K) (by up to 1.24x at 36 tiles of
+#: 384 x 1536 x 8960) and lost at others; from 48 tiles on the kernel won at
+#: every (N, K). cuBLAS keeps the fp32 decode steps, verify bursts and
+#: short prefills, and the narrow k / v products up to 6016 (N = 128) and
+#: 2944 (N = 256) rows
+MIN_ROWS, MIN_TILES = TILE_M, 48
+#: inside each 32 K values (a stage), plane position p = 8 kk + c (k8 step
+#: kk, fragment column c) holds reduction index PLANE_ORDER[p]: a kernel
+#: thread (t = lane % 4) reads the four consecutive values of piece 2t + g
+#: of its rows, which fill its columns t and t + 4 of k8 steps 2g and 2g + 1
+PLANE_ORDER = tuple(8 * t + 4 * g + 2 * kk + half
+                    for g in range(2) for kk in range(2) for half in range(2)
+                    for t in range(4))
+
+
+class Planes(NamedTuple):
+    """A weight's prepared TF32 planes: ``hi`` and ``lo`` of shape
+    (ceil(K / 32), R, 32), R the rows (output columns) rounded up to 8, each
+    row's 16-byte pieces in their swizzled order; ``k`` the reduction length
+    and ``rows`` the rows before rounding."""
+
+    hi: torch.Tensor
+    lo: torch.Tensor
+    k: int
+    rows: int
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 as ``cvt.rna.tf32.f32``: half of the last kept bit added
+    to the magnitude, then the 13 low mantissa bits cleared (to nearest,
+    ties away from zero)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo): x = hi + lo + O(2^-22 |x|), both TF32."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def _swizzle_index(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Index pair that moves piece q of row r (r % 8 = a) to q ^ a, and back."""
+    a = torch.arange(8, device=device)
+    return a[:, None], a[None, :] ^ a[:, None]
+
+
+def prepare_planes(rows: torch.Tensor) -> Planes:
+    """The planes of ``rows`` (R, K), B^T of a product (row n: output column
+    n's K weights), in fp32 (a copy; ``rows`` is not changed): K padded with
+    zeros to a multiple of 32 and R to a multiple of 8, each 32 K values in
+    :data:`PLANE_ORDER`, split into TF32 hi and lo, laid out chunk by chunk
+    of 32 K values, and each row's eight 16-byte pieces swizzled (piece q of
+    row r at q ^ (r % 8)), as the kernel's shared-memory stage holds B."""
+    r, k = rows.shape
+    kp, rp = -(-k // CHUNK_K) * CHUNK_K, -(-r // 8) * 8
+    x = F.pad(rows.float(), (0, kp - k, 0, rp - r))
+    x = x.view(rp, kp // CHUNK_K, 4, 2, 2, 2).permute(0, 1, 3, 4, 5, 2).reshape(rp, kp)
+    ph, q = _swizzle_index(x.device)
+
+    def lay(t):  # (R, kp) -> (kp / 32, R, 32), swizzled
+        t = t.view(rp, kp // CHUNK_K, CHUNK_K).transpose(0, 1).reshape(
+            kp // CHUNK_K, rp // 8, 8, 8, 4)
+        return t[:, :, ph, q, :].reshape(kp // CHUNK_K, rp, CHUNK_K).contiguous()
+
+    hi, lo = split_tf32(x)
+    return Planes(lay(hi), lay(lo), k, r)
+
+
+def unpack_planes(planes: Planes, n0: int = 0, n: Optional[int] = None):
+    """The (hi, lo) rows n0 .. n0 + n - 1 of ``planes`` as (n, K) tensors in
+    the reduction's own order: :func:`prepare_planes` undone."""
+    kc, rp, _ = planes.hi.shape
+    n = planes.rows - n0 if n is None else n
+    ph, q = _swizzle_index(planes.hi.device)
+
+    def unlay(t):
+        t = t.view(kc, rp // 8, 8, 8, 4)[:, :, ph, q, :].reshape(kc, rp, CHUNK_K)
+        t = t.transpose(0, 1).reshape(rp, kc, 2, 2, 2, 4).permute(0, 1, 5, 2, 3, 4)
+        return t.reshape(rp, kc * CHUNK_K)[n0:n0 + n, :planes.k]
+
+    return unlay(planes.hi), unlay(planes.lo)
+
+
+def gemm_tf32x3_plain(a: torch.Tensor, planes: Planes, n0: int = 0,
+                      n: Optional[int] = None) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: A split into TF32 (hi, lo),
+    the planes' rows n0 .. n0 + n - 1 as B^T, a_lo.b_hi + a_hi.b_lo +
+    a_hi.b_hi summed in fp32 (each product of two TF32 values is exact in
+    fp32; the sums run in another order than the kernel's)."""
+    b_hi, b_lo = unpack_planes(planes, n0, n)
+    a_hi, a_lo = split_tf32(a.float())
+    return a_lo @ b_hi.T + a_hi @ b_lo.T + a_hi @ b_hi.T
+
+
+def route(device_type: str, a_dtype: torch.dtype, b_dtype: torch.dtype,
+          rows: int, cols: int) -> Optional[str]:
+    """None where a (rows, cols) product takes the kernel, else why
+    ``torch.matmul`` keeps it: "cpu" (not a CUDA tensor), "bf16" (an operand
+    not fp32: the bf16 paths keep their cuBLAS bf16 GEMMs) or "small_m"
+    (fewer than :data:`MIN_ROWS` rows, or than :data:`MIN_TILES` tiles)."""
+    if device_type != "cuda":
+        return "cpu"
+    if a_dtype != torch.float32 or b_dtype != torch.float32:
+        return "bf16"
+    if rows < MIN_ROWS or -(-rows // TILE_M) * -(-cols // TILE_N) < MIN_TILES:
+        return "small_m"
+    return None
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.library("gemm_tf32x3")
+    if not getattr(lib, "_edgellm_declared", False):
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.edgellm_gemm_tf32x3.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 2 + [i32] * 3 + [ptr]
+        lib.edgellm_gemm_tf32x3.restype = i32
+        lib.edgellm_gemm_tf32x3_error.argtypes = [i32]
+        lib.edgellm_gemm_tf32x3_error.restype = ctypes.c_char_p
+        lib._edgellm_declared = True
+    return lib
+
+
+def _check(a: torch.Tensor, planes: Planes, n0: int, n: int):
+    """The kernel's contract; raises on what it does not take."""
+    if a.dim() != 2 or a.dtype != torch.float32 or a.device.type != "cuda":
+        raise ValueError(f"the 3xTF32 GEMM takes a 2-D float32 CUDA A, got "
+                         f"{tuple(a.shape)} {a.dtype} on {a.device}")
+    if not a.is_contiguous():
+        raise ValueError("A must be contiguous (rows of K values, 16-byte copies)")
+    if a.shape[1] != planes.k or planes.k % 4:
+        raise ValueError(f"A has K = {a.shape[1]}, the planes {planes.k}; the kernel "
+                         f"copies rows in 16-byte pieces, so K must be a multiple of 4")
+    for t in (planes.hi, planes.lo):
+        if t.device != a.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("the planes must be contiguous float32 on A's device")
+    if a.data_ptr() % 16:
+        raise ValueError("A's base must be 16-byte aligned for the kernel's copies")
+    if not (0 <= n0 and n > 0 and n0 + n <= planes.rows):
+        raise ValueError(f"columns {n0} .. {n0 + n - 1} outside the planes' "
+                         f"{planes.rows} rows")
+
+
+def gemm_tf32x3(a: torch.Tensor, planes: Planes, n0: int = 0,
+                n: Optional[int] = None) -> torch.Tensor:
+    """``a @ B`` (M, n) float32, B^T being rows n0 .. n0 + n - 1 of
+    ``planes``. CUDA tensors launch the kernel (``gemm_tf32x3.launches``
+    counts the launches) or raise; CPU tensors take
+    :func:`gemm_tf32x3_plain`."""
+    n = planes.rows - n0 if n is None else n
+    if a.device.type == "cpu":
+        return gemm_tf32x3_plain(a, planes, n0, n)
+    _check(a, planes, n0, n)
+    m = a.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        err = lib.edgellm_gemm_tf32x3(
+            a.data_ptr(), planes.hi.data_ptr(), planes.lo.data_ptr(), out.data_ptr(),
+            m, n, planes.k, a.stride(0), out.stride(0), planes.hi.shape[1], n0,
+            _sm_count(a.device), torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        msg = lib.edgellm_gemm_tf32x3_error(err).decode()
+        raise RuntimeError(f"gemm_tf32x3 kernel launch failed: CUDA error {err} ({msg})")
+    gemm_tf32x3.launches += 1
+    return out
+
+
+gemm_tf32x3.launches = 0

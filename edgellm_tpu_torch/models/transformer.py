@@ -15,7 +15,9 @@ metrics read (per-head column means and last rows), through the K-stats
 kernel on the card (``flash_attention.causal_attention_stats``), so no second
 model and no (S, S) attention map in device memory. A
 ``boundary_fn(layer_idx, hidden) -> hidden`` hook sits after each block, the
-reference's ``if i == layer_of_interest`` edit point.
+reference's ``if i == layer_of_interest`` edit point. Every weight product
+goes through :func:`linear`: on the card the fp32 ones take the 3xTF32 GEMM
+(``gemm.py``) over planes :func:`prepared_planes` keeps beside the weights.
 """
 from __future__ import annotations
 
@@ -25,8 +27,10 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from ..lint import graph_contract
+from . import gemm
 from .configs import ModelConfig
 from .flash_attention import (attention_plain, causal_attention,
                               causal_attention_plain, causal_attention_stats,
@@ -131,15 +135,97 @@ def _stats_block_size(s: int, requested: Optional[int]) -> int:
     return s
 
 
+#: root weight tensor -> {the weight's view: (its version when prepared, the
+#: planes)}, for :func:`prepared_planes`
+_PLANES = WeakTensorKeyDictionary()
+
+
+def prepared_planes(w: torch.Tensor) -> tuple[gemm.Planes, int]:
+    """The 3xTF32 kernel's planes of weight ``w`` (K, N) and the plane row of
+    its first column -> (planes, n0). The one place the model prepares
+    planes: once per weight per process, at the weight's first fp32 product
+    on the card (a run's warm-up), never again while the weight is unchanged.
+
+    Planes are kept beside the weight's root tensor (``w._base``, weakly:
+    they go with the weights) and rebuilt when its ``_version`` has moved,
+    so an in-place change to a weight is never read through stale planes. A
+    K-major ``w`` whose columns are a row range of a 2-D (R, K) root (the
+    tied head ``embed.T`` and its vocab blocks ``embed[a:b].T``) reads the
+    root's planes, prepared once for every block, at its first row; any
+    other view (a layer's (in, out) matrix in the stacked weights) has
+    planes of its own."""
+    k, _ = w.shape
+    root = w if w._base is None else w._base
+    if (w.stride(0) == 1 and w.stride(1) == k and root.dim() == 2
+            and root.is_contiguous() and root.shape[1] == k):
+        key, src, n0 = "rows", root, (w.storage_offset() - root.storage_offset()) // k
+    else:
+        key, src, n0 = (w.storage_offset(), tuple(w.shape), tuple(w.stride())), w.T, 0
+    # an inference-mode tensor tracks no version: it is prepared once
+    version = None if w.is_inference() else w._version
+    kept = _PLANES.setdefault(root, {})
+    hit = kept.get(key)
+    if hit is None or hit[0] != version:
+        hit = kept[key] = (version, gemm.prepare_planes(src))
+    return hit[1], n0
+
+
+#: root tensor -> {(a view's geometry, what was made of it): (the root's
+#: version, the result's version, the result)}, for :func:`made_once`
+_MADE = WeakTensorKeyDictionary()
+
+
+def made_once(src: torch.Tensor, key: tuple, make: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """``make()``, a tensor made from ``src`` (a promoted or moved copy, a
+    tensor-parallel cut), kept beside ``src``'s root and returned again for
+    the same ``key`` while neither the root nor the result has changed. So
+    a weight copied anew at every placement keeps one copy, and the GEMM
+    planes of it (:func:`prepared_planes`) are prepared once a process. A
+    result that shares the root's storage (a view, made for nothing) is not
+    kept, nor an inference-mode source or result (no version to check)."""
+    root = src if src._base is None else src._base
+    if root.is_inference():
+        return make()
+    key = (src.storage_offset(), tuple(src.shape), tuple(src.stride())) + key
+    kept = _MADE.setdefault(root, {})
+    hit = kept.get(key)
+    if hit is not None and hit[:2] == (root._version, hit[2]._version):
+        return hit[2]
+    made = make()
+    if not made.is_inference() \
+            and made.untyped_storage().data_ptr() != root.untyped_storage().data_ptr():
+        kept[key] = (root._version, made._version, made)
+    return made
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N): fp32 CUDA operands of at least
+    ``gemm.MIN_ROWS`` rows and ``gemm.MIN_TILES`` output tiles take the
+    3xTF32 kernel (``gemm.gemm_tf32x3``, over :func:`prepared_planes`);
+    every other product keeps ``torch.matmul``, counted by reason in
+    ``linear.routed`` ("cpu", "bf16", "small_m": ``gemm.route``)."""
+    k, n = w.shape
+    rows = x.numel() // x.shape[-1]
+    reason = gemm.route(x.device.type, x.dtype, w.dtype, rows, n)
+    if reason is not None:
+        linear.routed[reason] += 1
+        return x @ w
+    planes, n0 = prepared_planes(w)
+    return gemm.gemm_tf32x3(x.reshape(rows, k), planes, n0, n).reshape(*x.shape[:-1], n)
+
+
+linear.routed = {"small_m": 0, "cpu": 0, "bf16": 0}
+
+
 def project_qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor):
     """(B, S, D) -> pre-rotary q (B, S, H, hd), k and v (B, S, KV, hd); head
     counts come from the weight shapes."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     h, kv = lp["wq"].shape[-1] // hd, lp["wk"].shape[-1] // hd
-    q = (x @ lp["wq"]).reshape(b, s, h, hd)
-    k = (x @ lp["wk"]).reshape(b, s, kv, hd)
-    v = (x @ lp["wv"]).reshape(b, s, kv, hd)
+    q = linear(x, lp["wq"]).reshape(b, s, h, hd)
+    k = linear(x, lp["wk"]).reshape(b, s, kv, hd)
+    v = linear(x, lp["wv"]).reshape(b, s, kv, hd)
     if "bq" in lp:
         q = q + lp["bq"].reshape(h, hd)
         k = k + lp["bk"].reshape(kv, hd)
@@ -157,7 +243,7 @@ def _out_partial(lp: dict, out: torch.Tensor) -> torch.Tensor:
     """(B, S, H, hd) -> (B, S, D) through ``wo``, before the bias: a
     tensor-parallel shard's partial product of its local heads."""
     b, s = out.shape[:2]
-    return out.reshape(b, s, -1) @ lp["wo"]
+    return linear(out.reshape(b, s, -1), lp["wo"])
 
 
 def attention(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin,
@@ -211,8 +297,9 @@ def _mlp_partial(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
     """The MLP's down projection before its output bias: a tensor-parallel
     shard's partial product of its own F columns."""
     if cfg.family == "gpt_neox":
-        return F.gelu(x @ lp["w_in"] + lp["b_in"], approximate="none") @ lp["w_out"]
-    return (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
+        return linear(F.gelu(linear(x, lp["w_in"]) + lp["b_in"], approximate="none"),
+                      lp["w_out"])
+    return linear(F.silu(linear(x, lp["w_gate"])) * linear(x, lp["w_up"]), lp["w_down"])
 
 
 def _block_norm(cfg: ModelConfig, lp: dict, x: torch.Tensor, n: int) -> torch.Tensor:
@@ -257,11 +344,13 @@ def tp_shard_layers(layers: dict, n_model: int) -> list:
     """A stack of layers ((L, ...) tensors) -> ``n_model`` shard stacks:
     column-split weights cut along their last (output-feature) axis,
     row-split ones along their input-feature axis, each cut a contiguous
-    tensor of its own; the rest shared by every shard."""
+    tensor of its own, made once while its source is unchanged
+    (:func:`made_once`); the rest shared by every shard."""
     def cut(name: str, t: torch.Tensor, m: int) -> torch.Tensor:
         axis = -1 if name in TP_COL_SPLIT else 1
         width = t.shape[axis] // n_model
-        return t.narrow(axis, m * width, width).contiguous()
+        return made_once(t, ("tp", axis, n_model, m),
+                         lambda: t.narrow(axis, m * width, width).contiguous())
 
     return [{name: (cut(name, t, m) if name in TP_COL_SPLIT | TP_ROW_SPLIT else t)
              for name, t in layers.items()} for m in range(n_model)]
@@ -321,12 +410,17 @@ def head_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bf16 tensor-core GEMM with fp32 accumulation and fp32 output
     (``aten::mm.dtype``): a bf16 x bf16 product is exact in fp32, so it sums
     the same terms as the widened product in another order, and the logits
-    are never rounded to bf16. Other operands (fp32, or a fp32 hidden
-    against a bf16 head, which the reference promotes) and every CPU tensor
-    take the widened fp32 product."""
+    are never rounded to bf16; a fp32 hidden against a bf16 head, which the
+    reference promotes, takes cuBLAS's widened fp32 product (both counted
+    "bf16" in ``linear.routed``). fp32 operands and every CPU tensor go
+    through :func:`linear` (the 3xTF32 kernel on the card)."""
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        linear.routed["bf16"] += 1
         return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
+    if a.is_cuda and not a.dtype == b.dtype == torch.float32:
+        linear.routed["bf16"] += 1
+        return a.float() @ b.float()
+    return linear(a.float(), b.float())
 
 
 def unembed(cfg: ModelConfig, params: dict, hidden: torch.Tensor) -> torch.Tensor:

@@ -124,7 +124,7 @@ from ..models.flash_attention import dequantize_kv_rows, quantize_kv_rows
 from ..models.paged_kv import (KVTierMismatchError, _host, _rows_get, _rows_set,
                                resolve_kv_codec, run_layers_paged)
 from ..models.transformer import (apply_rotary, block_decode, block_verify, embed,
-                                  precompute_rope, run_layers, run_layers_tp,
+                                  made_once, precompute_rope, run_layers, run_layers_tp,
                                   tp_shard_layers, unembed)
 from ..obs.tracing import device_span
 from ..serve.recovery import StageLostError
@@ -510,7 +510,9 @@ def place_stage_params(params: dict, bounds: list, devices: list, fused_plans: l
     stage's and the final norm and head on the last stage's. A stage behind
     a separate (unfused) hop computes in float32 (see the module note), so
     its floating weights are held in float32; an unchanged slice on its own
-    device is a view, not a copy. ``fused_plans``: one plan or None a cut.
+    device is a view, not a copy, and a copy is made once while its source
+    is unchanged (``made_once``), placement after placement, so the GEMM
+    planes of it are prepared once. ``fused_plans``: one plan or None a cut.
     With ``n_model`` > 1 a stage is the list of its ``n_model`` shard
     stacks (:func:`~..models.transformer.tp_shard_layers`)."""
     layers = params["layers"]
@@ -521,7 +523,8 @@ def place_stage_params(params: dict, bounds: list, devices: list, fused_plans: l
         for name, t in layers.items():
             dtype = (torch.promote_types(t.dtype, torch.float32)
                      if promoted and t.is_floating_point() else None)
-            stage[name] = t[start:stop].to(device=dev, dtype=dtype)
+            stage[name] = made_once(t, ("stage", start, stop, str(dev), dtype),
+                                    lambda: t[start:stop].to(device=dev, dtype=dtype))
         stages.append(tp_shard_layers(stage, n_model) if n_model > 1 else stage)
     rest = {k: v for k, v in params.items() if k != "layers"}
     return {"stages": stages,
