@@ -394,6 +394,10 @@ KERNELS = {
         "route": "cuda", "source": "edgellm_tpu_torch/csrc/gemm_tf32x3.cu",
         "replaces": None, "note": "replaces no TPU kernel: the JAX package leaves the "
                                   "model's dots to XLA"},
+    "grouped_gemm_tf32x3": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/gemm_tf32x3.cu",
+        "replaces": None, "note": "replaces no TPU kernel: the JAX package has no sparse "
+                                  "experts (LFM2-MoE, models/moe.py)"},
 }
 #: kernels whose launches every path reads but none predicts: the 3xTF32
 #: GEMM takes a product by its rows and output tiles (``gemm.route``), which
@@ -966,6 +970,121 @@ def gemm_paths(args, detail: dict) -> tuple:
     return next(r for r in rows if r["shape"] == "qwen2-0.5b gate/up"), by_path
 
 
+#: the LFM2 cell's grouped expert products: (label, K, N) over 16 held
+#: experts, rows as a statistics forward of 16 windows routes them (top-4 of
+#: 32 on uniform scores: ~1024 an expert)
+MOE_SHAPES = (("lfm2 experts gate/up", 2048, 3584), ("lfm2 experts down", 1792, 2048))
+MOE_TOKENS, MOE_HELD, MOE_ROUTED, MOE_TOP_K = 16 * 512, 16, 32, 4
+#: tiny-lfm2 logits, card against CPU: fp32 in another order (1e-5 read)
+MOE_CROSS_TOL = 1e-4
+
+
+def moe_paths(args, detail: dict) -> tuple:
+    """The grouped 3xTF32 GEMM and the hybrid model -> (its row at the LFM2
+    cell's gate / up shape, launch counts by path). At each of
+    :data:`MOE_SHAPES`: device ms over 20 warm calls beside its bound, its
+    plain version's and a per-expert cuBLAS fp32 loop's; each expert's
+    widest error against float64 at most 3x cuBLAS fp32's, the held rows
+    within :data:`GEMM_PLAIN_TOL` times that error of the plain version on
+    the same inputs, and the rows past the held experts' (pairs routed to
+    the other card) left as the output held them (NaN). Then the
+    ``tiny-lfm2`` model (hidden 128, heads of 64, so the kernels launch):
+    a forward on the card against the CPU, its launches exactly 2 grouped a
+    MoE layer and K-attn once an attention layer; and the ``moe.experts``
+    graph contract executed on the card: no host sync, two launches."""
+    import torch
+
+    from edgellm_tpu_torch.lint.entrypoints import run_moe_contract
+    from edgellm_tpu_torch.models import PORT_PRESETS, gemm, init_params
+    from edgellm_tpu_torch.models import transformer as tr
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    picks = torch.rand((MOE_TOKENS, MOE_ROUTED), generator=gen, device="cuda").topk(
+        MOE_TOP_K, dim=-1).indices.flatten()
+    counts = torch.zeros(MOE_ROUTED, dtype=torch.int64, device="cuda").scatter_add_(
+        0, picks, torch.ones_like(picks))[:MOE_HELD]
+    offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+    off = offsets.tolist()
+    rows = []
+    for label, k, n in MOE_SHAPES:
+        a = torch.randn((MOE_TOKENS * MOE_TOP_K, k), generator=gen, device="cuda")
+        w = torch.randn((MOE_HELD, k, n), generator=gen, device="cuda") * 0.02
+        planes = gemm.prepare_grouped_planes(w)
+        # rows past the held experts' (pairs routed elsewhere) stay unwritten
+        got = gemm.grouped_gemm_tf32x3(a, planes, offsets,
+                                       a.new_full((a.shape[0], n), math.nan))
+        torch.cuda.synchronize()
+        err = lib_err = 0.0
+        for e in range(MOE_HELD):
+            r0, r1 = off[e], off[e + 1]
+            err = max(err, _widest_error(got[r0:r1], a[r0:r1], w[e]))
+            lib_err = max(lib_err, _widest_error(a[r0:r1] @ w[e], a[r0:r1], w[e]))
+        plain = gemm.grouped_gemm_tf32x3_plain(a, planes, offsets)
+        plain_diff = (got[:off[-1]] - plain[:off[-1]]).abs().max().item()
+        outside_unwritten = bool(got[off[-1]:].isnan().all())
+        torch.cuda.synchronize()
+        del got, plain
+
+        def loop():
+            for e in range(MOE_HELD):
+                a[off[e]:off[e + 1]] @ w[e]
+
+        ms = device_ms(lambda: gemm.grouped_gemm_tf32x3(a, planes, offsets), 20)
+        flops = 2.0 * off[-1] * k * n
+        bound_ms = flops / GEMM_PEAK_FLOPS * 1e3
+        row = {"shape": label, "experts": MOE_HELD, "m": off[-1], "n": n, "k": k,
+               "rows_min": min(counts.tolist()), "rows_max": max(counts.tolist()),
+               "kernel_device_ms": ms,
+               "kernel_ms": time_ms(lambda: gemm.grouped_gemm_tf32x3(a, planes, offsets), 20),
+               "tflops_per_s": flops / ms / 1e9, "bound_ms": bound_ms, "bound_by": "operations",
+               "share": bound_ms / ms,
+               "plain_ms": time_ms(lambda: gemm.grouped_gemm_tf32x3_plain(a, planes, offsets),
+                                   2, warmup=1),
+               "library_device_ms": device_ms(loop, 20), "library_ms": time_ms(loop, 20),
+               "max_abs_err": err, "library_max_abs_err": lib_err,
+               "plain_max_abs_diff": plain_diff, "rows_outside": a.shape[0] - off[-1],
+               "outside_unwritten": outside_unwritten}
+        row["library_tflops_per_s"] = flops / row["library_device_ms"] / 1e9
+        log(json.dumps({"moe_gemm": row}))
+        rows.append(row)
+        if err > 3 * lib_err or plain_diff > GEMM_PLAIN_TOL * lib_err \
+                or not outside_unwritten or a.shape[0] == off[-1]:
+            raise SystemExit(f"grouped gemm {label}: error {err} (cuBLAS {lib_err}), "
+                             f"{plain_diff} from the plain version, rows past the held "
+                             f"experts' unwritten: {outside_unwritten}")
+        del a, w, planes
+        torch.cuda.empty_cache()
+
+    cfg = PORT_PRESETS["tiny-lfm2"]
+    params = init_params(cfg, torch.Generator().manual_seed(args.seed), device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(args.seed).integers(0, cfg.vocab_size,
+                                                                    (4, 128)))
+    want, _ = tr.forward(cfg, params, ids)
+    on_card = tr.params_to(params, device="cuda")
+    tr.forward(cfg, on_card, ids.cuda())  # planes, warm
+    torch.cuda.synchronize()
+    reset_counts()
+    got, _ = tr.forward(cfg, on_card, ids.cuda())
+    torch.cuda.synchronize()
+    launches = read_counts()
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    attn = len(cfg.attention_layers)
+    expect = want_counts(attn, causal_attention=attn, grouped_gemm_tf32x3=2 * moe_layers)
+    diff = (got.cpu() - want).abs().max().item()
+    findings, contract = run_moe_contract("cuda")
+    detail["moe"] = {"rows": rows, "forward_max_abs_diff": diff, "launches": launches,
+                     "contract": contract, "contract_findings": [f.format() for f in findings]}
+    log(json.dumps({"moe_model": {k: detail["moe"][k] for k in (
+        "forward_max_abs_diff", "contract", "contract_findings")}}))
+    if launches_differ(launches, expect) or diff > MOE_CROSS_TOL:
+        raise SystemExit(f"tiny-lfm2 on the card: launches {launches} (want {expect}), "
+                         f"logits {diff} from the CPU's")
+    if findings or not contract.get("host_sync", {}).get("checked"):
+        raise SystemExit(f"moe.experts contract on the card: {detail['moe']['contract_findings']}"
+                         f" {contract}")
+    return rows[0], {"moe tiny-lfm2 forward": launches}
+
+
 def _gemm_decode(cfg, params, rng, generate, by_path: dict) -> dict:
     """The routing's cuBLAS side on fp32 ``params``: a B = 1 decode of
     :data:`GEMM_DECODE_TOKENS` tokens after an 8-token prompt, every product
@@ -1195,7 +1314,8 @@ def _wrappers() -> dict:
             "ternary_decode": ck.ternary_decode, "remote_hop": fh.remote_hop,
             "paged_decode_attention": fa.paged_decode_attention,
             "paged_decode_attention_quant": fa.paged_decode_attention_quant,
-            "gemm_tf32x3": gemm.gemm_tf32x3}
+            "gemm_tf32x3": gemm.gemm_tf32x3,
+            "grouped_gemm_tf32x3": gemm.grouped_gemm_tf32x3}
 
 
 #: K-attn's launches by dtype, beside its total (fp32: the split stages
@@ -5865,10 +5985,11 @@ def main() -> int:
     t0 = time.monotonic()
     main_rows = kernel_checks(detail)
     gemm_row, gemm_counts = gemm_paths(args, detail)
+    moe_row, moe_counts = moe_paths(args, detail)
     codec_rows = codec_checks(detail)
     paged_rows = paged_checks(detail)
     t1 = time.monotonic()
-    by_path = {"token_sweep": main_path(args, detail), **gemm_counts}
+    by_path = {"token_sweep": main_path(args, detail), **gemm_counts, **moe_counts}
     t2 = time.monotonic()
     by_path.update(split_paths(args, detail))
     t3 = time.monotonic()
@@ -5925,6 +6046,10 @@ def main() -> int:
         elif name == "gemm_tf32x3":  # library_ms: cuBLAS fp32 at the same shape
             r = gemm_row
             shape = f"{r['shape']} M={r['m']} N={r['n']} K={r['k']} float32"
+        elif name == "grouped_gemm_tf32x3":  # library_ms: a per-expert cuBLAS fp32 loop
+            r = moe_row
+            shape = (f"{r['shape']} E={r['experts']} M={r['m']} (rows {r['rows_min']}-"
+                     f"{r['rows_max']} an expert) N={r['n']} K={r['k']} float32")
         else:
             r = codec_rows[name]
             shape = f"qwen2-0.5b split N={r['n']} D={r['d']} {r['dtype']}"

@@ -57,6 +57,12 @@
 // range of the embedding's planes). Tiles start at row n0 rounded down to 8,
 // so that a tile's rows keep their swizzle phase; columns outside the
 // product are computed and not stored.
+//
+// The grouped form (gemm_tf32x3_grouped_kernel) runs a sparse-expert layer's
+// products over the experts it holds in one launch: A the routed rows in
+// expert order, each expert's B its own planes, the per-expert row offsets
+// read on the device by a tile scheduler, so that neither the routing nor
+// the grid waits on the host and an expert with no rows costs no tile.
 #include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
 
 #include "hopper_common.cuh"
@@ -74,6 +80,7 @@ constexpr int kBTile = kBN * kBK * 4;   // one plane's B tile
 constexpr int kStageBytes = kATile + 2 * kBTile;
 constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment
 constexpr int kGroupM = 8;                           // row tiles a raster group
+constexpr int kMaxExperts = 256;                     // experts a grouped launch holds
 }  // namespace tf32x3
 
 // TMA: the box at (x, y) of a 2-D tensor map into shared memory, counted on
@@ -134,6 +141,65 @@ __device__ __forceinline__ void split_frag(float a0, float a1, float a2, float a
     const float2 x = split_tf32(v[i]);
     hi[i] = __float_as_uint(x.x);
     lo[i] = __float_as_uint(x.y);
+  }
+}
+
+// One stage's 32 K values for a consumer thread (rows r, r + 8 of its
+// warpgroup's 64): A split into TF32 (hi, lo) as it leaves shared memory,
+// the small terms and then hi.hi into a fresh accumulator, which is added
+// into the tile's fp32 sum once the stage is released to the producer.
+__device__ __forceinline__ void consume_stage(uint32_t st, uint32_t a_off, uint32_t swz, int t4,
+                                              int lane, uint32_t bar_empty_s, float (&acc)[64],
+                                              float (&sum)[64]) {
+  __syncwarp();  // wgmma is .aligned: the warp leaves the spin together
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {  // piece 2 t4 + g of rows r, r + 8
+    const uint32_t q = ((2 * t4 + g) ^ swz) << 4;
+    const float4 x = lds128(st + a_off + q), y = lds128(st + a_off + 8 * 128 + q);
+    split_frag(x.x, y.x, x.y, y.y, hi[2 * g], lo[2 * g]);
+    split_frag(x.z, y.z, x.w, y.w, hi[2 * g + 1], lo[2 * g + 1]);
+  }
+  const uint32_t b_hi = st + tf32x3::kATile, b_lo = b_hi + tf32x3::kBTile;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {  // the small terms, into a fresh accumulator
+    wgmma_tf32_rs_n128(acc, lo[kk], sw128_desc(b_hi + kk * 32, 16, 1024), kk > 0);
+    wgmma_tf32_rs_n128(acc, hi[kk], sw128_desc(b_lo + kk * 32, 16, 1024), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)  // then hi.hi
+    wgmma_tf32_rs_n128(acc, hi[kk], sw128_desc(b_hi + kk * 32, 16, 1024), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar_empty_s);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sum[i] += acc[i];  // rounded, not truncated
+}
+
+// A consumer thread's part of a finished tile: rows row0 and row0 + 8 where
+// below row_end, the columns col0 + 8 j + 2 t4 (+ 1) that lie in [0, N).
+__device__ __forceinline__ void store_tile(float* __restrict__ c, const float (&sum)[64],
+                                           int row0, int row_end, int col0, int N,
+                                           long long ldc, int t4, int vec2) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = col0 + 8 * j + 2 * t4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= row_end) continue;
+      float* out = c + static_cast<size_t>(row) * ldc + col;
+      const float v0 = sum[4 * j + 2 * h], v1 = sum[4 * j + 2 * h + 1];
+      if (vec2 && col >= 0 && col + 1 < N) {
+        *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+      } else {
+        if (col >= 0 && col < N) out[0] = v0;
+        if (col + 1 >= 0 && col + 1 < N) out[1] = v1;
+      }
+    }
   }
 }
 
@@ -213,54 +279,110 @@ gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap tmap_a, const float* __re
     for (int i = 0; i < 64; ++i) sum[i] = 0.f;
     for (int kc = 0; kc < kc_n; ++kc, ++it) {
       const int s = it % kStages;
-      const uint32_t st = base + s * kStageBytes;
       mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
-      __syncwarp();  // wgmma is .aligned: the warp leaves the spin together
-      uint32_t hi[4][4], lo[4][4];
-#pragma unroll
-      for (int g = 0; g < 2; ++g) {  // piece 2 t4 + g of rows r, r + 8
-        const uint32_t q = ((2 * t4 + g) ^ swz) << 4;
-        const float4 x = lds128(st + a_off + q), y = lds128(st + a_off + 8 * 128 + q);
-        split_frag(x.x, y.x, x.y, y.y, hi[2 * g], lo[2 * g]);
-        split_frag(x.z, y.z, x.w, y.w, hi[2 * g + 1], lo[2 * g + 1]);
-      }
-      const uint32_t b_hi = st + kATile, b_lo = b_hi + kBTile;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {  // the small terms, into a fresh accumulator
-        wgmma_tf32_rs_n128(acc, lo[kk], sw128_desc(b_hi + kk * 32, 16, 1024), kk > 0);
-        wgmma_tf32_rs_n128(acc, hi[kk], sw128_desc(b_lo + kk * 32, 16, 1024), 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)  // then hi.hi
-        wgmma_tf32_rs_n128(acc, hi[kk], sw128_desc(b_hi + kk * 32, 16, 1024), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
-#pragma unroll
-      for (int i = 0; i < 64; ++i) sum[i] += acc[i];  // rounded, not truncated
+      consume_stage(base + s * kStageBytes, a_off, swz, t4, lane, bar_empty + 8 * s, acc, sum);
     }
     // the tile's rows below M and columns inside the product
-    const int row0 = m0 + r;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = p0 + 8 * j + 2 * t4 - n0;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + 8 * h;
-        if (row >= M) continue;
-        float* out = c + static_cast<size_t>(row) * ldc + col;
-        const float v0 = sum[4 * j + 2 * h], v1 = sum[4 * j + 2 * h + 1];
-        if (vec2 && col >= 0 && col + 1 < N) {
-          *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
-        } else {
-          if (col >= 0 && col < N) out[0] = v0;
-          if (col + 1 >= 0 && col + 1 < N) out[1] = v1;
-        }
+    store_tile(c, sum, m0 + r, M, p0 - n0, N, ldc, t4, vec2);
+  }
+}
+
+// The persistent grouped form over the experts a layer holds: expert e's
+// rows of A are offsets[e] .. offsets[e + 1] - 1 (A the routed rows in
+// expert order), its B the planes bhi / blo + e * plane_stride, its C rows
+// the same rows of c. The offsets are read here, on the device: each block
+// sums the experts' tiles (an expert of m rows has ceil(m / 128) row tiles
+// of N / 128 column tiles; none if it has no rows) and walks the tiles
+// blockIdx.x, + gridDim.x, ... of the sum, so that the grid is the card's
+// SM count whatever the routing, and the host never reads a row count. A
+// tile's last rows may belong to the next expert: they are computed and not
+// stored. The stage work, the ring and the store are the dense kernel's.
+__global__ void __launch_bounds__(tf32x3::kThreads, 1)
+gemm_tf32x3_grouped_kernel(const __grid_constant__ CUtensorMap tmap_a,
+                           const float* __restrict__ bhi, const float* __restrict__ blo,
+                           float* __restrict__ c, int N, int K, long long ldc, int R,
+                           long long plane_stride, const int* __restrict__ offsets,
+                           int experts, int vec2) {
+  using namespace tf32x3;
+  extern __shared__ unsigned char smem_gemm[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];  // full[], empty[]
+  __shared__ int s_off[kMaxExperts + 1], s_tiles[kMaxExperts + 1];
+  const uint32_t base = (smem_u32(smem_gemm) + 1023u) & ~1023u;
+  const uint32_t bar_full = smem_u32(&bars[0]), bar_empty = smem_u32(&bars[kStages]);
+  const int kc_n = (K + kBK - 1) / kBK;
+  const int tiles_n = (N + kBN - 1) / kBN;
+
+  for (int e = threadIdx.x; e <= experts; e += blockDim.x) s_off[e] = offsets[e];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);
+    }
+    mbar_init_fence();
+    s_tiles[0] = 0;
+    for (int e = 0; e < experts; ++e)
+      s_tiles[e + 1] = s_tiles[e] + (s_off[e + 1] - s_off[e] + kBM - 1) / kBM * tiles_n;
+  }
+  __syncthreads();
+  const int n_tiles = s_tiles[experts];
+  // tile -> (expert, first row, first column, end of the expert's rows); the
+  // tiles a block takes rise, so the expert search resumes where it stopped
+  int e = 0;
+  auto at = [&](int tile, int& m0, int& p0, int& row_end) {
+    while (tile >= s_tiles[e + 1]) ++e;
+    const int in_e = tile - s_tiles[e];
+    const int tiles_m = (s_off[e + 1] - s_off[e] + kBM - 1) / kBM;
+    const int per_group = kGroupM * tiles_n;
+    const int group = in_e / per_group, first_m = group * kGroupM;
+    const int gm = min(kGroupM, tiles_m - first_m);
+    const int in_group = in_e - group * per_group;
+    m0 = s_off[e] + (first_m + in_group % gm) * kBM;
+    p0 = (in_group / gm) * kBN;
+    row_end = s_off[e + 1];
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 8) {
+    if (lane != 0) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      int m0, p0, row_end;
+      at(tile, m0, p0, row_end);
+      const uint32_t b_bytes = static_cast<uint32_t>(min(kBN, R - p0)) * 128u;
+      const size_t plane = static_cast<size_t>(e) * plane_stride;
+      for (int kc = 0; kc < kc_n; ++kc, ++it) {
+        const int s = it % kStages;
+        mbar_wait(bar_empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        const uint32_t st = base + s * kStageBytes;
+        const size_t off = plane + (static_cast<size_t>(kc) * R + p0) * kBK;
+        mbar_arrive_expect_tx(bar_full + 8 * s, kATile + 2 * b_bytes);
+        tma_load_2d(st, &tmap_a, kc * kBK, m0, bar_full + 8 * s);
+        bulk_copy_g2s(st + kATile, bhi + off, b_bytes, bar_full + 8 * s);
+        bulk_copy_g2s(st + kATile + kBTile, blo + off, b_bytes, bar_full + 8 * s);
       }
     }
+    return;
+  }
+
+  const int wg = warp / 4, w = warp % 4, t4 = lane % 4;
+  const int r = wg * 64 + w * 16 + lane / 4;
+  const uint32_t a_off = r * 128, swz = r & 7;
+  float acc[64], sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    int m0, p0, row_end;
+    at(tile, m0, p0, row_end);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+    for (int kc = 0; kc < kc_n; ++kc, ++it) {
+      const int s = it % kStages;
+      mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
+      consume_stage(base + s * kStageBytes, a_off, swz, t4, lane, bar_empty + 8 * s, acc, sum);
+    }
+    store_tile(c, sum, m0 + r, row_end, p0, N, ldc, t4, vec2);
   }
 }
 
@@ -283,6 +405,21 @@ static EncodeTiledFn encode_tiled() {
       fn = reinterpret_cast<EncodeTiledFn>(p);
   }
   return fn;
+}
+
+// A's tensor map: (M, K) fp32 rows of stride lda, boxes of 32 x 128,
+// SWIZZLE_128B, zero-filled past M and K. False if it could not be made.
+static bool a_tensor_map(CUtensorMap* tmap, const float* a, int M, int K, long long lda) {
+  using namespace edgellm::tf32x3;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(lda) * 4};
+  const cuuint32_t box[2] = {kBK, kBM}, unit[2] = {1, 1};
+  return encode(tmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(a), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 // C = A . B (see the kernel). a: (M, K) fp32 rows of stride lda; bhi / blo:
@@ -308,17 +445,8 @@ extern "C" int edgellm_gemm_tf32x3(const float* a, const float* bhi, const float
   map.tiles_n = (n0 - map.p_start + N + kBN - 1) / kBN;
   const long long n_tiles = static_cast<long long>(map.tiles_m) * map.tiles_n;
   if (n_tiles > 0x7fffffff) return -1;
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return -2;
   CUtensorMap tmap_a;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(lda) * 4};
-  const cuuint32_t box[2] = {kBK, kBM}, unit[2] = {1, 1};
-  if (encode(&tmap_a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(a), dims, strides,
-             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
-      CUDA_SUCCESS)
-    return -2;
+  if (!a_tensor_map(&tmap_a, a, M, K, lda)) return -2;
   const int vec2 = ldc % 2 == 0 && n0 % 2 == 0 && reinterpret_cast<uintptr_t>(c) % 8 == 0;
   cudaError_t err = cudaFuncSetAttribute(gemm_tf32x3_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -326,6 +454,35 @@ extern "C" int edgellm_gemm_tf32x3(const float* a, const float* bhi, const float
   const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
   gemm_tf32x3_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
       tmap_a, bhi, blo, c, M, N, K, ldc, R, n0, map, vec2);
+  return (int)cudaGetLastError();
+}
+
+// The grouped product (see gemm_tf32x3_grouped_kernel). a: (M, K) fp32, the
+// routed rows in expert order, rows of stride lda; bhi / blo: each expert's
+// planes, (K + 31) / 32 chunks of R rows, plane_stride floats apart; c: (M,
+// N) rows of stride ldc, written only at the experts' rows; offsets: experts
+// + 1 device ints, non-decreasing, in [0, M]. The grid is the SM count. The
+// same return codes as edgellm_gemm_tf32x3.
+extern "C" int edgellm_gemm_tf32x3_grouped(const float* a, const float* bhi, const float* blo,
+                                           float* c, int M, int N, int K, long long lda,
+                                           long long ldc, int R, long long plane_stride,
+                                           const int* offsets, int experts, int sms,
+                                           void* stream) {
+  using namespace edgellm;
+  using namespace edgellm::tf32x3;
+  if (M <= 0 || N <= 0 || K <= 0 || K % 4 || lda % 4 || lda < K || N > R || sms <= 0 ||
+      experts <= 0 || experts > kMaxExperts || plane_stride % 4 ||
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(bhi) |
+       reinterpret_cast<uintptr_t>(blo)) % 16)
+    return -1;
+  CUtensorMap tmap_a;
+  if (!a_tensor_map(&tmap_a, a, M, K, lda)) return -2;
+  const int vec2 = ldc % 2 == 0 && reinterpret_cast<uintptr_t>(c) % 8 == 0;
+  cudaError_t err = cudaFuncSetAttribute(gemm_tf32x3_grouped_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  gemm_tf32x3_grouped_kernel<<<sms, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      tmap_a, bhi, blo, c, N, K, ldc, R, plane_stride, offsets, experts, vec2);
   return (int)cudaGetLastError();
 }
 

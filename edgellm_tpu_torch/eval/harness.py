@@ -104,28 +104,31 @@ def _stats_forward(cfg: ModelConfig, params: dict, ids: torch.Tensor,
     or None).
 
     Stats cover layers [0, stats_upto] (default: the deepest hidden layer);
-    boundary hiddens are kept only at ``hidden_layers``, stacked in sorted
-    layer order. With ``want_final`` the layers past the stats depth run
-    without stats and the final hidden is returned, whose scoring tail is the
+    a hybrid model's cover only its attention layers, one row each, and the
+    stats name them (``AttnStats.row`` maps a layer to its row); boundary
+    hiddens are kept only at ``hidden_layers``, stacked in sorted layer
+    order. With ``want_final`` the layers past the stats depth run without
+    stats and the final hidden is returned, whose scoring tail is the
     ratio-0 baseline."""
     layers = tuple(sorted({int(l) for l in hidden_layers}))
     upto = max(stats_upto if stats_upto is not None else 0, layers[-1])
     with device_span("eval.stats_forward", ids.device):
         h = embed(params, ids)
-        cols, lasts, hiddens = [], [], []
+        parts, hiddens = [], []
         prev = 0
         for cut in layers:
             h, aux = run_layers(cfg, params, h, start=prev, stop=cut + 1, capture_stats=True)
-            cols.append(aux["stats"].col_mean)
-            lasts.append(aux["stats"].last_row)
+            parts.append(aux["stats"])
             hiddens.append(h)
             prev = cut + 1
         if prev <= upto:
             h, aux = run_layers(cfg, params, h, start=prev, stop=upto + 1, capture_stats=True)
-            cols.append(aux["stats"].col_mean)
-            lasts.append(aux["stats"].last_row)
+            parts.append(aux["stats"])
             prev = upto + 1
-        stats = AttnStats(col_mean=torch.cat(cols), last_row=torch.cat(lasts))
+        parts = [p for p in parts if p is not None]
+        stats = AttnStats(col_mean=torch.cat([p.col_mean for p in parts]),
+                          last_row=torch.cat([p.last_row for p in parts]),
+                          layers=(sum((p.layers for p in parts), ()) if cfg.hybrid else None))
         final = run_layers(cfg, params, h, start=prev)[0] if want_final else None
         return stats, torch.stack(hiddens), final
 
@@ -508,6 +511,12 @@ def run_token_sweep(
     if bad:
         raise ValueError(f"layers_of_interest {bad} out of range for a "
                          f"{cfg.num_layers}-layer model")
+    no_stats = [int(l) for l in layers_of_interest if int(l) not in cfg.attention_layers]
+    if no_stats:
+        raise ValueError(
+            f"layers_of_interest {no_stats} are convolution layers of this {cfg.family} "
+            f"model: a cut's importance needs attention statistics, and its attention "
+            f"layers are {list(cfg.attention_layers)}")
     params = params_to(params, device=device)
     shape = (len(methods), len(layers_of_interest), len(ratios))
     result = SweepResult(
@@ -550,7 +559,8 @@ def run_token_sweep(
             if nz_idx:
                 for m in range(len(methods)):
                     nlls = _suffix_sweep(cfg, params, int(layer), codec, tail, h_l,
-                                         targets, imp_all[m, layer], nz_ratios, ks)
+                                         targets, imp_all[m, stats.row(int(layer))],
+                                         nz_ratios, ks)
                     pending.append(([m], l, nz_idx, nlls))
         return pending
 

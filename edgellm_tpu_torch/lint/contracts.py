@@ -68,7 +68,8 @@ KERNEL_NAMES = (
     "causal_attention", "causal_attention_stats", "int4_encode", "int4_decode",
     "int8_affine_encode", "int8_affine_decode", "chan_int8_encode",
     "chan_int8_decode", "chan_int4_encode", "ternary_encode", "ternary_decode",
-    "remote_hop", "paged_decode_attention", "paged_decode_attention_quant")
+    "remote_hop", "paged_decode_attention", "paged_decode_attention_quant",
+    "grouped_gemm_tf32x3")
 
 #: a hop codec's kernels on the card: (encode, decode) wrapper names, one
 #: launch each per payload encoded / decoded
@@ -172,8 +173,9 @@ def _wrappers() -> dict:
     from ..codecs import codec_kernels as ck
     from ..codecs import fused_hop as fh
     from ..models import flash_attention as fa
+    from ..models import gemm
 
-    mods = (fa, ck, fh)
+    mods = (fa, ck, fh, gemm)
     return {name: getattr(next(m for m in mods if hasattr(m, name)), name)
             for name in KERNEL_NAMES}
 

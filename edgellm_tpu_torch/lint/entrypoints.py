@@ -821,3 +821,34 @@ def run_graph_checks(device: str = "cuda"
         skipped.append("graph launches: counted on the card only (a CPU "
                        "tensor takes every kernel's plain version)")
     return findings, checked, skipped, details
+
+
+def run_moe_contract(device: str = "cuda") -> Tuple[List[Finding], dict]:
+    """The ``moe.experts`` contract (no host sync, no hop, two grouped
+    launches) executed over one sparse-expert layer of the ``tiny-lfm2``
+    model (hidden 128, heads of 64) at 4 x 128 tokens, after a warm call
+    that prepares its planes. A port-only contract, run beside the
+    reference's 40 (``chip_smoke.py``'s MoE phase on the card) -> (findings,
+    the contract's detail)."""
+    import torch
+
+    from ..models import moe, transformer
+    from ..models.configs import PORT_PRESETS
+
+    check_device(device)
+    dev = torch.device(device)
+    cfg = PORT_PRESETS["tiny-lfm2"]
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                     device=dev)
+    lp = params["layers"][cfg.num_dense_layers]
+    x = torch.randn((4, 128, cfg.hidden_size), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+
+    def call():
+        return moe.moe_ffn(cfg, lp, x, transformer.prepared_grouped_planes, transformer.linear)
+
+    call()
+    contract = GRAPH_CONTRACTS["moe.experts"]
+    ex = execute(call, dev, sync_mode="error" if dev.type == "cuda" else None)
+    found, detail = check_execution(contract, ex, {}, on_card=dev.type == "cuda")
+    return found, detail

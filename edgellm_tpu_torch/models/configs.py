@@ -26,6 +26,14 @@ class ModelConfig:
         QKV biases but bias-free o/gate/up/down projections, grouped-query attention.
       - ``"llama"``: identical wiring to qwen2 with no biases anywhere
         (Llama-2/3 models; beyond the reference's two families).
+      - ``"lfm2_moe"``: LFM2's hybrid (Liquid AI's ``Lfm2Moe``): sequential
+        residual, RMSNorm, no biases; each layer's mixer is a gated short
+        convolution or grouped-query attention with RMSNorm over each head's
+        dims on q and k (before RoPE), as ``layer_types`` says; the first
+        ``num_dense_layers`` FFNs are SwiGLU MLPs, the rest sparse experts
+        (``models/moe.py``). The expert layer holds ``num_experts`` experts,
+        ids ``expert_offset`` onwards, of the ``router_experts`` it routes
+        over (expert parallelism: a card's share).
     """
 
     family: str
@@ -44,10 +52,41 @@ class ModelConfig:
     #: ("llama3", factor, low_freq_factor, high_freq_factor,
     #: original_max_position_embeddings) — hashable for the frozen config.
     rope_scaling: Optional[tuple] = None
+    #: lfm2_moe: each layer's mixer, "conv" or "full_attention" (None: every
+    #: layer attends)
+    layer_types: Optional[tuple] = None
+    #: lfm2_moe: the leading layers whose FFN is the dense SwiGLU MLP
+    num_dense_layers: int = 0
+    #: lfm2_moe: taps of the causal depthwise convolution (``conv_L_cache``)
+    conv_kernel: int = 0
+    #: sparse experts: held here, the id of the first held, routed over,
+    #: chosen a token, and each expert's width
+    num_experts: int = 0
+    expert_offset: int = 0
+    router_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @property
+    def attention_layers(self) -> tuple:
+        """Indices of the layers whose mixer is attention (all, for the
+        dense families)."""
+        if self.layer_types is None:
+            return tuple(range(self.num_layers))
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "full_attention")
+
+    @property
+    def hybrid(self) -> bool:
+        """True where layers differ in kind (parameters a list of per-layer
+        dicts, statistics only at the attention layers)."""
+        return self.family == "lfm2_moe"
+
+    def is_moe_layer(self, idx: int) -> bool:
+        return self.family == "lfm2_moe" and idx >= self.num_dense_layers
 
     @property
     def rotary_dim(self) -> int:
@@ -58,8 +97,20 @@ class ModelConfig:
         return self.family in ("gpt_neox", "qwen2")
 
     def __post_init__(self):
-        if self.family not in ("gpt_neox", "qwen2", "llama"):
+        if self.family not in ("gpt_neox", "qwen2", "llama", "lfm2_moe"):
             raise ValueError(f"unknown family: {self.family}")
+        if self.family == "lfm2_moe":
+            if self.layer_types is None or len(self.layer_types) != self.num_layers \
+                    or set(self.layer_types) - {"conv", "full_attention"}:
+                raise ValueError("lfm2_moe needs layer_types: 'conv' or 'full_attention' "
+                                 "for each layer")
+            if not (0 < self.num_experts_per_tok <= self.router_experts
+                    and 0 < self.num_experts
+                    and 0 <= self.expert_offset <= self.router_experts - self.num_experts):
+                raise ValueError(
+                    f"experts held {self.expert_offset} .. "
+                    f"{self.expert_offset + self.num_experts - 1} of {self.router_experts}, "
+                    f"{self.num_experts_per_tok} a token: not a share of the router's")
         if self.hidden_size % self.num_heads:
             raise ValueError("num_heads must evenly divide hidden_size")
         if self.num_heads % self.num_kv_heads:
@@ -131,6 +182,51 @@ LLAMA_3_2_1B = ModelConfig(
 )
 
 
+# LiquidAI/LFM2-8B-A1B (config.json, model_type lfm2_moe): 24 layers at hidden
+# 2048, 18 gated short-conv and 6 GQA 32/8 attention layers (heads of 64, QK
+# RMSNorm), dense SwiGLU 7168 in layers 0-1, 32 routed experts of 1792 top-4
+# with a sigmoid router and expert bias in layers 2-23, vocab 65536, tied head
+# (the family's default; the published config leaves it unstated).
+_LFM2_TYPES = tuple("full_attention" if i in (2, 6, 10, 14, 18, 21) else "conv"
+                    for i in range(24))
+LFM2_8B_A1B = ModelConfig(
+    family="lfm2_moe",
+    vocab_size=65536,
+    hidden_size=2048,
+    num_layers=24,
+    num_heads=32,
+    num_kv_heads=8,
+    intermediate_size=7168,
+    max_position_embeddings=128000,
+    norm_eps=1e-5,
+    rope_theta=1000000.0,
+    tie_word_embeddings=True,
+    layer_types=_LFM2_TYPES,
+    num_dense_layers=2,
+    conv_kernel=3,
+    num_experts=32,
+    router_experts=32,
+    num_experts_per_tok=4,
+    moe_intermediate_size=1792,
+)
+# One card's share of 2-way expert parallelism: experts 0-15 of every MoE
+# layer held here, everything else replicated (the benchmark's cell).
+LFM2_8B_A1B_EP2 = dataclasses.replace(LFM2_8B_A1B, num_experts=16)
+
+
+def tiny_lfm2_config() -> ModelConfig:
+    """The hybrid at test size: 6 layers (conv, conv, attn, conv, conv,
+    attn), 2 dense, 8 routed experts top-2, all held, hidden 128, two heads
+    of 64, vocab 256."""
+    return ModelConfig(
+        family="lfm2_moe", vocab_size=256, hidden_size=128, num_layers=6, num_heads=2,
+        num_kv_heads=1, intermediate_size=256, max_position_embeddings=512, norm_eps=1e-5,
+        rope_theta=1000000.0, tie_word_embeddings=True,
+        layer_types=("conv", "conv", "full_attention", "conv", "conv", "full_attention"),
+        num_dense_layers=2, conv_kernel=3, num_experts=8, router_experts=8, num_experts_per_tok=2,
+        moe_intermediate_size=64)
+
+
 def tiny_config(family: str, *, num_layers: int = 4, hidden_size: int = 64,
                 num_heads: int = 4, num_kv_heads: int | None = None,
                 vocab_size: int = 256, intermediate_size: int | None = None) -> ModelConfig:
@@ -164,4 +260,12 @@ PRESETS = {
     "tiny-neox": tiny_config("gpt_neox"),
     "tiny-qwen2": tiny_config("qwen2", num_layers=6),
     "tiny-llama": tiny_config("llama", num_layers=6),
+}
+
+#: the families the JAX package has no counterpart of (``PRESETS`` holds
+#: the shared ones, field for field the reference's)
+PORT_PRESETS = {
+    "lfm2-8b-a1b": LFM2_8B_A1B,
+    "lfm2-8b-a1b-ep2": LFM2_8B_A1B_EP2,
+    "tiny-lfm2": tiny_lfm2_config(),
 }

@@ -20,6 +20,11 @@ least :data:`MIN_ROWS` rows and :data:`MIN_TILES` output tiles. CPU
 tensors, other dtypes and smaller products keep ``torch.matmul``. ``transformer.linear`` applies the rule and keeps the
 planes of every weight; :func:`gemm_tf32x3` launches the kernel for CUDA
 tensors or raises, and takes :func:`gemm_tf32x3_plain` only for CPU tensors.
+
+The grouped form (:func:`grouped_gemm_tf32x3`, one launch a sparse-expert
+product over the experts a layer holds, ``models/moe.py``) takes A's rows in
+expert order, each expert's planes stacked (:func:`prepare_grouped_planes`)
+and the experts' row offsets as a device tensor that only the kernel reads.
 """
 from __future__ import annotations
 
@@ -155,6 +160,9 @@ def _lib() -> ctypes.CDLL:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.edgellm_gemm_tf32x3.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 2 + [i32] * 3 + [ptr]
         lib.edgellm_gemm_tf32x3.restype = i32
+        lib.edgellm_gemm_tf32x3_grouped.argtypes = ([ptr] * 4 + [i32] * 3 + [i64] * 2 + [i32]
+                                                    + [i64, ptr, i32, i32, ptr])
+        lib.edgellm_gemm_tf32x3_grouped.restype = i32
         lib.edgellm_gemm_tf32x3_error.argtypes = [i32]
         lib.edgellm_gemm_tf32x3_error.restype = ctypes.c_char_p
         lib._edgellm_declared = True
@@ -209,3 +217,95 @@ def gemm_tf32x3(a: torch.Tensor, planes: Planes, n0: int = 0,
 
 
 gemm_tf32x3.launches = 0
+
+
+#: experts one grouped launch holds (the kernel's ``kMaxExperts``)
+MAX_EXPERTS = 256
+
+
+class GroupedPlanes(NamedTuple):
+    """The planes of E experts' weights, one :class:`Planes` layout each,
+    stacked: ``hi`` and ``lo`` (E, ceil(K / 32), R, 32); ``k`` the reduction
+    length, ``rows`` the product's columns N."""
+
+    hi: torch.Tensor
+    lo: torch.Tensor
+    k: int
+    rows: int
+
+    def expert(self, e: int) -> Planes:
+        return Planes(self.hi[e], self.lo[e], self.k, self.rows)
+
+
+def prepare_grouped_planes(w: torch.Tensor) -> GroupedPlanes:
+    """The planes of experts' weights ``w`` (E, K, N) in the ``x @ W``
+    layout: expert e's B^T prepared as :func:`prepare_planes` prepares one
+    weight, one expert at a time (so the transient copies stay one
+    expert's), stacked."""
+    parts = [prepare_planes(w[e].T) for e in range(w.shape[0])]
+    return GroupedPlanes(torch.stack([p.hi for p in parts]), torch.stack([p.lo for p in parts]),
+                         w.shape[1], w.shape[2])
+
+
+def grouped_gemm_tf32x3_plain(a: torch.Tensor, planes: GroupedPlanes,
+                              offsets: torch.Tensor, out: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """The grouped kernel's arithmetic in plain PyTorch: rows offsets[e] ..
+    offsets[e + 1] - 1 of A times expert e's B by :func:`gemm_tf32x3_plain`,
+    written into ``out`` (M, N) float32 where given, else into zeros; rows
+    outside every expert's range are left as they are (the kernel leaves
+    them unwritten). Reads the offsets on the host."""
+    if out is None:
+        out = a.new_zeros((a.shape[0], planes.rows), dtype=torch.float32)
+    bounds = offsets.tolist()
+    for e in range(len(bounds) - 1):
+        r0, r1 = bounds[e], bounds[e + 1]
+        if r1 > r0:
+            out[r0:r1] = gemm_tf32x3_plain(a[r0:r1], planes.expert(e))
+    return out
+
+
+def grouped_gemm_tf32x3(a: torch.Tensor, planes: GroupedPlanes,
+                        offsets: torch.Tensor, out: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """(M, N) float32: rows offsets[e] .. offsets[e + 1] - 1 of ``a`` (M, K)
+    times expert e's B, for the E experts of ``planes``; ``offsets`` (E + 1,)
+    int32 on ``a``'s device, non-decreasing in [0, M]. On CUDA one launch of
+    the grouped kernel, whose grid is the SM count and which reads the
+    offsets itself: nothing here waits on the device, and rows outside every
+    expert's range are left unwritten, in ``out`` (contiguous (M, N)
+    float32) where one is given (``grouped_gemm_tf32x3.launches`` counts the
+    launches). CPU tensors take :func:`grouped_gemm_tf32x3_plain`."""
+    n_exp = planes.hi.shape[0]
+    if tuple(offsets.shape) != (n_exp + 1,):
+        raise ValueError(f"{n_exp} experts need {n_exp + 1} offsets, got {tuple(offsets.shape)}")
+    m = a.shape[0]
+    if out is not None and (tuple(out.shape) != (m, planes.rows) or out.dtype != torch.float32
+                            or out.device != a.device or not out.is_contiguous()):
+        raise ValueError(f"out must be contiguous ({m}, {planes.rows}) float32 on A's device")
+    if a.device.type == "cpu":
+        return grouped_gemm_tf32x3_plain(a, planes, offsets, out)
+    _check(a, planes.expert(0), 0, planes.rows)
+    if offsets.dtype != torch.int32 or offsets.device != a.device or not offsets.is_contiguous():
+        raise ValueError("the offsets must be contiguous int32 on A's device")
+    if n_exp > MAX_EXPERTS:
+        raise ValueError(f"{n_exp} experts: one grouped launch holds at most {MAX_EXPERTS}")
+    if out is None:
+        out = torch.empty((m, planes.rows), dtype=torch.float32, device=a.device)
+    if m == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        err = lib.edgellm_gemm_tf32x3_grouped(
+            a.data_ptr(), planes.hi.data_ptr(), planes.lo.data_ptr(), out.data_ptr(),
+            m, planes.rows, planes.k, a.stride(0), out.stride(0), planes.hi.shape[2],
+            planes.hi[0].numel(), offsets.data_ptr(), n_exp, _sm_count(a.device),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        msg = lib.edgellm_gemm_tf32x3_error(err).decode()
+        raise RuntimeError(f"grouped gemm_tf32x3 kernel launch failed: CUDA error {err} ({msg})")
+    grouped_gemm_tf32x3.launches += 1
+    return out
+
+
+grouped_gemm_tf32x3.launches = 0

@@ -8,7 +8,12 @@ Parameters are a plain dict of tensors with every layer stacked along a
 leading axis (``params["layers"][name]`` is (L, ...)) and weights in the
 ``x @ W`` (in, out) layout, the JAX package's own layout, so one set of
 weights drives both packages (``convert.params_from_jax_numpy``). The layer
-loop is a Python loop over views of the stack.
+loop is a Python loop over views of the stack. A hybrid family
+(``lfm2_moe``), whose layers differ in kind, keeps ``params["layers"]`` as a
+list of per-layer dicts instead (:func:`layer_params`), and each block
+takes its layer's kind from the config: a gated short convolution or
+attention as the mixer (``layer_types``), sparse experts
+(``models/moe.py``) or the MLP as the FFN (``is_moe_layer``).
 
 The same forward captures the reduced attention statistics the importance
 metrics read (per-head column means and last rows), through the K-stats
@@ -30,7 +35,8 @@ import torch.nn.functional as F
 from torch.utils.weak import WeakTensorKeyDictionary
 
 from ..lint import graph_contract
-from . import gemm
+from ..obs.tracing import device_span
+from . import gemm, moe
 from .configs import ModelConfig
 from .flash_attention import (attention_plain, causal_attention,
                               causal_attention_plain, causal_attention_stats,
@@ -47,6 +53,19 @@ class AttnStats(NamedTuple):
 
     col_mean: torch.Tensor
     last_row: torch.Tensor
+    #: the layer of each row where only some layers attend (a hybrid
+    #: model's attention layers); None: row i is layer i
+    layers: Optional[tuple] = None
+
+    def row(self, layer: int) -> int:
+        """The row holding ``layer``'s statistics; a ValueError for a layer
+        without any (a convolution layer of a hybrid)."""
+        if self.layers is None:
+            return layer
+        if layer not in self.layers:
+            raise ValueError(f"layer {layer} has no attention statistics: it is not an "
+                             f"attention layer (attention layers here: {list(self.layers)})")
+        return self.layers.index(layer)
 
 
 def precompute_rope(cfg: ModelConfig, seq_len: int, device="cuda"):
@@ -170,6 +189,20 @@ def prepared_planes(w: torch.Tensor) -> tuple[gemm.Planes, int]:
     return hit[1], n0
 
 
+def prepared_grouped_planes(w: torch.Tensor) -> gemm.GroupedPlanes:
+    """The grouped kernel's planes of experts' weights ``w`` (E, K, N), kept
+    as :func:`prepared_planes` keeps a weight's: once per weight per
+    process, rebuilt when the weight's ``_version`` moves."""
+    root = w if w._base is None else w._base
+    key = ("grouped", w.storage_offset(), tuple(w.shape), tuple(w.stride()))
+    version = None if w.is_inference() else w._version
+    kept = _PLANES.setdefault(root, {})
+    hit = kept.get(key)
+    if hit is None or hit[0] != version:
+        hit = kept[key] = (version, gemm.prepare_grouped_planes(w))
+    return hit[1]
+
+
 #: root tensor -> {(a view's geometry, what was made of it): (the root's
 #: version, the result's version, the result)}, for :func:`made_once`
 _MADE = WeakTensorKeyDictionary()
@@ -272,6 +305,9 @@ def _attention_core(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin,
     s = x.shape[1]
     q, k, v = project_qkv(cfg, lp, x)
     h, kv, hd = q.shape[2], k.shape[2], cfg.head_dim
+    if cfg.hybrid:  # lfm2_moe: RMSNorm over each head's dims, before RoPE
+        q = _rmsnorm(q, lp["q_norm"], cfg.norm_eps)
+        k = _rmsnorm(k, lp["k_norm"], cfg.norm_eps)
     q = apply_rotary(q, cos, sin, cfg.rotary_dim)
     k = apply_rotary(k, cos, sin, cfg.rotary_dim)
 
@@ -302,6 +338,26 @@ def _mlp_partial(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
     return linear(F.silu(linear(x, lp["w_gate"])) * linear(x, lp["w_up"]), lp["w_down"])
 
 
+def short_conv(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    """LFM2's gated short convolution (``Lfm2ShortConv``): ``[B, C, x'] =
+    split3(x conv_in)``, ``y = C * conv(B * x')``, the result ``y conv_out``;
+    ``conv`` a causal depthwise convolution over time of ``conv_w`` (taps,
+    D): position t sees t - taps + 1 .. t of its own row, zeros before it,
+    channels apart, no bias. The split, the gates and the taps run inside
+    the ``mix.conv`` span; the projections take :func:`linear`."""
+    bcx = linear(x, lp["conv_in"])
+    w = lp["conv_w"]
+    taps, s = w.shape[0], x.shape[1]
+    with device_span("mix.conv", x.device):
+        b, c, xx = bcx.chunk(3, dim=-1)
+        bx = b * xx
+        y = bx * w[taps - 1]
+        for j in range(1, taps):  # tap taps - 1 - j reads position t - j
+            y = y + F.pad(bx, (0, 0, j, 0))[:, :s] * w[taps - 1 - j]
+        y = c * y
+    return linear(y, lp["conv_out"])
+
+
 def _block_norm(cfg: ModelConfig, lp: dict, x: torch.Tensor, n: int) -> torch.Tensor:
     """The block's n-th pre-norm (1: attention, 2: MLP)."""
     if cfg.family == "gpt_neox":
@@ -324,12 +380,22 @@ def block_with(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, attn: Callable,
     return (hidden + ffn(_block_norm(cfg, lp, hidden, 2)), *extra)
 
 
-def block(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, cos, sin,
+def block(cfg: ModelConfig, idx: int, lp: dict, hidden: torch.Tensor, cos, sin,
           capture_stats: bool, stats_block: Optional[int] = None,
           return_kv: bool = False):
-    """One decoder block -> (hidden, stats[, (k, v)])."""
+    """Layer ``idx``'s decoder block -> (hidden, stats[, (k, v)]). A hybrid
+    layer's kind is the config's: a convolution mixer where
+    ``cfg.layer_types`` says "conv" (stats None), else attention; sparse
+    experts where ``cfg.is_moe_layer``, else the MLP."""
+    ffn = (lambda x: moe.moe_ffn(cfg, lp, x, prepared_grouped_planes, linear)) \
+        if cfg.is_moe_layer(idx) else None
+    if cfg.hybrid and cfg.layer_types[idx] == "conv":
+        if return_kv:
+            raise ValueError("a convolution layer keeps conv state, not K/V: decoding "
+                             f"the {cfg.family} family through a cache is not supported")
+        return block_with(cfg, lp, hidden, lambda x: (short_conv(cfg, lp, x), None), ffn)
     return block_with(cfg, lp, hidden, lambda x: attention(
-        cfg, lp, x, cos, sin, capture_stats, stats_block, return_kv))
+        cfg, lp, x, cos, sin, capture_stats, stats_block, return_kv), ffn)
 
 
 #: the column-split weights of the tensor-parallel block (the first matmul of
@@ -395,6 +461,14 @@ def run_layers_tp(cfg: ModelConfig, shards: list, hidden: torch.Tensor) -> torch
     return hidden
 
 
+def layer_params(layers, idx: int) -> dict:
+    """Layer ``idx``'s weights: an entry of a hybrid model's per-layer list,
+    or views of the stacked layout."""
+    if isinstance(layers, (list, tuple)):
+        return layers[idx]
+    return {name: t[idx] for name, t in layers.items()}
+
+
 def embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(input_ids, params["embed"])
 
@@ -432,7 +506,7 @@ def unembed(cfg: ModelConfig, params: dict, hidden: torch.Tensor) -> torch.Tenso
 
 
 def run_layers(cfg: ModelConfig, params: dict, hidden: torch.Tensor, *,
-               start: int = 0, stop: Optional[int] = None,
+               start: int = 0, stop: Optional[int] = None, first: int = 0,
                boundary_fn: Optional[Callable] = None,
                capture_stats: bool = False,
                collect_hidden: bool = False,
@@ -440,35 +514,41 @@ def run_layers(cfg: ModelConfig, params: dict, hidden: torch.Tensor, *,
                stats_block: Optional[int] = None):
     """Run decoder layers [start, stop) over ``hidden`` -> (hidden, aux).
 
-    ``boundary_fn`` receives the global layer index and the post-block hidden
+    ``params["layers"]`` holds layers ``first`` onwards (a pipeline stage's
+    from its own first layer, the whole model's from 0); ``boundary_fn`` receives the global layer index and the post-block hidden
     state. aux holds ``"stats"`` (:class:`AttnStats`, (L, B, H, S) each) with
-    ``capture_stats``, ``"hiddens"`` ((L, B, S, D), post-boundary_fn) with
-    ``collect_hidden``, and ``"kv"`` ((k, v), each (L, B, S, KV, hd), the
-    post-rotary K/V a decode cache is prefilled from) with ``collect_kv``."""
+    ``capture_stats`` (a hybrid model's: one row per attention layer, with
+    ``layers`` naming them; None where the segment has none), ``"hiddens"``
+    ((L, B, S, D), post-boundary_fn) with ``collect_hidden``, and ``"kv"``
+    ((k, v), each (L, B, S, KV, hd), the post-rotary K/V a decode cache is
+    prefilled from) with ``collect_kv``."""
     stop = cfg.num_layers if stop is None else stop
     if not (0 <= start <= stop <= cfg.num_layers):
         raise ValueError(
             f"layer segment [{start}, {stop}) out of range for {cfg.num_layers} layers")
     cos, sin = precompute_rope(cfg, hidden.shape[1], device=hidden.device)
     layers = params["layers"]
-    cols, lasts, hiddens, ks, vs = [], [], [], [], []
+    cols, lasts, rows, hiddens, ks, vs = [], [], [], [], [], []
     for idx in range(start, stop):
-        lp = {name: t[idx] for name, t in layers.items()}
-        hidden, stats, *kv = block(cfg, lp, hidden, cos, sin, capture_stats, stats_block,
-                                   collect_kv)
+        lp = layer_params(layers, idx - first)
+        hidden, stats, *kv = block(cfg, idx, lp, hidden, cos, sin, capture_stats,
+                                   stats_block, collect_kv)
         if collect_kv:
             ks.append(kv[0][0])
             vs.append(kv[0][1])
         if boundary_fn is not None:
             hidden = boundary_fn(idx, hidden)
-        if capture_stats:
+        if capture_stats and stats is not None:
             cols.append(stats[0])
             lasts.append(stats[1])
+            rows.append(idx)
         if collect_hidden:
             hiddens.append(hidden)
     aux = {}
     if capture_stats:
-        aux["stats"] = AttnStats(col_mean=torch.stack(cols), last_row=torch.stack(lasts))
+        aux["stats"] = None if cfg.hybrid and not rows else AttnStats(
+            col_mean=torch.stack(cols), last_row=torch.stack(lasts),
+            layers=tuple(rows) if cfg.hybrid else None)
     if collect_hidden:
         aux["hiddens"] = torch.stack(hiddens)
     if collect_kv:
@@ -489,6 +569,8 @@ def params_to(params: dict, device=None, dtype=None) -> dict:
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v) for v in t]
         return t.to(device=device,
                     dtype=dtype if dtype is not None and t.is_floating_point() else None)
 
@@ -770,6 +852,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def const(value, *shape):
         return torch.full(shape, value, dtype=dtype, device=device)
 
+    if cfg.hybrid:
+        return _init_hybrid(cfg, init, const, generator, dtype, device)
     L, D, Fd = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     layers = {
@@ -797,3 +881,32 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_word_embeddings:
         params["lm_head"] = init(D, cfg.vocab_size)
     return params
+
+
+def _init_hybrid(cfg: ModelConfig, init, const, generator, dtype, device) -> dict:
+    """:func:`init_params` for a hybrid family: one dict a layer, with the
+    conv taps drawn as PyTorch's Conv1d draws them (U(+-1 / sqrt(taps)))
+    and the expert bias at 0."""
+    D, Fd, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    E, Fe = cfg.num_experts, cfg.moe_intermediate_size
+    bound = 1.0 / math.sqrt(cfg.conv_kernel)
+    layers = []
+    for i, kind in enumerate(cfg.layer_types):
+        lp = {"ln1_scale": const(1.0, D), "ln2_scale": const(1.0, D)}
+        if kind == "conv":
+            taps = torch.rand((cfg.conv_kernel, D), generator=generator, dtype=torch.float32,
+                              device=device) * (2 * bound) - bound
+            lp.update(conv_in=init(D, 3 * D), conv_w=taps.to(dtype), conv_out=init(D, D))
+        else:
+            lp.update(wq=init(D, cfg.num_heads * hd), wk=init(D, cfg.num_kv_heads * hd),
+                      wv=init(D, cfg.num_kv_heads * hd), wo=init(cfg.num_heads * hd, D),
+                      q_norm=const(1.0, hd), k_norm=const(1.0, hd))
+        if cfg.is_moe_layer(i):
+            lp.update(router=init(D, cfg.router_experts),
+                      expert_bias=const(0.0, cfg.router_experts),
+                      w13=init(E, D, 2 * Fe), w2=init(E, Fe, D))
+        else:
+            lp.update(w_gate=init(D, Fd), w_up=init(D, Fd), w_down=init(Fd, D))
+        layers.append(lp)
+    return {"embed": init(cfg.vocab_size, D), "layers": layers,
+            "final_norm_scale": const(1.0, D)}

@@ -183,6 +183,13 @@ PORT_SPAN_NAMES: FrozenSet[str] = frozenset({
     "split.unembed",
     # eval/split_eval.py: the NLL of the split's logits
     "eval.nll",
+    # models/moe.py: the sparse-expert layer's phases
+    "moe.route",
+    "moe.experts",
+    "moe.combine",
+    # models/transformer.py short_conv: the gated convolution between its
+    # projections
+    "mix.conv",
 })
 #: every span name: the reference's and the port's own
 SPAN_NAMES = SPAN_NAMES | PORT_SPAN_NAMES

@@ -519,12 +519,22 @@ def place_stage_params(params: dict, bounds: list, devices: list, fused_plans: l
     stages = []
     for s, ((start, stop), dev) in enumerate(zip(bounds, devices)):
         promoted = any(plan is None for plan in fused_plans[:s])
-        stage = {}
-        for name, t in layers.items():
+
+        def place(t, key, part):
             dtype = (torch.promote_types(t.dtype, torch.float32)
                      if promoted and t.is_floating_point() else None)
-            stage[name] = made_once(t, ("stage", start, stop, str(dev), dtype),
-                                    lambda: t[start:stop].to(device=dev, dtype=dtype))
+            return made_once(t, key + (str(dev), dtype), lambda: part(t).to(device=dev,
+                                                                             dtype=dtype))
+
+        if isinstance(layers, (list, tuple)):  # a hybrid's per-layer dicts
+            if n_model > 1:
+                raise ValueError("tensor-parallel stages need the stacked layout; a "
+                                 "hybrid model's layers differ in kind")
+            stages.append([{name: place(t, ("stage",), lambda x: x) for name, t in lp.items()}
+                           for lp in layers[start:stop]])
+            continue
+        stage = {name: place(t, ("stage", start, stop), lambda x: x[start:stop])
+                 for name, t in layers.items()}
         stages.append(tp_shard_layers(stage, n_model) if n_model > 1 else stage)
     rest = {k: v for k, v in params.items() if k != "layers"}
     return {"stages": stages,
@@ -782,8 +792,9 @@ class SplitRuntime:
             stage = placed["stages"][s]
             if self.n_model > 1:
                 return run_layers_tp(self.cfg, stage, h)
-            n_layers = self.bounds[s][1] - self.bounds[s][0]
-            return run_layers(self.cfg, {"layers": stage}, h, start=0, stop=n_layers)[0]
+            start, stop = self.bounds[s]
+            return run_layers(self.cfg, {"layers": stage}, h, start=start, stop=stop,
+                              first=start)[0]
 
         rows, outs, counters = batch // self.n_data, [], []
         for g in self.data_groups:
@@ -1032,9 +1043,9 @@ class SplitRuntime:
         ks, vs = [], []
 
         def run_stage(st, h):
-            n_layers = self.bounds[st][1] - self.bounds[st][0]
-            out, aux = run_layers(self.cfg, {"layers": placed["stages"][st]}, h,
-                                  stop=n_layers, collect_kv=True)
+            start, stop = self.bounds[st]
+            out, aux = run_layers(self.cfg, {"layers": placed["stages"][st]}, h, start=start,
+                                  stop=stop, first=start, collect_kv=True)
             k, v = aux["kv"]  # (layers, B, S, KV, hd)
             shape = k.shape[:2] + (capacity,) + k.shape[3:]
             kc = torch.zeros(shape, dtype=cache_dtype, device=k.device)

@@ -132,7 +132,8 @@ def _load_corpus(args, vocab_size: int) -> np.ndarray:
 
 
 def _load_model(args, device):
-    from .models import PRESETS, config_from_hf, init_params, params_from_state_dict
+    from .models import (PORT_PRESETS, PRESETS, config_from_hf, init_params,
+                         params_from_state_dict)
 
     if args.weights:
         from .models.safetensors_io import load_checkpoint
@@ -156,7 +157,7 @@ def _load_model(args, device):
             cfg = PRESETS[args.model]
             sd = torch.load(args.weights, map_location="cpu")
         return cfg, params_from_state_dict(cfg, sd, device=device)
-    cfg = PRESETS[args.model]
+    cfg = {**PRESETS, **PORT_PRESETS}[args.model]
     gen = torch.Generator(device=device).manual_seed(args.seed)
     return cfg, init_params(cfg, gen, device=device)
 
@@ -1311,9 +1312,9 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--params", required=True,
                     help="reference-style params.json (or inline JSON)")
-    from .models import PRESETS
+    from .models import PORT_PRESETS, PRESETS
 
-    ap.add_argument("--model", default="qwen2-0.5b", choices=sorted(PRESETS),
+    ap.add_argument("--model", default="qwen2-0.5b", choices=sorted({**PRESETS, **PORT_PRESETS}),
                     help="model preset")
     ap.add_argument("--corpus", help=".npy/.npz token ids or raw .txt (with --tokenizer); "
                                      "omitted -> synthetic corpus (smoke mode)")

@@ -208,6 +208,12 @@ class ContinuousBatcher:
 
     def __init__(self, cfg: ModelConfig, params: dict, bcfg: Optional[BatchingConfig] = None,
                  *, split_runtime: Any = None, placed_params: Any = None):
+        if cfg.hybrid:
+            conv = [i for i in range(cfg.num_layers) if i not in cfg.attention_layers]
+            raise ValueError(
+                f"the batcher serves from a paged KV pool; the {cfg.family} family's "
+                f"convolution layers {conv} would need a conv-state cache beside it, "
+                f"which is not implemented")
         self.cfg = cfg
         self.params = params
         self.bcfg = bcfg if bcfg is not None else BatchingConfig()

@@ -31,13 +31,13 @@ sys.exit(run.main(["--lint", "--device", "cpu", "--json", {str(report)!r},
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    assert "graphlint: 0 violation(s), 69 graph contract(s) clean" in proc.stdout
+    assert "graphlint: 0 violation(s), 70 graph contract(s) clean" in proc.stdout
     doc = json.loads(report.read_text())
     assert {"ok", "findings", "checked_contracts", "skipped"} <= set(doc)
     assert doc["ok"] is True and doc["findings"] == []
     checked = doc["checked_contracts"]
     assert len([c for c in checked if not c.startswith("lattice.")]) == 40
-    assert len([c for c in checked if c.startswith("lattice.config:")]) == 27
+    assert len([c for c in checked if c.startswith("lattice.config:")]) == 28
     assert {"lattice.readme-parity", "lattice.pairwise-compat"} <= set(checked)
     assert doc["skipped"][0].startswith("graph host_sync: not measured on the cpu")
     assert any(s.startswith("lattice budget:") for s in doc["skipped"])

@@ -1,0 +1,265 @@
+"""The port's LFM2-MoE hybrid (``lfm2_moe``: gated short convolutions beside
+attention, sparse experts on the grouped 3xTF32 GEMM's plain path) against
+the plain reference ``tests/plain_lfm2_moe.py``, on the CPU at a tiny size:
+6 layers (conv, conv, attn, conv, conv, attn), 2 dense, 8 experts top-2,
+hidden 128, heads of 64.
+
+Tolerances: both sides compute in float32 on the CPU; the port's expert
+products take the 3xTF32 split (each product within 2^-21 of |a| |b|, the
+kernel's arithmetic) and its attention the kernels' plain blocked versions,
+so the two differ by fp32 rounding in another order. Logits (|x| up to ~2)
+read 6e-7 apart: held to 1e-5 (about 2^-17, far below any mechanism left
+out: dropping one expert or one conv tap moves them by ~1e-2). Attention
+statistics are probabilities read 1e-7 apart: held to 1e-6.
+"""
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from edgellm_tpu_torch.eval.harness import run_token_sweep
+from edgellm_tpu_torch.eval.split_eval import run_split_eval
+from edgellm_tpu_torch.models import configs, gemm, moe
+from edgellm_tpu_torch.models import transformer as tr
+from edgellm_tpu_torch.parallel.split import SplitConfig, SplitRuntime
+from portbench.reference import lfm2_moe as ref_lfm2
+from tests import plain_lfm2_moe as plain
+
+CFG = configs.PORT_PRESETS["tiny-lfm2"]
+LOGIT_TOL = 1e-5
+STATS_TOL = 1e-6
+
+
+def _params(cfg=CFG, seed=0):
+    """Seeded weights with norms, QK norms and the expert bias moved off
+    their defaults, so that each does work."""
+    p = tr.init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    for lp in p["layers"]:
+        for k in list(lp):
+            if k.endswith("_scale") or k.endswith("_norm"):
+                lp[k] = 1 + 0.1 * torch.randn(lp[k].shape, generator=g)
+            elif k == "expert_bias":
+                lp[k] = 0.02 * torch.randn(lp[k].shape, generator=g)
+    p["final_norm_scale"] = 1 + 0.1 * torch.randn(p["final_norm_scale"].shape, generator=g)
+    return p
+
+
+def _ids(b=2, s=64, seed=3):
+    return torch.randint(0, CFG.vocab_size, (b, s), generator=torch.Generator().manual_seed(seed))
+
+
+def test_logits_and_attention_stats_match_plain():
+    p, ids = _params(), _ids()
+    got, aux = tr.forward(CFG, p, ids, capture_stats=True)
+    want, st = plain.forward(plain.config_of(CFG), p, ids, stats=True)
+    assert (got - want).abs().max().item() <= LOGIT_TOL
+    stats = aux["stats"]
+    assert stats.layers == CFG.attention_layers == (2, 5)
+    for layer in (2, 5):
+        row = stats.row(layer)
+        torch.testing.assert_close(stats.col_mean[row], st[layer][0], atol=STATS_TOL, rtol=0)
+        torch.testing.assert_close(stats.last_row[row], st[layer][1], atol=STATS_TOL, rtol=0)
+    with pytest.raises(ValueError, match="not an attention layer"):
+        stats.row(3)
+
+
+def _ref_cfg(cfg=CFG) -> dict:
+    """The benchmark reference's configuration keys for a port config."""
+    return {"head_dim": cfg.head_dim, "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads, "norm_eps": cfg.norm_eps,
+            "rope_theta": cfg.rope_theta, "layer_types": list(cfg.layer_types),
+            "num_dense_layers": cfg.num_dense_layers, "num_hidden_layers": cfg.num_layers,
+            "num_experts_per_tok": cfg.num_experts_per_tok, "norm_topk_prob": True,
+            "routed_scaling_factor": 1.0, "expert_offset": cfg.expert_offset}
+
+
+def test_token_sweep_table_matches_plain(tmp_path):
+    """The sweep's (method, layer, ratio) NLL table, resumed at chunk 1 as
+    the benchmark runs it, against the benchmark's plain reference sweep.
+    Tolerance: mean NLLs (~5.5 nats) of two fp32 computations, 1e-5."""
+    p = _params()
+    ids = np.random.default_rng(7).integers(0, CFG.vocab_size, 64 + 6 * 16)
+    mix = {"methods": ["regular_importance", "last_row"], "layers_of_interest": [5, 2],
+           "ratios": [0, 0.5, 1], "max_length": 64, "stride": 16}
+    path = tmp_path / "resume.json"
+    shape = (2, 2, 3)
+    path.write_text(json.dumps({"next_chunk": 1, "axes": {k: mix[k] for k in (
+        "methods", "layers_of_interest", "ratios")}, "chunks": 0, "wall_s": 0.0,
+        "total_nll": np.zeros(shape).tolist(), "n_tokens": 0.0}))
+    got = run_token_sweep(CFG, p, ids, methods=mix["methods"],
+                          layers_of_interest=mix["layers_of_interest"], ratios=mix["ratios"],
+                          max_length=64, stride=16, window_batch=3, max_chunks=6,
+                          checkpoint_path=str(path), checkpoint_every=1 << 30, device="cpu")
+    want, n_tok = ref_lfm2.token_sweep(_ref_cfg(), p, ids, mix, first_chunk=1, chunks=6)
+    assert got.chunks == 6 and got.n_tokens == n_tok
+    np.testing.assert_allclose(got.total_nll / got.n_tokens, want / n_tok, atol=1e-5, rtol=0)
+    # the cuts do work: int4 at ratio 1 moves the table off the baseline
+    assert np.abs(want[:, :, 2] - want[:, :, 0]).max() > 1e-3
+
+
+def test_conv_layer_cut_raises():
+    ids = np.random.default_rng(0).integers(0, CFG.vocab_size, 200)
+    with pytest.raises(ValueError, match=r"\[3\] are convolution layers.*\[2, 5\]"):
+        run_token_sweep(CFG, _params(), ids, methods=["regular_importance"],
+                        layers_of_interest=[5, 3], ratios=[0, 0.5], max_length=64, stride=32,
+                        device="cpu", max_chunks=2)
+
+
+def test_expert_share_partition_adds_up():
+    """Held ranges [0, 4) and [4, 8) of one layer: their parts add up to the
+    uncut layer's, and the uncut layer is the plain reference's. Tolerance:
+    sums of fp32 parts in another order, 1e-6 at |y| ~ 0.1."""
+    p = _params()
+    lp = p["layers"][3]
+    x = torch.randn(2, 64, CFG.hidden_size, generator=torch.Generator().manual_seed(5))
+    planes = tr.prepared_grouped_planes
+    whole = moe.moe_ffn(CFG, lp, x, planes, tr.linear)
+    parts = [moe.moe_ffn(dataclasses.replace(CFG, num_experts=4, expert_offset=a),
+                         {**lp, "w13": lp["w13"][a:b], "w2": lp["w2"][a:b]}, x, planes, tr.linear)
+             for a, b in ((0, 4), (4, 8))]
+    torch.testing.assert_close(parts[0] + parts[1], whole, atol=1e-6, rtol=0)
+    torch.testing.assert_close(whole, plain.experts(plain.config_of(CFG), lp, x, 0),
+                               atol=1e-6, rtol=0)
+    assert parts[0].abs().max() > 1e-3 and parts[1].abs().max() > 1e-3
+
+
+def test_counters_count_rows_and_see_rows_no_product_wrote(monkeypatch):
+    """Inside ``moe.counting`` the layer counts the rows routed to its held
+    experts and, as dropped, held rows whose result no product wrote: here
+    the grouped products are handed offsets that leave out the last held
+    expert's rows. Outside it nothing is counted."""
+    lp = _params()["layers"][3]
+    x = torch.randn(1, 64, CFG.hidden_size, generator=torch.Generator().manual_seed(6))
+    moe.read_counters(reset=True)
+    moe.moe_ffn(CFG, lp, x, tr.prepared_grouped_planes, tr.linear)
+    assert moe.read_counters()["moe_rows_routed"] == 0
+    with moe.counting():
+        moe.moe_ffn(CFG, lp, x, tr.prepared_grouped_planes, tr.linear)
+    c = moe.read_counters(reset=True)
+    assert c["moe_rows_routed"] == 64 * CFG.num_experts_per_tok and c["moe_rows_dropped"] == 0
+    assert 0 < c["moe_rows_busiest"] < c["moe_rows_routed"]
+
+    real = gemm.grouped_gemm_tf32x3
+
+    def last_expert_left_out(a, planes, offsets, out=None):
+        cut = offsets.clone()
+        cut[-1] = cut[-2]
+        return real(a, planes, cut, out)
+
+    monkeypatch.setattr(gemm, "grouped_gemm_tf32x3", last_expert_left_out)
+    with moe.counting():
+        moe.moe_ffn(CFG, lp, x, tr.prepared_grouped_planes, tr.linear)
+    _, picked = moe.route(CFG, lp, x[0], tr.linear)
+    want = int((picked == CFG.num_experts - 1).sum())
+    assert want > 0 and moe.read_counters(reset=True)["moe_rows_dropped"] == want
+
+
+def test_router_selects_on_biased_score_and_weights_unbiased():
+    cfg = CFG
+    d = cfg.hidden_size
+    x = torch.eye(d)[:1]                       # one token: logits = row 0 of W_r
+    logits = torch.tensor([[2.0, 1.5, 1.0, 0.5, 0.0, -0.5, -1.0, -3.0]])
+    w_r = torch.zeros(d, cfg.router_experts)
+    w_r[0] = logits[0]
+    bias = torch.zeros(cfg.router_experts)
+    bias[7] = 2.0                              # lifts the lowest score above the rest
+    weights, picked = moe.route(cfg, {"router": w_r, "expert_bias": bias}, x, tr.linear)
+    assert sorted(picked[0].tolist()) == [0, 7]
+    s = torch.sigmoid(logits[0])
+    want = s[picked[0]] / (s[picked[0]].sum() + 1e-6)
+    torch.testing.assert_close(weights[0], want, atol=1e-7, rtol=0)
+
+
+def test_conv_is_causal():
+    lp = _params()["layers"][0]
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 32, CFG.hidden_size, generator=g)
+    y = tr.short_conv(CFG, lp, x)
+    for t in (0, 7, 31):
+        x2 = x.clone()
+        x2[:, t] += torch.randn(2, CFG.hidden_size, generator=g)
+        y2 = tr.short_conv(CFG, lp, x2)
+        assert torch.equal(y2[:, :t], y[:, :t])
+        assert (y2[:, t] - y[:, t]).abs().max() > 1e-4
+        if t + 3 < 32:  # three taps: t + 3 on does not see position t
+            assert torch.equal(y2[:, t + 3:], y[:, t + 3:])
+
+
+@pytest.mark.parametrize("counts", [[3, 0, 5, 0], [0, 0, 0, 9], [1, 2, 3, 4]])
+def test_grouped_plain_matches_per_expert_matmul(counts):
+    """Experts with zero rows included; rows after the last expert's stay
+    zero. Tolerance: the 3xTF32 split, 2^-21 of |a| |b| summed over K."""
+    g = torch.Generator().manual_seed(sum(counts))
+    e, k, n = len(counts), 40, 24
+    w = torch.randn(e, k, n, generator=g)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32)
+    m = int(offsets[-1]) + 2
+    a = torch.randn(m, k, generator=g)
+    got = gemm.grouped_gemm_tf32x3(a, gemm.prepare_grouped_planes(w), offsets)
+    for i in range(e):
+        r0, r1 = int(offsets[i]), int(offsets[i + 1])
+        torch.testing.assert_close(got[r0:r1], a[r0:r1] @ w[i], atol=2e-5, rtol=0)
+    assert torch.equal(got[int(offsets[-1]):], torch.zeros(2, n))
+
+
+def test_split_hops_after_conv_and_attention_are_lossless():
+    """Cuts after layer 1 (conv) and 2 (attention) with fp32 hops: the split
+    forward's logits are the unsplit forward's."""
+    p, ids = _params(), _ids()
+    rt = SplitRuntime(CFG, SplitConfig(cuts=(1, 2), hop_codecs=("fp32", "fp32")),
+                      devices=["cpu"] * 3)
+    got = rt.forward(rt.place_params(p), ids)
+    want, _ = tr.forward(CFG, p, ids)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    ids_np = _ids(1, 200, 11)[0].numpy()
+    res = run_split_eval(CFG, p, ids_np, cuts=[1, 2], hop_codecs=["fp32", "fp32"],
+                         max_length=64, stride=32, time_hops=False, max_chunks=3,
+                         device="cpu")
+    assert res["n_tokens"] > 0 and np.isfinite(res["ppl"])
+
+
+def test_batcher_refuses_the_hybrid():
+    from edgellm_tpu_torch.serve.batching import ContinuousBatcher
+
+    with pytest.raises(ValueError, match="conv-state cache"):
+        ContinuousBatcher(CFG, _params())
+
+
+def test_presets_and_cli_table_axes():
+    """The cell's axes (configs/lfm2_hybrid_table.json) cut at attention
+    layers of the ep2 preset, which holds 16 of 32 experts; the CLI names
+    both LFM2 presets."""
+    ep2 = configs.PORT_PRESETS["lfm2-8b-a1b-ep2"]
+    whole = configs.PORT_PRESETS["lfm2-8b-a1b"]
+    assert (ep2.num_experts, ep2.router_experts, whole.num_experts) == (16, 32, 32)
+    assert ep2.attention_layers == (2, 6, 10, 14, 18, 21)
+    with open("configs/lfm2_hybrid_table.json") as f:
+        axes = json.load(f)
+    assert set(axes["layers_of_interest"]) <= set(ep2.attention_layers)
+    with pytest.raises(ValueError, match="experts held"):
+        dataclasses.replace(CFG, num_experts=4, expert_offset=6)
+
+
+def test_cli_runs_the_hybrid_sweep(tmp_path):
+    from edgellm_tpu_torch import run
+
+    params = {"methods": ["regular_importance", "last_row"], "layers_of_interest": [5, 2],
+              "ratios": [0, 0.5], "max_length": 64, "stride": 32}
+    run.main(["--params", json.dumps(params), "--model", "tiny-lfm2", "--device", "cpu",
+              "--max-chunks", "3", "--output-dir", str(tmp_path)])
+    assert any(f.suffix == ".json" for f in tmp_path.iterdir())
+
+
+def test_moe_contract_runs_clean_on_the_cpu():
+    """The ``moe.experts`` graph contract executed over a tiny expert layer:
+    no hop and no finding; its host-sync and launch checks are the card's
+    (``chip_smoke.py`` runs them there), so the CPU reports them unchecked."""
+    from edgellm_tpu_torch.lint.entrypoints import run_moe_contract
+
+    findings, detail = run_moe_contract("cpu")
+    assert findings == []
+    assert detail["hops"] == 0 and detail["host_sync"] == {"checked": False}
+    assert detail["launches_declared"] == {"grouped_gemm_tf32x3": 2}

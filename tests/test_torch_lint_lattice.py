@@ -160,7 +160,7 @@ def test_shipped_lattice_is_clean(sweep):
     findings, checked, skipped, matrix = sweep
     assert findings == [], [f.format() for f in findings]
     configs = sorted(p.stem for p in CONFIGS.glob("*.json"))
-    assert len(configs) == 27
+    assert len(configs) == 28
     assert checked == (["lattice.readme-parity"]
                        + [f"lattice.config:{c}" for c in configs]
                        + ["lattice.pairwise-compat"])

@@ -219,8 +219,10 @@ def test_params_from_state_dict_matches_reference_loader(family):
     GPT-NeoX), and the port's logits match HF's own forward."""
     model = _hf_models()[family]
     cfg = thf.config_from_hf(model.config)
-    assert cfg == tcfg.ModelConfig(**{f: getattr(jhf.config_from_hf(model.config), f)
-                                      for f in cfg.__dataclass_fields__})
+    # every field the reference's config has; the port's own (the hybrid
+    # family's) keep their defaults
+    jc = jhf.config_from_hf(model.config)
+    assert cfg == tcfg.ModelConfig(**{f: getattr(jc, f) for f in jc.__dataclass_fields__})
     sd = model.state_dict()
     jp = jhf.params_from_state_dict(jhf.config_from_hf(model.config), sd)
     tp = thf.params_from_state_dict(cfg, sd, device="cpu")

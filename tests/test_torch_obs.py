@@ -366,7 +366,8 @@ def test_names_tables_are_the_references():
     assert jnames.SPAN_NAMES <= tnames.SPAN_NAMES
     assert tnames.SPAN_NAMES - jnames.SPAN_NAMES == tnames.PORT_SPAN_NAMES == {
         "eval.call", "eval.stats_forward", "eval.importance", "eval.codec", "eval.suffix",
-        "eval.nll_tail", "split.stage", "split.cross", "split.unembed", "eval.nll"}
+        "eval.nll_tail", "split.stage", "split.cross", "split.unembed", "eval.nll",
+        "moe.route", "moe.experts", "moe.combine", "mix.conv"}
     for pat in ("edgellm_link_*_total", "edgellm_link_x_total", "edgellm_nope", "split.hop",
                 "edgellm_link_*z_total"):
         assert tnames.metric_registered(pat) == jnames.metric_registered(pat)
