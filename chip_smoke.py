@@ -398,6 +398,14 @@ KERNELS = {
         "route": "cuda", "source": "edgellm_tpu_torch/csrc/gemm_tf32x3.cu",
         "replaces": None, "note": "replaces no TPU kernel: the JAX package has no sparse "
                                   "experts (LFM2-MoE, models/moe.py)"},
+    "gather_rows": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/moe_rows.cu",
+        "replaces": None, "note": "replaces no TPU kernel: the expert layer's gather of the "
+                                  "held pairs' rows (models/moe.py)"},
+    "combine_rows": {
+        "route": "cuda", "source": "edgellm_tpu_torch/csrc/moe_rows.cu",
+        "replaces": None, "note": "replaces no TPU kernel: the expert layer's weighted "
+                                  "combine over the held pairs (models/moe.py)"},
 }
 #: kernels whose launches every path reads but none predicts: the 3xTF32
 #: GEMM takes a product by its rows and output tiles (``gemm.route``), which
@@ -970,28 +978,135 @@ def gemm_paths(args, detail: dict) -> tuple:
     return next(r for r in rows if r["shape"] == "qwen2-0.5b gate/up"), by_path
 
 
-#: the LFM2 cell's grouped expert products: (label, K, N) over 16 held
+#: the LFM2 cell's grouped expert products: (label, K, N, glu) over 16 held
 #: experts, rows as a statistics forward of 16 windows routes them (top-4 of
-#: 32 on uniform scores: ~1024 an expert)
-MOE_SHAPES = (("lfm2 experts gate/up", 2048, 3584), ("lfm2 experts down", 1792, 2048))
+#: 32 on uniform scores: ~1024 an expert); the gate / up product over glu
+#: planes, storing silu(gate) * up (N / 2 features), as the layer runs it
+MOE_SHAPES = (("lfm2 experts gate/up", 2048, 3584, True),
+              ("lfm2 experts down", 1792, 2048, False))
 MOE_TOKENS, MOE_HELD, MOE_ROUTED, MOE_TOP_K = 16 * 512, 16, 32, 4
 #: tiny-lfm2 logits, card against CPU: fp32 in another order (1e-5 read)
 MOE_CROSS_TOL = 1e-4
+#: the fused gate / up against the unfused launch and F.silu(g) * u, in fp32
+#: ulps of the unfused value: the same column sums, SiLU with IEEE expf and
+#: division on both sides
+MOE_GLU_ULPS = 4
+
+
+def _silu_up(h):
+    """silu(gate) * up of a gate / up product (M, 2F), gate then up."""
+    import torch.nn.functional as F
+
+    f = h.shape[1] // 2
+    return F.silu(h[:, :f]) * h[:, f:]
+
+
+def _ulps_apart(got, want) -> float:
+    """The widest |got - want| in fp32 ulps of |want| (at least the smallest
+    normal's)."""
+    import torch
+
+    unit = torch.finfo(torch.float32).eps * want.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return ((got - want).abs() / unit).max().item() if want.numel() else 0.0
+
+
+def moe_rows_paths(experts, seed: int) -> dict:
+    """The expert layer's gather and combine (``csrc/moe_rows.cu``) at the
+    LFM2 cell's T (``experts`` (T, k), the statistics forward's picks over
+    32 experts, the first :data:`MOE_HELD` held), each -> its row: device ms
+    over 20 warm calls beside its bytes bound, the plain version's time and
+    the PyTorch passes' it replaced (``library``). The gather's rows and
+    pair rows equal ``index_select``'s and the scatter's; the combine lies
+    within one fp32 ulp of the terms an add of the gather / multiply /
+    where / sum, with a NaN planted in every row past the held pairs'
+    (never read)."""
+    import torch
+
+    from edgellm_tpu_torch.models import flash_attention as fa
+    from edgellm_tpu_torch.models import moe
+
+    t, k = experts.shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((t, 2048), generator=gen, device="cuda")
+    d = x.shape[1]
+    order, offsets = moe.dispatch(experts, 0, MOE_HELD)
+    local = experts.reshape(-1)
+    held = local < MOE_HELD
+    n = offsets[-1].item()
+
+    def old_gather():
+        rows = x.index_select(0, order // k)
+        pos = torch.empty_like(order)
+        pos[order] = torch.arange(order.numel(), device=order.device)
+        return rows, pos
+
+    rows, pos = moe.gather_rows(x, order, offsets, k)
+    old_rows, old_pos = old_gather()
+    gather_ok = bool(torch.equal(rows[:n], old_rows[:n]) and torch.equal(
+        pos.long()[held], old_pos[held]) and (pos[~held] == -1).all())
+    y = torch.randn((t * k, d), generator=gen, device="cuda")
+    y[n:] = math.nan
+    w = torch.rand((t, k), generator=gen, device="cuda")
+    w = w / w.sum(dim=-1, keepdim=True)
+
+    def old_combine():
+        picked = y.index_select(0, old_pos).reshape(t, k, d)
+        return torch.where(held.reshape(t, k)[..., None], picked * w[..., None], 0.0).sum(dim=1)
+
+    got = moe.combine_rows(y, pos, w, torch.float32)
+    picked = y.index_select(0, old_pos).reshape(t, k, d)
+    terms = torch.where(held.reshape(t, k)[..., None], picked * w[..., None], 0.0)
+    want = terms.sum(dim=1)
+    tol = k * torch.finfo(torch.float32).eps * terms.abs().sum(dim=1)
+    combine_err = (got - want).abs().max().item()
+    combine_ok = bool(((got - want).abs() <= tol).all() and not got.isnan().any())
+    torch.cuda.synchronize()
+    del picked, terms, want, old_rows
+    shape = f"lfm2 cell T={t} k={k} D={d}, {n} of {t * k} pairs held"
+    out = {}
+    for name, fn, plain, lib, nbytes, err in (
+            ("gather_rows", lambda: moe.gather_rows(x, order, offsets, k),
+             lambda: moe.gather_rows_plain(x, order, offsets, k), old_gather,
+             2 * 4 * n * d + 12 * t * k, 0.0 if gather_ok else math.inf),
+            ("combine_rows", lambda: moe.combine_rows(y, pos, w, torch.float32),
+             lambda: moe.combine_rows_plain(y, pos, w, torch.float32), old_combine,
+             4 * n * d + 8 * t * k + 4 * t * d, combine_err)):
+        ms = device_ms(fn, 20)
+        bound, bound_by = fa.bound_ms(float(nbytes), 0.0, torch.float32)
+        row = {"shape": shape, "pairs": t * k, "held_pairs": n, "d": d,
+               "kernel_device_ms": ms, "kernel_ms": time_ms(fn, 20),
+               "bound_ms": bound, "bound_by": bound_by,
+               "plain_ms": time_ms(plain, 2, warmup=1),
+               "library_device_ms": device_ms(lib, 20), "library_ms": time_ms(lib, 20),
+               "max_abs_err": err}
+        row["share"] = row["bound_ms"] / ms
+        log(json.dumps({"moe_rows": {name: row}}))
+        out[name] = row
+    if not (gather_ok and combine_ok):
+        raise SystemExit(f"moe rows: gather equal to index_select / scatter: {gather_ok}, "
+                         f"combine within an ulp an add of the old passes (widest "
+                         f"{combine_err}) with no NaN: {combine_ok}")
+    return out
 
 
 def moe_paths(args, detail: dict) -> tuple:
-    """The grouped 3xTF32 GEMM and the hybrid model -> (its row at the LFM2
-    cell's gate / up shape, launch counts by path). At each of
-    :data:`MOE_SHAPES`: device ms over 20 warm calls beside its bound, its
-    plain version's and a per-expert cuBLAS fp32 loop's; each expert's
-    widest error against float64 at most 3x cuBLAS fp32's, the held rows
-    within :data:`GEMM_PLAIN_TOL` times that error of the plain version on
-    the same inputs, and the rows past the held experts' (pairs routed to
-    the other card) left as the output held them (NaN). Then the
-    ``tiny-lfm2`` model (hidden 128, heads of 64, so the kernels launch):
-    a forward on the card against the CPU, its launches exactly 2 grouped a
-    MoE layer and K-attn once an attention layer; and the ``moe.experts``
-    graph contract executed on the card: no host sync, two launches."""
+    """The grouped 3xTF32 GEMM, the gather and combine, and the hybrid
+    model -> (the grouped kernel's row at the LFM2 cell's gate / up shape,
+    the gather's and combine's rows by name, launch counts by path). At
+    each of :data:`MOE_SHAPES`: device ms over 20 warm calls beside its
+    bound, its plain version's and a per-expert cuBLAS fp32 loop's (then
+    SiLU·up for the gate / up); each expert's widest error against float64
+    at most 3x cuBLAS fp32's, the held rows within :data:`GEMM_PLAIN_TOL`
+    times that error of the plain version over the same planes, and the rows
+    past the held experts' (pairs routed to the other card) left as the
+    output held them (NaN). The gate / up over glu planes also lies within
+    :data:`MOE_GLU_ULPS` of the unfused launch followed by PyTorch's SiLU·up,
+    beside whose device ms it is timed. Then :func:`moe_rows_paths`, and the
+    ``tiny-lfm2`` model (hidden 128, heads of 64, so the kernels launch): a
+    forward on the card against the CPU, its launches exactly 2 grouped, one
+    gather and one combine a MoE layer and K-attn once an attention layer;
+    and the ``moe.experts`` graph contract executed on the card: no host
+    sync, those launches."""
     import torch
 
     from edgellm_tpu_torch.lint.entrypoints import run_moe_contract
@@ -1000,39 +1115,57 @@ def moe_paths(args, detail: dict) -> tuple:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     picks = torch.rand((MOE_TOKENS, MOE_ROUTED), generator=gen, device="cuda").topk(
-        MOE_TOP_K, dim=-1).indices.flatten()
+        MOE_TOP_K, dim=-1).indices
+    flat = picks.flatten()
     counts = torch.zeros(MOE_ROUTED, dtype=torch.int64, device="cuda").scatter_add_(
-        0, picks, torch.ones_like(picks))[:MOE_HELD]
+        0, flat, torch.ones_like(flat))[:MOE_HELD]
     offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
     off = offsets.tolist()
     rows = []
-    for label, k, n in MOE_SHAPES:
+    for label, k, n, glu in MOE_SHAPES:
         a = torch.randn((MOE_TOKENS * MOE_TOP_K, k), generator=gen, device="cuda")
         w = torch.randn((MOE_HELD, k, n), generator=gen, device="cuda") * 0.02
-        planes = gemm.prepare_grouped_planes(w)
+        planes = gemm.prepare_grouped_planes(w, glu)
+        cols = planes.rows
+
+        def ref(e, lib=False):  # expert e's rows: a @ w (cuBLAS fp32 or float64)
+            r0, r1 = off[e], off[e + 1]
+            h = a[r0:r1] @ w[e] if lib else a[r0:r1].double() @ w[e].double()
+            return _silu_up(h) if glu else h
+
         # rows past the held experts' (pairs routed elsewhere) stay unwritten
-        got = gemm.grouped_gemm_tf32x3(a, planes, offsets,
-                                       a.new_full((a.shape[0], n), math.nan))
+        got = gemm.grouped_gemm_tf32x3(a, planes, offsets, a.new_full((a.shape[0], cols),
+                                                                      math.nan))
         torch.cuda.synchronize()
         err = lib_err = 0.0
         for e in range(MOE_HELD):
-            r0, r1 = off[e], off[e + 1]
-            err = max(err, _widest_error(got[r0:r1], a[r0:r1], w[e]))
-            lib_err = max(lib_err, _widest_error(a[r0:r1] @ w[e], a[r0:r1], w[e]))
+            if off[e + 1] > off[e]:
+                want = ref(e)
+                err = max(err, (got[off[e]:off[e + 1]].double() - want).abs().max().item())
+                lib_err = max(lib_err, (ref(e, lib=True).double() - want).abs().max().item())
         plain = gemm.grouped_gemm_tf32x3_plain(a, planes, offsets)
         plain_diff = (got[:off[-1]] - plain[:off[-1]]).abs().max().item()
         outside_unwritten = bool(got[off[-1]:].isnan().all())
+        fused = {}
+        if glu:  # against the unfused launch and PyTorch's SiLU·up on its output
+            unfused = gemm.prepare_grouped_planes(w)
+            ulps = _ulps_apart(got[:off[-1]], _silu_up(
+                gemm.grouped_gemm_tf32x3(a, unfused, offsets)[:off[-1]]))
+            fused = {"unfused_max_ulps": ulps, "unfused_device_ms": device_ms(
+                lambda: _silu_up(gemm.grouped_gemm_tf32x3(a, unfused, offsets)), 20)}
+            del unfused
         torch.cuda.synchronize()
         del got, plain
 
         def loop():
             for e in range(MOE_HELD):
-                a[off[e]:off[e + 1]] @ w[e]
+                ref(e, lib=True)
 
         ms = device_ms(lambda: gemm.grouped_gemm_tf32x3(a, planes, offsets), 20)
         flops = 2.0 * off[-1] * k * n
         bound_ms = flops / GEMM_PEAK_FLOPS * 1e3
         row = {"shape": label, "experts": MOE_HELD, "m": off[-1], "n": n, "k": k,
+               "glu": glu, "out_cols": cols,
                "rows_min": min(counts.tolist()), "rows_max": max(counts.tolist()),
                "kernel_device_ms": ms,
                "kernel_ms": time_ms(lambda: gemm.grouped_gemm_tf32x3(a, planes, offsets), 20),
@@ -1043,17 +1176,19 @@ def moe_paths(args, detail: dict) -> tuple:
                "library_device_ms": device_ms(loop, 20), "library_ms": time_ms(loop, 20),
                "max_abs_err": err, "library_max_abs_err": lib_err,
                "plain_max_abs_diff": plain_diff, "rows_outside": a.shape[0] - off[-1],
-               "outside_unwritten": outside_unwritten}
+               "outside_unwritten": outside_unwritten, **fused}
         row["library_tflops_per_s"] = flops / row["library_device_ms"] / 1e9
         log(json.dumps({"moe_gemm": row}))
         rows.append(row)
         if err > 3 * lib_err or plain_diff > GEMM_PLAIN_TOL * lib_err \
-                or not outside_unwritten or a.shape[0] == off[-1]:
+                or not outside_unwritten or a.shape[0] == off[-1] \
+                or fused.get("unfused_max_ulps", 0.0) > MOE_GLU_ULPS:
             raise SystemExit(f"grouped gemm {label}: error {err} (cuBLAS {lib_err}), "
                              f"{plain_diff} from the plain version, rows past the held "
-                             f"experts' unwritten: {outside_unwritten}")
+                             f"experts' unwritten: {outside_unwritten}, {fused}")
         del a, w, planes
         torch.cuda.empty_cache()
+    tail = moe_rows_paths(picks, args.seed + 1)
 
     cfg = PORT_PRESETS["tiny-lfm2"]
     params = init_params(cfg, torch.Generator().manual_seed(args.seed), device="cpu")
@@ -1069,11 +1204,13 @@ def moe_paths(args, detail: dict) -> tuple:
     launches = read_counts()
     moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
     attn = len(cfg.attention_layers)
-    expect = want_counts(attn, causal_attention=attn, grouped_gemm_tf32x3=2 * moe_layers)
+    expect = want_counts(attn, causal_attention=attn, grouped_gemm_tf32x3=2 * moe_layers,
+                         gather_rows=moe_layers, combine_rows=moe_layers)
     diff = (got.cpu() - want).abs().max().item()
     findings, contract = run_moe_contract("cuda")
-    detail["moe"] = {"rows": rows, "forward_max_abs_diff": diff, "launches": launches,
-                     "contract": contract, "contract_findings": [f.format() for f in findings]}
+    detail["moe"] = {"rows": rows, "tail": tail, "forward_max_abs_diff": diff,
+                     "launches": launches, "contract": contract,
+                     "contract_findings": [f.format() for f in findings]}
     log(json.dumps({"moe_model": {k: detail["moe"][k] for k in (
         "forward_max_abs_diff", "contract", "contract_findings")}}))
     if launches_differ(launches, expect) or diff > MOE_CROSS_TOL:
@@ -1082,7 +1219,7 @@ def moe_paths(args, detail: dict) -> tuple:
     if findings or not contract.get("host_sync", {}).get("checked"):
         raise SystemExit(f"moe.experts contract on the card: {detail['moe']['contract_findings']}"
                          f" {contract}")
-    return rows[0], {"moe tiny-lfm2 forward": launches}
+    return rows[0], tail, {"moe tiny-lfm2 forward": launches}
 
 
 def _gemm_decode(cfg, params, rng, generate, by_path: dict) -> dict:
@@ -1302,7 +1439,7 @@ def _wrappers() -> dict:
     from edgellm_tpu_torch.codecs import codec_kernels as ck
     from edgellm_tpu_torch.codecs import fused_hop as fh
     from edgellm_tpu_torch.models import flash_attention as fa
-    from edgellm_tpu_torch.models import gemm
+    from edgellm_tpu_torch.models import gemm, moe
 
     return {"causal_attention": fa.causal_attention,
             "causal_attention_stats": fa.causal_attention_stats,
@@ -1315,7 +1452,8 @@ def _wrappers() -> dict:
             "paged_decode_attention": fa.paged_decode_attention,
             "paged_decode_attention_quant": fa.paged_decode_attention_quant,
             "gemm_tf32x3": gemm.gemm_tf32x3,
-            "grouped_gemm_tf32x3": gemm.grouped_gemm_tf32x3}
+            "grouped_gemm_tf32x3": gemm.grouped_gemm_tf32x3,
+            "gather_rows": moe.gather_rows, "combine_rows": moe.combine_rows}
 
 
 #: K-attn's launches by dtype, beside its total (fp32: the split stages
@@ -5985,7 +6123,7 @@ def main() -> int:
     t0 = time.monotonic()
     main_rows = kernel_checks(detail)
     gemm_row, gemm_counts = gemm_paths(args, detail)
-    moe_row, moe_counts = moe_paths(args, detail)
+    moe_row, moe_tail_rows, moe_counts = moe_paths(args, detail)
     codec_rows = codec_checks(detail)
     paged_rows = paged_checks(detail)
     t1 = time.monotonic()
@@ -6047,9 +6185,13 @@ def main() -> int:
             r = gemm_row
             shape = f"{r['shape']} M={r['m']} N={r['n']} K={r['k']} float32"
         elif name == "grouped_gemm_tf32x3":  # library_ms: a per-expert cuBLAS fp32 loop
-            r = moe_row
+            r = moe_row                         # then SiLU·up
             shape = (f"{r['shape']} E={r['experts']} M={r['m']} (rows {r['rows_min']}-"
-                     f"{r['rows_max']} an expert) N={r['n']} K={r['k']} float32")
+                     f"{r['rows_max']} an expert) N={r['n']} K={r['k']} float32, "
+                     f"silu(gate) * up stored ({r['out_cols']} a row)")
+        elif name in moe_tail_rows:  # library_ms: the PyTorch passes it replaced
+            r = moe_tail_rows[name]
+            shape = f"{r['shape']} float32"
         else:
             r = codec_rows[name]
             shape = f"qwen2-0.5b split N={r['n']} D={r['d']} {r['dtype']}"

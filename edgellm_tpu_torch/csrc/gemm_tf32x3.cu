@@ -62,7 +62,11 @@
 // products over the experts it holds in one launch: A the routed rows in
 // expert order, each expert's B its own planes, the per-expert row offsets
 // read on the device by a tile scheduler, so that neither the routing nor
-// the grid waits on the host and an expert with no rows costs no tile.
+// the grid waits on the host and an expert with no rows costs no tile. Its
+// gate / up instance (kGlu) takes planes whose 128-column tiles each hold 64
+// features' gate and then their up columns (gemm.py, prepare_grouped_planes
+// with glu), and stores silu(gate) * up (M, F) from the registers: the
+// (M, 2F) product never reaches device memory.
 #include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
 
 #include "hopper_common.cuh"
@@ -203,6 +207,42 @@ __device__ __forceinline__ void store_tile(float* __restrict__ c, const float (&
   }
 }
 
+// silu(g) * u in fp32 as F.silu and the multiply compute it: g / (1 + e^-g)
+// with IEEE expf and division (no fast math), rounded, then times u.
+__device__ __forceinline__ float silu_mul(float g, float u) {
+  const float s = g / (1.0f + expf(-g));
+  return s * u;
+}
+
+// A consumer thread's part of a finished gate / up tile of gate-up
+// interleaved planes: the tile's plane columns 0..63 are the gate of
+// features col0 .. col0 + 63 and columns 64..127 their up, so the thread holds
+// the gate of feature col0 + 8 j + 2 t4 (+ 1) in sum[4 j + 2 h (+ 1)], j < 8,
+// and its up in j + 8. Stores silu(gate) * up at rows row0 and row0 + 8 where
+// below row_end, features below F.
+__device__ __forceinline__ void store_tile_glu(float* __restrict__ c, const float (&sum)[64],
+                                               int row0, int row_end, int col0, int F,
+                                               long long ldc, int t4, int vec2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = col0 + 8 * j + 2 * t4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= row_end) continue;
+      float* out = c + static_cast<size_t>(row) * ldc + col;
+      const float v0 = silu_mul(sum[4 * j + 2 * h], sum[4 * (j + 8) + 2 * h]);
+      const float v1 = silu_mul(sum[4 * j + 2 * h + 1], sum[4 * (j + 8) + 2 * h + 1]);
+      if (vec2 && col + 1 < F) {
+        *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+      } else {
+        if (col < F) out[0] = v0;
+        if (col + 1 < F) out[1] = v1;
+      }
+    }
+  }
+}
+
 struct TileMap {
   int tiles_m, tiles_n, p_start;
   __device__ __forceinline__ void at(int tile, int& m0, int& p0) const {
@@ -296,12 +336,16 @@ gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap tmap_a, const float* __re
 // blockIdx.x, + gridDim.x, ... of the sum, so that the grid is the card's
 // SM count whatever the routing, and the host never reads a row count. A
 // tile's last rows may belong to the next expert: they are computed and not
-// stored. The stage work, the ring and the store are the dense kernel's.
+// stored. The stage work and the ring are the dense kernel's, and so is the
+// store, but for kGlu: N is then the planes' interleaved columns and the
+// tile at plane column p0 stores features p0 / 2 .. p0 / 2 + 63 of the
+// (M, n_out) silu(gate) * up (store_tile_glu).
+template <bool kGlu>
 __global__ void __launch_bounds__(tf32x3::kThreads, 1)
 gemm_tf32x3_grouped_kernel(const __grid_constant__ CUtensorMap tmap_a,
                            const float* __restrict__ bhi, const float* __restrict__ blo,
-                           float* __restrict__ c, int N, int K, long long ldc, int R,
-                           long long plane_stride, const int* __restrict__ offsets,
+                           float* __restrict__ c, int N, int n_out, int K, long long ldc,
+                           int R, long long plane_stride, const int* __restrict__ offsets,
                            int experts, int vec2) {
   using namespace tf32x3;
   extern __shared__ unsigned char smem_gemm[];
@@ -382,7 +426,10 @@ gemm_tf32x3_grouped_kernel(const __grid_constant__ CUtensorMap tmap_a,
       mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
       consume_stage(base + s * kStageBytes, a_off, swz, t4, lane, bar_empty + 8 * s, acc, sum);
     }
-    store_tile(c, sum, m0 + r, row_end, p0, N, ldc, t4, vec2);
+    if constexpr (kGlu)
+      store_tile_glu(c, sum, m0 + r, row_end, p0 / 2, n_out, ldc, t4, vec2);
+    else
+      store_tile(c, sum, m0 + r, row_end, p0, N, ldc, t4, vec2);
   }
 }
 
@@ -461,16 +508,19 @@ extern "C" int edgellm_gemm_tf32x3(const float* a, const float* bhi, const float
 // routed rows in expert order, rows of stride lda; bhi / blo: each expert's
 // planes, (K + 31) / 32 chunks of R rows, plane_stride floats apart; c: (M,
 // N) rows of stride ldc, written only at the experts' rows; offsets: experts
-// + 1 device ints, non-decreasing, in [0, M]. The grid is the SM count. The
-// same return codes as edgellm_gemm_tf32x3.
+// + 1 device ints, non-decreasing, in [0, M]. With glu the planes hold each
+// 64 features' gate and up columns side by side (2 ceil(N / 64) 64 rows at
+// least) and c receives silu(gate) * up, N features a row. The grid is the SM
+// count. The same return codes as edgellm_gemm_tf32x3.
 extern "C" int edgellm_gemm_tf32x3_grouped(const float* a, const float* bhi, const float* blo,
                                            float* c, int M, int N, int K, long long lda,
                                            long long ldc, int R, long long plane_stride,
-                                           const int* offsets, int experts, int sms,
+                                           const int* offsets, int experts, int glu, int sms,
                                            void* stream) {
   using namespace edgellm;
   using namespace edgellm::tf32x3;
-  if (M <= 0 || N <= 0 || K <= 0 || K % 4 || lda % 4 || lda < K || N > R || sms <= 0 ||
+  const int cols = glu ? 2 * ((N + kBN / 2 - 1) / (kBN / 2)) * (kBN / 2) : N;
+  if (M <= 0 || N <= 0 || K <= 0 || K % 4 || lda % 4 || lda < K || cols > R || sms <= 0 ||
       experts <= 0 || experts > kMaxExperts || plane_stride % 4 ||
       (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(bhi) |
        reinterpret_cast<uintptr_t>(blo)) % 16)
@@ -478,11 +528,12 @@ extern "C" int edgellm_gemm_tf32x3_grouped(const float* a, const float* bhi, con
   CUtensorMap tmap_a;
   if (!a_tensor_map(&tmap_a, a, M, K, lda)) return -2;
   const int vec2 = ldc % 2 == 0 && reinterpret_cast<uintptr_t>(c) % 8 == 0;
-  cudaError_t err = cudaFuncSetAttribute(gemm_tf32x3_grouped_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  auto kernel = glu ? gemm_tf32x3_grouped_kernel<true> : gemm_tf32x3_grouped_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kSmem);
   if (err != cudaSuccess) return (int)err;
-  gemm_tf32x3_grouped_kernel<<<sms, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      tmap_a, bhi, blo, c, N, K, ldc, R, plane_stride, offsets, experts, vec2);
+  kernel<<<sms, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      tmap_a, bhi, blo, c, cols, N, K, ldc, R, plane_stride, offsets, experts, vec2);
   return (int)cudaGetLastError();
 }
 

@@ -69,7 +69,7 @@ KERNEL_NAMES = (
     "int8_affine_encode", "int8_affine_decode", "chan_int8_encode",
     "chan_int8_decode", "chan_int4_encode", "ternary_encode", "ternary_decode",
     "remote_hop", "paged_decode_attention", "paged_decode_attention_quant",
-    "grouped_gemm_tf32x3")
+    "grouped_gemm_tf32x3", "gather_rows", "combine_rows")
 
 #: a hop codec's kernels on the card: (encode, decode) wrapper names, one
 #: launch each per payload encoded / decoded
@@ -173,9 +173,9 @@ def _wrappers() -> dict:
     from ..codecs import codec_kernels as ck
     from ..codecs import fused_hop as fh
     from ..models import flash_attention as fa
-    from ..models import gemm
+    from ..models import gemm, moe
 
-    mods = (fa, ck, fh, gemm)
+    mods = (fa, ck, fh, gemm, moe)
     return {name: getattr(next(m for m in mods if hasattr(m, name)), name)
             for name in KERNEL_NAMES}
 

@@ -825,11 +825,11 @@ def run_graph_checks(device: str = "cuda"
 
 def run_moe_contract(device: str = "cuda") -> Tuple[List[Finding], dict]:
     """The ``moe.experts`` contract (no host sync, no hop, two grouped
-    launches) executed over one sparse-expert layer of the ``tiny-lfm2``
-    model (hidden 128, heads of 64) at 4 x 128 tokens, after a warm call
-    that prepares its planes. A port-only contract, run beside the
-    reference's 40 (``chip_smoke.py``'s MoE phase on the card) -> (findings,
-    the contract's detail)."""
+    launches, one gather, one combine) executed over one sparse-expert
+    layer of the ``tiny-lfm2`` model (hidden 128, heads of 64) at 4 x 128
+    tokens, after a warm call that prepares its planes. A port-only
+    contract, run beside the reference's 40 (``chip_smoke.py``'s MoE phase
+    on the card) -> (findings, the contract's detail)."""
     import torch
 
     from ..models import moe, transformer

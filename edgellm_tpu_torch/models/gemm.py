@@ -25,6 +25,9 @@ The grouped form (:func:`grouped_gemm_tf32x3`, one launch a sparse-expert
 product over the experts a layer holds, ``models/moe.py``) takes A's rows in
 expert order, each expert's planes stacked (:func:`prepare_grouped_planes`)
 and the experts' row offsets as a device tensor that only the kernel reads.
+Planes of a gate / up weight prepared with ``glu`` carry their epilogue: each
+128-column tile holds 64 features' gate and up columns, and the product
+stores ``silu(gate) * up``, F features a row, never the (M, 2F) product.
 """
 from __future__ import annotations
 
@@ -161,7 +164,7 @@ def _lib() -> ctypes.CDLL:
         lib.edgellm_gemm_tf32x3.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 2 + [i32] * 3 + [ptr]
         lib.edgellm_gemm_tf32x3.restype = i32
         lib.edgellm_gemm_tf32x3_grouped.argtypes = ([ptr] * 4 + [i32] * 3 + [i64] * 2 + [i32]
-                                                    + [i64, ptr, i32, i32, ptr])
+                                                    + [i64, ptr, i32, i32, i32, ptr])
         lib.edgellm_gemm_tf32x3_grouped.restype = i32
         lib.edgellm_gemm_tf32x3_error.argtypes = [i32]
         lib.edgellm_gemm_tf32x3_error.restype = ctypes.c_char_p
@@ -221,47 +224,82 @@ gemm_tf32x3.launches = 0
 
 #: experts one grouped launch holds (the kernel's ``kMaxExperts``)
 MAX_EXPERTS = 256
+#: features of a gate / up tile in glu planes: half the kernel's N tile
+GLU_FEATURES = TILE_N // 2
 
 
 class GroupedPlanes(NamedTuple):
     """The planes of E experts' weights, one :class:`Planes` layout each,
     stacked: ``hi`` and ``lo`` (E, ceil(K / 32), R, 32); ``k`` the reduction
-    length, ``rows`` the product's columns N."""
+    length, ``rows`` the output's columns N; ``glu``: a gate / up weight's
+    planes, whose product stores silu(gate) * up, ``rows`` features."""
 
     hi: torch.Tensor
     lo: torch.Tensor
     k: int
     rows: int
+    glu: bool = False
+
+    @property
+    def cols(self) -> int:
+        """Columns of the product the kernel computes: ``rows``, or with
+        ``glu`` a gate and an up column a feature, features padded to
+        :data:`GLU_FEATURES`."""
+        return 2 * -(-self.rows // GLU_FEATURES) * GLU_FEATURES if self.glu else self.rows
 
     def expert(self, e: int) -> Planes:
-        return Planes(self.hi[e], self.lo[e], self.k, self.rows)
+        return Planes(self.hi[e], self.lo[e], self.k, self.cols)
 
 
-def prepare_grouped_planes(w: torch.Tensor) -> GroupedPlanes:
+def _glu_columns(w: torch.Tensor) -> torch.Tensor:
+    """A gate / up weight (K, 2F), gate then up, as (K, 2 Fp): Fp = F padded
+    with zero columns to :data:`GLU_FEATURES`, and each GLU_FEATURES features'
+    gate columns followed by the same features' up columns."""
+    f = w.shape[1] // 2
+    fp = -(-f // GLU_FEATURES) * GLU_FEATURES
+    gate, up = (F.pad(h, (0, fp - f)).view(w.shape[0], -1, GLU_FEATURES)
+                for h in (w[:, :f], w[:, f:]))
+    return torch.stack([gate, up], dim=2).reshape(w.shape[0], 2 * fp)
+
+
+def glu_epilogue(h: torch.Tensor, f: int) -> torch.Tensor:
+    """The glu kernel's epilogue in plain PyTorch: a product over glu planes'
+    columns (M, 2 Fp) -> silu(gate) * up (M, f)."""
+    gate, up = h.view(h.shape[0], -1, 2, GLU_FEATURES).unbind(2)
+    return (F.silu(gate) * up).reshape(h.shape[0], -1)[:, :f]
+
+
+def prepare_grouped_planes(w: torch.Tensor, glu: bool = False) -> GroupedPlanes:
     """The planes of experts' weights ``w`` (E, K, N) in the ``x @ W``
     layout: expert e's B^T prepared as :func:`prepare_planes` prepares one
     weight, one expert at a time (so the transient copies stay one
-    expert's), stacked."""
-    parts = [prepare_planes(w[e].T) for e in range(w.shape[0])]
+    expert's), stacked. ``glu``: ``w`` is a gate / up weight (N = 2F, gate
+    then up), laid out by :func:`_glu_columns` for the kernel's silu(gate) *
+    up epilogue."""
+    if glu and w.shape[2] % 2:
+        raise ValueError(f"a gate / up weight has 2F columns, got {w.shape[2]}")
+    parts = [prepare_planes((_glu_columns(w[e]) if glu else w[e]).T) for e in range(w.shape[0])]
     return GroupedPlanes(torch.stack([p.hi for p in parts]), torch.stack([p.lo for p in parts]),
-                         w.shape[1], w.shape[2])
+                         w.shape[1], w.shape[2] // 2 if glu else w.shape[2], glu)
 
 
 def grouped_gemm_tf32x3_plain(a: torch.Tensor, planes: GroupedPlanes,
                               offsets: torch.Tensor, out: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
     """The grouped kernel's arithmetic in plain PyTorch: rows offsets[e] ..
-    offsets[e + 1] - 1 of A times expert e's B by :func:`gemm_tf32x3_plain`,
-    written into ``out`` (M, N) float32 where given, else into zeros; rows
-    outside every expert's range are left as they are (the kernel leaves
-    them unwritten). Reads the offsets on the host."""
+    offsets[e + 1] - 1 of A times expert e's B by :func:`gemm_tf32x3_plain`
+    (with ``planes.glu`` through :func:`glu_epilogue`), written into ``out``
+    (M, N) float32 where given, else into zeros; rows outside every expert's
+    range are left as they are (the kernel leaves them unwritten). Reads the
+    offsets on the host."""
     if out is None:
         out = a.new_zeros((a.shape[0], planes.rows), dtype=torch.float32)
     bounds = offsets.tolist()
     for e in range(len(bounds) - 1):
         r0, r1 = bounds[e], bounds[e + 1]
         if r1 > r0:
-            out[r0:r1] = gemm_tf32x3_plain(a[r0:r1], planes.expert(e))
+            h = gemm_tf32x3_plain(a[r0:r1], planes.expert(e))
+            out[r0:r1] = glu_epilogue(h, planes.rows) if planes.glu else h
     return out
 
 
@@ -269,13 +307,14 @@ def grouped_gemm_tf32x3(a: torch.Tensor, planes: GroupedPlanes,
                         offsets: torch.Tensor, out: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """(M, N) float32: rows offsets[e] .. offsets[e + 1] - 1 of ``a`` (M, K)
-    times expert e's B, for the E experts of ``planes``; ``offsets`` (E + 1,)
-    int32 on ``a``'s device, non-decreasing in [0, M]. On CUDA one launch of
-    the grouped kernel, whose grid is the SM count and which reads the
-    offsets itself: nothing here waits on the device, and rows outside every
-    expert's range are left unwritten, in ``out`` (contiguous (M, N)
-    float32) where one is given (``grouped_gemm_tf32x3.launches`` counts the
-    launches). CPU tensors take :func:`grouped_gemm_tf32x3_plain`."""
+    times expert e's B (glu planes: silu(gate) * up of the product, N =
+    ``planes.rows`` features), for the E experts of ``planes``; ``offsets``
+    (E + 1,) int32 on ``a``'s device, non-decreasing in [0, M]. On CUDA one
+    launch of the grouped kernel, whose grid is the SM count and which
+    reads the offsets itself: nothing here waits on the device, and rows
+    outside every expert's range are left unwritten, in ``out`` (contiguous
+    (M, N) float32) where one is given (``grouped_gemm_tf32x3.launches``
+    counts the launches). CPU tensors take :func:`grouped_gemm_tf32x3_plain`."""
     n_exp = planes.hi.shape[0]
     if tuple(offsets.shape) != (n_exp + 1,):
         raise ValueError(f"{n_exp} experts need {n_exp + 1} offsets, got {tuple(offsets.shape)}")
@@ -285,7 +324,7 @@ def grouped_gemm_tf32x3(a: torch.Tensor, planes: GroupedPlanes,
         raise ValueError(f"out must be contiguous ({m}, {planes.rows}) float32 on A's device")
     if a.device.type == "cpu":
         return grouped_gemm_tf32x3_plain(a, planes, offsets, out)
-    _check(a, planes.expert(0), 0, planes.rows)
+    _check(a, planes.expert(0), 0, planes.cols)
     if offsets.dtype != torch.int32 or offsets.device != a.device or not offsets.is_contiguous():
         raise ValueError("the offsets must be contiguous int32 on A's device")
     if n_exp > MAX_EXPERTS:
@@ -299,8 +338,8 @@ def grouped_gemm_tf32x3(a: torch.Tensor, planes: GroupedPlanes,
         err = lib.edgellm_gemm_tf32x3_grouped(
             a.data_ptr(), planes.hi.data_ptr(), planes.lo.data_ptr(), out.data_ptr(),
             m, planes.rows, planes.k, a.stride(0), out.stride(0), planes.hi.shape[2],
-            planes.hi[0].numel(), offsets.data_ptr(), n_exp, _sm_count(a.device),
-            torch.cuda.current_stream(a.device).cuda_stream)
+            planes.hi[0].numel(), offsets.data_ptr(), n_exp, int(planes.glu),
+            _sm_count(a.device), torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         msg = lib.edgellm_gemm_tf32x3_error(err).decode()
         raise RuntimeError(f"grouped gemm_tf32x3 kernel launch failed: CUDA error {err} ({msg})")

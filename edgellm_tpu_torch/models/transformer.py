@@ -189,17 +189,18 @@ def prepared_planes(w: torch.Tensor) -> tuple[gemm.Planes, int]:
     return hit[1], n0
 
 
-def prepared_grouped_planes(w: torch.Tensor) -> gemm.GroupedPlanes:
-    """The grouped kernel's planes of experts' weights ``w`` (E, K, N), kept
+def prepared_grouped_planes(w: torch.Tensor, glu: bool = False) -> gemm.GroupedPlanes:
+    """The grouped kernel's planes of experts' weights ``w`` (E, K, N)
+    (``glu``: a gate / up weight, for the silu(gate) * up epilogue), kept
     as :func:`prepared_planes` keeps a weight's: once per weight per
     process, rebuilt when the weight's ``_version`` moves."""
     root = w if w._base is None else w._base
-    key = ("grouped", w.storage_offset(), tuple(w.shape), tuple(w.stride()))
+    key = ("grouped", glu, w.storage_offset(), tuple(w.shape), tuple(w.stride()))
     version = None if w.is_inference() else w._version
     kept = _PLANES.setdefault(root, {})
     hit = kept.get(key)
     if hit is None or hit[0] != version:
-        hit = kept[key] = (version, gemm.prepare_grouped_planes(w))
+        hit = kept[key] = (version, gemm.prepare_grouped_planes(w, glu))
     return hit[1]
 
 

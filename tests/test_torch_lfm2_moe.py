@@ -157,6 +157,82 @@ def test_counters_count_rows_and_see_rows_no_product_wrote(monkeypatch):
     assert want > 0 and moe.read_counters(reset=True)["moe_rows_dropped"] == want
 
 
+def test_pairs_counter_counts_every_pick():
+    """``moe_pairs`` counts every (token, pick) pair, held or not: each of
+    the held halves [0, 4) and [4, 8) counts T k pairs, routes part of them
+    to its own experts, and the two parts add up to T k."""
+    lp = _params()["layers"][3]
+    x = torch.randn(1, 64, CFG.hidden_size, generator=torch.Generator().manual_seed(8))
+    pairs = 64 * CFG.num_experts_per_tok
+    moe.read_counters(reset=True)
+    routed = []
+    for a, b in ((0, 4), (4, 8)):
+        with moe.counting():
+            moe.moe_ffn(dataclasses.replace(CFG, num_experts=4, expert_offset=a),
+                        {**lp, "w13": lp["w13"][a:b], "w2": lp["w2"][a:b]}, x,
+                        tr.prepared_grouped_planes, tr.linear)
+        c = moe.read_counters(reset=True)
+        assert c["moe_pairs"] == pairs and c["moe_rows_dropped"] == 0
+        routed.append(c["moe_rows_routed"])
+    assert 0 < routed[0] < pairs and sum(routed) == pairs
+
+
+@pytest.mark.parametrize("f", [64, 40, 130])
+def test_glu_planes_store_silu_gate_times_up(f):
+    """Planes prepared with ``glu`` interleave gate and up 64 features a
+    tile (F padded to 64): the grouped product over them is silu(gate) * up
+    of the unfused product, F features a row, and rows after the last
+    expert's stay zero. Tolerance: both sides take the 3xTF32 split; the
+    unfused product's columns are summed in another blocking, 1e-6 of
+    values up to ~40."""
+    g = torch.Generator().manual_seed(f)
+    k, counts = 40, [5, 0, 7]
+    w = torch.randn(len(counts), k, 2 * f, generator=g)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32)
+    a = torch.randn(int(offsets[-1]) + 2, k, generator=g)
+    glu = gemm.prepare_grouped_planes(w, glu=True)
+    assert glu.rows == f and glu.cols == 2 * -(-f // 64) * 64
+    h = gemm.grouped_gemm_tf32x3(a, gemm.prepare_grouped_planes(w), offsets)
+    got = gemm.grouped_gemm_tf32x3(a, glu, offsets)
+    assert got.shape == (a.shape[0], f)
+    end = int(offsets[-1])
+    want = torch.nn.functional.silu(h[:, :f]) * h[:, f:]
+    torch.testing.assert_close(got[:end], want[:end], atol=1e-6, rtol=1e-6)
+    assert torch.equal(got[end:], torch.zeros(2, f))
+
+
+def test_gather_and_combine_plain_match_the_unfused_passes():
+    """The gather copies the held pairs' rows in expert order and records
+    -1 for pairs routed elsewhere; the combine equals the index_select /
+    where / sum passes it replaces, and a NaN planted in every row past the
+    held pairs' never reaches it. Tolerance: the same products summed over
+    4 picks, in pick order on one side: 1e-6 at |out| ~ 1."""
+    g = torch.Generator().manual_seed(12)
+    t, k, d, offset, held = 32, 4, 16, 2, 4
+    experts = torch.rand(t, 8, generator=g).topk(k, dim=-1).indices
+    x = torch.randn(t, d, generator=g)
+    order, offsets = moe.dispatch(experts, offset, held)
+    rows, pos = moe.gather_rows(x, order, offsets, k)
+    n = int(offsets[-1])
+    local = experts.reshape(-1) - offset
+    held_mask = (local >= 0) & (local < held)
+    assert 0 < n == int(held_mask.sum()) < t * k
+    assert torch.equal(rows[:n], x.index_select(0, order[:n] // k))
+    old_pos = torch.empty_like(order)
+    old_pos[order] = torch.arange(order.numel())
+    assert torch.equal(pos.long()[held_mask], old_pos[held_mask])
+    assert bool((pos[~held_mask] == -1).all())
+    y = torch.randn(t * k, d, generator=g)
+    y[n:] = float("nan")
+    w = torch.rand(t, k, generator=g)
+    got = moe.combine_rows(y, pos, w, torch.float32)
+    picked = y.index_select(0, old_pos).reshape(t, k, d)
+    want = torch.where(held_mask.reshape(t, k)[..., None], picked * w[..., None], 0.0).sum(dim=1)
+    assert not got.isnan().any()
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    assert torch.equal(moe.combine_rows(y, pos, w, torch.bfloat16), got.to(torch.bfloat16))
+
+
 def test_router_selects_on_biased_score_and_weights_unbiased():
     cfg = CFG
     d = cfg.hidden_size
@@ -256,10 +332,12 @@ def test_cli_runs_the_hybrid_sweep(tmp_path):
 def test_moe_contract_runs_clean_on_the_cpu():
     """The ``moe.experts`` graph contract executed over a tiny expert layer:
     no hop and no finding; its host-sync and launch checks are the card's
-    (``chip_smoke.py`` runs them there), so the CPU reports them unchecked."""
+    (``chip_smoke.py`` runs them there), so the CPU reports them unchecked.
+    It declares the two grouped products, the gather and the combine."""
     from edgellm_tpu_torch.lint.entrypoints import run_moe_contract
 
     findings, detail = run_moe_contract("cpu")
     assert findings == []
     assert detail["hops"] == 0 and detail["host_sync"] == {"checked": False}
-    assert detail["launches_declared"] == {"grouped_gemm_tf32x3": 2}
+    assert detail["launches_declared"] == {"grouped_gemm_tf32x3": 2, "gather_rows": 1,
+                                           "combine_rows": 1}
