@@ -720,7 +720,7 @@ def main_path(args, detail: dict) -> dict:
     from edgellm_tpu_torch.eval import run_token_sweep
     from edgellm_tpu_torch.models import PRESETS, init_params
     from edgellm_tpu_torch.models import flash_attention as fa
-    from edgellm_tpu_torch.utils.flops import token_sweep_flops_per_chunk
+    from portbench.yardstick.flops import sweep_chunk_flops
 
     cfg = PRESETS["qwen2-0.5b"]
     methods = ["regular_importance", "weighted_importance", "last_row", "aggregate_till"]
@@ -760,10 +760,9 @@ def main_path(args, detail: dict) -> dict:
     s_chunk = wall / result.chunks
     # int4_token_select is a DEDUP_ZERO_CODECS codec: ratio 0 is one shared baseline
     n_zero = sum(1 for r in ratios if r == 0.0)
-    model_flops = token_sweep_flops_per_chunk(cfg, window, tail=stride,
-                                              n_methods=len(methods),
-                                              layers_of_interest=[layer],
-                                              n_ratios=len(ratios), n_zero_ratios=n_zero)
+    with open("portbench/configs/qwen2-0.5b.json") as f:
+        model_flops = sweep_chunk_flops(json.load(f), window, stride, len(methods), [layer],
+                                        ratios)
     summary = {"chunks": result.chunks, "wall_s": wall, "s_per_chunk": s_chunk,
                "scored_tokens_per_s": result.n_tokens / wall, "window_batch": wb,
                "model_tflops_per_s": model_flops / s_chunk / 1e12,
@@ -1246,7 +1245,7 @@ def _gemm_decode(cfg, params, rng, generate, by_path: dict) -> dict:
     row = {"tokens": GEMM_DECODE_TOKENS, "wall_ms_per_token": wall * 1e3 / GEMM_DECODE_TOKENS,
            "launches": launches["gemm_tf32x3"],
            "routed": {r: tr.linear.routed[r] - routed[r] for r in routed}}
-    layer = [(params["layers"][name][0], cfg.num_layers)
+    layer = [(params["layers"][0][name], cfg.num_layers)
              for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
     head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
     kernel_ms = lib_ms = 0.0
@@ -3744,8 +3743,7 @@ def boundary_link_paths(args, detail: dict, cache_path: str) -> dict:
     full_cfg, full_params = run._load_model(
         ap.Namespace(weights=None, model="qwen2-0.5b", seed=args.seed), torch.device("cuda"))
     cut_cfg = dc.replace(full_cfg, num_layers=LINK_CROSS_LAYERS)
-    cut_params = {**{k: v for k, v in full_params.items() if k != "layers"},
-                  "layers": {k: v[:LINK_CROSS_LAYERS] for k, v in full_params["layers"].items()}}
+    cut_params = {**full_params, "layers": full_params["layers"][:LINK_CROSS_LAYERS]}
     del full_params
     cross = {}
     with probe_cache_file(cache_path):
@@ -3860,8 +3858,7 @@ def _surv_counts(calls: dict, n_layers: int, draft_layers: int = 0) -> dict:
 def _small_model(cfg, params, n_layers: int):
     """The first ``n_layers`` of a model (views of the same weights)."""
     small = dataclasses.replace(cfg, num_layers=n_layers)
-    return small, {**{k: v for k, v in params.items() if k != "layers"},
-                   "layers": {k: v[:n_layers] for k, v in params["layers"].items()}}
+    return small, {**params, "layers": params["layers"][:n_layers]}
 
 
 def survivable_paths(args, detail: dict, device: str = "cuda",

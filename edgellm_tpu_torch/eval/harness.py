@@ -103,9 +103,9 @@ def _stats_forward(cfg: ModelConfig, params: dict, ids: torch.Tensor,
     """Prefix pass: ids -> (attention stats, boundary hiddens, final hidden
     or None).
 
-    Stats cover layers [0, stats_upto] (default: the deepest hidden layer);
-    a hybrid model's cover only its attention layers, one row each, and the
-    stats name them (``AttnStats.row`` maps a layer to its row); boundary
+    Stats cover the attention layers of [0, stats_upto] (default: the
+    deepest hidden layer), one row each, and name them (``AttnStats.row``
+    maps a layer to its row); boundary
     hiddens are kept only at ``hidden_layers``, stacked in sorted layer
     order. With ``want_final`` the layers past the stats depth run without
     stats and the final hidden is returned, whose scoring tail is the
@@ -128,7 +128,7 @@ def _stats_forward(cfg: ModelConfig, params: dict, ids: torch.Tensor,
         parts = [p for p in parts if p is not None]
         stats = AttnStats(col_mean=torch.cat([p.col_mean for p in parts]),
                           last_row=torch.cat([p.last_row for p in parts]),
-                          layers=(sum((p.layers for p in parts), ()) if cfg.hybrid else None))
+                          layers=sum((p.layers for p in parts), ()))
         final = run_layers(cfg, params, h, start=prev)[0] if want_final else None
         return stats, torch.stack(hiddens), final
 

@@ -135,13 +135,19 @@ def parse_hop_codec(spec: str, n_seq: int = 1) -> object:
 
 
 def _importance(cfg: ModelConfig, params: dict, ids: torch.Tensor, method: str,
-                head_weights) -> torch.Tensor:
-    """The token importance of every layer, (L, B, S): one full-depth forward
-    that captures the attention statistics (the reference's
-    ``_importance_fn``)."""
+                head_weights, n_seq: int) -> tuple:
+    """The token importance of every attention layer, (L', B, S), and the
+    row of a layer in it -> (importance, row): one full-depth forward that
+    captures the attention statistics (the reference's ``_importance_fn``;
+    ``AttnStats.row``), or with ``n_seq`` > 1 the ring's own statistics
+    (:func:`~..parallel.ring.importance_sp`, whose rows are every layer's:
+    the ring runs no convolution layer)."""
+    if n_seq > 1:
+        return (importance_sp(cfg, params, ids, n_seq, method, head_weights, device=ids.device),
+                range(cfg.num_layers).index)
     with device_span("eval.importance", ids.device):
         _, aux = run_layers_from_ids(cfg, params, ids, capture_stats=True)
-        return importance_per_layer(aux["stats"], method, head_weights)
+        return importance_per_layer(aux["stats"], method, head_weights), aux["stats"].row
 
 
 def _link_configs(faults, link_policy, fec, hedge, link_health) -> tuple:
@@ -467,12 +473,9 @@ def run_split_eval(
             needs_t = [c.needs_importance for c in art.codecs]
             hop_imp = None
             if any(needs_t):
-                # the stage x seq runtime takes the ring's own statistics
-                imp = (importance_sp(cfg, params, ids, n_seq, importance_method, hw,
-                                     device=dev0) if n_seq > 1 else
-                       _importance(cfg, params, ids, importance_method, hw))  # (L, W, S)
-                hop_imp = [(imp[cut] if len(group) > 1 else imp[cut, 0]) if need else None
-                           for cut, need in zip(split.cuts, needs_t)]
+                imp, row = _importance(cfg, params, ids, importance_method, hw, n_seq)
+                hop_imp = [(imp[row(cut)] if len(group) > 1 else imp[row(cut), 0])
+                           if need else None for cut, need in zip(split.cuts, needs_t)]
             # the chunk index drives the fault stream: same seed => same
             # chunks corrupted, run after run (ignored without a link)
             return art, art.forward(placed, ids, hop_importance=hop_imp,

@@ -56,11 +56,11 @@ def aggregate_till(col_mean: torch.Tensor) -> torch.Tensor:
 def importance_per_layer(stats, method: str,
                          head_weights: torch.Tensor | None = None) -> torch.Tensor:
     """Dispatch one of the four reference methods -> (L, B, S) importance,
-    one row a row of ``stats``: a hybrid model's statistics are its
-    attention layers' (``AttnStats.row`` maps a cut's layer to its row), so
-    its head weights (L, H), indexed by layer, are taken at those layers,
-    and ``aggregate_till`` runs over the attention rows up to a layer."""
-    if head_weights is not None and getattr(stats, "layers", None) is not None:
+    one row a row of ``stats``, each of the layer ``stats.layers`` names
+    (``AttnStats.row`` maps a cut's layer to its row): the head weights
+    (L, H), indexed by layer, are taken at those layers, and
+    ``aggregate_till`` runs over the rows up to a layer's."""
+    if head_weights is not None:
         head_weights = head_weights[list(stats.layers)]
     if method == "regular_importance":
         return regular_importance(stats.col_mean)

@@ -128,12 +128,11 @@ def _lrp_layers(cfg: ModelConfig, params: dict, input_ids, probs_offsets: Sequen
     """-> (logits, list of L (B, H, S, S) probs); each layer rematerialized
     in the backward pass. ``last_position_only`` sends only the last
     position through the head (the head is per position: the same logits)."""
+    cfg.require_uniform("LRP relevance")
     hidden = embed(params, input_ids).float()
     cos, sin = precompute_rope(cfg, input_ids.shape[1], device=input_ids.device)
-    layers = params["layers"]
     probs = []
-    for idx in range(cfg.num_layers):
-        lp = {name: t[idx] for name, t in layers.items()}
+    for idx, lp in enumerate(params["layers"]):
         hidden, p = checkpoint(_lrp_block, cfg, lp, hidden, cos, sin, probs_offsets[idx],
                                use_reentrant=False)
         probs.append(p)

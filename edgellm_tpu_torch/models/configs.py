@@ -81,9 +81,19 @@ class ModelConfig:
 
     @property
     def hybrid(self) -> bool:
-        """True where layers differ in kind (parameters a list of per-layer
-        dicts, statistics only at the attention layers)."""
+        """True where layers differ in kind (a convolution or attention
+        mixer, an MLP or sparse experts)."""
         return self.family == "lfm2_moe"
+
+    def require_uniform(self, what: str) -> None:
+        """A ValueError naming ``what``, a path that runs attention at every
+        layer, where some layers are convolutions."""
+        conv = [i for i, kind in enumerate(self.layer_types or ()) if kind == "conv"]
+        if conv:
+            raise ValueError(
+                f"{what} runs attention at every layer: the convolution layers {conv} of "
+                f"this {self.family} model would need a conv-state cache and a path of "
+                f"their own there, which are not implemented")
 
     def is_moe_layer(self, idx: int) -> bool:
         return self.family == "lfm2_moe" and idx >= self.num_dense_layers

@@ -1,10 +1,12 @@
 """Carry weights from the JAX package to the port.
 
-Both packages keep one layout: a dict with every layer stacked along a
-leading (L, ...) axis and weights as (in, out) for ``x @ W``. A JAX parameter
-pytree handed over as numpy arrays (``jax.tree_util.tree_map(np.asarray,
-params)``) therefore maps key for key onto the port's parameters, and both
-packages compute the same function on the same weights.
+Both packages keep weights as (in, out) for ``x @ W`` under the same names;
+the JAX package stacks every layer weight along a leading (L, ...) axis,
+the port holds one dict per layer (views of those stacks,
+``transformer.layer_list``). A JAX parameter pytree handed over as numpy
+arrays (``jax.tree_util.tree_map(np.asarray, params)``) therefore maps key
+for key onto the port's parameters, and both packages compute the same
+function on the same weights.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from .configs import ModelConfig
+from .transformer import layer_list
 
 
 def params_from_jax_numpy(cfg: ModelConfig, tree: dict, device="cuda",
@@ -32,6 +35,7 @@ def params_from_jax_numpy(cfg: ModelConfig, tree: dict, device="cuda",
 
     params = {k: conv(k, v) for k, v in tree.items()}
     _check_shapes(cfg, params)
+    params["layers"] = layer_list(params["layers"])
     return params
 
 

@@ -1,9 +1,10 @@
-"""Convert HuggingFace checkpoints (torch state_dicts) into the port's stacked
+"""Convert HuggingFace checkpoints (torch state_dicts) into the port's
 parameter dict (PyTorch counterpart of ``edgellm_tpu/models/hf_loader.py``).
 
 A torch state_dict (from a local checkpoint, or a randomly-initialized
-``transformers`` model in offline tests) becomes one dict of fp32 tensors with
-layers stacked on axis 0, on the requested device.
+``transformers`` model in offline tests) becomes one dict of fp32 tensors on
+the requested device, each layer weight read into one stack along axis 0
+and the layers handed out as views of it (``transformer.params_to``).
 
 Layout notes:
 - torch ``nn.Linear.weight`` is (out, in); we store (in, out) so the forward is

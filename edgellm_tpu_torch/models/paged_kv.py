@@ -1259,9 +1259,9 @@ def block_decode_paged_quant(cfg: ModelConfig, lp: dict, hidden: torch.Tensor, c
         kv_codec))[0]
 
 
-def run_layers_paged(cfg: ModelConfig, layers: dict, hidden: torch.Tensor, pools: tuple,
+def run_layers_paged(cfg: ModelConfig, layers: list, hidden: torch.Tensor, pools: tuple,
                      page_table: torch.Tensor, lengths: torch.Tensor, kv_codec: str):
-    """Every layer of a stacked ``layers`` dict over its pool slice
+    """Every layer of ``layers`` (one dict each) over its pool slice
     (``pools``: the (L, num_pages, ps, ...) k, v[, k_scale, v_scale] arrays
     of those layers) for one ragged position -> the (B, 1, D) hidden. Each
     slot's RoPE row is taken at its own position, clamped into the span as
@@ -1270,8 +1270,7 @@ def run_layers_paged(cfg: ModelConfig, layers: dict, hidden: torch.Tensor, pools
     cos, sin = precompute_rope(cfg, span, device=hidden.device)
     pos = torch.clamp(lengths.long(), max=span - 1)
     cos_b, sin_b = cos[pos], sin[pos]
-    for idx in range(pools[0].shape[0]):
-        lp = {name: t[idx] for name, t in layers.items()}
+    for idx, lp in enumerate(layers):
         layer = tuple(p[idx] for p in pools)
         if kv_codec == "fp":
             hidden = block_decode_paged(cfg, lp, hidden, cos_b, sin_b, *layer, page_table,
@@ -1285,6 +1284,7 @@ def run_layers_paged(cfg: ModelConfig, layers: dict, hidden: torch.Tensor, pools
 def _paged_step(cfg: ModelConfig, params: dict, pools: tuple, page_table: torch.Tensor,
                 lengths: torch.Tensor, token_ids: torch.Tensor, compute_dtype,
                 kv_codec: str) -> torch.Tensor:
+    cfg.require_uniform("the paged decode step")
     params = _cast_params(params, compute_dtype)
     if token_ids.dim() == 1:
         token_ids = token_ids[:, None]

@@ -1,8 +1,8 @@
 """Direct safetensors -> parameter-dict loading with numpy, no ``transformers``
 (PyTorch counterpart of ``edgellm_tpu/models/safetensors_io.py``).
 
-Checkpoints load straight from the safetensors container into the
-stacked-layer parameter dict: the format is an
+Checkpoints load straight from the safetensors container into the port's
+parameter dict (``hf_loader.params_from_state_dict``): the format is an
 8-byte little-endian header length, a JSON header mapping tensor names to
 ``{dtype, shape, data_offsets}``, then one flat data buffer — trivially
 readable with numpy alone. bf16 tensors (no numpy dtype) are upcast to fp32 by

@@ -4,16 +4,20 @@ forward and decode halves: PyTorch counterpart of
 ``prefill``, ``decode_step``, ``block_verify``) writes new cache rows in
 place where the reference returns new arrays.
 
-Parameters are a plain dict of tensors with every layer stacked along a
-leading axis (``params["layers"][name]`` is (L, ...)) and weights in the
-``x @ W`` (in, out) layout, the JAX package's own layout, so one set of
-weights drives both packages (``convert.params_from_jax_numpy``). The layer
-loop is a Python loop over views of the stack. A hybrid family
-(``lfm2_moe``), whose layers differ in kind, keeps ``params["layers"]`` as a
-list of per-layer dicts instead (:func:`layer_params`), and each block
-takes its layer's kind from the config: a gated short convolution or
-attention as the mixer (``layer_types``), sparse experts
-(``models/moe.py``) or the MLP as the FFN (``is_moe_layer``).
+Parameters are a plain dict of tensors, weights in the ``x @ W`` (in, out)
+layout, with ``params["layers"]`` one dict per layer for every family: the
+layer loop reads ``layers[i]`` and a stage ``layers[a:b]``. The JAX package
+and the checkpoints stack each layer weight along a leading (L, ...) axis;
+:func:`layer_list`, the one place that knows that layout, turns such a
+stack into per-layer views of the same tensors, and the producers and entry
+points (:func:`init_params`, :func:`params_to`, the loaders, the long-lived
+holders) call it, so one set of weights drives both packages
+(``convert.params_from_jax_numpy``). Each block takes its layer's kind
+from the config: a gated short convolution or attention as the mixer
+(``layer_types``), sparse experts (``models/moe.py``) or the MLP as the FFN
+(``is_moe_layer``). Attention statistics name the layers their rows hold
+(:class:`AttnStats`), so a consumer finds a layer's row without knowing the
+family.
 
 The same forward captures the reduced attention statistics the importance
 metrics read (per-head column means and last rows), through the K-stats
@@ -49,19 +53,17 @@ class AttnStats(NamedTuple):
     col_mean: (L, B, H, S) fp32 — mean over the query axis of the post-softmax
         attention map (the attention each key position receives, per head).
     last_row: (L, B, H, S) fp32 — final query row of the attention map.
+    layers: the layer each row holds (a dense model's segment [a, b) holds
+        a .. b - 1; a hybrid's only its attention layers).
     """
 
     col_mean: torch.Tensor
     last_row: torch.Tensor
-    #: the layer of each row where only some layers attend (a hybrid
-    #: model's attention layers); None: row i is layer i
-    layers: Optional[tuple] = None
+    layers: tuple
 
     def row(self, layer: int) -> int:
         """The row holding ``layer``'s statistics; a ValueError for a layer
         without any (a convolution layer of a hybrid)."""
-        if self.layers is None:
-            return layer
         if layer not in self.layers:
             raise ValueError(f"layer {layer} has no attention statistics: it is not an "
                              f"attention layer (attention layers here: {list(self.layers)})")
@@ -391,9 +393,6 @@ def block(cfg: ModelConfig, idx: int, lp: dict, hidden: torch.Tensor, cos, sin,
     ffn = (lambda x: moe.moe_ffn(cfg, lp, x, prepared_grouped_planes, linear)) \
         if cfg.is_moe_layer(idx) else None
     if cfg.hybrid and cfg.layer_types[idx] == "conv":
-        if return_kv:
-            raise ValueError("a convolution layer keeps conv state, not K/V: decoding "
-                             f"the {cfg.family} family through a cache is not supported")
         return block_with(cfg, lp, hidden, lambda x: (short_conv(cfg, lp, x), None), ffn)
     return block_with(cfg, lp, hidden, lambda x: attention(
         cfg, lp, x, cos, sin, capture_stats, stats_block, return_kv), ffn)
@@ -407,20 +406,21 @@ TP_COL_SPLIT = frozenset({"wq", "wk", "wv", "bq", "bk", "bv", "w_gate", "w_up", 
 TP_ROW_SPLIT = frozenset({"wo", "w_down", "w_out"})
 
 
-def tp_shard_layers(layers: dict, n_model: int) -> list:
-    """A stack of layers ((L, ...) tensors) -> ``n_model`` shard stacks:
+def tp_shard_layers(layers: list, n_model: int) -> list:
+    """Per-layer dicts -> each layer's ``n_model`` shard dicts:
     column-split weights cut along their last (output-feature) axis,
-    row-split ones along their input-feature axis, each cut a contiguous
-    tensor of its own, made once while its source is unchanged
-    (:func:`made_once`); the rest shared by every shard."""
+    row-split ones along their first (input-feature) axis, each cut
+    contiguous: a copy made once while its source is unchanged
+    (:func:`made_once`), or a view where the cut already is (a row cut, a
+    bias); the rest shared by every shard."""
     def cut(name: str, t: torch.Tensor, m: int) -> torch.Tensor:
-        axis = -1 if name in TP_COL_SPLIT else 1
+        axis = -1 if name in TP_COL_SPLIT else 0
         width = t.shape[axis] // n_model
         return made_once(t, ("tp", axis, n_model, m),
                          lambda: t.narrow(axis, m * width, width).contiguous())
 
-    return [{name: (cut(name, t, m) if name in TP_COL_SPLIT | TP_ROW_SPLIT else t)
-             for name, t in layers.items()} for m in range(n_model)]
+    return [[{name: (cut(name, t, m) if name in TP_COL_SPLIT | TP_ROW_SPLIT else t)
+              for name, t in lp.items()} for m in range(n_model)] for lp in layers]
 
 
 def tp_sum(partials: list) -> torch.Tensor:
@@ -452,22 +452,25 @@ def block_tp(cfg: ModelConfig, shards: list, hidden: torch.Tensor, cos, sin) -> 
     return block_with(cfg, lp, hidden, attn, ffn)[0]
 
 
-def run_layers_tp(cfg: ModelConfig, shards: list, hidden: torch.Tensor) -> torch.Tensor:
-    """Every layer of a stage's tensor-parallel shard stacks over
-    ``hidden`` (:func:`block_tp`) -> the stage's output hidden."""
+def run_layers_tp(cfg: ModelConfig, layers: list, hidden: torch.Tensor) -> torch.Tensor:
+    """Every layer of a stage over ``hidden``, each as its tensor-parallel
+    shard dicts (:func:`tp_shard_layers`, :func:`block_tp`) -> the stage's
+    output hidden."""
     cos, sin = precompute_rope(cfg, hidden.shape[1], device=hidden.device)
-    for i in range(next(iter(shards[0].values())).shape[0]):
-        hidden = block_tp(cfg, [{name: t[i] for name, t in s.items()} for s in shards],
-                          hidden, cos, sin)
+    for shards in layers:
+        hidden = block_tp(cfg, shards, hidden, cos, sin)
     return hidden
 
 
-def layer_params(layers, idx: int) -> dict:
-    """Layer ``idx``'s weights: an entry of a hybrid model's per-layer list,
-    or views of the stacked layout."""
-    if isinstance(layers, (list, tuple)):
-        return layers[idx]
-    return {name: t[idx] for name, t in layers.items()}
+def layer_list(layers) -> list:
+    """A model's layers as one dict per layer: per-layer dicts as they are,
+    a stacked dict ((L, ...) tensors: the JAX package's and the
+    checkpoints' layout) as views ``t[i]`` of its tensors, no copy. The one
+    place that knows the stacked layout."""
+    if not isinstance(layers, dict):
+        return layers
+    n = len(next(iter(layers.values())))
+    return [{name: t[i] for name, t in layers.items()} for i in range(n)]
 
 
 def embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
@@ -516,22 +519,24 @@ def run_layers(cfg: ModelConfig, params: dict, hidden: torch.Tensor, *,
     """Run decoder layers [start, stop) over ``hidden`` -> (hidden, aux).
 
     ``params["layers"]`` holds layers ``first`` onwards (a pipeline stage's
-    from its own first layer, the whole model's from 0); ``boundary_fn`` receives the global layer index and the post-block hidden
-    state. aux holds ``"stats"`` (:class:`AttnStats`, (L, B, H, S) each) with
-    ``capture_stats`` (a hybrid model's: one row per attention layer, with
-    ``layers`` naming them; None where the segment has none), ``"hiddens"``
-    ((L, B, S, D), post-boundary_fn) with ``collect_hidden``, and ``"kv"``
-    ((k, v), each (L, B, S, KV, hd), the post-rotary K/V a decode cache is
-    prefilled from) with ``collect_kv``."""
+    from its own first layer, the whole model's from 0); ``boundary_fn``
+    receives the global layer index and the post-block hidden state. aux
+    holds ``"stats"`` with ``capture_stats`` (:class:`AttnStats`, (L, B, H,
+    S) each, one row per attention layer of the segment, ``layers`` naming
+    them; None where the segment has none), ``"hiddens"`` ((L, B, S, D),
+    post-boundary_fn) with ``collect_hidden``, and ``"kv"`` ((k, v), each
+    (L, B, S, KV, hd), the post-rotary K/V a decode cache is prefilled from)
+    with ``collect_kv``."""
     stop = cfg.num_layers if stop is None else stop
     if not (0 <= start <= stop <= cfg.num_layers):
         raise ValueError(
             f"layer segment [{start}, {stop}) out of range for {cfg.num_layers} layers")
+    if collect_kv:
+        cfg.require_uniform("a K/V cache prefill")
     cos, sin = precompute_rope(cfg, hidden.shape[1], device=hidden.device)
-    layers = params["layers"]
+    layers = layer_list(params["layers"])[start - first:stop - first]
     cols, lasts, rows, hiddens, ks, vs = [], [], [], [], [], []
-    for idx in range(start, stop):
-        lp = layer_params(layers, idx - first)
+    for idx, lp in enumerate(layers, start):
         hidden, stats, *kv = block(cfg, idx, lp, hidden, cos, sin, capture_stats,
                                    stats_block, collect_kv)
         if collect_kv:
@@ -547,9 +552,8 @@ def run_layers(cfg: ModelConfig, params: dict, hidden: torch.Tensor, *,
             hiddens.append(hidden)
     aux = {}
     if capture_stats:
-        aux["stats"] = None if cfg.hybrid and not rows else AttnStats(
-            col_mean=torch.stack(cols), last_row=torch.stack(lasts),
-            layers=tuple(rows) if cfg.hybrid else None)
+        aux["stats"] = AttnStats(col_mean=torch.stack(cols), last_row=torch.stack(lasts),
+                                 layers=tuple(rows)) if rows else None
     if collect_hidden:
         aux["hiddens"] = torch.stack(hiddens)
     if collect_kv:
@@ -558,15 +562,17 @@ def run_layers(cfg: ModelConfig, params: dict, hidden: torch.Tensor, *,
 
 
 def _cast_params(params: dict, compute_dtype) -> dict:
-    """Floating tensors cast to ``compute_dtype``; None keeps them as stored."""
+    """Floating tensors cast to ``compute_dtype`` (None keeps them as
+    stored), the layers one dict each (:func:`layer_list`)."""
     if compute_dtype is None:
-        return params
+        return {**params, "layers": layer_list(params["layers"])}
     return params_to(params, dtype=compute_dtype)
 
 
 def params_to(params: dict, device=None, dtype=None) -> dict:
     """The parameter dict with every tensor moved to ``device`` and every
-    floating tensor cast to ``dtype`` (None keeps either as it is)."""
+    floating tensor cast to ``dtype`` (None keeps either as it is), the
+    layers one dict each (:func:`layer_list`)."""
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
@@ -575,7 +581,10 @@ def params_to(params: dict, device=None, dtype=None) -> dict:
         return t.to(device=device,
                     dtype=dtype if dtype is not None and t.is_floating_point() else None)
 
-    return conv(params)
+    out = conv(params)
+    if "layers" in out:  # a partial tree (an embedding alone) has none
+        out["layers"] = layer_list(out["layers"])
+    return out
 
 
 def forward(cfg: ModelConfig, params: dict, input_ids: torch.Tensor, *,
@@ -735,6 +744,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: KVCache, token_ids: torch
     """Append one position: (B,) or (B, 1) token ids -> (logits (B, V) fp32,
     cache with length + 1; the new rows are written in place). The RoPE
     tables cover the capacity and the row at ``cache.length`` is used."""
+    cfg.require_uniform("decode_step")
     params = _cast_params(params, compute_dtype)
     if token_ids.dim() == 1:
         token_ids = token_ids[:, None]
@@ -742,8 +752,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: KVCache, token_ids: torch
     pos = int(cache.length)
     cos, sin = precompute_rope(cfg, cache.capacity, device=hidden.device)
     cos_t, sin_t = cos[pos:pos + 1], sin[pos:pos + 1]
-    for idx in range(cfg.num_layers):
-        lp = {name: t[idx] for name, t in params["layers"].items()}
+    for idx, lp in enumerate(params["layers"]):
         hidden = block_decode(cfg, lp, hidden, cos_t, sin_t, cache.k[idx], cache.v[idx], pos)
         if boundary_fn is not None:
             hidden = boundary_fn(idx, hidden)
@@ -875,7 +884,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     else:
         layers.update({"w_gate": init(L, D, Fd), "w_up": init(L, D, Fd),
                        "w_down": init(L, Fd, D)})
-    params = {"embed": init(cfg.vocab_size, D), "layers": layers,
+    params = {"embed": init(cfg.vocab_size, D), "layers": layer_list(layers),
               "final_norm_scale": const(1.0, D)}
     if cfg.family == "gpt_neox":
         params["final_norm_bias"] = const(0.0, D)

@@ -215,20 +215,16 @@ def _shards(cfg: ModelConfig, embed_params: dict, input_ids: torch.Tensor, n_seq
             [(cos[blk], sin[blk]) for blk in blocks])
 
 
-def _layer(layers: dict, idx: int) -> dict:
-    return {name: t[idx] for name, t in layers.items()}
-
-
 def forward_sp(cfg: ModelConfig, params: dict, input_ids, n_seq: int, *, device="cuda",
                kv_codec=None) -> torch.Tensor:
     """Sequence-parallel forward: ids (B, S), S split into ``n_seq`` shards
     -> float32 logits (B, S, V). Attention runs as the K/V ring; ``kv_codec``
     (opt-in, lossy) compresses the ring's K / V blocks (:func:`ring_attention`)."""
+    cfg.require_uniform("forward_sp")
     params = params_to(params, device=device)
     hiddens, ropes = _shards(cfg, params, input_ids, n_seq, device)
-    for idx in range(cfg.num_layers):
-        hiddens, _ = _sp_block(cfg, _layer(params["layers"], idx), hiddens, ropes,
-                               kv_codec=kv_codec)
+    for lp in params["layers"]:
+        hiddens, _ = _sp_block(cfg, lp, hiddens, ropes, kv_codec=kv_codec)
     return torch.cat([unembed(cfg, params, h) for h in hiddens], dim=1)
 
 
@@ -240,6 +236,7 @@ def importance_sp(cfg: ModelConfig, params: dict, input_ids, n_seq: int, method:
     block's statistics (every method is per token over reduced stats). No
     S x S buffer is built; the values are the dense stats forward's up to
     the blockwise softmax's roundoff."""
+    cfg.require_uniform("importance_sp")
     if method == "weighted_importance" and head_weights is None:
         raise ValueError("weighted_importance requires head_weights (L, H)")
     hw = (None if head_weights is None else
@@ -247,13 +244,14 @@ def importance_sp(cfg: ModelConfig, params: dict, input_ids, n_seq: int, method:
     params = params_to(params, device=device)
     hiddens, ropes = _shards(cfg, params, input_ids, n_seq, device)
     per_layer = []
-    for idx in range(cfg.num_layers):
-        hiddens, stats = _sp_block(cfg, _layer(params["layers"], idx), hiddens, ropes,
-                                   capture_stats=True)
+    for lp in params["layers"]:
+        hiddens, stats = _sp_block(cfg, lp, hiddens, ropes, capture_stats=True)
         per_layer.append(stats)
+    layers = tuple(range(cfg.num_layers))
     return torch.cat([
         importance_per_layer(AttnStats(col_mean=torch.stack([st[j][0] for st in per_layer]),
-                                       last_row=torch.stack([st[j][1] for st in per_layer])),
+                                       last_row=torch.stack([st[j][1] for st in per_layer]),
+                                       layers=layers),
                              method, hw)
         for j in range(n_seq)], dim=-1)
 
@@ -281,6 +279,7 @@ class SplitRingRuntime:
                  faults=None, policy=None, fec=None, hedge=None):
         if isinstance(n_seq, bool) or not isinstance(n_seq, int) or n_seq < 1:
             raise ValueError(f"n_seq must be a positive integer, got {n_seq!r}")
+        cfg.require_uniform("SplitRingRuntime")
         self.cfg = cfg
         self.n_seq = n_seq
         self.faults = faults
@@ -347,9 +346,8 @@ class SplitRingRuntime:
                                               self.devices)]
 
         def run_stage(s, shards):
-            layers = placed["stages"][s]
-            for idx in range(self.bounds[s][1] - self.bounds[s][0]):
-                shards, _ = _sp_block(self.cfg, _layer(layers, idx), shards, ropes)
+            for lp in placed["stages"][s]:
+                shards, _ = _sp_block(self.cfg, lp, shards, ropes)
             return shards
 
         link = self._link

@@ -90,7 +90,7 @@ same key) and the groups' logits are joined in group order. Under the link
 the runtime keeps its first data group's counters: the reference's leave
 its shard_map through ``out_specs=P()``, which hands a process one slot's,
 and every group draws the same masks. With ``n_model`` > 1 each stage's layers are
-cut into ``n_model`` shard stacks (``models.transformer.tp_shard_layers``,
+cut into ``n_model`` shards each (``models.transformer.tp_shard_layers``,
 the reference's ``_TP_COL_SPLIT`` / ``_TP_ROW_SPLIT``): a shard computes
 q / k / v over its head-contiguous columns, attends over its local heads
 (K-attn on the card) and multiplies by its rows of ``wo``; the partial
@@ -124,8 +124,8 @@ from ..models.flash_attention import dequantize_kv_rows, quantize_kv_rows
 from ..models.paged_kv import (KVTierMismatchError, _host, _rows_get, _rows_set,
                                resolve_kv_codec, run_layers_paged)
 from ..models.transformer import (apply_rotary, block_decode, block_verify, embed,
-                                  made_once, precompute_rope, run_layers, run_layers_tp,
-                                  tp_shard_layers, unembed)
+                                  layer_list, made_once, precompute_rope, run_layers,
+                                  run_layers_tp, tp_shard_layers, unembed)
 from ..obs.tracing import device_span
 from ..serve.recovery import StageLostError
 
@@ -513,28 +513,22 @@ def place_stage_params(params: dict, bounds: list, devices: list, fused_plans: l
     device is a view, not a copy, and a copy is made once while its source
     is unchanged (``made_once``), placement after placement, so the GEMM
     planes of it are prepared once. ``fused_plans``: one plan or None a cut.
-    With ``n_model`` > 1 a stage is the list of its ``n_model`` shard
-    stacks (:func:`~..models.transformer.tp_shard_layers`)."""
-    layers = params["layers"]
+    A stage is its layers' dicts, with ``n_model`` > 1 each layer's
+    ``n_model`` shard dicts (:func:`~..models.transformer.tp_shard_layers`)."""
+    layers = layer_list(params["layers"])
     stages = []
     for s, ((start, stop), dev) in enumerate(zip(bounds, devices)):
         promoted = any(plan is None for plan in fused_plans[:s])
 
-        def place(t, key, part):
+        def place(t):
             dtype = (torch.promote_types(t.dtype, torch.float32)
-                     if promoted and t.is_floating_point() else None)
-            return made_once(t, key + (str(dev), dtype), lambda: part(t).to(device=dev,
-                                                                             dtype=dtype))
+                     if promoted and t.is_floating_point() else t.dtype)
+            if t.device == dev and t.dtype == dtype:  # in place already: no copy to keep
+                return t
+            return made_once(t, ("stage", str(dev), dtype),
+                             lambda: t.to(device=dev, dtype=dtype))
 
-        if isinstance(layers, (list, tuple)):  # a hybrid's per-layer dicts
-            if n_model > 1:
-                raise ValueError("tensor-parallel stages need the stacked layout; a "
-                                 "hybrid model's layers differ in kind")
-            stages.append([{name: place(t, ("stage",), lambda x: x) for name, t in lp.items()}
-                           for lp in layers[start:stop]])
-            continue
-        stage = {name: place(t, ("stage", start, stop), lambda x: x[start:stop])
-                 for name, t in layers.items()}
+        stage = [{name: place(t) for name, t in lp.items()} for lp in layers[start:stop]]
         stages.append(tp_shard_layers(stage, n_model) if n_model > 1 else stage)
     rest = {k: v for k, v in params.items() if k != "layers"}
     return {"stages": stages,
@@ -656,6 +650,7 @@ class SplitRuntime:
         devices = mesh_stage_devices(mesh)
         self.n_data, self.n_model = n_data, n_model
         if n_model > 1:
+            cfg.require_uniform("a tensor-parallel stage")
             bad = [(name, dim) for name, dim in
                    [("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads),
                     ("intermediate_size", cfg.intermediate_size)] if dim % n_model]
@@ -1017,8 +1012,7 @@ class SplitRuntime:
             kc, vc = cache["k"][s], cache["v"][s]
             if mb is not None:  # this µ-batch's cache rows, written in place
                 kc, vc = kc[:, mb * rows:(mb + 1) * rows], vc[:, mb * rows:(mb + 1) * rows]
-            for i in range(kc.shape[0]):
-                lp = {name: t[i] for name, t in placed["stages"][s].items()}
+            for i, lp in enumerate(placed["stages"][s]):
                 h = block_fn(self.cfg, lp, h, cos[pos:pos + kq], sin[pos:pos + kq],
                              kc[i], vc[i], pos)
             return h

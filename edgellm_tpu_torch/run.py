@@ -1593,7 +1593,7 @@ def _dispatch(args, cfg, params: dict, params_json: dict, head_weights, out, dev
                 cfg, common["window_batch"], max_length=max_length, stride=common["stride"],
                 layers_of_interest=params_json["layers_of_interest"],
                 ratios=params_json["ratios"],
-                dtype=next(iter(params["layers"].values())).dtype, params=params, device=device)
+                dtype=params["embed"].dtype, params=params, device=device)
             if wb != common["window_batch"]:
                 print(f"window_batch {common['window_batch']} exceeds the memory budget; "
                       f"running at {wb}", flush=True)

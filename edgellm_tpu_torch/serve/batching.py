@@ -79,7 +79,7 @@ import torch
 from ..models.configs import ModelConfig
 from ..models.paged_kv import (OutOfPages, OutOfSlots, PagedKVCache, PrefixCacheConfig,
                                paged_decode_step, paged_decode_step_quant, resolve_kv_codec)
-from ..models.transformer import KVCache
+from ..models.transformer import KVCache, params_to
 from ..obs import context as obs_context
 from ..obs.flight import flight_dump_for
 from ..obs.tracing import span as obs_span
@@ -208,14 +208,9 @@ class ContinuousBatcher:
 
     def __init__(self, cfg: ModelConfig, params: dict, bcfg: Optional[BatchingConfig] = None,
                  *, split_runtime: Any = None, placed_params: Any = None):
-        if cfg.hybrid:
-            conv = [i for i in range(cfg.num_layers) if i not in cfg.attention_layers]
-            raise ValueError(
-                f"the batcher serves from a paged KV pool; the {cfg.family} family's "
-                f"convolution layers {conv} would need a conv-state cache beside it, "
-                f"which is not implemented")
+        cfg.require_uniform("the batcher's paged KV pool")
         self.cfg = cfg
-        self.params = params
+        self.params = params_to(params)
         self.bcfg = bcfg if bcfg is not None else BatchingConfig()
         self.rt = split_runtime
         if split_runtime is not None:

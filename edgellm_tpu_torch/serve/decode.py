@@ -107,8 +107,7 @@ def _prefill_suffix_impl(cfg: ModelConfig, params: dict, suffix_ids: torch.Tenso
     kq = suffix_ids.shape[1]
     cos, sin = precompute_rope(cfg, cache.capacity, device=hidden.device)
     cos_t, sin_t = cos[pos:pos + kq], sin[pos:pos + kq]
-    for idx in range(cfg.num_layers):
-        lp = {name: t[idx] for name, t in params["layers"].items()}
+    for idx, lp in enumerate(params["layers"]):
         hidden = block_verify(cfg, lp, hidden, cos_t, sin_t, cache.k[idx], cache.v[idx], pos)
     return unembed(cfg, params, hidden), KVCache(cache.k, cache.v, pos + kq)
 

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from ..models.configs import ModelConfig
-from ..models.transformer import KVCache, decode_step, prefill
+from ..models.transformer import KVCache, decode_step, params_to, prefill
 from ..obs import context as obs_context
 from ..obs.latency import LatencyObserver
 from ..obs.metrics import (get_registry, record_decode_stats, record_link_counters,
@@ -97,14 +97,15 @@ def draft_from_params(cfg: ModelConfig, raw_params: dict, spec: SpecConfig,
     ``draft_layers`` layers of the full model (views, no copy) with the full
     model's embedding, final norm and head. ``cut`` (the first split cut)
     bounds ``draft_layers``, so the draft needs no weight stage 0 lacks."""
+    cfg.require_uniform("the speculative draft")
     limit = (cut + 1) if cut is not None else cfg.num_layers
     n = spec.draft_layers if spec.draft_layers is not None else limit
     if not 1 <= n <= limit:
         raise ValueError(
             f"draft_layers={n} must be in [1, {limit}] — stage 0 owns "
             f"layers 0..{limit - 1} and the draft must run hop-free there")
-    draft_params = {k: v for k, v in raw_params.items() if k != "layers"}
-    draft_params["layers"] = {k: v[:n] for k, v in raw_params["layers"].items()}
+    draft_params = params_to(raw_params)
+    draft_params["layers"] = draft_params["layers"][:n]
     return dataclasses.replace(cfg, num_layers=n), draft_params
 
 

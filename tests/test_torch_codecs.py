@@ -147,7 +147,8 @@ def test_importance_per_layer_matches(method):
     hw /= hw.sum(1, keepdims=True)
     want = np.asarray(jmet.importance_per_layer(
         JStats(jnp.asarray(col), jnp.asarray(last)), method, jnp.asarray(hw)))
-    got = tmet.importance_per_layer(TStats(torch.from_numpy(col), torch.from_numpy(last)),
+    got = tmet.importance_per_layer(TStats(torch.from_numpy(col), torch.from_numpy(last),
+                                           tuple(range(4))),
                                     method, torch.from_numpy(hw)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-7, rtol=0)
 
@@ -167,7 +168,7 @@ def test_aggregations_and_ordering_match():
         tmet.ordering_from_importance(torch.from_numpy(imp)).numpy(),
         np.asarray(jmet.ordering_from_importance(jnp.asarray(imp))))
     with pytest.raises(ValueError, match="head_weights"):
-        tmet.importance_per_layer(TStats(tc, tc), "weighted_importance")
+        tmet.importance_per_layer(TStats(tc, tc, tuple(range(5))), "weighted_importance")
 
 
 @pytest.mark.parametrize("n,max_length,stride", [(100, 32, 8), (150, 48, 24),

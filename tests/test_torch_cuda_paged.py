@@ -172,13 +172,13 @@ def test_paged_step_on_the_card_matches_the_cpu(card, kv_codec):
     from edgellm_tpu_torch.models import PRESETS, init_params
     from edgellm_tpu_torch.models.paged_kv import PagedKVCache, paged_decode_step, \
         paged_decode_step_quant
+    from edgellm_tpu_torch.models.transformer import params_to
 
     cfg = dataclasses.replace(PRESETS["qwen2-0.5b"], num_layers=2, vocab_size=512)
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     runs = {}
     for dev in ("cpu", "cuda"):
-        p = {k: (v.to(dev) if not isinstance(v, dict) else {n: t.to(dev) for n, t in v.items()})
-             for k, v in params.items()}
+        p = params_to(params, device=dev)
         pool = PagedKVCache(cfg, num_pages=9, page_size=8, max_slots=3, pages_per_slot=4,
                             device=dev, kv_codec=kv_codec)
         for slot, n in ((0, 5), (1, 17)):

@@ -190,29 +190,34 @@ def test_promoted_stage_copies_kept_across_placements():
     cfg, params = _bf16_model()
     rt = SplitRuntime(cfg, SplitConfig((1,), ("int8_per_token",)), ["cpu", "cpu"])
     first, again = rt.place_params(params), rt.place_params(params)
-    late = first["stages"][1]
-    assert late["wq"].dtype == torch.float32
-    assert all(again["stages"][1][name] is t for name, t in late.items())
-    params["layers"]["wq"][3, 0, 0] += 1.0  # an in-place change of the source
+    late = first["stages"][1]  # layers 2 and 3
+    assert all(lp["wq"].dtype == torch.float32 for lp in late)
+    assert all(b[name] is t for a, b in zip(late, again["stages"][1]) for name, t in a.items())
+    params["layers"][3]["wq"][0, 0] += 1.0  # an in-place change of the source
     changed = rt.place_params(params)["stages"][1]
-    assert changed["wq"] is not late["wq"] and changed["w_up"] is late["w_up"]
-    assert torch.equal(changed["wq"], params["layers"]["wq"][2:].float())
-    late["w_up"].zero_()  # a changed copy is not handed out again
-    assert torch.equal(rt.place_params(params)["stages"][1]["w_up"],
-                       params["layers"]["w_up"][2:].float())
+    assert changed[1]["wq"] is not late[1]["wq"] and changed[1]["w_up"] is late[1]["w_up"]
+    assert all(torch.equal(c["wq"], p["wq"].float())
+               for c, p in zip(changed, params["layers"][2:], strict=True))
+    late[1]["w_up"].zero_()  # a changed copy is not handed out again
+    assert torch.equal(rt.place_params(params)["stages"][1][1]["w_up"],
+                       params["layers"][3]["w_up"].float())
 
 
 def test_views_are_not_kept_and_tensor_parallel_cuts_are():
     cfg, params = _bf16_model()
-    stack = {name: t.float() for name, t in params["layers"].items()}
+    layers = [{name: t.float() for name, t in lp.items()} for lp in params["layers"]]
+    wq = layers[0]["wq"]
     n_made = len(tr._MADE)
-    view = tr.made_once(stack["wq"], ("stage",), lambda: stack["wq"][1:3])
-    assert view._base is stack["wq"] and len(tr._MADE) <= n_made + 1
-    assert not any(tr._MADE.get(stack["wq"], {}).values())
-    first, again = tr.tp_shard_layers(stack, 2), tr.tp_shard_layers(stack, 2)
-    for a, b in zip(first, again):
-        assert a["wq"] is b["wq"] and a["w_down"] is b["w_down"]
-        assert a["wq"].is_contiguous() and a["wq"].shape[-1] == stack["wq"].shape[-1] // 2
-    del first, again, a, b, view, stack
+    view = tr.made_once(wq, ("stage",), lambda: wq[1:3])
+    assert view._base is wq and len(tr._MADE) <= n_made + 1
+    assert not any(tr._MADE.get(wq, {}).values())
+    first, again = tr.tp_shard_layers(layers, 2), tr.tp_shard_layers(layers, 2)
+    for lp, shards, shards_again in zip(layers, first, again, strict=True):
+        for a, b in zip(shards, shards_again, strict=True):
+            assert a["wq"] is b["wq"] and a["wq"].is_contiguous()
+            assert a["wq"].shape[-1] == lp["wq"].shape[-1] // 2
+            # a row cut of a layer's (in, out) weight is a contiguous view
+            assert a["w_down"]._base is lp["w_down"] and a["w_down"].is_contiguous()
+    del first, again, shards, shards_again, a, b, lp, view, wq, layers
     gc.collect()
     assert len(tr._MADE) <= n_made

@@ -92,7 +92,8 @@ def test_kv_tier_eval_bf16_weights_score_like_fp32(weights, corpus):
     pages): the port's fp tier within bf16's reach of the fp32 run."""
     _, tp = weights
     bf = {k: (v.to(torch.bfloat16) if k != "layers" else
-              {n: t.to(torch.bfloat16) for n, t in v.items()}) for k, v in tp.items()}
+              [{n: t.to(torch.bfloat16) for n, t in lp.items()} for lp in v])
+          for k, v in tp.items()}
     got = run_kv_tier_eval(TCFG, bf, corpus, kv_codec="fp", device="cpu", **KW)
     ref = run_kv_tier_eval(TCFG, tp, corpus, kv_codec="fp", device="cpu", **KW)
     np.testing.assert_allclose(got["ppl"], ref["ppl"], rtol=2e-2)

@@ -21,6 +21,7 @@ import torch
 
 from edgellm_tpu_torch.eval.harness import run_token_sweep
 from edgellm_tpu_torch.eval.split_eval import run_split_eval
+from edgellm_tpu_torch.importance.metrics import importance_per_layer
 from edgellm_tpu_torch.models import configs, gemm, moe
 from edgellm_tpu_torch.models import transformer as tr
 from edgellm_tpu_torch.parallel.split import SplitConfig, SplitRuntime
@@ -297,11 +298,84 @@ def test_split_hops_after_conv_and_attention_are_lossless():
     assert res["n_tokens"] > 0 and np.isfinite(res["ppl"])
 
 
+@pytest.mark.parametrize("layer_types", [
+    CFG.layer_types,
+    ("full_attention", "conv", "full_attention", "full_attention", "conv", "full_attention"),
+], ids=["no-row-2", "row-2-another-layers"])
+def test_split_hop_importance_is_the_cut_layers_row(monkeypatch, layer_types):
+    """An importance hop after attention layer 2 carries layer 2's
+    importance, the row ``AttnStats.row`` names, not row 2: tiny-lfm2
+    (attention at 2 and 5) has no row 2, and with attention at 0, 2, 3 and
+    5 row 2 holds layer 3."""
+    cfg = dataclasses.replace(CFG, layer_types=layer_types)
+    p = _params(cfg)
+    handed = []
+    real = SplitRuntime.forward
+
+    def spy(self, placed, ids, hop_importance=None, **kw):
+        handed.append((ids, hop_importance[0]))
+        return real(self, placed, ids, hop_importance=hop_importance, **kw)
+
+    monkeypatch.setattr(SplitRuntime, "forward", spy)
+    run_split_eval(cfg, p, _ids(1, 200, 13)[0].numpy(), cuts=[2],
+                   hop_codecs=["selective_int4_r0.5_bf16"], importance_method="regular_importance",
+                   max_length=64, stride=32, window_batch=2, time_hops=False, max_chunks=3,
+                   device="cpu")
+    assert [ids.shape[0] for ids, _ in handed] == [2, 1]
+    for ids, got in handed:
+        _, aux = tr.run_layers_from_ids(cfg, p, ids, capture_stats=True)
+        stats = aux["stats"]
+        assert stats.row(2) != 2
+        want = importance_per_layer(stats, "regular_importance")[stats.row(2)]
+        assert torch.equal(got, want if ids.shape[0] > 1 else want[0])
+
+
 def test_batcher_refuses_the_hybrid():
     from edgellm_tpu_torch.serve.batching import ContinuousBatcher
 
     with pytest.raises(ValueError, match="conv-state cache"):
         ContinuousBatcher(CFG, _params())
+
+
+def _refused_entries() -> dict:
+    """The paths that run attention at every layer, each called on the
+    hybrid's weights and (2, 64) ids."""
+    from edgellm_tpu_torch.importance import relevance
+    from edgellm_tpu_torch.models import paged_kv
+    from edgellm_tpu_torch.parallel import ring
+    from edgellm_tpu_torch.serve import speculative
+    from edgellm_tpu_torch.serve.batching import ContinuousBatcher
+
+    pool = torch.zeros(CFG.num_layers, 4, 4, CFG.num_kv_heads, CFG.head_dim)
+    table, lengths = torch.zeros(2, 2, dtype=torch.int32), torch.ones(2, dtype=torch.int32)
+    return {
+        "prefill": lambda p, ids: tr.prefill(CFG, p, ids, 80),
+        "decode_step": lambda p, ids: tr.decode_step(
+            CFG, p, tr.init_cache(CFG, 2, 80, device="cpu"), ids[:, 0]),
+        "paged_decode_step": lambda p, ids: paged_kv.paged_decode_step(
+            CFG, p, pool, pool.clone(), table, lengths, ids[:, 0]),
+        "forward_sp": lambda p, ids: ring.forward_sp(CFG, p, ids, 2, device="cpu"),
+        "importance_sp": lambda p, ids: ring.importance_sp(CFG, p, ids, 2, "last_row",
+                                                           device="cpu"),
+        "ring_runtime": lambda p, ids: ring.SplitRingRuntime(CFG, (2,), ("fp32",), 2, "cpu"),
+        "relevance": lambda p, ids: relevance.chunk_relevance(CFG, p, ids),
+        "speculative_draft": lambda p, ids: speculative.draft_from_params(
+            CFG, p, speculative.SpecConfig()),
+        "batcher": lambda p, ids: ContinuousBatcher(CFG, p),
+        "tensor_parallel": lambda p, ids: SplitRuntime(
+            CFG, SplitConfig((2,), ("fp32",)), ["cpu"] * 2, n_model=2),
+    }
+
+
+@pytest.mark.parametrize("entry", ["prefill", "decode_step", "paged_decode_step", "forward_sp",
+                                   "importance_sp", "ring_runtime", "relevance",
+                                   "speculative_draft", "batcher", "tensor_parallel"])
+def test_uniform_paths_refuse_the_hybrid_by_name(entry):
+    """Every path that runs attention at every layer refuses the hybrid in
+    words (``ModelConfig.require_uniform``), naming its convolution layers."""
+    with pytest.raises(ValueError, match=r"attention at every layer: the convolution "
+                                         r"layers \[0, 1, 3, 4\]"):
+        _refused_entries()[entry](_params(), _ids())
 
 
 def test_presets_and_cli_table_axes():

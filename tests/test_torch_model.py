@@ -119,8 +119,7 @@ def test_bf16_head_matches_reference(family, vocab_block):
     CPU the port widens both operands (``head_matmul``'s plain form)."""
     jcfg, tc, jp, tp, ids = _setup(family, dict(num_layers=2), seed=11)
     jp = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), jp)
-    tp = {k: ({n: t.to(torch.bfloat16) for n, t in v.items()} if isinstance(v, dict)
-              else v.to(torch.bfloat16)) for k, v in tp.items()}
+    tp = ttr.params_to(tp, dtype=torch.bfloat16)
     hid = np.random.default_rng(12).normal(size=ids.shape + (jcfg.hidden_size,))
     jh = jnp.asarray(hid, dtype=jnp.bfloat16)
     th = torch.from_numpy(hid.astype(np.float32)).to(torch.bfloat16)
@@ -185,8 +184,8 @@ def test_init_params_shapes_match_reference():
         jp = jtr.init_params(JP[name], jax.random.key(0))
         tp = ttr.init_params(tc, torch.Generator().manual_seed(0), device="cpu")
         jshapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), jp)
-        tshapes = {k: ({n: tuple(t.shape) for n, t in v.items()} if isinstance(v, dict)
-                       else tuple(v.shape)) for k, v in tp.items()}
+        tshapes = {k: ({n: (len(v),) + tuple(t.shape) for n, t in v[0].items()}
+                       if k == "layers" else tuple(v.shape)) for k, v in tp.items()}
         assert tshapes == jshapes
         bf = ttr.init_params(tc, torch.Generator().manual_seed(0), dtype=torch.bfloat16,
                              device="cpu")
@@ -227,10 +226,11 @@ def test_params_from_state_dict_matches_reference_loader(family):
     jp = jhf.params_from_state_dict(jhf.config_from_hf(model.config), sd)
     tp = thf.params_from_state_dict(cfg, sd, device="cpu")
     flat_j = jax.tree_util.tree_leaves_with_path(jp)
-    assert len(flat_j) == sum(len(v) if isinstance(v, dict) else 1 for v in tp.values())
+    assert len(flat_j) == sum(len(v[0]) if k == "layers" else 1 for k, v in tp.items())
     for path, leaf in flat_j:
         keys = [p.key for p in path]
-        t = tp[keys[0]] if len(keys) == 1 else tp[keys[0]][keys[1]]
+        t = (tp[keys[0]] if len(keys) == 1 else
+             torch.stack([lp[keys[1]] for lp in tp[keys[0]]]))
         np.testing.assert_array_equal(t.numpy(), np.asarray(leaf), err_msg=str(keys))
     ids = np.random.default_rng(1).integers(0, 256, size=(1, 40))
     with torch.no_grad():
@@ -255,7 +255,8 @@ def test_safetensors_checkpoint_roundtrip(tmp_path):
     assert verify_safetensors_integrity(str(tmp_path / "model.safetensors"))["tensors"] == len(sd)
     cfg, params = load_checkpoint(str(tmp_path), device="cpu")
     want = thf.params_from_state_dict(cfg, model.state_dict(), device="cpu")
-    torch.testing.assert_close(params["layers"]["wq"], want["layers"]["wq"], atol=0, rtol=0)
+    for lp, wp in zip(params["layers"], want["layers"], strict=True):
+        torch.testing.assert_close(lp["wq"], wp["wq"], atol=0, rtol=0)
     torch.testing.assert_close(params["embed"], want["embed"], atol=0, rtol=0)
     blob = (tmp_path / "model.safetensors").read_bytes()
     (tmp_path / "bad.safetensors").write_bytes(blob[: len(blob) // 2])

@@ -177,7 +177,7 @@ def test_relevance_with_bf16_params_matches_reference_bf16(tmp_path):
     """bf16 parameters: both packages keep the residual stream fp32 and widen
     each weight at its use, so the runs agree as the fp32 ones do."""
     jcfg, jp, tcfg, tp = _pair("qwen2", seed=1, dtype=jnp.bfloat16)
-    assert tp["layers"]["wq"].dtype == torch.bfloat16
+    assert all(lp["wq"].dtype == torch.bfloat16 for lp in tp["layers"])
     corpus = np.random.default_rng(13).integers(0, tcfg.vocab_size, 100)
     kw = dict(max_length=32, stride=16, window_batch=2)
     ids = np.stack([corpus[:32], corpus[16:48]])

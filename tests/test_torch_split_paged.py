@@ -301,7 +301,7 @@ def test_decode_step_paged_bf16_weights(weights):
                         device="cpu", materialize=False)
     jpool, tpool = jrt.init_paged_pool(9, 4), trt.init_paged_pool(9, 4)
     assert [p.dtype for p in tpool["k"]] == [torch.float32] * 2
-    assert tplaced["stages"][1]["wq"].dtype == torch.float32
+    assert all(lp["wq"].dtype == torch.float32 for lp in tplaced["stages"][1])
     for seed, n in ((1, 6), (2, 3)):
         _, jpool, tpool, _ = _adopt_both(jrt, jplaced, trt, tplaced, host, jpool, tpool,
                                          _prompt(seed, n), 16)

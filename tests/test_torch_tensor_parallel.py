@@ -99,21 +99,21 @@ def test_shard_shapes(model):
     placed = rt.place_params(tp)
     hd, f = tc.head_dim, tc.intermediate_size
     for s, (start, stop) in enumerate(rt.bounds):
-        shards = placed["stages"][s]
-        assert len(shards) == 2
-        for m, shard in enumerate(shards):
-            assert shard["wq"].shape == (stop - start, tc.hidden_size, tc.num_heads * hd // 2)
-            assert shard["wk"].shape[-1] == tc.num_kv_heads * hd // 2
-            assert shard["wo"].shape == (stop - start, tc.num_heads * hd // 2, tc.hidden_size)
-            up = "w_up" if fam == "qwen2" else "w_in"
-            down = "w_down" if fam == "qwen2" else "w_out"
-            assert shard[up].shape[-1] == f // 2 and shard[down].shape[1] == f // 2
-            assert all(t.is_contiguous() for t in shard.values())
-            width = tc.num_heads * hd // 2
-            torch.testing.assert_close(
-                shard["wq"], tp["layers"]["wq"][start:stop, :, m * width:(m + 1) * width],
-                rtol=0, atol=0)
-            assert shard["ln1_scale"] is shards[0]["ln1_scale"]
+        assert len(placed["stages"][s]) == stop - start
+        for lp, shards in zip(tp["layers"][start:stop], placed["stages"][s]):
+            assert len(shards) == 2
+            for m, shard in enumerate(shards):
+                assert shard["wq"].shape == (tc.hidden_size, tc.num_heads * hd // 2)
+                assert shard["wk"].shape[-1] == tc.num_kv_heads * hd // 2
+                assert shard["wo"].shape == (tc.num_heads * hd // 2, tc.hidden_size)
+                up = "w_up" if fam == "qwen2" else "w_in"
+                down = "w_down" if fam == "qwen2" else "w_out"
+                assert shard[up].shape[-1] == f // 2 and shard[down].shape[0] == f // 2
+                assert all(t.is_contiguous() for t in shard.values())
+                width = tc.num_heads * hd // 2
+                torch.testing.assert_close(
+                    shard["wq"], lp["wq"][:, m * width:(m + 1) * width], rtol=0, atol=0)
+                assert shard["ln1_scale"] is shards[0]["ln1_scale"]
 
 
 def test_divisibility_message_matches_reference():

@@ -302,7 +302,8 @@ def test_fused_hops_keep_the_stages_in_bf16(monkeypatch):
     codecs = ("int8_per_token", "int8_per_channel")
     jrt, rt = _runtimes(monkeypatch, "wire", (1, 3), codecs, jc, tc)
     placed = rt.place_params(tp)
-    assert all(t.dtype == torch.bfloat16 for st in placed["stages"] for t in st.values())
+    assert all(t.dtype == torch.bfloat16
+               for st in placed["stages"] for lp in st for t in lp.values())
     got = rt.forward(placed, torch.from_numpy(ids))
     assert seen == [torch.bfloat16] * 3
     want = np.asarray(jrt.forward(jrt.place_params(jp), jnp.asarray(ids)))
@@ -312,6 +313,6 @@ def test_fused_hops_keep_the_stages_in_bf16(monkeypatch):
     seen.clear()
     rt.fused_plans[1] = None  # a separate second hop promotes the last stage
     placed = rt.place_params(tp)
-    assert placed["stages"][2]["wq"].dtype == torch.float32
+    assert all(lp["wq"].dtype == torch.float32 for lp in placed["stages"][2])
     rt.forward(placed, torch.from_numpy(ids))
     assert seen == [torch.bfloat16, torch.bfloat16, torch.float32]
